@@ -1,0 +1,21 @@
+"""Config registry of the port: the architectures it can build so far."""
+from __future__ import annotations
+
+from . import smollm_135m
+from .base import SHAPES, ArchConfig, ShapeCell, shape_by_name
+
+_MODULES = {"smollm-135m": smollm_135m}
+
+ARCH_IDS = tuple(_MODULES)
+
+
+def get_config(arch_id: str) -> ArchConfig:
+    return _MODULES[arch_id].CONFIG
+
+
+def get_reduced(arch_id: str) -> ArchConfig:
+    return _MODULES[arch_id].reduced()
+
+
+__all__ = ["ArchConfig", "ShapeCell", "SHAPES", "ARCH_IDS", "get_config",
+           "get_reduced", "shape_by_name"]

@@ -1,0 +1,25 @@
+"""Hand-written Hopper kernels of the port, one wrapper module each.
+
+Every wrapper takes its plain PyTorch version for CPU tensors and launches
+its CUDA kernel for CUDA tensors (or raises); there is no fallback. Each
+wrapper carries ``.counts`` (launches, plain calls, plain calls on CUDA
+tensors) so that a run can show which path it went through.
+"""
+from . import decode_attention as _dec
+from . import flash_attention as _fa
+from . import rmsnorm as _rms
+
+KERNELS = {
+    "rmsnorm": _rms.rmsnorm,
+    "rmsnorm_residual": _rms.rmsnorm_residual,
+    "decode_attention": _dec.decode_attention,
+    "flash_attention": _fa.flash_attention,
+}
+
+
+def reset_counts() -> None:
+    for fn in KERNELS.values():
+        fn.counts.reset()
+
+
+__all__ = ["KERNELS", "reset_counts"]

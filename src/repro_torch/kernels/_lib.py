@@ -1,0 +1,187 @@
+"""Build, load and count the port's CUDA kernels (``kernels/csrc``).
+
+The sources are compiled at first use with ``nvcc`` for ``sm_90a`` into one
+shared library with a plain C interface, loaded with ``ctypes``. Each source
+compiles in its own ``nvcc`` process, all started together, and the library
+is named by a digest of the sources and flags, so an edited source is never
+served a stale build. The build lands in ``build/kernels/`` at the root of
+the checkout (listed in ``.gitignore``).
+
+Nothing here touches CUDA when the module is imported: the CPU tests import
+every module of the package.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Optional, Tuple
+
+import torch
+
+CSRC = Path(__file__).resolve().with_name("csrc")
+SOURCES = ("rmsnorm.cu", "decode_attention.cu", "flash_attention.cu")
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-lineinfo", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# dtype codes shared with csrc/common.cuh
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+_P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+_SIGNATURES = {
+    # x, r, w, out, res, M, D, eps, plus_one, x_dtype, w_dtype, stream
+    "repro_rmsnorm": (_P, _P, _P, _P, _P, _LL, _I, _F, _I, _I, _I, _P),
+    # q, k, v, kv_pos, q_pos, out, B, H, KV, S, Dh, strides, scale, window,
+    # softcap, dtype, stream
+    "repro_decode_attention": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P,
+                               _F, _I, _F, _I, _P),
+    # q, k, v, out, B, H, KV, S, Dh, strides, scale, causal, window, softcap,
+    # dtype, stream
+    "repro_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _F, _I,
+                              _I, _F, _I, _P),
+}
+
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+build_log = ""        # nvcc's output (-Xptxas -v: registers, shared memory)
+
+
+class Counts:
+    """Launches of one kernel and calls of its plain PyTorch version.
+
+    Lanes run on worker threads, so every increment takes the lock."""
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self.launches = 0
+        self.plain_calls = 0
+        self.plain_cuda_calls = 0     # plain version handed a CUDA tensor
+
+    def launched(self) -> None:
+        with self._lock:
+            self.launches += 1
+
+    def plain(self, t: torch.Tensor) -> None:
+        with self._lock:
+            self.plain_calls += 1
+            if t.is_cuda:
+                self.plain_cuda_calls += 1
+
+    def reset(self) -> None:
+        with self._lock:
+            self.launches = self.plain_calls = self.plain_cuda_calls = 0
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") \
+        or "/usr/local/cuda"
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit "
+                           "that builds the port's kernels")
+    return found
+
+
+def build() -> Tuple[Path, str]:
+    """Compile the kernels (if this digest is not built yet); returns the
+    library's path and nvcc's output."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in sorted(p.name for p in CSRC.iterdir()):
+        h.update(name.encode())
+        h.update((CSRC / name).read_bytes())
+    so = BUILD_DIR / f"librepro_torch_kernels-{h.hexdigest()[:16]}.so"
+    if so.exists():
+        return so, ""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    tag = f"{os.getpid()}-{threading.get_ident()}"
+    jobs = []
+    for src in SOURCES:
+        obj = BUILD_DIR / f"{Path(src).stem}-{tag}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", str(CSRC / src), "-o", str(obj)]
+        jobs.append((src, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    log, failed = [], []
+    for src, _, proc in jobs:          # wait for every nvcc before raising
+        out, _ = proc.communicate()
+        log.append(f"== {src}\n{out}")
+        if proc.returncode:
+            failed.append(src)
+    if failed:
+        raise RuntimeError(f"nvcc failed on {failed}:\n" + "\n".join(log))
+    tmp = BUILD_DIR / f"tmp-{tag}.so"
+    link = subprocess.run([nvcc, "-shared", "-o", str(tmp),
+                           *(str(obj) for _, obj, _ in jobs)],
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                          text=True)
+    for _, obj, _ in jobs:
+        obj.unlink(missing_ok=True)
+    if link.returncode:
+        raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
+    os.replace(tmp, so)               # atomic: concurrent builders agree
+    return so, "\n".join(log)
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library, built on first use."""
+    global _lib, build_log
+    with _lock:
+        if _lib is None:
+            so, build_log = build()
+            handle = ctypes.CDLL(str(so))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(handle, name)
+                fn.argtypes = list(argtypes)
+                fn.restype = ctypes.c_int
+            handle.repro_error_string.argtypes = [ctypes.c_int]
+            handle.repro_error_string.restype = ctypes.c_char_p
+            _lib = handle
+    return _lib
+
+
+def check(err: int, name: str) -> None:
+    """Raise if a C entry reported a CUDA error (a refused launch never
+    runs, and a later synchronize would not report it)."""
+    if err:
+        msg = lib().repro_error_string(err).decode()
+        raise RuntimeError(f"{name}: CUDA error {err} ({msg})")
+
+
+def dtype_code(t: torch.Tensor, name: str) -> int:
+    code = _DTYPES.get(t.dtype)
+    if code is None:
+        raise TypeError(f"{name}: kernel takes float32 or bfloat16, "
+                        f"got {t.dtype}")
+    return code
+
+
+def require_cuda(name: str, *tensors: torch.Tensor) -> None:
+    """The kernel path takes CUDA tensors on the current device only."""
+    dev = tensors[0].device
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: the kernel takes CUDA tensors, got {dev}")
+    cur = torch.cuda.current_device()
+    for t in tensors:
+        if t.device != dev or (dev.index is not None and dev.index != cur):
+            raise ValueError(f"{name}: tensors must lie on the current CUDA "
+                             f"device cuda:{cur}, got {t.device}")
+
+
+def stream_handle(device: torch.device) -> int:
+    """The current stream, read at call time: each lane runs under its own
+    stream, so a handle cached earlier would serialize the lanes."""
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def strides(*ts_dims) -> ctypes.Array:
+    """Pack (tensor, dims) pairs' element strides for a C entry."""
+    vals = [t.stride(d) for t, dims in ts_dims for d in dims]
+    return (ctypes.c_longlong * len(vals))(*vals)

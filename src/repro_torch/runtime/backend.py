@@ -1,0 +1,830 @@
+"""ExecutionBackend protocol + the two built-in substrates.
+
+Counterpart of src/repro/runtime/backend.py. ``SimBackend``,
+``launch_values`` and ``_WorkerPool`` are the reference's (the pool also
+counts the payload exceptions it survives); ``RealtimeBackend`` runs torch
+payloads, each lane on its own CUDA stream, timed to the stream's
+completion.
+
+A backend owns *time* and *stage execution* and nothing else; scheduling
+policy lives entirely in ``EngineCore``/``DarisScheduler``. The contract:
+
+    bind(core)               engine hands the backend its core reference
+    start() / stop()         run lifecycle
+    now_ms()                 current time (virtual or wall clock)
+    advance(cap_ms)          -> [Completion] occurring strictly before cap,
+                             else advance/block time to cap and return []
+    launch(lane, inst)       begin executing a dispatched stage
+    running_set_changed()    hook after dispatch/harvest (rate recompute)
+    cancel_ctx(ctx)          drop in-flight work on a failed context
+    on_job_done(job)         job-level cleanup (activation state, ...)
+    has_inflight()           any launched-but-unharvested stage?
+
+``SimBackend`` wraps the processor-sharing fluid simulation (versioned
+finish predictions, lognormal stage noise, straggler mitigation);
+``RealtimeBackend`` wraps pooled-thread execution of real (torch, CUDA)
+stage payloads on wall-clock time. Both are driven by the same EngineCore
+loop, which is what makes sim-vs-real scheduler-decision parity testable.
+
+RNG-draw-order invariant
+------------------------
+The sim's RNG stream is shared between arrival phase offsets (drawn when
+``EngineCore.run`` seeds the timeline) and per-launch lognormal stage
+noise (drawn inside ``launch``, one draw per dispatched stage, in
+dispatch order). Every metric the repo treats as reproducible — and the
+golden fixtures in tests/test_engine_golden.py — depends on that order.
+Any engine change (vectorization, batching, reordering of dispatch) MUST
+keep the number and order of draws identical; draw noise at launch, never
+earlier or later, and never draw speculatively.
+"""
+from __future__ import annotations
+
+import functools
+import heapq
+import itertools
+import math
+import os
+import queue
+import threading
+import time
+from typing import Callable, Dict, List, Optional, Protocol
+
+import numpy as np
+import torch
+
+from ..core.task import Job, StageInstance
+from .contention import batch_cost, batched_stage_ms
+from .engine_core import Completion, EngineCore
+
+_tie = itertools.count()
+
+# SimBackend.running entry layout (kept as a mutable list for speed):
+#   [0] inst          StageInstance
+#   [1] rem           remaining work, ms of single-stream-alone time
+#   [2] rate          current speed fraction
+#   [3] version       stamp matching the live heap prediction
+#   [4] eff_prof      effective (possibly batch-widened) StageProfile
+#   [5] eta           finish time of the live heap prediction (None until
+#                     the first prediction is pushed)
+#   [6] smret         the instance's StageMret estimator (live ref)
+#   [7] cost          batch cost b/g(b) of this stage (static per launch)
+#   [8] floor         straggler kill floor, 4 x batched work (static)
+#   [9] xfer          inter-GPU transfer charge folded into the work
+#                     (cluster; 0.0 on a single device) — excluded from
+#                     the straggler kill decision, which compares pure
+#                     execution progress against MRET
+#   [10] cfail        chaos-injected transient fault (repro.chaos): the
+#                     stage runs to completion but the result is garbage
+#                     — reported via Completion.failed. Always False
+#                     with no ChaosPlan installed.
+(_INST, _REM, _RATE, _VER, _EFF, _ETA, _SMRET, _COST, _FLOOR,
+ _XFER, _CFAIL) = range(11)
+
+
+def launch_values(core: EngineCore, lane: tuple, inst: StageInstance,
+                  rng, noise_sigma: float) -> tuple:
+    """The per-launch scalar pipeline shared by ``SimBackend`` and the
+    array-programmed ``EpochSimBackend`` (runtime/epoch.py): noise draw,
+    batched work, effective profile, straggler constants, heterogeneous
+    speed scaling, transfer charge, chaos hazards. One implementation is
+    what makes the two engines bit-identical by construction — and it is
+    the ONLY place the shared sim rng is drawn from at launch time (see
+    the draw-order invariant in the module docstring).
+
+    Returns ``(work, eff, smret, cost, floor, xfer, cfail)``.
+    """
+    prof = inst.profile
+    b = inst.job.n_inputs
+    noise = math.exp(rng.normal(0.0, noise_sigma))
+    # batched jobs carry b inputs in one dispatch: work scales by
+    # b / g(b) (Table-I-calibrated curve), overhead is paid once
+    alone = batched_stage_ms(prof, b)
+    work = (alone + prof.overhead_ms) * noise
+    # batched kernels also widen — the effective profile competes for
+    # more units in the rate computation (identity object for b = 1).
+    # The contention model is the LANE's device's (cluster lanes can
+    # sit on heterogeneous GPUs; on one device this is sched.contention)
+    con = core.sched.contention_of(lane[0])
+    eff = con.batched_profile(prof, b)
+    # straggler-check constants, hoisted out of the per-event loop:
+    # the stage's MRET estimator, its batch cost, and its kill floor
+    # are fixed for the lifetime of this launch
+    smret = inst.task.mret.stages[inst.job.stage_idx]
+    cost = batch_cost(prof, b)
+    floor = 4.0 * (alone + prof.overhead_ms)
+    spd = con.device.speed
+    if spd != 1.0:
+        # heterogeneous device: profiles/MRET are reference-speed, so
+        # the executed work — and every wall-clock-comparable straggler
+        # constant — shrinks by the device's speed factor
+        work /= spd
+        cost /= spd
+        floor /= spd
+    if inst.transfer_ms:
+        # inter-GPU state migration (cluster dispatcher stamped it):
+        # the transfer serializes ahead of the stage program
+        work += inst.transfer_ms
+    # chaos hazards draw from the plan's OWN stream (never the sim
+    # rng — the draw-order invariant above stays intact): one draw
+    # per configured hazard per launch, in dispatch order. A stall
+    # is extra serialized work; a fault pays the full execution and
+    # surfaces as Completion.failed at harvest.
+    cfail = False
+    ch = core._chaos
+    if ch is not None:
+        cfail, stall = ch.draw_launch()
+        if stall:
+            work += stall
+    return work, eff, smret, cost, floor, inst.transfer_ms, cfail
+
+
+class ExecutionBackend(Protocol):
+    """Structural type for execution substrates (see module docstring)."""
+
+    # True when the backend owns a virtual clock that only moves inside
+    # advance() (the serving pump must then never advance past the next
+    # actionable instant); False for wall-clock substrates
+    virtual_time: bool
+
+    def bind(self, core: EngineCore) -> None: ...
+    def start(self) -> None: ...
+    def stop(self) -> None: ...
+    def now_ms(self) -> float: ...
+    def advance(self, cap_ms: float) -> List[Completion]: ...
+    def peek_eta(self) -> float: ...
+    def launch(self, lane: tuple, inst: StageInstance) -> None: ...
+    def running_set_changed(self) -> None: ...
+    def cancel_ctx(self, ctx_idx: int) -> None: ...
+    def on_job_done(self, job: Job) -> None: ...
+    def has_inflight(self) -> bool: ...
+    def on_reconfigure(self) -> None: ...
+    # chaos layer: drop one in-flight stage (watchdog expiry). Only ever
+    # called with a ChaosPlan installed.
+    def kill_lane(self, lane: tuple, inst: StageInstance) -> None: ...
+
+
+class SimBackend:
+    """Fluid-rate discrete-event substrate (virtual time).
+
+    Whenever the running set changes, per-lane rates are recomputed from
+    the contention model — as one vectorized NumPy pass over preallocated
+    per-lane arrays — and finish times re-predicted. Predictions are
+    version-stamped so a rate change invalidates stale ones in O(1).
+    Stage work carries seeded lognormal noise so MRET has variability to
+    track (paper Fig. 9).
+
+    Incremental re-prediction: rates are only recomputed when the running
+    set actually changed (launch/harvest/cancel/straggler-kill marks the
+    epoch dirty), and a lane's prediction is only re-pushed when its
+    recomputed finish time moved beyond ``predict_eps`` from the one
+    already in the heap. With the default ``predict_eps=0.0`` this is
+    exact: the live prediction always carries the same float the full
+    recompute would produce, so results are bit-identical to the historic
+    push-everything engine while the heap stays near its live size
+    (stale entries are compacted away once they outnumber live ones).
+
+    ``full_repredict=True`` restores the historic behavior (recompute +
+    re-push every lane on every call) — kept as the reference for the
+    incremental-vs-full property test.
+    """
+
+    EPS = 1e-6   # ms; snap-to-zero tolerance
+    _COMPACT_MIN = 64   # never bother compacting heaps smaller than this
+    virtual_time = True
+
+    def __init__(self, noise_sigma: float = 0.06,
+                 rng: Optional[np.random.Generator] = None, *,
+                 predict_eps: float = 0.0,
+                 full_repredict: bool = False):
+        self.noise_sigma = noise_sigma
+        self.rng = rng
+        self.predict_eps = predict_eps
+        self.full_repredict = full_repredict
+        self.core: Optional[EngineCore] = None
+        self.now = 0.0
+        self.running: Dict[tuple, list] = {}   # lane -> entry (layout above)
+        self._heap: List[tuple] = []   # (t, seq, lane, version)
+        self._rates_dirty = True
+
+    # ----------------------------------------------------------- lifecycle
+    def bind(self, core: EngineCore) -> None:
+        self.core = core
+        if self.rng is None:
+            self.rng = core.rng   # shared stream: offsets then noise draws
+
+    def start(self) -> None:
+        self.now = 0.0
+
+    def stop(self) -> None:
+        pass
+
+    def now_ms(self) -> float:
+        return self.now
+
+    def has_inflight(self) -> bool:
+        return bool(self.running)
+
+    # ---------------------------------------------------------------- time
+    def _advance_to(self, t: float) -> None:
+        dt = t - self.now
+        if dt > 0:
+            for entry in self.running.values():
+                done = entry[_RATE] * dt
+                rem = entry[_REM] - done
+                entry[_REM] = rem if rem >= self.EPS else 0.0
+                entry[_INST].work_done += done
+        self.now = t
+
+    def advance(self, cap_ms: float) -> List[Completion]:
+        while self._heap and self._heap[0][0] < cap_ms:
+            t, _, lane, ver = heapq.heappop(self._heap)
+            entry = self.running.get(lane)
+            if entry is None or entry[_VER] != ver:
+                continue                      # stale prediction
+            self._advance_to(t)
+            inst = entry[_INST]
+            del self.running[lane]
+            self._rates_dirty = True
+            return [Completion(lane, inst, t - inst.start_ms,
+                               entry[_CFAIL])]
+        self._advance_to(cap_ms)
+        return []
+
+    def peek_eta(self) -> float:
+        """Earliest live finish prediction (inf when nothing is in
+        flight). The serving pump gates ``advance`` on this so virtual
+        time never runs past the next actionable instant. Stale heap
+        entries encountered on the way are discarded — ``advance`` would
+        skip the same ones, so pop order is untouched."""
+        heap = self._heap
+        while heap:
+            t, _, lane, ver = heap[0]
+            entry = self.running.get(lane)
+            if entry is not None and entry[_VER] == ver:
+                return t
+            heapq.heappop(heap)
+        return math.inf
+
+    # ----------------------------------------------------------- execution
+    def launch(self, lane: tuple, inst: StageInstance) -> None:
+        work, eff, smret, cost, floor, xfer, cfail = launch_values(
+            self.core, lane, inst, self.rng, self.noise_sigma)
+        # version must be globally unique: a reset-to-0 counter lets a
+        # stale FINISH from the lane's previous occupant fire early
+        self.running[lane] = [inst, work, 0.0, next(_tie), eff, None,
+                              smret, cost, floor, xfer, cfail]
+        self._rates_dirty = True
+
+    def cancel_ctx(self, ctx_idx: int) -> None:
+        for lane in list(self.running):
+            if lane[0] == ctx_idx:
+                del self.running[lane]
+                self._rates_dirty = True
+
+    def on_job_done(self, job: Job) -> None:
+        pass
+
+    def kill_lane(self, lane: tuple, inst: StageInstance) -> None:
+        # watchdog expiry: drop the entry; the stale heap prediction
+        # self-invalidates via the version check
+        if self.running.pop(lane, None) is not None:
+            self._rates_dirty = True
+
+    def on_chaos_edge(self) -> None:
+        # a brownout window opened/closed: rates must be recomputed so
+        # in-flight work integrates at the new factor from this instant
+        self._rates_dirty = True
+
+    def on_reconfigure(self) -> None:
+        # in-flight lanes keep their (retired-context) rates, but the new
+        # contexts change what the next dispatch competes against — force
+        # a rate recompute at the next running-set pass
+        self._rates_dirty = True
+
+    # ------------------------------------------------------------- predict
+    def _check_stragglers(self) -> None:
+        """Straggler mitigation (beyond-paper, DESIGN.md §7): a stage whose
+        projected completion exceeds kappa x its MRET is killed and
+        re-enqueued — the Eq. 12 machinery then places it on the
+        least-loaded context. Stage granularity bounds the lost work."""
+        sched = self.core.sched
+        kappa = sched.cfg.straggler_kappa
+        if not kappa:
+            return
+        killed = False
+        now = self.now
+        for lane, entry in list(self.running.items()):
+            inst = entry[_INST]
+            if entry[_RATE] <= 0:
+                continue
+            projected = ((now - inst.start_ms)
+                         + entry[_REM] / max(entry[_RATE], 1e-6))
+            mret = entry[_SMRET].value() * entry[_COST]
+            # the transfer charge is legitimate serialized work, not a
+            # slow stage: keep it out of the kill comparison. The charge
+            # sits inside rem, so the projection burns it at the
+            # contention rate — the credit must scale the same way or a
+            # contended transfer-charged stage gets spuriously killed
+            # (and re-pays the transfer on every replay). +0.0 on a
+            # single device, bit-exact.
+            floor = entry[_FLOOR]
+            thresh = (max(kappa * mret, floor)
+                      + entry[_XFER] / max(entry[_RATE], 1e-6))
+            if projected > thresh and len(self.running) > 1:
+                del self.running[lane]
+                self._rates_dirty = True
+                sched.lanes[lane] = None
+                inst.work_done = 0.0
+                inst.lane = None
+                # re-enqueue at the stage boundary (zero-delay): an HP
+                # task's context is FIXED (Algorithm 1) — its straggler
+                # replays on its own partition, never migrates. Only
+                # LP jobs move, to the least-backlogged live context,
+                # and each such move is a migration.
+                old = inst.job.ctx
+                if inst.task.fixed_ctx:
+                    tgt = inst.task.ctx
+                else:
+                    # migration_eta == predicted_finish on one device; the
+                    # cluster layer surcharges cross-GPU candidates with
+                    # the inter-GPU transfer cost
+                    cands = [c.index for c in sched.live_contexts()]
+                    tgt = min(cands, key=lambda k:
+                              sched.migration_eta(k, self.now, old,
+                                                  inst.job))
+                    if tgt != old:
+                        sched.migrations += 1
+                if inst.job in sched.active_jobs.get(old, {}):
+                    del sched.active_jobs[old][inst.job]
+                    sched.active_jobs[tgt][inst.job] = None
+                inst.job.ctx = tgt
+                sched.queues[tgt].push(inst)
+                self.core.metrics.stragglers += 1
+                killed = True
+        if killed:
+            self.core._dispatch()
+
+    def running_set_changed(self) -> None:
+        """Recompute rates (only when the running-set epoch is dirty) and
+        re-push finish predictions for lanes whose predicted finish moved
+        (see class docstring for the exactness argument)."""
+        if not self.running:
+            return
+        self._check_stragglers()
+        if not self.running:
+            return
+        sched = self.core.sched
+        entries = list(self.running.items())
+        if self._rates_dirty or self.full_repredict:
+            # lanes on different GPUs never contend: the scheduler splits
+            # the running set into per-device groups (exactly one group —
+            # this whole block's historic shape — on a single device)
+            for contention, contexts, group in sched.rate_groups(entries):
+                ctx_active: Dict[object, int] = {}
+                for lane, _ in group:
+                    ctx_active[lane[0]] = ctx_active.get(lane[0], 0) + 1
+                u, ns, mf = [], [], []
+                for lane, e in group:
+                    eff = e[_EFF]
+                    u.append(contexts[lane[0]].cap
+                             / max(ctx_active[lane[0]], 1))
+                    ns.append(eff.n_sat)
+                    mf.append(eff.mem_frac)
+                rates = contention.rates_seq(u, ns, mf)
+                ch = self.core._chaos
+                browned = ch is not None and bool(ch.plan.brownouts)
+                for (lane, entry), rate in zip(group, rates):
+                    if browned:
+                        # per-device brownout window (chaos layer): the
+                        # whole device runs slow_factor-x slower. Cluster
+                        # lane keys are ((dev, ctx), slot); single-device
+                        # keys are (ctx, slot) on device 0.
+                        dev = (lane[0][0] if isinstance(lane[0], tuple)
+                               else 0)
+                        f = ch.brownout_factor(dev, self.now)
+                        if f > 1.0:
+                            rate = rate / f
+                    entry[_RATE] = rate if rate > 1e-6 else 1e-6
+            self._rates_dirty = False
+        now, eps, full = self.now, self.predict_eps, self.full_repredict
+        heap = self._heap
+        for lane, entry in entries:
+            eta = now + entry[_REM] / entry[_RATE]
+            old = entry[_ETA]
+            if not full and old is not None and abs(eta - old) <= eps:
+                continue        # live prediction already carries this eta
+            entry[_VER] = next(_tie)
+            entry[_ETA] = eta
+            heapq.heappush(heap, (eta, next(_tie), lane, entry[_VER]))
+        self.maybe_compact()
+
+    def maybe_compact(self) -> None:
+        """Compaction: once stale predictions outnumber live ones 2:1,
+        rebuild the heap with only the live entries (pop order of
+        survivors is unchanged — the seq tie-breaker is preserved).
+        Runs after every prediction pass AND from the serving pump's
+        pause path (EngineCore._step): an idle daemon under churny
+        cancel traffic never reaches ``running_set_changed`` again, so
+        without the pause-path call its stale entries accrete
+        unboundedly."""
+        heap = self._heap
+        if (len(heap) > self._COMPACT_MIN
+                and len(heap) > 2 * len(self.running)):
+            running = self.running
+            live = [e for e in heap
+                    if (ent := running.get(e[2])) is not None
+                    and ent[_VER] == e[3]]
+            heapq.heapify(live)
+            self._heap = live
+
+
+def _default_input_factory(input_hw: int, batch: int,
+                           device: torch.device) -> Callable[[Job], object]:
+    """Image-shaped zero input matching the staged-CNN payload convention,
+    made on the backend's device (on the lane's stream: the worker calls
+    it there). A dynamically batched job widens the leading axis by
+    ``n_inputs`` so the whole batch rides through the staged payload in
+    one dispatch."""
+    def make(job: Job):
+        return torch.zeros((batch * job.n_inputs, input_hw, input_hw, 3),
+                           dtype=torch.float32, device=device)
+    return make
+
+
+def _tensors(tree):
+    """Every tensor in a state tree (dicts, lists, tuples)."""
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tensors(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _tensors(v)
+
+
+class _WorkerPool:
+    """Persistent daemon-thread pool for ``RealtimeBackend``.
+
+    The backend used to spawn one fresh thread per dispatched stage;
+    thread start latency (~100-300us) landed inside every measured stage
+    wall time. The pool keeps one long-lived worker per lane — sized via
+    ``ensure`` so elastic scale-out grows it — and hands stages over
+    through a queue, so the dispatch path is a lock-free put."""
+
+    def __init__(self):
+        self._q: "queue.Queue" = queue.Queue()
+        self._threads: List[threading.Thread] = []
+        # payload exceptions the workers survived (serving goes on; a
+        # smoke run or a test fails on any)
+        self._exc_lock = threading.Lock()
+        self.exceptions = 0
+        self.last_exception: Optional[BaseException] = None
+
+    def ensure(self, n: int) -> None:
+        while len(self._threads) < n:
+            t = threading.Thread(target=self._loop, daemon=True)
+            t.start()
+            self._threads.append(t)
+
+    def _loop(self) -> None:
+        while True:
+            item = self._q.get()
+            if item is None:
+                return
+            fn, lane, inst = item
+            try:
+                fn(lane, inst)
+            except Exception as e:   # noqa: BLE001 — worker must survive
+                # a raising payload loses that stage (exactly what the old
+                # thread-per-stage design did) but must not kill the
+                # worker: a dead worker would starve every later stage
+                # queued to the pool
+                import sys
+                with self._exc_lock:
+                    self.exceptions += 1
+                    self.last_exception = e
+                print(f"worker: stage {getattr(inst.task, 'name', '?')} "
+                      f"on lane {lane} raised {e!r}", file=sys.stderr)
+
+    def submit(self, fn, lane: tuple, inst: StageInstance) -> None:
+        self._q.put((fn, lane, inst))
+
+    def stop(self, timeout_s: float = 1.0) -> None:
+        for _ in self._threads:
+            self._q.put(None)
+        leaked = 0
+        for t in self._threads:
+            t.join(timeout=timeout_s)
+            if t.is_alive():
+                leaked += 1
+        self._threads = []
+        # surface workers that outlived the join window (a wedged payload
+        # — e.g. a stage blocked in device sync): callers read
+        # ``leaked``, the ops log gets a line, and a sanitized run fails
+        # loudly instead of carrying zombie threads into the next test
+        self.leaked = leaked
+        if leaked:
+            import sys
+            print(f"worker pool: {leaked} worker thread(s) still alive "
+                  f"after stop(timeout={timeout_s}s)", file=sys.stderr)
+            if os.environ.get("DARIS_SANITIZE", "") not in ("", "0"):
+                raise RuntimeError(
+                    f"DSAN: worker pool leaked {leaked} thread(s) — a "
+                    f"stage payload never returned")
+
+
+class RealtimeBackend:
+    """Wall-clock substrate: persistent worker pool, one lane per worker.
+
+    Stage payloads are arbitrary callables (torch stage functions in
+    production). On a CUDA ``device`` every lane owns a ``torch.cuda.Stream``:
+    the worker runs the payload under it, records CUDA events around it and
+    waits for the end event before it reports the completion. ``et_ms``,
+    which feeds MRET, is therefore the wall time from the stage's start to
+    its completion on the stream, never the launch latency of an
+    asynchronous payload; the events' device time is kept beside it per
+    stage name (``stage_time_summary``). Inter-stage state made on one
+    lane's stream and read on another's is ``record_stream``-ed for the
+    reader, so the caching allocator cannot hand its memory out while the
+    reader still uses it. A stage whose profile has no payload is
+    *emulated* by sleeping its ``t_alone``: that keeps analytic task sets
+    runnable on the real engine, which is what the sim-vs-real parity test
+    exercises.
+
+    Scheduler state AND inter-stage activation state (``_job_state``) are
+    touched only on the engine thread: workers ship their output through
+    the done queue and ``advance`` commits it at harvest, so a ghost
+    worker from a failed context can never clobber a replayed job's
+    activations. No lock is needed.
+
+    Zero-delay migration (``ctx_devices``): when a job's next stage
+    dispatches on a different context than the one that produced its
+    inter-stage state — scheduler migration, fail_context re-homing, or an
+    online ``reconfigure`` — the worker moves the whole inter-stage
+    tree (hidden activation + the remaining stages' cache slices, see
+    ``serving/staging.slice_cache``) onto the target context's device
+    via ``serving.staging.migrate`` before running the stage. This is the
+    paper's zero-delay mechanism made physical: the move happens between
+    stage programs, never inside one. Keys are **live slot positions**
+    (0 = lowest-indexed live context), not raw context indices: an online
+    reconfigure retires contexts and creates replacements at fresh
+    indices, but the physical device groups behind the slots persist —
+    slot keys survive any number of reshapes, raw indices would all go
+    stale at the first one. Before any fault/reshape, slot == index.
+    Slots without an entry keep the state where it is (single-device
+    mode: on one card nothing moves). ``resharded`` counts the migrations
+    actually performed.
+
+    ``device`` defaults to the card and raises without one: pass
+    ``device="cpu"`` to run payloads on the host (no streams, no events).
+    """
+
+    virtual_time = False
+
+    def __init__(self, input_hw: int = 64, batch: int = 1,
+                 input_factory: Optional[Callable[[Job], object]] = None,
+                 ctx_devices: Optional[Dict[int, object]] = None, *,
+                 device=None):
+        from ..device import resolve_device
+        self.device = resolve_device(device)
+        self.input_factory = (input_factory
+                              or _default_input_factory(input_hw, batch,
+                                                        self.device))
+        self.ctx_devices: Dict[int, object] = dict(ctx_devices or {})
+        self.resharded = 0
+        # lane -> its CUDA stream (made on the engine thread at first launch)
+        self._streams: Dict[tuple, object] = {}
+        # stage name -> [completions, wall ms sum, device-timed completions,
+        #                device ms sum, device ms max]
+        self.stage_times: Dict[str, List[float]] = {}
+        self.core: Optional[EngineCore] = None
+        self._done_q: "queue.Queue" = queue.Queue()
+        self._job_state: Dict[int, object] = {}
+        self._state_ctx: Dict[int, int] = {}   # job_id -> producing context
+        self._inflight = 0
+        self._cancelled_ctx: set = set()
+        # lane -> token of the launch the engine still believes in; a
+        # watchdog kill_lane drops the token so the un-interruptible
+        # worker's eventual completion is discarded at harvest
+        self._live_token: Dict[tuple, int] = {}
+        self._t0 = 0.0
+        self._pool = _WorkerPool()
+        # pool sizing is by LIVE lane count (plus in-flight stages on
+        # retired lanes), recomputed only when the lane table grows: a
+        # reconfigure-heavy run accumulates retired lanes forever, and
+        # one-worker-per-lane-ever would leak a thread per dead lane
+        self._lanes_seen = -1
+        self._pool_target = 0
+
+    # ----------------------------------------------------------- lifecycle
+    def bind(self, core: EngineCore) -> None:
+        self.core = core
+
+    def _ensure_pool(self) -> None:
+        """Grow the worker pool to one worker per live lane (+ stages
+        still finishing on retired lanes); concurrency is bounded by that
+        count, so a bigger pool would only idle."""
+        sched = self.core.sched
+        n = len(sched.lanes)
+        if n != self._lanes_seen:
+            self._lanes_seen = n
+            live = sum(c.n_streams for c in sched.live_contexts())
+            draining = sum(1 for ln, i in sched.lanes.items()
+                           if i is not None
+                           and not sched.contexts[ln[0]].alive)
+            self._pool_target = live + draining
+        self._pool.ensure(self._pool_target)
+
+    def start(self) -> None:
+        self._ensure_pool()
+        self._t0 = time.perf_counter()
+
+    def stop(self) -> None:
+        self._pool.stop()
+
+    @property
+    def worker_exceptions(self) -> int:
+        """Payload exceptions the worker pool caught (and survived)."""
+        return self._pool.exceptions
+
+    @property
+    def last_worker_exception(self) -> Optional[BaseException]:
+        return self._pool.last_exception
+
+    def stage_time_summary(self) -> Dict[str, Dict[str, float]]:
+        """Per stage name: completions, mean wall ``et_ms`` (what MRET is
+        fed) and mean/max CUDA-event device time (NaN where no stage of
+        that name ran on a stream)."""
+        out = {}
+        for name, (n, wall, n_dev, dev, dev_max) in self.stage_times.items():
+            out[name] = {"n": n, "mean_et_ms": wall / n,
+                         "mean_device_ms": dev / n_dev if n_dev else math.nan,
+                         "max_device_ms": dev_max if n_dev else math.nan}
+        return out
+
+    def now_ms(self) -> float:
+        return (time.perf_counter() - self._t0) * 1000.0
+
+    def has_inflight(self) -> bool:
+        return self._inflight > 0
+
+    # ---------------------------------------------------------------- time
+    def advance(self, cap_ms: float) -> List[Completion]:
+        while True:
+            timeout_s = (cap_ms - self.now_ms()) / 1000.0
+            try:
+                if timeout_s <= 0:
+                    item = self._done_q.get_nowait()
+                else:
+                    item = self._done_q.get(timeout=timeout_s)
+            except queue.Empty:
+                return []
+            lane, inst, et, out, token, failed, dev_ms = item
+            self._inflight -= 1
+            if lane[0] in self._cancelled_ctx:
+                # ghost completion from a failed context: fail_context
+                # already re-enqueued the instance, and dead contexts never
+                # launch again, so anything arriving on them is stale —
+                # drop its output along with it
+                continue
+            if token is not None and self._live_token.get(lane) != token:
+                # watchdog-killed launch: the engine already re-enqueued
+                # the stage; this worker's late result is a ghost
+                continue
+            self._live_token.pop(lane, None)
+            st = self.stage_times.setdefault(inst.profile.name,
+                                             [0, 0.0, 0, 0.0, 0.0])
+            st[0] += 1
+            st[1] += et
+            if not math.isnan(dev_ms):
+                st[2] += 1
+                st[3] += dev_ms
+                st[4] = max(st[4], dev_ms)
+            if not failed:
+                # a chaos-failed stage's output is garbage: never commit
+                # it over the job's last good inter-stage state
+                self._job_state[inst.job.job_id] = out
+                self._state_ctx[inst.job.job_id] = lane[0]
+            return [Completion(lane, inst, et, failed)]
+
+    def peek_eta(self) -> float:
+        """Wall clock: in-flight work can complete at any instant, so the
+        earliest actionable time is "now"; inf when idle (the serving
+        pump then has nothing to harvest and must not spin)."""
+        return self.now_ms() if self._inflight else math.inf
+
+    # ----------------------------------------------------------- execution
+    def _device_for(self, ctx: int):
+        """Resolve a context's target device by its live slot position
+        (see class docstring); raw index is the fallback when no core is
+        bound (unit-test construction)."""
+        if not self.ctx_devices:
+            return None
+        if self.core is None:
+            return self.ctx_devices.get(ctx)
+        for slot, c in enumerate(self.core.sched.live_contexts()):
+            if c.index == ctx:
+                return self.ctx_devices.get(slot)
+        return None      # retired context: never move state onto it
+
+    def _migrate_state(self, x: object, job_id: int, ctx: int) -> object:
+        """Move inter-stage state produced on another context onto this
+        context's device (zero-delay: between stage programs)."""
+        src = self._state_ctx.get(job_id, ctx)
+        if x is None or src == ctx:
+            return x
+        tgt = self._device_for(ctx)
+        if tgt is None:
+            return x
+        from ..serving.staging import migrate
+        self.resharded += 1
+        return migrate(x, tgt)
+
+    def _worker(self, lane: tuple, inst: StageInstance, *,
+                token=None, stall_ms: float = 0.0,
+                failed: bool = False, stream=None) -> None:
+        prof = inst.profile
+        t0 = time.perf_counter()
+        dev_ms = math.nan
+        if stall_ms:
+            # chaos-injected lane stall (driver hiccup / ECC scrub): the
+            # stage runs, just late — the stall serializes ahead of it
+            time.sleep(stall_ms / 1000.0)
+        if prof.payload is None:
+            # synthetic stage: sleep the batched work (b/g(b) scaling)
+            time.sleep(batched_stage_ms(prof, inst.job.n_inputs) / 1000.0)
+            out = self._job_state.get(inst.job.job_id)
+        elif stream is None:
+            out = prof.payload(self._stage_input(inst, lane))
+        else:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            with torch.cuda.stream(stream):
+                x = self._stage_input(inst, lane)
+                for t in _tensors(x):
+                    if t.is_cuda:
+                        t.record_stream(stream)
+                start.record(stream)
+                out = prof.payload(x)
+                end.record(stream)
+            # the stage is done when the stream is: time to that point
+            end.synchronize()
+            dev_ms = start.elapsed_time(end)
+        et_ms = (time.perf_counter() - t0) * 1000.0
+        self._done_q.put((lane, inst, et_ms, out, token, failed, dev_ms))
+
+    def _stage_input(self, inst: StageInstance, lane: tuple) -> object:
+        """The job's inter-stage state (moved to this lane's context if it
+        was produced elsewhere), or a fresh input for its first stage."""
+        x = self._job_state.get(inst.job.job_id)
+        if x is None:
+            return self.input_factory(inst.job)
+        return self._migrate_state(x, inst.job.job_id, lane[0])
+
+    def launch(self, lane: tuple, inst: StageInstance) -> None:
+        self._inflight += 1
+        # elastic scale-out/reconfigure may have added lanes since start()
+        self._ensure_pool()
+        # chaos draws happen HERE, on the engine thread in dispatch order
+        # (the deterministic stream position), never on the worker
+        cfail, stall = False, 0.0
+        ch = self.core._chaos
+        if ch is not None:
+            cfail, stall = ch.draw_launch()
+        token = next(_tie)
+        self._live_token[lane] = token
+        stream = None
+        if self.device.type == "cuda":
+            stream = self._streams.get(lane)
+            if stream is None:
+                stream = self._streams[lane] = torch.cuda.Stream(self.device)
+        self._pool.submit(
+            functools.partial(self._worker, token=token, stall_ms=stall,
+                              failed=cfail, stream=stream), lane, inst)
+
+    def kill_lane(self, lane: tuple, inst: StageInstance) -> None:
+        # workers can't be interrupted: forget the launch token so the
+        # harvest loop discards the ghost completion when it lands (the
+        # in-flight count still drains through advance)
+        self._live_token.pop(lane, None)
+
+    def cancel_ctx(self, ctx_idx: int) -> None:
+        # workers can't be interrupted; mark the context so their
+        # completions are dropped at harvest (fail_context re-enqueues the
+        # instances, whose .lane is reset — that's the drop signal
+        # advance() checks)
+        self._cancelled_ctx.add(ctx_idx)
+
+    def on_job_done(self, job: Job) -> None:
+        self._job_state.pop(job.job_id, None)
+        self._state_ctx.pop(job.job_id, None)
+
+    def on_reconfigure(self) -> None:
+        # new contexts mean new lanes: grow the worker pool to match
+        # (force the recompute — lane count AND liveness both changed)
+        self._lanes_seen = -1
+        self._ensure_pool()
+
+    def running_set_changed(self) -> None:
+        pass

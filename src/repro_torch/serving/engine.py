@@ -1,0 +1,92 @@
+"""Staged LM decode payloads with AFET-style calibration.
+
+Counterpart of ``staged_lm_taskspec`` in src/repro/serving/engine.py. The
+stage functions run eagerly (PyTorch has no ``jit`` the port needs); a
+payload runs on whatever stream is current, which the realtime backend
+sets to the lane's own.
+"""
+from __future__ import annotations
+
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..core.task import StageProfile, TaskSpec
+from ..device import DeviceLike, resolve_device, synchronize
+from .staging import make_lm_stage_fns, slice_cache
+
+__all__ = ["staged_lm_taskspec"]
+
+
+def staged_lm_taskspec(model, *, priority: int, jps: float,
+                       n_stages: int = 4, prompt_len: int = 16,
+                       batch: int = 2, tag: str = "",
+                       n_sat: float = 40.0, mem_frac: float = 0.5,
+                       device: DeviceLike = None,
+                       params: Optional[dict] = None) -> TaskSpec:
+    """Wrap a staged LM decode step into a TaskSpec with real payloads.
+
+    Each job is ONE decode step split across ``n_stages`` stage programs
+    (``serving.staging.make_lm_stage_fns``). The inter-stage state is the
+    hidden activation plus the KV-cache slices touched so far: each stage
+    takes its layer slice of a prefilled donor cache
+    (``serving.staging.slice_cache``) and threads the updated slice
+    forward, so a migration moves hidden AND cache.
+
+    Everything runs on the card unless ``device`` names another device,
+    which must be the model's (``build_model(cfg, device=...)``).
+    ``params`` defaults to ``model.init_params(0)``. ``t_alone`` per stage
+    is one timed call after one warm-up call, ended by a stream
+    synchronize."""
+    cfg = model.cfg
+    dev = resolve_device(device)
+    if model.device != dev:
+        raise ValueError(f"the model lives on {model.device}, the payloads "
+                         f"were asked to run on {dev}")
+    if params is None:
+        params = model.init_params(0)
+    stage_fns = make_lm_stage_fns(model, n_stages=n_stages)
+    # prefill a donor cache once with the model's own forward; every job
+    # then decodes one token against (its own copy of) that cache
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (batch, prompt_len))).to(dev)
+    _, donor = model.prefill(
+        params, {"tokens": tokens,
+                 "cache": model.init_cache(batch, prompt_len + 1)})
+    pos = torch.tensor([prompt_len], dtype=torch.int32, device=dev)
+
+    def make_payload(i):
+        def payload(state):
+            if state is None or not isinstance(state, dict):
+                # fresh job: one new token per sequence
+                state = {"hidden": torch.zeros((batch, 1), dtype=torch.int32,
+                                               device=dev),
+                         "slices": {}}
+            sl = state["slices"].get(i)
+            if sl is None:
+                sl = slice_cache(cfg, donor, i, n_stages)
+            h, new_sl = stage_fns[i](params, state["hidden"], sl, pos)
+            return {"hidden": h, "slices": {**state["slices"], i: new_sl}}
+        return payload
+
+    times = []
+    state = None
+    payloads = []
+    for i in range(n_stages):
+        fn = make_payload(i)
+        fn(state)                                 # warm-up
+        synchronize(dev)
+        t0 = time.perf_counter()
+        out = fn(state)
+        synchronize(dev)
+        times.append((time.perf_counter() - t0) * 1000.0)
+        state = out
+        payloads.append(fn)
+    stages = [StageProfile(name=f"{cfg.name}/lm-s{j}", t_alone_ms=t,
+                           n_sat=n_sat, mem_frac=mem_frac,
+                           overhead_ms=0.05, payload=payloads[j])
+              for j, t in enumerate(times)]
+    return TaskSpec(name=f"{cfg.name}{tag}", period_ms=1000.0 / jps,
+                    priority=priority, stages=stages, batch=batch)

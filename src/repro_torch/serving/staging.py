@@ -1,0 +1,76 @@
+"""Stage partitioning of the dense LM (paper §III-B1 on transformers).
+
+Counterpart of src/repro/serving/staging.py (dense branch). A stacked LM is
+cut into ``n_stages`` contiguous layer groups; each stage is a function
+(hidden, cache_slice) -> (hidden, cache_slice), so DARIS can preempt and
+migrate between groups. Stage 0 owns the embedding, the last stage the
+final norm and logits. Migration moves the inter-stage hidden and the cache
+slices to the target context's device between stage programs.
+"""
+from __future__ import annotations
+
+from typing import Callable, List
+
+import torch
+
+from ..models import transformer
+from ..models.api import Model
+
+
+def stage_boundaries(n_layers: int, n_stages: int) -> List[tuple]:
+    per = n_layers // n_stages
+    rem = n_layers % n_stages
+    out = []
+    lo = 0
+    for i in range(n_stages):
+        hi = lo + per + (1 if i < rem else 0)
+        out.append((lo, hi))
+        lo = hi
+    return out
+
+
+def make_lm_stage_fns(model: Model, n_stages: int = 4) -> List[Callable]:
+    """Stage callables of the dense family:
+
+    stage_fn(params, hidden_or_tokens, cache_slice, positions)
+      -> (hidden_or_logits, new_cache_slice)
+    """
+    cfg = model.cfg
+    bounds = stage_boundaries(cfg.n_layers, n_stages)
+
+    def make(i):
+        lo, hi = bounds[i]
+
+        def stage(params, x, cache_slice, positions):
+            if i == 0 and not torch.is_floating_point(x):
+                x = transformer.embed(params, cfg, x)
+            layers = transformer.index_tree(params["layers"], slice(lo, hi))
+            x, new_cache = transformer.run_layers(layers, x, cfg, positions,
+                                                  cache_slice)
+            if i == n_stages - 1:
+                x = transformer.logits(params, cfg, x)
+            return x, new_cache
+
+        return stage
+
+    return [make(i) for i in range(n_stages)]
+
+
+def slice_cache(cfg, cache: dict, stage_idx: int, n_stages: int) -> dict:
+    """Cache slice owned by one stage: views into ``cache``, which the
+    functional cache update never writes."""
+    lo, hi = stage_boundaries(cfg.n_layers, n_stages)[stage_idx]
+    return transformer.index_tree(cache, slice(lo, hi))
+
+
+def migrate(tree, target: torch.device):
+    """Zero-delay migration: move the inter-stage state onto the target
+    context's device at a stage boundary (a no-op for tensors already
+    there)."""
+    if isinstance(tree, dict):
+        return {k: migrate(v, target) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(migrate(v, target) for v in tree)
+    if isinstance(tree, torch.Tensor):
+        return tree.to(target, non_blocking=True)
+    return tree
