@@ -14,27 +14,49 @@
    port never uses), each the median of CUDA-event-timed batches of
    launches; the bound is the larger of bytes over 3.35 TB/s and
    operations over the card's peak for their type.
-3. Serving phase (the main path): two full-width smollm-135m staged decode
+   The SSD scan runs at the mamba2-2.7b donor prefill's shapes (B 4,
+   L 512, H 80, P 64, N 128, chunk 256; tolerance 3e-2 in bf16, 5e-4 in
+   f32). The contention + ETA kernel runs on fleet-scale rate-groups of
+   4096 lanes (one where all three branches fire, one where none does):
+   the f64 instance must return its plain version's bits and those of
+   ``rates_seq`` on the host, the f32 one agree within 2e-6 relative. Its
+   bound is the larger of its bytes and its serial chain of 3 m dependent
+   adds at one add per cycle of the card's top SM clock.
+3. Serving phase, dense path: two full-width smollm-135m staged decode
    tasks (HP and LP; 4 stages, batch 4, prompt 512; random weights from
    seed 0) built with ``staged_lm_taskspec`` and served in real time by
    ``ServerConfig.realtime()`` (2 contexts x 2 streams, oversubscription
-   2.0, n_units = the card's SM count). Kernel launch counts are reset
-   just before and read just after.
-4. Output checks: a served task's payload chain gives finite logits of the
-   expected shape that match the unstaged ``decode_step``, and a cut-depth
-   f32 model run on the card through the kernels matches the same model
-   run on the CPU through the plain versions.
+   2.0, n_units = the card's SM count), then its output checks: a served
+   task's payload chain gives finite logits of the expected shape that
+   match the unstaged ``decode_step``, and a cut-depth f32 model run on
+   the card through the kernels matches the same model run on the CPU
+   through the plain versions.
+4. Epoch phase: one single-device simulated scenario (4 contexts x 6
+   streams, twelve tasks, chaos with a brownout) on the heap engine, on
+   ``engine("epoch")`` at its default threshold, and on ``engine("epoch")``
+   with the threshold at 1, so that every rate-group goes through the f64
+   contention kernel; decision logs and metric digests must be identical.
+5. Serving phase, ssm path: the same as 3 for full-width mamba2-2.7b (64
+   layers cut into 4 stages of 16, batch 4, prompt 512), whose donor
+   prefill runs the SSD kernel and whose decode steps run RMSNorm at
+   widths 2560 and 5120, with the same output checks.
+
+Kernel launch counts are reset just before each path and read just after;
+every kernel must be launched on a path (the f32 contention kernel, which
+no engine calls, on the kernel phase's own fleet-sweep call).
 
 It fails (non-zero exit, no result line) without a CUDA device, outside a
 checkout of the repo, or when a kernel is out of tolerance or unlaunched,
-a plain version ran on a CUDA tensor during the serving phase, a worker
-caught an exception, no HP job completed, or an output check failed. The
-last line is ``{"ok": true, "device": {...}}``.
+a plain version ran on a CUDA tensor during a path, a worker caught an
+exception, no HP job completed, the three epoch runs differ, or an output
+check failed. The last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import hashlib
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -48,6 +70,11 @@ PEAK_FLOPS = {"bfloat16": 989e12,     # dense tensor-core bf16
 ELEMENTWISE_FLOPS = 67e12             # norms compute in f32 on CUDA cores
 B, H, KV, DH, D, PROMPT = 4, 9, 3, 64, 576, 512
 N_STAGES, HORIZON_MS, JPS = 4, 3000.0, 5.0
+# mamba2-2.7b donor prefill: heads, head dim, state, groups, chunk
+SSM_H, SSM_P, SSM_N, SSM_G, SSM_Q = 80, 64, 128, 1, 256
+SSM_JPS = 2.0
+LANES = 4096                          # a fleet-scale rate-group
+DEFAULT_SM_MHZ = 1980.0               # H100 SXM top boost clock (data sheet)
 
 
 def emit(obj) -> None:
@@ -125,10 +152,12 @@ def nbytes(*ts) -> int:
 
 def kernel_cases(torch, F, dtype):
     """(name, kernel call, plain call, library call | None, bytes, ops,
-    peak) at the main path's shapes."""
+    peak, options) at the main paths' shapes; options may set the
+    tolerance and fewer timing repeats for the heavy calls."""
     from repro_torch.kernels import decode_attention as dec
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import rmsnorm as rms
+    from repro_torch.kernels import ssd_scan
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev)
@@ -155,24 +184,50 @@ def kernel_cases(torch, F, dtype):
     def sdpa(q, kk, vv, **kw):
         return F.scaled_dot_product_attention(q, kk, vv, enable_gqa=True,
                                               **kw)
+
+    # the SSD scan at the mamba2 donor prefill's shapes (the donor's cache
+    # hands it a zero initial state)
+    sx = rand(B, PROMPT, SSM_H, SSM_P)
+    sb, sc = rand(B, PROMPT, SSM_G, SSM_N), rand(B, PROMPT, SSM_G, SSM_N)
+    sdt = torch.empty((B, PROMPT, SSM_H), device=dev).uniform_(
+        0.001, 0.1, generator=g)
+    sal = torch.log(torch.linspace(1.0, 16.0, SSM_H, device=dev)).to(dtype)
+    s0 = torch.zeros((B, SSM_H, SSM_P, SSM_N), device=dev)
+    q_, n_chunks = SSM_Q, PROMPT // SSM_Q
+    pairs = q_ * (q_ + 1) // 2         # causal (i, j) pairs in a chunk
+    ssd_ops = 2 * B * SSM_H * n_chunks * (pairs * (SSM_N + SSM_P)
+                                          + 2 * q_ * SSM_N * SSM_P)
+    ssd_bytes = nbytes(sx, sdt, sal, sb, sc, s0, sx, s0)
+    ssd_tol = 3e-2 if dtype == torch.bfloat16 else 5e-4
+    # the mamba2 decode step's norms: each layer's ln (2560), gated (5120)
+    wide = {dd: (rand(B, 1, dd), rand(dd)) for dd in (2560, 5120)}
     return [
+        *((f"rmsnorm_d{dd}", lambda xx=xx, ww=ww: rms.rmsnorm(xx, ww),
+           lambda xx=xx, ww=ww: rms.rmsnorm_plain(xx, ww),
+           lambda xx=xx, ww=ww, dd=dd: F.rms_norm(xx, (dd,), ww, 1e-6),
+           nbytes(xx, ww, xx), 4 * B * dd, ELEMENTWISE_FLOPS, {})
+          for dd, (xx, ww) in wide.items()),
         ("rmsnorm", lambda: rms.rmsnorm(x, w),
          lambda: rms.rmsnorm_plain(x, w),
          lambda: F.rms_norm(x, (D,), w, 1e-6),
-         nbytes(x, w, x), rms_ops, ELEMENTWISE_FLOPS),
+         nbytes(x, w, x), rms_ops, ELEMENTWISE_FLOPS, {}),
         ("rmsnorm_residual", lambda: rms.rmsnorm_residual(x, r, w),
          lambda: rms.rmsnorm_residual_plain(x, r, w), None,
-         nbytes(x, r, w, x, x), rms_ops + B * D, ELEMENTWISE_FLOPS),
+         nbytes(x, r, w, x, x), rms_ops + B * D, ELEMENTWISE_FLOPS, {}),
         ("decode_attention", lambda: dec.decode_attention(q1, k, v, kv_pos,
                                                           q_pos),
          lambda: dec.decode_attention_plain(q1, k, v, kv_pos, q_pos),
          lambda: sdpa(q1[:, :, None], k, v, attn_mask=mask),
          nbytes(q1, cache_k, cache_v, kv_pos, q_pos, q1), dec_ops,
-         PEAK_FLOPS[dname]),
+         PEAK_FLOPS[dname], {}),
         ("flash_attention", lambda: fa.flash_attention(qp, kp, vp),
          lambda: fa.flash_attention_plain(qp, kp, vp),
          lambda: sdpa(qp, kp, vp, is_causal=True),
-         nbytes(qp, kp, vp, qp), fa_ops, PEAK_FLOPS[dname]),
+         nbytes(qp, kp, vp, qp), fa_ops, PEAK_FLOPS[dname], {}),
+        ("ssd", lambda: ssd_scan.ssd(sx, sdt, sal, sb, sc, SSM_Q, s0),
+         lambda: ssd_scan.ssd_plain(sx, sdt, sal, sb, sc, SSM_Q, s0), None,
+         ssd_bytes, ssd_ops, PEAK_FLOPS[dname],
+         {"tol": ssd_tol, "reps": 10, "inner": 3, "graph": False}),
     ]
 
 
@@ -185,7 +240,17 @@ SOURCES = {
                          "src/repro/kernels/decode_attention.py:64"),
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:68"),
+    "contention_eta_f64": ("src/repro_torch/kernels/csrc/contention_eta.cu",
+                           "src/repro/kernels/contention_eta.py:58"),
+    "contention_eta_f32": ("src/repro_torch/kernels/csrc/contention_eta.cu",
+                           "src/repro/kernels/contention_eta.py:164"),
+    "ssd": ("src/repro_torch/kernels/csrc/ssd_scan.cu",
+            "src/repro/kernels/ssd_scan.py:71"),
 }
+DENSE_PATH = ("rmsnorm", "rmsnorm_residual", "decode_attention",
+              "flash_attention")
+SSM_PATH = ("rmsnorm", "ssd")
+EPOCH_PATH = ("contention_eta_f64",)
 
 
 def kernel_phase(torch, F, failures):
@@ -193,9 +258,14 @@ def kernel_phase(torch, F, failures):
     bf16 (main path) rows keyed by kernel name."""
     rows = {}
     for dtype in (torch.bfloat16, torch.float32):
-        tol = 3e-2 if dtype == torch.bfloat16 else 2e-4
-        for name, kern, plain, lib, nb, ops, peak in kernel_cases(torch, F,
-                                                                  dtype):
+        for name, kern, plain, lib, nb, ops, peak, opt in kernel_cases(
+                torch, F, dtype):
+            tol = opt.get("tol", 3e-2 if dtype == torch.bfloat16 else 2e-4)
+            reps, inner = opt.get("reps", 30), opt.get("inner", 10)
+            # calls of a millisecond or more are timed eagerly: the host's
+            # enqueue hides behind the device, and no graph is captured
+            dev_ms = (graph_ms if opt.get("graph", True) else
+                      lambda t, f, r, i: cuda_ms(t, f, r, i // 2))
             a, b = kern(), plain()
             torch.cuda.synchronize()
             pairs = list(zip(a, b)) if isinstance(a, tuple) else [(a, b)]
@@ -205,11 +275,11 @@ def kernel_phase(torch, F, failures):
                      for x, y in pairs)
             row = {"name": name, "dtype": str(dtype).replace("torch.", ""),
                    "max_err": err, "tol": tol, "within_tol": ok,
-                   "kernel_ms": graph_ms(torch, kern),
-                   "plain_ms": graph_ms(torch, plain),
+                   "kernel_ms": dev_ms(torch, kern, reps, 2 * inner),
+                   "plain_ms": dev_ms(torch, plain, reps, 2 * inner),
                    "library_ms": None,
-                   "kernel_host_ms": cuda_ms(torch, kern),
-                   "plain_host_ms": cuda_ms(torch, plain)}
+                   "kernel_host_ms": cuda_ms(torch, kern, reps, inner),
+                   "plain_host_ms": cuda_ms(torch, plain, reps, inner)}
             if lib is not None:
                 try:
                     row["library_ms"] = graph_ms(torch, lib)
@@ -225,14 +295,33 @@ def kernel_phase(torch, F, failures):
     return rows
 
 
-def serving_phase(torch, failures):
+def path_counts(KERNELS, names, path, failures):
+    """Launches of a path's kernels (counts reset just before the path);
+    fails a kernel with none, and any plain version run on the card."""
+    launches = {n: KERNELS[n].counts.launches for n in names}
+    plain_cuda = {n: fn.counts.plain_cuda_calls for n, fn in KERNELS.items()}
+    for n, c in launches.items():
+        if c == 0:
+            failures.append(f"{n}: no launch on the {path} path")
+    if any(plain_cuda.values()):
+        failures.append(f"plain versions ran on CUDA tensors on the {path} "
+                        f"path: {plain_cuda}")
+    return launches
+
+
+def serving_phase(torch, failures, arch, n_layers, jps, kernels):
+    """``arch`` at full width (depth ``n_layers``, None for all of it),
+    two staged decode tasks served in real time; returns the model, its
+    parameters, the HP task and the path's launch counts."""
     from repro_torch.api import HP, LP, DeviceModel, ServerConfig
     from repro_torch.configs import get_config
     from repro_torch.kernels import KERNELS, reset_counts
     from repro_torch.models import build_model
     from repro_torch.serving.engine import staged_lm_taskspec
 
-    cfg = get_config("smollm-135m")                       # full width, 30 L
+    cfg = get_config(arch)
+    if n_layers is not None:
+        cfg = cfg.replace(n_layers=n_layers)
     model = build_model(cfg)
     params = model.init_params(0)
     torch.cuda.synchronize()
@@ -240,7 +329,7 @@ def serving_phase(torch, failures):
 
     reset_counts()
     t0 = time.perf_counter()
-    specs = [staged_lm_taskspec(model, priority=p, jps=JPS, n_stages=N_STAGES,
+    specs = [staged_lm_taskspec(model, priority=p, jps=jps, n_stages=N_STAGES,
                                 prompt_len=PROMPT, batch=B, tag=tag,
                                 params=params)
              for p, tag in ((HP, "-hp"), (LP, "-lp"))]
@@ -253,13 +342,12 @@ def serving_phase(torch, failures):
            .build())
     m = srv.run()
     torch.cuda.synchronize()
-    launches = {n: fn.counts.launches for n, fn in KERNELS.items()}
-    plain_cuda = {n: fn.counts.plain_cuda_calls for n, fn in KERNELS.items()}
+    launches = path_counts(KERNELS, kernels, cfg.name, failures)
     be = srv.backend
     emit({"serving": {
         "model": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
         "batch": B, "prompt_len": PROMPT, "stages": N_STAGES, "sm_count": sm,
-        "setup_s": setup_s, "horizon_ms": HORIZON_MS,
+        "jobs_per_s": jps, "setup_s": setup_s, "horizon_ms": HORIZON_MS,
         "t_alone_ms": {s.name: [st.t_alone_ms for st in s.stages]
                        for s in specs},
         "completed": {"hp": m.completed[HP], "lp": m.completed[LP]},
@@ -272,18 +360,207 @@ def serving_phase(torch, failures):
         "worker_exceptions": be.worker_exceptions,
         "last_worker_exception": repr(be.last_worker_exception),
         "stage_times": be.stage_time_summary(),
-        "launches": launches, "plain_calls_on_cuda": plain_cuda}})
-    for n, c in launches.items():
-        if c == 0:
-            failures.append(f"{n}: no launch on the main path")
-    if any(plain_cuda.values()):
-        failures.append(f"plain versions ran on CUDA tensors: {plain_cuda}")
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "launches": launches}})
     if be.worker_exceptions:
         failures.append(f"{be.worker_exceptions} worker exception(s), last "
                         f"{be.last_worker_exception!r}")
     if m.completed[HP] == 0:
-        failures.append("no HP job completed")
+        failures.append(f"{cfg.name}: no HP job completed")
     return model, params, specs[0], launches
+
+
+def contention_phase(torch, failures):
+    """The contention + ETA kernel on two 4096-lane rate-groups: all three
+    branches fire in one, none in the other. Returns the f64 and f32
+    rows; the f32 row's launches are those of its fleet-sweep call."""
+    import numpy as np
+
+    from repro_torch.api import DeviceModel
+    from repro_torch.kernels import contention_eta as ce
+    from repro_torch.runtime.contention import ContentionModel
+
+    sm = torch.cuda.get_device_properties(0).multi_processor_count
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(0)
+    groups = {   # (device model, u, ns, mf, rem)
+        "branches_fire": (DeviceModel(n_units=float(sm)),
+                          rng.uniform(0.2, 4.0, LANES), rng.uniform(5, 40, LANES),
+                          rng.uniform(0.05, 0.9, LANES),
+                          rng.uniform(0.1, 8.0, LANES)),
+        "no_branch": (DeviceModel(n_units=1e6, l2_pressure=0.0),
+                      rng.uniform(0.2, 0.4, LANES), rng.uniform(30, 40, LANES),
+                      np.full(LANES, 1e-5), rng.uniform(0.1, 8.0, LANES)),
+    }
+    groups = {k: (g[0], *(a.tolist() for a in g[1:]))
+              for k, g in groups.items()}
+    # the f32 variant's own path: one fleet-sweep call per group
+    ce.fused_f32.counts.reset()
+    for dm, u, ns, mf, rem in groups.values():
+        ce.fused_f32(dm, 1.0, u, ns, mf, rem)
+    torch.cuda.synchronize()
+    f32_launches = ce.fused_f32.counts.launches
+    if f32_launches == 0:
+        failures.append("contention_eta_f32: no launch on its fleet sweep")
+
+    mhz = DEFAULT_SM_MHZ
+    try:
+        out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                              "--format=csv,noheader,nounits"],
+                             capture_output=True, text=True, timeout=30)
+        mhz = float(out.stdout.split()[0])
+    except (OSError, subprocess.SubprocessError, IndexError, ValueError):
+        pass
+    rows = {}
+    for name, dtype, elt in (("contention_eta_f64", torch.float64, 8),
+                             ("contention_eta_f32", torch.float32, 4)):
+        checks, err = {}, 0.0
+        for gname, (dm, u, ns, mf, rem) in groups.items():
+            if dtype == torch.float64:
+                got = ce.fused(dm, 1.0, u, ns, mf, rem)
+                want = ce.fused_plain(dm, 1.0, u, ns, mf, rem, device=dev)
+                seq = ContentionModel(dm).rates_seq(u, ns, mf)
+                seq = [r if r > 1e-6 else 1e-6 for r in seq]
+                speed = ce.rates(dm, u, ns, mf)
+                ok = (all(torch.equal(torch.from_numpy(a), torch.from_numpy(b))
+                          for a, b in zip(got, want))
+                      and got[0].tolist() == seq
+                      and [r if r > 1e-6 else 1e-6 for r in speed] == seq)
+            else:
+                got = ce.fused_f32(dm, 1.0, u, ns, mf, rem)
+                want = ce.fused_f32_plain(dm, 1.0, u, ns, mf, rem, device=dev)
+                ok = all(np.allclose(a, b, rtol=2e-6, atol=0)
+                         for a, b in zip(got, want))
+            err = max(err, max(float(np.abs(a.astype(np.float64) - b).max())
+                               for a, b in zip(got, want)))
+            checks[gname] = ok
+            if not ok:
+                failures.append(f"{name} on {gname}: kernel and plain "
+                                f"version disagree")
+        dm, u, ns, mf, rem = groups["branches_fire"]
+        x = ce.lane_columns(u, ns, mf, rem, dtype).to(dev)
+        out_t = torch.empty((3, LANES), dtype=dtype, device=dev)
+        comp = ce.SUM_IS_COMPENSATED and dtype == torch.float64
+
+        def kern():
+            ce.launch(x, out_t, 1.0, dm, comp)
+
+        def wall_ms(fn, n=20):
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3 / n
+        wrapper = ce.fused if dtype == torch.float64 else ce.fused_f32
+        plain = ce.fused_plain if dtype == torch.float64 else ce.fused_f32_plain
+        cm = ContentionModel(dm)
+        t_bytes = LANES * elt * 7 / HBM_BYTES_PER_S
+        t_chain = 3 * LANES / (mhz * 1e6)
+        row = {"name": name, "dtype": str(dtype).replace("torch.", ""),
+               "lanes": LANES, "checks": checks, "max_err": err,
+               "tol": 0.0 if dtype == torch.float64 else "2e-6 relative",
+               "kernel_ms": graph_ms(torch, kern),
+               "round_trip_ms": wall_ms(lambda: wrapper(dm, 1.0, u, ns, mf,
+                                                        rem)),
+               "plain_ms": wall_ms(lambda: plain(dm, 1.0, u, ns, mf, rem,
+                                                 device=dev), 5),
+               "rates_seq_host_ms": wall_ms(lambda: cm.rates_seq(u, ns, mf)),
+               "library_ms": None,
+               "bound_bytes_ms": t_bytes * 1e3,
+               "bound_serial_chain_ms": t_chain * 1e3, "sm_clock_mhz": mhz,
+               "bound_ms": max(t_bytes, t_chain) * 1e3,
+               "bound_by": "bytes" if t_bytes >= t_chain else "operations"}
+        if dtype == torch.float32:
+            row["launches_fleet_sweep"] = f32_launches
+        emit({"kernel_check": row})
+        rows[name] = row
+    return rows, f32_launches
+
+
+EPOCH_HORIZON_MS = 2000.0
+
+
+def epoch_scenario(api, sm):
+    """One device, 4 contexts x 6 streams, twelve tasks with stage noise,
+    seeded faults and a brownout window."""
+    specs = [api.TaskSpec(
+        name=f"t{i:02d}", period_ms=12.0 + 2 * i,
+        priority=api.HP if i < 3 else api.LP,
+        stages=[api.StageProfile(f"t{i:02d}/s{j}", t, n_sat=8.0 + i,
+                                 mem_frac=0.3, overhead_ms=0.05)
+                for j, t in enumerate((3.0 + i % 4, 2.0 + i % 3))])
+        for i in range(12)]
+    plan = api.ChaosPlan(seed=3, stage_fault_rate=0.02,
+                         brownouts=(api.Brownout(500.0, 1200.0, device=0,
+                                                 slow_factor=2.5),))
+    return (api.ServerConfig.sim().tasks(specs).contexts(4).streams(6)
+            .oversubscribe(2.0).device(api.DeviceModel(n_units=float(sm)))
+            .horizon_ms(EPOCH_HORIZON_MS).seed(5).chaos(plan)
+            .record_decisions())
+
+
+def epoch_phase(torch, failures):
+    """The scenario on the heap engine, on the epoch engine at its default
+    threshold, and on the epoch engine with every rate-group on the f64
+    kernel; returns the kernel's launches in the last run."""
+    from repro_torch import api
+    from repro_torch.kernels import KERNELS, reset_counts
+
+    sm = torch.cuda.get_device_properties(0).multi_processor_count
+    runs, launches = {}, {}
+    for label, engine, threshold in (("heap", "heap", None),
+                                     ("epoch", "epoch", None),
+                                     ("epoch_kernel_min_1", "epoch", "1")):
+        if threshold is not None:
+            os.environ["DARIS_EPOCH_KERNEL_MIN"] = threshold
+        try:
+            srv = epoch_scenario(api, sm).engine(engine).build()
+        finally:
+            os.environ.pop("DARIS_EPOCH_KERNEL_MIN", None)
+        core, counts = srv.core, {"releases": 0, "stage_completions": 0}
+        advance, release = core.backend.advance, core._handle_release
+
+        def counted_advance(cap_ms, advance=advance, counts=counts):
+            out = advance(cap_ms)
+            counts["stage_completions"] += len(out)
+            return out
+
+        def counted_release(*a, release=release, counts=counts, **kw):
+            counts["releases"] += 1
+            return release(*a, **kw)
+        core.backend.advance = counted_advance
+        core._handle_release = counted_release
+        reset_counts()
+        t0 = time.perf_counter()
+        m = srv.run()
+        wall = time.perf_counter() - t0
+        if label == "epoch_kernel_min_1":
+            launches = path_counts(KERNELS, EPOCH_PATH, "epoch", failures)
+        resp = json.dumps({str(k): [v.hex() for v in vs]
+                           for k, vs in sorted(m.response_ms.items())})
+        digest = {"decisions_sha256": hashlib.sha256(
+                      "\n".join(srv.decisions).encode()).hexdigest(),
+                  "response_sha256": hashlib.sha256(resp.encode()).hexdigest(),
+                  "summary": m.summary()}
+        events = counts["releases"] + counts["stage_completions"]
+        runs[label] = (digest, {"wall_s": wall, "events": events,
+                                "events_per_s": events / wall,
+                                "decisions": len(srv.decisions),
+                                "completed": dict(m.completed)})
+    same = all(d == runs["heap"][0] for d, _ in runs.values())
+    emit({"epoch": {"scenario": "4 contexts x 6 streams, 12 tasks, chaos "
+                                "with a brownout, one device",
+                    "horizon_ms": EPOCH_HORIZON_MS,
+                    "runs": {k: v for k, (_, v) in runs.items()},
+                    "digests_identical": same,
+                    "decisions_sha256": runs["heap"][0]["decisions_sha256"],
+                    "launches": launches}})
+    if not same:
+        failures.append("epoch: the three runs' decision logs or metric "
+                        "digests differ")
+    return launches
 
 
 def per_step_launches(torch, spec):
@@ -379,18 +656,22 @@ def output_checks(torch, model, params, spec, failures):
     small_ok = all(torch.allclose(a, b, rtol=2e-3, atol=2e-3)
                    for a, b in zip(*outs))
     emit({"output_check": {
+        "model": cfg.name,
         "logits_shape": list(logits.shape), "finite": finite,
         "staged_vs_unstaged_max_err": staged_err, "staged_tol": 3e-2,
         "small_f32_gpu_vs_cpu_max_err": small_err, "small_tol": 2e-3,
         "launches_per_decode_step": step}})
-    emit({"decode_step_profile": profile_step(torch, spec)})
+    emit({"decode_step_profile": {"model": cfg.name,
+                                  **profile_step(torch, spec)}})
     if not (shape_ok and finite):
-        failures.append(f"served logits: shape {tuple(logits.shape)}, "
-                        f"finite {finite}")
+        failures.append(f"{cfg.name} served logits: shape "
+                        f"{tuple(logits.shape)}, finite {finite}")
     if not staged_ok:
-        failures.append(f"staged vs unstaged decode: max_err {staged_err}")
+        failures.append(f"{cfg.name} staged vs unstaged decode: max_err "
+                        f"{staged_err}")
     if not small_ok:
-        failures.append(f"cut-depth f32 GPU vs CPU: max_err {small_err}")
+        failures.append(f"{cfg.name} cut-depth f32 GPU vs CPU: max_err "
+                        f"{small_err}")
     return step
 
 
@@ -423,14 +704,41 @@ def main() -> int:
              if "Used" in ln or "Compiling entry" in ln]
     emit({"build": {"seconds": build_s, "ptxas": ptxas}})
 
-    failures = []
+    failures, seconds = [], {}
+    t0 = time.perf_counter()
     rows = kernel_phase(torch, F, failures)
-    model, params, spec, launches = serving_phase(torch, failures)
-    output_checks(torch, model, params, spec, failures)
+    contention_rows, f32_launches = contention_phase(torch, failures)
+    rows.update(contention_rows)
+    seconds["kernels"] = time.perf_counter() - t0
 
+    t0 = time.perf_counter()
+    model, params, spec, dense = serving_phase(
+        torch, failures, "smollm-135m", None, JPS, DENSE_PATH)
+    output_checks(torch, model, params, spec, failures)
+    del model, params, spec
+    torch.cuda.empty_cache()
+    seconds["dense_path"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    epoch = epoch_phase(torch, failures)
+    seconds["epoch_path"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    model, params, spec, ssm = serving_phase(
+        torch, failures, "mamba2-2.7b", None, SSM_JPS, SSM_PATH)
+    output_checks(torch, model, params, spec, failures)
+    del model, params, spec
+    seconds["ssm_path"] = time.perf_counter() - t0
+    emit({"phase_seconds": seconds})
+
+    # launches: the sum over the paths, each counted from a reset just
+    # before it; the f32 contention kernel's own fleet-sweep call
+    launches = {k: dense.get(k, 0) + epoch.get(k, 0) + ssm.get(k, 0)
+                for k in SOURCES}
+    launches["contention_eta_f32"] = f32_launches
     kernels = []
-    for kname, row in rows.items():
-        src, replaces = SOURCES[kname]
+    for kname, (src, replaces) in SOURCES.items():
+        row = rows[kname]
         kernels.append({
             "name": kname, "route": "cuda", "source": src,
             "replaces": replaces, "launches": launches[kname],

@@ -50,6 +50,8 @@ from .runtime.arrivals import (ArrivalProcess, ManualArrival,
                                PeriodicArrival, PoissonArrival, TraceArrival)
 from .runtime.backend import (ExecutionBackend, RealtimeBackend, SimBackend)
 from .runtime.contention import DeviceModel
+from .runtime.epoch import EpochSimBackend
+from .runtime.epoch_cuda import CudaEpochSimBackend
 from .runtime.engine_core import (AutoscalePolicy, Completion, EngineCore,
                                   FaultPlan, SubmitHandle)
 
@@ -59,7 +61,8 @@ __all__ = [
     "ChaosPlan", "RetryPolicy", "DegradationPolicy", "Brownout",
     "ArrivalProcess", "ManualArrival", "PeriodicArrival", "PoissonArrival",
     "TraceArrival",
-    "ExecutionBackend", "SimBackend", "RealtimeBackend",
+    "ExecutionBackend", "SimBackend", "EpochSimBackend",
+    "CudaEpochSimBackend", "RealtimeBackend",
     "SchedulerConfig", "DeviceModel", "TaskSpec", "StageProfile",
     "BatchPolicy", "HP", "LP", "RunMetrics", "EngineCore", "Completion",
 ]
@@ -80,7 +83,8 @@ class ServerConfig:
         if backend_kind not in (SIM, REALTIME):
             raise ValueError(f"unknown backend {backend_kind!r}")
         self._backend_kind = backend_kind
-        self._torch_device = torch_device   # realtime payloads' device
+        self._torch_device = torch_device   # payloads' or epoch kernel's device
+        self._engine = "heap"
         self._specs: List[TaskSpec] = []
         self._sched_cfg: Optional[SchedulerConfig] = None
         self._sched_kw: Dict[str, object] = {}
@@ -217,15 +221,28 @@ class ServerConfig:
         self._noise_sigma = sigma
         return self
 
-    def engine(self, kind: str) -> "ServerConfig":
-        """Simulation engine selection (sim backend only): ``"heap"``
-        (default), the versioned prediction-heap engine (``SimBackend``);
-        ``"epoch"``, the array-programmed engine, is not ported yet."""
+    def engine(self, kind: str, device=None) -> "ServerConfig":
+        """Simulation engine selection (sim backend only):
+
+        * ``"heap"`` (default) — the versioned prediction-heap engine
+          (``SimBackend``), the bit-exact reference path;
+        * ``"epoch"`` — the array-programmed epoch engine
+          (``CudaEpochSimBackend``): vectorized lane-state integration,
+          cohort-ordered ETA selection, and rate-groups of ``KERNEL_MIN``
+          lanes or more on the contention kernel, bit-identical to the
+          heap path. Its kernel runs on the card; it raises without one
+          unless ``device`` names another (``device="cpu"``).
+        """
         if kind not in ("heap", "epoch"):
             raise ValueError(f"unknown engine {kind!r}: expected "
                              f"'heap' or 'epoch'")
         if kind == "epoch":
-            raise _not_ported("the epoch engine", "Q2")
+            from .device import resolve_device
+            self._torch_device = resolve_device(device)
+        elif device is not None:
+            raise ValueError("engine('heap') runs on the host: it takes no "
+                             "device")
+        self._engine = kind
         return self
 
     def record_decisions(self, enabled: bool = True) -> "ServerConfig":
@@ -434,9 +451,12 @@ class DarisServer:
         self.scheduler: DarisScheduler = cfg._sched_cls(
             list(cfg._specs), sched_cfg, cfg._device, **cfg._sched_cls_kw)
         if cfg._backend_kind == SIM:
-            backend = SimBackend(
-                noise_sigma=(0.06 if cfg._noise_sigma is None
-                             else cfg._noise_sigma))
+            noise = 0.06 if cfg._noise_sigma is None else cfg._noise_sigma
+            if cfg._engine == "epoch":
+                backend = CudaEpochSimBackend(noise_sigma=noise,
+                                              device=cfg._torch_device)
+            else:
+                backend = SimBackend(noise_sigma=noise)
         else:
             backend = RealtimeBackend(input_hw=cfg._input_hw,
                                       batch=cfg._batch,

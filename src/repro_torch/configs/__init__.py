@@ -1,10 +1,10 @@
 """Config registry of the port: the architectures it can build so far."""
 from __future__ import annotations
 
-from . import smollm_135m
+from . import mamba2_27b, smollm_135m
 from .base import SHAPES, ArchConfig, ShapeCell, shape_by_name
 
-_MODULES = {"smollm-135m": smollm_135m}
+_MODULES = {"smollm-135m": smollm_135m, "mamba2-2.7b": mamba2_27b}
 
 ARCH_IDS = tuple(_MODULES)
 

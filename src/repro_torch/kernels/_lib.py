@@ -24,15 +24,17 @@ from typing import Optional, Tuple
 import torch
 
 CSRC = Path(__file__).resolve().with_name("csrc")
-SOURCES = ("rmsnorm.cu", "decode_attention.cu", "flash_attention.cu")
+SOURCES = ("rmsnorm.cu", "decode_attention.cu", "flash_attention.cu",
+           "contention_eta.cu", "ssd_scan.cu")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-lineinfo", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # dtype codes shared with csrc/common.cuh
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float64: 2}
 
-_P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_F, _D = ctypes.c_float, ctypes.c_double
 _SIGNATURES = {
     # x, r, w, out, res, M, D, eps, plus_one, x_dtype, w_dtype, stream
     "repro_rmsnorm": (_P, _P, _P, _P, _P, _LL, _I, _F, _I, _I, _I, _P),
@@ -44,6 +46,13 @@ _SIGNATURES = {
     # dtype, stream
     "repro_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _F, _I,
                               _I, _F, _I, _P),
+    # in [4, m], out [3, m], m, now, n_units, bubble, l2p, compensated,
+    # dtype, stream
+    "repro_contention_eta": (_P, _P, _LL, _D, _D, _D, _D, _I, _I, _P),
+    # x, dt, a_log, b, c, init_state, y, final_state, B, L, H, P, G, N,
+    # chunk, dtype, stream
+    "repro_ssd": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                  _I, _P),
 }
 
 _lock = threading.Lock()
@@ -158,8 +167,8 @@ def check(err: int, name: str) -> None:
 def dtype_code(t: torch.Tensor, name: str) -> int:
     code = _DTYPES.get(t.dtype)
     if code is None:
-        raise TypeError(f"{name}: kernel takes float32 or bfloat16, "
-                        f"got {t.dtype}")
+        raise TypeError(f"{name}: kernel takes float32, bfloat16 or "
+                        f"float64, got {t.dtype}")
     return code
 
 

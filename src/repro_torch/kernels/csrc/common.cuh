@@ -1,8 +1,8 @@
 // Shared helpers for the port's hand-written Hopper kernels.
 //
-// Every kernel computes in f32 whatever its IO type, as the Pallas kernels
-// it replaces do. IO types are f32 or bf16, selected at run time by the
-// dtype codes below (the Python wrappers in kernels/_lib.py use the same
+// The model kernels compute in f32 whatever their IO type, as the Pallas
+// kernels they replace do. IO types are f32 or bf16 (f64 for the contention
+// kernel), selected at run time by the dtype codes below (the Python wrappers in kernels/_lib.py use the same
 // numbers). Each extern "C" entry returns cudaGetLastError() so that a
 // refused launch reaches the wrapper, which raises.
 #pragma once
@@ -10,7 +10,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-enum { DT_F32 = 0, DT_BF16 = 1 };
+enum { DT_F32 = 0, DT_BF16 = 1, DT_F64 = 2 };
 
 // Masked logits use the Pallas kernels' -1e30, not -inf: a row whose every
 // visible slot is masked then averages V exactly as the TPU kernel does.

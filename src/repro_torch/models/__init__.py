@@ -1,4 +1,4 @@
-"""Dense LM family of the port (counterpart of src/repro/models)."""
+"""LM families of the port, dense and ssm (counterpart of src/repro/models)."""
 from .api import Model, build_model, params_from_jax
 
 __all__ = ["Model", "build_model", "params_from_jax"]

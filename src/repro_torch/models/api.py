@@ -1,6 +1,6 @@
 """Model API of the port: ``build_model(cfg)`` -> ``Model``.
 
-Counterpart of src/repro/models/api.py for the dense LM family:
+Counterpart of src/repro/models/api.py for the dense and ssm LM families:
 
     init_params(seed)                 -> params (dict of tensors)
     init_cache(batch_size, max_len)   -> cache (dict of tensors)
@@ -23,7 +23,8 @@ from . import transformer
 
 
 class Model:
-    """Dense LM on one device; methods are plain functions of tensors."""
+    """Dense or ssm LM on one device; methods are plain functions of
+    tensors."""
 
     def __init__(self, cfg, device: torch.device):
         transformer.check_supported(cfg)

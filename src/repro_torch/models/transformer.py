@@ -1,7 +1,8 @@
-"""Decoder-only LM assembly, dense family.
+"""Decoder-only LM assembly: the dense and ssm (Mamba2) families.
 
 Counterpart of src/repro/models/transformer.py for ``family == "dense"``
-without gemma2's local/global alternation or post-norms. Layers are stacked
+(without gemma2's local/global alternation or post-norms) and
+``family == "ssm"`` (``[mamba2] x L``). Layers are stacked
 on a leading ``[L, ...]`` axis as in the reference; the reference's
 ``lax.scan`` over them becomes a loop over that axis, and the stacked cache
 is rebuilt from the per-layer caches the loop returns.
@@ -15,18 +16,19 @@ import torch
 from ..kernels.rmsnorm import rmsnorm_residual
 from .attention import attention_block, init_attention, make_kv_cache
 from .layers import dense_init, embed_init, gated_mlp, rms_norm
+from .mamba2 import init_mamba2, make_ssm_cache, mamba2_block
 
 TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
                 "int8": torch.int8}
 
 
 def check_supported(cfg) -> None:
-    """The slice ports the plain dense family; everything else says where it
-    stands in the port's queue."""
-    if cfg.family != "dense":
+    """The port has the plain dense family and the ssm family; everything
+    else says where it stands in the port's queue."""
+    if cfg.family not in ("dense", "ssm"):
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet (ROADMAP.md, port "
-            f"queue items Q3 and Q8)")
+            f"queue item Q8)")
     if cfg.local_global_alternating or cfg.post_block_norms \
             or cfg.attn_softcap or cfg.logit_softcap:
         raise NotImplementedError(
@@ -63,6 +65,11 @@ def init_lm(gen: torch.Generator, cfg,
     if not cfg.tie_embeddings:
         params["lm_head"] = dense_init(gen, (d, cfg.vocab_size), dt,
                                        fan_in=d, device=device)
+    if cfg.family == "ssm":
+        params["layers"] = {
+            "ln": torch.ones((n, d), dtype=dt, device=device),
+            "mamba": init_mamba2(gen, cfg, dt, lead=(n,), device=device)}
+        return params
     params["layers"] = {
         "ln1": torch.ones((n, d), dtype=dt, device=device),
         "attn": init_attention(gen, d, cfg.n_heads, cfg.n_kv_heads,
@@ -84,9 +91,12 @@ def init_lm(gen: torch.Generator, cfg,
 def init_cache(cfg, batch: int, max_len: int,
                device: Optional[torch.device] = None) -> dict:
     check_supported(cfg)
-    one = make_kv_cache(batch, max_len, cfg.n_kv_heads,
-                        cfg.resolved_head_dim,
-                        TORCH_DTYPES[cfg.kv_cache_dtype], device)
+    if cfg.family == "ssm":          # O(1) state: max_len plays no part
+        one = make_ssm_cache(batch, cfg, TORCH_DTYPES[cfg.dtype], device)
+    else:
+        one = make_kv_cache(batch, max_len, cfg.n_kv_heads,
+                            cfg.resolved_head_dim,
+                            TORCH_DTYPES[cfg.kv_cache_dtype], device)
     return {k: v.expand(cfg.n_layers, *v.shape).clone()
             for k, v in one.items()}
 
@@ -107,14 +117,23 @@ def dense_body(lp: dict, x: torch.Tensor, cfg, positions: torch.Tensor,
     return x + gated_mlp(lp["mlp"], h, cfg.mlp_act), new_cache
 
 
+def ssm_body(lp: dict, x: torch.Tensor, cfg, positions: torch.Tensor,
+             cache: Optional[dict]) -> tuple:
+    """One Mamba2 layer: ``x + mamba2(ln(x))`` (positions play no part)."""
+    h = rms_norm(x, lp["ln"], cfg.norm_eps)
+    y, new_cache = mamba2_block(lp["mamba"], h, cfg=cfg, cache=cache)
+    return x + y, new_cache
+
+
 def run_layers(layers: dict, x: torch.Tensor, cfg, positions: torch.Tensor,
                cache: Optional[dict]) -> Tuple[torch.Tensor, Optional[dict]]:
     """The reference's layer scan as a loop over the stacked axis."""
-    n = layers["ln1"].shape[0]
+    body = ssm_body if cfg.family == "ssm" else dense_body
+    n = layers["ln" if cfg.family == "ssm" else "ln1"].shape[0]
     new_caches = []
     for li in range(n):
         ca = None if cache is None else index_tree(cache, li)
-        x, nc = dense_body(index_tree(layers, li), x, cfg, positions, ca)
+        x, nc = body(index_tree(layers, li), x, cfg, positions, ca)
         new_caches.append(nc)
     if cache is None:
         return x, None

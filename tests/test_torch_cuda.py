@@ -1,20 +1,27 @@
-"""The port on the card: each CUDA kernel against its plain version, and
-staged LM decode served on per-lane CUDA streams through the kernels.
+"""The port on the card: each CUDA kernel against its plain version, staged
+LM decode (dense and ssm) served on per-lane CUDA streams through the
+kernels, and the epoch engine with its rate-groups on the contention kernel.
 
 Every test here is marked ``cuda`` and skips without a CUDA device; on the
 card run ``python -m pytest -q -m cuda tests/test_torch_cuda.py``. The file
 imports neither jax nor repro, so it runs where only the port is installed.
-Tolerances are tests/test_kernels.py's: 2e-4 in f32, 3e-2 in bf16.
+Tolerances are tests/test_kernels.py's: 2e-4 in f32, 3e-2 in bf16 (5e-4 in
+f32 for the SSD scan, whose sums run over a whole chunk); the f64 contention
+kernel must return its plain version's bits, the f32 one agree within 2e-6
+relative (a few f32 ulps: the plain version rounds on the host).
 """
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
 from repro_torch import api  # noqa: E402
 from repro_torch.configs import get_reduced  # noqa: E402
+from repro_torch.kernels import contention_eta as ce  # noqa: E402
 from repro_torch.kernels import decode_attention as dec  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import rmsnorm as rms  # noqa: E402
+from repro_torch.kernels import ssd_scan  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.serving.engine import staged_lm_taskspec  # noqa: E402
 
@@ -39,6 +46,11 @@ def test_cuda_kernels_match_plain_versions(dtype):
     x, res, w = r(37, 96), r(37, 96), r(96)
     torch.testing.assert_close(rms.rmsnorm(x, w), rms.rmsnorm_plain(x, w),
                                rtol=tol, atol=tol)
+    for d in (2560, 5120):            # mamba2-2.7b's ln and gated norm
+        xd, wd = r(4, 1, d), r(d)
+        torch.testing.assert_close(rms.rmsnorm(xd, wd),
+                                   rms.rmsnorm_plain(xd, wd),
+                                   rtol=tol, atol=tol)
     for a, b in zip(rms.rmsnorm_residual(x, res, w),
                     rms.rmsnorm_residual_plain(x, res, w)):
         torch.testing.assert_close(a, b, rtol=tol, atol=tol)
@@ -59,6 +71,25 @@ def test_cuda_kernels_match_plain_versions(dtype):
 
 
 @pytest.mark.cuda
+def test_realtime_staged_ssm_decode_on_cuda_streams():
+    _need_cuda()
+    from repro_torch.kernels import KERNELS, reset_counts
+    model = build_model(get_reduced("mamba2-2.7b").replace(dtype="bfloat16"))
+    reset_counts()
+    spec = staged_lm_taskspec(model, priority=api.HP, jps=20.0, batch=2,
+                              n_stages=3, prompt_len=12)
+    srv = (api.ServerConfig.realtime().tasks([spec]).contexts(2).streams(2)
+           .oversubscribe(2.0).device(api.DeviceModel(n_units=2.0))
+           .horizon_ms(800.0).build())
+    m = srv.run()
+    assert m.completed[api.HP] > 0
+    assert srv.backend.worker_exceptions == 0
+    assert KERNELS["ssd"].counts.launches > 0
+    assert KERNELS["rmsnorm"].counts.launches > 0
+    assert all(fn.counts.plain_cuda_calls == 0 for fn in KERNELS.values())
+
+
+@pytest.mark.cuda
 def test_realtime_staged_lm_decode_on_cuda_streams():
     _need_cuda()
     from repro_torch.kernels import KERNELS, reset_counts
@@ -72,5 +103,89 @@ def test_realtime_staged_lm_decode_on_cuda_streams():
     m = srv.run()
     assert m.completed[api.HP] > 0
     assert srv.backend.worker_exceptions == 0
-    assert all(fn.counts.launches > 0 for fn in KERNELS.values())
+    dense = ("rmsnorm", "rmsnorm_residual", "decode_attention",
+             "flash_attention")
+    assert all(KERNELS[k].counts.launches > 0 for k in dense)
     assert all(fn.counts.plain_cuda_calls == 0 for fn in KERNELS.values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(2, 128, 4, 16, 1, 16, 32),
+                                   (1, 192, 6, 64, 2, 128, 96),
+                                   (2, 512, 8, 64, 1, 128, 256)])
+def test_cuda_ssd_matches_plain_version(dtype, shape):
+    """B, L, H, P, G, N, chunk: ragged tiles (chunk 96), G = 2, the full
+    model's P 64 / N 128 / chunk 256, and a non-zero initial state."""
+    _need_cuda()
+    tdt, tol = DTYPES[dtype]
+    tol = max(tol, 5e-4)
+    b_, ln, h, p, g, n, chunk = shape
+    rng = np.random.default_rng(7)
+
+    def r(*s):
+        return torch.from_numpy(rng.standard_normal(s, np.float32)).to(
+            tdt).cuda()
+    x, bm, cm = r(b_, ln, h, p), r(b_, ln, g, n), r(b_, ln, g, n)
+    dt = torch.from_numpy(rng.uniform(0.001, 0.1, (b_, ln, h)).astype(
+        np.float32)).cuda()
+    a_log = torch.from_numpy(rng.uniform(-0.5, 1.5, h).astype(
+        np.float32)).to(tdt).cuda()
+    s0 = torch.from_numpy(rng.standard_normal((b_, h, p, n), np.float32)
+                          ).cuda()
+    for init in (None, s0):
+        ya, sa = ssd_scan.ssd(x, dt, a_log, bm, cm, chunk, init)
+        yb, sb = ssd_scan.ssd_plain(x, dt, a_log, bm, cm, chunk, init)
+        torch.testing.assert_close(ya.float(), yb.float(), rtol=tol, atol=tol)
+        torch.testing.assert_close(sa, sb, rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 17, 129, 4096])
+def test_cuda_contention_eta_matches_plain_version(m):
+    _need_cuda()
+    rng = np.random.default_rng(m)
+    for dm in (api.DeviceModel(), api.DeviceModel(n_units=1e6,
+                                                  l2_pressure=0.0)):
+        u = rng.uniform(0.2, 4.0, m).tolist()
+        ns = rng.uniform(5.0, 40.0, m).tolist()
+        mf = rng.uniform(0.05, 0.9, m).tolist()
+        rem = rng.uniform(0.1, 8.0, m).tolist()
+        for comp in (True, False):
+            assert ce.rates(dm, u, ns, mf, compensated=comp) == \
+                ce.rates_plain(dm, u, ns, mf, compensated=comp)
+            got, want = (ce.fused(dm, 3.5, u, ns, mf, rem, compensated=comp),
+                         ce.fused_plain(dm, 3.5, u, ns, mf, rem,
+                                        compensated=comp))
+            assert all(np.array_equal(a, b) for a, b in zip(got, want))
+        got = ce.fused_f32(dm, 3.5, u, ns, mf, rem)
+        want = ce.fused_f32_plain(dm, 3.5, u, ns, mf, rem)
+        for a, b in zip(got, want):
+            np.testing.assert_allclose(a, b, rtol=2e-6, atol=0)
+
+
+@pytest.mark.cuda
+def test_epoch_engine_rate_groups_on_the_kernel(monkeypatch):
+    """Threshold 1: every rate-group through the CUDA f64 kernel, and the
+    run is the heap engine's, decision for decision."""
+    _need_cuda()
+    specs = [api.TaskSpec(name=f"t{i}", period_ms=20.0 + 5 * i,
+                          priority=api.HP if i == 0 else api.LP,
+                          stages=[api.StageProfile(f"t{i}/s{j}", 3.0 + j,
+                                                   n_sat=20.0, mem_frac=0.4)
+                                  for j in range(2)])
+             for i in range(4)]
+
+    def run(engine):
+        cfg = (api.ServerConfig.sim().tasks(specs).contexts(2).streams(2)
+               .oversubscribe(2.0).horizon_ms(400.0).seed(1)
+               .record_decisions().engine(engine))
+        srv = cfg.build()
+        m = srv.run()
+        return srv.decisions, m.summary()
+    heap = run("heap")
+    monkeypatch.setenv("DARIS_EPOCH_KERNEL_MIN", "1")
+    ce.fused.counts.reset()
+    assert run("epoch") == heap
+    assert ce.fused.counts.launches > 0
+    assert ce.fused.counts.plain_cuda_calls == 0

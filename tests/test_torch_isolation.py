@@ -109,6 +109,7 @@ def test_the_scheduler_stack_is_copied():
                 "core/stage_queue.py", "core/batching.py", "core/metrics.py",
                 "core/scheduler.py", "runtime/contention.py",
                 "runtime/arrivals.py", "runtime/engine_core.py",
+                "runtime/epoch.py", "configs/mamba2_27b.py",
                 "chaos/plan.py", "analysis/sanitizer.py", "configs/base.py",
                 "configs/smollm_135m.py"):
         assert rel in copied

@@ -21,6 +21,7 @@ from repro_torch.kernels import KERNELS, reset_counts  # noqa: E402
 from repro_torch.kernels import decode_attention as dec  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import rmsnorm as rms  # noqa: E402
+from repro_torch.runtime.contention import DeviceModel  # noqa: E402
 
 DTYPES = {"float32": (torch.float32, jnp.float32, 2e-4),
           "bfloat16": (torch.bfloat16, jnp.bfloat16, 3e-2)}
@@ -191,6 +192,9 @@ def test_non_cpu_tensors_never_fall_back_to_plain(name):
     """A tensor off the CPU goes to the kernel path, which raises for any
     device but CUDA: there is no quiet fallback to the plain version."""
     m = torch.device("meta")
+    lanes = ([1.0, 2.0], [4.0, 4.0], [0.5, 0.5], [1.0, 1.0])
+    kwargs = {"contention_eta_f64": {"device": m},
+              "contention_eta_f32": {"device": m}}.get(name, {})
     args = {
         "rmsnorm": (torch.empty(4, 8, device=m), torch.empty(8, device=m)),
         "rmsnorm_residual": (torch.empty(4, 8, device=m),
@@ -204,8 +208,14 @@ def test_non_cpu_tensors_never_fall_back_to_plain(name):
         "flash_attention": (torch.empty(2, 4, 16, 8, device=m),
                             torch.empty(2, 2, 16, 8, device=m),
                             torch.empty(2, 2, 16, 8, device=m)),
+        "contention_eta_f64": (DeviceModel(), 0.0, *lanes),
+        "contention_eta_f32": (DeviceModel(), 0.0, *lanes),
+        "ssd": (torch.empty(1, 8, 2, 4, device=m),
+                torch.empty(1, 8, 2, device=m), torch.empty(2, device=m),
+                torch.empty(1, 8, 1, 4, device=m),
+                torch.empty(1, 8, 1, 4, device=m), 8),
     }[name]
     reset_counts()
     with pytest.raises(ValueError, match="CUDA"):
-        KERNELS[name](*args)
+        KERNELS[name](*args, **kwargs)
     assert KERNELS[name].counts.plain_calls == 0

@@ -172,8 +172,9 @@ def test_worker_pool_counts_payload_exceptions():
 
 def test_unported_features_name_their_roadmap_item():
     spec = make_spec(api, "t", api.HP, [1.0], 10.0)
-    with pytest.raises(NotImplementedError, match="Q2"):
-        api.ServerConfig.sim().engine("epoch")
+    hybrid = get_reduced("smollm-135m").replace(family="hybrid")
+    with pytest.raises(NotImplementedError, match="Q8"):
+        build_model(hybrid, device="cpu")
     with pytest.raises(NotImplementedError, match="Q6"):
         api.ServerConfig.cluster(2)
     with pytest.raises(NotImplementedError, match="Q7"):
@@ -193,6 +194,8 @@ def test_entry_points_without_device_raise_when_no_gpu():
         api.ServerConfig.realtime()
     with pytest.raises(RuntimeError, match="device='cpu'"):
         RealtimeBackend()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        api.ServerConfig.sim().engine("epoch")
     model = build_model(cfg, device="cpu")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         staged_lm_taskspec(model, priority=api.HP, jps=10.0)
