@@ -9,7 +9,14 @@
    Dh=64, D=576, a 513-slot cache after a 512-token prompt; prefill over
    512 tokens), in bf16 and f32, against its plain PyTorch version on the
    same inputs (tolerance 2e-4 in f32, 3e-2 in bf16, as
-   tests/test_kernels.py). Times: the kernel, its plain version and, where
+   tests/test_kernels.py); flash attention also at Dh 128 (H 8, KV 2,
+   S 512), so that both of its tensor-core tile widths are held to the
+   plain version. Each row names what its wrapper counted for the checked
+   call (counts reset just before it): the instances launched and, where
+   the wrapper records one, each one's grid; the flash rows name the
+   instance that ran (``tensor_core`` or ``cuda_core``), the decode row
+   the split kernel's split count and blocks, which must fill the card.
+   Times: the kernel, its plain version and, where
    one PyTorch call computes the same function, that call (a yardstick the
    port never uses), each the median of CUDA-event-timed batches of
    launches; the bound is the larger of bytes over 3.35 TB/s and
@@ -26,7 +33,8 @@
    tasks (HP and LP; 4 stages, batch 4, prompt 512; random weights from
    seed 0) built with ``staged_lm_taskspec`` and served in real time by
    ``ServerConfig.realtime()`` (2 contexts x 2 streams, oversubscription
-   2.0, n_units = the card's SM count), then its output checks: a served
+   2.0, n_units = the card's SM count); every bf16 flash-attention launch
+   on it must take the tensor-core instance. Then its output checks: a served
    task's payload chain gives finite logits of the expected shape that
    match the unstaged ``decode_step``, and a cut-depth f32 model run on
    the card through the kernels matches the same model run on the CPU
@@ -43,13 +51,17 @@
 
 Kernel launch counts are reset just before each path and read just after;
 every kernel must be launched on a path (the f32 contention kernel, which
-no engine calls, on the kernel phase's own fleet-sweep call).
+no engine calls, on the kernel phase's own fleet-sweep call). A decode
+attention call counts two launches, its split kernel and its merge.
 
 It fails (non-zero exit, no result line) without a CUDA device, outside a
 checkout of the repo, or when a kernel is out of tolerance or unlaunched,
-a plain version ran on a CUDA tensor during a path, a worker caught an
-exception, no HP job completed, the three epoch runs differ, or an output
-check failed. The last line is ``{"ok": true, "device": {...}}``.
+a flash check took another instance than its dtype's, the decode check's
+split grid held fewer blocks than the card has SMs, a plain version ran on
+a CUDA tensor during a path, a flash-attention launch on the dense path
+took the CUDA-core instance, a worker caught an exception, no HP job
+completed, the three epoch runs differ, or an output check failed. The
+last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -176,10 +188,13 @@ def kernel_cases(torch, F, dtype):
     mask = ((kv_pos[None] >= 0) & (kv_pos[None] <= q_pos[:, None]))[:, None,
                                                                      None]
     qp, kp, vp = (rand(B, PROMPT, n, DH).transpose(1, 2) for n in (H, KV, KV))
+    # flash attention's other tensor-core tile width: Dh 128
+    q8, k8, v8 = (rand(B, PROMPT, n, 128).transpose(1, 2) for n in (8, 2, 2))
     s = PROMPT + 1
     rms_ops = 4 * B * D
     dec_ops = 4 * B * H * s * DH
     fa_ops = 4 * B * H * DH * PROMPT * (PROMPT + 1) // 2
+    fa8_ops = 4 * B * 8 * 128 * PROMPT * (PROMPT + 1) // 2
 
     def sdpa(q, kk, vv, **kw):
         return F.scaled_dot_product_attention(q, kk, vv, enable_gqa=True,
@@ -224,6 +239,10 @@ def kernel_cases(torch, F, dtype):
          lambda: fa.flash_attention_plain(qp, kp, vp),
          lambda: sdpa(qp, kp, vp, is_causal=True),
          nbytes(qp, kp, vp, qp), fa_ops, PEAK_FLOPS[dname], {}),
+        ("flash_attention_d128", lambda: fa.flash_attention(q8, k8, v8),
+         lambda: fa.flash_attention_plain(q8, k8, v8),
+         lambda: sdpa(q8, k8, v8, is_causal=True),
+         nbytes(q8, k8, v8, q8), fa8_ops, PEAK_FLOPS[dname], {}),
         ("ssd", lambda: ssd_scan.ssd(sx, sdt, sal, sb, sc, SSM_Q, s0),
          lambda: ssd_scan.ssd_plain(sx, sdt, sal, sb, sc, SSM_Q, s0), None,
          ssd_bytes, ssd_ops, PEAK_FLOPS[dname],
@@ -253,9 +272,26 @@ SSM_PATH = ("rmsnorm", "ssd")
 EPOCH_PATH = ("contention_eta_f64",)
 
 
+def launch_record(KERNELS):
+    """What the wrappers counted since the last reset: for each instance
+    launched, its launches and, where the wrapper records it, the grid of
+    its last launch and that grid's blocks."""
+    rec = {}
+    for fn in KERNELS.values():
+        for inst, n in fn.counts.by_instance.items():
+            rec[inst] = {"launches": n}
+            grid = fn.counts.grids.get(inst)
+            if grid is not None:
+                rec[inst].update(grid=list(grid), blocks=math.prod(grid))
+    return rec
+
+
 def kernel_phase(torch, F, failures):
     """Every kernel against its plain version in bf16 and f32; returns the
     bf16 (main path) rows keyed by kernel name."""
+    from repro_torch.kernels import KERNELS, reset_counts
+
+    sm = torch.cuda.get_device_properties(0).multi_processor_count
     rows = {}
     for dtype in (torch.bfloat16, torch.float32):
         for name, kern, plain, lib, nb, ops, peak, opt in kernel_cases(
@@ -266,7 +302,11 @@ def kernel_phase(torch, F, failures):
             # enqueue hides behind the device, and no graph is captured
             dev_ms = (graph_ms if opt.get("graph", True) else
                       lambda t, f, r, i: cuda_ms(t, f, r, i // 2))
-            a, b = kern(), plain()
+            reset_counts()
+            a = kern()
+            torch.cuda.synchronize()
+            launched = launch_record(KERNELS)
+            b = plain()
             torch.cuda.synchronize()
             pairs = list(zip(a, b)) if isinstance(a, tuple) else [(a, b)]
             err = max(float((x.float() - y.float()).abs().max())
@@ -287,6 +327,24 @@ def kernel_phase(torch, F, failures):
                 except (TypeError, RuntimeError) as e:   # yardstick only
                     row["library_error"] = repr(e)
             row["bound_ms"], row["bound_by"] = bound(nb, ops, peak)
+            if launched:
+                row["launched"] = launched
+            if name.startswith("flash_attention"):
+                row["instance"] = "+".join(launched)
+                want = ("tensor_core" if dtype == torch.bfloat16
+                        else "cuda_core")
+                if row["instance"] != want:
+                    failures.append(f"{name} {row['dtype']}: launched "
+                                    f"{launched}, not {want}")
+            if name == "decode_attention":
+                split = launched.get("split", {})
+                row["n_split"] = split.get("grid", [0])[0]
+                row["blocks"] = split.get("blocks", 0)
+                if row["blocks"] < sm or "combine" not in launched:
+                    failures.append(f"decode_attention {row['dtype']}: "
+                                    f"launched {launched}, want a split "
+                                    f"grid of {sm} blocks or more and the "
+                                    f"merge")
             emit({"kernel_check": row})
             if not ok or not math.isfinite(err):
                 failures.append(f"{name} {row['dtype']}: max_err {err} > {tol}")
@@ -343,6 +401,8 @@ def serving_phase(torch, failures, arch, n_layers, jps, kernels):
     m = srv.run()
     torch.cuda.synchronize()
     launches = path_counts(KERNELS, kernels, cfg.name, failures)
+    instances = {n: dict(KERNELS[n].counts.by_instance) for n in kernels
+                 if KERNELS[n].counts.by_instance}
     be = srv.backend
     emit({"serving": {
         "model": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
@@ -361,13 +421,13 @@ def serving_phase(torch, failures, arch, n_layers, jps, kernels):
         "last_worker_exception": repr(be.last_worker_exception),
         "stage_times": be.stage_time_summary(),
         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
-        "launches": launches}})
+        "launches": launches, "launches_by_instance": instances}})
     if be.worker_exceptions:
         failures.append(f"{be.worker_exceptions} worker exception(s), last "
                         f"{be.last_worker_exception!r}")
     if m.completed[HP] == 0:
         failures.append(f"{cfg.name}: no HP job completed")
-    return model, params, specs[0], launches
+    return model, params, specs[0], launches, instances
 
 
 def contention_phase(torch, failures):
@@ -701,7 +761,8 @@ def main() -> int:
     _lib.lib()
     build_s = time.perf_counter() - t0
     ptxas = [ln.strip() for ln in _lib.build_log.splitlines()
-             if "Used" in ln or "Compiling entry" in ln]
+             if "Used" in ln or "Compiling entry" in ln
+             or "Performance" in ln]
     emit({"build": {"seconds": build_s, "ptxas": ptxas}})
 
     failures, seconds = [], {}
@@ -712,8 +773,12 @@ def main() -> int:
     seconds["kernels"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    model, params, spec, dense = serving_phase(
+    model, params, spec, dense, dense_inst = serving_phase(
         torch, failures, "smollm-135m", None, JPS, DENSE_PATH)
+    fa_inst = dense_inst.get("flash_attention", {})
+    if fa_inst.get("tensor_core", 0) != dense["flash_attention"]:
+        failures.append(f"smollm-135m: bf16 flash-attention launches by "
+                        f"instance {fa_inst}, not all tensor_core")
     output_checks(torch, model, params, spec, failures)
     del model, params, spec
     torch.cuda.empty_cache()
@@ -724,7 +789,7 @@ def main() -> int:
     seconds["epoch_path"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    model, params, spec, ssm = serving_phase(
+    model, params, spec, ssm, _ = serving_phase(
         torch, failures, "mamba2-2.7b", None, SSM_JPS, SSM_PATH)
     output_checks(torch, model, params, spec, failures)
     del model, params, spec
@@ -736,6 +801,8 @@ def main() -> int:
     launches = {k: dense.get(k, 0) + epoch.get(k, 0) + ssm.get(k, 0)
                 for k in SOURCES}
     launches["contention_eta_f32"] = f32_launches
+    # the attention rows also give their launches on the dense path by
+    # instance: decode counts its split kernel and its merge, one each a call
     kernels = []
     for kname, (src, replaces) in SOURCES.items():
         row = rows[kname]
@@ -744,7 +811,11 @@ def main() -> int:
             "replaces": replaces, "launches": launches[kname],
             "max_abs_err": row["max_err"], "ms": row["kernel_ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-            "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            **{k: row[k] for k in ("instance", "n_split", "blocks")
+               if k in row},
+            **({"launches_by_instance": dense_inst[kname]}
+               if kname in dense_inst else {})})
     for f in failures:
         print(f"chip_smoke: FAIL {f}", file=sys.stderr)
     if failures:

@@ -5,7 +5,10 @@ its CUDA kernel for CUDA tensors (or raises); there is no fallback. The
 contention wrappers take host lists and pick by their ``device`` argument
 instead. Each
 wrapper carries ``.counts`` (launches, plain calls, plain calls on CUDA
-tensors) so that a run can show which path it went through.
+tensors, and launches by instance where the wrapper picks one, as flash
+attention does, or launches two, as decode attention does, with each
+one's last grid where the wrapper records it) so that a run can show
+which path it went through.
 """
 from . import contention_eta as _ce
 from . import decode_attention as _dec

@@ -19,7 +19,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -38,14 +38,17 @@ _F, _D = ctypes.c_float, ctypes.c_double
 _SIGNATURES = {
     # x, r, w, out, res, M, D, eps, plus_one, x_dtype, w_dtype, stream
     "repro_rmsnorm": (_P, _P, _P, _P, _P, _LL, _I, _F, _I, _I, _I, _P),
-    # q, k, v, kv_pos, q_pos, out, B, H, KV, S, Dh, strides, scale, window,
-    # softcap, dtype, stream
-    "repro_decode_attention": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P,
-                               _F, _I, _F, _I, _P),
+    # q, k, v, kv_pos, q_pos, out, ws, B, H, KV, S, Dh, strides, scale,
+    # window, softcap, chunk, n_split, dtype, stream
+    "repro_decode_attention": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                               _P, _F, _I, _F, _I, _I, _I, _P),
     # q, k, v, out, B, H, KV, S, Dh, strides, scale, causal, window, softcap,
     # dtype, stream
     "repro_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _F, _I,
                               _I, _F, _I, _P),
+    # the same without dtype (bf16 only)
+    "repro_flash_attention_wgmma": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P,
+                                    _F, _I, _I, _F, _P),
     # in [4, m], out [3, m], m, now, n_units, bubble, l2p, compensated,
     # dtype, stream
     "repro_contention_eta": (_P, _P, _LL, _D, _D, _D, _D, _I, _I, _P),
@@ -61,7 +64,11 @@ build_log = ""        # nvcc's output (-Xptxas -v: registers, shared memory)
 
 
 class Counts:
-    """Launches of one kernel and calls of its plain PyTorch version.
+    """Launches of one wrapper's kernels and calls of its plain PyTorch
+    version; where a wrapper chooses between instances of its kernel, or
+    launches more than one, the launches of each in ``by_instance`` and,
+    where the wrapper gives it, the grid of each one's last launch in
+    ``grids``.
 
     Lanes run on worker threads, so every increment takes the lock."""
 
@@ -70,10 +77,18 @@ class Counts:
         self.launches = 0
         self.plain_calls = 0
         self.plain_cuda_calls = 0     # plain version handed a CUDA tensor
+        self.by_instance: Dict[str, int] = {}
+        self.grids: Dict[str, Tuple[int, ...]] = {}
 
-    def launched(self) -> None:
+    def launched(self, instance: Optional[str] = None,
+                 grid: Optional[Tuple[int, ...]] = None) -> None:
         with self._lock:
             self.launches += 1
+            if instance is not None:
+                self.by_instance[instance] = \
+                    self.by_instance.get(instance, 0) + 1
+                if grid is not None:
+                    self.grids[instance] = grid
 
     def plain(self, t: torch.Tensor) -> None:
         with self._lock:
@@ -84,6 +99,8 @@ class Counts:
     def reset(self) -> None:
         with self._lock:
             self.launches = self.plain_calls = self.plain_cuda_calls = 0
+            self.by_instance = {}
+            self.grids = {}
 
 
 def _nvcc() -> str:

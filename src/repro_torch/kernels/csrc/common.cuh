@@ -9,6 +9,7 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 enum { DT_F32 = 0, DT_BF16 = 1, DT_F64 = 2 };
 
@@ -124,6 +125,25 @@ static bool vec_ok(int Dh, const void* k, const void* v, const long long* stride
   for (int i = 0; i < n; ++i)
     if (strides[i] % N) return false;
   return true;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// 16-byte asynchronous copy into shared memory (at shared address dst);
+// zero-filled, reading nothing, when !valid.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid = true) {
+  const int n = valid ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(n) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Wait until at most N of this thread's committed groups are in flight.
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
 // Opt a kernel into more than 48 KB of dynamic shared memory when it needs it.

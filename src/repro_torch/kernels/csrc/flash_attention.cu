@@ -3,14 +3,47 @@
 //
 // Replaces the Pallas kernel flash_attention
 // (src/repro/kernels/flash_attention.py, body _flash_kernel). One block per
-// (query tile of BQ rows, head, batch row) walks the KV tiles it can see, so
-// the [S, S] score matrix never reaches device memory. Under the causal mask
-// the walk stops at the tile holding the block's last query row, and a
-// window starts it at the first tile the window reaches: those tiles are
-// fully masked for every row, and each row sees at least its own key, so
-// skipping them changes no result (the TPU kernel computes them anyway).
-// Ragged S is masked in the kernel: no divisibility requirement.
+// (query tile, head, batch row) walks the KV tiles it can see, so the [S, S]
+// score matrix never reaches device memory. Under the causal mask the walk
+// stops at the tile holding the block's last query row, and a window starts
+// it at the first tile the window reaches: those tiles are fully masked for
+// every row, and each row sees at least its own key, so skipping them
+// changes no result (the TPU kernel computes them anyway). Ragged S is
+// masked in the kernel: no divisibility requirement.
+//
+// What bounds it on the H100: a causal prefill of S tokens does about
+// 2 S^2 Dh operations per head against 4 S Dh values moved; at S = 512,
+// Dh = 64 in bf16 that is about 64 operations a byte, below the ~295 at
+// which the tensor cores, not the bytes, would be the limit. Neither bound
+// is near: the time goes to each KV tile's softmax on the CUDA cores between
+// two small products, the barriers around them and the tile loads (PERF.md
+// has the measurements). Two instances, chosen by the Python wrapper from
+// dtype, shapes, strides and alignment (flash_instance):
+//
+// - tensor_core (bf16 IO, Dh 64 or 128, every stride but the head
+//   dimension's a multiple of 8 elements, every base 16-byte aligned):
+//   one warpgroup of 128 threads owns a 64-row query tile. S = Q K^T
+//   runs as wgmma.mma_async m64n64k16 with Q and K read from shared memory
+//   (K-major), f32 accumulators in registers. The mask and the online
+//   softmax stay in registers (row max and sum by quad shuffles over the
+//   accumulator fragment), in base 2, and tiles that every row sees whole
+//   skip the per-element mask. P V runs as a second wgmma whose A operand
+//   is the first product's accumulator fragment converted pairwise to
+//   bf16x2 in registers; V is the B operand in its own Dh-contiguous
+//   (MN-major) layout, read through the instruction's transpose bit. K/V
+//   tiles arrive by 16-byte cp.async in a two-stage ring, kept in bf16
+//   under the 128-byte swizzle that the wgmma descriptors name, so the copy
+//   of a tile overlaps the products of the one before.
+//   Precision: P is rounded to bf16 before the second product, as SDPA
+//   does; the Pallas kernel multiplies P by V in f32. The row sums l keep
+//   the f32 P. Q K^T in bf16 with f32 accumulation is exact per product.
+// - cuda_core (f32 IO, any other Dh, or unaligned strides or bases): the
+//   products on the f32 CUDA cores from K/V tiles staged in shared memory
+//   as f32. TF32 tensor cores keep about 10 bits of mantissa and would miss
+//   the f32 tolerance of 2e-4.
 #include "common.cuh"
+
+namespace cuda_core {
 
 constexpr int BQ = 64;        // query rows per block
 constexpr int BK = 64;        // key rows per tile
@@ -133,9 +166,307 @@ static int launch(const void* q, const void* k, const void* v, void* out, int B,
                              softcap, stream);
 }
 
-// strides (in elements): q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss;
-// the head dimension is contiguous in q, k and v; out is contiguous
-// [B, H, S, Dh].
+}  // namespace cuda_core
+
+namespace tensor_core {
+
+constexpr int BQ = 64;        // query rows per block: one warpgroup's m64 tile
+constexpr int BK = 64;        // key rows per tile
+constexpr int THREADS = 128;  // one warpgroup
+constexpr int COL_BLOCK = 64 * 128;  // one [64 rows, 64 cols] bf16 column block
+
+typedef __nv_bfloat16 bf16;
+
+// cp.async writes through the generic proxy, wgmma reads through the async one
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Byte offset of 16-byte chunk ch of row r in a [64, Dh] bf16 tile: column
+// blocks of 64 elements (128-byte rows, 8 KB each), and in each the 128-byte
+// swizzle (chunk index XOR row mod 8) that TMA's SWIZZLE_128B and the wgmma
+// descriptors' layout type 1 both name. Tile bases are 1024-byte aligned.
+__device__ __forceinline__ uint32_t swizzled(int r, int ch) {
+  return (ch >> 3) * COL_BLOCK + r * 128 + (((ch & 7) ^ (r & 7)) << 4);
+}
+
+// Rows row0 .. row0 + 63 of a [S, DH] array (row stride ss elements) into a
+// swizzled tile at dst; rows at or past S read as zero.
+template <int DH>
+__device__ __forceinline__ void load_tile(uint32_t dst, const bf16* g, long long ss,
+                                          int row0, int S) {
+  constexpr int CH = DH / 8;            // 16-byte chunks a row
+#pragma unroll
+  for (int it = 0; it < BK * CH / THREADS; ++it) {
+    const int i = threadIdx.x + it * THREADS;
+    const int r = i / CH, ch = i % CH, row = row0 + r;
+    const bool ok = row < S;
+    cp_async16(dst + swizzled(r, ch), g + (long long)(ok ? row : 0) * ss + ch * 8, ok);
+  }
+}
+
+// wgmma shared-memory matrix descriptor, 128-byte swizzle (layout type 1).
+// K-major operands: SBO = 1024 (the next 8 rows), LBO unused. MN-major
+// operands: LBO = the next 64-element column block, SBO = the next 8 rows.
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Keep the compiler from touching wgmma registers before the wait.
+template <int N> __device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+template <int N> __device__ __forceinline__ void fence_regs(uint32_t (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i]) :: "memory");
+}
+
+#define WG_D8(d, o)                                                                  \
+  "+f"(d[(o)]), "+f"(d[(o) + 1]), "+f"(d[(o) + 2]), "+f"(d[(o) + 3]), "+f"(d[(o) + 4]), \
+      "+f"(d[(o) + 5]), "+f"(d[(o) + 6]), "+f"(d[(o) + 7])
+#define WG_D32(d, o) WG_D8(d, (o)), WG_D8(d, (o) + 8), WG_D8(d, (o) + 16), WG_D8(d, (o) + 24)
+
+// d[64 x 64] += A[64 x 16] (shared, K-major) * B[16 x 64] (shared, K-major)
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : WG_D32(d, 0)
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// d[64 x 64] += A[64 x 16] (registers) * B[16 x 64] (shared, MN-major)
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : WG_D32(d, 0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d[64 x 128] += A[64 x 16] (registers) * B[16 x 128] (shared, MN-major)
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, "
+      "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : WG_D32(d, 0), WG_D32(d, 32)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+constexpr float LOG2E = 1.4426950408889634f;
+
+// The softmax runs in base 2 (exp2 is one instruction): logits times
+// log2(e). Masked logits stay exactly MASKED, the running max's start, so a
+// row that sees no key still weighs every key alike.
+__device__ __forceinline__ float logit2(float dot, int qi, int kj, int S, float scale,
+                                        int causal, int window, float softcap) {
+  if (kj >= S) return -INFINITY;
+  bool ok = !causal || kj <= qi;
+  if (window > 0) ok = ok && (qi - kj < window);
+  return ok ? attn_logit(dot, scale, softcap, true) * LOG2E : MASKED;
+}
+
+// Accumulator fragment of m64nNk16 (f32): thread t of the warpgroup holds
+// rows R = 16 (t / 32) + (t % 32) / 4 and R + 8; for each 8-column group i,
+// d[4i], d[4i + 1] are row R, columns 8i + 2 (t % 4) + {0, 1}, and d[4i + 2],
+// d[4i + 3] the same columns of row R + 8. The A fragment of the next
+// m64nNk16 over keys 16j .. 16j + 15 is then (pairs of) d[8j .. 8j + 7].
+template <int DH>
+__global__ void __launch_bounds__(THREADS)
+    flash_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                       const bf16* __restrict__ v, bf16* __restrict__ out, int H, int KV,
+                       int S, long long q_sb, long long q_sh, long long q_ss, long long k_sb,
+                       long long k_sh, long long k_ss, long long v_sb, long long v_sh,
+                       long long v_ss, float scale, int causal, int window, float softcap) {
+  constexpr int TILE = BK * DH * 2;   // bytes of one [64, DH] bf16 tile
+  constexpr int NO = DH / 2;          // O accumulator floats per thread
+  extern __shared__ unsigned char tc_smem[];
+  const uint32_t base = (smem_u32(tc_smem) + 1023u) & ~1023u;
+  const uint32_t qs = base;           // Q tile, then per stage K and V tiles
+  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
+  const int kvh = h / (H / KV);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const bf16* qb = q + b * q_sb + h * q_sh;
+  const bf16* kb = k + b * k_sb + kvh * k_sh;
+  const bf16* vb = v + b * v_sb + kvh * v_sh;
+
+  const int q_last = min(q0 + BQ, S) - 1;
+  const int k_end = causal ? q_last + 1 : S;
+  const int k_begin = window > 0 ? max(0, q0 - window + 1) / BK * BK : 0;
+  const int n_tiles = (k_end - k_begin + BK - 1) / BK;
+
+  load_tile<DH>(qs, qb, q_ss, q0, S);
+  load_tile<DH>(base + TILE, kb, k_ss, k_begin, S);
+  load_tile<DH>(base + 2 * TILE, vb, v_ss, k_begin, S);
+  cp_async_commit();
+
+  float o[NO];
+#pragma unroll
+  for (int i = 0; i < NO; ++i) o[i] = 0.f;
+  float m0 = MASKED, m1 = MASKED, l0 = 0.f, l1 = 0.f;
+  const int r0 = q0 + warp * 16 + (lane >> 2), r1 = r0 + 8;
+  const int cq = 2 * (lane & 3);
+  const float scale2 = scale * LOG2E;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int k0 = k_begin + t * BK;
+    const uint32_t ks = base + TILE * (1 + 2 * (t & 1)), vs = ks + TILE;
+    if (t + 1 < n_tiles) {   // the next tile into the other stage
+      const uint32_t kn = base + TILE * (1 + 2 * ((t + 1) & 1));
+      load_tile<DH>(kn, kb, k_ss, k0 + BK, S);
+      load_tile<DH>(kn + TILE, vb, v_ss, k0 + BK, S);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();      // all but the newest group (tile t + 1) landed
+    fence_proxy_async();
+    __syncthreads();
+
+    float s[32];
+#pragma unroll
+    for (int j = 0; j < 32; ++j) s[j] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk) {
+      const uint32_t off = (kk >> 2) * COL_BLOCK + (kk & 3) * 32;
+      wgmma_ss_n64(s, desc(qs + off, 16, 1024), desc(ks + off, 16, 1024));
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(s);
+
+    // a tile that every row of the block sees whole needs no per-element mask
+    const bool whole = k0 + BK <= S && (!causal || k0 + BK - 1 <= q0) &&
+                       (window <= 0 || q0 + BQ - 1 - k0 < window) && softcap <= 0.f;
+    if (whole) {
+#pragma unroll
+      for (int j = 0; j < 32; ++j) s[j] *= scale2;
+    } else {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int kj = k0 + 8 * j + cq + e;
+          s[4 * j + e] = logit2(s[4 * j + e], r0, kj, S, scale, causal, window, softcap);
+          s[4 * j + 2 + e] =
+              logit2(s[4 * j + 2 + e], r1, kj, S, scale, causal, window, softcap);
+        }
+      }
+    }
+    float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      mx0 = fmaxf(mx0, fmaxf(s[4 * j], s[4 * j + 1]));
+      mx1 = fmaxf(mx1, fmaxf(s[4 * j + 2], s[4 * j + 3]));
+    }
+#pragma unroll
+    for (int o_ = 1; o_ <= 2; o_ <<= 1) {   // the 4 threads of a quad share a row
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, o_));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, o_));
+    }
+    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+    float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        s[4 * j + e] = exp2f(s[4 * j + e] - mn0);
+        s[4 * j + 2 + e] = exp2f(s[4 * j + 2 + e] - mn1);
+        sum0 += s[4 * j + e];
+        sum1 += s[4 * j + 2 + e];
+      }
+    }
+#pragma unroll
+    for (int o_ = 1; o_ <= 2; o_ <<= 1) {
+      sum0 += __shfl_xor_sync(0xffffffffu, sum0, o_);
+      sum1 += __shfl_xor_sync(0xffffffffu, sum1, o_);
+    }
+    const float c0 = exp2f(m0 - mn0), c1 = exp2f(m1 - mn1);
+    l0 = l0 * c0 + sum0;
+    l1 = l1 * c1 + sum1;
+    m0 = mn0;
+    m1 = mn1;
+#pragma unroll
+    for (int j = 0; j < NO / 4; ++j) {
+      o[4 * j] *= c0;
+      o[4 * j + 1] *= c0;
+      o[4 * j + 2] *= c1;
+      o[4 * j + 3] *= c1;
+    }
+
+    uint32_t pa[16];   // P in bf16, the A fragments of the four k-steps
+#pragma unroll
+    for (int j = 0; j < 16; ++j) pa[j] = pack_bf16x2(s[2 * j], s[2 * j + 1]);
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < BK / 16; ++j)   // keys 16j .. 16j + 15: 16 rows of V
+      wgmma_rs(o, pa + 4 * j, desc(vs + j * 16 * 128, COL_BLOCK, 1024));
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(o);
+    fence_regs(pa);
+    __syncthreads();   // this stage is free for the copy of tile t + 2
+  }
+
+  bf16* ob = out + ((long long)b * H + h) * S * DH;
+  const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
+#pragma unroll
+  for (int j = 0; j < NO / 4; ++j) {
+    const int c = 8 * j + cq;
+    if (r0 < S)
+      *reinterpret_cast<__nv_bfloat162*>(ob + (long long)r0 * DH + c) =
+          __floats2bfloat162_rn(o[4 * j] / d0, o[4 * j + 1] / d0);
+    if (r1 < S)
+      *reinterpret_cast<__nv_bfloat162*>(ob + (long long)r1 * DH + c) =
+          __floats2bfloat162_rn(o[4 * j + 2] / d1, o[4 * j + 3] / d1);
+  }
+}
+
+template <int DH>
+static int launch(const void* q, const void* k, const void* v, void* out, int B, int H,
+                  int KV, int S, const long long* st, float scale, int causal, int window,
+                  float softcap, cudaStream_t stream) {
+  const size_t smem = 1024 + (size_t)BK * DH * 2 * 5;   // alignment, Q, 2 x (K, V)
+  cudaError_t err = allow_smem(flash_wgmma_kernel<DH>, smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((S + BQ - 1) / BQ, H, B);
+  flash_wgmma_kernel<DH><<<grid, THREADS, smem, stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)out, H, KV, S, st[0], st[1],
+      st[2], st[3], st[4], st[5], st[6], st[7], st[8], scale, causal, window, softcap);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace tensor_core
+
+// The CUDA-core instance. strides (in elements): q_sb, q_sh, q_ss, k_sb,
+// k_sh, k_ss, v_sb, v_sh, v_ss; the head dimension is contiguous in q, k
+// and v; out is contiguous [B, H, S, Dh].
 extern "C" int repro_flash_attention(const void* q, const void* k, const void* v,
                                      void* out, int B, int H, int KV, int S, int Dh,
                                      const long long* strides, float scale, int causal,
@@ -143,10 +474,31 @@ extern "C" int repro_flash_attention(const void* q, const void* k, const void* v
   cudaStream_t s = (cudaStream_t)stream;
   if (KV <= 0 || H % KV != 0) return (int)cudaErrorInvalidValue;
   if (dtype == DT_F32)
-    return launch<float>(q, k, v, out, B, H, KV, S, Dh, strides, scale, causal, window,
-                         softcap, s);
+    return cuda_core::launch<float>(q, k, v, out, B, H, KV, S, Dh, strides, scale, causal,
+                                    window, softcap, s);
   if (dtype == DT_BF16)
-    return launch<__nv_bfloat16>(q, k, v, out, B, H, KV, S, Dh, strides, scale, causal,
-                                 window, softcap, s);
+    return cuda_core::launch<__nv_bfloat16>(q, k, v, out, B, H, KV, S, Dh, strides, scale,
+                                            causal, window, softcap, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The tensor-core instance: bf16 only, Dh 64 or 128, every stride a
+// multiple of 8 elements and every base 16-byte aligned (the wrapper's
+// flash_instance checks the same before it calls this entry).
+extern "C" int repro_flash_attention_wgmma(const void* q, const void* k, const void* v,
+                                           void* out, int B, int H, int KV, int S, int Dh,
+                                           const long long* strides, float scale,
+                                           int causal, int window, float softcap,
+                                           void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (KV <= 0 || H % KV != 0) return (int)cudaErrorInvalidValue;
+  if ((size_t)q % 16 || !vec_ok<__nv_bfloat16>(Dh, k, v, strides, 9))
+    return (int)cudaErrorInvalidValue;
+  if (Dh == 64)
+    return tensor_core::launch<64>(q, k, v, out, B, H, KV, S, strides, scale, causal,
+                                   window, softcap, s);
+  if (Dh == 128)
+    return tensor_core::launch<128>(q, k, v, out, B, H, KV, S, strides, scale, causal,
+                                    window, softcap, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -2,22 +2,29 @@
 plain version.
 
 Replaces the Pallas kernel ``decode_attention``
-(src/repro/kernels/decode_attention.py). Kernel source:
-``csrc/decode_attention.cu``.
+(src/repro/kernels/decode_attention.py, body ``_decode_kernel``). Kernel
+source: ``csrc/decode_attention.cu``.
 
 What bounds it on the H100: bytes. Every visible slot's K and V is read once
-and used for about 4 operations per byte (g query heads share it), far
-below the roughly 295 operations per byte at which the tensor cores would
-become the limit. The design reads each K/V byte once per (batch row, KV
-head) block for all g query heads of the group, reads the model's
-[B, T, KV, Dh] cache through strides instead of transposing it every step,
-and keeps the softmax state in f32 on chip. It runs B x KV blocks, which
-leaves most of the 132 SMs idle at decode batch sizes: splitting the cache
-across blocks is the next step (ROADMAP.md).
+and used for about 4 operations a byte (g query heads share it), far below
+the roughly 295 operations a byte at which the tensor cores would become
+the limit. At decode batch sizes the cache is small, so latency sets the
+time unless enough blocks read it at once. The design splits each
+sequence's cache into ``n_split`` chunks (``decode_split``: enough
+B x KV x n_split blocks to fill the card, and no split that starts at or
+past S); each block reads its chunk's K/V once, as 16-byte asynchronous
+copies, for all g query heads of its KV head, and writes f32 partials
+(m, l, acc); a second kernel merges them. The cache is read through
+strides (the model's [B, T, KV, Dh] layout, no transpose), the softmax
+state stays f32, and masked logits are -1e30 as in Pallas, so a query that
+sees no slot gets the mean of V. The two kernels serve f32 and bf16 alike;
+each call counts one launch of each (``counts.by_instance`` ``split`` and
+``combine``, their grids in ``counts.grids``).
 """
 from __future__ import annotations
 
-from typing import Optional
+import functools
+from typing import Optional, Tuple
 
 import torch
 
@@ -54,6 +61,29 @@ def decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(b, h, dh).to(q.dtype)
 
 
+MIN_CHUNK, MAX_CHUNK, CHUNK_STEP = 16, 64, 16
+BLOCKS_PER_SM = 2
+
+
+@functools.lru_cache(maxsize=None)
+def decode_split(s: int, b: int, kvh: int, n_sm: int) -> Tuple[int, int]:
+    """(chunk, n_split): slots per split, a multiple of ``CHUNK_STEP``
+    between ``MIN_CHUNK`` and ``MAX_CHUNK``, sized so that b x kvh x n_split
+    blocks give ``BLOCKS_PER_SM`` per SM where the cache is long enough;
+    n_split = ceil(s / chunk), so no split starts at or past s."""
+    def cdiv(a: int, d: int) -> int:
+        return -(-a // d)
+    want = cdiv(BLOCKS_PER_SM * n_sm, b * kvh)        # splits per (b, kv)
+    chunk = cdiv(cdiv(s, want), CHUNK_STEP) * CHUNK_STEP
+    chunk = min(MAX_CHUNK, max(MIN_CHUNK, chunk))
+    return chunk, cdiv(s, chunk)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      kv_pos: torch.Tensor, q_pos: torch.Tensor, *,
                      window: int = 0, softcap: float = 0.0,
@@ -61,7 +91,9 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q: [B, H, Dh]; k/v: [B, KV, S, Dh], any strides with Dh contiguous;
     kv_pos: [S] int (-1 = empty slot); q_pos: [B] int -> out [B, H, Dh].
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    CPU tensors take the plain version; CUDA tensors launch the split
+    kernel and its merge, counted as instances ``split`` and ``combine``
+    with the grid of each."""
     if q.device.type == "cpu":
         return decode_attention_plain(q, k, v, kv_pos, q_pos, window=window,
                                       softcap=softcap, scale=scale)
@@ -87,14 +119,21 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q_pos = q_pos.to(torch.int32).contiguous()
     out = torch.empty((b, h, dh), dtype=q.dtype, device=q.device)
     if b:
+        chunk, n_split = decode_split(
+            s, b, kvh, _sm_count(q.device.index if q.device.index is not None
+                                 else torch.cuda.current_device()))
+        ws = torch.empty(b * h * n_split * (dh + 2), dtype=torch.float32,
+                         device=q.device)
         st = _lib.strides((q, (0, 1)), (k, (0, 1, 2)), (v, (0, 1, 2)))
         err = _lib.lib().repro_decode_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_pos.data_ptr(),
-            q_pos.data_ptr(), out.data_ptr(), b, h, kvh, s, dh, st,
-            float(scale), int(window), float(softcap),
+            q_pos.data_ptr(), out.data_ptr(), ws.data_ptr(), b, h, kvh, s, dh,
+            st, float(scale), int(window), float(softcap), chunk, n_split,
             _lib.dtype_code(q, name), _lib.stream_handle(q.device))
         _lib.check(err, name)
-        decode_attention.counts.launched()
+        # the C entry launched both kernels: count each, with its grid
+        decode_attention.counts.launched("split", (n_split, kvh, b))
+        decode_attention.counts.launched("combine", (h, b))
     return out
 
 

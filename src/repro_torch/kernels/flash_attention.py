@@ -1,19 +1,34 @@
 """Prefill (flash) attention: CUDA kernel and plain version.
 
 Replaces the Pallas kernel ``flash_attention``
-(src/repro/kernels/flash_attention.py). Kernel source:
-``csrc/flash_attention.cu``.
+(src/repro/kernels/flash_attention.py, body ``_flash_kernel``). Kernel
+source: ``csrc/flash_attention.cu``.
 
 What bounds it on the H100: a causal prefill of S tokens does about
-S^2 x Dh multiply-adds per head against 4 x S x Dh values moved. At the
-donor prefill's S = 512 in bf16 that is still on the bytes side of the
-tensor cores' line (about 2 us for q, k, v and the output), in f32 on the
-CUDA cores it is operations. The design keeps the [S, S] scores on chip
-(one block per query tile walks the KV tiles in shared memory with an f32
-online softmax) and skips the tiles that the causal mask or the window
-hide entirely. Its products run on the f32 CUDA cores, not the tensor
-cores, so it is far from the bound: moving the two products onto
-``wgmma`` is the next step (ROADMAP.md).
+2 S^2 Dh operations per head against 4 S Dh values moved. At the donor
+prefill's S = 512, Dh = 64 in bf16 that is on the bytes side of the tensor
+cores' line (about 2 us for q, k, v and the output); neither bound is near:
+the time goes to each KV tile's softmax on the CUDA cores between two small
+products, the barriers around them and the tile loads (PERF.md). Two
+hand-written instances, chosen by ``flash_instance``
+from dtype, shapes, strides and alignment (a plain function, never a retry
+after a failure):
+
+- ``tensor_core``: bf16, Dh 64 or 128, every stride but the head
+  dimension's a multiple of 8 elements and every base 16-byte aligned. One
+  warpgroup per 64-row query tile runs both products on ``wgmma`` (Q K^T
+  from shared memory; P V with P as the register A operand and V read
+  MN-major through the transpose bit), the online softmax in registers, and
+  K/V tiles arriving by ``cp.async`` in a two-stage bf16 ring under the
+  128-byte swizzle. P is rounded to bf16 before the second product, as SDPA
+  does (the Pallas kernel multiplies P by V in f32); the 3e-2 bf16
+  tolerance covers it.
+- ``cuda_core``: everything else (f32 IO, where TF32 would miss the 2e-4
+  tolerance; other head dimensions; unaligned strides or bases): products
+  on the f32 CUDA cores from f32 tiles in shared memory.
+
+Both keep the [S, S] scores on chip with an f32 online softmax and skip the
+KV tiles that the causal mask or the window hide entirely.
 """
 from __future__ import annotations
 
@@ -54,6 +69,22 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(b, h, s, dh).to(q.dtype)
 
 
+TENSOR_CORE_DH = (64, 128)
+
+
+def flash_instance(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """The kernel instance that takes these inputs: ``"tensor_core"``
+    (``wgmma``) for bf16 with Dh in ``TENSOR_CORE_DH``, every stride but the
+    head dimension's a multiple of 8 elements and every base 16-byte
+    aligned; ``"cuda_core"`` for anything else."""
+    if q.dtype != torch.bfloat16 or q.shape[-1] not in TENSOR_CORE_DH:
+        return "cuda_core"
+    for t in (q, k, v):
+        if t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:-1]):
+            return "cuda_core"
+    return "tensor_core"
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
                     softcap: float = 0.0,
@@ -61,7 +92,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q: [B, H, S, Dh]; k/v: [B, KV, S, Dh], any strides with Dh
     contiguous -> contiguous [B, H, S, Dh].
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    CPU tensors take the plain version; CUDA tensors launch the instance
+    that ``flash_instance`` names."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      softcap=softcap, scale=scale)
@@ -82,13 +114,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.empty((b, h, s, dh), dtype=q.dtype, device=q.device)
     if b and s:
         st = _lib.strides((q, (0, 1, 2)), (k, (0, 1, 2)), (v, (0, 1, 2)))
-        err = _lib.lib().repro_flash_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h,
-            k.shape[1], s, dh, st, float(scale), int(causal), int(window),
-            float(softcap), _lib.dtype_code(q, name),
-            _lib.stream_handle(q.device))
+        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b,
+                h, k.shape[1], s, dh, st, float(scale), int(causal),
+                int(window), float(softcap))
+        instance = flash_instance(q, k, v)
+        if instance == "tensor_core":
+            err = _lib.lib().repro_flash_attention_wgmma(
+                *args, _lib.stream_handle(q.device))
+        else:
+            err = _lib.lib().repro_flash_attention(
+                *args, _lib.dtype_code(q, name), _lib.stream_handle(q.device))
         _lib.check(err, name)
-        flash_attention.counts.launched()
+        flash_attention.counts.launched(instance)
     return out
 
 

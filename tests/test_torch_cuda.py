@@ -68,6 +68,61 @@ def test_cuda_kernels_match_plain_versions(dtype):
             dec.decode_attention(q[:, :, 0], k, v, kv_pos, q_pos),
             dec.decode_attention_plain(q[:, :, 0], k, v, kv_pos, q_pos),
             rtol=tol, atol=tol)
+    # flash attention at the tensor-core instance's head dimensions, through
+    # the model's [B, S, H, Dh] layout (a transposed view); bf16 must take
+    # the tensor-core instance, f32 the CUDA-core one
+    want = "tensor_core" if dtype == "bfloat16" else "cuda_core"
+    fa.flash_attention.counts.reset()
+    calls = 0
+    for dh in (64, 128):
+        for s in (70, 512):
+            q, k, v = (r(2, s, n, dh).transpose(1, 2) for n in (9, 3, 3))
+            assert fa.flash_instance(q, k, v) == want
+            for causal in (True, False):
+                for window, softcap in ((0, 0.0), (16, 0.0), (0, 30.0)):
+                    kw = dict(causal=causal, window=window, softcap=softcap)
+                    torch.testing.assert_close(
+                        fa.flash_attention(q, k, v, **kw),
+                        fa.flash_attention_plain(q, k, v, **kw),
+                        rtol=tol, atol=tol)
+                    calls += 1
+    assert fa.flash_attention.counts.by_instance == {want: calls}
+    # decode attention split across blocks: one split (S 1), ragged last
+    # splits, the path's 513 slots, a long cache; a row that sees no slot.
+    # Each call launches the split kernel and the merge, once each; at the
+    # path's B 4, KV 3, 513 slots the split kernel's grid fills the card.
+    dec.decode_attention.counts.reset()
+    calls = 0
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    for s in (1, 70, 513, 4096):
+        for b in (1, 4):
+            q = r(b, 9, 64)
+            k, v = (r(b, s, 3, 64).transpose(1, 2) for _ in range(2))
+            fill = max(1, int(0.6 * s))
+            kv_pos = torch.where(torch.arange(s) < fill, torch.arange(s),
+                                 -1).to(torch.int32).cuda()
+            q_pos = torch.tensor([fill - 1, fill // 2, -1, 5][:b],
+                                 dtype=torch.int32).cuda()
+            for window, softcap in ((0, 0.0), (16, 0.0), (0, 30.0)):
+                kw = dict(window=window, softcap=softcap)
+                torch.testing.assert_close(
+                    dec.decode_attention(q, k, v, kv_pos, q_pos, **kw),
+                    dec.decode_attention_plain(q, k, v, kv_pos, q_pos, **kw),
+                    rtol=tol, atol=tol)
+            none = torch.full((b,), -1, dtype=torch.int32).cuda()
+            torch.testing.assert_close(
+                dec.decode_attention(q, k, v, kv_pos, none),
+                dec.decode_attention_plain(q, k, v, kv_pos, none),
+                rtol=tol, atol=tol)
+            calls += 4
+            grid = dec.decode_attention.counts.grids["split"]
+            assert grid == (dec.decode_split(s, b, 3, n_sm)[1], 3, b)
+            assert dec.decode_attention.counts.grids["combine"] == (9, b)
+            if (s, b) == (513, 4):
+                assert grid[0] * grid[1] * grid[2] >= n_sm
+    assert dec.decode_attention.counts.by_instance == {"split": calls,
+                                                       "combine": calls}
+    assert dec.decode_attention.counts.launches == 2 * calls
 
 
 @pytest.mark.cuda
