@@ -2,6 +2,12 @@
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
     python3 chip_smoke.py          # from the root of a checkout
+    python3 chip_smoke.py --serve mamba2-2.7b --repeats 2 [--trace]
+
+The second form runs only one model's serving phase (step 3 or 5 below),
+``--repeats`` times, each with the host's side of the run and the card's
+clocks after it, and with ``--trace`` what the card did during it
+(``device_timeline``); it prints no result line. Without arguments:
 
 1. Builds the port's Hopper kernels from ``src/repro_torch/kernels/csrc``
    (into ``build/kernels/``).
@@ -21,10 +27,18 @@
    port never uses), each the median of CUDA-event-timed batches of
    launches; the bound is the larger of bytes over 3.35 TB/s and
    operations over the card's peak for their type.
-   The SSD scan runs at the mamba2-2.7b donor prefill's shapes (B 4,
-   L 512, H 80, P 64, N 128, chunk 256; tolerance 3e-2 in bf16, 5e-4 in
-   f32). The contention + ETA kernel runs on fleet-scale rate-groups of
-   4096 lanes (one where all three branches fire, one where none does):
+   RMSNorm also runs at the mamba2 step's widths (2560, 5120) and at the
+   donor prefill's 2048 rows of 5120; each norm row names the instance its
+   plan took (``rmsnorm_plan``). The SSD scan runs at the mamba2-2.7b
+   donor prefill's shapes (B 4, L 512, H 80, P 64, N 128, chunk 256;
+   tolerance 3e-2 in bf16, 5e-4 in f32): bf16 must take the tensor-core
+   instance, f32 the CUDA-core one, and the CUDA-core kernel also runs at
+   those bf16 shapes through the same entry (uncounted), so that the row
+   gives the time of the kernel the tensor cores replace; the CUDA-core
+   instance is held to its plain version through the wrapper at a shape
+   it takes (chunk 96, L 576: ``ssd_cuda_core``). The contention + ETA
+   kernel runs on fleet-scale rate-groups of 4096 lanes (one where all
+   three branches fire, one where none does):
    the f64 instance must return its plain version's bits and those of
    ``rates_seq`` on the host, the f32 one agree within 2e-6 relative. Its
    bound is the larger of its bytes and its serial chain of 3 m dependent
@@ -46,29 +60,43 @@
    contention kernel; decision logs and metric digests must be identical.
 5. Serving phase, ssm path: the same as 3 for full-width mamba2-2.7b (64
    layers cut into 4 stages of 16, batch 4, prompt 512), whose donor
-   prefill runs the SSD kernel and whose decode steps run RMSNorm at
-   widths 2560 and 5120, with the same output checks.
+   prefill runs the SSD kernel (every launch on the tensor-core instance)
+   and whose decode steps run RMSNorm at widths 2560 and 5120, with the
+   same output checks; the cut-depth f32 check reports its launches by
+   instance (its SSD calls take the CUDA-core instance).
 
 Kernel launch counts are reset just before each path and read just after;
 every kernel must be launched on a path (the f32 contention kernel, which
 no engine calls, on the kernel phase's own fleet-sweep call). A decode
-attention call counts two launches, its split kernel and its merge.
+attention call counts two launches, its split kernel and its merge; a
+tensor-core SSD call likewise two, its state pass
+(``tensor_core/states``) and its output kernel (``tensor_core/out``),
+and the SSD row gives each one's device µs (``torch.profiler``). The
+``kernels`` line also lists the rows that run a kernel at
+other shapes or as another instance (``OTHER_SHAPES``), with the
+launches of that instance on the two serving paths.
 
 It fails (non-zero exit, no result line) without a CUDA device, outside a
 checkout of the repo, or when a kernel is out of tolerance or unlaunched,
-a flash check took another instance than its dtype's, the decode check's
+a flash, norm or SSD check took another instance than its plan or dtype
+names, the CUDA-core SSD kernel at the tensor-core shapes disagrees with
+the plain version, the decode check's
 split grid held fewer blocks than the card has SMs, a plain version ran on
 a CUDA tensor during a path, a flash-attention launch on the dense path
-took the CUDA-core instance, a worker caught an exception, no HP job
+took the CUDA-core instance, an SSD launch on the ssm path took the
+CUDA-core instance, a worker caught an exception, no HP job
 completed, the three epoch runs differ, or an output check failed. The
 last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import argparse
+import contextlib
 import hashlib
 import json
 import math
 import os
+import resource
 import statistics
 import subprocess
 import sys
@@ -152,6 +180,22 @@ def graph_ms(torch, fn, reps: int = 30, inner: int = 20) -> float:
     return statistics.median(times)
 
 
+def kernel_us(torch, fn, calls: int = 5) -> dict:
+    """Device µs per call of each CUDA kernel ``fn`` launches, from
+    ``torch.profiler`` over ``calls`` calls (a wrapper that launches more
+    than one kernel: where its time goes)."""
+    from torch.profiler import ProfilerActivity, profile
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        return {e.key[:60]: e.device_time_total / calls
+                for e in prof.key_averages() if e.device_time_total > 0}
+    except Exception as e:   # noqa: BLE001 — a measurement, not a check
+        return {"error": repr(e)}
+
+
 def bound(nbytes: float, ops: float, peak: float):
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / peak
     return (max(t_bytes, t_ops) * 1e3,
@@ -195,6 +239,7 @@ def kernel_cases(torch, F, dtype):
     dec_ops = 4 * B * H * s * DH
     fa_ops = 4 * B * H * DH * PROMPT * (PROMPT + 1) // 2
     fa8_ops = 4 * B * 8 * 128 * PROMPT * (PROMPT + 1) // 2
+    fa_want = "tensor_core" if dtype == torch.bfloat16 else "cuda_core"
 
     def sdpa(q, kk, vv, **kw):
         return F.scaled_dot_product_attention(q, kk, vv, enable_gqa=True,
@@ -214,21 +259,35 @@ def kernel_cases(torch, F, dtype):
                                           + 2 * q_ * SSM_N * SSM_P)
     ssd_bytes = nbytes(sx, sdt, sal, sb, sc, s0, sx, s0)
     ssd_tol = 3e-2 if dtype == torch.bfloat16 else 5e-4
-    # the mamba2 decode step's norms: each layer's ln (2560), gated (5120)
-    wide = {dd: (rand(B, 1, dd), rand(dd)) for dd in (2560, 5120)}
+    # the CUDA-core SSD instance at a shape it takes (chunk 96: L 576), and
+    # at the donor's own shapes through the same entry, uncounted
+    sdt32, sal32 = sdt.float(), sal.float()
+    ssd_cc = {"tol": ssd_tol, "reps": 10, "inner": 3, "graph": False,
+              "instance": "cuda_core"}
+    cl = 6 * 96
+    cx = rand(B, cl, SSM_H, SSM_P)
+    cb_, cc_ = rand(B, cl, SSM_G, SSM_N), rand(B, cl, SSM_G, SSM_N)
+    cdt = torch.empty((B, cl, SSM_H), device=dev).uniform_(0.001, 0.1,
+                                                           generator=g)
+    cc_ops = 2 * B * SSM_H * 6 * (96 * 97 // 2 * (SSM_N + SSM_P)
+                                  + 2 * 96 * SSM_N * SSM_P)
+    # the mamba2 decode step's norms: each layer's ln (2560), gated (5120);
+    # and the donor prefill's 4 x 512 rows at the gated width
+    wide = {f"rmsnorm_d{dd}": (rand(B, 1, dd), rand(dd))
+            for dd in (2560, 5120)}
+    wide["rmsnorm_prefill_d5120"] = (rand(B * PROMPT, 5120), rand(5120))
+    wide["rmsnorm"] = (x, w)
     return [
-        *((f"rmsnorm_d{dd}", lambda xx=xx, ww=ww: rms.rmsnorm(xx, ww),
+        *((nm, lambda xx=xx, ww=ww: rms.rmsnorm(xx, ww),
            lambda xx=xx, ww=ww: rms.rmsnorm_plain(xx, ww),
-           lambda xx=xx, ww=ww, dd=dd: F.rms_norm(xx, (dd,), ww, 1e-6),
-           nbytes(xx, ww, xx), 4 * B * dd, ELEMENTWISE_FLOPS, {})
-          for dd, (xx, ww) in wide.items()),
-        ("rmsnorm", lambda: rms.rmsnorm(x, w),
-         lambda: rms.rmsnorm_plain(x, w),
-         lambda: F.rms_norm(x, (D,), w, 1e-6),
-         nbytes(x, w, x), rms_ops, ELEMENTWISE_FLOPS, {}),
+           lambda xx=xx, ww=ww: F.rms_norm(xx, (ww.shape[0],), ww, 1e-6),
+           nbytes(xx, ww, xx), 4 * xx.numel(), ELEMENTWISE_FLOPS,
+           {"instance": rms.plan_for(xx, ww).instance})
+          for nm, (xx, ww) in wide.items()),
         ("rmsnorm_residual", lambda: rms.rmsnorm_residual(x, r, w),
          lambda: rms.rmsnorm_residual_plain(x, r, w), None,
-         nbytes(x, r, w, x, x), rms_ops + B * D, ELEMENTWISE_FLOPS, {}),
+         nbytes(x, r, w, x, x), rms_ops + B * D, ELEMENTWISE_FLOPS,
+         {"instance": rms.plan_for(x, w, r).instance}),
         ("decode_attention", lambda: dec.decode_attention(q1, k, v, kv_pos,
                                                           q_pos),
          lambda: dec.decode_attention_plain(q1, k, v, kv_pos, q_pos),
@@ -238,15 +297,26 @@ def kernel_cases(torch, F, dtype):
         ("flash_attention", lambda: fa.flash_attention(qp, kp, vp),
          lambda: fa.flash_attention_plain(qp, kp, vp),
          lambda: sdpa(qp, kp, vp, is_causal=True),
-         nbytes(qp, kp, vp, qp), fa_ops, PEAK_FLOPS[dname], {}),
+         nbytes(qp, kp, vp, qp), fa_ops, PEAK_FLOPS[dname],
+         {"instance": fa_want}),
         ("flash_attention_d128", lambda: fa.flash_attention(q8, k8, v8),
          lambda: fa.flash_attention_plain(q8, k8, v8),
          lambda: sdpa(q8, k8, v8, is_causal=True),
-         nbytes(q8, k8, v8, q8), fa8_ops, PEAK_FLOPS[dname], {}),
+         nbytes(q8, k8, v8, q8), fa8_ops, PEAK_FLOPS[dname],
+         {"instance": fa_want}),
         ("ssd", lambda: ssd_scan.ssd(sx, sdt, sal, sb, sc, SSM_Q, s0),
          lambda: ssd_scan.ssd_plain(sx, sdt, sal, sb, sc, SSM_Q, s0), None,
          ssd_bytes, ssd_ops, PEAK_FLOPS[dname],
-         {"tol": ssd_tol, "reps": 10, "inner": 3, "graph": False}),
+         {**ssd_cc, "instance": "+".join(ssd_scan.INSTANCE_KERNELS[
+             "tensor_core" if dtype == torch.bfloat16 else "cuda_core"]),
+          "profile": True,
+          "cuda_core_same_shapes": (lambda: ssd_scan.launch(
+              sx, sdt32, sal32, sb, sc, SSM_Q, s0, "cuda_core")[:2])
+          if dtype == torch.bfloat16 else None}),
+        ("ssd_cuda_core", lambda: ssd_scan.ssd(cx, cdt, sal, cb_, cc_, 96, s0),
+         lambda: ssd_scan.ssd_plain(cx, cdt, sal, cb_, cc_, 96, s0), None,
+         nbytes(cx, cdt, sal, cb_, cc_, s0, cx, s0), cc_ops,
+         PEAK_FLOPS[dname], ssd_cc),
     ]
 
 
@@ -266,6 +336,10 @@ SOURCES = {
     "ssd": ("src/repro_torch/kernels/csrc/ssd_scan.cu",
             "src/repro/kernels/ssd_scan.py:71"),
 }
+# rows of the kernel phase that run a kernel above at other shapes, or
+# another instance of it: row -> kernel
+OTHER_SHAPES = {"rmsnorm_d2560": "rmsnorm", "rmsnorm_d5120": "rmsnorm",
+                "rmsnorm_prefill_d5120": "rmsnorm", "ssd_cuda_core": "ssd"}
 DENSE_PATH = ("rmsnorm", "rmsnorm_residual", "decode_attention",
               "flash_attention")
 SSM_PATH = ("rmsnorm", "ssd")
@@ -329,13 +403,25 @@ def kernel_phase(torch, F, failures):
             row["bound_ms"], row["bound_by"] = bound(nb, ops, peak)
             if launched:
                 row["launched"] = launched
-            if name.startswith("flash_attention"):
+            want = opt.get("instance")
+            if want is not None:
                 row["instance"] = "+".join(launched)
-                want = ("tensor_core" if dtype == torch.bfloat16
-                        else "cuda_core")
                 if row["instance"] != want:
                     failures.append(f"{name} {row['dtype']}: launched "
                                     f"{launched}, not {want}")
+            if opt.get("profile"):
+                row["device_us_by_kernel"] = kernel_us(torch, kern)
+            same = opt.get("cuda_core_same_shapes")
+            if same is not None:   # the kernel the tensor cores replace
+                c = same()
+                cerr = max(float((u.float() - v.float()).abs().max())
+                           for u, v in zip(c, b))
+                row["cuda_core_same_shapes"] = {
+                    "max_err": cerr, "ms": cuda_ms(torch, same, reps, inner)}
+                if not all(torch.allclose(u.float(), v.float(), rtol=tol,
+                                          atol=tol) for u, v in zip(c, b)):
+                    failures.append(f"{name} {row['dtype']}: CUDA-core "
+                                    f"instance max_err {cerr} > {tol}")
             if name == "decode_attention":
                 split = launched.get("split", {})
                 row["n_split"] = split.get("grid", [0])[0]
@@ -367,10 +453,107 @@ def path_counts(KERNELS, names, path, failures):
     return launches
 
 
-def serving_phase(torch, failures, arch, n_layers, jps, kernels):
+class ThreadCpu:
+    """CPU seconds each thread of this process spends inside the ``with``
+    block, from ``/proc/self/task`` sampled every 0.25 s (a thread that
+    ends keeps its last sample), named as ``threading`` names them: which
+    thread burns the host's time in a stalled run."""
+
+    def __init__(self):
+        import threading
+        self._threading = threading
+        self._stop = threading.Event()
+        self._tick = os.sysconf("SC_CLK_TCK")
+        self.first, self.last, self.names = {}, {}, {}
+
+    def _sample(self):
+        names = {t.native_id: t.name for t in self._threading.enumerate()}
+        for tid in os.listdir("/proc/self/task"):
+            try:
+                with open(f"/proc/self/task/{tid}/stat") as f:
+                    fields = f.read().rsplit(")", 1)[1].split()
+            except OSError:                   # the thread just ended
+                continue
+            cpu = (int(fields[11]) + int(fields[12])) / self._tick
+            # a thread born inside the block counts from zero
+            self.first.setdefault(tid, cpu if self._entering else 0.0)
+            self.last[tid] = cpu
+            self.names.setdefault(tid, names.get(int(tid), f"native-{tid}"))
+
+    def _loop(self):
+        while not self._stop.wait(0.25):
+            self._sample()
+
+    def __enter__(self):
+        self._entering = True
+        self._sample()
+        self._entering = False
+        self._thread = self._threading.Thread(target=self._loop, daemon=True)
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self._sample()
+
+    def top(self, n: int = 6) -> list:
+        used = sorted(((self.last[t] - self.first[t], self.names[t])
+                       for t in self.last), reverse=True)
+        return [[name, round(cpu, 3)] for cpu, name in used[:n]]
+
+
+def device_timeline(torch, prof, window_ms: float = 100.0) -> dict:
+    """What the card did under ``prof`` (CUDA activity): kernels, busy
+    time (the union of their intervals) against the traced span, the
+    longest kernel, the kernels with the most device time, and per
+    ``window_ms`` window the kernels that ran and their busy ms. A stall
+    of the host leaves windows with few kernels and little busy time; a
+    slow kernel shows as a long one and busy windows."""
+    kern = [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kern:
+        return {"kernels": 0}
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kern)
+    t0, t1 = spans[0][0], max(b for _, b in spans)
+    n_win = int((t1 - t0) / (window_ms * 1e3)) + 1
+    count, busy_w = [0] * n_win, [0.0] * n_win
+    busy, end = 0.0, -math.inf
+    for a, b in spans:
+        count[int((a - t0) / (window_ms * 1e3))] += 1
+        a = max(a, end)
+        if b > a:
+            busy += b - a
+            while a < b:                     # split across windows
+                w = int((a - t0) / (window_ms * 1e3))
+                cut = min(b, t0 + (w + 1) * window_ms * 1e3)
+                busy_w[w] += cut - a
+                a = cut
+            end = b
+    by_name = {}
+    for e in kern:
+        n, t = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (n + 1, t + e.time_range.elapsed_us())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]
+    longest = max(kern, key=lambda e: e.time_range.elapsed_us())
+    return {"kernels": len(kern), "span_ms": (t1 - t0) / 1e3,
+            "busy_ms": busy / 1e3, "idle_share": 1 - busy / (t1 - t0),
+            "longest_kernel": [longest.name[:60],
+                               longest.time_range.elapsed_us()],
+            "top_kernels_us": {n[:60]: [c, t] for n, (c, t) in top},
+            "window_ms": window_ms, "window_kernels": count,
+            "window_busy_ms": [round(b / 1e3, 3) for b in busy_w]}
+
+
+def serving_phase(torch, failures, arch, n_layers, jps, kernels,
+                  trace=False):
     """``arch`` at full width (depth ``n_layers``, None for all of it),
     two staged decode tasks served in real time; returns the model, its
-    parameters, the HP task and the path's launch counts."""
+    parameters, the HP task and the path's launch counts. The serving
+    line also gives the host's side of the run (wall, the process's CPU
+    seconds and context switches, the threads that used the most CPU);
+    ``trace`` puts the run under
+    ``torch.profiler`` and adds ``device_timeline``."""
     from repro_torch.api import HP, LP, DeviceModel, ServerConfig
     from repro_torch.configs import get_config
     from repro_torch.kernels import KERNELS, reset_counts
@@ -398,8 +581,21 @@ def serving_phase(torch, failures, arch, n_layers, jps, kernels):
            .device(DeviceModel(n_units=float(sm)))
            .horizon_ms(HORIZON_MS).seed(0)
            .build())
-    m = srv.run()
-    torch.cuda.synchronize()
+    if trace:
+        from torch.profiler import ProfilerActivity, profile
+        tracer = profile(activities=[ProfilerActivity.CUDA])
+    else:
+        tracer = contextlib.nullcontext()
+    ru0, w0 = resource.getrusage(resource.RUSAGE_SELF), time.perf_counter()
+    with tracer, ThreadCpu() as threads:
+        m = srv.run()
+        torch.cuda.synchronize()
+    ru1, w1 = resource.getrusage(resource.RUSAGE_SELF), time.perf_counter()
+    host = {"wall_s": w1 - w0, "cpu_user_s": ru1.ru_utime - ru0.ru_utime,
+            "cpu_sys_s": ru1.ru_stime - ru0.ru_stime,
+            "involuntary_switches": ru1.ru_nivcsw - ru0.ru_nivcsw,
+            "voluntary_switches": ru1.ru_nvcsw - ru0.ru_nvcsw,
+            "cpu_s_by_thread": threads.top()}
     launches = path_counts(KERNELS, kernels, cfg.name, failures)
     instances = {n: dict(KERNELS[n].counts.by_instance) for n in kernels
                  if KERNELS[n].counts.by_instance}
@@ -421,7 +617,10 @@ def serving_phase(torch, failures, arch, n_layers, jps, kernels):
         "last_worker_exception": repr(be.last_worker_exception),
         "stage_times": be.stage_time_summary(),
         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
-        "launches": launches, "launches_by_instance": instances}})
+        "launches": launches, "launches_by_instance": instances,
+        "host": host,
+        **({"device_timeline": device_timeline(torch, tracer)}
+           if trace else {})}})
     if be.worker_exceptions:
         failures.append(f"{be.worker_exceptions} worker exception(s), last "
                         f"{be.last_worker_exception!r}")
@@ -634,6 +833,12 @@ def per_step_launches(torch, spec):
     return state, {n: fn.counts.launches for n, fn in KERNELS.items()}
 
 
+# the port's kernels as the profiler names them (launches, device us and
+# share of the step's device busy time in the decode_step_profile line)
+PORT_KERNEL_NAMES = ("rmsnorm_kernel", "decode_split", "decode_combine",
+                     "flash_", "ssd_")
+
+
 def profile_step(torch, spec, reps: int = 3):
     """Where one decode step's time goes: ``reps`` steps (the 4 payloads in
     turn, one stream) under torch.profiler; device busy time is the union
@@ -663,12 +868,21 @@ def profile_step(torch, spec, reps: int = 3):
             n, t = by_name.get(e.name, (0, 0.0))
             by_name[e.name] = (n + 1, t + e.time_range.elapsed_us())
         top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
+        ours = {}
+        for n, (c, t) in by_name.items():
+            key = next((k for k in PORT_KERNEL_NAMES if k in n), None)
+            if key is not None:
+                c0, t0 = ours.get(key, (0, 0.0))
+                ours[key] = (c0 + c, t0 + t)
         return {"steps": reps, "wall_ms_per_step": wall_ms / reps,
                 "device_busy_ms_per_step": busy / 1e3 / reps,
                 "device_idle_share": 1.0 - busy / 1e3 / wall_ms,
                 "kernels_per_step": len(kern) / reps,
                 "top_kernels_us_per_step": {
-                    n[:60]: [c / reps, t / reps] for n, (c, t) in top}}
+                    n[:60]: [c / reps, t / reps] for n, (c, t) in top},
+                "port_kernels_us_per_step": {
+                    k: [c / reps, t / reps, t / busy]
+                    for k, (c, t) in sorted(ours.items())}}
     except Exception as e:   # noqa: BLE001 — a measurement, not a check
         return {"error": repr(e)}
 
@@ -705,13 +919,18 @@ def output_checks(torch, model, params, spec, failures):
                 else t.cpu())
     cp = to_cpu(gp)
     toks = np.random.default_rng(1).integers(0, small.vocab_size, (2, 64))
+    from repro_torch.kernels import KERNELS, reset_counts
     outs = []
+    reset_counts()
     for mdl, p, dev in ((gm, gp, "cuda"), (cm, cp, "cpu")):
         tk = torch.from_numpy(toks).to(dev)
         pl, cache = mdl.prefill(p, {"tokens": tk,
                                     "cache": mdl.init_cache(2, 65)})
         dl, _ = mdl.decode_step(p, {"tokens": tk[:, :1], "cache": cache})
         outs.append((pl.cpu(), dl.cpu()))
+    torch.cuda.synchronize()
+    f32_instances = {n: dict(fn.counts.by_instance) for n, fn in KERNELS.items()
+                     if fn.counts.by_instance}
     small_err = max(float((a - b).abs().max()) for a, b in zip(*outs))
     small_ok = all(torch.allclose(a, b, rtol=2e-3, atol=2e-3)
                    for a, b in zip(*outs))
@@ -720,6 +939,7 @@ def output_checks(torch, model, params, spec, failures):
         "logits_shape": list(logits.shape), "finite": finite,
         "staged_vs_unstaged_max_err": staged_err, "staged_tol": 3e-2,
         "small_f32_gpu_vs_cpu_max_err": small_err, "small_tol": 2e-3,
+        "small_f32_launches_by_instance": f32_instances,
         "launches_per_decode_step": step}})
     emit({"decode_step_profile": {"model": cfg.name,
                                   **profile_step(torch, spec)}})
@@ -732,10 +952,51 @@ def output_checks(torch, model, params, spec, failures):
     if not small_ok:
         failures.append(f"{cfg.name} cut-depth f32 GPU vs CPU: max_err "
                         f"{small_err}")
-    return step
+    return f32_instances
+
+
+def serve_repeats(torch, arch: str, repeats: int, trace: bool) -> int:
+    """``--serve ARCH``: only ``arch``'s serving phase, ``repeats`` times
+    in this process, each followed by the card's clocks, power and
+    throttle reasons; a summary line last. For runs of one tree against
+    another (copy this script into the other checkout and run it there
+    too): HP misses, stage device intervals, and with ``--trace`` what
+    the card did during each run."""
+    from repro_torch.kernels import _lib
+    _lib.lib()
+    path = SSM_PATH if arch.startswith("mamba2") else DENSE_PATH
+    jps = SSM_JPS if arch.startswith("mamba2") else JPS
+    runs = []
+    for i in range(repeats):
+        failures = []
+        _, _, _, launches, _ = serving_phase(torch, failures, arch, None,
+                                             jps, path, trace=trace)
+        torch.cuda.empty_cache()
+        try:
+            clocks = subprocess.run(
+                ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,"
+                 "power.draw,temperature.gpu,clocks_throttle_reasons.active",
+                 "--format=csv,noheader"], capture_output=True, text=True,
+                timeout=30).stdout.strip()
+        except (OSError, subprocess.SubprocessError) as e:
+            clocks = repr(e)
+        emit({"after_run": {"run": i, "card": clocks,
+                            "failures": failures}})
+        runs.append(not failures)
+    emit({"serve_repeats": {"model": arch, "runs": repeats,
+                            "runs_without_failure": sum(runs)}})
+    return 0 if all(runs) else 1
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--serve", metavar="ARCH",
+                    help="only this model's serving phase (smollm-135m or "
+                         "mamba2-2.7b), --repeats times")
+    ap.add_argument("--repeats", type=int, default=1)
+    ap.add_argument("--trace", action="store_true",
+                    help="with --serve: each run under torch.profiler")
+    args = ap.parse_args()
     import torch
     import torch.nn.functional as F
     if not torch.cuda.is_available():
@@ -743,7 +1004,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     try:
-        from repro_torch.kernels import _lib
+        from repro_torch.kernels import _lib, ssd_scan
     except ImportError as e:
         print(f"chip_smoke: the port (src/repro_torch) is not beside this "
               f"script: {e!r}", file=sys.stderr)
@@ -764,6 +1025,8 @@ def main() -> int:
              if "Used" in ln or "Compiling entry" in ln
              or "Performance" in ln]
     emit({"build": {"seconds": build_s, "ptxas": ptxas}})
+    if args.serve:
+        return serve_repeats(torch, args.serve, args.repeats, args.trace)
 
     failures, seconds = [], {}
     t0 = time.perf_counter()
@@ -789,9 +1052,16 @@ def main() -> int:
     seconds["epoch_path"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    model, params, spec, ssm, _ = serving_phase(
+    model, params, spec, ssm, ssm_inst = serving_phase(
         torch, failures, "mamba2-2.7b", None, SSM_JPS, SSM_PATH)
-    output_checks(torch, model, params, spec, failures)
+    ssd_inst = ssm_inst.get("ssd", {})
+    state_pass, outputs = (ssd_inst.get(k, 0)
+                           for k in ssd_scan.INSTANCE_KERNELS["tensor_core"])
+    if state_pass + outputs != ssm["ssd"] or state_pass != outputs:
+        failures.append(f"mamba2-2.7b: bf16 SSD launches by kernel "
+                        f"{ssd_inst}, not all tensor_core (a state pass "
+                        f"and an output kernel a call)")
+    f32_check = output_checks(torch, model, params, spec, failures)
     del model, params, spec
     seconds["ssm_path"] = time.perf_counter() - t0
     emit({"phase_seconds": seconds})
@@ -801,21 +1071,39 @@ def main() -> int:
     launches = {k: dense.get(k, 0) + epoch.get(k, 0) + ssm.get(k, 0)
                 for k in SOURCES}
     launches["contention_eta_f32"] = f32_launches
-    # the attention rows also give their launches on the dense path by
-    # instance: decode counts its split kernel and its merge, one each a call
+    # launches by instance, summed over the two serving paths (decode
+    # attention counts its split kernel and its merge, one each a call); a
+    # row of OTHER_SHAPES gives the launches of its instance on the paths
+    by_inst = {}
+    for inst in (dense_inst, ssm_inst):
+        for kname, per in inst.items():
+            for i, n in per.items():
+                by_inst.setdefault(kname, {})
+                by_inst[kname][i] = by_inst[kname].get(i, 0) + n
     kernels = []
-    for kname, (src, replaces) in SOURCES.items():
-        row = rows[kname]
-        kernels.append({
-            "name": kname, "route": "cuda", "source": src,
-            "replaces": replaces, "launches": launches[kname],
+    for rname in (*SOURCES, *OTHER_SHAPES):
+        kname = OTHER_SHAPES.get(rname, rname)
+        src, replaces = SOURCES[kname]
+        row = rows[rname]
+        n = (launches[kname] if rname == kname
+             else by_inst.get(kname, {}).get(row.get("instance"), 0))
+        entry = {
+            "name": rname, "route": "cuda", "source": src,
+            "replaces": replaces, "launches": n,
             "max_abs_err": row["max_err"], "ms": row["kernel_ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
-            **{k: row[k] for k in ("instance", "n_split", "blocks")
-               if k in row},
-            **({"launches_by_instance": dense_inst[kname]}
-               if kname in dense_inst else {})})
+            **{k: row[k] for k in ("instance", "n_split", "blocks",
+                                   "cuda_core_same_shapes") if k in row}}
+        if rname == kname and kname in by_inst:
+            entry["launches_by_instance"] = by_inst[kname]
+        elif rname != kname:           # the instance's, not this shape's
+            entry["launches_of"] = (f"{kname} instance {row.get('instance')}"
+                                    f" on both serving paths")
+        if rname == "ssd_cuda_core":   # bf16 serving takes the tensor cores
+            entry["launches_f32_output_check"] = f32_check.get(
+                "ssd", {}).get("cuda_core", 0)
+        kernels.append(entry)
     for f in failures:
         print(f"chip_smoke: FAIL {f}", file=sys.stderr)
     if failures:

@@ -36,8 +36,10 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float64: 2}
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _F, _D = ctypes.c_float, ctypes.c_double
 _SIGNATURES = {
-    # x, r, w, out, res, M, D, eps, plus_one, x_dtype, w_dtype, stream
-    "repro_rmsnorm": (_P, _P, _P, _P, _P, _LL, _I, _F, _I, _I, _I, _P),
+    # x, r, w, out, res, M, D, eps, plus_one, x_dtype, w_dtype, tpr,
+    # rows_per_cta, vpt, vec, early_w, stream
+    "repro_rmsnorm": (_P, _P, _P, _P, _P, _LL, _I, _F, _I, _I, _I, _I, _I,
+                      _I, _I, _I, _P),
     # q, k, v, kv_pos, q_pos, out, ws, B, H, KV, S, Dh, strides, scale,
     # window, softcap, chunk, n_split, dtype, stream
     "repro_decode_attention": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
@@ -56,6 +58,10 @@ _SIGNATURES = {
     # chunk, dtype, stream
     "repro_ssd": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                   _I, _P),
+    # x, dt, a_log, b, c, init_state, y, final_state, states, B, L, H, P, G,
+    # N, chunk, stream (bf16 only)
+    "repro_ssd_wgmma": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                        _I, _I, _I, _P),
 }
 
 _lock = threading.Lock()

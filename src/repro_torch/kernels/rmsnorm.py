@@ -3,22 +3,110 @@
 Replaces the Pallas kernels ``rmsnorm`` and ``rmsnorm_residual``
 (src/repro/kernels/rmsnorm.py). Kernel source: ``csrc/rmsnorm.cu``.
 
-What bounds it on the H100: bytes. Each row is read once (twice for the
-fused variant's x and r) and written once, with a handful of f32 operations
-per element. At the decode path's 4 rows of 576 the whole call moves a few
-KB, so it is bound by the launch, not by the 3.35 TB/s of device memory.
-The design does the least a launch can: one block per row, one f32
-block-wide reduction, the second pass served from L1, and the residual add
-fused so that the sum never makes a round trip through device memory.
+What bounds it on the H100: bytes. Each row is read once (x and r for the
+fused variant) and written once, with a handful of f32 operations per
+element. At decode batch (4 rows of 576-5120) the call moves 5-41 KB, so
+its time is latency: the launch, and how many dependent loads each thread
+waits on. At prefill (2048 rows) it is the 3.35 TB/s of device memory.
+The kernel keeps each thread's share of the row (and of the weight) in
+registers after one round of 16-byte loads and gives a row a warp or a
+CTA. ``rmsnorm_plan`` picks that plan from the shapes, dtype and
+alignment; the residual add is fused so that the sum never makes a round
+trip through device memory.
 
 ``rmsnorm_residual`` norms the unrounded f32 sum ``x + r``, as the Pallas
 kernel does; the plain version below keeps that order.
 """
 from __future__ import annotations
 
+import functools
+from dataclasses import dataclass
+
 import torch
 
 from . import _lib
+
+H100_SMS = 132
+MAX_THREADS = 256        # threads a CTA (csrc/rmsnorm.cu: MAX_THREADS)
+VPT_CHOICES = (1, 2, 4, 8)   # vectors a thread (the kernel's instances)
+SCALAR_VPT_CHOICES = VPT_CHOICES + (16, 32)   # the scalar instance's
+ROWS_PER_CTA = 4         # rows of a CTA when each row takes one warp
+
+
+@dataclass(frozen=True)
+class RmsPlan:
+    """How the kernel covers [M, D]: ``tpr`` threads a row,
+    ``rows_per_cta`` rows a CTA, ``vpt`` vectors of ``vec`` elements a
+    thread (``vec`` 1: the scalar instance); ``early_w`` loads the
+    weights with x, before the sum."""
+    vec: int
+    tpr: int
+    rows_per_cta: int
+    vpt: int
+    early_w: bool = True
+
+    @property
+    def threads(self) -> int:
+        return self.tpr * self.rows_per_cta
+
+    @functools.cached_property
+    def c_args(self) -> tuple:
+        """The plan's arguments to the C entry, in its order."""
+        return (self.tpr, self.rows_per_cta, self.vpt, self.vec,
+                int(self.early_w))
+
+    def grid(self, m: int) -> int:
+        return -(-m // self.rows_per_cta)
+
+    @functools.cached_property
+    def instance(self) -> str:
+        kind = "warp" if self.tpr == 32 else "block"
+        return kind if self.vec > 1 else f"{kind}_scalar"
+
+
+def _round32(n: int) -> int:
+    return -(-n // 32) * 32
+
+
+def _vpt(n: int) -> int:
+    return next(v for v in VPT_CHOICES if v >= n)
+
+
+# called on every launch: cached, so that planning costs the host ~2 us
+@functools.lru_cache(maxsize=1024)
+def rmsnorm_plan(m: int, d: int, dtype: torch.dtype,
+                 aligned: bool = True) -> RmsPlan:
+    """The kernel's plan for ``m`` rows of ``d`` elements of ``dtype``.
+
+    16-byte vectors when ``d`` is a multiple of their width and every base
+    is 16-byte ``aligned``, else the scalar instance. Many rows (at least
+    half as many as SMs) of at most 256 vectors: a warp a row, 4 rows a
+    CTA. Otherwise a row takes one CTA with the fewest vectors a thread
+    (1-8, or up to 32 in the scalar instance) that keep it within 256
+    threads. Few rows load the weights early (the call is one round trip
+    of latency); many rows after the sum (the registers they would hold
+    cut the CTAs in flight)."""
+    vec = 16 // dtype.itemsize
+    if not aligned or d % vec:
+        vec = 1
+    nvec = -(-d // vec)
+    many = m >= H100_SMS // 2
+    if many and nvec <= 32 * VPT_CHOICES[-1]:
+        return RmsPlan(vec, 32, ROWS_PER_CTA, _vpt(-(-nvec // 32)),
+                       early_w=False)
+    for vpt in VPT_CHOICES if vec > 1 else SCALAR_VPT_CHOICES:
+        tpr = _round32(-(-nvec // vpt))
+        if tpr <= MAX_THREADS:
+            return RmsPlan(vec, tpr, 1, vpt, early_w=not many)
+    raise ValueError(f"rmsnorm: width {d} is past what the kernel covers")
+
+
+def plan_for(x: torch.Tensor, *others: torch.Tensor) -> RmsPlan:
+    """``rmsnorm_plan`` for x viewed as rows of its last dimension, with
+    the alignment of x's and the others' base pointers."""
+    d = x.shape[-1]
+    aligned = all(t.data_ptr() % 16 == 0 for t in (x, *others))
+    return rmsnorm_plan(x.numel() // max(d, 1), d, x.dtype, aligned)
 
 
 def rmsnorm_plain(x: torch.Tensor, weight: torch.Tensor, *, eps: float = 1e-6,
@@ -65,14 +153,18 @@ def _launch(x, residual, weight, eps, plus_one, name):
     res = None if rf is None else torch.empty_like(xf)
     m = xf.shape[0]
     if m and d:
+        # plan_for's rule on the pointers the call passes anyway
+        px, pw = xf.data_ptr(), w.data_ptr()
+        pr = None if rf is None else rf.data_ptr()
+        pl = rmsnorm_plan(m, d, xf.dtype, (px | pw | (pr or 0)) % 16 == 0)
         err = _lib.lib().repro_rmsnorm(
-            xf.data_ptr(), None if rf is None else rf.data_ptr(),
-            w.data_ptr(), out.data_ptr(),
+            px, pr, pw, out.data_ptr(),
             None if res is None else res.data_ptr(), m, d, eps,
             int(plus_one), _lib.dtype_code(xf, name), _lib.dtype_code(w, name),
-            _lib.stream_handle(x.device))
+            *pl.c_args, _lib.stream_handle(x.device))
         _lib.check(err, name)
-        (rmsnorm if residual is None else rmsnorm_residual).counts.launched()
+        (rmsnorm if residual is None else rmsnorm_residual).counts.launched(
+            pl.instance, (pl.grid(m),))
     out = out.view(x.shape)
     return out if res is None else (out, res.view(x.shape))
 

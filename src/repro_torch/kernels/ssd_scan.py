@@ -5,6 +5,19 @@ source: ``csrc/ssd_scan.cu``; its note says what bounds it. The plain
 version is the model's chunked reference, ``models.mamba2.ssd_reference``
 (the JAX package's ``kernels/ref.py`` points at the same function).
 
+Two hand-written instances, chosen by ``ssd_instance`` from dtype, shapes
+and alignment (a plain function, never a retry after a failure):
+
+- ``tensor_core``: bf16, head dim 64, state dim 64 or 128, chunk a
+  multiple of 64, 16-byte aligned bases. Its products run on ``wgmma``:
+  one kernel carries each (batch row, head)'s state through the chunks in
+  its f32 accumulators, a second computes every (query tile, chunk, batch
+  row x head) in parallel. One call is these two launches, counted each
+  under its own name (``INSTANCE_KERNELS``).
+- ``cuda_core``: everything else (f32, the reduced config's P 16 / N 16 /
+  chunk 8, ragged chunks such as 96): products on the f32 CUDA cores, one
+  block per (batch row, head).
+
 The kernel takes B and C per group (no copy per head), dt in f32 after the
 softplus, and an optional f32 initial state; it returns ``y`` in x's dtype
 and the final state in f32. It needs ``L % chunk == 0`` (the model pads
@@ -20,6 +33,10 @@ import torch
 from . import _lib
 
 MAX_HEADDIM, MAX_STATE = 64, 128
+TENSOR_CORE_P, TENSOR_CORE_N = 64, (64, 128)
+# the kernels one call of each instance launches, as the counts name them
+INSTANCE_KERNELS = {"tensor_core": ("tensor_core/states", "tensor_core/out"),
+                    "cuda_core": ("cuda_core",)}
 
 
 def ssd_plain(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
@@ -29,6 +46,22 @@ def ssd_plain(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     ssd.counts.plain(x)
     from ..models.mamba2 import ssd_reference   # the model's own reference
     return ssd_reference(x, dt, a_log, b, c, chunk, init_state)
+
+
+def ssd_instance(x: torch.Tensor, b: torch.Tensor, chunk: int,
+                 c: Optional[torch.Tensor] = None) -> str:
+    """The kernel instance that takes these inputs: ``"tensor_core"``
+    (``wgmma``) for bf16 x with head dim ``TENSOR_CORE_P``, a state dim in
+    ``TENSOR_CORE_N``, a chunk that is a multiple of 64 and 16-byte aligned
+    bases (x, b and, when given, c, each as the wrapper hands it to the
+    kernel: contiguous); ``"cuda_core"`` for anything else."""
+    if (x.dtype != torch.bfloat16 or x.shape[-1] != TENSOR_CORE_P
+            or b.shape[-1] not in TENSOR_CORE_N or chunk % 64):
+        return "cuda_core"
+    for t in (x, b) + (() if c is None else (c,)):
+        if t.is_contiguous() and t.data_ptr() % 16:
+            return "cuda_core"
+    return "tensor_core"
 
 
 def ssd(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
@@ -63,26 +96,56 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     if b.dtype != x.dtype or c.dtype != x.dtype:
         raise TypeError(f"{name}: x, b and c must share a dtype, got "
                         f"{x.dtype}, {b.dtype}, {c.dtype}")
-    code = _lib.dtype_code(x, name)
+    _lib.dtype_code(x, name)
     x, b, c = x.contiguous(), b.contiguous(), c.contiguous()
     dt = dt.float().contiguous()
     a32 = a_log.float().contiguous()
     s0 = None if init_state is None else init_state.float().contiguous()
+    if not (bs and ln):
+        sf = (torch.zeros((bs, h, p, n), dtype=torch.float32, device=x.device)
+              if s0 is None else s0.clone())
+        return torch.empty_like(x), sf
+    instance = ssd_instance(x, b, chunk, c)
+    y, sf, grids = launch(x, dt, a32, b, c, chunk, s0, instance)
+    for kernel, grid in zip(INSTANCE_KERNELS[instance], grids):
+        ssd.counts.launched(kernel, grid)
+    return y, sf
+
+
+def launch(x, dt, a32, b, c, chunk, s0, instance):
+    """One call of ``instance`` on checked, contiguous CUDA inputs (dt,
+    a32 and s0 in f32); returns (y, final state, the grid of each kernel it
+    launched, in ``INSTANCE_KERNELS``' order). ``ssd`` picks the instance
+    and counts the launches; a caller that
+    forces the CUDA-core instance on shapes the tensor cores take (a
+    comparison, as in chip_smoke.py) goes through here uncounted."""
+    bs, ln, h, p = x.shape
+    g, n = b.shape[2], b.shape[3]
     y = torch.empty_like(x)
     sf = torch.empty((bs, h, p, n), dtype=torch.float32, device=x.device)
-    if bs and ln:
+    if instance == "tensor_core":
+        if s0 is not None and s0.data_ptr() % 16:   # read as float4
+            s0 = s0.clone()
+        nc = ln // chunk
+        # the state entering each chunk, as a bf16 high part and residual
+        states = (torch.empty((bs, h, nc, 2, p, n), dtype=torch.bfloat16,
+                              device=x.device)
+                  if nc > 1 or s0 is not None else None)
+        err = _lib.lib().repro_ssd_wgmma(
+            x.data_ptr(), dt.data_ptr(), a32.data_ptr(), b.data_ptr(),
+            c.data_ptr(), None if s0 is None else s0.data_ptr(), y.data_ptr(),
+            sf.data_ptr(), None if states is None else states.data_ptr(), bs,
+            ln, h, p, g, n, chunk, _lib.stream_handle(x.device))
+        grids = ((bs * h,), (chunk // 64, nc, bs * h))
+    else:
         err = _lib.lib().repro_ssd(
             x.data_ptr(), dt.data_ptr(), a32.data_ptr(), b.data_ptr(),
-            c.data_ptr(), None if s0 is None else s0.data_ptr(),
-            y.data_ptr(), sf.data_ptr(), bs, ln, h, p, g, n, chunk, code,
-            _lib.stream_handle(x.device))
-        _lib.check(err, name)
-        ssd.counts.launched()
-    elif s0 is not None:
-        sf.copy_(s0)
-    else:
-        sf.zero_()
-    return y, sf
+            c.data_ptr(), None if s0 is None else s0.data_ptr(), y.data_ptr(),
+            sf.data_ptr(), bs, ln, h, p, g, n, chunk,
+            _lib.dtype_code(x, "ssd"), _lib.stream_handle(x.device))
+        grids = ((bs * h,),)
+    _lib.check(err, "ssd")
+    return y, sf, grids
 
 
 ssd.counts = _lib.Counts()

@@ -46,11 +46,6 @@ def test_cuda_kernels_match_plain_versions(dtype):
     x, res, w = r(37, 96), r(37, 96), r(96)
     torch.testing.assert_close(rms.rmsnorm(x, w), rms.rmsnorm_plain(x, w),
                                rtol=tol, atol=tol)
-    for d in (2560, 5120):            # mamba2-2.7b's ln and gated norm
-        xd, wd = r(4, 1, d), r(d)
-        torch.testing.assert_close(rms.rmsnorm(xd, wd),
-                                   rms.rmsnorm_plain(xd, wd),
-                                   rtol=tol, atol=tol)
     for a, b in zip(rms.rmsnorm_residual(x, res, w),
                     rms.rmsnorm_residual_plain(x, res, w)):
         torch.testing.assert_close(a, b, rtol=tol, atol=tol)
@@ -126,6 +121,50 @@ def test_cuda_kernels_match_plain_versions(dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("m", [1, 4, 2048])
+@pytest.mark.parametrize("d", [576, 2560, 5120])
+def test_cuda_rmsnorm_plans_match_plain_versions(dtype, m, d):
+    """The paths' widths (smollm 576; mamba2 2560 and 5120) at one row,
+    decode batch 4 and prefill's 2048 rows, both norms, each through the
+    instance that ``rmsnorm_plan`` names; then a view one element off a
+    16-byte boundary (the scalar instance, one CTA a row), a bf16 weight,
+    and plus_one."""
+    _need_cuda()
+    tdt, tol = DTYPES[dtype]
+    g = torch.Generator().manual_seed(m * d)
+
+    def r(*shape, dt=tdt):
+        return torch.randn(shape, generator=g).to(dt).cuda()
+    x, res, w = r(m, d), r(m, d), r(d, dt=torch.float32)
+    plan = rms.rmsnorm_plan(m, d, tdt)
+    assert plan.vec > 1 and plan == rms.plan_for(x, w, res)
+    rms.rmsnorm.counts.reset()
+    rms.rmsnorm_residual.counts.reset()
+    torch.testing.assert_close(rms.rmsnorm(x, w), rms.rmsnorm_plain(x, w),
+                               rtol=tol, atol=tol)
+    for a, b in zip(rms.rmsnorm_residual(x, res, w),
+                    rms.rmsnorm_residual_plain(x, res, w)):
+        torch.testing.assert_close(a, b, rtol=tol, atol=tol)
+    want = {plan.instance: 1}
+    assert rms.rmsnorm.counts.by_instance == want
+    assert rms.rmsnorm_residual.counts.by_instance == want
+    assert rms.rmsnorm.counts.grids[plan.instance] == (plan.grid(m),)
+    # a misaligned view takes the scalar instance of the same kernel
+    xm = r(m * d + 1)[1:].view(m, d)
+    scalar = rms.plan_for(xm, w)
+    assert scalar.vec == 1 and scalar.instance.endswith("_scalar")
+    torch.testing.assert_close(rms.rmsnorm(xm, w), rms.rmsnorm_plain(xm, w),
+                               rtol=tol, atol=tol)
+    wb = r(d, dt=torch.bfloat16)
+    for plus_one in (False, True):
+        torch.testing.assert_close(
+            rms.rmsnorm(x, wb, plus_one=plus_one),
+            rms.rmsnorm_plain(x, wb, plus_one=plus_one), rtol=tol, atol=tol)
+    assert rms.rmsnorm.counts.by_instance[scalar.instance] == 1
+
+
+@pytest.mark.cuda
 def test_realtime_staged_ssm_decode_on_cuda_streams():
     _need_cuda()
     from repro_torch.kernels import KERNELS, reset_counts
@@ -168,10 +207,16 @@ def test_realtime_staged_lm_decode_on_cuda_streams():
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("shape", [(2, 128, 4, 16, 1, 16, 32),
                                    (1, 192, 6, 64, 2, 128, 96),
-                                   (2, 512, 8, 64, 1, 128, 256)])
+                                   (2, 512, 8, 64, 1, 128, 256),
+                                   (2, 512, 8, 64, 2, 64, 128),
+                                   (4, 512, 80, 64, 1, 128, 256)])
 def test_cuda_ssd_matches_plain_version(dtype, shape):
     """B, L, H, P, G, N, chunk: ragged tiles (chunk 96), G = 2, the full
-    model's P 64 / N 128 / chunk 256, and a non-zero initial state."""
+    model's P 64 / N 128 / chunk 256, four chunks at N 64, the donor
+    prefill's full shapes, each without and with a non-zero initial state,
+    through the instance ``ssd_instance`` names (bf16 at P 64, N 64 or 128
+    and a chunk a multiple of 64: ``tensor_core``, its state pass and its
+    output kernel a call; ``cuda_core``, one kernel a call)."""
     _need_cuda()
     tdt, tol = DTYPES[dtype]
     tol = max(tol, 5e-4)
@@ -188,11 +233,23 @@ def test_cuda_ssd_matches_plain_version(dtype, shape):
         np.float32)).to(tdt).cuda()
     s0 = torch.from_numpy(rng.standard_normal((b_, h, p, n), np.float32)
                           ).cuda()
+    want = ("tensor_core" if dtype == "bfloat16" and p == 64
+            and n in (64, 128) and chunk % 64 == 0 else "cuda_core")
+    assert ssd_scan.ssd_instance(x, bm, chunk, cm) == want
+    ssd_scan.ssd.counts.reset()
     for init in (None, s0):
         ya, sa = ssd_scan.ssd(x, dt, a_log, bm, cm, chunk, init)
         yb, sb = ssd_scan.ssd_plain(x, dt, a_log, bm, cm, chunk, init)
         torch.testing.assert_close(ya.float(), yb.float(), rtol=tol, atol=tol)
         torch.testing.assert_close(sa, sb, rtol=tol, atol=tol)
+    kernels = ssd_scan.INSTANCE_KERNELS[want]
+    assert ssd_scan.ssd.counts.by_instance == {k: 2 for k in kernels}
+    assert ssd_scan.ssd.counts.launches == 2 * len(kernels)
+    if want == "tensor_core":
+        nc = ln // chunk
+        assert ssd_scan.ssd.counts.grids == {
+            "tensor_core/states": (b_ * h,),
+            "tensor_core/out": (chunk // 64, nc, b_ * h)}
 
 
 @pytest.mark.cuda
