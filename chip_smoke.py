@@ -3,11 +3,14 @@
 
     python3 chip_smoke.py          # from the root of a checkout
     python3 chip_smoke.py --serve mamba2-2.7b --repeats 2 [--trace]
+    python3 chip_smoke.py --epoch --repeats 10
 
 The second form runs only one model's serving phase (step 3 or 5 below),
 ``--repeats`` times, each with the host's side of the run and the card's
 clocks after it, and with ``--trace`` what the card did during it
-(``device_timeline``); it prints no result line. Without arguments:
+(``device_timeline``); the third only the epoch phase (step 4),
+``--repeats`` times (events/s on the host's clock vary from run to run).
+Neither prints a result line. Without arguments:
 
 1. Builds the port's Hopper kernels from ``src/repro_torch/kernels/csrc``
    (into ``build/kernels/``).
@@ -38,11 +41,17 @@ clocks after it, and with ``--trace`` what the card did during it
    instance is held to its plain version through the wrapper at a shape
    it takes (chunk 96, L 576: ``ssd_cuda_core``). The contention + ETA
    kernel runs on fleet-scale rate-groups of 4096 lanes (one where all
-   three branches fire, one where none does):
-   the f64 instance must return its plain version's bits and those of
-   ``rates_seq`` on the host, the f32 one agree within 2e-6 relative. Its
-   bound is the larger of its bytes and its serial chain of 3 m dependent
-   adds at one add per cycle of the card's top SM clock.
+   three branches fire, one where none does; both in shared memory) and
+   on one of 12,289 lanes past the shared-memory limit (the ``tiled``
+   instance): the f64 instance must return its plain version's bits and
+   those of ``rates_seq`` on the host, from lists and from numpy arrays,
+   the f32 one agree within 2e-6 relative. Its bound is the larger of its
+   bytes and its serial chain of 3 m dependent adds at one add per cycle
+   of the card's top SM clock; beside it, the latency floor: 3 m times
+   one add's latency in cycles, measured on the card by the kernel's
+   ``clock64`` probe (``contention_eta.chain_cycles``). Its round trip is
+   timed from lists and from numpy arrays, beside ``rates_seq`` on the
+   host.
 3. Serving phase, dense path: two full-width smollm-135m staged decode
    tasks (HP and LP; 4 stages, batch 4, prompt 512; random weights from
    seed 0) built with ``staged_lm_taskspec`` and served in real time by
@@ -114,6 +123,8 @@ N_STAGES, HORIZON_MS, JPS = 4, 3000.0, 5.0
 SSM_H, SSM_P, SSM_N, SSM_G, SSM_Q = 80, 64, 128, 1, 256
 SSM_JPS = 2.0
 LANES = 4096                          # a fleet-scale rate-group
+TILED_LANES = 12289                   # past the kernel's shared-memory limit
+SMALL_LANES = 16                      # a rate-group of the epoch scenario
 DEFAULT_SM_MHZ = 1980.0               # H100 SXM top boost clock (data sheet)
 
 
@@ -630,9 +641,11 @@ def serving_phase(torch, failures, arch, n_layers, jps, kernels,
 
 
 def contention_phase(torch, failures):
-    """The contention + ETA kernel on two 4096-lane rate-groups: all three
-    branches fire in one, none in the other. Returns the f64 and f32
-    rows; the f32 row's launches are those of its fleet-sweep call."""
+    """The contention + ETA kernel on three rate-groups: two of 4096 lanes
+    (all three branches fire in one, none in the other), whose columns stay
+    in shared memory, and one of 12,289, past the shared-memory limit
+    (the tiled instance). Returns the f64 and f32 rows; the f32 row's
+    launches are those of its fleet-sweep call."""
     import numpy as np
 
     from repro_torch.api import DeviceModel
@@ -650,7 +663,13 @@ def contention_phase(torch, failures):
         "no_branch": (DeviceModel(n_units=1e6, l2_pressure=0.0),
                       rng.uniform(0.2, 0.4, LANES), rng.uniform(30, 40, LANES),
                       np.full(LANES, 1e-5), rng.uniform(0.1, 8.0, LANES)),
+        "tiled": (DeviceModel(n_units=float(sm)),
+                  rng.uniform(0.2, 4.0, TILED_LANES),
+                  rng.uniform(5, 40, TILED_LANES),
+                  rng.uniform(0.05, 0.9, TILED_LANES),
+                  rng.uniform(0.1, 8.0, TILED_LANES)),
     }
+    arrays = groups
     groups = {k: (g[0], *(a.tolist() for a in g[1:]))
               for k, g in groups.items()}
     # the f32 variant's own path: one fleet-sweep call per group
@@ -673,16 +692,21 @@ def contention_phase(torch, failures):
     rows = {}
     for name, dtype, elt in (("contention_eta_f64", torch.float64, 8),
                              ("contention_eta_f32", torch.float32, 4)):
-        checks, err = {}, 0.0
+        checks, instances, err = {}, {}, 0.0
+        counts = (ce.fused if dtype == torch.float64 else ce.fused_f32).counts
         for gname, (dm, u, ns, mf, rem) in groups.items():
+            counts.reset()
             if dtype == torch.float64:
                 got = ce.fused(dm, 1.0, u, ns, mf, rem)
                 want = ce.fused_plain(dm, 1.0, u, ns, mf, rem, device=dev)
                 seq = ContentionModel(dm).rates_seq(u, ns, mf)
                 seq = [r if r > 1e-6 else 1e-6 for r in seq]
                 speed = ce.rates(dm, u, ns, mf)
+                from_arrays = ce.fused(dm, 1.0, *arrays[gname][1:])
                 ok = (all(torch.equal(torch.from_numpy(a), torch.from_numpy(b))
                           for a, b in zip(got, want))
+                      and all(np.array_equal(a, b)
+                              for a, b in zip(from_arrays, got))
                       and got[0].tolist() == seq
                       and [r if r > 1e-6 else 1e-6 for r in speed] == seq)
             else:
@@ -693,16 +717,22 @@ def contention_phase(torch, failures):
             err = max(err, max(float(np.abs(a.astype(np.float64) - b).max())
                                for a, b in zip(got, want)))
             checks[gname] = ok
+            instances[gname] = "+".join(counts.by_instance)
             if not ok:
                 failures.append(f"{name} on {gname}: kernel and plain "
                                 f"version disagree")
+            want_inst = "tiled" if gname == "tiled" else "resident"
+            if instances[gname] != want_inst:
+                failures.append(f"{name} on {gname}: launched "
+                                f"{counts.by_instance}, not {want_inst}")
         dm, u, ns, mf, rem = groups["branches_fire"]
-        x = ce.lane_columns(u, ns, mf, rem, dtype).to(dev)
-        out_t = torch.empty((3, LANES), dtype=dtype, device=dev)
         comp = ce.SUM_IS_COMPENSATED and dtype == torch.float64
 
-        def kern():
-            ce.launch(x, out_t, 1.0, dm, comp)
+        def timed_launch(g):
+            dm_g, *cols = groups[g]
+            x = ce.lane_columns(*cols, dtype).to(dev)
+            out_t = torch.empty((3, x.shape[1]), dtype=dtype, device=dev)
+            return lambda: ce.launch(x, out_t, 1.0, dm_g, comp)
 
         def wall_ms(fn, n=20):
             fn()
@@ -715,23 +745,51 @@ def contention_phase(torch, failures):
         wrapper = ce.fused if dtype == torch.float64 else ce.fused_f32
         plain = ce.fused_plain if dtype == torch.float64 else ce.fused_f32_plain
         cm = ContentionModel(dm)
+        au, ans, amf, arem = arrays["branches_fire"][1:]
+        add_cycles = ce.chain_cycles(dtype, "add")
         t_bytes = LANES * elt * 7 / HBM_BYTES_PER_S
         t_chain = 3 * LANES / (mhz * 1e6)
         row = {"name": name, "dtype": str(dtype).replace("torch.", ""),
-               "lanes": LANES, "checks": checks, "max_err": err,
+               "lanes": LANES, "checks": checks, "instances": instances,
+               "max_err": err,
                "tol": 0.0 if dtype == torch.float64 else "2e-6 relative",
-               "kernel_ms": graph_ms(torch, kern),
+               "kernel_ms": graph_ms(torch, timed_launch("branches_fire")),
+               "kernel_ms_tiled": graph_ms(torch, timed_launch("tiled"),
+                                           reps=10, inner=5),
+               "tiled_lanes": TILED_LANES,
                "round_trip_ms": wall_ms(lambda: wrapper(dm, 1.0, u, ns, mf,
                                                         rem)),
+               "round_trip_arrays_ms": wall_ms(
+                   lambda: wrapper(dm, 1.0, au, ans, amf, arem)),
                "plain_ms": wall_ms(lambda: plain(dm, 1.0, u, ns, mf, rem,
                                                  device=dev), 5),
                "rates_seq_host_ms": wall_ms(lambda: cm.rates_seq(u, ns, mf)),
                "library_ms": None,
+               "add_cycles": add_cycles,
+               "chain_cycles": ce.chain_cycles(dtype, "chain"),
+               "latency_floor_ms": 3 * LANES * add_cycles / (mhz * 1e6) * 1e3,
                "bound_bytes_ms": t_bytes * 1e3,
                "bound_serial_chain_ms": t_chain * 1e3, "sm_clock_mhz": mhz,
                "bound_ms": max(t_bytes, t_chain) * 1e3,
                "bound_by": "bytes" if t_bytes >= t_chain else "operations"}
-        if dtype == torch.float32:
+        if dtype == torch.float64:
+            row["rates_round_trip_ms"] = wall_ms(
+                lambda: ce.rates(dm, u, ns, mf))
+            # a rate-group of the epoch phase's size (its scenario has 24
+            # lanes), from lists, against rates_seq on the host
+            su, sns, smf = u[:SMALL_LANES], ns[:SMALL_LANES], mf[:SMALL_LANES]
+            row["small_group_lanes"] = SMALL_LANES
+            row["rates_round_trip_small_ms"] = wall_ms(
+                lambda: ce.rates(dm, su, sns, smf), 200)
+            row["rates_seq_host_small_ms"] = wall_ms(
+                lambda: cm.rates_seq(su, sns, smf), 200)
+            xs = ce.lane_columns(su, sns, smf, rem[:SMALL_LANES], dtype).to(dev)
+            outs = torch.empty((3, SMALL_LANES), dtype=dtype, device=dev)
+            row["kernel_ms_small"] = graph_ms(
+                torch, lambda: ce.launch(xs, outs, 1.0, dm, comp))
+            row["neumaier_select_cycles"] = ce.chain_cycles(
+                dtype, "neumaier_select")
+        else:
             row["launches_fleet_sweep"] = f32_launches
         emit({"kernel_check": row})
         rows[name] = row
@@ -993,6 +1051,8 @@ def main() -> int:
     ap.add_argument("--serve", metavar="ARCH",
                     help="only this model's serving phase (smollm-135m or "
                          "mamba2-2.7b), --repeats times")
+    ap.add_argument("--epoch", action="store_true",
+                    help="only the epoch phase, --repeats times")
     ap.add_argument("--repeats", type=int, default=1)
     ap.add_argument("--trace", action="store_true",
                     help="with --serve: each run under torch.profiler")
@@ -1027,6 +1087,13 @@ def main() -> int:
     emit({"build": {"seconds": build_s, "ptxas": ptxas}})
     if args.serve:
         return serve_repeats(torch, args.serve, args.repeats, args.trace)
+    if args.epoch:
+        failures = []
+        for _ in range(args.repeats):
+            epoch_phase(torch, failures)
+        for f in failures:
+            print(f"chip_smoke: FAIL {f}", file=sys.stderr)
+        return 1 if failures else 0
 
     failures, seconds = [], {}
     t0 = time.perf_counter()
@@ -1094,7 +1161,8 @@ def main() -> int:
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             **{k: row[k] for k in ("instance", "n_split", "blocks",
-                                   "cuda_core_same_shapes") if k in row}}
+                                   "cuda_core_same_shapes",
+                                   "latency_floor_ms") if k in row}}
         if rname == kname and kname in by_inst:
             entry["launches_by_instance"] = by_inst[kname]
         elif rname != kname:           # the instance's, not this shape's

@@ -2,8 +2,8 @@
 
 Every wrapper takes its plain PyTorch version for CPU tensors and launches
 its CUDA kernel for CUDA tensors (or raises); there is no fallback. The
-contention wrappers take host lists and pick by their ``device`` argument
-instead. Each
+contention wrappers take host columns (lists, numpy arrays or CPU tensors)
+and pick by their ``device`` argument instead. Each
 wrapper carries ``.counts`` (launches, plain calls, plain calls on CUDA
 tensors, and launches by instance where the wrapper picks one, as flash
 attention does, or launches two, as decode attention does, with each

@@ -51,9 +51,18 @@ _SIGNATURES = {
     # the same without dtype (bf16 only)
     "repro_flash_attention_wgmma": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P,
                                     _F, _I, _I, _F, _P),
-    # in [4, m], out [3, m], m, now, n_units, bubble, l2p, compensated,
-    # dtype, stream
-    "repro_contention_eta": (_P, _P, _LL, _D, _D, _D, _D, _I, _I, _P),
+    # in [4, m] (rows ld_in apart), ld_in, out [3, m], ld_out, ws, m, now,
+    # n_units, bubble, l2p, compensated, tiled, dtype, stream
+    "repro_contention_eta": (_P, _LL, _P, _LL, _P, _LL, _D, _D, _D, _D, _I,
+                             _I, _I, _P),
+    # h_in, d_in, d_out, h_out, ws, m, ld, row0, row1, now, n_units,
+    # bubble, l2p, compensated, tiled, dtype, stream
+    "repro_contention_eta_round_trip": (_P, _P, _P, _P, _P, _LL, _LL, _I, _I,
+                                        _D, _D, _D, _D, _I, _I, _I, _P),
+    # (no arguments): shared memory a block may opt into, bytes
+    "repro_smem_optin": (),
+    # x, cycles, sink, n, mode, dtype, stream
+    "repro_chain_probe": (_P, _P, _P, _I, _I, _I, _P),
     # x, dt, a_log, b, c, init_state, y, final_state, B, L, H, P, G, N,
     # chunk, dtype, stream
     "repro_ssd": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,

@@ -252,28 +252,52 @@ def test_cuda_ssd_matches_plain_version(dtype, shape):
             "tensor_core/out": (chunk // 64, nc, b_ * h)}
 
 
+# around the shared-memory limits (5,792 lanes in f64, 11,616 in f32 on the
+# H100: ce.resident_max) and past both (the tiled instance)
+CONTENTION_MS = [1, 17, 129, 4096, 5792, 5793, 11616, 11617, 12289]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("m", [1, 17, 129, 4096])
+@pytest.mark.parametrize("m", CONTENTION_MS)
 def test_cuda_contention_eta_matches_plain_version(m):
     _need_cuda()
     rng = np.random.default_rng(m)
     for dm in (api.DeviceModel(), api.DeviceModel(n_units=1e6,
                                                   l2_pressure=0.0)):
-        u = rng.uniform(0.2, 4.0, m).tolist()
-        ns = rng.uniform(5.0, 40.0, m).tolist()
-        mf = rng.uniform(0.05, 0.9, m).tolist()
-        rem = rng.uniform(0.1, 8.0, m).tolist()
+        cols = [rng.uniform(0.2, 4.0, m), rng.uniform(5.0, 40.0, m),
+                rng.uniform(0.05, 0.9, m), rng.uniform(0.1, 8.0, m)]
+        u, ns, mf, rem = (c.tolist() for c in cols)
         for comp in (True, False):
-            assert ce.rates(dm, u, ns, mf, compensated=comp) == \
-                ce.rates_plain(dm, u, ns, mf, compensated=comp)
-            got, want = (ce.fused(dm, 3.5, u, ns, mf, rem, compensated=comp),
-                         ce.fused_plain(dm, 3.5, u, ns, mf, rem,
-                                        compensated=comp))
-            assert all(np.array_equal(a, b) for a, b in zip(got, want))
-        got = ce.fused_f32(dm, 3.5, u, ns, mf, rem)
+            ce.fused.counts.reset()
+            want_rates = ce.rates_plain(dm, u, ns, mf, compensated=comp)
+            assert ce.rates(dm, u, ns, mf, compensated=comp) == want_rates
+            assert ce.rates(dm, *cols[:3], compensated=comp) == want_rates
+            want = ce.fused_plain(dm, 3.5, u, ns, mf, rem, compensated=comp)
+            for got in (ce.fused(dm, 3.5, u, ns, mf, rem, compensated=comp),
+                        ce.fused(dm, 3.5, *cols, compensated=comp)):
+                assert all(np.array_equal(a, b) for a, b in zip(got, want))
+            inst = ce.contention_instance(m, torch.float64)
+            assert ce.fused.counts.by_instance == {inst: 4}
+        ce.fused_f32.counts.reset()
         want = ce.fused_f32_plain(dm, 3.5, u, ns, mf, rem)
-        for a, b in zip(got, want):
-            np.testing.assert_allclose(a, b, rtol=2e-6, atol=0)
+        for got in (ce.fused_f32(dm, 3.5, u, ns, mf, rem),
+                    ce.fused_f32(dm, 3.5, *cols)):
+            for a, b in zip(got, want):
+                np.testing.assert_allclose(a, b, rtol=2e-6, atol=0)
+        assert ce.fused_f32.counts.by_instance == {
+            ce.contention_instance(m, torch.float32): 2}
+
+
+@pytest.mark.cuda
+def test_cuda_contention_limit_and_probe():
+    """The card grants the shared memory the limits assume, and the latency
+    probe reads a plausible number of cycles an add."""
+    _need_cuda()
+    assert ce.smem_optin(torch.device("cuda")) == ce.H100_SMEM_OPTIN
+    for dtype in (torch.float64, torch.float32):
+        for mode in ce.PROBE_MODES:
+            cycles = ce.chain_cycles(dtype, mode)
+            assert 1.0 <= cycles < 200.0, (dtype, mode, cycles)
 
 
 @pytest.mark.cuda
