@@ -3,9 +3,10 @@
 
     python3 chip_smoke.py          # from the root of a checkout
     python3 chip_smoke.py --serve mamba2-2.7b --repeats 2 [--trace]
+    python3 chip_smoke.py --serve resnet18 --repeats 8
     python3 chip_smoke.py --epoch --repeats 10
 
-The second form runs only one model's serving phase (step 3 or 5 below),
+The --serve forms run only one model's serving phase (step 3, 5 or 6 below),
 ``--repeats`` times, each with the host's side of the run and the card's
 clocks after it, and with ``--trace`` what the card did during it
 (``device_timeline``); the third only the epoch phase (step 4),
@@ -73,6 +74,19 @@ Neither prints a result line. Without arguments:
    and whose decode steps run RMSNorm at widths 2560 and 5120, with the
    same output checks; the cut-depth f32 check reports its launches by
    instance (its SSD calls take the CUDA-core instance).
+6. CNN phase, the paper's Table II path: ResNet18 at its published widths
+   (64/128/256/512), UNet and InceptionV3 at their builders' width 24, each
+   cut into 4 stages, on 224 x 224 x 3 inputs, batch 1, f32 with TF32 off
+   (random weights from seed 0). Each is served as in 3 by an HP and an LP
+   task built with ``staged_cnn_taskspec``, at its Table II per-task rate
+   (30, 24 and 24 jobs/s); its convolutions go to cuDNN through torch, and
+   no port kernel and no plain version of one may run. Then, per DNN, a
+   ``cnn_stage_profile`` line (each stage's kernels, host wall ms against
+   device busy ms, and conv FLOPs from the shapes with their bound at 67
+   TFLOP/s) and its output checks: the HP task's payload chain on a seeded
+   input gives finite outputs of the reference's shape, and a cut-width
+   copy (width 8, input 65, batch 2) gives the same on the card as on the
+   CPU, stage by stage, within 1e-3 of each output's scale.
 
 Kernel launch counts are reset just before each path and read just after;
 every kernel must be launched on a path (the f32 contention kernel, which
@@ -94,7 +108,8 @@ split grid held fewer blocks than the card has SMs, a plain version ran on
 a CUDA tensor during a path, a flash-attention launch on the dense path
 took the CUDA-core instance, an SSD launch on the ssm path took the
 CUDA-core instance, a worker caught an exception, no HP job
-completed, the three epoch runs differ, or an output check failed. The
+completed, the three epoch runs differ, a port kernel or its plain version
+ran on the CNN path, or an output check failed. The
 last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -126,6 +141,11 @@ LANES = 4096                          # a fleet-scale rate-group
 TILED_LANES = 12289                   # past the kernel's shared-memory limit
 SMALL_LANES = 16                      # a rate-group of the epoch scenario
 DEFAULT_SM_MHZ = 1980.0               # H100 SXM top boost clock (data sheet)
+# Table II's DNNs: ResNet18 at its published widths (64/128/256/512), UNet
+# and InceptionV3 at their builders' defaults; Table I's input, batch 1
+CNN_WIDTHS = {"resnet18": 64, "unet": 24, "inceptionv3": 24}
+CNN_HW, CNN_BATCH = 224, 1
+CNN_TOL = 1e-3                        # card vs CPU, of the output's scale
 
 
 def emit(obj) -> None:
@@ -541,11 +561,7 @@ def device_timeline(torch, prof, window_ms: float = 100.0) -> dict:
                 busy_w[w] += cut - a
                 a = cut
             end = b
-    by_name = {}
-    for e in kern:
-        n, t = by_name.get(e.name, (0, 0.0))
-        by_name[e.name] = (n + 1, t + e.time_range.elapsed_us())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]
+    top = sorted(by_kernel(kern).items(), key=lambda kv: -kv[1][1])[:6]
     longest = max(kern, key=lambda e: e.time_range.elapsed_us())
     return {"kernels": len(kern), "span_ms": (t1 - t0) / 1e3,
             "busy_ms": busy / 1e3, "idle_share": 1 - busy / (t1 - t0),
@@ -560,14 +576,10 @@ def serving_phase(torch, failures, arch, n_layers, jps, kernels,
                   trace=False):
     """``arch`` at full width (depth ``n_layers``, None for all of it),
     two staged decode tasks served in real time; returns the model, its
-    parameters, the HP task and the path's launch counts. The serving
-    line also gives the host's side of the run (wall, the process's CPU
-    seconds and context switches, the threads that used the most CPU);
-    ``trace`` puts the run under
-    ``torch.profiler`` and adds ``device_timeline``."""
-    from repro_torch.api import HP, LP, DeviceModel, ServerConfig
+    parameters, the HP task and the path's launch counts (``serve``)."""
+    from repro_torch.api import HP, LP
     from repro_torch.configs import get_config
-    from repro_torch.kernels import KERNELS, reset_counts
+    from repro_torch.kernels import reset_counts
     from repro_torch.models import build_model
     from repro_torch.serving.engine import staged_lm_taskspec
 
@@ -577,7 +589,6 @@ def serving_phase(torch, failures, arch, n_layers, jps, kernels,
     model = build_model(cfg)
     params = model.init_params(0)
     torch.cuda.synchronize()
-    sm = torch.cuda.get_device_properties(0).multi_processor_count
 
     reset_counts()
     t0 = time.perf_counter()
@@ -585,13 +596,38 @@ def serving_phase(torch, failures, arch, n_layers, jps, kernels,
                                 prompt_len=PROMPT, batch=B, tag=tag,
                                 params=params)
              for p, tag in ((HP, "-hp"), (LP, "-lp"))]
-    setup_s = time.perf_counter() - t0
-    srv = (ServerConfig.realtime()
+    desc = {"model": cfg.name, "layers": cfg.n_layers,
+            "d_model": cfg.d_model, "batch": B, "prompt_len": PROMPT,
+            "stages": N_STAGES}
+    _, launches, instances = serve(torch, failures, specs,
+                                   time.perf_counter() - t0, jps, kernels,
+                                   desc, trace=trace)
+    return model, params, specs[0], launches, instances
+
+
+def serve(torch, failures, specs, setup_s, jps, kernels, desc, trace=False,
+          input_hw=None):
+    """Serve ``specs`` (an HP and an LP task) in real time for
+    ``HORIZON_MS`` (2 contexts x 2 streams, oversubscription 2.0, n_units
+    the card's SM count, seed 0; NHWC inputs of ``input_hw`` where given)
+    and emit the ``serving`` line, which also gives the host's side of the
+    run (wall, the process's CPU seconds and context switches, the threads
+    that used the most CPU); ``trace`` puts the run under
+    ``torch.profiler`` and adds ``device_timeline``. Launch counts were
+    reset before the tasks were built. Returns the metrics, the launches
+    of ``kernels`` and the launches by instance."""
+    from repro_torch.api import HP, LP, DeviceModel, ServerConfig
+    from repro_torch.kernels import KERNELS
+
+    sm = torch.cuda.get_device_properties(0).multi_processor_count
+    cfg = (ServerConfig.realtime()
            .tasks(specs)
            .contexts(2).streams(2).oversubscribe(2.0)
            .device(DeviceModel(n_units=float(sm)))
-           .horizon_ms(HORIZON_MS).seed(0)
-           .build())
+           .horizon_ms(HORIZON_MS).seed(0))
+    if input_hw is not None:
+        cfg = cfg.realtime_io(input_hw=input_hw, batch=specs[0].batch)
+    srv = cfg.build()
     if trace:
         from torch.profiler import ProfilerActivity, profile
         tracer = profile(activities=[ProfilerActivity.CUDA])
@@ -607,23 +643,27 @@ def serving_phase(torch, failures, arch, n_layers, jps, kernels,
             "involuntary_switches": ru1.ru_nivcsw - ru0.ru_nivcsw,
             "voluntary_switches": ru1.ru_nvcsw - ru0.ru_nvcsw,
             "cpu_s_by_thread": threads.top()}
-    launches = path_counts(KERNELS, kernels, cfg.name, failures)
+    name = desc["model"]
+    launches = path_counts(KERNELS, kernels, name, failures)
     instances = {n: dict(KERNELS[n].counts.by_instance) for n in kernels
                  if KERNELS[n].counts.by_instance}
     be = srv.backend
     emit({"serving": {
-        "model": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
-        "batch": B, "prompt_len": PROMPT, "stages": N_STAGES, "sm_count": sm,
+        **desc, "sm_count": sm,
         "jobs_per_s": jps, "setup_s": setup_s, "horizon_ms": HORIZON_MS,
         "t_alone_ms": {s.name: [st.t_alone_ms for st in s.stages]
                        for s in specs},
         "completed": {"hp": m.completed[HP], "lp": m.completed[LP]},
         "missed": {"hp": m.missed[HP], "lp": m.missed[LP]},
         "rejected": {"hp": m.rejected[HP], "lp": m.rejected[LP]},
+        # in completion order: where in the run the misses fall
+        "hp_response_ms": [round(r, 1) for r in m.response_ms[HP]],
         "mean_response_ms": {
             "hp": m.resp_stats(HP)["mean"] if m.response_ms[HP] else None,
             "lp": m.resp_stats(LP)["mean"] if m.response_ms[LP] else None},
         "migrations": m.migrations,
+        # before the clock starts; in host's wall and CPU seconds
+        "warm_up_s": be.warm_s,
         "worker_exceptions": be.worker_exceptions,
         "last_worker_exception": repr(be.last_worker_exception),
         "stage_times": be.stage_time_summary(),
@@ -636,8 +676,8 @@ def serving_phase(torch, failures, arch, n_layers, jps, kernels,
         failures.append(f"{be.worker_exceptions} worker exception(s), last "
                         f"{be.last_worker_exception!r}")
     if m.completed[HP] == 0:
-        failures.append(f"{cfg.name}: no HP job completed")
-    return model, params, specs[0], launches, instances
+        failures.append(f"{name}: no HP job completed")
+    return m, launches, instances
 
 
 def contention_phase(torch, failures):
@@ -897,37 +937,58 @@ PORT_KERNEL_NAMES = ("rmsnorm_kernel", "decode_split", "decode_combine",
                      "flash_", "ssd_")
 
 
+def profiled(torch, fn, reps: int):
+    """``reps`` calls of ``fn`` under torch.profiler (CPU and CUDA): the
+    host wall ms of all of them, ended by a synchronize, and the CUDA
+    kernels they ran."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    return wall_ms, [e for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def busy_us(kern) -> float:
+    """Device busy µs: the union of the kernels' intervals."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kern)
+    busy, end = 0.0, -math.inf
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy
+
+
+def by_kernel(kern) -> dict:
+    """Launches and device µs of each kernel name."""
+    out = {}
+    for e in kern:
+        n, t = out.get(e.name, (0, 0.0))
+        out[e.name] = (n + 1, t + e.time_range.elapsed_us())
+    return out
+
+
 def profile_step(torch, spec, reps: int = 3):
     """Where one decode step's time goes: ``reps`` steps (the 4 payloads in
     turn, one stream) under torch.profiler; device busy time is the union
     of the CUDA kernels' intervals, against the host wall time."""
-    from torch.profiler import ProfilerActivity, profile
+    def step():
+        state = None
+        for st in spec.stages:
+            state = st.payload(state)
     try:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(reps):
-                state = None
-                for st in spec.stages:
-                    state = st.payload(state)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        kern = [e for e in prof.events()
-                if e.device_type == torch.autograd.DeviceType.CUDA]
-        spans = sorted((e.time_range.start, e.time_range.end) for e in kern)
-        busy, end = 0.0, -math.inf
-        for a, b in spans:
-            if b > end:
-                busy += b - max(a, end)
-                end = b
-        by_name = {}
-        for e in kern:
-            n, t = by_name.get(e.name, (0, 0.0))
-            by_name[e.name] = (n + 1, t + e.time_range.elapsed_us())
-        top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
+        wall_ms, kern = profiled(torch, step, reps)
+        busy = busy_us(kern)
+        names = by_kernel(kern)
+        top = sorted(names.items(), key=lambda kv: -kv[1][1])[:10]
         ours = {}
-        for n, (c, t) in by_name.items():
+        for n, (c, t) in names.items():
             key = next((k for k in PORT_KERNEL_NAMES if k in n), None)
             if key is not None:
                 c0, t0 = ours.get(key, (0, 0.0))
@@ -1013,6 +1074,132 @@ def output_checks(torch, model, params, spec, failures):
     return f32_instances
 
 
+def cnn_serving_phase(torch, failures, name, trace=False):
+    """One of Table II's DNNs (``CNN_WIDTHS``, 224 x 224 x 3, batch 1, f32,
+    random weights from seed 0): an HP and an LP task at its Table II
+    per-task rate, served as the LM paths are (``serve``). No port kernel
+    may run: the convolutions go to cuDNN through torch. Returns the HP
+    task."""
+    from repro_torch.api import HP, LP
+    from repro_torch.kernels import KERNELS, reset_counts
+    from repro_torch.models import BUILDERS
+    from repro_torch.serving.engine import staged_cnn_taskspec
+    from repro_torch.serving.requests import TABLE2
+
+    jps = TABLE2[name][2]
+    torch.cuda.reset_peak_memory_stats()      # this DNN's own peak
+    model = BUILDERS[name](width=CNN_WIDTHS[name])
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    specs = [staged_cnn_taskspec(model, priority=p, jps=jps, input_hw=CNN_HW,
+                                 batch=CNN_BATCH, tag=tag)
+             for p, tag in ((HP, "-hp"), (LP, "-lp"))]
+    desc = {"model": name, "width": CNN_WIDTHS[name], "input_hw": CNN_HW,
+            "batch": CNN_BATCH, "stages": len(specs[0].stages),
+            "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32}
+    serve(torch, failures, specs, time.perf_counter() - t0, jps, (), desc,
+          trace=trace, input_hw=CNN_HW)
+    ran = {n: [fn.counts.launches, fn.counts.plain_cuda_calls]
+           for n, fn in KERNELS.items()
+           if fn.counts.launches or fn.counts.plain_cuda_calls}
+    if ran:
+        failures.append(f"{name}: port kernels or their plain versions ran "
+                        f"on the CNN path (launches, plain CUDA calls): {ran}")
+    return specs[0]
+
+
+def cnn_stage_profile(torch, spec, reps: int = 5):
+    """Where each stage's time goes, on a seeded input (the 4 payloads in
+    turn): per call, the CUDA kernels, host wall ms against device busy ms
+    (``torch.profiler``), the conv FLOPs reckoned from the shapes
+    (``FlopCounterMode``) and their bound at 67 TFLOP/s (f32 outside the
+    tensor cores: TF32 is off). Returns the rows and the chain's output."""
+    from torch.utils.flop_counter import FlopCounterMode
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    state = torch.randn((CNN_BATCH, CNN_HW, CNN_HW, 3), generator=gen,
+                        device="cuda")
+    rows = []
+    for st in spec.stages:
+        def call(x=state, fn=st.payload):
+            return fn(x)
+        try:
+            call()
+            wall_ms, kern = profiled(torch, call, reps)
+            with FlopCounterMode(display=False) as fc:
+                out = call()
+            flops = fc.get_flop_counts().get("Global", {})
+            conv = sum(n for op, n in flops.items() if "convolution" in str(op))
+            busy = busy_us(kern) / 1e3 / reps
+            top = sorted(by_kernel(kern).items(), key=lambda kv: -kv[1][1])[:5]
+            rows.append({
+                "stage": st.name, "t_alone_ms": st.t_alone_ms,
+                "kernels": len(kern) / reps,
+                "host_wall_ms": wall_ms / reps, "device_busy_ms": busy,
+                "device_idle_share": 1.0 - busy * reps / wall_ms,
+                "conv_gflop": conv / 1e9,
+                "conv_bound_ms": conv / PEAK_FLOPS["float32"] * 1e3,
+                "other_gflop": (sum(flops.values()) - conv) / 1e9,
+                "top_kernels_us": {n[:60]: [c / reps, t / reps]
+                                   for n, (c, t) in top}})
+        except Exception as e:   # noqa: BLE001 — a measurement, not a check
+            rows.append({"stage": st.name, "error": repr(e)})
+            out = call()
+        state = out
+    return rows, state
+
+
+def cnn_output_checks(torch, name, spec, failures):
+    """The served HP task's payload chain on a seeded input gives finite
+    outputs of the reference's shape; and a cut-width copy (width 8, input
+    65: odd maps, asymmetric SAME padding; batch 2) gives, stage by stage,
+    on the card what it gives on the CPU with the same parameters, within
+    ``CNN_TOL`` of each output's scale (``max(1, max |cpu|)``)."""
+    import numpy as np
+
+    from repro_torch.models import BUILDERS
+    from repro_torch.serving.staging import migrate
+
+    rows, out = cnn_stage_profile(torch, spec)
+    want = ((CNN_BATCH, CNN_HW, CNN_HW, 2) if name == "unet"
+            else (CNN_BATCH, 100))
+    shape_ok = tuple(out.shape) == want
+    finite = bool(torch.isfinite(out).all())
+
+    # the stage functions hold no device: the same ones run on both
+    small = BUILDERS[name](width=8, seed=1)
+    cpu = torch.device("cpu")
+    cp = migrate(small.params, cpu)
+    x = np.random.default_rng(1).standard_normal((2, 65, 65, 3)).astype(
+        np.float32)
+    gs, cs = torch.from_numpy(x).cuda(), torch.from_numpy(x)
+    torch.cuda.synchronize()
+
+    def flat(s):
+        return [s[0], *s[1]] if isinstance(s, tuple) else [s]
+    errs = []
+    for stage in small.stages:
+        gs, cs = stage(small.params, gs), stage(cp, cs)
+        got = migrate(gs, cpu)
+        torch.cuda.synchronize()
+        errs.append(max(float((a - b).abs().max())
+                        / max(1.0, float(b.abs().max()))
+                        for a, b in zip(flat(got), flat(cs))))
+    emit({"cnn_output_check": {
+        "model": name, "output_shape": list(out.shape), "finite": finite,
+        "small_gpu_vs_cpu_rel_err_by_stage": errs, "small_tol": CNN_TOL}})
+    emit({"cnn_stage_profile": {
+        "model": name, "card": gpu_line(),
+        "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
+        "cudnn_benchmark": torch.backends.cudnn.benchmark, "stages": rows}})
+    if not (shape_ok and finite):
+        failures.append(f"{name} served outputs: shape {tuple(out.shape)}, "
+                        f"want {want}, finite {finite}")
+    if not all(e <= CNN_TOL for e in errs):
+        failures.append(f"{name} cut-width GPU vs CPU: relative errors by "
+                        f"stage {errs} > {CNN_TOL}")
+
+
 def serve_repeats(torch, arch: str, repeats: int, trace: bool) -> int:
     """``--serve ARCH``: only ``arch``'s serving phase, ``repeats`` times
     in this process, each followed by the card's clocks, power and
@@ -1027,8 +1214,11 @@ def serve_repeats(torch, arch: str, repeats: int, trace: bool) -> int:
     runs = []
     for i in range(repeats):
         failures = []
-        _, _, _, launches, _ = serving_phase(torch, failures, arch, None,
-                                             jps, path, trace=trace)
+        if arch in CNN_WIDTHS:
+            cnn_serving_phase(torch, failures, arch, trace=trace)
+        else:
+            serving_phase(torch, failures, arch, None, jps, path,
+                          trace=trace)
         torch.cuda.empty_cache()
         try:
             clocks = subprocess.run(
@@ -1049,8 +1239,9 @@ def serve_repeats(torch, arch: str, repeats: int, trace: bool) -> int:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--serve", metavar="ARCH",
-                    help="only this model's serving phase (smollm-135m or "
-                         "mamba2-2.7b), --repeats times")
+                    help="only this model's serving phase (smollm-135m, "
+                         "mamba2-2.7b, resnet18, unet or inceptionv3), "
+                         "--repeats times")
     ap.add_argument("--epoch", action="store_true",
                     help="only the epoch phase, --repeats times")
     ap.add_argument("--repeats", type=int, default=1)
@@ -1130,7 +1321,16 @@ def main() -> int:
                         f"and an output kernel a call)")
     f32_check = output_checks(torch, model, params, spec, failures)
     del model, params, spec
+    torch.cuda.empty_cache()
     seconds["ssm_path"] = time.perf_counter() - t0
+
+    for dnn in CNN_WIDTHS:
+        t0 = time.perf_counter()
+        spec = cnn_serving_phase(torch, failures, dnn)
+        cnn_output_checks(torch, dnn, spec, failures)
+        del spec
+        torch.cuda.empty_cache()
+        seconds[f"{dnn}_path"] = time.perf_counter() - t0
     emit({"phase_seconds": seconds})
 
     # launches: the sum over the paths, each counted from a reset just

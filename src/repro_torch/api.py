@@ -1,10 +1,12 @@
 """repro_torch.api — the one front door to DARIS serving, on PyTorch/CUDA.
 
 Counterpart of src/repro/api.py: the same ``ServerConfig``/``DarisServer``
-over the copied scheduler and engine loop, with the heap ``SimBackend`` and
-the CUDA ``RealtimeBackend``. What the port does not have yet raises
-``NotImplementedError`` naming its item in ROADMAP.md's port queue: the
-epoch engine, cluster serving, ``verify()`` and checkpointing.
+over the copied scheduler and engine loop, with the heap ``SimBackend``,
+the epoch engine (``engine("epoch")``, its rate-groups on the CUDA
+contention kernel) and the CUDA ``RealtimeBackend``. What the port does not
+have yet raises ``NotImplementedError`` naming its item in ROADMAP.md's
+port queue: cluster serving (Q6), ``verify()`` (Q7) and checkpointing
+(Q5).
 
 One scheduler (admission Eq. 11-12, staging, oversubscription, zero-delay
 migration) serves every deployment shape; this module is the single typed
@@ -15,12 +17,17 @@ real torch/CUDA executor — with first-class arrival processes (periodic, Poiss
 open-loop, recorded trace), dynamic deadline-aware batching
 (``.batching(max_batch)``), and injectable fault / scale-out events.
 
-    from repro_torch.api import ServerConfig
+    from repro_torch.api import HP, ServerConfig
+    from repro_torch.models import BUILDERS
+    from repro_torch.serving.engine import staged_cnn_taskspec
 
-    server = (ServerConfig.realtime()          # the card; device="cpu" opts out
-              .tasks([staged_lm_taskspec(model, priority=HP, jps=10.0)])
+    model = BUILDERS["resnet18"](width=64)     # on the card; device="cpu"
+    server = (ServerConfig.realtime()          # opts out, on both
+              .tasks([staged_cnn_taskspec(model, priority=HP, jps=30.0,
+                                          input_hw=224)])
               .contexts(2).oversubscribe(2.0)
               .horizon_ms(3000)
+              .realtime_io(input_hw=224)
               .build())
     metrics = server.run()
 
@@ -30,9 +37,9 @@ Programmatic clients submit one-shot jobs and introspect live state:
     server.drain()                               # run until queues empty
     server.snapshot()                            # queue depths, lanes, ...
 
-No benchmark or example constructs an engine directly anymore; the old
-``SimEngine`` / ``RealtimeEngine`` classes survive one release as
-deprecated shims over this machinery.
+``serving.engine`` also has ``staged_lm_taskspec`` (staged LM decode). The
+reference's deprecated ``SimEngine`` / ``RealtimeEngine`` shims are not
+ported: servers are built here only.
 """
 from __future__ import annotations
 

@@ -1,1 +1,2 @@
-"""Staged LM decode payloads (counterpart of src/repro/serving)."""
+"""Staged payloads (LM decode, the paper's CNNs) and the paper's task sets
+(counterpart of src/repro/serving)."""

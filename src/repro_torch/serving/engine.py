@@ -1,9 +1,12 @@
-"""Staged LM decode payloads with AFET-style calibration.
+"""Staged payloads with AFET-style calibration: the paper's CNNs and LM
+decode.
 
-Counterpart of ``staged_lm_taskspec`` in src/repro/serving/engine.py. The
-stage functions run eagerly (PyTorch has no ``jit`` the port needs); a
-payload runs on whatever stream is current, which the realtime backend
-sets to the lane's own.
+Counterpart of ``staged_cnn_taskspec`` and ``staged_lm_taskspec`` in
+src/repro/serving/engine.py. The stage functions run eagerly (PyTorch has
+no ``jit`` the port needs); a payload runs on whatever stream is current,
+which the realtime backend sets to the lane's own. ``t_alone`` per stage is
+one timed call after one warm-up call (which also takes cuDNN's first-call
+set-up), ended by a stream synchronize.
 """
 from __future__ import annotations
 
@@ -15,9 +18,64 @@ import torch
 
 from ..core.task import StageProfile, TaskSpec
 from ..device import DeviceLike, resolve_device, synchronize
+from ..models.cnn import StagedCNN
 from .staging import make_lm_stage_fns, slice_cache
 
-__all__ = ["staged_lm_taskspec"]
+__all__ = ["staged_cnn_taskspec", "staged_lm_taskspec"]
+
+
+def _calibrate(payloads, state, dev) -> list:
+    """ms of one call of each payload in turn, after a warm-up call."""
+    times = []
+    for fn in payloads:
+        fn(state)                                 # warm-up
+        synchronize(dev)
+        t0 = time.perf_counter()
+        out = fn(state)
+        synchronize(dev)
+        times.append((time.perf_counter() - t0) * 1000.0)
+        state = out
+    return times
+
+
+def _resolve_model_device(model, device: DeviceLike) -> torch.device:
+    dev = resolve_device(device)
+    if model.device != dev:
+        raise ValueError(f"the model lives on {model.device}, the payloads "
+                         f"were asked to run on {dev}")
+    return dev
+
+
+def staged_cnn_taskspec(model: StagedCNN, *, priority: int, jps: float,
+                        input_hw: int = 64, batch: int = 1,
+                        tag: str = "", calibrate: bool = True,
+                        n_sat: float = 40.0, mem_frac: float = 0.4,
+                        device: DeviceLike = None,
+                        params: Optional[dict] = None) -> TaskSpec:
+    """Wrap a StagedCNN into a TaskSpec whose stage payloads are its stage
+    functions; ``t_alone`` is measured on this device (AFET-style) from an
+    NHWC zero input of ``batch x input_hw x input_hw x 3``, or 1.0 ms a
+    stage with ``calibrate=False``.
+
+    Everything runs on the card unless ``device`` names another device,
+    which must be the model's (``BUILDERS[name](device=...)``). ``params``
+    defaults to ``model.params``."""
+    dev = _resolve_model_device(model, device)
+    if params is None:
+        params = model.params
+    payloads = [(lambda s, st=st: st(params, s)) for st in model.stages]
+    if calibrate:
+        x0 = torch.zeros((batch, input_hw, input_hw, 3), dtype=torch.float32,
+                         device=dev)
+        times = _calibrate(payloads, x0, dev)
+    else:
+        times = [1.0] * len(payloads)
+    stages = [StageProfile(name=f"{model.name}/s{j}", t_alone_ms=t,
+                           n_sat=n_sat, mem_frac=mem_frac, overhead_ms=0.05,
+                           payload=payloads[j])
+              for j, t in enumerate(times)]
+    return TaskSpec(name=f"{model.name}{tag}", period_ms=1000.0 / jps,
+                    priority=priority, stages=stages, batch=batch)
 
 
 def staged_lm_taskspec(model, *, priority: int, jps: float,
@@ -37,14 +95,9 @@ def staged_lm_taskspec(model, *, priority: int, jps: float,
 
     Everything runs on the card unless ``device`` names another device,
     which must be the model's (``build_model(cfg, device=...)``).
-    ``params`` defaults to ``model.init_params(0)``. ``t_alone`` per stage
-    is one timed call after one warm-up call, ended by a stream
-    synchronize."""
+    ``params`` defaults to ``model.init_params(0)``."""
     cfg = model.cfg
-    dev = resolve_device(device)
-    if model.device != dev:
-        raise ValueError(f"the model lives on {model.device}, the payloads "
-                         f"were asked to run on {dev}")
+    dev = _resolve_model_device(model, device)
     if params is None:
         params = model.init_params(0)
     stage_fns = make_lm_stage_fns(model, n_stages=n_stages)
@@ -71,19 +124,8 @@ def staged_lm_taskspec(model, *, priority: int, jps: float,
             return {"hidden": h, "slices": {**state["slices"], i: new_sl}}
         return payload
 
-    times = []
-    state = None
-    payloads = []
-    for i in range(n_stages):
-        fn = make_payload(i)
-        fn(state)                                 # warm-up
-        synchronize(dev)
-        t0 = time.perf_counter()
-        out = fn(state)
-        synchronize(dev)
-        times.append((time.perf_counter() - t0) * 1000.0)
-        state = out
-        payloads.append(fn)
+    payloads = [make_payload(i) for i in range(n_stages)]
+    times = _calibrate(payloads, None, dev)
     stages = [StageProfile(name=f"{cfg.name}/lm-s{j}", t_alone_ms=t,
                            n_sat=n_sat, mem_frac=mem_frac,
                            overhead_ms=0.05, payload=payloads[j])

@@ -1,6 +1,7 @@
 """The port on the card: each CUDA kernel against its plain version, staged
 LM decode (dense and ssm) served on per-lane CUDA streams through the
-kernels, and the epoch engine with its rate-groups on the contention kernel.
+kernels, the staged CNNs (served, and each stage against the CPU), and the
+epoch engine with its rate-groups on the contention kernel.
 
 Every test here is marked ``cuda`` and skips without a CUDA device; on the
 card run ``python -m pytest -q -m cuda tests/test_torch_cuda.py``. The file
@@ -22,8 +23,10 @@ from repro_torch.kernels import decode_attention as dec  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import rmsnorm as rms  # noqa: E402
 from repro_torch.kernels import ssd_scan  # noqa: E402
-from repro_torch.models import build_model  # noqa: E402
-from repro_torch.serving.engine import staged_lm_taskspec  # noqa: E402
+from repro_torch.models import BUILDERS, build_model  # noqa: E402
+from repro_torch.serving.engine import (staged_cnn_taskspec,  # noqa: E402
+                                        staged_lm_taskspec)
+from repro_torch.serving.staging import migrate  # noqa: E402
 
 DTYPES = {"float32": (torch.float32, 2e-4), "bfloat16": (torch.bfloat16, 3e-2)}
 
@@ -201,6 +204,58 @@ def test_realtime_staged_lm_decode_on_cuda_streams():
              "flash_attention")
     assert all(KERNELS[k].counts.launches > 0 for k in dense)
     assert all(fn.counts.plain_cuda_calls == 0 for fn in KERNELS.values())
+
+
+@pytest.mark.cuda
+def test_realtime_staged_cnn_on_cuda_streams():
+    """A staged CNN served on the card: every lane's stream is made and
+    warmed before the clock, and no port kernel runs (cuDNN does the
+    convolutions)."""
+    _need_cuda()
+    from repro_torch.kernels import KERNELS, reset_counts
+    model = BUILDERS["resnet18"](width=8)
+    reset_counts()
+    specs = [staged_cnn_taskspec(model, priority=p, jps=20.0, input_hw=64,
+                                 tag=tag)
+             for p, tag in ((api.HP, "-hp"), (api.LP, "-lp"))]
+    srv = (api.ServerConfig.realtime().tasks(specs).contexts(2).streams(2)
+           .oversubscribe(2.0).device(api.DeviceModel(n_units=2.0))
+           .horizon_ms(800.0).realtime_io(input_hw=64).build())
+    m = srv.run()
+    assert m.completed[api.HP] > 0
+    assert srv.backend.worker_exceptions == 0
+    assert srv.backend.warm_s > 0 and len(srv.backend._streams) == 4
+    assert all(fn.counts.launches == 0 and fn.counts.plain_cuda_calls == 0
+               for fn in KERNELS.values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(BUILDERS))
+def test_cnn_stages_on_the_card_match_the_cpu(name, monkeypatch):
+    """Every stage at width 8 and input 65 (odd maps, asymmetric SAME
+    padding): the card within 1e-3 of each output's scale of the CPU, the
+    same stage functions and parameters on both, in f32 with TF32 off as
+    chip_smoke.py runs it (torch lets cuDNN take TF32 by default, which
+    misses this tolerance)."""
+    _need_cuda()
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    model = BUILDERS[name](width=8, seed=1)
+    cpu = torch.device("cpu")
+    params = migrate(model.params, cpu)
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (2, 65, 65, 3)).astype(np.float32))
+    gs, cs = x.cuda(), x
+    for stage in model.stages:
+        gs, cs = stage(model.params, gs), stage(params, cs)
+        got = migrate(gs, cpu)
+        torch.cuda.synchronize()
+        flat = ([got[0], *got[1]], [cs[0], *cs[1]]) if isinstance(
+            cs, tuple) else ([got], [cs])
+        for a, b in zip(*flat):
+            assert a.shape == b.shape
+            scale = max(1.0, float(b.abs().max()))
+            assert float((a - b).abs().max()) <= 1e-3 * scale
 
 
 @pytest.mark.cuda

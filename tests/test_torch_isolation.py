@@ -14,7 +14,8 @@ pytest.importorskip("torch")
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+SOURCES = sorted(PORT.rglob("*.py")) + [
+    ROOT / "chip_smoke.py", ROOT / "examples" / "serve_realtime_torch.py"]
 COPIED = sorted(p for p in PORT.rglob("*.py")
                 if p.read_text().startswith("# Copy of src/repro/"))
 
@@ -23,7 +24,8 @@ def _forbidden_imports(path: Path):
     """Absolute imports of jax or repro, and relative imports that climb
     out of the port's package."""
     tree = ast.parse(path.read_text(), str(path))
-    # package depth (chip_smoke.py is a top-level script: no relative imports)
+    # package depth (chip_smoke.py and the example are top-level scripts: no
+    # relative imports)
     depth = (len(path.relative_to(PORT.parent).parts) - 1
              if path.is_relative_to(PORT) else 0)
     bad = []
@@ -111,5 +113,6 @@ def test_the_scheduler_stack_is_copied():
                 "runtime/arrivals.py", "runtime/engine_core.py",
                 "runtime/epoch.py", "configs/mamba2_27b.py",
                 "chaos/plan.py", "analysis/sanitizer.py", "configs/base.py",
-                "configs/smollm_135m.py"):
+                "configs/smollm_135m.py", "serving/profiles.py",
+                "serving/requests.py"):
         assert rel in copied

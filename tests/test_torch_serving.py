@@ -7,6 +7,7 @@ copy to the original bit for bit (decision logs, counts and every summary
 number), on a fixed-time task set, a batching scenario with stage noise and
 random phase offsets, and a chaos scenario.
 """
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -14,9 +15,11 @@ torch = pytest.importorskip("torch")
 import repro.api as ref_api  # noqa: E402
 import repro_torch.api as api  # noqa: E402
 from repro_torch.configs import get_reduced  # noqa: E402
-from repro_torch.models import build_model  # noqa: E402
+from repro_torch.models import (BUILDERS, build_model,  # noqa: E402
+                                cnn_params_from_jax)
 from repro_torch.runtime.backend import RealtimeBackend  # noqa: E402
-from repro_torch.serving.engine import staged_lm_taskspec  # noqa: E402
+from repro_torch.serving.engine import (staged_cnn_taskspec,  # noqa: E402
+                                        staged_lm_taskspec)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -199,3 +202,11 @@ def test_entry_points_without_device_raise_when_no_gpu():
     model = build_model(cfg, device="cpu")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         staged_lm_taskspec(model, priority=api.HP, jps=10.0)
+    for builder in BUILDERS.values():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            builder(width=4)
+    cnn = BUILDERS["resnet18"](width=4, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        staged_cnn_taskspec(cnn, priority=api.HP, jps=10.0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cnn_params_from_jax({"w": np.zeros((1, 1, 3, 4), np.float32)})
