@@ -9,7 +9,8 @@ wall-clock time with one worker thread and one CUDA stream per lane.
 
     PYTHONPATH=src python examples/serve_realtime_torch.py [--seconds 4]
 
-It serves on the card; ``--device cpu`` runs it on the host instead.
+It serves on the card, in f32 (building a CNN there turns cuDNN's TF32
+off: ``models/cnn.py``); ``--device cpu`` runs it on the host instead.
 """
 import argparse
 import sys

@@ -6,7 +6,8 @@ staged CNNs at width 8 (real execution on wall clock):
     PYTHONPATH=src python -m repro_torch.launch.serve --contexts 2 --os 2.0 \
         --seconds 4 --dnns resnet18,unet
 
-It serves on the card; ``--device cpu`` runs it on the host instead. The
+It serves on the card, in f32 (building a CNN there turns cuDNN's TF32
+off: ``models/cnn.py``); ``--device cpu`` runs it on the host instead. The
 reference's ``--ckpt`` resumes the scheduler's state from a file and saves
 it after the run; the port has no scheduler-state checkpoint yet (ROADMAP.md
 port queue item Q5), so with ``--ckpt`` the facade's ``load_state`` raises

@@ -28,6 +28,11 @@ Where XLA's semantics differ from PyTorch's defaults, the port follows XLA:
 The builders draw the reference's distributions (truncated normal over ±2
 over sqrt(fan-in)) from a seeded ``torch.Generator``, not JAX's numbers:
 ``cnn_params_from_jax`` carries the reference's own parameters across.
+
+The reference computes in f32. A builder given a CUDA device therefore
+turns cuDNN's TF32 off for the process (``torch.backends.cudnn.allow_tf32
+= False``; torch's default lets cuDNN round convolution inputs to TF32),
+so every entry point serves what ``stage_errors`` holds to the CPU.
 """
 from __future__ import annotations
 
@@ -170,6 +175,16 @@ class StagedCNN:
         return x
 
 
+def _model_device(device: DeviceLike) -> torch.device:
+    """``resolve_device``; on the card it also keeps cuDNN's convolutions
+    in f32 (with TF32, width-8 copies on an H100 differ from the CPU by
+    1.5e-3-4.9e-3 of the output's scale, past ``stage_errors``' 1e-3)."""
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        torch.backends.cudnn.allow_tf32 = False
+    return dev
+
+
 def _generator(seed: int, device: torch.device) -> torch.Generator:
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
@@ -178,7 +193,7 @@ def _generator(seed: int, device: torch.device) -> torch.Generator:
 
 def build_resnet(depth: int = 18, *, seed: int = 0, n_classes: int = 100,
                  width: int = 32, device: DeviceLike = None) -> StagedCNN:
-    dev = resolve_device(device)
+    dev = _model_device(device)
     gen = _generator(seed, dev)
     basic = depth == 18
     blocks_per = {18: (2, 2, 2, 2), 50: (3, 4, 6, 3)}[depth]
@@ -221,7 +236,7 @@ def build_resnet(depth: int = 18, *, seed: int = 0, n_classes: int = 100,
 # ---------------------------------------------------------------- UNet
 def build_unet(*, seed: int = 0, width: int = 24,
                device: DeviceLike = None) -> StagedCNN:
-    dev = resolve_device(device)
+    dev = _model_device(device)
     gen = _generator(seed, dev)
     ws = (width, width * 2, width * 4, width * 8)
     params = {}
@@ -303,7 +318,7 @@ def _inception_a_apply(p, x):
 
 def build_inception(*, seed: int = 0, width: int = 24, n_classes: int = 100,
                     device: DeviceLike = None) -> StagedCNN:
-    dev = resolve_device(device)
+    dev = _model_device(device)
     gen = _generator(seed, dev)
     params = {
         "stem1": _convbn(gen, 3, 3, 3, width, dev),
@@ -362,3 +377,38 @@ def cnn_params_from_jax(tree, *, device: DeviceLike = None):
         return type(tree)(cnn_params_from_jax(v, device=dev) for v in tree)
     leaf = params_from_jax(tree, device=dev)
     return _conv_layout(leaf.permute(3, 2, 0, 1)) if leaf.dim() == 4 else leaf
+
+
+def _to(tree, device: torch.device):
+    # blocking copies, unlike ``serving.staging.migrate``: the host reads
+    # the results at once
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to(v, device) for v in tree)
+    return tree.to(device)
+
+
+def _leaves(state) -> List[torch.Tensor]:
+    return [state[0], *state[1]] if isinstance(state, tuple) else [state]
+
+
+def stage_errors(model: StagedCNN, x: torch.Tensor,
+                 ref_device: DeviceLike = "cpu") -> List[float]:
+    """Each stage of ``model`` on its own device against the same stage
+    function and parameters on ``ref_device``, both chains fed the NHWC
+    input ``x``: per stage, the largest absolute difference over its
+    outputs (UNet's ``(x, skips)`` whole) over ``max(1, max |reference|)``,
+    or ``inf`` where a shape differs. The port holds the card to the CPU
+    within 1e-3 (cuDNN's algorithms sum in other orders)."""
+    ref = torch.device(ref_device)
+    ref_params = _to(model.params, ref)
+    a, b = x.to(model.device), x.to(ref)
+    errs = []
+    for stage in model.stages:
+        a, b = stage(model.params, a), stage(ref_params, b)
+        errs.append(max(
+            float((u.to(ref) - v).abs().max()) / max(1.0, float(v.abs().max()))
+            if u.shape == v.shape else float("inf")
+            for u, v in zip(_leaves(a), _leaves(b))))
+    return errs

@@ -504,10 +504,12 @@ class _WorkerPool:
                 with self._exc_lock:
                     self.exceptions += 1
                     self.last_exception = e
-                print(f"worker: stage {getattr(inst.task, 'name', '?')} "
-                      f"on lane {lane} raised {e!r}", file=sys.stderr)
+                # a warm-up (``_warm_lanes``) runs with no stage instance
+                name = getattr(getattr(inst, "task", None), "name", "warm-up")
+                print(f"worker: stage {name} on lane {lane} raised {e!r}",
+                      file=sys.stderr)
 
-    def submit(self, fn, lane: tuple, inst: StageInstance) -> None:
+    def submit(self, fn, lane: tuple, inst: Optional[StageInstance]) -> None:
         self._q.put((fn, lane, inst))
 
     def stop(self, timeout_s: float = 1.0) -> None:

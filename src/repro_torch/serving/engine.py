@@ -58,8 +58,9 @@ def staged_cnn_taskspec(model: StagedCNN, *, priority: int, jps: float,
     stage with ``calibrate=False``.
 
     Everything runs on the card unless ``device`` names another device,
-    which must be the model's (``BUILDERS[name](device=...)``). ``params``
-    defaults to ``model.params``."""
+    which must be the model's (``BUILDERS[name](device=...)``); there the
+    payloads compute in f32, since a builder given the card turns cuDNN's
+    TF32 off. ``params`` defaults to ``model.params``."""
     dev = _resolve_model_device(model, device)
     if params is None:
         params = model.params

@@ -13,6 +13,7 @@ padding and UNet's odd resize targets; ResNet18 at 32 and batch 1 reaches a
 1x1 map in stage 3, where ``bn_apply`` normalises one value a channel.
 """
 import collections
+import dataclasses
 import importlib.util
 import threading
 from pathlib import Path
@@ -131,6 +132,24 @@ def test_final_outputs_have_the_reference_shapes():
         out = m.forward(m.params, x)
         want = (2, 33, 33, 2) if name == "unet" else (2, m.n_classes)
         assert tuple(out.shape) == want, name
+
+
+@pytest.mark.parametrize("name", ["resnet18", "unet"])
+def test_stage_errors_compares_every_output_of_every_stage(name):
+    """``stage_errors`` (the card-against-CPU check of the card tests and
+    chip_smoke.py), here the CPU against itself: zero at every stage, UNet's
+    skips included; a stage that differs between the two chains shows as
+    the difference over ``max(1, max |reference|)``."""
+    m = BUILDERS[name](width=4, device="cpu")
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (1, 33, 33, 3)).astype(np.float32))
+    assert cnn.stage_errors(m, x) == [0.0] * 4
+    # the reference chain gets a copy of the parameter tree
+    skew = dataclasses.replace(m, stages=[
+        lambda p, s: s * (3.0 if p is m.params else 1.0),
+        lambda p, s: s[:, :1] if p is m.params else s])
+    x = torch.full((1, 2, 2, 3), 2.0)
+    assert cnn.stage_errors(skew, x) == [2.0, float("inf")]
 
 
 @pytest.mark.parametrize("size", range(1, 12))
@@ -307,6 +326,43 @@ def test_warm_lanes_runs_every_task_once_in_every_worker():
     assert set(ran.values()) == {1}
     assert len(ran) == len(workers) * 2 * 4
     assert be.worker_exceptions == 0
+
+
+def test_warm_lanes_survives_a_raising_payload(capsys):
+    """A warm-up payload that raises (on the card: out of memory, a bad
+    model) counts as one worker exception and kills no worker: a second
+    warm-up, which needs every worker, runs to its end."""
+    model = BUILDERS["resnet18"](width=8, device="cpu")
+    spec = _resnet18_specs(model, calibrate=False)[0]
+    calls = collections.Counter()
+
+    def flaky(x, inner=spec.stages[0].payload):
+        calls["s0"] += 1                 # the warm-ups take turns
+        if calls["s0"] == 1:
+            raise RuntimeError("warm-up failure")
+        return inner(x)
+    spec.stages[0].payload = flaky
+    srv = (api.ServerConfig.realtime(device="cpu")
+           .tasks([spec]).contexts(2).streams(2)
+           .oversubscribe(2.0).device(api.DeviceModel(n_units=4.0))
+           .realtime_io(input_hw=32).build())
+    be = srv.backend
+    be.bind(srv.core)
+    be._ensure_pool()
+    n_workers = len(be._pool._threads)
+    try:
+        be._warm_lanes()
+        # a dead worker would leave the second warm-up's barrier short
+        second = threading.Thread(target=be._warm_lanes, daemon=True)
+        second.start()
+        second.join(timeout=60)
+        assert not second.is_alive()
+    finally:
+        be.stop()
+    assert be.worker_exceptions == 1
+    assert "warm-up failure" in repr(be.last_worker_exception)
+    assert calls["s0"] == 2 * n_workers
+    assert "stage warm-up on lane" in capsys.readouterr().err
 
 
 # ------------------------------------------------------------ entry points

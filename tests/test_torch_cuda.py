@@ -24,9 +24,9 @@ from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import rmsnorm as rms  # noqa: E402
 from repro_torch.kernels import ssd_scan  # noqa: E402
 from repro_torch.models import BUILDERS, build_model  # noqa: E402
+from repro_torch.models.cnn import stage_errors  # noqa: E402
 from repro_torch.serving.engine import (staged_cnn_taskspec,  # noqa: E402
                                         staged_lm_taskspec)
-from repro_torch.serving.staging import migrate  # noqa: E402
 
 DTYPES = {"float32": (torch.float32, 2e-4), "bfloat16": (torch.bfloat16, 3e-2)}
 
@@ -233,29 +233,18 @@ def test_realtime_staged_cnn_on_cuda_streams():
 @pytest.mark.parametrize("name", sorted(BUILDERS))
 def test_cnn_stages_on_the_card_match_the_cpu(name, monkeypatch):
     """Every stage at width 8 and input 65 (odd maps, asymmetric SAME
-    padding): the card within 1e-3 of each output's scale of the CPU, the
-    same stage functions and parameters on both, in f32 with TF32 off as
-    chip_smoke.py runs it (torch lets cuDNN take TF32 by default, which
-    misses this tolerance)."""
+    padding): the card within 1e-3 of each output's scale of the CPU
+    (``stage_errors``, which chip_smoke.py's output check calls too), in
+    f32: building on the card turns cuDNN's TF32 off (torch's default lets
+    cuDNN take TF32, which misses this tolerance)."""
     _need_cuda()
-    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
-    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
     model = BUILDERS[name](width=8, seed=1)
-    cpu = torch.device("cpu")
-    params = migrate(model.params, cpu)
+    assert not torch.backends.cudnn.allow_tf32
     x = torch.from_numpy(np.random.default_rng(1).standard_normal(
         (2, 65, 65, 3)).astype(np.float32))
-    gs, cs = x.cuda(), x
-    for stage in model.stages:
-        gs, cs = stage(model.params, gs), stage(params, cs)
-        got = migrate(gs, cpu)
-        torch.cuda.synchronize()
-        flat = ([got[0], *got[1]], [cs[0], *cs[1]]) if isinstance(
-            cs, tuple) else ([got], [cs])
-        for a, b in zip(*flat):
-            assert a.shape == b.shape
-            scale = max(1.0, float(b.abs().max()))
-            assert float((a - b).abs().max()) <= 1e-3 * scale
+    errs = stage_errors(model, x)
+    assert len(errs) == 4 and all(e <= 1e-3 for e in errs), errs
 
 
 @pytest.mark.cuda
