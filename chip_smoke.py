@@ -5,13 +5,15 @@
     python3 chip_smoke.py --serve mamba2-2.7b --repeats 2 [--trace]
     python3 chip_smoke.py --serve resnet18 --repeats 8
     python3 chip_smoke.py --epoch --repeats 10
+    python3 chip_smoke.py --cluster --repeats 2
 
 The --serve forms run only one model's serving phase (step 3, 5 or 6 below),
 ``--repeats`` times, each with the host's side of the run and the card's
 clocks after it, and with ``--trace`` what the card did during it
-(``device_timeline``); the third only the epoch phase (step 4),
-``--repeats`` times (events/s on the host's clock vary from run to run).
-Neither prints a result line. Without arguments:
+(``device_timeline``); --epoch only the epoch phase (step 4) and --cluster
+only the cluster phase (step 7, the fleet over 4000 ms), ``--repeats``
+times (events/s on the host's clock vary from run to run). None of them
+prints a result line. Without arguments:
 
 1. Builds the port's Hopper kernels from ``src/repro_torch/kernels/csrc``
    (into ``build/kernels/``).
@@ -87,11 +89,29 @@ Neither prints a result line. Without arguments:
    TFLOP/s) and its output checks: the HP task's payload chain on a seeded
    input gives finite outputs of the reference's shape, and a cut-width
    copy (width 8, input 65, batch 2) gives the same on the card as on the
-   CPU, stage by stage, within 1e-3 of each output's scale.
+   CPU, stage by stage, within 1e-3 of each output's scale. Before each
+   DNN's run, SchedCheck's ``verify(enforce=False)`` on the config it
+   serves: a ``schedcheck_served`` line gives the report's verdicts and HP
+   bound beside the run's largest HP response and HP misses, with any
+   violation the differential oracle's two rules would name (a
+   measurement, not a gate).
+7. Cluster phase (simulated fleets; the sim backend, on the three engines
+   of step 4, whose digests must be identical): benchmarks/perf_engine.py's
+   ``fleet_64dev_diurnal`` (64 devices x 4 contexts, 192 two-stage LP
+   services replaying a diurnal Poisson trace; 1500 ms here), with the
+   rate-groups the engines asked for (calls, groups, the most in one
+   call, lanes a group); its ``cluster_rn18_4gpu`` (Table II ResNet18 on
+   two a100 and two v100 models, 1500 ms); benchmarks/figure_specs.py's
+   ``fig13_fail_1of4`` (4 GPUs, device 1 failing at 30% of 2000 ms). Then
+   SchedCheck's differential oracle on ``fig13_light`` and
+   ``fig13_fail_1of4``, each simulated on the epoch engine with every
+   rate-group on the f64 contention kernel: both must be ``ok``.
 
 Kernel launch counts are reset just before each path and read just after;
 every kernel must be launched on a path (the f32 contention kernel, which
-no engine calls, on the kernel phase's own fleet-sweep call). A decode
+no engine calls, on the kernel phase's own fleet-sweep call); the f64
+contention kernel on each simulated path of steps 4 and 7, whose launches
+its row lists path by path (``launches_by_path``). A decode
 attention call counts two launches, its split kernel and its merge; a
 tensor-core SSD call likewise two, its state pass
 (``tensor_core/states``) and its output kernel (``tensor_core/out``),
@@ -109,8 +129,10 @@ split grid held fewer blocks than the card has SMs, a plain version ran on
 a CUDA tensor during a path, a flash-attention launch on the dense path
 took the CUDA-core instance, an SSD launch on the ssm path took the
 CUDA-core instance, a worker caught an exception, no HP job
-completed, the three epoch runs differ, a port kernel or its plain version
-ran on the CNN path, or an output check failed. The
+completed, the three runs of the epoch phase or of a cluster scenario
+differ, a port kernel or its plain version ran on the CNN path, an output
+check failed, or the oracle was not ``ok`` on fig13_light or
+fig13_fail_1of4. The
 last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -608,14 +630,16 @@ def serving_phase(torch, failures, arch, n_layers, jps, kernels,
 
 
 def serve(torch, failures, specs, setup_s, jps, kernels, desc, trace=False,
-          input_hw=None):
+          input_hw=None, schedcheck=False):
     """Serve ``specs`` (an HP and an LP task) in real time for
     ``HORIZON_MS`` (2 contexts x 2 streams, oversubscription 2.0, n_units
     the card's SM count, seed 0; NHWC inputs of ``input_hw`` where given)
     and emit the ``serving`` line, which also gives the host's side of the
     run (wall, the process's CPU seconds and context switches, the threads
     that used the most CPU); ``trace`` puts the run under
-    ``torch.profiler`` and adds ``device_timeline``. Launch counts were
+    ``torch.profiler`` and adds ``device_timeline``; ``schedcheck`` runs
+    ``verify(enforce=False)`` on the config before it is built and emits
+    the report beside the run (``schedcheck_served``). Launch counts were
     reset before the tasks were built. Returns the metrics, the launches
     of ``kernels`` and the launches by instance."""
     from repro_torch.api import HP, LP, DeviceModel, ServerConfig
@@ -629,6 +653,8 @@ def serve(torch, failures, specs, setup_s, jps, kernels, desc, trace=False,
            .horizon_ms(HORIZON_MS).seed(0))
     if input_hw is not None:
         cfg = cfg.realtime_io(input_hw=input_hw, batch=specs[0].batch)
+    report = cfg.verify(enforce=False).schedcheck_report if schedcheck \
+        else None
     srv = cfg.build()
     if trace:
         from torch.profiler import ProfilerActivity, profile
@@ -674,12 +700,40 @@ def serve(torch, failures, specs, setup_s, jps, kernels, desc, trace=False,
         "host": host,
         **({"device_timeline": device_timeline(torch, tracer)}
            if trace else {})}})
+    if report is not None:
+        emit({"schedcheck_served": schedcheck_served(name, report, m)})
     if be.worker_exceptions:
         failures.append(f"{be.worker_exceptions} worker exception(s), last "
                         f"{be.last_worker_exception!r}")
     if m.completed[HP] == 0:
         failures.append(f"{name}: no HP job completed")
     return m, launches, instances
+
+
+def schedcheck_served(name, report, m) -> dict:
+    """The static report of a served config beside what the run showed,
+    with the violations the differential oracle's two rules would name
+    (observed HP response above the bound; GUARANTEED with HP misses). A
+    measurement of ROADMAP C7, not a gate: served HP misses are an open
+    fault."""
+    from repro_torch.analysis.schedcheck import GUARANTEED
+    from repro_torch.api import HP
+
+    hp = m.response_ms[HP]
+    observed = max(hp) if hp else 0.0
+    bound = report.hp_bound_ms()
+    violations = []
+    if observed > bound + 1e-6:
+        violations.append(f"observed HP response {observed:.3f}ms exceeds "
+                          f"the static bound {bound:.3f}ms")
+    if report.hp_verdict == GUARANTEED and m.dmr(HP) > 0.0:
+        violations.append(f"HP verdict GUARANTEED but the run missed "
+                          f"{m.dmr(HP):.2%} of HP deadlines")
+    return {"model": name, "verdict": report.verdict,
+            "hp_verdict": report.hp_verdict, "hp_bound_ms": finite(bound),
+            "observed_hp_max_ms": observed, "hp_missed": m.missed[HP],
+            "dmr_hp": m.dmr(HP), "violations": violations,
+            "assumptions": report.assumptions}
 
 
 def contention_phase(torch, failures):
@@ -860,22 +914,90 @@ def epoch_scenario(api, sm):
             .record_decisions())
 
 
-def epoch_phase(torch, failures):
-    """The scenario on the heap engine, on the epoch engine at its default
-    threshold, and on the epoch engine with every rate-group on the f64
-    kernel; returns the kernel's launches in the last run."""
-    from repro_torch import api
+ENGINE_RUNS = (("heap", "heap", None), ("epoch", "epoch", None),
+               ("epoch_kernel_min_1", "epoch", "1"))
+
+
+def count_rate_groups(srv) -> dict:
+    """Wrap ``srv.scheduler.rate_groups`` (the engines ask it for the
+    rate-groups a running-set change dirtied): its calls, the groups it
+    returned, the most in one call, and the lanes a group as a
+    histogram."""
+    stats = {"calls": 0, "groups": 0, "max_groups_per_call": 0,
+             "lanes_per_group": {}}
+    rate_groups, hist = srv.scheduler.rate_groups, stats["lanes_per_group"]
+
+    def counted(entries):
+        out = rate_groups(entries)
+        stats["calls"] += 1
+        stats["groups"] += len(out)
+        stats["max_groups_per_call"] = max(stats["max_groups_per_call"],
+                                           len(out))
+        for _, _, group in out:
+            hist[len(group)] = hist.get(len(group), 0) + 1
+        return out
+    srv.scheduler.rate_groups = counted
+    return stats
+
+
+def time_rates(srv) -> dict:
+    """Wrap the epoch engine's ``_rates_for`` (one call a rate-group:
+    ``rates_seq`` on the host, or the kernel's round trip): its calls and
+    the host seconds spent inside it."""
+    stats = {"calls": 0, "s": 0.0}
+    rates_for = srv.backend._rates_for
+
+    def timed(*a):
+        t0 = time.perf_counter()
+        out = rates_for(*a)
+        stats["s"] += time.perf_counter() - t0
+        stats["calls"] += 1
+        return out
+    srv.backend._rates_for = timed
+    return stats
+
+
+class GcTime:
+    """The interpreter's garbage collections inside the ``with`` block:
+    how many, and the host seconds they took (``gc.callbacks``)."""
+
+    def __enter__(self):
+        import gc
+        self._gc, self.collections, self.s, self._t0 = gc, 0, 0.0, 0.0
+        gc.callbacks.append(self._callback)
+        return self
+
+    def _callback(self, phase, info):
+        if phase == "start":
+            self._t0 = time.perf_counter()
+        else:
+            self.s += time.perf_counter() - self._t0
+            self.collections += 1
+
+    def __exit__(self, *exc):
+        self._gc.callbacks.remove(self._callback)
+
+
+def run_engines(make_cfg, path, failures, rate_groups=False):
+    """``make_cfg()`` (an unbuilt sim config recording its decisions) on
+    the heap engine, on ``engine("epoch")`` at its default threshold and
+    on ``engine("epoch")`` with the threshold at 1, so that every
+    rate-group goes through the f64 contention kernel (the threshold is
+    read when the backend is built). Returns each run's events (releases
+    and stage completions), wall s, events/s, the garbage collections in
+    the run and their host seconds, on the epoch engine the host seconds
+    inside its per-group rate pass (``time_rates``) and, with
+    ``rate_groups``, its rate-group counts; whether the three runs' decision logs and
+    metric digests are identical; the heap run's decision digest; and the
+    kernel's launches in the last run (counts reset just before it)."""
     from repro_torch.kernels import KERNELS, reset_counts
 
-    sm = torch.cuda.get_device_properties(0).multi_processor_count
-    runs, launches = {}, {}
-    for label, engine, threshold in (("heap", "heap", None),
-                                     ("epoch", "epoch", None),
-                                     ("epoch_kernel_min_1", "epoch", "1")):
+    runs, digests, launches = {}, {}, {}
+    for label, engine, threshold in ENGINE_RUNS:
         if threshold is not None:
             os.environ["DARIS_EPOCH_KERNEL_MIN"] = threshold
         try:
-            srv = epoch_scenario(api, sm).engine(engine).build()
+            srv = make_cfg().engine(engine).build()
         finally:
             os.environ.pop("DARIS_EPOCH_KERNEL_MIN", None)
         core, counts = srv.core, {"releases": 0, "stage_completions": 0}
@@ -891,35 +1013,207 @@ def epoch_phase(torch, failures):
             return release(*a, **kw)
         core.backend.advance = counted_advance
         core._handle_release = counted_release
+        groups = count_rate_groups(srv) if rate_groups else None
+        rates = time_rates(srv) if engine == "epoch" else None
         reset_counts()
-        t0 = time.perf_counter()
-        m = srv.run()
-        wall = time.perf_counter() - t0
-        if label == "epoch_kernel_min_1":
-            launches = path_counts(KERNELS, EPOCH_PATH, "epoch", failures)
+        with GcTime() as gc_time:
+            t0 = time.perf_counter()
+            m = srv.run()
+            wall = time.perf_counter() - t0
+        if threshold is not None:
+            launches = path_counts(KERNELS, EPOCH_PATH, path, failures)
         resp = json.dumps({str(k): [v.hex() for v in vs]
                            for k, vs in sorted(m.response_ms.items())})
-        digest = {"decisions_sha256": hashlib.sha256(
-                      "\n".join(srv.decisions).encode()).hexdigest(),
-                  "response_sha256": hashlib.sha256(resp.encode()).hexdigest(),
-                  "summary": m.summary()}
+        digests[label] = {
+            "decisions_sha256": hashlib.sha256(
+                "\n".join(srv.decisions).encode()).hexdigest(),
+            "response_sha256": hashlib.sha256(resp.encode()).hexdigest(),
+            "summary": m.summary()}
         events = counts["releases"] + counts["stage_completions"]
-        runs[label] = (digest, {"wall_s": wall, "events": events,
-                                "events_per_s": events / wall,
-                                "decisions": len(srv.decisions),
-                                "completed": dict(m.completed)})
-    same = all(d == runs["heap"][0] for d, _ in runs.values())
+        runs[label] = {"wall_s": wall, "events": events,
+                       "events_per_s": events / wall,
+                       "decisions": len(srv.decisions),
+                       "completed": dict(m.completed),
+                       "missed": dict(m.missed),
+                       "gc": {"collections": gc_time.collections,
+                              "s": gc_time.s}}
+        if groups is not None:
+            runs[label]["rate_groups"] = groups
+        if rates is not None:
+            runs[label]["rates_for"] = {
+                **rates, "us_per_call": rates["s"] / max(rates["calls"], 1)
+                * 1e6}
+    same = all(d == digests["heap"] for d in digests.values())
+    if not same:
+        failures.append(f"{path}: the three runs' decision logs or metric "
+                        f"digests differ")
+    return runs, same, digests["heap"]["decisions_sha256"], launches
+
+
+def epoch_phase(torch, failures):
+    """The scenario on the heap engine, on the epoch engine at its default
+    threshold, and on the epoch engine with every rate-group on the f64
+    kernel; returns the kernel's launches in the last run."""
+    from repro_torch import api
+
+    sm = torch.cuda.get_device_properties(0).multi_processor_count
+    runs, same, decisions, launches = run_engines(
+        lambda: epoch_scenario(api, sm), "epoch", failures)
     emit({"epoch": {"scenario": "4 contexts x 6 streams, 12 tasks, chaos "
                                 "with a brownout, one device",
-                    "horizon_ms": EPOCH_HORIZON_MS,
-                    "runs": {k: v for k, (_, v) in runs.items()},
+                    "horizon_ms": EPOCH_HORIZON_MS, "runs": runs,
                     "digests_identical": same,
-                    "decisions_sha256": runs["heap"][0]["decisions_sha256"],
+                    "decisions_sha256": decisions,
                     "launches": launches}})
-    if not same:
-        failures.append("epoch: the three runs' decision logs or metric "
-                        "digests differ")
     return launches
+
+
+# the cluster phase (step 7): benchmarks/perf_engine.py's
+# fleet_64dev_diurnal and cluster_rn18_4gpu, benchmarks/figure_specs.py's
+# fig13 cells; their builders are written here because benchmarks/
+# imports the JAX package
+FLEET_DEVICES, FLEET_PER_DEVICE = 64, 3
+FLEET_HORIZON_MS = 1500.0             # the default run; --cluster: 4000
+FLEET_HORIZON_LONG_MS = 4000.0
+FIG13_HORIZON_MS = 2000.0
+
+
+def diurnal_trace(rng, base_per_ms: float, horizon_ms: float) -> list:
+    """Arrival times (ms) of an inhomogeneous Poisson process whose rate
+    swings sinusoidally over one cycle of the horizon (peak 1.8x base),
+    drawn by thinning against the peak rate."""
+    peak = base_per_ms * 1.8
+    times, t = [], 0.0
+    while True:
+        t += float(rng.exponential(1.0 / peak))
+        if t >= horizon_ms:
+            return times
+        lam = base_per_ms * (1.0 + 0.8 * math.sin(
+            2.0 * math.pi * t / horizon_ms))
+        if float(rng.uniform()) * peak < lam:
+            times.append(t)
+
+
+def fleet_scenario(horizon_ms: float):
+    """64 devices x 4 contexts x 1 stream (oversubscription 4.0), 3 LP
+    services a device (192), each two stages of 2 ms (n_sat 20, mem_frac
+    0.3) at a 24 ms period, replaying a diurnal Poisson trace (base 1/24
+    a ms; one rng seeded 9000 + i a service)."""
+    import numpy as np
+
+    from repro_torch import api
+    from repro_torch.serving.profiles import device
+
+    specs = [api.TaskSpec(
+        name=f"svc{i:03d}", period_ms=24.0, priority=api.LP,
+        stages=[api.StageProfile(name=f"svc{i:03d}/s{j}", t_alone_ms=2.0,
+                                 n_sat=20.0, mem_frac=0.3) for j in (0, 1)])
+        for i in range(FLEET_DEVICES * FLEET_PER_DEVICE)]
+    cfg = (api.ServerConfig.cluster(FLEET_DEVICES).tasks(specs)
+           .contexts(4).streams(1).oversubscribe(4.0).device(device())
+           .horizon_ms(horizon_ms).seed(0).record_decisions())
+    for i, s in enumerate(specs):
+        cfg.arrival(s.name, api.TraceArrival(diurnal_trace(
+            np.random.default_rng(9000 + i), 1.0 / 24.0, horizon_ms)))
+    return cfg
+
+
+def cluster_rn18_scenario(horizon_ms: float):
+    """Table II's ResNet18 task set on 4 GPUs (two a100, two v100), 4 x 1
+    each, oversubscription 4.0."""
+    from repro_torch import api
+    from repro_torch.serving.profiles import device
+    from repro_torch.serving.requests import table2_taskset
+
+    return (api.ServerConfig.cluster(
+                4, device_models=["a100", "a100", "v100", "v100"])
+            .tasks(table2_taskset("resnet18")).contexts(4).streams(1)
+            .oversubscribe(4.0).device(device()).horizon_ms(horizon_ms)
+            .seed(0).record_decisions())
+
+
+def _fig13(n_gpus, specs_per_gpu, nc):
+    import dataclasses
+
+    from repro_torch import api
+    from repro_torch.serving.profiles import device
+
+    specs = [dataclasses.replace(s, name=f"g{g}-{s.name}")
+             for g in range(n_gpus) for s in specs_per_gpu()]
+    return (api.ServerConfig.cluster(n_gpus).tasks(specs)
+            .contexts(nc).streams(1).oversubscribe(float(nc))
+            .device(device()).horizon_ms(FIG13_HORIZON_MS).seed(0))
+
+
+def fig13_light():
+    """An under-loaded 2-GPU fleet: an HP and an LP ResNet18 task at 30
+    jobs/s a device, 2 x 1, oversubscription 2.0."""
+    from repro_torch.serving.profiles import make_task
+    return _fig13(2, lambda: [make_task("resnet18", priority=p, jps=30.0,
+                                        tag=tag)
+                              for p, tag in ((0, "-hp0"), (1, "-lp0"))], 2)
+
+
+def fig13_fail_1of4():
+    """4 GPUs, Table II ResNet18 at half load on each, 4 x 1 (os 4.0);
+    device 1 fails at 30% of the horizon."""
+    from repro_torch.serving.requests import table2_taskset
+    return _fig13(4, lambda: table2_taskset("resnet18", load_scale=0.5),
+                  4).fail_device_at(1, FIG13_HORIZON_MS * 0.3)
+
+
+def cluster_phase(torch, failures, fleet_horizon_ms=FLEET_HORIZON_MS):
+    """Each cluster scenario on the three engines (``run_engines``; the
+    fleet with its rate-group counts), then SchedCheck's differential
+    oracle on fig13_light and fig13_fail_1of4 on the epoch engine with
+    every rate-group on the kernel. Returns the kernel's launches on each
+    path (counts reset just before each)."""
+    from repro_torch.analysis.schedcheck import differential_check
+    from repro_torch.kernels import KERNELS, reset_counts
+
+    launches = {}
+    for name, make_cfg, horizon in (
+            ("fleet_64dev_diurnal",
+             lambda: fleet_scenario(fleet_horizon_ms), fleet_horizon_ms),
+            ("cluster_rn18_4gpu",
+             lambda: cluster_rn18_scenario(fleet_horizon_ms),
+             fleet_horizon_ms),
+            ("fig13_fail_1of4", lambda: fig13_fail_1of4().record_decisions(),
+             FIG13_HORIZON_MS)):
+        fleet = name.startswith("fleet")
+        runs, same, decisions, n = run_engines(make_cfg, name, failures,
+                                               rate_groups=fleet)
+        launches[name] = n
+        emit({"cluster": {"scenario": name, "horizon_ms": horizon,
+                          "runs": runs, "digests_identical": same,
+                          "decisions_sha256": decisions, "launches": n,
+                          "card": gpu_line()}})
+    for name, make_cfg in (("fig13_light", fig13_light),
+                           ("fig13_fail_1of4", fig13_fail_1of4)):
+        reset_counts()
+        os.environ["DARIS_EPOCH_KERNEL_MIN"] = "1"
+        try:
+            t0 = time.perf_counter()
+            res = differential_check(make_cfg().engine("epoch"), label=name)
+            wall = time.perf_counter() - t0
+        finally:
+            os.environ.pop("DARIS_EPOCH_KERNEL_MIN", None)
+        n = path_counts(KERNELS, EPOCH_PATH, f"{name} oracle", failures)
+        launches[f"{name}_oracle"] = n
+        emit({"schedcheck_oracle": {
+            "scenario": name, "ok": res.ok, "verdict": res.verdict,
+            "hp_verdict": res.hp_verdict, "hp_bound_ms": finite(res.bound_ms),
+            "observed_hp_max_ms": res.observed_max_ms,
+            "dmr_hp": res.dmr_hp, "vacuous": res.vacuous,
+            "violations": res.violations, "wall_s": wall, "launches": n}})
+        if not res.ok:
+            failures.append(f"SchedCheck oracle on {name}: {res.violations}")
+    return launches
+
+
+def finite(x: float):
+    """``x``, or None where it is infinite (an unbounded static bound)."""
+    return x if math.isfinite(x) else None
 
 
 def per_step_launches(torch, spec):
@@ -1101,7 +1395,7 @@ def cnn_serving_phase(torch, failures, name, trace=False):
             "batch": CNN_BATCH, "stages": len(specs[0].stages),
             "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32}
     serve(torch, failures, specs, time.perf_counter() - t0, jps, (), desc,
-          trace=trace, input_hw=CNN_HW)
+          trace=trace, input_hw=CNN_HW, schedcheck=True)
     ran = {n: [fn.counts.launches, fn.counts.plain_cuda_calls]
            for n, fn in KERNELS.items()
            if fn.counts.launches or fn.counts.plain_cuda_calls}
@@ -1229,6 +1523,9 @@ def main() -> int:
                          "--repeats times")
     ap.add_argument("--epoch", action="store_true",
                     help="only the epoch phase, --repeats times")
+    ap.add_argument("--cluster", action="store_true",
+                    help="only the cluster phase (the fleet over "
+                         f"{FLEET_HORIZON_LONG_MS:g} ms), --repeats times")
     ap.add_argument("--repeats", type=int, default=1)
     ap.add_argument("--trace", action="store_true",
                     help="with --serve: each run under torch.profiler")
@@ -1263,10 +1560,13 @@ def main() -> int:
     emit({"build": {"seconds": build_s, "ptxas": ptxas}})
     if args.serve:
         return serve_repeats(torch, args.serve, args.repeats, args.trace)
-    if args.epoch:
+    if args.epoch or args.cluster:
         failures = []
         for _ in range(args.repeats):
-            epoch_phase(torch, failures)
+            if args.epoch:
+                epoch_phase(torch, failures)
+            else:
+                cluster_phase(torch, failures, FLEET_HORIZON_LONG_MS)
         for f in failures:
             print(f"chip_smoke: FAIL {f}", file=sys.stderr)
         return 1 if failures else 0
@@ -1316,12 +1616,16 @@ def main() -> int:
         del spec
         torch.cuda.empty_cache()
         seconds[f"{dnn}_path"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    cluster = cluster_phase(torch, failures)
+    seconds["cluster_path"] = time.perf_counter() - t0
     emit({"phase_seconds": seconds})
 
     # launches: the sum over the paths, each counted from a reset just
     # before it; the f32 contention kernel's own fleet-sweep call
-    launches = {k: dense.get(k, 0) + epoch.get(k, 0) + ssm.get(k, 0)
-                for k in SOURCES}
+    paths = [dense, epoch, ssm, *cluster.values()]
+    launches = {k: sum(p.get(k, 0) for p in paths) for k in SOURCES}
     launches["contention_eta_f32"] = f32_launches
     # launches by instance, summed over the two serving paths (decode
     # attention counts its split kernel and its merge, one each a call); a
@@ -1350,6 +1654,10 @@ def main() -> int:
                                    "latency_floor_ms") if k in row}}
         if rname == kname and kname in by_inst:
             entry["launches_by_instance"] = by_inst[kname]
+        if rname in EPOCH_PATH:        # the simulated paths, one by one
+            entry["launches_by_path"] = {
+                "epoch": epoch.get(rname, 0),
+                **{p: n.get(rname, 0) for p, n in cluster.items()}}
         elif rname != kname:           # the instance's, not this shape's
             entry["launches_of"] = (f"{kname} instance {row.get('instance')}"
                                     f" on both serving paths")

@@ -3,10 +3,11 @@
 Counterpart of src/repro/api.py: the same ``ServerConfig``/``DarisServer``
 over the copied scheduler and engine loop, with the heap ``SimBackend``,
 the epoch engine (``engine("epoch")``, its rate-groups on the CUDA
-contention kernel) and the CUDA ``RealtimeBackend``. What the port does not
-have yet raises ``NotImplementedError`` naming its item in ROADMAP.md's
-port queue: cluster serving (Q6), ``verify()`` (Q7) and checkpointing
-(Q5).
+contention kernel), the CUDA ``RealtimeBackend``, simulated multi-GPU
+clusters (``ServerConfig.cluster``, on either sim engine) and the static
+schedulability gate (``verify()``, SchedCheck). Checkpointing is not ported
+yet: ``save_state``/``load_state`` raise ``NotImplementedError`` naming
+item Q5 of ROADMAP.md's port queue.
 
 One scheduler (admission Eq. 11-12, staging, oversubscription, zero-delay
 migration) serves every deployment shape; this module is the single typed
@@ -90,6 +91,7 @@ class ServerConfig:
         if backend_kind not in (SIM, REALTIME):
             raise ValueError(f"unknown backend {backend_kind!r}")
         self._backend_kind = backend_kind
+        self._cluster: Optional[Dict[str, object]] = None
         self._torch_device = torch_device   # payloads' or epoch kernel's device
         self._engine = "heap"
         self._specs: List[TaskSpec] = []
@@ -114,6 +116,7 @@ class ServerConfig:
         self._batch = 1
         self._input_factory = None
         self._ctx_devices: Optional[Dict[int, object]] = None
+        self._schedcheck_report = None   # set by verify()
 
     # -------------------------------------------------------- entry points
     @classmethod
@@ -133,8 +136,26 @@ class ServerConfig:
     def cluster(cls, n_gpus: int, *,
                 device_models: Optional[List] = None,
                 transfer_ms: float = 0.5) -> "ServerConfig":
-        """Multi-GPU serving behind one global dispatcher."""
-        raise _not_ported("cluster serving", "Q6")
+        """Multi-GPU serving (``cluster``): ``n_gpus`` simulated
+        devices behind one global dispatcher — per-device Eq. 11-12
+        admission, HP-first placement by least-loaded device, cross-GPU
+        zero-delay migration charged at ``transfer_ms`` per moved
+        inter-stage payload. ``device_models`` takes DeviceModel objects
+        or preset names ("a100", "v100", ...; see cluster.devices),
+        cycled across devices — heterogeneous speed factors scale every
+        stage cost and admission bound per device. When given, it takes
+        precedence over ``.device(...)``, which then only sets the sim's
+        generic device defaults for non-cluster paths; omit it and
+        ``.device(...)`` becomes every GPU's model. Context/stream/
+        oversubscription setters configure EACH device's partition.
+        Cluster serving runs on the sim backend (one shared clock), on
+        either engine: ``engine("epoch")`` sends its rate-groups to the
+        contention kernel on the card."""
+        cfg = cls(SIM)
+        cfg._cluster = {"n_gpus": n_gpus,
+                        "device_models": device_models,
+                        "transfer_ms": transfer_ms}
+        return cfg
 
     # ------------------------------------------------------------ workload
     def tasks(self, specs: List[TaskSpec]) -> "ServerConfig":
@@ -300,8 +321,13 @@ class ServerConfig:
         return self
 
     def fail_device_at(self, device: int, t_ms: float) -> "ServerConfig":
-        """Kill a whole GPU mid-run (cluster servers only)."""
-        raise _not_ported("cluster serving", "Q6")
+        """Kill a whole GPU mid-run (cluster servers only): its in-flight
+        stages are cancelled and replay on surviving devices, and every
+        task homed there re-places HP-first via cross-GPU migration."""
+        fp = self._fault_plan or FaultPlan()
+        self._fault_plan = dataclasses.replace(fp,
+                                               fail_device_at=(device, t_ms))
+        return self
 
     def scale_out_at(self, t_ms: float) -> "ServerConfig":
         fp = self._fault_plan or FaultPlan()
@@ -310,21 +336,27 @@ class ServerConfig:
 
     def reconfigure_at(self, t_ms: float, *, n_contexts: Optional[int] = None,
                        n_streams: Optional[int] = None,
-                       oversubscription: Optional[float] = None
+                       oversubscription: Optional[float] = None,
+                       n_gpus: Optional[int] = None
                        ) -> "ServerConfig":
         """Schedule an online repartition: at ``t_ms`` the scheduler
         re-derives Eq. 9 geometry for the new shape without draining —
         queued work re-homes immediately, in-flight stages finish where
         they run and migrate at the next stage boundary (zero-delay).
         Omitted fields keep their current value; call repeatedly to build
-        a schedule (a diurnal ramp, a step plan, ...)."""
+        a schedule (a diurnal ramp, a step plan, ...). ``n_gpus``
+        (cluster servers only) scales by whole devices: growth appends
+        fresh GPUs, shrink retires them gracefully, and a global HP-first
+        re-place follows either way."""
         kwargs = {k: v for k, v in (("n_contexts", n_contexts),
                                     ("n_streams", n_streams),
-                                    ("oversubscription", oversubscription))
+                                    ("oversubscription", oversubscription),
+                                    ("n_gpus", n_gpus))
                   if v is not None}
         if not kwargs:
             raise ValueError("reconfigure_at needs at least one of "
-                             "n_contexts / n_streams / oversubscription")
+                             "n_contexts / n_streams / oversubscription / "
+                             "n_gpus")
         fp = self._fault_plan or FaultPlan()
         sched = list(fp.reconfigure_at or [])
         sched.append((t_ms, kwargs))
@@ -339,7 +371,8 @@ class ServerConfig:
         whenever the mean Eq. 12 load fraction across live contexts
         crosses ``high``/``low`` (see ``AutoscalePolicy``). The unit —
         and the ``min_contexts``/``max_contexts`` bounds — is contexts on
-        a single-device server and WHOLE GPUs on a cluster server.
+        a single-device server and WHOLE GPUs on a cluster server
+        (``ServerConfig.cluster``).
         Composes with ``reconfigure_at`` — the autoscaler simply issues
         the same online repartitions on its own schedule."""
         self._autoscale = AutoscalePolicy(
@@ -402,7 +435,90 @@ class ServerConfig:
                                  f"cooldown_ms >= 0, got "
                                  f"check_every_ms={a.check_every_ms} "
                                  f"cooldown_ms={a.cooldown_ms}")
+        if self._cluster is not None:
+            n_gpus = self._cluster["n_gpus"]
+            if not isinstance(n_gpus, int) or n_gpus < 1:
+                raise ValueError(f"cluster needs n_gpus >= 1, got {n_gpus}")
+            if self._cluster["transfer_ms"] < 0:
+                raise ValueError(f"cluster transfer_ms must be >= 0, got "
+                                 f"{self._cluster['transfer_ms']}")
+            dms = self._cluster["device_models"]
+            if dms is not None and len(dms) == 0:
+                raise ValueError("cluster device_models must be non-empty "
+                                 "when given")
+            if self._sched_cls is not DarisScheduler:
+                raise ValueError("cluster servers build their own scheduler; "
+                                 "scheduler_cls() is not supported")
         fp = self._fault_plan
+        # a fleet can only mint NEW device ids via the autoscaler or an
+        # n_gpus event exceeding the count standing at its time (a grow
+        # past build size, or a regrow after a shrink — grown devices
+        # get fresh monotonic ids). A monotone shrink plan can't, so it
+        # must not disable the device-range/certain-death checks.
+        grows = False
+        if fp:
+            cur = self._cluster["n_gpus"] if self._cluster else 0
+            for _, kw in sorted(fp.reconfigure_at or [],
+                                key=lambda e: e[0]):
+                n = kw.get("n_gpus")
+                if n is not None:
+                    grows = grows or n > cur
+                    cur = n
+        may_grow = bool(fp) and (self._autoscale is not None or grows)
+        if fp and fp.fail_device_at is not None:
+            if self._cluster is None:
+                raise ValueError("fail_device_at requires a cluster server "
+                                 "(ServerConfig.cluster)")
+            dev = fp.fail_device_at[0]
+            # grown devices get fresh monotonic ids, so a growable fleet
+            # can legitimately target ids past the build-time size (the
+            # runtime no-ops on devices that never materialized)
+            if not may_grow and not 0 <= dev < self._cluster["n_gpus"]:
+                raise ValueError(f"fail_device_at device {dev} out of range "
+                                 f"for {self._cluster['n_gpus']} GPUs")
+            # without growth, a 1-GPU cluster losing its device is
+            # certain death — reject at build, not RuntimeError mid-run
+            if self._cluster["n_gpus"] == 1 and not may_grow:
+                raise ValueError(
+                    "fail_device_at on a 1-GPU cluster kills the whole "
+                    "fleet; add GPUs, a reconfigure_at(n_gpus=...), or an "
+                    "autoscale plan")
+        if fp and fp.fail_ctx_at is not None and self._cluster is not None:
+            # cluster context keys are (device, k) tuples; a bare int
+            # would only blow up mid-run inside fail_context
+            key = fp.fail_ctx_at[0]
+            if not (isinstance(key, tuple) and len(key) == 2):
+                raise ValueError(
+                    f"fail_context_at on a cluster server needs a "
+                    f"(device, context) tuple key, got {key!r} — or use "
+                    f"fail_device_at to kill a whole GPU")
+            if not may_grow and not 0 <= key[0] < self._cluster["n_gpus"]:
+                raise ValueError(f"fail_context_at device {key[0]} out of "
+                                 f"range for {self._cluster['n_gpus']} GPUs")
+            # context indices only move past the build-time shape via a
+            # planned n_contexts reshape or a scale_out_at ADD_CTX
+            # (cluster autoscale adds whole GPUs, never contexts) —
+            # without either, range-check statically
+            reshapes = (fp.add_ctx_at is not None
+                        or any("n_contexts" in kw
+                               for _, kw in (fp.reconfigure_at or [])))
+            nc = (self._sched_cfg.n_contexts
+                  if self._sched_cfg is not None
+                  else self._sched_kw.get("n_contexts",
+                                          SchedulerConfig.n_contexts))
+            if not reshapes and not 0 <= key[1] < nc:
+                raise ValueError(f"fail_context_at context {key[1]} out of "
+                                 f"range for {nc} contexts per device")
+            # last-context faults escalate to whole-device failure, so a
+            # 1-GPU 1-context cluster that can never grow or reshape is
+            # certain death — same static rejection as fail_device_at
+            if (self._cluster["n_gpus"] == 1 and nc == 1
+                    and not reshapes and not may_grow):
+                raise ValueError(
+                    "fail_context_at on a 1-GPU, 1-context cluster kills "
+                    "the whole fleet (a device's last context escalates "
+                    "to device failure); add GPUs/contexts or a "
+                    "reconfigure/autoscale plan")
         if fp and fp.reconfigure_at:
             seen_at: Dict[float, Dict] = {}
             for t_ms, kwargs in fp.reconfigure_at:
@@ -430,6 +546,18 @@ class ServerConfig:
                 if osf is not None and osf < 1.0:
                     raise ValueError(f"reconfigure_at needs oversubscription "
                                      f">= 1, got {osf}")
+                ng = kwargs.get("n_gpus")
+                if ng is not None and self._cluster is None:
+                    raise ValueError("reconfigure_at(n_gpus=...) requires a "
+                                     "cluster server (ServerConfig.cluster)")
+                if ng is not None and ng < 1:
+                    raise ValueError(f"reconfigure_at needs n_gpus >= 1, "
+                                     f"got {ng}")
+                if ng is not None and len(kwargs) > 1:
+                    raise ValueError(
+                        "reconfigure_at: reshape contexts/streams/"
+                        "oversubscription and n_gpus in separate events "
+                        "(each runs one re-place)")
         names = {s.name for s in self._specs}
         unknown = set(self._arrivals) - names
         if unknown:
@@ -441,8 +569,24 @@ class ServerConfig:
                              "task names")
 
     def verify(self, *, enforce: bool = True) -> "ServerConfig":
-        """Static schedulability gate (SchedCheck)."""
-        raise _not_ported("SchedCheck (verify)", "Q7")
+        """Static schedulability gate (``analysis.schedcheck``):
+        analyze this configuration's whole timeline without running it.
+        With ``enforce=True`` (default) raises ``UnschedulableError``
+        when any HP task is statically UNSCHEDULABLE in any epoch; the
+        full report stays readable via ``schedcheck_report`` either way.
+        Fluent — chain it right before ``build()``."""
+        from .analysis.schedcheck import (UNSCHEDULABLE, UnschedulableError,
+                                          analyze_config)
+        report = analyze_config(self)
+        self._schedcheck_report = report
+        if enforce and report.hp_verdict == UNSCHEDULABLE:
+            raise UnschedulableError(report)
+        return self
+
+    @property
+    def schedcheck_report(self):
+        """The last ``verify()`` report (None until verify() runs)."""
+        return self._schedcheck_report
 
     def build(self) -> "DarisServer":
         self._validate()
@@ -455,8 +599,17 @@ class DarisServer:
     def __init__(self, cfg: ServerConfig):
         self._cfg = cfg
         sched_cfg = cfg._scheduler_config()
-        self.scheduler: DarisScheduler = cfg._sched_cls(
-            list(cfg._specs), sched_cfg, cfg._device, **cfg._sched_cls_kw)
+        if cfg._cluster is not None:
+            from .cluster import ClusterScheduler
+            self.scheduler = ClusterScheduler(
+                list(cfg._specs), sched_cfg, cfg._device,
+                n_gpus=cfg._cluster["n_gpus"],
+                device_models=cfg._cluster["device_models"],
+                transfer_ms=cfg._cluster["transfer_ms"])
+        else:
+            self.scheduler: DarisScheduler = cfg._sched_cls(
+                list(cfg._specs), sched_cfg, cfg._device,
+                **cfg._sched_cls_kw)
         if cfg._backend_kind == SIM:
             noise = 0.06 if cfg._noise_sigma is None else cfg._noise_sigma
             if cfg._engine == "epoch":

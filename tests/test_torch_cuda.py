@@ -1,7 +1,8 @@
 """The port on the card: each CUDA kernel against its plain version, staged
 LM decode (dense and ssm) served on per-lane CUDA streams through the
 kernels, the staged CNNs (served, and each stage against the CPU), and the
-epoch engine with its rate-groups on the contention kernel.
+epoch engine with its rate-groups on the contention kernel (one device, and
+a reduced cluster fleet).
 
 Every test here is marked ``cuda`` and skips without a CUDA device; on the
 card run ``python -m pytest -q -m cuda tests/test_torch_cuda.py``. The file
@@ -363,6 +364,55 @@ def test_epoch_engine_rate_groups_on_the_kernel(monkeypatch):
         srv = cfg.build()
         m = srv.run()
         return srv.decisions, m.summary()
+    heap = run("heap")
+    monkeypatch.setenv("DARIS_EPOCH_KERNEL_MIN", "1")
+    ce.fused.counts.reset()
+    assert run("epoch") == heap
+    assert ce.fused.counts.launches > 0
+    assert ce.fused.counts.plain_cuda_calls == 0
+
+
+def diurnal_trace(rng, base_per_ms, horizon_ms):
+    """benchmarks/perf_engine.py's thinning draw of a diurnal Poisson
+    trace (peak 1.8x base, one sine cycle over the horizon)."""
+    peak = base_per_ms * 1.8
+    times, t = [], 0.0
+    while True:
+        t += float(rng.exponential(1.0 / peak))
+        if t >= horizon_ms:
+            return times
+        lam = base_per_ms * (1.0 + 0.8 * np.sin(
+            2.0 * np.pi * t / horizon_ms))
+        if float(rng.uniform()) * peak < lam:
+            times.append(t)
+
+
+@pytest.mark.cuda
+def test_reduced_fleet_on_the_kernel(monkeypatch):
+    """The 64-device diurnal fleet cut to 8 devices and 300 ms, on a
+    cluster server: at threshold 1 every rate-group (one device's lanes,
+    that device's model) goes through the CUDA f64 kernel, and the run is
+    the heap engine's, bit for bit."""
+    _need_cuda()
+    from repro_torch.serving.profiles import device
+    horizon, specs = 300.0, [
+        api.TaskSpec(name=f"svc{i:03d}", period_ms=24.0, priority=api.LP,
+                     stages=[api.StageProfile(f"svc{i:03d}/s{j}", 2.0,
+                                              n_sat=20.0, mem_frac=0.3)
+                             for j in range(2)])
+        for i in range(8 * 3)]
+
+    def run(engine):
+        cfg = (api.ServerConfig.cluster(8).tasks(specs).contexts(4)
+               .streams(1).oversubscribe(4.0).device(device())
+               .horizon_ms(horizon).seed(0).record_decisions().engine(engine))
+        for i, s in enumerate(specs):
+            cfg.arrival(s.name, api.TraceArrival(diurnal_trace(
+                np.random.default_rng(9000 + i), 1.0 / 24.0, horizon)))
+        srv = cfg.build()
+        m = srv.run()
+        return (srv.decisions, m.summary(),
+                {k: [v.hex() for v in vs] for k, vs in m.response_ms.items()})
     heap = run("heap")
     monkeypatch.setenv("DARIS_EPOCH_KERNEL_MIN", "1")
     ce.fused.counts.reset()

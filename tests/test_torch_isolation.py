@@ -114,5 +114,10 @@ def test_the_scheduler_stack_is_copied():
                 "runtime/epoch.py", "configs/mamba2_27b.py",
                 "chaos/plan.py", "analysis/sanitizer.py", "configs/base.py",
                 "configs/smollm_135m.py", "serving/profiles.py",
-                "serving/requests.py"):
+                "serving/requests.py", "cluster/__init__.py",
+                "cluster/devices.py", "cluster/scheduler.py",
+                "analysis/schedcheck/__init__.py",
+                "analysis/schedcheck/model.py",
+                "analysis/schedcheck/analyzer.py",
+                "analysis/schedcheck/oracle.py"):
         assert rel in copied

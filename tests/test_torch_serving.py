@@ -178,13 +178,11 @@ def test_unported_features_name_their_roadmap_item():
     hybrid = get_reduced("smollm-135m").replace(family="hybrid")
     with pytest.raises(NotImplementedError, match="Q8"):
         build_model(hybrid, device="cpu")
-    with pytest.raises(NotImplementedError, match="Q6"):
-        api.ServerConfig.cluster(2)
-    with pytest.raises(NotImplementedError, match="Q7"):
-        api.ServerConfig.sim().task(spec).verify()
     srv = api.ServerConfig.sim().task(spec).horizon_ms(50.0).build()
     with pytest.raises(NotImplementedError, match="Q5"):
         srv.save_state("unused.msgpack")
+    # cluster serving (Q6) and verify() (Q7) are ported
+    assert api.ServerConfig.cluster(2).task(spec).verify().build()
 
 
 def test_entry_points_without_device_raise_when_no_gpu():
@@ -199,6 +197,8 @@ def test_entry_points_without_device_raise_when_no_gpu():
         RealtimeBackend()
     with pytest.raises(RuntimeError, match="device='cpu'"):
         api.ServerConfig.sim().engine("epoch")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        api.ServerConfig.cluster(2).engine("epoch")
     model = build_model(cfg, device="cpu")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         staged_lm_taskspec(model, priority=api.HP, jps=10.0)
