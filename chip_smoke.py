@@ -6,14 +6,15 @@
     python3 chip_smoke.py --serve resnet18 --repeats 8
     python3 chip_smoke.py --epoch --repeats 10
     python3 chip_smoke.py --cluster --repeats 2
+    python3 chip_smoke.py --resume --repeats 2
 
 The --serve forms run only one model's serving phase (step 3, 5 or 6 below),
 ``--repeats`` times, each with the host's side of the run and the card's
 clocks after it, and with ``--trace`` what the card did during it
-(``device_timeline``); --epoch only the epoch phase (step 4) and --cluster
-only the cluster phase (step 7, the fleet over 4000 ms), ``--repeats``
-times (events/s on the host's clock vary from run to run). None of them
-prints a result line. Without arguments:
+(``device_timeline``); --epoch only the epoch phase (step 4), --resume only
+the resume phase (step 7) and --cluster only the cluster phase (step 8, the
+fleet over 4000 ms), ``--repeats`` times (events/s on the host's clock vary
+from run to run). None of them prints a result line. Without arguments:
 
 1. Builds the port's Hopper kernels from ``src/repro_torch/kernels/csrc``
    (into ``build/kernels/``).
@@ -95,7 +96,22 @@ prints a result line. Without arguments:
    bound beside the run's largest HP response and HP misses, with any
    violation the differential oracle's two rules would name (a
    measurement, not a gate).
-7. Cluster phase (simulated fleets; the sim backend, on the three engines
+7. Resume phase (checkpointing and the serving daemon): ResNet18 as in 6,
+   served cold for 3 s and its scheduler state saved (``save_state``), then
+   a fresh server of the same config loads the file before it runs
+   (``load_state``): every task's MRET windows, ``ctx``, ``fixed_ctx``, the
+   migration count and the context geometry must equal the file's. A
+   ``resume`` line gives per run each task's MRET at its start and end,
+   each HP stage's ``t_alone`` against its served mean ``et_ms``, HP misses
+   and responses, LP rejects, and the file's bytes and the µs of the save
+   and the load; ``python -m repro_torch.launch.serve --ckpt`` runs twice
+   and the second run must resume. The served parameters go through
+   ``save_pytree``/``load_pytree`` from and to the card and must come back
+   bit for bit (``params_roundtrip``: MB and seconds each way), and
+   examples/serve_daemon_torch.py (the ops daemon, SIGTERM, restart, zero
+   lost, audit, replay) must exit 0 (``serve_daemon``: its wall time and
+   submit round trips); ``msgpack`` must not have been imported.
+8. Cluster phase (simulated fleets; the sim backend, on the three engines
    of step 4, whose digests must be identical): benchmarks/perf_engine.py's
    ``fleet_64dev_diurnal`` (64 devices x 4 contexts, 192 two-stage LP
    services replaying a diurnal Poisson trace; 1500 ms here), with the
@@ -110,7 +126,7 @@ prints a result line. Without arguments:
 Kernel launch counts are reset just before each path and read just after;
 every kernel must be launched on a path (the f32 contention kernel, which
 no engine calls, on the kernel phase's own fleet-sweep call); the f64
-contention kernel on each simulated path of steps 4 and 7, whose launches
+contention kernel on each simulated path of steps 4 and 8, whose launches
 its row lists path by path (``launches_by_path``). A decode
 attention call counts two launches, its split kernel and its merge; a
 tensor-core SSD call likewise two, its state pass
@@ -131,7 +147,9 @@ took the CUDA-core instance, an SSD launch on the ssm path took the
 CUDA-core instance, a worker caught an exception, no HP job
 completed, the three runs of the epoch phase or of a cluster scenario
 differ, a port kernel or its plain version ran on the CNN path, an output
-check failed, or the oracle was not ``ok`` on fig13_light or
+check failed, a restored scheduler state differs from its file, the second
+launcher run did not resume, the parameters did not round-trip bit for bit,
+the daemon example failed, or the oracle was not ``ok`` on fig13_light or
 fig13_fail_1of4. The
 last line is ``{"ok": true, "device": {...}}``.
 """
@@ -170,6 +188,7 @@ DEFAULT_SM_MHZ = 1980.0               # H100 SXM top boost clock (data sheet)
 CNN_WIDTHS = {"resnet18": 64, "unet": 64, "inceptionv3": 24}
 CNN_HW, CNN_BATCH = 224, 1
 CNN_TOL = 1e-3                        # card vs CPU, of the output's scale
+RESUME_DNN = "resnet18"               # served cold, saved, then resumed
 
 
 def emit(obj) -> None:
@@ -623,14 +642,14 @@ def serving_phase(torch, failures, arch, n_layers, jps, kernels,
     desc = {"model": cfg.name, "layers": cfg.n_layers,
             "d_model": cfg.d_model, "batch": B, "prompt_len": PROMPT,
             "stages": N_STAGES}
-    _, launches, instances = serve(torch, failures, specs,
-                                   time.perf_counter() - t0, jps, kernels,
-                                   desc, trace=trace)
+    _, launches, instances, _ = serve(torch, failures, specs,
+                                      time.perf_counter() - t0, jps,
+                                      kernels, desc, trace=trace)
     return model, params, specs[0], launches, instances
 
 
 def serve(torch, failures, specs, setup_s, jps, kernels, desc, trace=False,
-          input_hw=None, schedcheck=False):
+          input_hw=None, schedcheck=False, prepare=None):
     """Serve ``specs`` (an HP and an LP task) in real time for
     ``HORIZON_MS`` (2 contexts x 2 streams, oversubscription 2.0, n_units
     the card's SM count, seed 0; NHWC inputs of ``input_hw`` where given)
@@ -639,9 +658,10 @@ def serve(torch, failures, specs, setup_s, jps, kernels, desc, trace=False,
     that used the most CPU); ``trace`` puts the run under
     ``torch.profiler`` and adds ``device_timeline``; ``schedcheck`` runs
     ``verify(enforce=False)`` on the config before it is built and emits
-    the report beside the run (``schedcheck_served``). Launch counts were
-    reset before the tasks were built. Returns the metrics, the launches
-    of ``kernels`` and the launches by instance."""
+    the report beside the run (``schedcheck_served``); ``prepare`` is
+    called with the built server before it runs. Launch counts were reset
+    before the tasks were built. Returns the metrics, the launches of
+    ``kernels``, the launches by instance and the server."""
     from repro_torch.api import HP, LP, DeviceModel, ServerConfig
     from repro_torch.kernels import KERNELS
 
@@ -656,6 +676,8 @@ def serve(torch, failures, specs, setup_s, jps, kernels, desc, trace=False,
     report = cfg.verify(enforce=False).schedcheck_report if schedcheck \
         else None
     srv = cfg.build()
+    if prepare is not None:
+        prepare(srv)
     if trace:
         from torch.profiler import ProfilerActivity, profile
         tracer = profile(activities=[ProfilerActivity.CUDA])
@@ -707,7 +729,7 @@ def serve(torch, failures, specs, setup_s, jps, kernels, desc, trace=False,
                         f"{be.last_worker_exception!r}")
     if m.completed[HP] == 0:
         failures.append(f"{name}: no HP job completed")
-    return m, launches, instances
+    return m, launches, instances, srv
 
 
 def schedcheck_served(name, report, m) -> dict:
@@ -1068,7 +1090,7 @@ def epoch_phase(torch, failures):
     return launches
 
 
-# the cluster phase (step 7): benchmarks/perf_engine.py's
+# the cluster phase (step 8): benchmarks/perf_engine.py's
 # fleet_64dev_diurnal and cluster_rn18_4gpu, benchmarks/figure_specs.py's
 # fig13 cells; their builders are written here because benchmarks/
 # imports the JAX package
@@ -1479,6 +1501,238 @@ def cnn_output_checks(torch, name, spec, failures):
                         f"stage {errs} > {CNN_TOL}")
 
 
+def restored_mismatches(srv, path, work) -> list:
+    """The top-level fields of the state file at ``path`` that differ in
+    ``srv``'s scheduler, saved again after its restore: each task's MRET
+    windows, AFET seeds, ``ctx`` and ``fixed_ctx``, the migration count,
+    the context geometry and the runtime shape."""
+    from repro_torch.checkpoint._msgpack import unpackb
+
+    again = srv.save_state(os.path.join(work, "restored.msgpack"))
+    want, got = (unpackb(Path(p).read_bytes()) for p in (path, again))
+    return [k for k in want if got.get(k) != want[k]]
+
+
+def same_bits(torch, a, b) -> bool:
+    """Tensors ``a`` and ``b`` hold the same bits (shape, dtype, words)."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    word = {1: torch.int8, 2: torch.int16, 4: torch.int32,
+            8: torch.int64}[a.element_size()]
+    return bool((a.view(word) == b.view(word)).all())
+
+
+def tree_map(fn, tree):
+    """``fn`` over the leaves of a tree of dicts, lists and tuples."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of a tree of dicts, lists and tuples, in their order."""
+    out = []
+    tree_map(out.append, tree)
+    return out
+
+
+def resume_phase(torch, failures):
+    """ResNet18 served as in the CNN phase (its published width, 224 x 224
+    x 3, batch 1, f32, TF32 off; an HP and an LP task at Table II's rate),
+    cold then resumed (``served_resume``); the launcher's ``--ckpt``
+    (``launcher_resume``); the served parameters through the parameter
+    files on the card (``params_roundtrip``); and the daemon example
+    (``daemon_example``). Files go under a temporary directory, removed
+    after; the phase must not import ``msgpack``."""
+    import shutil
+    import tempfile
+
+    from repro_torch.api import HP, LP
+    from repro_torch.models import BUILDERS
+    from repro_torch.serving.engine import staged_cnn_taskspec
+    from repro_torch.serving.requests import TABLE2
+
+    jps = TABLE2[RESUME_DNN][2]
+    model = BUILDERS[RESUME_DNN](width=CNN_WIDTHS[RESUME_DNN])
+    t0 = time.perf_counter()
+    specs = [staged_cnn_taskspec(model, priority=p, jps=jps, input_hw=CNN_HW,
+                                 batch=CNN_BATCH, tag=tag)
+             for p, tag in ((HP, "-hp"), (LP, "-lp"))]
+    setup_s = time.perf_counter() - t0
+    work = tempfile.mkdtemp(prefix="resume-")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT / "src"), *filter(None, [os.environ.get("PYTHONPATH")])]))
+    try:
+        line = served_resume(torch, failures, specs, setup_s, jps, work)
+        line["launcher"] = launcher_resume(failures, work, env)
+        emit({"resume": line})
+        params_roundtrip(torch, failures, model, work)
+        daemon_example(failures, env)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    if "msgpack" in sys.modules:
+        failures.append("resume: msgpack was imported")
+
+
+def served_resume(torch, failures, specs, setup_s, jps, work) -> dict:
+    """``specs`` served twice (``serve``): a cold run whose scheduler
+    state is then saved (``save_state``), and a fresh server of the same
+    config that loads the file before it runs (``load_state``) and must
+    equal it field by field (``restored_mismatches``). Returns the
+    ``resume`` line: for each run every task's MRET at its start and end,
+    per HP stage ``t_alone``, the AFET seed, MRET at start and end and the
+    served mean ``et_ms`` (HP and LP stages share names), HP misses, LP
+    rejects and HP responses; the file's bytes and the µs of the save and
+    the load."""
+    from repro_torch.api import HP, LP
+
+    path = os.path.join(work, "sched.msgpack")
+    runs, io, mismatches = [], {}, []
+    for run in ("cold", "resumed"):
+        start = {}
+
+        def prepare(srv, run=run):
+            if run == "resumed":
+                t0 = time.perf_counter()
+                srv.load_state(path)
+                io["load_us"] = (time.perf_counter() - t0) * 1e6
+                mismatches.extend(restored_mismatches(srv, path, work))
+            start.update({t.name: [st.value() for st in t.mret.stages]
+                          for t in srv.scheduler.tasks})
+
+        desc = {"model": RESUME_DNN, "width": CNN_WIDTHS[RESUME_DNN],
+                "input_hw": CNN_HW, "batch": CNN_BATCH,
+                "stages": len(specs[0].stages), "resume_run": run}
+        m, _, _, srv = serve(torch, failures, specs, setup_s, jps, (), desc,
+                             input_hw=CNN_HW, prepare=prepare)
+        if run == "cold":
+            t0 = time.perf_counter()
+            srv.save_state(path)
+            io["save_us"] = (time.perf_counter() - t0) * 1e6
+            io["file_bytes"] = os.path.getsize(path)
+        served = srv.backend.stage_time_summary()
+        hp = m.response_ms[HP]
+        hp_task = srv.task_named(specs[0].name)
+        runs.append({
+            "run": run,
+            "task_mret_start_ms": {k: sum(v) for k, v in start.items()},
+            "task_mret_end_ms": {t.name: t.mret.task_mret()
+                                 for t in srv.scheduler.tasks},
+            "hp_stages": [{"stage": st.name, "t_alone_ms": st.t_alone_ms,
+                           "afet_ms": est.afet_ms,
+                           "mret_start_ms": start[hp_task.name][j],
+                           "mret_end_ms": est.value(),
+                           "served_et_ms": served.get(st.name, {}).get(
+                               "mean_et_ms")}
+                          for j, (st, est) in enumerate(
+                              zip(specs[0].stages, hp_task.mret.stages))],
+            "hp_completed": m.completed[HP], "hp_missed": m.missed[HP],
+            "lp_rejected": m.rejected[LP],
+            "hp_mean_response_ms": m.resp_stats(HP)["mean"] if hp else None,
+            "hp_response_ms": [round(r, 3) for r in hp]})
+    if mismatches:
+        failures.append(f"resume: restored state differs from the file in "
+                        f"{mismatches}")
+    return {"model": RESUME_DNN, "card": gpu_line(), **io,
+            "restored_equal": not mismatches, "runs": runs}
+
+
+def launcher_resume(failures, work, env) -> list:
+    """``python -m repro_torch.launch.serve --ckpt FILE`` twice (width 8,
+    1 s): the first saves, the second must print that it resumed."""
+    ckpt, runs = os.path.join(work, "launch.msgpack"), []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.serve", "--dnns",
+             RESUME_DNN, "--seconds", "1", "--ckpt", ckpt],
+            capture_output=True, text=True, env=env, cwd=str(ROOT),
+            timeout=300)
+        runs.append({"rc": out.returncode, "wall_s": time.perf_counter() - t0,
+                     "stdout": out.stdout.strip().splitlines()})
+        if out.returncode != 0:
+            failures.append(f"resume: launcher --ckpt exited "
+                            f"{out.returncode}: {out.stderr[-1500:]}")
+    if not any(ln.startswith("resumed scheduler state")
+               for ln in runs[1]["stdout"]):
+        failures.append(f"resume: the second launcher run did not resume: "
+                        f"{runs[1]['stdout']}")
+    return runs
+
+
+def params_roundtrip(torch, failures, model, work) -> None:
+    """The served model's parameters from the card through
+    ``save_pytree``, then ``load_pytree`` into a zeroed template on the
+    card: every leaf must come back bit for bit, on its device. Emits the
+    MB and the seconds of each direction."""
+    from repro_torch.checkpoint import load_pytree, save_pytree
+
+    path = os.path.join(work, RESUME_DNN)
+    leaves = tree_leaves(model.params)
+    mb = sum(t.numel() * t.element_size() for t in leaves) / 1e6
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    save_pytree(model.params, path, step=0)
+    save_s = time.perf_counter() - t0
+    template = tree_map(torch.zeros_like, model.params)
+    t0 = time.perf_counter()
+    back = load_pytree(template, path)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    got = tree_leaves(back)
+    identical = len(got) == len(leaves) and all(
+        g.device == t.device and same_bits(torch, g, t)
+        for g, t in zip(got, leaves))
+    emit({"params_roundtrip": {
+        "model": RESUME_DNN, "width": CNN_WIDTHS[RESUME_DNN],
+        "leaves": len(leaves), "parameters": sum(t.numel() for t in leaves),
+        "mb": mb, "save_s": save_s, "load_s": load_s,
+        "save_mb_per_s": mb / save_s, "load_mb_per_s": mb / load_s,
+        "bit_identical": identical, "card": gpu_line()}})
+    if not identical:
+        failures.append("resume: parameters did not round-trip bit for bit "
+                        "through save_pytree/load_pytree")
+
+
+def daemon_example(failures, env) -> None:
+    """examples/serve_daemon_torch.py in a subprocess (daemon, burst,
+    cancel, SIGTERM, restart, zero lost, audit, replay): it must exit 0.
+    Emits its wall time and the submit round trips it prints. The socket
+    lives in a short temporary directory (a unix socket's path is at most
+    107 bytes)."""
+    import shutil
+    import tempfile
+
+    import signal
+
+    work = tempfile.mkdtemp(prefix="d-")
+    t0 = time.perf_counter()
+    # its own session, so that a timeout also ends the daemons it spawned
+    proc = subprocess.Popen(
+        [sys.executable, "examples/serve_daemon_torch.py", "--dir", work],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
+        cwd=str(ROOT), start_new_session=True)
+    try:
+        stdout, stderr = proc.communicate(timeout=600)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        stdout, stderr = proc.communicate()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    rt = [json.loads(ln.split(":", 1)[1]) for ln in stdout.splitlines()
+          if ln.strip().startswith("submit round trip us:")]
+    emit({"serve_daemon": {"rc": proc.returncode,
+                           "wall_s": time.perf_counter() - t0,
+                           "submit_round_trip_us": rt[0] if rt else None,
+                           "stdout_tail": stdout.splitlines()[-3:],
+                           "card": gpu_line()}})
+    if proc.returncode != 0:
+        failures.append(f"resume: examples/serve_daemon_torch.py exited "
+                        f"{proc.returncode}: {stderr[-1500:]}")
+
+
 def serve_repeats(torch, arch: str, repeats: int, trace: bool) -> int:
     """``--serve ARCH``: only ``arch``'s serving phase, ``repeats`` times
     in this process, each followed by the card's clocks, power and
@@ -1526,6 +1780,8 @@ def main() -> int:
     ap.add_argument("--cluster", action="store_true",
                     help="only the cluster phase (the fleet over "
                          f"{FLEET_HORIZON_LONG_MS:g} ms), --repeats times")
+    ap.add_argument("--resume", action="store_true",
+                    help="only the resume phase, --repeats times")
     ap.add_argument("--repeats", type=int, default=1)
     ap.add_argument("--trace", action="store_true",
                     help="with --serve: each run under torch.profiler")
@@ -1560,11 +1816,14 @@ def main() -> int:
     emit({"build": {"seconds": build_s, "ptxas": ptxas}})
     if args.serve:
         return serve_repeats(torch, args.serve, args.repeats, args.trace)
-    if args.epoch or args.cluster:
+    if args.epoch or args.cluster or args.resume:
         failures = []
         for _ in range(args.repeats):
             if args.epoch:
                 epoch_phase(torch, failures)
+            elif args.resume:
+                resume_phase(torch, failures)
+                torch.cuda.empty_cache()
             else:
                 cluster_phase(torch, failures, FLEET_HORIZON_LONG_MS)
         for f in failures:
@@ -1616,6 +1875,11 @@ def main() -> int:
         del spec
         torch.cuda.empty_cache()
         seconds[f"{dnn}_path"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    resume_phase(torch, failures)
+    torch.cuda.empty_cache()
+    seconds["resume_path"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
     cluster = cluster_phase(torch, failures)

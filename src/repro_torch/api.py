@@ -5,9 +5,9 @@ over the copied scheduler and engine loop, with the heap ``SimBackend``,
 the epoch engine (``engine("epoch")``, its rate-groups on the CUDA
 contention kernel), the CUDA ``RealtimeBackend``, simulated multi-GPU
 clusters (``ServerConfig.cluster``, on either sim engine) and the static
-schedulability gate (``verify()``, SchedCheck). Checkpointing is not ported
-yet: ``save_state``/``load_state`` raise ``NotImplementedError`` naming
-item Q5 of ROADMAP.md's port queue.
+schedulability gate (``verify()``, SchedCheck), and scheduler-state
+checkpoints (``save_state``/``load_state``) in the JAX package's file
+format.
 
 One scheduler (admission Eq. 11-12, staging, oversubscription, zero-delay
 migration) serves every deployment shape; this module is the single typed
@@ -76,11 +76,6 @@ __all__ = [
 ]
 
 SIM, REALTIME = "sim", "realtime"
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md, port "
-                               f"queue item {item})")
 
 
 class ServerConfig:
@@ -706,12 +701,31 @@ class DarisServer:
         return self.core.snapshot()
 
     def save_state(self, path: str) -> str:
-        """Checkpoint the scheduler's learned/elastic state."""
-        raise _not_ported("checkpointing (save_state)", "Q5")
+        """Checkpoint the scheduler's learned/elastic state: MRET windows,
+        context assignments, migration count, and the full partition
+        geometry (including retired contexts), so a restore reproduces
+        the exact post-fault/post-reconfigure placement. The file is the
+        one the JAX package writes for the same state."""
+        if hasattr(self.scheduler, "workers"):
+            raise NotImplementedError(
+                "cluster checkpointing is not supported yet: checkpoint "
+                "each device's state via its worker schedulers, or run "
+                "single-GPU servers for save/restore workflows")
+        from .checkpoint import save_scheduler_state
+        return save_scheduler_state(self.scheduler, path,
+                                    chaos=self.core._chaos)
 
     def load_state(self, path: str) -> None:
-        """Restore scheduler state saved by ``save_state``."""
-        raise _not_ported("checkpointing (load_state)", "Q5")
+        """Restore scheduler state saved by ``save_state`` (call before
+        ``run()``): placement, geometry, and MRET history all survive, so
+        a restarted server skips the AFET cold-start AND lands on the
+        same partition shape the saved one was using."""
+        if hasattr(self.scheduler, "workers"):
+            raise NotImplementedError(
+                "cluster checkpointing is not supported yet: restore into "
+                "a single-GPU server configured like the saved one")
+        from .checkpoint import load_scheduler_state
+        load_scheduler_state(self.scheduler, path)
 
     # ---------------------------------------------------------- inspection
     @property

@@ -7,11 +7,10 @@ staged CNNs at width 8 (real execution on wall clock):
         --seconds 4 --dnns resnet18,unet
 
 It serves on the card, in f32 (building a CNN there turns cuDNN's TF32
-off: ``models/cnn.py``); ``--device cpu`` runs it on the host instead. The
-reference's ``--ckpt`` resumes the scheduler's state from a file and saves
-it after the run; the port has no scheduler-state checkpoint yet (ROADMAP.md
-port queue item Q5), so with ``--ckpt`` the facade's ``load_state`` raises
-``NotImplementedError`` before anything is served.
+off: ``models/cnn.py``); ``--device cpu`` runs it on the host instead.
+``--ckpt FILE`` resumes the scheduler's state from ``FILE`` when it exists
+and saves it there after the run (the JAX package's format: either
+package's file resumes the other's server).
 """
 from __future__ import annotations
 
@@ -54,13 +53,23 @@ def main(argv=None) -> None:
               .phase_offsets(False)
               .realtime_io(input_hw=args.hw)
               .build())
+    sched = server.scheduler
     if args.ckpt:
-        server.load_state(args.ckpt)      # raises NotImplementedError (Q5)
+        import os
+        from ..checkpoint import load_scheduler_state
+        if os.path.exists(args.ckpt):
+            load_scheduler_state(sched, args.ckpt)
+            print(f"resumed scheduler state from {args.ckpt} "
+                  f"(AFET cold-start skipped)")
     m = server.run()
     s = m.summary()
     print(f"JPS {s['jps']:.1f} | DMR HP {s['dmr_hp']:.1%} LP {s['dmr_lp']:.1%}"
           f" | resp HP {s['resp_hp']['mean']:.1f}ms LP "
           f"{s['resp_lp']['mean']:.1f}ms | rejected LP {s['rejected_lp']}")
+    if args.ckpt:
+        from ..checkpoint import save_scheduler_state
+        save_scheduler_state(sched, args.ckpt)
+        print(f"scheduler state saved -> {args.ckpt}")
 
 
 if __name__ == "__main__":

@@ -601,12 +601,21 @@ def test_cluster_scheduler_cls_refused():
          .scheduler_cls(Custom).build())
 
 
-def test_cluster_checkpoint_not_ported():
-    srv = cluster_cfg(PORT, 2, [spec(PORT, "a")], horizon=100.0).build()
-    with pytest.raises(NotImplementedError, match="Q5"):
-        srv.save_state("unused.ckpt")
-    with pytest.raises(NotImplementedError, match="Q5"):
-        srv.load_state("unused.ckpt")
+def test_cluster_checkpoint_not_ported(tmp_path):
+    """Twin of test_cluster.py's ``test_cluster_checkpoint_unsupported``:
+    both packages refuse to checkpoint a cluster, with the same messages,
+    and write nothing."""
+    for m in (REF, PORT):
+        srv = cluster_cfg(m, 2, [spec(m, "a")], horizon=100.0).build()
+        errs = []
+        for call in (srv.save_state, srv.load_state):
+            with pytest.raises(NotImplementedError, match="cluster") as ei:
+                call(str(tmp_path / "cluster.ckpt"))
+            errs.append(str(ei.value))
+        if m is REF:
+            want = errs
+    assert errs == want
+    assert list(tmp_path.iterdir()) == []
 
 
 # --------------------------------------------- scheduler-level twin checks

@@ -372,12 +372,21 @@ def test_launcher_serves_on_the_cpu(capsys):
     assert capsys.readouterr().out.startswith("JPS ")
 
 
-def test_launcher_ckpt_fails_naming_q5(tmp_path):
-    with pytest.raises(NotImplementedError, match="Q5"):
-        launch_serve.main(["--device", "cpu", "--seconds", "0.5",
-                           "--dnns", "resnet18",
-                           "--ckpt", str(tmp_path / "sched.msgpack")])
-    assert not (tmp_path / "sched.msgpack").exists()
+def test_launcher_ckpt_fails_naming_q5(tmp_path, capsys):
+    """``--ckpt`` (ROADMAP Q5, ported): the first run saves the
+    scheduler's state, the second resumes from it and saves again."""
+    ckpt = str(tmp_path / "sched.msgpack")
+    argv = ["--device", "cpu", "--seconds", "0.5", "--dnns", "resnet18",
+            "--ckpt", ckpt]
+    launch_serve.main(argv)
+    out = capsys.readouterr().out
+    assert "resumed scheduler state" not in out
+    assert f"scheduler state saved -> {ckpt}" in out
+    launch_serve.main(argv)
+    out = capsys.readouterr().out
+    assert out.startswith(f"resumed scheduler state from {ckpt} "
+                          f"(AFET cold-start skipped)")
+    assert f"scheduler state saved -> {ckpt}" in out
 
 
 def test_example_serves_the_four_tasks_on_the_cpu(capsys):

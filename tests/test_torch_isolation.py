@@ -15,17 +15,19 @@ pytest.importorskip("torch")
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 SOURCES = sorted(PORT.rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "examples" / "serve_realtime_torch.py"]
+    ROOT / "chip_smoke.py", ROOT / "examples" / "serve_realtime_torch.py",
+    ROOT / "examples" / "serve_daemon_torch.py",
+    ROOT / "benchmarks" / "figure_specs_torch.py"]
 COPIED = sorted(p for p in PORT.rglob("*.py")
                 if p.read_text().startswith("# Copy of src/repro/"))
 
 
 def _forbidden_imports(path: Path):
-    """Absolute imports of jax or repro, and relative imports that climb
-    out of the port's package."""
+    """Absolute imports of jax, repro or msgpack, and relative imports
+    that climb out of the port's package."""
     tree = ast.parse(path.read_text(), str(path))
-    # package depth (chip_smoke.py and the example are top-level scripts: no
-    # relative imports)
+    # package depth (chip_smoke.py, the examples and the figure registry
+    # are top-level scripts or modules: no relative imports)
     depth = (len(path.relative_to(PORT.parent).parts) - 1
              if path.is_relative_to(PORT) else 0)
     bad = []
@@ -43,7 +45,7 @@ def _forbidden_imports(path: Path):
             continue
         for n in names:
             top = n.split(".")[0]
-            if top in ("jax", "jaxlib", "repro"):
+            if top in ("jax", "jaxlib", "repro", "msgpack"):
                 bad.append(f"line {node.lineno}: import {n}")
     return bad
 
@@ -55,12 +57,14 @@ def test_source_imports_neither_jax_nor_repro(path):
 
 
 def test_import_everything_and_simulate_without_jax_or_repro():
-    """In a fresh interpreter where ``jax`` cannot be imported and an import
-    hook refuses ``repro`` (but not ``repro_torch``), every module of the
-    port imports and a short simulation runs."""
+    """In a fresh interpreter where ``jax`` and ``msgpack`` cannot be
+    imported and an import hook refuses ``repro`` (but not
+    ``repro_torch``), every module of the port imports, a short simulation
+    runs, and its scheduler state round-trips through ``save_state``."""
     code = textwrap.dedent("""
-        import importlib, pkgutil, sys
+        import importlib, os, pkgutil, sys, tempfile
         sys.modules["jax"] = None
+        sys.modules["msgpack"] = None
 
         class Refuse:
             def find_spec(self, name, path=None, target=None):
@@ -80,10 +84,20 @@ def test_import_everything_and_simulate_without_jax_or_repro():
                           stages=[StageProfile(f"{n}/s0", 5.0, n_sat=1.0,
                                                mem_frac=0.0)])
                  for n, p in (("a", HP), ("b", LP))]
-        m = (ServerConfig.sim().tasks(specs).contexts(2)
-             .device(DeviceModel(n_units=4.0)).horizon_ms(500.0)
-             .build().run())
+        def build():
+            return (ServerConfig.sim().tasks(specs).contexts(2)
+                    .device(DeviceModel(n_units=4.0)).horizon_ms(500.0)
+                    .build())
+        srv = build()
+        m = srv.run()
         assert m.completed[HP] > 0, m.completed
+        import repro_torch.checkpoint, repro_torch.serve
+        path = os.path.join(tempfile.mkdtemp(), "sched.msgpack")
+        srv.save_state(path)
+        again = build()
+        again.load_state(path)
+        assert ([t.mret.task_mret() for t in again.scheduler.tasks]
+                == [t.mret.task_mret() for t in srv.scheduler.tasks])
         assert not any(k == "repro" or k.startswith("repro.")
                        for k in sys.modules)
         print(len(names))
@@ -119,5 +133,7 @@ def test_the_scheduler_stack_is_copied():
                 "analysis/schedcheck/__init__.py",
                 "analysis/schedcheck/model.py",
                 "analysis/schedcheck/analyzer.py",
-                "analysis/schedcheck/oracle.py"):
+                "analysis/schedcheck/oracle.py", "analysis/races.py",
+                "serve/__init__.py", "serve/journal.py", "serve/client.py",
+                "serve/config.py", "serve/daemon.py"):
         assert rel in copied

@@ -2,16 +2,17 @@
 JAX package's.
 
 Twin of the tests in tests/test_schedcheck.py that need no daemon config
-(``serve.config`` comes with checkpointing, ROADMAP Q5). The analyzer,
+(those that do, and the CLI, are in tests/test_torch_serve.py). The analyzer,
 report model and oracle are copies; ``ServerConfig.verify()`` and the
 attributes the analyzer reads are the port's facade. For every
 configuration below the report's JSON must be the reference's, character
 for character, and the port must show what the reference test asserts.
 The differential oracle (observed HP response <= static bound; GUARANTEED
 implies zero HP misses) runs over the port's simulator on the reference's
-figure scenarios, rebuilt here for the port (``benchmarks/figure_specs.py``
-imports ``repro``), and on the epoch engine with every rate-group through
-the contention kernel's plain version.
+figure scenarios, rebuilt here for the port (as
+``benchmarks/figure_specs_torch.py`` builds them too), and on the epoch
+engine with every rate-group through the contention kernel's plain
+version.
 """
 import dataclasses
 import importlib

@@ -173,15 +173,19 @@ def test_worker_pool_counts_payload_exceptions():
     assert "payload failure" in repr(srv.backend.last_worker_exception)
 
 
-def test_unported_features_name_their_roadmap_item():
+def test_unported_features_name_their_roadmap_item(tmp_path):
     spec = make_spec(api, "t", api.HP, [1.0], 10.0)
     hybrid = get_reduced("smollm-135m").replace(family="hybrid")
     with pytest.raises(NotImplementedError, match="Q8"):
         build_model(hybrid, device="cpu")
+    # checkpointing (Q5), cluster serving (Q6) and verify() (Q7) are ported
     srv = api.ServerConfig.sim().task(spec).horizon_ms(50.0).build()
-    with pytest.raises(NotImplementedError, match="Q5"):
-        srv.save_state("unused.msgpack")
-    # cluster serving (Q6) and verify() (Q7) are ported
+    srv.run()
+    path = srv.save_state(str(tmp_path / "sched.msgpack"))
+    again = api.ServerConfig.sim().task(spec).horizon_ms(50.0).build()
+    again.load_state(path)
+    assert (again.scheduler.tasks[0].mret.task_mret()
+            == srv.scheduler.tasks[0].mret.task_mret())
     assert api.ServerConfig.cluster(2).task(spec).verify().build()
 
 
