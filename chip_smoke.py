@@ -7,14 +7,16 @@
     python3 chip_smoke.py --epoch --repeats 10
     python3 chip_smoke.py --cluster --repeats 2
     python3 chip_smoke.py --resume --repeats 2
+    python3 chip_smoke.py --lm-paths
 
-The --serve forms run only one model's serving phase (step 3, 5 or 6 below),
+The --serve forms run only one model's serving phase (step 3, 5, 6 or 9 below),
 ``--repeats`` times, each with the host's side of the run and the card's
 clocks after it, and with ``--trace`` what the card did during it
 (``device_timeline``); --epoch only the epoch phase (step 4), --resume only
-the resume phase (step 7) and --cluster only the cluster phase (step 8, the
-fleet over 4000 ms), ``--repeats`` times (events/s on the host's clock vary
-from run to run). None of them prints a result line. Without arguments:
+the resume phase (step 7), --cluster only the cluster phase (step 8, the
+fleet over 4000 ms) and --lm-paths only the kernel phase and steps 9-11,
+``--repeats`` times (events/s on the host's clock vary from run to run).
+None of them prints a result line. Without arguments:
 
 1. Builds the port's Hopper kernels from ``src/repro_torch/kernels/csrc``
    (into ``build/kernels/``).
@@ -43,19 +45,34 @@ from run to run). None of them prints a result line. Without arguments:
    those bf16 shapes through the same entry (uncounted), so that the row
    gives the time of the kernel the tensor cores replace; the CUDA-core
    instance is held to its plain version through the wrapper at a shape
-   it takes (chunk 96, L 576: ``ssd_cuda_core``). The contention + ETA
-   kernel runs on fleet-scale rate-groups of 4096 lanes (one where all
-   three branches fire, one where none does; both in shared memory) and
-   on one of 12,289 lanes past the shared-memory limit (the ``tiled``
-   instance): the f64 instance must return its plain version's bits and
-   those of ``rates_seq`` on the host, from lists and from numpy arrays,
-   the f32 one agree within 2e-6 relative. Its bound is the larger of its
-   bytes and its serial chain of 3 m dependent adds at one add per cycle
-   of the card's top SM clock; beside it, the latency floor: 3 m times
-   one add's latency in cycles, measured on the card by the kernel's
-   ``clock64`` probe (``contention_eta.chain_cycles``). Its round trip is
-   timed from lists and from numpy arrays, beside ``rates_seq`` on the
-   host.
+   it takes (chunk 96, L 576: ``ssd_cuda_core``). Steps 9-11's shapes
+   have rows of their own: RMSNorm at 4 x 2048 (qwen2-moe), 3584 and 7168
+   (zamba2; 5120 is also qwen1.5's); RMSNorm and the fused residual norm
+   at every donor prefill's 2048 rows (576, 2048, 2560, 3584, 5120, 7168;
+   the residual at 576, 2048, 3584, 5120) and the residual at 4 x 2048,
+   3584 and 5120; flash attention at Dh 128 with H = KV = 16 (qwen2-moe)
+   and 40 (qwen1.5) besides H 8, KV 2, and at Dh 112 (32 heads, zamba2's
+   shared block: the CUDA-core instance, which no tensor-core tile width
+   covers); decode attention at Dh 128 (16 and 40 heads) and Dh 112 (32
+   heads) over 513 slots; and the SSD scan at the zamba2 donor prefill's
+   shapes (B 4, L 512, H 112, P 64, N 64, chunk 256; the tensor-core
+   instance in bf16). Each wrapper counts its launches by instance and
+   shape (``Counts.by_shape``; decode attention's leaves out the slots),
+   so each row records the keys its checked call launched, and every key
+   a model path launches must be one that a bf16 row checked
+   (``shape_coverage``, whose ``path_shapes`` line lists them). The
+   contention + ETA kernel runs on fleet-scale rate-groups of 4096 lanes
+   (one where all three branches fire, one where none does; both in
+   shared memory) and on one of 12,289 lanes past the shared-memory
+   limit (the ``tiled`` instance): the f64 instance must return its
+   plain version's bits and those of ``rates_seq`` on the host, from
+   lists and from numpy arrays, the f32 one agree within 2e-6 relative.
+   Its bound is the larger of its bytes and its serial chain of 3 m
+   dependent adds at one add per cycle of the card's top SM clock;
+   beside it, the latency floor: 3 m times one add's latency in cycles,
+   measured on the card by the kernel's ``clock64`` probe
+   (``contention_eta.chain_cycles``). Its round trip is timed from lists
+   and from numpy arrays, beside ``rates_seq`` on the host.
 3. Serving phase, dense path: two full-width smollm-135m staged decode
    tasks (HP and LP; 4 stages, batch 4, prompt 512; random weights from
    seed 0) built with ``staged_lm_taskspec`` and served in real time by
@@ -122,6 +139,46 @@ from run to run). None of them prints a result line. Without arguments:
    SchedCheck's differential oracle on ``fig13_light`` and
    ``fig13_fail_1of4``, each simulated on the epoch engine with every
    rate-group on the f64 contention kernel: both must be ``ok``.
+9. MoE phase, the slice's main path: qwen2-moe-a2.7b at full width and
+   depth (24 layers, d 2048, 16 heads at Dh 128, 60 routed experts top-4
+   of width 1408 and 4 shared (5632), qkv bias, vocab 151,936; bf16,
+   random weights from seed 0: 14.3 B parameters, 28.7 GB), served as in
+   3 (4 stages of 6 layers, batch 4 after a 512-token prompt) at 2 jobs/s
+   a task, lowered (a ``rate_lowered`` line says why) only if the
+   calibrated HP stage sum exceeds a third of the period. Its stages run
+   the dense expert oracle, as the reference stages them; its donor
+   prefill the capacity path. Every flash launch must take the tensor
+   cores; the chain is held to the unstaged ``forward(...,
+   moe_oracle=True)`` decode from the same donor (``decode_step`` would
+   take the capacity path, which at N = 4 keeps one pair an expert), and
+   a 2-layer f32 copy to itself on the CPU, within 2e-3; the
+   ``decode_step_profile`` line adds the peak of allocated memory.
+10. Hybrid phase: zamba2-7b at full width and depth (81 Mamba2 layers at
+    d 3584, the shared block 13 times over 7168 at Dh 112; bf16, seed 0),
+    a prefill of 512 tokens at batch 4 and 4 decode steps (``model_run``
+    line). Every SSD launch must take the tensor cores; its flash launches
+    take the CUDA-core instance, recorded. A 2-layer f32 copy with
+    ``attn_every`` 2 against the CPU, within 2e-3.
+11. Int8 phase: qwen1.5-32b at full width (d 5120, 40 heads at Dh 128,
+    d_ff 27,392, vocab 152,064) with its int8 KV cache, depth cut to 8 of
+    64 layers (all 64 hold about 70 GB of bf16 weights; the mechanism is
+    per layer), run as in 10. The same weights and tokens with a bf16
+    cache: the int8 cache must take (1 + 4/128) / 2 of its bytes; at layer
+    0, whose k/v are the same in both runs, every written slot's codes
+    must lie within half a code step of the bf16 values and its scales be
+    their max|x| / 127; the decode logits must lie within ``INT8_TOL`` of
+    the bf16-cache logits' largest magnitude, each row's int8 top-1 token
+    scored by the bf16 run within that of its best (``int8_check`` line,
+    with the rows whose top-1 is the same). One more decode step (the
+    probe) runs from the cache and from two planted faults (the newest
+    slot's scales unwritten, every code one step up): the layer-0 check
+    must flag both, and so must the probe's logits against the bf16
+    cache's: the sound cache within ``INT8_TOL``, each fault past it. A 2-layer f32 copy with the int8 cache against the CPU:
+    logits within 1e-2, dequantized caches at most one code step apart
+    (codes one apart where the f32 projections round differently).
+Each phase's model is freed before the next; ``phase_seconds`` and
+``phase_peak_memory_gb`` give each phase's wall and peak of allocated card
+memory.
 
 Kernel launch counts are reset just before each path and read just after;
 every kernel must be launched on a path (the f32 contention kernel, which
@@ -133,8 +190,9 @@ tensor-core SSD call likewise two, its state pass
 (``tensor_core/states``) and its output kernel (``tensor_core/out``),
 and the SSD row gives each one's device µs (``torch.profiler``). The
 ``kernels`` line also lists the rows that run a kernel at
-other shapes or as another instance (``OTHER_SHAPES``), with the
-launches of that instance on the two serving paths.
+other shapes or as another instance (``OTHER_SHAPES``), each with the
+launches at its own instance and shape on the model paths, path by path,
+and each kernel's launches path by path (``launches_by_path``).
 
 It fails (non-zero exit, no result line) without a CUDA device, outside a
 checkout of the repo, or when a kernel is out of tolerance or unlaunched,
@@ -142,21 +200,23 @@ a flash, norm or SSD check took another instance than its plan or dtype
 names, the CUDA-core SSD kernel at the tensor-core shapes disagrees with
 the plain version, the decode check's
 split grid held fewer blocks than the card has SMs, a plain version ran on
-a CUDA tensor during a path, a flash-attention launch on the dense path
-took the CUDA-core instance, an SSD launch on the ssm path took the
-CUDA-core instance, a worker caught an exception, no HP job
+a CUDA tensor during a path, a flash-attention launch on the dense or MoE
+path took the CUDA-core instance, an SSD launch on the ssm or hybrid path
+took the CUDA-core instance, a worker caught an exception, no HP job
 completed, the three runs of the epoch phase or of a cluster scenario
 differ, a port kernel or its plain version ran on the CNN path, an output
 check failed, a restored scheduler state differs from its file, the second
 launcher run did not resume, the parameters did not round-trip bit for bit,
-the daemon example failed, or the oracle was not ``ok`` on fig13_light or
-fig13_fail_1of4. The
+the daemon example failed, the oracle was not ``ok`` on fig13_light or
+fig13_fail_1of4, an int8 check of step 11 failed, or a model path
+launched a kernel at an instance and shape that no bf16 row checked. The
 last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import hashlib
 import json
 import math
@@ -178,6 +238,26 @@ N_STAGES, HORIZON_MS, JPS = 4, 3000.0, 5.0
 # mamba2-2.7b donor prefill: heads, head dim, state, groups, chunk
 SSM_H, SSM_P, SSM_N, SSM_G, SSM_Q = 80, 64, 128, 1, 256
 SSM_JPS = 2.0
+# the model paths of steps 9-11: staged MoE decode (full width and depth),
+# the hybrid's prefill and decode, and the int8 KV cache (depth cut)
+MOE_ARCH, MOE_JPS = "qwen2-moe-a2.7b", 2.0
+MOE_MAX_LOAD = 1.0 / 3.0              # the HP stage sum's most of a period
+HYBRID_ARCH, INT8_ARCH = "zamba2-7b", "qwen1.5-32b"
+INT8_LAYERS = 8                       # of 64 (~70 GB of bf16 weights)
+DECODE_STEPS = 4
+# of the bf16-cache logits' largest magnitude: between the sound cache's
+# 1.4% and the 5.4% of its newest slot's scales left unwritten, measured
+# on the H100 by the probe step (PERF.md, PR 19); both planted faults
+# must land past it
+INT8_TOL = 0.03
+# the int8 codes and scales at layer 0 (whose k/v do not depend on the
+# cache's dtype) against a bf16 cache's values: round-to-nearest puts a
+# value within half a code step of its code
+INT8_HALF_STEP = 0.5 + 1e-3           # code steps
+INT8_SCALE_RTOL = 1e-6                # the stored scale against max|x| / 127
+INT8_SMALL_TOL = 1e-2                 # card vs CPU, cut-depth f32, int8 cache
+# zamba2-7b's donor prefill scan: heads, head dim, state, groups, chunk
+ZSSM_H, ZSSM_P, ZSSM_N, ZSSM_G, ZSSM_Q = 112, 64, 64, 1, 256
 LANES = 4096                          # a fleet-scale rate-group
 TILED_LANES = 12289                   # past the kernel's shared-memory limit
 SMALL_LANES = 16                      # a rate-group of the epoch scenario
@@ -309,7 +389,6 @@ def kernel_cases(torch, F, dtype):
     # flash attention's other tensor-core tile width: Dh 128
     q8, k8, v8 = (rand(B, PROMPT, n, 128).transpose(1, 2) for n in (8, 2, 2))
     s = PROMPT + 1
-    rms_ops = 4 * B * D
     dec_ops = 4 * B * H * s * DH
     fa_ops = 4 * B * H * DH * PROMPT * (PROMPT + 1) // 2
     fa8_ops = 4 * B * 8 * 128 * PROMPT * (PROMPT + 1) // 2
@@ -345,12 +424,67 @@ def kernel_cases(torch, F, dtype):
                                                            generator=g)
     cc_ops = 2 * B * SSM_H * 6 * (96 * 97 // 2 * (SSM_N + SSM_P)
                                   + 2 * 96 * SSM_N * SSM_P)
-    # the mamba2 decode step's norms: each layer's ln (2560), gated (5120);
-    # and the donor prefill's 4 x 512 rows at the gated width
+    # the decode steps' norms (B rows): mamba2's ln (2560) and gated
+    # (5120), which is also qwen1.5's width; qwen2-moe's (2048); zamba2's
+    # ln (3584) and its gated norm and shared block's ln1 (7168); and the
+    # donor prefills' B x 512 rows at each model's widths (smollm 576,
+    # qwen2-moe 2048, mamba2 2560 / 5120, zamba2 3584 / 7168, qwen1.5 5120)
     wide = {f"rmsnorm_d{dd}": (rand(B, 1, dd), rand(dd))
-            for dd in (2560, 5120)}
-    wide["rmsnorm_prefill_d5120"] = (rand(B * PROMPT, 5120), rand(5120))
+            for dd in (2048, 2560, 3584, 5120, 7168)}
+    wide.update({f"rmsnorm_prefill_d{dd}": (rand(B * PROMPT, dd), rand(dd))
+                 for dd in (5120, 576, 2048, 2560, 3584, 7168)})
     wide["rmsnorm"] = (x, w)
+    # the fused residual + norm (ln2) of the dense, moe and shared-block
+    # layers: decode rows and donor-prefill rows at each model's width
+    res = {"rmsnorm_residual": (x, r, w)}
+    res.update({f"rmsnorm_residual_d{dd}": (rand(B, 1, dd), rand(B, 1, dd),
+                                            rand(dd))
+                for dd in (2048, 3584, 5120)})
+    res.update({f"rmsnorm_residual_prefill_d{dd}": (
+        rand(B * PROMPT, dd), rand(B * PROMPT, dd), rand(dd))
+        for dd in (576, 2048, 3584, 5120)})
+
+    def decode_case(name, h, dh):
+        """Decode attention at another head width (KV = H, as in
+        qwen2-moe, qwen1.5 and zamba2's shared block)."""
+        ck, cv = rand(B, PROMPT + 1, h, dh), rand(B, PROMPT + 1, h, dh)
+        qq, kk, vv = rand(B, h, dh), ck.transpose(1, 2), cv.transpose(1, 2)
+        return (name,
+                lambda: dec.decode_attention(qq, kk, vv, kv_pos, q_pos),
+                lambda: dec.decode_attention_plain(qq, kk, vv, kv_pos, q_pos),
+                lambda: sdpa(qq[:, :, None], kk, vv, attn_mask=mask),
+                nbytes(qq, ck, cv, kv_pos, q_pos, qq), 4 * B * h * s * dh,
+                PEAK_FLOPS[dname], {})
+
+    def flash_case(name, h, dh):
+        """Causal prefill attention over ``PROMPT`` tokens at H = KV = ``h``
+        (qwen2-moe 16 and qwen1.5 40 at Dh 128: no GQA grouping); f32
+        takes the CUDA-core instance, timed eagerly."""
+        qq, kk, vv = (rand(B, PROMPT, h, dh).transpose(1, 2) for _ in range(3))
+        return (name, lambda: fa.flash_attention(qq, kk, vv),
+                lambda: fa.flash_attention_plain(qq, kk, vv),
+                lambda: sdpa(qq, kk, vv, is_causal=True),
+                nbytes(qq, kk, vv, qq),
+                4 * B * h * dh * PROMPT * (PROMPT + 1) // 2,
+                PEAK_FLOPS[dname],
+                {"instance": fa_want, **({} if dtype == torch.bfloat16 else
+                                         {"reps": 10, "inner": 4,
+                                          "graph": False})})
+
+    # zamba2's shared block: 32 heads at Dh 112, which no tensor-core
+    # instance takes
+    qz, kz, vz = (rand(B, PROMPT, 32, 112).transpose(1, 2) for _ in range(3))
+    fz_ops = 4 * B * 32 * 112 * PROMPT * (PROMPT + 1) // 2
+    # the SSD scan at the zamba2 donor prefill's shapes
+    zx = rand(B, PROMPT, ZSSM_H, ZSSM_P)
+    zb, zc = rand(B, PROMPT, ZSSM_G, ZSSM_N), rand(B, PROMPT, ZSSM_G, ZSSM_N)
+    zdt = torch.empty((B, PROMPT, ZSSM_H), device=dev).uniform_(
+        0.001, 0.1, generator=g)
+    zal = torch.log(torch.linspace(1.0, 16.0, ZSSM_H, device=dev)).to(dtype)
+    z0 = torch.zeros((B, ZSSM_H, ZSSM_P, ZSSM_N), device=dev)
+    zq, zn_chunks = ZSSM_Q, PROMPT // ZSSM_Q
+    z_ops = 2 * B * ZSSM_H * zn_chunks * (
+        zq * (zq + 1) // 2 * (ZSSM_N + ZSSM_P) + 2 * zq * ZSSM_N * ZSSM_P)
     return [
         *((nm, lambda xx=xx, ww=ww: rms.rmsnorm(xx, ww),
            lambda xx=xx, ww=ww: rms.rmsnorm_plain(xx, ww),
@@ -358,10 +492,11 @@ def kernel_cases(torch, F, dtype):
            nbytes(xx, ww, xx), 4 * xx.numel(), ELEMENTWISE_FLOPS,
            {"instance": rms.plan_for(xx, ww).instance})
           for nm, (xx, ww) in wide.items()),
-        ("rmsnorm_residual", lambda: rms.rmsnorm_residual(x, r, w),
-         lambda: rms.rmsnorm_residual_plain(x, r, w), None,
-         nbytes(x, r, w, x, x), rms_ops + B * D, ELEMENTWISE_FLOPS,
-         {"instance": rms.plan_for(x, w, r).instance}),
+        *((nm, lambda xx=xx, rr=rr, ww=ww: rms.rmsnorm_residual(xx, rr, ww),
+           lambda xx=xx, rr=rr, ww=ww: rms.rmsnorm_residual_plain(xx, rr, ww),
+           None, nbytes(xx, rr, ww, xx, xx), 5 * xx.numel(),
+           ELEMENTWISE_FLOPS, {"instance": rms.plan_for(xx, ww, rr).instance})
+          for nm, (xx, rr, ww) in res.items()),
         ("decode_attention", lambda: dec.decode_attention(q1, k, v, kv_pos,
                                                           q_pos),
          lambda: dec.decode_attention_plain(q1, k, v, kv_pos, q_pos),
@@ -391,6 +526,22 @@ def kernel_cases(torch, F, dtype):
          lambda: ssd_scan.ssd_plain(cx, cdt, sal, cb_, cc_, 96, s0), None,
          nbytes(cx, cdt, sal, cb_, cc_, s0, cx, s0), cc_ops,
          PEAK_FLOPS[dname], ssd_cc),
+        decode_case("decode_attention_d128", 16, 128),
+        decode_case("decode_attention_d112", 32, 112),
+        decode_case("decode_attention_d128_h40", 40, 128),
+        flash_case("flash_attention_d128_h16", 16, 128),
+        flash_case("flash_attention_d128_h40", 40, 128),
+        ("flash_attention_d112", lambda: fa.flash_attention(qz, kz, vz),
+         lambda: fa.flash_attention_plain(qz, kz, vz),
+         lambda: sdpa(qz, kz, vz, is_causal=True),
+         nbytes(qz, kz, vz, qz), fz_ops, PEAK_FLOPS[dname],
+         {"instance": "cuda_core", "reps": 10, "inner": 4, "graph": False}),
+        ("ssd_zamba2",
+         lambda: ssd_scan.ssd(zx, zdt, zal, zb, zc, ZSSM_Q, z0),
+         lambda: ssd_scan.ssd_plain(zx, zdt, zal, zb, zc, ZSSM_Q, z0), None,
+         nbytes(zx, zdt, zal, zb, zc, z0, zx, z0), z_ops, PEAK_FLOPS[dname],
+         {**ssd_cc, "instance": "+".join(ssd_scan.INSTANCE_KERNELS[
+             "tensor_core" if dtype == torch.bfloat16 else "cuda_core"])}),
     ]
 
 
@@ -411,12 +562,35 @@ SOURCES = {
             "src/repro/kernels/ssd_scan.py:71"),
 }
 # rows of the kernel phase that run a kernel above at other shapes, or
-# another instance of it: row -> kernel
-OTHER_SHAPES = {"rmsnorm_d2560": "rmsnorm", "rmsnorm_d5120": "rmsnorm",
-                "rmsnorm_prefill_d5120": "rmsnorm", "ssd_cuda_core": "ssd"}
+# another instance of it: row -> kernel. A row's launches are those of
+# the instance and shape its checked call launched, on every model path
+# (``PATH_SHAPES``)
+OTHER_SHAPES = {
+    **{f"rmsnorm_d{dd}": "rmsnorm" for dd in (2560, 5120, 2048, 3584, 7168)},
+    **{f"rmsnorm_prefill_d{dd}": "rmsnorm"
+       for dd in (5120, 576, 2048, 2560, 3584, 7168)},
+    **{f"rmsnorm_residual_d{dd}": "rmsnorm_residual"
+       for dd in (2048, 3584, 5120)},
+    **{f"rmsnorm_residual_prefill_d{dd}": "rmsnorm_residual"
+       for dd in (576, 2048, 3584, 5120)},
+    "ssd_cuda_core": "ssd",
+    "flash_attention_d128": "flash_attention",
+    "flash_attention_d128_h16": "flash_attention",
+    "flash_attention_d128_h40": "flash_attention",
+    "decode_attention_d128": "decode_attention",
+    "decode_attention_d128_h40": "decode_attention",
+    "decode_attention_d112": "decode_attention",
+    "flash_attention_d112": "flash_attention",
+    "ssd_zamba2": "ssd",
+}
+# the model each model path serves or runs
+PATH_MODELS = {"dense": "smollm-135m", "ssm": "mamba2-2.7b",
+               "moe": MOE_ARCH, "hybrid": HYBRID_ARCH, "int8": INT8_ARCH}
 DENSE_PATH = ("rmsnorm", "rmsnorm_residual", "decode_attention",
               "flash_attention")
 SSM_PATH = ("rmsnorm", "ssd")
+MOE_PATH = INT8_PATH = DENSE_PATH
+HYBRID_PATH = DENSE_PATH + ("ssd",)
 EPOCH_PATH = ("contention_eta_f64",)
 
 
@@ -454,6 +628,9 @@ def kernel_phase(torch, F, failures):
             a = kern()
             torch.cuda.synchronize()
             launched = launch_record(KERNELS)
+            # the instance and shape keys the checked call launched at
+            shapes = {n: sorted(fn.counts.by_shape)
+                      for n, fn in KERNELS.items() if fn.counts.by_shape}
             b = plain()
             torch.cuda.synchronize()
             pairs = list(zip(a, b)) if isinstance(a, tuple) else [(a, b)]
@@ -477,6 +654,8 @@ def kernel_phase(torch, F, failures):
             row["bound_ms"], row["bound_by"] = bound(nb, ops, peak)
             if launched:
                 row["launched"] = launched
+            if shapes:
+                row["shapes"] = shapes
             want = opt.get("instance")
             if want is not None:
                 row["instance"] = "+".join(launched)
@@ -496,12 +675,12 @@ def kernel_phase(torch, F, failures):
                                           atol=tol) for u, v in zip(c, b)):
                     failures.append(f"{name} {row['dtype']}: CUDA-core "
                                     f"instance max_err {cerr} > {tol}")
-            if name == "decode_attention":
+            if name.startswith("decode_attention"):
                 split = launched.get("split", {})
                 row["n_split"] = split.get("grid", [0])[0]
                 row["blocks"] = split.get("blocks", 0)
                 if row["blocks"] < sm or "combine" not in launched:
-                    failures.append(f"decode_attention {row['dtype']}: "
+                    failures.append(f"{name} {row['dtype']}: "
                                     f"launched {launched}, want a split "
                                     f"grid of {sm} blocks or more and the "
                                     f"merge")
@@ -513,10 +692,34 @@ def kernel_phase(torch, F, failures):
     return rows
 
 
+# launches by instance and shape of each model path's kernels, keyed by
+# the model's name (``path_counts`` fills it when it reads a path)
+PATH_SHAPES = {}
+
+
+def shape_coverage(rows, paths, failures) -> None:
+    """Every instance and shape a model path launched a kernel at must be
+    one that a bf16 row of the kernel phase (``rows``) held to its plain
+    version; emits each path's launches by shape (``path_shapes``)."""
+    checked = {(k, key) for row in rows.values()
+               for k, keys in row.get("shapes", {}).items() for key in keys}
+    by_path = {p: PATH_SHAPES.get(PATH_MODELS[p], {}) for p in paths}
+    emit({"path_shapes": by_path})
+    for p, per in by_path.items():
+        for k, counted in per.items():
+            for key, n in counted.items():
+                if (k, key) not in checked:
+                    failures.append(f"{k}: {n} launches at {key} on the {p} "
+                                    f"path, a shape no kernel row checks")
+
+
 def path_counts(KERNELS, names, path, failures):
     """Launches of a path's kernels (counts reset just before the path);
-    fails a kernel with none, and any plain version run on the card."""
+    fails a kernel with none, and any plain version run on the card. Keeps
+    the launches by instance and shape in ``PATH_SHAPES[path]``."""
     launches = {n: KERNELS[n].counts.launches for n in names}
+    PATH_SHAPES[path] = {n: dict(KERNELS[n].counts.by_shape) for n in names
+                         if KERNELS[n].counts.by_shape}
     plain_cuda = {n: fn.counts.plain_cuda_calls for n, fn in KERNELS.items()}
     for n, c in launches.items():
         if c == 0:
@@ -616,10 +819,13 @@ def device_timeline(torch, prof, window_ms: float = 100.0) -> dict:
 
 
 def serving_phase(torch, failures, arch, n_layers, jps, kernels,
-                  trace=False):
+                  trace=False, max_load=None):
     """``arch`` at full width (depth ``n_layers``, None for all of it),
     two staged decode tasks served in real time; returns the model, its
-    parameters, the HP task and the path's launch counts (``serve``)."""
+    parameters, the HP task and the path's launch counts (``serve``).
+    With ``max_load``, where the calibrated HP stage sum exceeds that share
+    of the period, both tasks' rate drops until it does not (a
+    ``rate_lowered`` line says why)."""
     from repro_torch.api import HP, LP
     from repro_torch.configs import get_config
     from repro_torch.kernels import reset_counts
@@ -639,9 +845,23 @@ def serving_phase(torch, failures, arch, n_layers, jps, kernels,
                                 prompt_len=PROMPT, batch=B, tag=tag,
                                 params=params)
              for p, tag in ((HP, "-hp"), (LP, "-lp"))]
+    hp_sum = sum(st.t_alone_ms for st in specs[0].stages)
+    if max_load is not None and hp_sum > max_load * 1000.0 / jps:
+        lowered = 1000.0 * max_load / hp_sum
+        emit({"rate_lowered": {
+            "model": cfg.name, "from_jobs_per_s": jps,
+            "to_jobs_per_s": lowered, "hp_stage_sum_ms": hp_sum,
+            "why": f"the calibrated HP stage sum exceeds {max_load:.3g} of "
+                   f"the {1000.0 / jps:g} ms period"}})
+        jps = lowered
+        for sp in specs:
+            sp.period_ms = 1000.0 / jps
+    leaves = tree_leaves(params)
     desc = {"model": cfg.name, "layers": cfg.n_layers,
             "d_model": cfg.d_model, "batch": B, "prompt_len": PROMPT,
-            "stages": N_STAGES}
+            "stages": N_STAGES, "params": sum(t.numel() for t in leaves),
+            "param_gb": sum(t.numel() * t.element_size()
+                            for t in leaves) / 1e9}
     _, launches, instances, _ = serve(torch, failures, specs,
                                       time.perf_counter() - t0, jps,
                                       kernels, desc, trace=trace)
@@ -1292,14 +1512,19 @@ def by_kernel(kern) -> dict:
     return out
 
 
-def profile_step(torch, spec, reps: int = 3):
-    """Where one decode step's time goes: ``reps`` steps (the 4 payloads in
-    turn, one stream) under torch.profiler; device busy time is the union
-    of the CUDA kernels' intervals, against the host wall time."""
+def staged_step(spec):
+    """One decode step of a staged task: its payloads in turn."""
     def step():
         state = None
         for st in spec.stages:
             state = st.payload(state)
+    return step
+
+
+def profile_step(torch, step, reps: int = 3):
+    """Where one decode step's time goes: ``reps`` calls of ``step`` (one
+    stream) under torch.profiler; device busy time is the union of the
+    CUDA kernels' intervals, against the host wall time."""
     try:
         wall_ms, kern = profiled(torch, step, reps)
         busy = busy_us(kern)
@@ -1324,10 +1549,53 @@ def profile_step(torch, spec, reps: int = 3):
         return {"error": repr(e)}
 
 
-def output_checks(torch, model, params, spec, failures):
+def card_vs_cpu(torch, small, seed: int = 1):
+    """The cut-depth f32 copy ``small`` from the same parameters (drawn on
+    the card from ``seed``): a prefill of 2 x 64 seeded tokens and one
+    decode step on the card through the kernels and on the CPU through the
+    plain versions. Returns ((prefill logits, decode logits, cache) on the
+    card, the same on the CPU) and the card's launches by instance."""
     import numpy as np
 
+    from repro_torch.kernels import KERNELS, reset_counts
     from repro_torch.models import build_model
+
+    gm, cm = build_model(small), build_model(small, device="cpu")
+    gp = gm.init_params(seed)
+    cp = tree_map(lambda t: t.cpu(), gp)
+    toks = np.random.default_rng(seed).integers(0, small.vocab_size, (2, 64))
+    outs = []
+    reset_counts()
+    for mdl, p, dev in ((gm, gp, "cuda"), (cm, cp, "cpu")):
+        tk = torch.from_numpy(toks).to(dev)
+        pl, cache = mdl.prefill(p, {"tokens": tk,
+                                    "cache": mdl.init_cache(2, 65)})
+        dl, _ = mdl.decode_step(p, {"tokens": tk[:, :1], "cache": cache})
+        outs.append((pl.cpu(), dl.cpu(), tree_map(lambda t: t.cpu(), cache)))
+    torch.cuda.synchronize()
+    instances = {n: dict(fn.counts.by_instance) for n, fn in KERNELS.items()
+                 if fn.counts.by_instance}
+    return outs, instances
+
+
+def logits_err(torch, outs, tol: float):
+    """Largest |card - CPU| over the prefill and decode logits, and whether
+    every element is within ``tol`` (relative and absolute)."""
+    (gp, gd, _), (cp, cd, _) = outs
+    pairs = [(gp, cp), (gd, cd)]
+    err = max(float((a - b).abs().max()) for a, b in pairs)
+    return err, all(torch.allclose(a, b, rtol=tol, atol=tol)
+                    for a, b in pairs)
+
+
+def output_checks(torch, model, params, spec, failures, unstaged=None,
+                  small=None):
+    """A served task's payload chain against the unstaged decode from the
+    same donor (``unstaged(params, tokens, donor)`` -> logits; default
+    ``decode_step``), and the cut-depth f32 copy ``small`` (default: 2
+    layers, f32 KV cache) on the card against the CPU; then the decode
+    step's profile (``decode_step_profile``, with the peak memory)."""
+    import numpy as np
 
     state, step = per_step_launches(torch, spec)
     logits = state["hidden"]
@@ -1339,47 +1607,34 @@ def output_checks(torch, model, params, spec, failures):
         0, cfg.vocab_size, (B, PROMPT))).cuda()
     _, donor = model.prefill(params, {"tokens": tokens,
                                       "cache": model.init_cache(B, PROMPT + 1)})
-    ref, _ = model.decode_step(params, {
-        "tokens": torch.zeros((B, 1), dtype=torch.int32, device="cuda"),
-        "cache": donor})
+    zeros = torch.zeros((B, 1), dtype=torch.int32, device="cuda")
+    if unstaged is None:
+        ref, _ = model.decode_step(params, {"tokens": zeros, "cache": donor})
+    else:
+        ref = unstaged(params, zeros, donor)
     staged_err = float((logits.float() - ref.float()).abs().max())
     staged_ok = torch.allclose(logits.float(), ref.float(), rtol=3e-2,
                                atol=3e-2)
+    del donor
 
     # cut-depth f32 model: kernels on the card vs plain versions on the CPU
-    small = cfg.replace(n_layers=2, dtype="float32", kv_cache_dtype="float32")
-    gm, cm = build_model(small), build_model(small, device="cpu")
-    gp = gm.init_params(1)
-
-    def to_cpu(t):
-        return ({k: to_cpu(v) for k, v in t.items()} if isinstance(t, dict)
-                else t.cpu())
-    cp = to_cpu(gp)
-    toks = np.random.default_rng(1).integers(0, small.vocab_size, (2, 64))
-    from repro_torch.kernels import KERNELS, reset_counts
-    outs = []
-    reset_counts()
-    for mdl, p, dev in ((gm, gp, "cuda"), (cm, cp, "cpu")):
-        tk = torch.from_numpy(toks).to(dev)
-        pl, cache = mdl.prefill(p, {"tokens": tk,
-                                    "cache": mdl.init_cache(2, 65)})
-        dl, _ = mdl.decode_step(p, {"tokens": tk[:, :1], "cache": cache})
-        outs.append((pl.cpu(), dl.cpu()))
-    torch.cuda.synchronize()
-    f32_instances = {n: dict(fn.counts.by_instance) for n, fn in KERNELS.items()
-                     if fn.counts.by_instance}
-    small_err = max(float((a - b).abs().max()) for a, b in zip(*outs))
-    small_ok = all(torch.allclose(a, b, rtol=2e-3, atol=2e-3)
-                   for a, b in zip(*outs))
+    if small is None:
+        small = cfg.replace(n_layers=2, dtype="float32",
+                            kv_cache_dtype="float32")
+    outs, f32_instances = card_vs_cpu(torch, small)
+    small_err, small_ok = logits_err(torch, outs, 2e-3)
     emit({"output_check": {
         "model": cfg.name,
         "logits_shape": list(logits.shape), "finite": finite,
         "staged_vs_unstaged_max_err": staged_err, "staged_tol": 3e-2,
+        "small_model": {"layers": small.n_layers, "dtype": small.dtype,
+                        "kv_cache_dtype": small.kv_cache_dtype},
         "small_f32_gpu_vs_cpu_max_err": small_err, "small_tol": 2e-3,
         "small_f32_launches_by_instance": f32_instances,
         "launches_per_decode_step": step}})
-    emit({"decode_step_profile": {"model": cfg.name,
-                                  **profile_step(torch, spec)}})
+    emit({"decode_step_profile": {
+        "model": cfg.name, **profile_step(torch, staged_step(spec)),
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}})
     if not (shape_ok and finite):
         failures.append(f"{cfg.name} served logits: shape "
                         f"{tuple(logits.shape)}, finite {finite}")
@@ -1390,6 +1645,310 @@ def output_checks(torch, model, params, spec, failures):
         failures.append(f"{cfg.name} cut-depth f32 GPU vs CPU: max_err "
                         f"{small_err}")
     return f32_instances
+
+
+def run_model(torch, model, params, tokens, steps: int, spare: int = 0):
+    """``prefill`` of ``tokens`` [B, S] into a fresh cache of S + ``steps``
+    (+ ``spare``) slots, then ``steps`` ``decode_step``s, each on a seeded
+    token a row;
+    returns the prefill logits, each step's logits, the final cache and
+    the host seconds of the prefill and of each step (ended by a
+    synchronize)."""
+    import numpy as np
+
+    b, s = tokens.shape
+    nxt = torch.from_numpy(np.random.default_rng(2).integers(
+        0, model.cfg.vocab_size, (b, steps))).cuda()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pl, cache = model.prefill(
+        params, {"tokens": tokens,
+                 "cache": model.init_cache(b, s + steps + spare)})
+    torch.cuda.synchronize()
+    times = [time.perf_counter() - t0]
+    dls = []
+    for i in range(steps):
+        t0 = time.perf_counter()
+        dl, cache = model.decode_step(params, {"tokens": nxt[:, i:i + 1],
+                                               "cache": cache})
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        dls.append(dl)
+    return pl, dls, cache, times
+
+
+def model_phase(torch, failures, cfg, kernels, spare: int = 0):
+    """``cfg`` built with ``build_model`` on the card (random weights from
+    seed 0), a prefill of ``PROMPT`` seeded tokens at batch ``B`` and
+    ``DECODE_STEPS`` decode steps (``run_model``, with ``spare`` more
+    slots in the cache); checks finite logits of
+    the expected shapes and that each of ``kernels`` launched, no plain
+    version on the card. Returns the model, its parameters, the run, the
+    path's launches and its launches by instance; emits a ``model_run``
+    line and the profile of one more decode step."""
+    import numpy as np
+
+    from repro_torch.kernels import KERNELS, reset_counts
+    from repro_torch.models import build_model
+
+    t0 = time.perf_counter()
+    model = build_model(cfg)
+    params = model.init_params(0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (B, PROMPT))).cuda()
+    reset_counts()
+    run = run_model(torch, model, params, tokens, DECODE_STEPS, spare)
+    launches = path_counts(KERNELS, kernels, cfg.name, failures)
+    instances = {n: dict(KERNELS[n].counts.by_instance) for n in kernels
+                 if KERNELS[n].counts.by_instance}
+    pl, dls, cache, times = run
+    ok = (tuple(pl.shape) == (B, PROMPT, cfg.vocab_size)
+          and all(tuple(d.shape) == (B, 1, cfg.vocab_size) for d in dls)
+          and all(bool(torch.isfinite(t).all()) for t in (pl, *dls)))
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    emit({"model_run": {
+        "model": cfg.name, "family": cfg.family, "layers": cfg.n_layers,
+        "d_model": cfg.d_model, "batch": B, "prompt_len": PROMPT,
+        "decode_steps": DECODE_STEPS, "dtype": cfg.dtype,
+        "kv_cache_dtype": cfg.kv_cache_dtype, "params": n_params,
+        "param_gb": sum(t.numel() * t.element_size()
+                        for t in tree_leaves(params)) / 1e9,
+        "init_s": init_s, "prefill_s": times[0], "decode_step_s": times[1:],
+        "logits_ok": ok, "launches": launches,
+        "launches_by_instance": instances,
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}})
+    if not ok:
+        failures.append(f"{cfg.name}: logits not finite or of another shape")
+    # one more decode step from the final cache, repeated under the profiler
+    tok = torch.zeros((B, 1), dtype=torch.int32, device="cuda")
+    emit({"decode_step_profile": {"model": cfg.name, **profile_step(
+        torch, lambda: model.decode_step(params, {"tokens": tok,
+                                                  "cache": cache}))}})
+    return model, params, run, launches, instances
+
+
+def moe_phase(torch, failures):
+    """Step 9, this slice's main path: full-width, full-depth
+    qwen2-moe-a2.7b served as the LMs of steps 3 and 5 (its stages on the
+    dense expert oracle, as the reference stages them), at ``MOE_JPS``
+    unless the HP stage sum exceeds ``MOE_MAX_LOAD`` of the period. The
+    chain is held to the unstaged ``forward(..., moe_oracle=True)``
+    decode (``decode_step`` takes the capacity path at 60 experts, which
+    drops pairs at N = 4 as the reference does)."""
+    from repro_torch.models import transformer
+
+    model, params, spec, launches, inst = serving_phase(
+        torch, failures, MOE_ARCH, None, MOE_JPS, MOE_PATH,
+        max_load=MOE_MAX_LOAD)
+    fa_inst = inst.get("flash_attention", {})
+    if fa_inst.get("tensor_core", 0) != launches["flash_attention"]:
+        failures.append(f"{MOE_ARCH}: bf16 flash-attention launches by "
+                        f"instance {fa_inst}, not all tensor_core")
+    cfg = model.cfg
+
+    def oracle(p, tok, donor):
+        return transformer.forward(p, cfg, tok, cache=donor,
+                                   moe_oracle=True)[0]
+    output_checks(torch, model, params, spec, failures, unstaged=oracle)
+    return launches, inst
+
+
+def hybrid_phase(torch, failures):
+    """Step 10: full-width, full-depth zamba2-7b (81 Mamba2 layers, 13
+    applications of the shared block over 7168 at Dh 112), prefill and
+    decode (``model_phase``). Every SSD launch must take the tensor cores;
+    the flash launches at Dh 112 take the CUDA-core instance, recorded.
+    A 2-layer f32 copy (``attn_every`` 2: one application) on the card
+    against the CPU, within 2e-3."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ssd_scan
+
+    cfg = get_config(HYBRID_ARCH)
+    model, params, _, launches, inst = model_phase(torch, failures, cfg,
+                                                   HYBRID_PATH)
+    ssd_inst = inst.get("ssd", {})
+    state_pass, outputs = (ssd_inst.get(k, 0)
+                           for k in ssd_scan.INSTANCE_KERNELS["tensor_core"])
+    if state_pass + outputs != launches["ssd"] or state_pass != outputs:
+        failures.append(f"{cfg.name}: bf16 SSD launches by kernel "
+                        f"{ssd_inst}, not all tensor_core")
+    del model, params
+    torch.cuda.empty_cache()
+    small = cfg.replace(n_layers=2, attn_every=2, dtype="float32",
+                        kv_cache_dtype="float32")
+    outs, small_inst = card_vs_cpu(torch, small)
+    err, ok = logits_err(torch, outs, 2e-3)
+    emit({"output_check": {
+        "model": cfg.name,
+        "small_model": {"layers": 2, "attn_every": 2, "dtype": "float32"},
+        "small_f32_gpu_vs_cpu_max_err": err, "small_tol": 2e-3,
+        "small_f32_launches_by_instance": small_inst}})
+    if not ok:
+        failures.append(f"{cfg.name} cut-depth f32 GPU vs CPU: max_err {err}")
+    return launches, inst
+
+
+def cache_bytes(cache) -> int:
+    """Bytes of a stacked KV cache's k/v (and scales), not its positions."""
+    return sum(t.numel() * t.element_size() for k, t in cache.items()
+               if k not in ("length", "slots_pos"))
+
+
+def int8_layer0(torch, cache, ref, slots: int):
+    """The int8 ``cache``'s layer 0 over its first ``slots`` slots against
+    the bf16 cache ``ref`` of the same run: (largest |codes * scale - x| in
+    code steps of max|x| / 127, the largest relative error of a stored
+    scale), with x the bf16 value and the dequantization written out here,
+    not the port's. Layer 0's k/v come from the embedded tokens alone, so
+    both caches quantize or store the same values."""
+    steps, srel = 0.0, 0.0
+    for name in ("k", "v"):
+        x = ref[name][0, :, :slots].float()
+        want = (x.abs().amax(-1) / 127.0).clamp(min=1e-8)
+        got = cache[f"{name}_scale"][0, :, :slots]
+        deq = cache[name][0, :, :slots].float() * got[..., None]
+        steps = max(steps, float(((deq - x).abs() / want[..., None]).max()))
+        srel = max(srel, float(((got - want).abs() / want).max()))
+    return steps, srel
+
+
+def int8_faults(torch, cache, newest: int) -> dict:
+    """Two planted faults on copies of an int8 cache: the newest slot's
+    scales left unwritten (0) in every layer, and every code one step up
+    (clamped at 127)."""
+    unwritten = dict(cache)
+    for name in ("k_scale", "v_scale"):
+        unwritten[name] = cache[name].clone()
+        unwritten[name][:, :, newest] = 0.0
+    shifted = dict(cache)
+    for name in ("k", "v"):
+        shifted[name] = (cache[name].int() + 1).clamp(max=127).to(torch.int8)
+    return {"newest_scales_unwritten": unwritten, "codes_one_up": shifted}
+
+
+def int8_phase(torch, failures):
+    """Step 11: qwen1.5-32b at full width with its int8 KV cache, depth cut
+    to ``INT8_LAYERS``; prefill and decode (``model_phase``). The same
+    weights and tokens with a bf16 cache: the cache's bytes against it
+    (codes and f32 scales: (1 + 4/128) / 2 of it at Dh 128); layer 0's
+    codes within half a code step of the bf16 cache's values at every
+    written slot, its scales max|x| / 127 (``int8_layer0``); the decode
+    logits within ``INT8_TOL`` of the bf16-cache logits' largest
+    magnitude, each row's int8 top-1 token scored by the bf16 run within
+    that tolerance of its best. One more decode step (the probe) from the
+    cache and from two faulty copies of it (``int8_faults``): the layer-0
+    check must flag both, and the probe's logits must lie within
+    ``INT8_TOL`` of the bf16 cache's from the sound cache and past it
+    from each fault. A 2-layer f32 copy with the int8 cache on the card
+    against the CPU: logits within ``INT8_SMALL_TOL``, the dequantized
+    caches at most one code step apart."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models.attention import read_kv_cache
+
+    cfg = get_config(INT8_ARCH).replace(n_layers=INT8_LAYERS)
+    # one spare slot a cache, for the probe step
+    model, params, run, launches, inst = model_phase(torch, failures, cfg,
+                                                     INT8_PATH, spare=1)
+    bf = build_model(cfg.replace(kv_cache_dtype="bfloat16"))
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (B, PROMPT))).cuda()        # model_phase's
+    _, bf_dls, bf_cache, _ = run_model(torch, bf, params, tokens,
+                                       DECODE_STEPS, spare=1)
+    ratio = cache_bytes(run[2]) / cache_bytes(bf_cache)
+    want_ratio = (1 + 4 / cfg.resolved_head_dim) / 2
+    a = torch.cat([d.float() for d in run[1]], 1)          # int8 cache
+    b = torch.cat([d.float() for d in bf_dls], 1)          # bf16 cache
+    scale = float(b.abs().max())
+    err = float((a - b).abs().max())
+    best = b.max(-1).values
+    chosen = b.gather(-1, a.argmax(-1, keepdim=True))[..., 0]
+    top1_within = bool((best - chosen <= INT8_TOL * scale).all())
+    top1_same = int((a.argmax(-1) == b.argmax(-1)).sum())
+    # the layer-0 check and the probe step, on the cache and its faults
+    slots = PROMPT + DECODE_STEPS                 # written before the probe
+    tok = torch.zeros((B, 1), dtype=torch.int32, device="cuda")
+    want, _ = bf.decode_step(params, {"tokens": tok, "cache": bf_cache})
+    want = want.float()
+    probe_scale = float(want.abs().max())
+    caches = {"sound": run[2], **int8_faults(torch, run[2], slots - 1)}
+    probe = {}
+    for key, c in caches.items():
+        steps, srel = int8_layer0(torch, c, bf_cache, slots)
+        got, _ = model.decode_step(params, {"tokens": tok, "cache": c})
+        probe[key] = {"layer0_code_steps": steps, "layer0_scale_rel": srel,
+                      "probe_err_vs_bf16_cache": float(
+                          (got.float() - want).abs().max()),
+                      "flagged": (steps > INT8_HALF_STEP
+                                  or srel > INT8_SCALE_RTOL)}
+    del model, bf, params, run, bf_cache, caches
+    torch.cuda.empty_cache()
+    small = cfg.replace(n_layers=2, dtype="float32")
+    outs, small_inst = card_vs_cpu(torch, small)
+    small_err, small_ok = logits_err(torch, outs, INT8_SMALL_TOL)
+    # card against CPU: codes one apart where the f32 projections round
+    # differently; dequantized, at most one code step (the scale) apart
+    gc, cc = outs[0][2], outs[1][2]
+    codes_apart = sum(int((gc[n].int() != cc[n].int()).sum())
+                      for n in ("k", "v"))
+    code_steps = 0.0
+    for i in range(small.n_layers):
+        gkv = read_kv_cache(tree_map(lambda t: t[i], gc), torch.float32)
+        ckv = read_kv_cache(tree_map(lambda t: t[i], cc), torch.float32)
+        for j, name in enumerate(("k", "v")):
+            step = torch.maximum(gc[f"{name}_scale"][i],
+                                 cc[f"{name}_scale"][i]).clamp(min=1e-30)
+            code_steps = max(code_steps, float(
+                ((gkv[j] - ckv[j]).abs() / step[..., None]).max()))
+    emit({"int8_check": {
+        "model": cfg.name, "layers": cfg.n_layers,
+        "cache_bytes_vs_bf16": ratio, "expected_ratio": want_ratio,
+        "decode_max_err_vs_bf16_cache": err, "bf16_logits_max_abs": scale,
+        "tol": INT8_TOL * scale, "rows": int(a.shape[0] * a.shape[1]),
+        "top1_same": top1_same, "top1_within_tol": top1_within,
+        "layer0_half_step": INT8_HALF_STEP,
+        "layer0_scale_rtol": INT8_SCALE_RTOL,
+        "probe_bf16_logits_max_abs": probe_scale,
+        "probe_tol": INT8_TOL * probe_scale, "probe": probe,
+        "small_f32_gpu_vs_cpu_max_err": small_err,
+        "small_tol": INT8_SMALL_TOL,
+        "small_codes_apart": codes_apart,
+        "small_dequant_max_err_in_code_steps": code_steps,
+        "small_f32_launches_by_instance": small_inst}})
+    if abs(ratio - want_ratio) > 1e-9:
+        failures.append(f"{cfg.name}: int8 cache {ratio} of the bf16 "
+                        f"cache's bytes, not {want_ratio}")
+    if err > INT8_TOL * scale or not top1_within:
+        failures.append(f"{cfg.name}: int8-cache decode max_err {err} "
+                        f"(tol {INT8_TOL * scale}), top-1 within tol "
+                        f"{top1_within}")
+    sound = probe.pop("sound")
+    if sound["flagged"]:
+        failures.append(f"{cfg.name}: int8 cache's layer 0 off the bf16 "
+                        f"cache's values: {sound}")
+    if sound["probe_err_vs_bf16_cache"] > INT8_TOL * probe_scale:
+        failures.append(f"{cfg.name}: int8-cache probe step max_err "
+                        f"{sound['probe_err_vs_bf16_cache']} (tol "
+                        f"{INT8_TOL * probe_scale})")
+    for key, got in probe.items():
+        if not got["flagged"]:
+            failures.append(f"{cfg.name}: the layer-0 check missed the "
+                            f"planted fault {key}: {got}")
+        if got["probe_err_vs_bf16_cache"] <= INT8_TOL * probe_scale:
+            failures.append(f"{cfg.name}: the logits' tolerance "
+                            f"{INT8_TOL * probe_scale} missed the planted "
+                            f"fault {key}: {got}")
+    if not small_ok:
+        failures.append(f"{cfg.name} cut-depth f32 int8 GPU vs CPU: "
+                        f"max_err {small_err}")
+    if code_steps > 1.0 + 1e-3:
+        failures.append(f"{cfg.name} cut-depth int8 caches: dequantized "
+                        f"values {code_steps} code steps apart")
+    return launches, inst
 
 
 def cnn_serving_phase(torch, failures, name, trace=False):
@@ -1733,6 +2292,38 @@ def daemon_example(failures, env) -> None:
                         f"{proc.returncode}: {stderr[-1500:]}")
 
 
+@contextlib.contextmanager
+def timed_phase(torch, name, seconds, peaks):
+    """Records a phase's wall seconds and its peak of allocated card memory
+    under ``name``."""
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    yield
+    seconds[name] = time.perf_counter() - t0
+    peaks[name] = torch.cuda.max_memory_allocated() / 1e9
+
+
+def lm_paths(torch, failures, seconds, peaks) -> dict:
+    """Steps 9-11, each freed before the next; {path: (launches, launches
+    by instance)}."""
+    paths = {}
+    for key, run in (("moe", moe_phase), ("hybrid", hybrid_phase),
+                     ("int8", int8_phase)):
+        free_card(torch)              # the model of the phase before
+        with timed_phase(torch, f"{key}_path", seconds, peaks):
+            paths[key] = run(torch, failures)
+    free_card(torch)
+    return paths
+
+
+def free_card(torch) -> None:
+    """Return the memory of a phase's model to the card: a served model
+    stays reachable from the server's reference cycles until the
+    collector runs."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def serve_repeats(torch, arch: str, repeats: int, trace: bool) -> int:
     """``--serve ARCH``: only ``arch``'s serving phase, ``repeats`` times
     in this process, each followed by the card's clocks, power and
@@ -1743,7 +2334,7 @@ def serve_repeats(torch, arch: str, repeats: int, trace: bool) -> int:
     from repro_torch.kernels import _lib
     _lib.lib()
     path = SSM_PATH if arch.startswith("mamba2") else DENSE_PATH
-    jps = SSM_JPS if arch.startswith("mamba2") else JPS
+    jps = {"mamba2-2.7b": SSM_JPS, MOE_ARCH: MOE_JPS}.get(arch, JPS)
     runs = []
     for i in range(repeats):
         failures = []
@@ -1751,8 +2342,10 @@ def serve_repeats(torch, arch: str, repeats: int, trace: bool) -> int:
             cnn_serving_phase(torch, failures, arch, trace=trace)
         else:
             serving_phase(torch, failures, arch, None, jps, path,
-                          trace=trace)
-        torch.cuda.empty_cache()
+                          trace=trace, max_load=(MOE_MAX_LOAD
+                                                 if arch == MOE_ARCH
+                                                 else None))
+        free_card(torch)
         try:
             clocks = subprocess.run(
                 ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,"
@@ -1773,8 +2366,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--serve", metavar="ARCH",
                     help="only this model's serving phase (smollm-135m, "
-                         "mamba2-2.7b, resnet18, unet or inceptionv3), "
-                         "--repeats times")
+                         "mamba2-2.7b, qwen2-moe-a2.7b, resnet18, unet or "
+                         "inceptionv3), --repeats times")
     ap.add_argument("--epoch", action="store_true",
                     help="only the epoch phase, --repeats times")
     ap.add_argument("--cluster", action="store_true",
@@ -1782,6 +2375,9 @@ def main() -> int:
                          f"{FLEET_HORIZON_LONG_MS:g} ms), --repeats times")
     ap.add_argument("--resume", action="store_true",
                     help="only the resume phase, --repeats times")
+    ap.add_argument("--lm-paths", action="store_true",
+                    help="only the kernel phase and the moe, hybrid and "
+                         "int8 phases, --repeats times")
     ap.add_argument("--repeats", type=int, default=1)
     ap.add_argument("--trace", action="store_true",
                     help="with --serve: each run under torch.profiler")
@@ -1816,10 +2412,18 @@ def main() -> int:
     emit({"build": {"seconds": build_s, "ptxas": ptxas}})
     if args.serve:
         return serve_repeats(torch, args.serve, args.repeats, args.trace)
-    if args.epoch or args.cluster or args.resume:
+    if args.epoch or args.cluster or args.resume or args.lm_paths:
         failures = []
         for _ in range(args.repeats):
-            if args.epoch:
+            if args.lm_paths:
+                seconds, peaks = {}, {}
+                with timed_phase(torch, "kernels", seconds, peaks):
+                    rows = kernel_phase(torch, F, failures)
+                shape_coverage(rows, lm_paths(torch, failures, seconds,
+                                              peaks), failures)
+                emit({"phase_seconds": seconds})
+                emit({"phase_peak_memory_gb": peaks})
+            elif args.epoch:
                 epoch_phase(torch, failures)
             elif args.resume:
                 resume_phase(torch, failures)
@@ -1830,101 +2434,110 @@ def main() -> int:
             print(f"chip_smoke: FAIL {f}", file=sys.stderr)
         return 1 if failures else 0
 
-    failures, seconds = [], {}
-    t0 = time.perf_counter()
-    rows = kernel_phase(torch, F, failures)
-    contention_rows, f32_launches = contention_phase(torch, failures)
-    rows.update(contention_rows)
-    seconds["kernels"] = time.perf_counter() - t0
+    failures, seconds, peaks = [], {}, {}
 
-    t0 = time.perf_counter()
-    model, params, spec, dense, dense_inst = serving_phase(
-        torch, failures, "smollm-135m", None, JPS, DENSE_PATH)
-    fa_inst = dense_inst.get("flash_attention", {})
-    if fa_inst.get("tensor_core", 0) != dense["flash_attention"]:
-        failures.append(f"smollm-135m: bf16 flash-attention launches by "
-                        f"instance {fa_inst}, not all tensor_core")
-    output_checks(torch, model, params, spec, failures)
-    del model, params, spec
-    torch.cuda.empty_cache()
-    seconds["dense_path"] = time.perf_counter() - t0
+    def phase(name):
+        return timed_phase(torch, name, seconds, peaks)
 
-    t0 = time.perf_counter()
-    epoch = epoch_phase(torch, failures)
-    seconds["epoch_path"] = time.perf_counter() - t0
+    with phase("kernels"):
+        rows = kernel_phase(torch, F, failures)
+        contention_rows, f32_launches = contention_phase(torch, failures)
+        rows.update(contention_rows)
 
-    t0 = time.perf_counter()
-    model, params, spec, ssm, ssm_inst = serving_phase(
-        torch, failures, "mamba2-2.7b", None, SSM_JPS, SSM_PATH)
-    ssd_inst = ssm_inst.get("ssd", {})
-    state_pass, outputs = (ssd_inst.get(k, 0)
-                           for k in ssd_scan.INSTANCE_KERNELS["tensor_core"])
-    if state_pass + outputs != ssm["ssd"] or state_pass != outputs:
-        failures.append(f"mamba2-2.7b: bf16 SSD launches by kernel "
-                        f"{ssd_inst}, not all tensor_core (a state pass "
-                        f"and an output kernel a call)")
-    f32_check = output_checks(torch, model, params, spec, failures)
-    del model, params, spec
-    torch.cuda.empty_cache()
-    seconds["ssm_path"] = time.perf_counter() - t0
+    # each model path: (its launches, its launches by instance)
+    paths = {}
+    with phase("dense_path"):
+        model, params, spec, dense, dense_inst = serving_phase(
+            torch, failures, PATH_MODELS["dense"], None, JPS, DENSE_PATH)
+        fa_inst = dense_inst.get("flash_attention", {})
+        if fa_inst.get("tensor_core", 0) != dense["flash_attention"]:
+            failures.append(f"smollm-135m: bf16 flash-attention launches by "
+                            f"instance {fa_inst}, not all tensor_core")
+        output_checks(torch, model, params, spec, failures)
+        del model, params, spec
+        torch.cuda.empty_cache()
+        paths["dense"] = (dense, dense_inst)
+
+    with phase("epoch_path"):
+        epoch = epoch_phase(torch, failures)
+
+    with phase("ssm_path"):
+        model, params, spec, ssm, ssm_inst = serving_phase(
+            torch, failures, PATH_MODELS["ssm"], None, SSM_JPS, SSM_PATH)
+        ssd_inst = ssm_inst.get("ssd", {})
+        state_pass, outputs = (ssd_inst.get(k, 0) for k in
+                               ssd_scan.INSTANCE_KERNELS["tensor_core"])
+        if state_pass + outputs != ssm["ssd"] or state_pass != outputs:
+            failures.append(f"mamba2-2.7b: bf16 SSD launches by kernel "
+                            f"{ssd_inst}, not all tensor_core (a state pass "
+                            f"and an output kernel a call)")
+        f32_check = output_checks(torch, model, params, spec, failures)
+        del model, params, spec
+        torch.cuda.empty_cache()
+        paths["ssm"] = (ssm, ssm_inst)
+
+    paths.update(lm_paths(torch, failures, seconds, peaks))
 
     for dnn in CNN_WIDTHS:
-        t0 = time.perf_counter()
-        spec = cnn_serving_phase(torch, failures, dnn)
-        cnn_output_checks(torch, dnn, spec, failures)
-        del spec
+        with phase(f"{dnn}_path"):
+            spec = cnn_serving_phase(torch, failures, dnn)
+            cnn_output_checks(torch, dnn, spec, failures)
+            del spec
+            torch.cuda.empty_cache()
+
+    with phase("resume_path"):
+        resume_phase(torch, failures)
         torch.cuda.empty_cache()
-        seconds[f"{dnn}_path"] = time.perf_counter() - t0
 
-    t0 = time.perf_counter()
-    resume_phase(torch, failures)
-    torch.cuda.empty_cache()
-    seconds["resume_path"] = time.perf_counter() - t0
-
-    t0 = time.perf_counter()
-    cluster = cluster_phase(torch, failures)
-    seconds["cluster_path"] = time.perf_counter() - t0
+    with phase("cluster_path"):
+        cluster = cluster_phase(torch, failures)
     emit({"phase_seconds": seconds})
+    emit({"phase_peak_memory_gb": peaks})
 
     # launches: the sum over the paths, each counted from a reset just
     # before it; the f32 contention kernel's own fleet-sweep call
-    paths = [dense, epoch, ssm, *cluster.values()]
-    launches = {k: sum(p.get(k, 0) for p in paths) for k in SOURCES}
+    counted = [p for p, _ in paths.values()] + [epoch, *cluster.values()]
+    launches = {k: sum(p.get(k, 0) for p in counted) for k in SOURCES}
     launches["contention_eta_f32"] = f32_launches
-    # launches by instance, summed over the two serving paths (decode
-    # attention counts its split kernel and its merge, one each a call); a
-    # row of OTHER_SHAPES gives the launches of its instance on the paths
+    # launches by instance, summed over the model paths (decode attention
+    # counts its split kernel and its merge, one each a call)
     by_inst = {}
-    for inst in (dense_inst, ssm_inst):
+    for _, inst in paths.values():
         for kname, per in inst.items():
             for i, n in per.items():
                 by_inst.setdefault(kname, {})
                 by_inst[kname][i] = by_inst[kname].get(i, 0) + n
+    shape_coverage(rows, paths, failures)
     kernels = []
     for rname in (*SOURCES, *OTHER_SHAPES):
         kname = OTHER_SHAPES.get(rname, rname)
         src, replaces = SOURCES[kname]
         row = rows[rname]
-        n = (launches[kname] if rname == kname
-             else by_inst.get(kname, {}).get(row.get("instance"), 0))
         entry = {
             "name": rname, "route": "cuda", "source": src,
-            "replaces": replaces, "launches": n,
+            "replaces": replaces, "launches": launches[kname],
             "max_abs_err": row["max_err"], "ms": row["kernel_ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             **{k: row[k] for k in ("instance", "n_split", "blocks",
                                    "cuda_core_same_shapes",
                                    "latency_floor_ms") if k in row}}
-        if rname == kname and kname in by_inst:
-            entry["launches_by_instance"] = by_inst[kname]
         if rname in EPOCH_PATH:        # the simulated paths, one by one
             entry["launches_by_path"] = {
                 "epoch": epoch.get(rname, 0),
                 **{p: n.get(rname, 0) for p, n in cluster.items()}}
-        elif rname != kname:           # the instance's, not this shape's
-            entry["launches_of"] = (f"{kname} instance {row.get('instance')}"
-                                    f" on both serving paths")
+        elif rname == kname:
+            entry["launches_by_path"] = {p: c.get(kname, 0)
+                                         for p, (c, _) in paths.items()}
+            if kname in by_inst:
+                entry["launches_by_instance"] = by_inst[kname]
+        else:                          # the instance and shape it checked
+            keys = row.get("shapes", {}).get(kname, [])
+            per = {p: sum(PATH_SHAPES.get(PATH_MODELS[p], {}).get(
+                kname, {}).get(key, 0) for key in keys) for p in paths}
+            entry["launches"] = sum(per.values())
+            entry["launches_by_path"] = {p: n for p, n in per.items() if n}
+            entry["launches_of"] = f"{kname} at {' and '.join(keys)}"
         if rname == "ssd_cuda_core":   # bf16 serving takes the tensor cores
             entry["launches_f32_output_check"] = f32_check.get(
                 "ssd", {}).get("cuda_core", 0)

@@ -83,7 +83,8 @@ class Counts:
     version; where a wrapper chooses between instances of its kernel, or
     launches more than one, the launches of each in ``by_instance`` and,
     where the wrapper gives it, the grid of each one's last launch in
-    ``grids``.
+    ``grids``; where it gives the call's shape, the launches of each
+    instance at each shape in ``by_shape`` (keyed ``"instance shape"``).
 
     Lanes run on worker threads, so every increment takes the lock."""
 
@@ -94,9 +95,11 @@ class Counts:
         self.plain_cuda_calls = 0     # plain version handed a CUDA tensor
         self.by_instance: Dict[str, int] = {}
         self.grids: Dict[str, Tuple[int, ...]] = {}
+        self.by_shape: Dict[str, int] = {}
 
     def launched(self, instance: Optional[str] = None,
-                 grid: Optional[Tuple[int, ...]] = None) -> None:
+                 grid: Optional[Tuple[int, ...]] = None,
+                 shape: Optional[str] = None) -> None:
         with self._lock:
             self.launches += 1
             if instance is not None:
@@ -104,6 +107,9 @@ class Counts:
                     self.by_instance.get(instance, 0) + 1
                 if grid is not None:
                     self.grids[instance] = grid
+            if shape is not None:
+                key = shape if instance is None else f"{instance} {shape}"
+                self.by_shape[key] = self.by_shape.get(key, 0) + 1
 
     def plain(self, t: torch.Tensor) -> None:
         with self._lock:
@@ -116,6 +122,7 @@ class Counts:
             self.launches = self.plain_calls = self.plain_cuda_calls = 0
             self.by_instance = {}
             self.grids = {}
+            self.by_shape = {}
 
 
 def _nvcc() -> str:
@@ -202,6 +209,12 @@ def dtype_code(t: torch.Tensor, name: str) -> int:
         raise TypeError(f"{name}: kernel takes float32, bfloat16 or "
                         f"float64, got {t.dtype}")
     return code
+
+
+def dtype_name(t: torch.Tensor) -> str:
+    """``bfloat16``, ``float32``, ...: a dtype as a launch's shape key
+    names it."""
+    return str(t.dtype).replace("torch.", "")
 
 
 def require_cuda(name: str, *tensors: torch.Tensor) -> None:

@@ -131,9 +131,11 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             st, float(scale), int(window), float(softcap), chunk, n_split,
             _lib.dtype_code(q, name), _lib.stream_handle(q.device))
         _lib.check(err, name)
-        # the C entry launched both kernels: count each, with its grid
-        decode_attention.counts.launched("split", (n_split, kvh, b))
-        decode_attention.counts.launched("combine", (h, b))
+        # the C entry launched both kernels: count each, with its grid (the
+        # shape leaves out the cache's slots, which only set the split)
+        shape = f"B{b} H{h} KV{kvh} Dh{dh} {_lib.dtype_name(q)}"
+        decode_attention.counts.launched("split", (n_split, kvh, b), shape)
+        decode_attention.counts.launched("combine", (h, b), shape)
     return out
 
 

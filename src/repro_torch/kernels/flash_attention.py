@@ -125,7 +125,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             err = _lib.lib().repro_flash_attention(
                 *args, _lib.dtype_code(q, name), _lib.stream_handle(q.device))
         _lib.check(err, name)
-        flash_attention.counts.launched(instance)
+        flash_attention.counts.launched(
+            instance, shape=f"B{b} H{h} KV{k.shape[1]} S{s} Dh{dh} "
+                      f"{_lib.dtype_name(q)}")
     return out
 
 

@@ -107,8 +107,9 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
         return torch.empty_like(x), sf
     instance = ssd_instance(x, b, chunk, c)
     y, sf, grids = launch(x, dt, a32, b, c, chunk, s0, instance)
+    shape = f"B{bs} L{ln} H{h} P{p} N{n} G{g} Q{chunk} {_lib.dtype_name(x)}"
     for kernel, grid in zip(INSTANCE_KERNELS[instance], grids):
-        ssd.counts.launched(kernel, grid)
+        ssd.counts.launched(kernel, grid, shape)
     return y, sf
 
 

@@ -1,6 +1,7 @@
 """Model API of the port: ``build_model(cfg)`` -> ``Model``.
 
-Counterpart of src/repro/models/api.py for the dense and ssm LM families:
+Counterpart of src/repro/models/api.py for the dense, moe, ssm and hybrid
+LM families:
 
     init_params(seed)                 -> params (dict of tensors)
     init_cache(batch_size, max_len)   -> cache (dict of tensors)
@@ -23,8 +24,8 @@ from . import transformer
 
 
 class Model:
-    """Dense or ssm LM on one device; methods are plain functions of
-    tensors."""
+    """An LM of a ported family on one device; methods are plain
+    functions of tensors."""
 
     def __init__(self, cfg, device: torch.device):
         transformer.check_supported(cfg)

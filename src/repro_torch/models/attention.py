@@ -1,16 +1,20 @@
-"""GQA attention of the dense LM path: projections, rope, KV cache, and the
+"""GQA attention of the LM paths: projections, rope, KV cache, and the
 prefill and decode attention kernels.
 
-Counterpart of src/repro/models/attention.py (dense, bf16-cache path).
-Parameters keep the reference layouts: ``wq [d, H, Dh]``, ``wk/wv
-[d, KV, Dh]``, ``wo [H, Dh, d]``. KV caches are dicts ``{"k", "v",
-"slots_pos", "length"}`` with ``k/v [B, T, KV, Dh]``, ``slots_pos [T]``
-(absolute position per slot, -1 = empty) and a 0-d ``length``.
+Counterpart of src/repro/models/attention.py (self-attention; no
+cross-attention yet). Parameters keep the reference layouts: ``wq
+[d, H, Dh]``, ``wk/wv [d, KV, Dh]``, ``wo [H, Dh, d_out]`` (``d_out`` is
+``d`` but for zamba2's shared block, which attends over ``2 d`` and
+projects back to ``d``). KV caches are dicts ``{"k", "v", "slots_pos",
+"length"}`` with ``k/v [B, T, KV, Dh]``, ``slots_pos [T]`` (absolute
+position per slot, -1 = empty) and a 0-d ``length``; an int8 cache adds
+``k_scale/v_scale [B, T, KV]`` f32, one absmax scale per token and head.
 
 Prefill (more than one query token, or no cache) attends on the fresh k/v
 through the flash-attention kernel; decode (one token) reads the whole
 cache through the decode-attention kernel, which takes the cache's own
-layout through strides.
+layout through strides. An int8 cache is dequantized to the compute dtype
+before that kernel, as the reference dequantizes outside its kernels.
 """
 from __future__ import annotations
 
@@ -22,17 +26,15 @@ from ..kernels import decode_attention as _dec
 from ..kernels import flash_attention as _fa
 from .layers import apply_rope, dense_init
 
-_INT8_TODO = ("the int8 KV cache is not ported yet (ROADMAP.md, port queue "
-              "item Q1)")
-
-
 def init_attention(gen: torch.Generator, d: int, n_heads: int, n_kv: int,
                    head_dim: int, dtype: torch.dtype, *, lead=(),
-                   qkv_bias: bool = False,
+                   qkv_bias: bool = False, d_out: Optional[int] = None,
                    device: Optional[torch.device] = None) -> dict:
     """Parameters for one attention block, or a stack of them when ``lead``
-    (e.g. ``(n_layers,)``) is given."""
+    (e.g. ``(n_layers,)``) is given; ``wo`` maps back to ``d_out``
+    (default ``d``)."""
     lead = tuple(lead)
+    d_out = d if d_out is None else d_out
     p = {
         "wq": dense_init(gen, lead + (d, n_heads, head_dim), dtype,
                          fan_in=d, device=device),
@@ -40,7 +42,7 @@ def init_attention(gen: torch.Generator, d: int, n_heads: int, n_kv: int,
                          device=device),
         "wv": dense_init(gen, lead + (d, n_kv, head_dim), dtype, fan_in=d,
                          device=device),
-        "wo": dense_init(gen, lead + (n_heads, head_dim, d), dtype,
+        "wo": dense_init(gen, lead + (n_heads, head_dim, d_out), dtype,
                          fan_in=n_heads, scale=(n_heads * head_dim) ** -0.5,
                          device=device),
     }
@@ -57,9 +59,7 @@ def init_attention(gen: torch.Generator, d: int, n_heads: int, n_kv: int,
 def make_kv_cache(batch: int, max_len: int, n_kv: int, head_dim: int,
                   dtype: torch.dtype = torch.bfloat16,
                   device: Optional[torch.device] = None) -> dict:
-    if dtype == torch.int8:
-        raise NotImplementedError(_INT8_TODO)
-    return {
+    cache = {
         "length": torch.zeros((), dtype=torch.int32, device=device),
         "slots_pos": torch.full((max_len,), -1, dtype=torch.int32,
                                 device=device),
@@ -68,6 +68,25 @@ def make_kv_cache(batch: int, max_len: int, n_kv: int, head_dim: int,
         "v": torch.zeros((batch, max_len, n_kv, head_dim), dtype=dtype,
                          device=device),
     }
+    if dtype == torch.int8:
+        for name in ("k_scale", "v_scale"):
+            cache[name] = torch.zeros((batch, max_len, n_kv),
+                                      dtype=torch.float32, device=device)
+    return cache
+
+
+def _quant(x: torch.Tensor) -> tuple:
+    """Per-token, per-head absmax int8 codes: scale = max|x| / 127 (at
+    least 1e-8), codes = round-half-to-even(x / scale); no clamp, as in the
+    reference (|x| / scale <= 127 by construction)."""
+    xf = x.float()
+    scale = torch.clamp(xf.abs().amax(dim=-1) / 127.0, min=1e-8)
+    return torch.round(xf / scale[..., None]).to(torch.int8), scale
+
+
+def _dequant(q: torch.Tensor, scale: torch.Tensor,
+             dtype: torch.dtype) -> torch.Tensor:
+    return (q.float() * scale[..., None]).to(dtype)
 
 
 def update_kv_cache(cache: dict, k_new: torch.Tensor, v_new: torch.Tensor,
@@ -80,8 +99,6 @@ def update_kv_cache(cache: dict, k_new: torch.Tensor, v_new: torch.Tensor,
     cache across every job and lane, so an in-place write would corrupt
     it for all of them. The slot is clamped to keep the block inside the
     buffer, as ``lax.dynamic_update_slice`` clamps it."""
-    if cache["k"].dtype == torch.int8:
-        raise NotImplementedError(_INT8_TODO)
     out = dict(cache)
     s_new = k_new.shape[1]
     s_max = cache["k"].shape[1]
@@ -100,8 +117,14 @@ def update_kv_cache(cache: dict, k_new: torch.Tensor, v_new: torch.Tensor,
     slot = torch.clamp(slot, 0, s_max - s_new).long()
     ar = torch.arange(s_new, device=dev)
     idx = slot + ar
-    out["k"] = cache["k"].index_copy(1, idx, k_new.to(cache["k"].dtype))
-    out["v"] = cache["v"].index_copy(1, idx, v_new.to(cache["v"].dtype))
+    if cache["k"].dtype == torch.int8:
+        (kq, ks), (vq, vs) = _quant(k_new), _quant(v_new)
+        out["k_scale"] = cache["k_scale"].index_copy(1, idx, ks)
+        out["v_scale"] = cache["v_scale"].index_copy(1, idx, vs)
+    else:
+        kq, vq = k_new.to(cache["k"].dtype), v_new.to(cache["v"].dtype)
+    out["k"] = cache["k"].index_copy(1, idx, kq)
+    out["v"] = cache["v"].index_copy(1, idx, vq)
     out["slots_pos"] = cache["slots_pos"].index_copy(
         0, idx, (start + ar).to(torch.int32))
     out["length"] = length_new
@@ -111,7 +134,9 @@ def update_kv_cache(cache: dict, k_new: torch.Tensor, v_new: torch.Tensor,
 def read_kv_cache(cache: dict, compute_dtype: torch.dtype) -> tuple:
     """Full-cache k/v in compute dtype + kv positions (-1 where empty)."""
     if cache["k"].dtype == torch.int8:
-        raise NotImplementedError(_INT8_TODO)
+        return (_dequant(cache["k"], cache["k_scale"], compute_dtype),
+                _dequant(cache["v"], cache["v_scale"], compute_dtype),
+                cache["slots_pos"])
     return (cache["k"].to(compute_dtype), cache["v"].to(compute_dtype),
             cache["slots_pos"])
 
@@ -160,5 +185,5 @@ def attention_block(params: dict, x: torch.Tensor, *, positions: torch.Tensor,
         out = _dec.decode_attention(
             q[:, 0], kc.transpose(1, 2), vc.transpose(1, 2), kv_pos, q_pos,
             window=window, softcap=attn_softcap, scale=scale)[:, None]
-    y = out.reshape(b, s, h * dh) @ params["wo"].reshape(h * dh, d)
+    y = out.reshape(b, s, h * dh) @ params["wo"].reshape(h * dh, -1)
     return y, new_cache

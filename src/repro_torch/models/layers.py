@@ -1,4 +1,4 @@
-"""Model primitives of the dense LM path: norms, gated MLP, rope, init.
+"""Model primitives of the LM paths: norms, gated MLP, rope, init.
 
 Counterpart of src/repro/models/layers.py. Functions take tensors and
 dicts of tensors with the JAX package's layouts (``w_gate/w_up [d, ff]``,
@@ -28,7 +28,7 @@ def dense_init(gen: torch.Generator, shape: Sequence[int], dtype: torch.dtype,
     std = scale if scale is not None else 1.0 / math.sqrt(max(fan_in, 1))
     w = torch.empty(tuple(shape), dtype=torch.float32, device=device)
     torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
-    return (w * std).to(dtype)
+    return w.mul_(std).to(dtype)     # in place: one f32 copy of a large leaf
 
 
 def embed_init(gen: torch.Generator, vocab: int, d: int, dtype: torch.dtype,
@@ -36,6 +36,20 @@ def embed_init(gen: torch.Generator, vocab: int, d: int, dtype: torch.dtype,
     w = torch.randn((vocab, d), generator=gen, dtype=torch.float32,
                     device=device) * 0.02
     return w.to(dtype)
+
+
+def init_gated_mlp(gen: torch.Generator, d: int, d_ff: int,
+                   dtype: torch.dtype, *, lead=(),
+                   device: Optional[torch.device] = None) -> dict:
+    lead = tuple(lead)
+    return {
+        "w_gate": dense_init(gen, lead + (d, d_ff), dtype, fan_in=d,
+                             device=device),
+        "w_up": dense_init(gen, lead + (d, d_ff), dtype, fan_in=d,
+                           device=device),
+        "w_down": dense_init(gen, lead + (d_ff, d), dtype, fan_in=d_ff,
+                             device=device),
+    }
 
 
 # ---------------------------------------------------------------------------
@@ -57,12 +71,16 @@ def _gelu_tanh(x: torch.Tensor) -> torch.Tensor:
 _ACTS = {"silu": F.silu, "gelu": _gelu_tanh, "gelu_tanh": _gelu_tanh}
 
 
+def act_fn(name: str):
+    if name not in _ACTS:
+        raise ValueError(f"unknown activation {name}")
+    return _ACTS[name]
+
+
 def gated_mlp(params: dict, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
-    if act not in _ACTS:
-        raise ValueError(f"unknown activation {act}")
     g = x @ params["w_gate"]
     u = x @ params["w_up"]
-    return (_ACTS[act](g) * u) @ params["w_down"]
+    return (act_fn(act)(g) * u) @ params["w_down"]
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,7 @@
-"""Stage partitioning of the dense LM (paper §III-B1 on transformers).
+"""Stage partitioning of the LMs (paper §III-B1 on transformers).
 
-Counterpart of src/repro/serving/staging.py (dense branch). A stacked LM is
+Counterpart of src/repro/serving/staging.py (dense, ssm and moe families;
+the hybrid is refused, as there). A stacked LM is
 cut into ``n_stages`` contiguous layer groups; each stage is a function
 (hidden, cache_slice) -> (hidden, cache_slice), so DARIS can preempt and
 migrate between groups. Stage 0 owns the embedding, the last stage the
@@ -30,12 +31,17 @@ def stage_boundaries(n_layers: int, n_stages: int) -> List[tuple]:
 
 
 def make_lm_stage_fns(model: Model, n_stages: int = 4) -> List[Callable]:
-    """Stage callables of the dense family:
+    """Stage callables of the dense, ssm and moe families (moe layers on
+    the dense expert oracle, as the reference stages them):
 
     stage_fn(params, hidden_or_tokens, cache_slice, positions)
       -> (hidden_or_logits, new_cache_slice)
     """
     cfg = model.cfg
+    if cfg.family == "hybrid":
+        raise NotImplementedError(
+            "hybrid staging follows group boundaries; use n_stages == "
+            "n_layers // attn_every")
     bounds = stage_boundaries(cfg.n_layers, n_stages)
 
     def make(i):
@@ -46,7 +52,8 @@ def make_lm_stage_fns(model: Model, n_stages: int = 4) -> List[Callable]:
                 x = transformer.embed(params, cfg, x)
             layers = transformer.index_tree(params["layers"], slice(lo, hi))
             x, new_cache = transformer.run_layers(layers, x, cfg, positions,
-                                                  cache_slice)
+                                                  cache_slice,
+                                                  moe_oracle=True)
             if i == n_stages - 1:
                 x = transformer.logits(params, cfg, x)
             return x, new_cache
@@ -57,9 +64,11 @@ def make_lm_stage_fns(model: Model, n_stages: int = 4) -> List[Callable]:
 
 
 def slice_cache(cfg, cache: dict, stage_idx: int, n_stages: int) -> dict:
-    """Cache slice owned by one stage: views into ``cache``, which the
-    functional cache update never writes."""
+    """Cache slice owned by one stage (moe at its ``"layers"`` level): views
+    into ``cache``, which the functional cache update never writes."""
     lo, hi = stage_boundaries(cfg.n_layers, n_stages)[stage_idx]
+    if cfg.family == "moe" and "layers" in cache:
+        cache = cache["layers"]
     return transformer.index_tree(cache, slice(lo, hi))
 
 

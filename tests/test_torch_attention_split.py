@@ -23,6 +23,7 @@ from repro.kernels import ref as jref  # noqa: E402
 from repro_torch.kernels import KERNELS, _lib, reset_counts  # noqa: E402
 from repro_torch.kernels import decode_attention as dec  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import rmsnorm as rms  # noqa: E402
 
 NEG_INF = -1.0e30
 H100_SMS = 132
@@ -186,3 +187,20 @@ def test_instance_counts_are_per_wrapper_and_reset():
     reset_counts()
     assert all(fn.counts.by_instance == {} and fn.counts.grids == {}
                for fn in KERNELS.values())
+
+
+def test_launches_are_counted_by_instance_and_shape():
+    counts = _lib.Counts()
+    counts.launched("block", (1,), "4x2048")
+    counts.launched("block", (1,), "4x2048")
+    counts.launched("warp", (512,), "2048x2048")
+    counts.launched(shape="B4 H16 KV16 Dh128")
+    counts.launched("block", (1,))                   # no shape given
+    assert counts.launches == 5
+    assert counts.by_shape == {"block 4x2048": 2, "warp 2048x2048": 1,
+                               "B4 H16 KV16 Dh128": 1}
+    assert counts.by_instance == {"block": 3, "warp": 1}
+    rms.rmsnorm.counts.launched("block", (1,), "4x576")
+    reset_counts()
+    assert counts.by_shape and all(fn.counts.by_shape == {}
+                                   for fn in KERNELS.values())

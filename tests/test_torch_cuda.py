@@ -1,6 +1,7 @@
 """The port on the card: each CUDA kernel against its plain version, staged
 LM decode (dense and ssm) served on per-lane CUDA streams through the
-kernels, the staged CNNs (served, and each stage against the CPU), and the
+kernels, the moe and hybrid families and the int8 KV cache against the
+CPU, the staged CNNs (served, and each stage against the CPU), and the
 epoch engine with its rate-groups on the contention kernel (one device, and
 a reduced cluster fleet).
 
@@ -205,6 +206,59 @@ def test_realtime_staged_lm_decode_on_cuda_streams():
              "flash_attention")
     assert all(KERNELS[k].counts.launches > 0 for k in dense)
     assert all(fn.counts.plain_cuda_calls == 0 for fn in KERNELS.values())
+
+
+def _to_cpu(tree):
+    if isinstance(tree, dict):
+        return {k: _to_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_cpu(v) for v in tree]
+    return tree.cpu()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,replace", [
+    ("qwen2-moe-a2.7b", {"n_experts": 20}), ("zamba2-7b", {}),
+    ("qwen1.5-32b", {"kv_cache_dtype": "int8"})],
+    ids=["moe_capacity", "hybrid", "int8_cache"])
+def test_new_families_on_the_card_match_the_cpu(arch, replace):
+    """The moe family (capacity path), the hybrid and the int8 cache in
+    f32: prefill and one decode step through the kernels on the card
+    against the plain versions on the CPU, from the same parameters. An
+    int8 code may land one step apart where the card's f32 projection
+    rounds differently: 1e-3 on the logits."""
+    _need_cuda()
+    cfg = get_reduced(arch).replace(dtype="float32", **replace)
+    gm, cm = build_model(cfg), build_model(cfg, device="cpu")
+    gp = gm.init_params(0)
+    cp = _to_cpu(gp)
+    tokens = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 16))
+    outs = []
+    for m, p, dev in ((gm, gp, "cuda"), (cm, cp, "cpu")):
+        tk = torch.from_numpy(tokens).to(dev)
+        pl, cache = m.prefill(p, {"tokens": tk, "cache": m.init_cache(2, 17)})
+        dl, _ = m.decode_step(p, {"tokens": tk[:, :1], "cache": cache})
+        outs.append((pl.cpu(), dl.cpu()))
+    for a, b in zip(*outs):
+        torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.cuda
+def test_moe_capacity_prefill_repeats_its_bits_on_the_card():
+    """The capacity path combines a token's expert outputs without
+    atomics, so two prefills give the same bits (a served MoE task's donor
+    cache and its check's)."""
+    _need_cuda()
+    m = build_model(get_reduced("qwen2-moe-a2.7b").replace(
+        n_experts=20, dtype="bfloat16"))
+    p = m.init_params(0)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, m.cfg.vocab_size, (4, 64))).cuda()
+    (a, ca), (b, cb) = (m.prefill(p, {"tokens": tokens,
+                                      "cache": m.init_cache(4, 65)})
+                        for _ in range(2))
+    assert torch.equal(a, b)
+    assert torch.equal(ca["layers"]["k"], cb["layers"]["k"])
 
 
 @pytest.mark.cuda

@@ -127,7 +127,9 @@ def test_the_scheduler_stack_is_copied():
                 "runtime/arrivals.py", "runtime/engine_core.py",
                 "runtime/epoch.py", "configs/mamba2_27b.py",
                 "chaos/plan.py", "analysis/sanitizer.py", "configs/base.py",
-                "configs/smollm_135m.py", "serving/profiles.py",
+                "configs/smollm_135m.py", "configs/zamba2_7b.py",
+                "configs/qwen2_moe_a27b.py", "configs/qwen15_32b.py",
+                "serving/profiles.py",
                 "serving/requests.py", "cluster/__init__.py",
                 "cluster/devices.py", "cluster/scheduler.py",
                 "analysis/schedcheck/__init__.py",

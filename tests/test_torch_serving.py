@@ -175,9 +175,12 @@ def test_worker_pool_counts_payload_exceptions():
 
 def test_unported_features_name_their_roadmap_item(tmp_path):
     spec = make_spec(api, "t", api.HP, [1.0], 10.0)
-    hybrid = get_reduced("smollm-135m").replace(family="hybrid")
-    with pytest.raises(NotImplementedError, match="Q8"):
-        build_model(hybrid, device="cpu")
+    cfg = get_reduced("smollm-135m")
+    for unported, item in ((dict(family="encdec"), "Q8.4"),
+                           (dict(family="moe", use_mla=True), "Q8.3"),
+                           (dict(local_global_alternating=True), "Q8.6")):
+        with pytest.raises(NotImplementedError, match=item):
+            build_model(cfg.replace(**unported), device="cpu")
     # checkpointing (Q5), cluster serving (Q6) and verify() (Q7) are ported
     srv = api.ServerConfig.sim().task(spec).horizon_ms(50.0).build()
     srv.run()
