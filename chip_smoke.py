@@ -8,14 +8,18 @@
     python3 chip_smoke.py --cluster --repeats 2
     python3 chip_smoke.py --resume --repeats 2
     python3 chip_smoke.py --lm-paths
+    python3 chip_smoke.py --families
 
-The --serve forms run only one model's serving phase (step 3, 5, 6 or 9 below),
+The --serve forms run only one model's serving phase (step 3, 5, 6, 9, 12
+or 13 below),
 ``--repeats`` times, each with the host's side of the run and the card's
 clocks after it, and with ``--trace`` what the card did during it
 (``device_timeline``); --epoch only the epoch phase (step 4), --resume only
 the resume phase (step 7), --cluster only the cluster phase (step 8, the
-fleet over 4000 ms) and --lm-paths only the kernel phase and steps 9-11,
-``--repeats`` times (events/s on the host's clock vary from run to run).
+fleet over 4000 ms), --lm-paths only the kernel phase and steps 9-11,
+and --families only the kernel phase and steps 12-15 with the Dh 160
+check, ``--repeats`` times (events/s on the host's clock vary from run to
+run).
 None of them prints a result line. Without arguments:
 
 1. Builds the port's Hopper kernels from ``src/repro_torch/kernels/csrc``
@@ -176,6 +180,60 @@ None of them prints a result line. Without arguments:
     cache's: the sound cache within ``INT8_TOL``, each fault past it. A 2-layer f32 copy with the int8 cache against the CPU:
     logits within 1e-2, dequantized caches at most one code step apart
     (codes one apart where the f32 projections round differently).
+12. MLA phase, slice 10's main path: deepseek-v2-236b at full width (d
+    5120, 128 heads; MLA with q_lora 1536, kv_lora 512, rope 64 / nope 128
+    / v 128; 160 routed experts top-6 of width 1536 and 2 shared (3072);
+    the dense layer's d_ff 12,288; vocab 102,400; bf16, seed 0), depth cut
+    to its dense layer and 4 MoE layers (about 17.3 B parameters), served
+    as in 9 at 2 jobs/s. Its donor prefill attends through flash at Dh 192
+    with H = KV = 128 (the CUDA-core instance: every flash launch must
+    take it) and the capacity path; its stages decode absorbed (plain
+    products, as in the reference) on the dense expert oracle. R4
+    (ROADMAP.md §3): the stages never run the dense layer and the last
+    holds no layer, so the chain is held, within 3e-2, to the unstaged
+    decode that does the same (embedding, the 4 MoE layers on the oracle
+    over the donor's cache, logits); a cut-depth f32 copy (the dense
+    layer and one MoE layer at full width; its routed experts cut to 16
+    where the host's memory would not hold it) gives the same staged
+    chain and unstaged prefill and decode logits on the card as on the
+    CPU, within 2e-3.
+13. Gemma2 phase: gemma2-27b at full width (d 4608, 32 / 16 heads at Dh
+    128, d_ff 36,864, vocab 256,000 tied, window 4096, softcaps 50 / 30,
+    (1 + w) norms before and after each block), depth cut to 24 of 46
+    layers (12 local/global pairs, 3 a stage; 14.8 B parameters), served
+    as in 12. Every flash launch takes the tensor cores; the chain is held
+    to the unstaged decode; one pair in f32 on the card against the CPU
+    (chain included).
+14. Vlm phase: pixtral-12b at full width and depth (40 layers, d 5120, 32
+    / 8 heads at Dh 128): the no-cache forward over seeded image
+    embeddings [2, 1024, 5120] before 512 token embeddings, then a prefill
+    of 512 tokens at batch 4 and 4 decode steps; finite logits of the
+    expected shapes, flash on the tensor cores; 2 layers in f32 on the
+    card against the CPU (with a forward over 16 image embeddings).
+15. Encdec phase: whisper-tiny at full width and depth (4 + 4 layers, d
+    384, 6 heads at Dh 64, 1500 frames, vocab 51,865): ``encode`` of seeded
+    frames [4, 1500, 384], a prefill of 64 tokens and 4 decode steps. The
+    encoder's flash launches must be non-causal at S 1500 on the tensor
+    cores and the cross-attention's run at S_kv 1500 (counted by shape
+    key); the whole model in f32 on the card against the CPU. Then
+    stablelm-12b at full width (Dh 160), 2 layers in f32, a 64-token
+    prompt and 2 decode steps on the card against the CPU; its flash
+    launches take the CUDA-core instance.
+    The kernel phase holds every instance and shape these paths launch:
+    flash with softcap 50 and with a window of 128 that masks (32 / 16
+    heads, Dh 128), non-causal at S 1500, cross-attention at S 64 and 1
+    against 1500 keys, whisper's decoder prefill, Dh 192 (H = KV = 128),
+    Dh 160, pixtral's prefill and its forward over 1536 rows; decode
+    attention with softcap and with a window that masks (Dh 128, 32 / 16
+    heads), at 32 / 8 heads, at Dh 64 (6 heads) and Dh 160; norms at 512
+    and 1536 (MLA's), at 3072 rows of 5120, and with ``plus_one`` at 4608
+    (plain and residual). Each row with an option also runs the call with
+    that option dropped (softcap, window, causality, the 28 keys of the
+    ragged last tile of 1500, ``plus_one``): the result must leave the
+    plain version's tolerance (``planted_fault``). Rows whose every output
+    averages hundreds of keys (non-causal over 1500, decode over 513
+    slots without a sharpened query) are held to 3e-3 in bf16, since
+    their outputs are about 0.03; the others to 3e-2.
 Each phase's model is freed before the next; ``phase_seconds`` and
 ``phase_peak_memory_gb`` give each phase's wall and peak of allocated card
 memory.
@@ -208,8 +266,10 @@ differ, a port kernel or its plain version ran on the CNN path, an output
 check failed, a restored scheduler state differs from its file, the second
 launcher run did not resume, the parameters did not round-trip bit for bit,
 the daemon example failed, the oracle was not ``ok`` on fig13_light or
-fig13_fail_1of4, an int8 check of step 11 failed, or a model path
-launched a kernel at an instance and shape that no bf16 row checked. The
+fig13_fail_1of4, an int8 check of step 11 failed, a planted fault
+agreed with a plain version, a step 12-15 instance or launch-shape check
+failed, or a model path launched a kernel at an instance and shape that
+no bf16 row checked. The
 last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -256,6 +316,24 @@ INT8_TOL = 0.03
 INT8_HALF_STEP = 0.5 + 1e-3           # code steps
 INT8_SCALE_RTOL = 1e-6                # the stored scale against max|x| / 127
 INT8_SMALL_TOL = 1e-2                 # card vs CPU, cut-depth f32, int8 cache
+# slice 10's paths (steps 12-15): deepseek-v2 (MLA + MoE) and gemma2
+# served staged at cut depth, pixtral-12b and whisper-tiny at full depth,
+# stablelm-12b's Dh 160 at 2 layers in f32
+MLA_ARCH, MLA_LAYERS = "deepseek-v2-236b", 5     # 1 dense + 4 MoE of 60
+GEMMA_ARCH, GEMMA_LAYERS = "gemma2-27b", 24      # 12 of 23 pairs
+VLM_ARCH, ENCDEC_ARCH, DH160_ARCH = ("pixtral-12b", "whisper-tiny",
+                                     "stablelm-12b")
+FAMILY_JPS = 2.0
+VLM_BATCH, VLM_SEQ = 2, 1024 + PROMPT            # image + token embeddings
+ENC_FRAMES, ENC_PROMPT = 1500, 64                # whisper's frames, prompt
+SMALL_TOL = 2e-3                                 # card vs CPU in f32
+# bf16 attention rows whose every output averages hundreds of keys under
+# an unsharpened softmax: a typical output is about n^-1/2 (0.03 at 1,500
+# keys), so the 3e-2 of the other bf16 rows would be as large as the
+# values compared (the kernels read within 1e-3 of their plain versions)
+AVG_TOL = 3e-3
+FLASH_BK = 64         # key rows a tile in both flash instances (csrc)
+HOST_RAM_SHARE = 0.5                             # of MemAvailable, at most
 # zamba2-7b's donor prefill scan: heads, head dim, state, groups, chunk
 ZSSM_H, ZSSM_P, ZSSM_N, ZSSM_G, ZSSM_Q = 112, 64, 64, 1, 256
 LANES = 4096                          # a fleet-scale rate-group
@@ -393,6 +471,8 @@ def kernel_cases(torch, F, dtype):
     fa_ops = 4 * B * H * DH * PROMPT * (PROMPT + 1) // 2
     fa8_ops = 4 * B * 8 * 128 * PROMPT * (PROMPT + 1) // 2
     fa_want = "tensor_core" if dtype == torch.bfloat16 else "cuda_core"
+    # the options of a row that averages hundreds of keys (AVG_TOL)
+    avg_tol = {"tol": AVG_TOL} if dtype == torch.bfloat16 else {}
 
     def sdpa(q, kk, vv, **kw):
         return F.scaled_dot_product_attention(q, kk, vv, enable_gqa=True,
@@ -429,11 +509,24 @@ def kernel_cases(torch, F, dtype):
     # ln (3584) and its gated norm and shared block's ln1 (7168); and the
     # donor prefills' B x 512 rows at each model's widths (smollm 576,
     # qwen2-moe 2048, mamba2 2560 / 5120, zamba2 3584 / 7168, qwen1.5 5120)
+    # (and slice 10's: deepseek's q_norm 1536 and kv_norm 512; pixtral's
+    # no-cache forward over 2 x (1024 + 512) rows of 5120)
     wide = {f"rmsnorm_d{dd}": (rand(B, 1, dd), rand(dd))
-            for dd in (2048, 2560, 3584, 5120, 7168)}
+            for dd in (2048, 2560, 3584, 5120, 7168, 1536, 512)}
     wide.update({f"rmsnorm_prefill_d{dd}": (rand(B * PROMPT, dd), rand(dd))
-                 for dd in (5120, 576, 2048, 2560, 3584, 7168)})
+                 for dd in (5120, 576, 2048, 2560, 3584, 7168, 1536, 512)})
+    wide["rmsnorm_vlm_d5120"] = (rand(VLM_BATCH * VLM_SEQ, 5120),
+                                 rand(5120))
     wide["rmsnorm"] = (x, w)
+    # gemma2's (1 + w) norms at 4608, decode and prefill rows
+    plus = {"rmsnorm_d4608_plus_one": (rand(B, 1, 4608), rand(4608)),
+            "rmsnorm_prefill_d4608_plus_one": (rand(B * PROMPT, 4608),
+                                               rand(4608))}
+    res_plus = {
+        "rmsnorm_residual_d4608_plus_one": (rand(B, 1, 4608),
+                                            rand(B, 1, 4608), rand(4608)),
+        "rmsnorm_residual_prefill_d4608_plus_one": (
+            rand(B * PROMPT, 4608), rand(B * PROMPT, 4608), rand(4608))}
     # the fused residual + norm (ln2) of the dense, moe and shared-block
     # layers: decode rows and donor-prefill rows at each model's width
     res = {"rmsnorm_residual": (x, r, w)}
@@ -443,18 +536,89 @@ def kernel_cases(torch, F, dtype):
     res.update({f"rmsnorm_residual_prefill_d{dd}": (
         rand(B * PROMPT, dd), rand(B * PROMPT, dd), rand(dd))
         for dd in (576, 2048, 3584, 5120)})
+    res["rmsnorm_residual_vlm_d5120"] = (rand(VLM_BATCH * VLM_SEQ, 5120),
+                                         rand(VLM_BATCH * VLM_SEQ, 5120),
+                                         rand(5120))
 
-    def decode_case(name, h, dh):
+    def decode_case(name, h, dh, kv=None, window=0, softcap=0.0,
+                    q_scale=1.0, fault=None):
         """Decode attention at another head width (KV = H, as in
-        qwen2-moe, qwen1.5 and zamba2's shared block)."""
-        ck, cv = rand(B, PROMPT + 1, h, dh), rand(B, PROMPT + 1, h, dh)
-        qq, kk, vv = rand(B, h, dh), ck.transpose(1, 2), cv.transpose(1, 2)
+        qwen2-moe, qwen1.5 and zamba2's shared block, unless ``kv`` says
+        otherwise), with a window and a softcap where given (q scaled by
+        ``q_scale`` so that the cap bites). Bytes and operations count the
+        slots the window leaves visible. ``fault`` names an option the
+        planted-fault call drops."""
+        kv = h if kv is None else kv
+        ck, cv = rand(B, PROMPT + 1, kv, dh), rand(B, PROMPT + 1, kv, dh)
+        qq, kk, vv = rand(B, h, dh) * q_scale, ck.transpose(1, 2), \
+            cv.transpose(1, 2)
+        kw = dict(window=window, softcap=softcap)
+        seen = min(s, window) if window else s
+        lib = None
+        if not softcap:
+            ok = mask if not window else (
+                mask & (q_pos[:, None] - kv_pos[None] < window)[:, None, None])
+            lib = (lambda: sdpa(qq[:, :, None], kk, vv, attn_mask=ok))
+        # every output averages the 513 slots unless q is sharpened
+        opt = dict(avg_tol) if q_scale == 1.0 and not window else {}
+        if fault is not None:
+            opt.update(fault=fault, fault_call=lambda: dec.decode_attention(
+                qq, kk, vv, kv_pos, q_pos, **{**kw, fault: 0}))
         return (name,
-                lambda: dec.decode_attention(qq, kk, vv, kv_pos, q_pos),
-                lambda: dec.decode_attention_plain(qq, kk, vv, kv_pos, q_pos),
-                lambda: sdpa(qq[:, :, None], kk, vv, attn_mask=mask),
-                nbytes(qq, ck, cv, kv_pos, q_pos, qq), 4 * B * h * s * dh,
-                PEAK_FLOPS[dname], {})
+                lambda: dec.decode_attention(qq, kk, vv, kv_pos, q_pos, **kw),
+                lambda: dec.decode_attention_plain(qq, kk, vv, kv_pos, q_pos,
+                                                   **kw),
+                lib,
+                nbytes(qq, kv_pos, q_pos, qq) + nbytes(ck, cv) * seen // s,
+                4 * B * h * seen * dh, PEAK_FLOPS[dname], opt)
+
+    def flash_row(name, b, h, kv, sq, dh, s_kv=None, causal=True, window=0,
+                  softcap=0.0, q_scale=1.0, fault=None):
+        """Prefill (or cross-) attention at the model paths' other shapes
+        and options: keys of their own length ``s_kv``, not causal,
+        windowed or softcapped (q scaled by ``q_scale`` so that the cap
+        bites). Operations count the (query, key) pairs the masks leave.
+        The library call is SDPA where it computes the same function (no
+        softcap). ``fault`` names the option the planted-fault call drops
+        (``s_kv``: the ragged last tile's keys, ``s_kv % FLASH_BK``). Rows
+        whose every query averages hundreds of keys take ``AVG_TOL``."""
+        s_kv = sq if s_kv is None else s_kv
+        qq = rand(b, sq, h, dh).transpose(1, 2) * q_scale
+        kk, vv = (rand(b, s_kv, kv, dh).transpose(1, 2) for _ in range(2))
+        kw = dict(causal=causal, window=window, softcap=softcap)
+        qi = torch.arange(sq, device=dev)[:, None]
+        kj = torch.arange(s_kv, device=dev)[None]
+        vis = torch.ones((sq, s_kv), dtype=torch.bool, device=dev)
+        if causal:
+            vis &= kj <= qi
+        if window:
+            vis &= qi - kj < window
+        pairs = int(vis.sum())
+        lib = None
+        if not softcap:
+            lib = ((lambda: sdpa(qq, kk, vv, attn_mask=vis)) if window else
+                   (lambda: sdpa(qq, kk, vv, is_causal=causal)))
+        tc = dtype == torch.bfloat16 and dh in fa.TENSOR_CORE_DH
+        opt = {"instance": "tensor_core" if tc else "cuda_core"}
+        if not causal and q_scale == 1.0 and s_kv >= 256:
+            opt.update(avg_tol)
+        if not tc:                     # milliseconds a call: timed eagerly
+            opt.update(reps=10, inner=4, graph=False)
+        if fault == "s_kv":
+            kept = s_kv - s_kv % FLASH_BK
+            assert kept < s_kv, "the s_kv fault needs a ragged last tile"
+            opt.update(fault=fault, fault_call=lambda: fa.flash_attention(
+                qq, kk[:, :, :kept], vv[:, :, :kept], **kw))
+        elif fault is not None:
+            bad = {**kw, fault: {"causal": True, "window": 0,
+                                 "softcap": 0.0}[fault]}
+            opt.update(fault=fault,
+                       fault_call=lambda: fa.flash_attention(qq, kk, vv,
+                                                             **bad))
+        return (name, lambda: fa.flash_attention(qq, kk, vv, **kw),
+                lambda: fa.flash_attention_plain(qq, kk, vv, **kw), lib,
+                nbytes(qq, kk, vv, qq), 4 * b * h * dh * pairs,
+                PEAK_FLOPS[dname], opt)
 
     def flash_case(name, h, dh):
         """Causal prefill attention over ``PROMPT`` tokens at H = KV = ``h``
@@ -497,12 +661,32 @@ def kernel_cases(torch, F, dtype):
            None, nbytes(xx, rr, ww, xx, xx), 5 * xx.numel(),
            ELEMENTWISE_FLOPS, {"instance": rms.plan_for(xx, ww, rr).instance})
           for nm, (xx, rr, ww) in res.items()),
+        *((nm, lambda xx=xx, ww=ww: rms.rmsnorm(xx, ww, plus_one=True),
+           lambda xx=xx, ww=ww: rms.rmsnorm_plain(xx, ww, plus_one=True),
+           # the library's norm takes the weight 1 + w, formed beforehand
+           lambda xx=xx, w1=1.0 + ww: F.rms_norm(xx, (w1.shape[0],), w1,
+                                                 1e-6),
+           nbytes(xx, ww, xx), 5 * xx.numel(), ELEMENTWISE_FLOPS,
+           {"instance": rms.plan_for(xx, ww).instance, "fault": "plus_one",
+            "fault_call": lambda xx=xx, ww=ww: rms.rmsnorm(xx, ww)})
+          for nm, (xx, ww) in plus.items()),
+        *((nm, lambda xx=xx, rr=rr, ww=ww: rms.rmsnorm_residual(
+            xx, rr, ww, plus_one=True),
+           lambda xx=xx, rr=rr, ww=ww: rms.rmsnorm_residual_plain(
+               xx, rr, ww, plus_one=True),
+           None, nbytes(xx, rr, ww, xx, xx), 6 * xx.numel(),
+           ELEMENTWISE_FLOPS,
+           {"instance": rms.plan_for(xx, ww, rr).instance,
+            "fault": "plus_one",
+            "fault_call": lambda xx=xx, rr=rr, ww=ww: rms.rmsnorm_residual(
+                xx, rr, ww)})
+          for nm, (xx, rr, ww) in res_plus.items()),
         ("decode_attention", lambda: dec.decode_attention(q1, k, v, kv_pos,
                                                           q_pos),
          lambda: dec.decode_attention_plain(q1, k, v, kv_pos, q_pos),
          lambda: sdpa(q1[:, :, None], k, v, attn_mask=mask),
          nbytes(q1, cache_k, cache_v, kv_pos, q_pos, q1), dec_ops,
-         PEAK_FLOPS[dname], {}),
+         PEAK_FLOPS[dname], avg_tol),
         ("flash_attention", lambda: fa.flash_attention(qp, kp, vp),
          lambda: fa.flash_attention_plain(qp, kp, vp),
          lambda: sdpa(qp, kp, vp, is_causal=True),
@@ -542,6 +726,35 @@ def kernel_cases(torch, F, dtype):
          nbytes(zx, zdt, zal, zb, zc, z0, zx, z0), z_ops, PEAK_FLOPS[dname],
          {**ssd_cc, "instance": "+".join(ssd_scan.INSTANCE_KERNELS[
              "tensor_core" if dtype == torch.bfloat16 else "cuda_core"])}),
+        # slice 10 (steps 12-15): gemma2's softcapped global and windowed
+        # local layers (32 / 16 heads at Dh 128; a window of 128 so that it
+        # masks at S 512), whisper's encoder (non-causal, S 1500), its
+        # cross-attention (S 64 and 1 against 1500 frames) and decoder
+        # prefill, deepseek's MLA prefill (Dh 192, H = KV = 128), stablelm
+        # (Dh 160), pixtral's prefill and its no-cache forward
+        flash_row("flash_attention_d128_softcap", B, 32, 16, PROMPT, 128,
+                  softcap=50.0, q_scale=8.0, fault="softcap"),
+        flash_row("flash_attention_d128_window", B, 32, 16, PROMPT, 128,
+                  window=128, softcap=50.0, q_scale=8.0, fault="window"),
+        flash_row("flash_attention_full_s1500", B, 6, 6, ENC_FRAMES, 64,
+                  causal=False, fault="causal"),
+        flash_row("flash_attention_cross", B, 6, 6, ENC_PROMPT, 64,
+                  s_kv=ENC_FRAMES, causal=False, fault="s_kv"),
+        flash_row("flash_attention_cross_s1", B, 6, 6, 1, 64,
+                  s_kv=ENC_FRAMES, causal=False, fault="s_kv"),
+        flash_row("flash_attention_s64_h6", B, 6, 6, ENC_PROMPT, 64),
+        flash_row("flash_attention_d192", B, 128, 128, PROMPT, 192),
+        flash_row("flash_attention_d160", B, 32, 8, PROMPT, 160),
+        flash_row("flash_attention_d128_h32kv8", B, 32, 8, PROMPT, 128),
+        flash_row("flash_attention_vlm_s1536", VLM_BATCH, 32, 8, VLM_SEQ,
+                  128),
+        decode_case("decode_attention_d128_softcap", 32, 128, kv=16,
+                    softcap=50.0, q_scale=8.0, fault="softcap"),
+        decode_case("decode_attention_d128_window", 32, 128, kv=16,
+                    window=128, softcap=50.0, q_scale=8.0, fault="window"),
+        decode_case("decode_attention_d128_h32kv8", 32, 128, kv=8),
+        decode_case("decode_attention_d64_h6", 6, 64),
+        decode_case("decode_attention_d160", 32, 160, kv=8),
     ]
 
 
@@ -582,15 +795,35 @@ OTHER_SHAPES = {
     "decode_attention_d112": "decode_attention",
     "flash_attention_d112": "flash_attention",
     "ssd_zamba2": "ssd",
+    # slice 10
+    **{f"rmsnorm_{k}": "rmsnorm"
+       for k in ("d1536", "d512", "prefill_d1536", "prefill_d512",
+                 "vlm_d5120", "d4608_plus_one", "prefill_d4608_plus_one")},
+    **{f"rmsnorm_residual_{k}": "rmsnorm_residual"
+       for k in ("vlm_d5120", "d4608_plus_one",
+                 "prefill_d4608_plus_one")},
+    **{f"flash_attention_{k}": "flash_attention"
+       for k in ("d128_softcap", "d128_window", "full_s1500", "cross",
+                 "cross_s1", "s64_h6", "d192", "d160", "d128_h32kv8",
+                 "vlm_s1536")},
+    **{f"decode_attention_{k}": "decode_attention"
+       for k in ("d128_softcap", "d128_window", "d128_h32kv8", "d64_h6",
+                 "d160")},
 }
 # the model each model path serves or runs
 PATH_MODELS = {"dense": "smollm-135m", "ssm": "mamba2-2.7b",
-               "moe": MOE_ARCH, "hybrid": HYBRID_ARCH, "int8": INT8_ARCH}
+               "moe": MOE_ARCH, "hybrid": HYBRID_ARCH, "int8": INT8_ARCH,
+               "mla": MLA_ARCH, "gemma2": GEMMA_ARCH, "vlm": VLM_ARCH,
+               "encdec": ENCDEC_ARCH}
 DENSE_PATH = ("rmsnorm", "rmsnorm_residual", "decode_attention",
               "flash_attention")
 SSM_PATH = ("rmsnorm", "ssd")
-MOE_PATH = INT8_PATH = DENSE_PATH
+MOE_PATH = INT8_PATH = GEMMA2_PATH = VLM_PATH = DENSE_PATH
 HYBRID_PATH = DENSE_PATH + ("ssd",)
+# MLA's decode attends the latent cache in plain products, as the
+# reference does; whisper's norms are LayerNorms
+MLA_PATH = ("rmsnorm", "rmsnorm_residual", "flash_attention")
+ENCDEC_PATH = ("decode_attention", "flash_attention")
 EPOCH_PATH = ("contention_eta_f64",)
 
 
@@ -675,6 +908,21 @@ def kernel_phase(torch, F, failures):
                                           atol=tol) for u, v in zip(c, b)):
                     failures.append(f"{name} {row['dtype']}: CUDA-core "
                                     f"instance max_err {cerr} > {tol}")
+            fault = opt.get("fault_call")
+            if fault is not None:   # the option dropped: the row must see it
+                c = fault()
+                fpairs = list(zip(c, b)) if isinstance(c, tuple) else [(c, b)]
+                caught = not all(torch.allclose(u.float(), v.float(),
+                                                rtol=tol, atol=tol)
+                                 for u, v in fpairs)
+                row["planted_fault"] = {
+                    "dropped": opt["fault"], "caught": caught,
+                    "max_err": max(float((u.float() - v.float()).abs().max())
+                                   for u, v in fpairs)}
+                if not caught:
+                    failures.append(f"{name} {row['dtype']}: the call "
+                                    f"without {opt['fault']} agrees with "
+                                    f"the plain version")
             if name.startswith("decode_attention"):
                 split = launched.get("split", {})
                 row["n_split"] = split.get("grid", [0])[0]
@@ -1549,11 +1797,14 @@ def profile_step(torch, step, reps: int = 3):
         return {"error": repr(e)}
 
 
-def card_vs_cpu(torch, small, seed: int = 1):
+def card_vs_cpu(torch, small, seed: int = 1, steps: int = 1, extra=None):
     """The cut-depth f32 copy ``small`` from the same parameters (drawn on
-    the card from ``seed``): a prefill of 2 x 64 seeded tokens and one
-    decode step on the card through the kernels and on the CPU through the
-    plain versions. Returns ((prefill logits, decode logits, cache) on the
+    the card from ``seed``): a prefill of 2 x 64 seeded tokens (whisper:
+    over 2 seeded frame sequences) and ``steps`` decode steps on the card
+    through the kernels and on the CPU through the plain versions.
+    ``extra(model, params, device, prefill_cache)`` adds named outputs
+    (a staged chain, a forward over embeddings). Returns ((prefill logits,
+    first decode logits, prefill cache, {name: the other outputs}) on the
     card, the same on the CPU) and the card's launches by instance."""
     import numpy as np
 
@@ -1563,15 +1814,32 @@ def card_vs_cpu(torch, small, seed: int = 1):
     gm, cm = build_model(small), build_model(small, device="cpu")
     gp = gm.init_params(seed)
     cp = tree_map(lambda t: t.cpu(), gp)
-    toks = np.random.default_rng(seed).integers(0, small.vocab_size, (2, 64))
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, small.vocab_size, (2, 64 + steps))
+    frames = (rng.standard_normal((2, small.encoder_frames, small.d_model))
+              .astype(np.float32) if small.family == "encdec" else None)
     outs = []
     reset_counts()
     for mdl, p, dev in ((gm, gp, "cuda"), (cm, cp, "cpu")):
         tk = torch.from_numpy(toks).to(dev)
-        pl, cache = mdl.prefill(p, {"tokens": tk,
-                                    "cache": mdl.init_cache(2, 65)})
-        dl, _ = mdl.decode_step(p, {"tokens": tk[:, :1], "cache": cache})
-        outs.append((pl.cpu(), dl.cpu(), tree_map(lambda t: t.cpu(), cache)))
+        batch = {"tokens": tk[:, :64], "cache": mdl.init_cache(2, 64 + steps)}
+        step = {}
+        if frames is not None:
+            batch["frames"] = torch.from_numpy(frames).to(dev)
+            step["enc_out"] = mdl.encode(p, batch["frames"])
+        pl, cache = mdl.prefill(p, batch)
+        more, c = {}, cache
+        for i in range(steps):
+            dl, c = mdl.decode_step(p, {"tokens": tk[:, 64 + i:65 + i],
+                                        "cache": c, **step})
+            more[f"decode_{i}"] = dl.cpu()
+        if "enc_out" in step:
+            more["enc_out"] = step["enc_out"].cpu()
+        if extra is not None:
+            more.update({k: v.cpu() for k, v in
+                         extra(mdl, p, dev, cache).items()})
+        outs.append((pl.cpu(), more.pop("decode_0"),
+                     tree_map(lambda t: t.cpu(), cache), more))
     torch.cuda.synchronize()
     instances = {n: dict(fn.counts.by_instance) for n, fn in KERNELS.items()
                  if fn.counts.by_instance}
@@ -1579,22 +1847,25 @@ def card_vs_cpu(torch, small, seed: int = 1):
 
 
 def logits_err(torch, outs, tol: float):
-    """Largest |card - CPU| over the prefill and decode logits, and whether
-    every element is within ``tol`` (relative and absolute)."""
-    (gp, gd, _), (cp, cd, _) = outs
-    pairs = [(gp, cp), (gd, cd)]
+    """Largest |card - CPU| over the prefill and decode logits (and the
+    other named outputs), and whether every element is within ``tol``
+    (relative and absolute)."""
+    (gp, gd, _, gm), (cp, cd, _, cm) = outs
+    pairs = [(gp, cp), (gd, cd)] + [(gm[k], cm[k]) for k in gm]
     err = max(float((a - b).abs().max()) for a, b in pairs)
     return err, all(torch.allclose(a, b, rtol=tol, atol=tol)
                     for a, b in pairs)
 
 
 def output_checks(torch, model, params, spec, failures, unstaged=None,
-                  small=None):
+                  small=None, extra=None, note=None):
     """A served task's payload chain against the unstaged decode from the
     same donor (``unstaged(params, tokens, donor)`` -> logits; default
-    ``decode_step``), and the cut-depth f32 copy ``small`` (default: 2
-    layers, f32 KV cache) on the card against the CPU; then the decode
-    step's profile (``decode_step_profile``, with the peak memory)."""
+    ``decode_step``; ``note`` says what ``unstaged`` reproduces), and the
+    cut-depth f32 copy ``small`` (default: 2 layers, f32 KV cache) on the
+    card against the CPU (``extra`` as in ``card_vs_cpu``); the decode
+    step's profile (``decode_step_profile``, with the peak memory) comes
+    before that copy is built."""
     import numpy as np
 
     state, step = per_step_launches(torch, spec)
@@ -1605,8 +1876,8 @@ def output_checks(torch, model, params, spec, failures, unstaged=None,
     # the same step unstaged, from the same donor (same tokens, seed 0)
     tokens = torch.from_numpy(np.random.default_rng(0).integers(
         0, cfg.vocab_size, (B, PROMPT))).cuda()
-    _, donor = model.prefill(params, {"tokens": tokens,
-                                      "cache": model.init_cache(B, PROMPT + 1)})
+    _, donor = model.prefill(params, {
+        "tokens": tokens, "cache": model.init_cache(B, PROMPT + 1)})
     zeros = torch.zeros((B, 1), dtype=torch.int32, device="cuda")
     if unstaged is None:
         ref, _ = model.decode_step(params, {"tokens": zeros, "cache": donor})
@@ -1616,34 +1887,27 @@ def output_checks(torch, model, params, spec, failures, unstaged=None,
     staged_ok = torch.allclose(logits.float(), ref.float(), rtol=3e-2,
                                atol=3e-2)
     del donor
+    profile = {"model": cfg.name, **profile_step(torch, staged_step(spec)),
+               "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
 
     # cut-depth f32 model: kernels on the card vs plain versions on the CPU
     if small is None:
         small = cfg.replace(n_layers=2, dtype="float32",
                             kv_cache_dtype="float32")
-    outs, f32_instances = card_vs_cpu(torch, small)
-    small_err, small_ok = logits_err(torch, outs, 2e-3)
-    emit({"output_check": {
-        "model": cfg.name,
-        "logits_shape": list(logits.shape), "finite": finite,
+    outs, f32_instances = card_vs_cpu(torch, small, extra=extra)
+    f32_check(torch, failures, cfg.name, small, outs, f32_instances, {
+        "logits_shape": [B, 1, cfg.vocab_size] if shape_ok else None,
+        "finite": finite,
         "staged_vs_unstaged_max_err": staged_err, "staged_tol": 3e-2,
-        "small_model": {"layers": small.n_layers, "dtype": small.dtype,
-                        "kv_cache_dtype": small.kv_cache_dtype},
-        "small_f32_gpu_vs_cpu_max_err": small_err, "small_tol": 2e-3,
-        "small_f32_launches_by_instance": f32_instances,
-        "launches_per_decode_step": step}})
-    emit({"decode_step_profile": {
-        "model": cfg.name, **profile_step(torch, staged_step(spec)),
-        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}})
+        **({"staged_vs_unstaged": note} if note else {}),
+        "launches_per_decode_step": step})
+    emit({"decode_step_profile": profile})
     if not (shape_ok and finite):
-        failures.append(f"{cfg.name} served logits: shape "
-                        f"{tuple(logits.shape)}, finite {finite}")
+        failures.append(f"{cfg.name} served logits: shape not "
+                        f"(B, 1, vocab) or not finite ({finite})")
     if not staged_ok:
         failures.append(f"{cfg.name} staged vs unstaged decode: max_err "
                         f"{staged_err}")
-    if not small_ok:
-        failures.append(f"{cfg.name} cut-depth f32 GPU vs CPU: max_err "
-                        f"{small_err}")
     return f32_instances
 
 
@@ -1677,15 +1941,18 @@ def run_model(torch, model, params, tokens, steps: int, spare: int = 0):
     return pl, dls, cache, times
 
 
-def model_phase(torch, failures, cfg, kernels, spare: int = 0):
+def model_phase(torch, failures, cfg, kernels, spare: int = 0, before=None):
     """``cfg`` built with ``build_model`` on the card (random weights from
     seed 0), a prefill of ``PROMPT`` seeded tokens at batch ``B`` and
     ``DECODE_STEPS`` decode steps (``run_model``, with ``spare`` more
     slots in the cache); checks finite logits of
     the expected shapes and that each of ``kernels`` launched, no plain
-    version on the card. Returns the model, its parameters, the run, the
-    path's launches and its launches by instance; emits a ``model_run``
-    line and the profile of one more decode step."""
+    version on the card. ``before(model, params)``, where given, runs
+    first on the same counts and returns what the ``model_run`` line adds
+    (pixtral's forward over image embeddings). Returns the model, its
+    parameters, the run, the path's launches and its launches by
+    instance; emits a ``model_run`` line and the profile of one more
+    decode step."""
     import numpy as np
 
     from repro_torch.kernels import KERNELS, reset_counts
@@ -1699,6 +1966,7 @@ def model_phase(torch, failures, cfg, kernels, spare: int = 0):
     tokens = torch.from_numpy(np.random.default_rng(0).integers(
         0, cfg.vocab_size, (B, PROMPT))).cuda()
     reset_counts()
+    first = {} if before is None else before(model, params)
     run = run_model(torch, model, params, tokens, DECODE_STEPS, spare)
     launches = path_counts(KERNELS, kernels, cfg.name, failures)
     instances = {n: dict(KERNELS[n].counts.by_instance) for n in kernels
@@ -1717,7 +1985,7 @@ def model_phase(torch, failures, cfg, kernels, spare: int = 0):
                         for t in tree_leaves(params)) / 1e9,
         "init_s": init_s, "prefill_s": times[0], "decode_step_s": times[1:],
         "logits_ok": ok, "launches": launches,
-        "launches_by_instance": instances,
+        "launches_by_instance": instances, **first,
         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}})
     if not ok:
         failures.append(f"{cfg.name}: logits not finite or of another shape")
@@ -1949,6 +2217,318 @@ def int8_phase(torch, failures):
         failures.append(f"{cfg.name} cut-depth int8 caches: dequantized "
                         f"values {code_steps} code steps apart")
     return launches, inst
+
+
+def host_ram_allows(nbytes_needed: float) -> bool:
+    """Whether ``nbytes_needed`` fit in ``HOST_RAM_SHARE`` of the host's
+    available memory (``/proc/meminfo``)."""
+    try:
+        with open("/proc/meminfo") as f:
+            avail = next(int(ln.split()[1]) * 1024 for ln in f
+                         if ln.startswith("MemAvailable:"))
+    except (OSError, StopIteration):
+        return False
+    return nbytes_needed <= HOST_RAM_SHARE * avail
+
+
+def cut_f32_bytes(params) -> int:
+    """Bytes in f32 of the served moe model cut to its leading dense
+    layers and its first MoE layer, from the served parameters' leaves."""
+    from repro_torch.models import transformer
+
+    cut = {**params, "layers": transformer.index_tree(params["layers"], 0)}
+    return 4 * sum(t.numel() for t in tree_leaves(cut))
+
+
+def staged_chain(torch, n_stages: int = N_STAGES):
+    """``card_vs_cpu``'s extra: the staged decode chain of one zero token a
+    row from the prefill's cache, at the position after the prompt."""
+    from repro_torch.serving.staging import make_lm_stage_fns, slice_cache
+
+    def run(mdl, p, dev, donor):
+        fns = make_lm_stage_fns(mdl, n_stages=n_stages)
+        h = torch.zeros((2, 1), dtype=torch.int32, device=dev)
+        pos = torch.tensor([64], dtype=torch.int32, device=dev)
+        for i, fn in enumerate(fns):
+            h, _ = fn(p, h, slice_cache(mdl.cfg, donor, i, n_stages), pos)
+        return {"staged_chain": h}
+    return run
+
+
+def instance_share(inst: dict, kernel: str, want: str, launches: dict):
+    """Whether every launch of ``kernel`` on a path took instance
+    ``want``."""
+    return inst.get(kernel, {}).get(want, 0) == launches[kernel]
+
+
+def mla_phase(torch, failures):
+    """Step 12, this slice's main path: deepseek-v2-236b at full width
+    (MLA with q_lora 1536, kv_lora 512, rope 64 / nope 128 / v 128 at 128
+    heads; 160 routed experts top-6 of 1536 and 2 shared; dense d_ff
+    12288; vocab 102,400), depth cut to its dense layer and 4 MoE layers,
+    served staged as the LMs of steps 3 and 9 (the stages on the dense
+    expert oracle, the donor prefill on the capacity path). The donor
+    prefill's flash launches run at Dh 192 with H = KV = 128, which the
+    CUDA-core instance takes. R4 (ROADMAP.md §3): the stages never run the
+    dense layer and the last holds no layer, so the chain is held to the
+    unstaged decode that does the same (the MoE layers on the oracle over
+    the donor's cache, the dense layer skipped); a cut-depth f32 copy (the
+    dense layer and one MoE layer; its routed experts cut to 16 where the
+    host's memory would not hold the copy) gives the same staged chain
+    and the same unstaged prefill and decode logits on the card as on the
+    CPU."""
+    from repro_torch.models import transformer
+
+    model, params, spec, launches, inst = serving_phase(
+        torch, failures, MLA_ARCH, MLA_LAYERS, FAMILY_JPS, MLA_PATH,
+        max_load=MOE_MAX_LOAD)
+    if not instance_share(inst, "flash_attention", "cuda_core", launches):
+        failures.append(f"{MLA_ARCH}: flash launches by instance "
+                        f"{inst.get('flash_attention')}, not all cuda_core "
+                        f"(Dh 192)")
+    cfg = model.cfg
+
+    def r4(p, tok, donor):
+        pos = transformer.cache_length(cfg, donor)[None]
+        x, _ = transformer.run_layers(p["layers"], transformer.embed(
+            p, cfg, tok), cfg, pos, donor["layers"], moe_oracle=True)
+        return transformer.logits(p, cfg, x)
+
+    small = cfg.replace(n_layers=2, dtype="float32", kv_cache_dtype="float32")
+    if not host_ram_allows(2 * cut_f32_bytes(params)):
+        small = small.replace(n_experts=16)
+    output_checks(torch, model, params, spec, failures, unstaged=r4,
+                  small=small, extra=staged_chain(torch),
+                  note="R4: the MoE layers unstaged on the oracle, the "
+                       "dense layer skipped")
+    return launches, inst
+
+
+def gemma2_phase(torch, failures):
+    """Step 13: gemma2-27b at full width (d 4608, 32 / 16 heads at Dh 128,
+    d_ff 36,864, vocab 256,000 tied, window 4096, softcaps 50 / 30),
+    depth cut to 24 of 46 layers (12 local/global pairs, 3 a stage),
+    served staged as in step 12. Every flash launch must take the tensor
+    cores; the chain is held to the unstaged decode (no R4); one pair in
+    f32 on the card against the CPU, its chain too."""
+    model, params, spec, launches, inst = serving_phase(
+        torch, failures, GEMMA_ARCH, GEMMA_LAYERS, FAMILY_JPS, GEMMA2_PATH,
+        max_load=MOE_MAX_LOAD)
+    if not instance_share(inst, "flash_attention", "tensor_core", launches):
+        failures.append(f"{GEMMA_ARCH}: flash launches by instance "
+                        f"{inst.get('flash_attention')}, not all "
+                        f"tensor_core")
+    output_checks(torch, model, params, spec, failures,
+                  extra=staged_chain(torch))
+    return launches, inst
+
+
+def vlm_phase(torch, failures):
+    """Step 14: pixtral-12b at full width and depth (40 layers, d 5120, 32
+    / 8 heads at Dh 128): the no-cache ``forward`` over image embeddings
+    [2, 1024, 5120] drawn from a seed before 512 token embeddings, then a
+    prefill of 512 tokens at batch 4 and 4 decode steps
+    (``model_phase``). Finite logits of the expected shapes; every flash
+    launch on the tensor cores; 2 layers in f32 on the card against the
+    CPU, with a forward over 16 image embeddings."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer
+
+    cfg = get_config(VLM_ARCH)
+    n_img = cfg.n_image_tokens
+
+    def embeds_forward(model, params, n=n_img, batch=VLM_BATCH, seed=3):
+        dev = params["embed"].device
+        rng = np.random.default_rng(seed)
+        img = torch.from_numpy(rng.standard_normal(
+            (batch, n, model.cfg.d_model)).astype(np.float32) * 0.02)
+        tok = torch.from_numpy(rng.integers(
+            0, model.cfg.vocab_size, (batch, VLM_SEQ - n_img)))
+        emb = torch.cat([img.to(dev, params["embed"].dtype),
+                         params["embed"][tok.to(dev)]], dim=1)
+        return transformer.forward(params, model.cfg, embeds=emb)[0]
+
+    def first(model, params):
+        t0 = time.perf_counter()
+        logits = embeds_forward(model, params)
+        torch.cuda.synchronize()
+        want = (VLM_BATCH, VLM_SEQ, cfg.vocab_size)
+        ok = (tuple(logits.shape) == want
+              and bool(torch.isfinite(logits).all()))
+        if not ok:
+            failures.append(f"{cfg.name}: forward over image embeddings "
+                            f"gave {tuple(logits.shape)}, not {want}, or "
+                            f"not finite")
+        return {"embeds_forward": {"image_tokens": n_img,
+                                   "batch": VLM_BATCH, "seq": VLM_SEQ,
+                                   "s": time.perf_counter() - t0,
+                                   "logits_ok": ok}}
+
+    model, params, _, launches, inst = model_phase(torch, failures, cfg,
+                                                   VLM_PATH, before=first)
+    if not instance_share(inst, "flash_attention", "tensor_core", launches):
+        failures.append(f"{cfg.name}: flash launches by instance "
+                        f"{inst.get('flash_attention')}, not all "
+                        f"tensor_core")
+    del model, params
+    free_card(torch)
+    small = cfg.replace(n_layers=2, dtype="float32", kv_cache_dtype="float32")
+    outs, small_inst = card_vs_cpu(torch, small, extra=lambda m, p, dev, _: {
+        "embeds_forward": embeds_forward(m, p, n=16, seed=4)})
+    f32_check(torch, failures, cfg.name, small, outs, small_inst)
+    return launches, inst
+
+
+def f32_check(torch, failures, name, small, outs, inst,
+              more=None) -> None:
+    """Emit the card-against-CPU line of a cut f32 copy (after the fields
+    ``more``); fail past ``SMALL_TOL``."""
+    err, ok = logits_err(torch, outs, SMALL_TOL)
+    emit({"output_check": {
+        "model": name, **(more or {}),
+        "small_model": {"layers": small.n_layers, "dtype": small.dtype,
+                        "kv_cache_dtype": small.kv_cache_dtype,
+                        "d_model": small.d_model,
+                        **({"n_experts": small.n_experts}
+                           if small.n_experts else {})},
+        "small_f32_gpu_vs_cpu_max_err": err, "small_tol": SMALL_TOL,
+        "small_f32_compared": ["prefill", "decode", *outs[0][3]],
+        "small_f32_launches_by_instance": inst}})
+    if not ok:
+        failures.append(f"{name} cut-depth f32 GPU vs CPU: max_err {err}")
+
+
+def encdec_phase(torch, failures):
+    """Step 15: whisper-tiny at full width and depth (4 + 4 layers, d 384,
+    6 heads at Dh 64, 1500 frames, vocab 51,865): ``encode`` of seeded
+    frames [4, 1500, 384], a prefill of 64 tokens (which encodes them
+    again) and 4 ``decode_step``s against the encoder states. The
+    encoder's flash launches are non-causal at S 1500 (ragged) on the
+    tensor cores, the cross-attention's run at S_kv 1500; every flash
+    launch on the tensor cores. The whole model in f32 on the card
+    against the CPU."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import KERNELS, reset_counts
+    from repro_torch.models import build_model
+
+    cfg = get_config(ENCDEC_ARCH)
+    model = build_model(cfg)
+    params = model.init_params(0)
+    rng = np.random.default_rng(0)
+    frames = torch.from_numpy(rng.standard_normal(
+        (B, cfg.encoder_frames, cfg.d_model)).astype(np.float32)).cuda().to(
+        params["embed"].dtype)
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (B, ENC_PROMPT + DECODE_STEPS))).cuda()
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    enc = model.encode(params, frames)
+    torch.cuda.synchronize()
+    times = {"encode_s": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    pl, cache = model.prefill(params, {
+        "frames": frames, "tokens": tokens[:, :ENC_PROMPT],
+        "cache": model.init_cache(B, ENC_PROMPT + DECODE_STEPS)})
+    torch.cuda.synchronize()
+    times["prefill_s"] = time.perf_counter() - t0
+    dls, steps = [], []
+    for i in range(DECODE_STEPS):
+        t0 = time.perf_counter()
+        dl, cache = model.decode_step(params, {
+            "tokens": tokens[:, ENC_PROMPT + i:ENC_PROMPT + i + 1],
+            "enc_out": enc, "cache": cache})
+        torch.cuda.synchronize()
+        steps.append(time.perf_counter() - t0)
+        dls.append(dl)
+    launches = path_counts(KERNELS, ENCDEC_PATH, cfg.name, failures)
+    inst = {n: dict(KERNELS[n].counts.by_instance) for n in ENCDEC_PATH
+            if KERNELS[n].counts.by_instance}
+    fa_shapes = PATH_SHAPES[cfg.name].get("flash_attention", {})
+    frames_n = cfg.encoder_frames
+    encoder = sum(n for k, n in fa_shapes.items()
+                  if k.startswith("tensor_core ") and f" S{frames_n} " in k
+                  and k.endswith(" full"))
+    cross = sum(n for k, n in fa_shapes.items()
+                if f" Skv{frames_n} full" in k)
+    # the encoder runs twice (encode, then inside prefill); cross-attention
+    # once a decoder layer a call
+    want_enc = 2 * cfg.n_encoder_layers
+    want_cross = cfg.n_layers * (1 + DECODE_STEPS)
+    ok = (tuple(pl.shape) == (B, ENC_PROMPT, cfg.vocab_size)
+          and tuple(enc.shape) == (B, cfg.encoder_frames, cfg.d_model)
+          and all(tuple(d.shape) == (B, 1, cfg.vocab_size) for d in dls)
+          and all(bool(torch.isfinite(t).all()) for t in (enc, pl, *dls)))
+    emit({"model_run": {
+        "model": cfg.name, "family": cfg.family, "layers": cfg.n_layers,
+        "encoder_layers": cfg.n_encoder_layers, "d_model": cfg.d_model,
+        "batch": B, "frames": cfg.encoder_frames, "prompt_len": ENC_PROMPT,
+        "decode_steps": DECODE_STEPS,
+        "params": sum(t.numel() for t in tree_leaves(params)),
+        **times, "decode_step_s": steps, "logits_ok": ok,
+        "encoder_flash_noncausal_s1500": encoder,
+        "cross_attention_flash_skv1500": cross,
+        "launches": launches, "launches_by_instance": inst,
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}})
+    if not ok:
+        failures.append(f"{cfg.name}: outputs not finite or of another "
+                        f"shape")
+    if encoder != want_enc or cross != want_cross:
+        failures.append(f"{cfg.name}: {encoder} non-causal S {frames_n} "
+                        f"encoder launches on the tensor cores (want "
+                        f"{want_enc}) and {cross} cross-attention launches "
+                        f"at S_kv {frames_n} (want {want_cross}): "
+                        f"{fa_shapes}")
+    if not instance_share(inst, "flash_attention", "tensor_core", launches):
+        failures.append(f"{cfg.name}: flash launches by instance "
+                        f"{inst.get('flash_attention')}, not all "
+                        f"tensor_core")
+    tok = tokens[:, -1:]
+    emit({"decode_step_profile": {"model": cfg.name, **profile_step(
+        torch, lambda: model.decode_step(params, {
+            "tokens": tok, "enc_out": enc, "cache": cache}))}})
+    del model, params, enc, cache
+    free_card(torch)
+    small = cfg.replace(dtype="float32", kv_cache_dtype="float32")
+    outs, small_inst = card_vs_cpu(torch, small)
+    f32_check(torch, failures, cfg.name, small, outs, small_inst)
+    return launches, inst
+
+
+def dh160_check(torch, failures) -> None:
+    """stablelm-12b at full width (d 5120, 32 / 8 heads at Dh 160, d_ff
+    13,824, vocab 100,352), 2 layers in f32: a 64-token prompt and 2
+    decode steps on the card against the CPU. Its flash launches take the
+    CUDA-core instance (no tensor-core tile is 160 wide)."""
+    from repro_torch.configs import get_config
+
+    small = get_config(DH160_ARCH).replace(n_layers=2, dtype="float32",
+                                           kv_cache_dtype="float32")
+    outs, inst = card_vs_cpu(torch, small, steps=2)
+    f32_check(torch, failures, DH160_ARCH, small, outs, inst)
+    if set(inst.get("flash_attention", {})) != {"cuda_core"}:
+        failures.append(f"{DH160_ARCH}: flash launches by instance "
+                        f"{inst.get('flash_attention')}, not cuda_core")
+
+
+def family_paths(torch, failures, seconds, peaks) -> dict:
+    """Steps 12-15 and the Dh 160 check, each model freed before the next;
+    {path: (launches, launches by instance)}."""
+    paths = {}
+    for key, run in (("mla", mla_phase), ("gemma2", gemma2_phase),
+                     ("vlm", vlm_phase), ("encdec", encdec_phase)):
+        free_card(torch)
+        with timed_phase(torch, f"{key}_path", seconds, peaks):
+            paths[key] = run(torch, failures)
+    free_card(torch)
+    with timed_phase(torch, "dh160_check", seconds, peaks):
+        dh160_check(torch, failures)
+    free_card(torch)
+    return paths
 
 
 def cnn_serving_phase(torch, failures, name, trace=False):
@@ -2333,18 +2913,21 @@ def serve_repeats(torch, arch: str, repeats: int, trace: bool) -> int:
     the card did during each run."""
     from repro_torch.kernels import _lib
     _lib.lib()
-    path = SSM_PATH if arch.startswith("mamba2") else DENSE_PATH
-    jps = {"mamba2-2.7b": SSM_JPS, MOE_ARCH: MOE_JPS}.get(arch, JPS)
+    path = {"mamba2-2.7b": SSM_PATH, MLA_ARCH: MLA_PATH}.get(arch,
+                                                          DENSE_PATH)
+    jps = {"mamba2-2.7b": SSM_JPS, MOE_ARCH: MOE_JPS, MLA_ARCH: FAMILY_JPS,
+           GEMMA_ARCH: FAMILY_JPS}.get(arch, JPS)
+    depth = {MLA_ARCH: MLA_LAYERS, GEMMA_ARCH: GEMMA_LAYERS}.get(arch)
+    heavy = arch in (MOE_ARCH, MLA_ARCH, GEMMA_ARCH)
     runs = []
     for i in range(repeats):
         failures = []
         if arch in CNN_WIDTHS:
             cnn_serving_phase(torch, failures, arch, trace=trace)
         else:
-            serving_phase(torch, failures, arch, None, jps, path,
-                          trace=trace, max_load=(MOE_MAX_LOAD
-                                                 if arch == MOE_ARCH
-                                                 else None))
+            serving_phase(torch, failures, arch, depth, jps, path,
+                          trace=trace,
+                          max_load=MOE_MAX_LOAD if heavy else None)
         free_card(torch)
         try:
             clocks = subprocess.run(
@@ -2366,8 +2949,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--serve", metavar="ARCH",
                     help="only this model's serving phase (smollm-135m, "
-                         "mamba2-2.7b, qwen2-moe-a2.7b, resnet18, unet or "
-                         "inceptionv3), --repeats times")
+                         "mamba2-2.7b, qwen2-moe-a2.7b, deepseek-v2-236b, "
+                         "gemma2-27b, resnet18, unet or inceptionv3), "
+                         "--repeats times")
     ap.add_argument("--epoch", action="store_true",
                     help="only the epoch phase, --repeats times")
     ap.add_argument("--cluster", action="store_true",
@@ -2378,6 +2962,9 @@ def main() -> int:
     ap.add_argument("--lm-paths", action="store_true",
                     help="only the kernel phase and the moe, hybrid and "
                          "int8 phases, --repeats times")
+    ap.add_argument("--families", action="store_true",
+                    help="only the kernel phase, steps 12-15 and the Dh "
+                         "160 check, --repeats times")
     ap.add_argument("--repeats", type=int, default=1)
     ap.add_argument("--trace", action="store_true",
                     help="with --serve: each run under torch.profiler")
@@ -2412,15 +2999,17 @@ def main() -> int:
     emit({"build": {"seconds": build_s, "ptxas": ptxas}})
     if args.serve:
         return serve_repeats(torch, args.serve, args.repeats, args.trace)
-    if args.epoch or args.cluster or args.resume or args.lm_paths:
+    if (args.epoch or args.cluster or args.resume or args.lm_paths
+            or args.families):
         failures = []
         for _ in range(args.repeats):
-            if args.lm_paths:
+            if args.lm_paths or args.families:
                 seconds, peaks = {}, {}
                 with timed_phase(torch, "kernels", seconds, peaks):
                     rows = kernel_phase(torch, F, failures)
-                shape_coverage(rows, lm_paths(torch, failures, seconds,
-                                              peaks), failures)
+                run = lm_paths if args.lm_paths else family_paths
+                shape_coverage(rows, run(torch, failures, seconds, peaks),
+                               failures)
                 emit({"phase_seconds": seconds})
                 emit({"phase_peak_memory_gb": peaks})
             elif args.epoch:
@@ -2471,12 +3060,13 @@ def main() -> int:
             failures.append(f"mamba2-2.7b: bf16 SSD launches by kernel "
                             f"{ssd_inst}, not all tensor_core (a state pass "
                             f"and an output kernel a call)")
-        f32_check = output_checks(torch, model, params, spec, failures)
+        ssm_f32 = output_checks(torch, model, params, spec, failures)
         del model, params, spec
         torch.cuda.empty_cache()
         paths["ssm"] = (ssm, ssm_inst)
 
     paths.update(lm_paths(torch, failures, seconds, peaks))
+    paths.update(family_paths(torch, failures, seconds, peaks))
 
     for dnn in CNN_WIDTHS:
         with phase(f"{dnn}_path"):
@@ -2539,7 +3129,7 @@ def main() -> int:
             entry["launches_by_path"] = {p: n for p, n in per.items() if n}
             entry["launches_of"] = f"{kname} at {' and '.join(keys)}"
         if rname == "ssd_cuda_core":   # bf16 serving takes the tensor cores
-            entry["launches_f32_output_check"] = f32_check.get(
+            entry["launches_f32_output_check"] = ssm_f32.get(
                 "ssd", {}).get("cuda_core", 0)
         kernels.append(entry)
     for f in failures:

@@ -1,13 +1,24 @@
-"""Config registry of the port: the architectures it can build so far."""
+"""Config registry of the port: every architecture the JAX package
+builds."""
 from __future__ import annotations
 
-from . import (mamba2_27b, qwen2_moe_a27b, qwen15_32b, smollm_135m,
-               zamba2_7b)
+from . import (deepseek_v2_236b, gemma2_27b, mamba2_27b, pixtral_12b,
+               qwen15_32b, qwen2_moe_a27b, smollm_135m, stablelm_12b,
+               whisper_tiny, zamba2_7b)
 from .base import SHAPES, ArchConfig, ShapeCell, shape_by_name
 
-_MODULES = {"qwen1.5-32b": qwen15_32b, "smollm-135m": smollm_135m,
-            "zamba2-7b": zamba2_7b, "mamba2-2.7b": mamba2_27b,
-            "qwen2-moe-a2.7b": qwen2_moe_a27b}
+_MODULES = {
+    "qwen1.5-32b": qwen15_32b,
+    "gemma2-27b": gemma2_27b,
+    "stablelm-12b": stablelm_12b,
+    "smollm-135m": smollm_135m,
+    "zamba2-7b": zamba2_7b,
+    "mamba2-2.7b": mamba2_27b,
+    "deepseek-v2-236b": deepseek_v2_236b,
+    "qwen2-moe-a2.7b": qwen2_moe_a27b,
+    "whisper-tiny": whisper_tiny,
+    "pixtral-12b": pixtral_12b,
+}
 
 ARCH_IDS = tuple(_MODULES)
 

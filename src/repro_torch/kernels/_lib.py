@@ -44,13 +44,13 @@ _SIGNATURES = {
     # window, softcap, chunk, n_split, dtype, stream
     "repro_decode_attention": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                _P, _F, _I, _F, _I, _I, _I, _P),
-    # q, k, v, out, B, H, KV, S, Dh, strides, scale, causal, window, softcap,
-    # dtype, stream
-    "repro_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _F, _I,
-                              _I, _F, _I, _P),
+    # q, k, v, out, B, H, KV, S, S_kv, Dh, strides, scale, causal, window,
+    # softcap, dtype, stream
+    "repro_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _F,
+                              _I, _I, _F, _I, _P),
     # the same without dtype (bf16 only)
-    "repro_flash_attention_wgmma": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P,
-                                    _F, _I, _I, _F, _P),
+    "repro_flash_attention_wgmma": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                    _P, _F, _I, _I, _F, _P),
     # in [4, m] (rows ld_in apart), ld_in, out [3, m], ld_out, ws, m, now,
     # n_units, bubble, l2p, compensated, tiled, dtype, stream
     "repro_contention_eta": (_P, _LL, _P, _LL, _P, _LL, _D, _D, _D, _D, _I,
@@ -215,6 +215,25 @@ def dtype_name(t: torch.Tensor) -> str:
     """``bfloat16``, ``float32``, ...: a dtype as a launch's shape key
     names it."""
     return str(t.dtype).replace("torch.", "")
+
+
+def options_key(*, s_kv=None, full: bool = False, window: int = 0,
+                softcap: float = 0.0) -> str:
+    """The part of an attention launch's shape key that names what it
+    masks and caps: `` Skv{n}`` where the keys' length differs from the
+    queries' (``s_kv`` is the pair (keys, queries)), `` full`` for a
+    non-causal launch, `` window`` and `` softcap`` where set; empty for
+    the plain causal launch."""
+    key = ""
+    if s_kv is not None and s_kv[0] != s_kv[1]:
+        key += f" Skv{s_kv[0]}"
+    if full:
+        key += " full"
+    if window > 0:
+        key += " window"
+    if softcap > 0.0:
+        key += " softcap"
+    return key
 
 
 def require_cuda(name: str, *tensors: torch.Tensor) -> None:

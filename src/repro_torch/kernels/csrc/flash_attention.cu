@@ -1,5 +1,7 @@
-// Prefill (flash) attention for Hopper: causal, grouped-query heads,
-// optional sliding window and tanh softcap, f32 online softmax.
+// Prefill (flash) attention for Hopper: causal or not, grouped-query heads,
+// optional sliding window and tanh softcap, f32 online softmax. Keys and
+// values may be of their own length S_kv (cross-attention, non-causal
+// only); query row i and key j sit at positions i and j.
 //
 // Replaces the Pallas kernel flash_attention
 // (src/repro/kernels/flash_attention.py, body _flash_kernel). One block per
@@ -8,8 +10,8 @@
 // stops at the tile holding the block's last query row, and a window starts
 // it at the first tile the window reaches: those tiles are fully masked for
 // every row, and each row sees at least its own key, so skipping them
-// changes no result (the TPU kernel computes them anyway). Ragged S is
-// masked in the kernel: no divisibility requirement.
+// changes no result (the TPU kernel computes them anyway). Ragged S and
+// S_kv are masked in the kernel: no divisibility requirement.
 //
 // What bounds it on the H100: a causal prefill of S tokens does about
 // 2 S^2 Dh operations per head against 4 S Dh values moved; at S = 512,
@@ -52,7 +54,7 @@ constexpr int THREADS = 256;
 template <typename T, bool VEC>
 __global__ void flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
                              const T* __restrict__ v, T* __restrict__ out,
-                             int H, int KV, int S, int Dh,
+                             int H, int KV, int S, int Skv, int Dh,
                              long long q_sb, long long q_sh, long long q_ss,
                              long long k_sb, long long k_sh, long long k_ss,
                              long long v_sb, long long v_sh, long long v_ss,
@@ -85,16 +87,16 @@ __global__ void flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   const int q_last = min(q0 + BQ, S) - 1;
-  const int k_end = causal ? q_last + 1 : S;
+  const int k_end = causal ? q_last + 1 : Skv;
   const int k_begin = window > 0 ? max(0, q0 - window + 1) / BK * BK : 0;
   for (int k0 = k_begin; k0 < k_end; k0 += BK) {
     __syncthreads();  // previous tile fully consumed; init visible
-    load_kv_tile<T, VEC, THREADS>(ks, vs, kb, vb, k_ss, v_ss, k0, BK, S, Dh);
+    load_kv_tile<T, VEC, THREADS>(ks, vs, kb, vb, k_ss, v_ss, k0, BK, Skv, Dh);
     __syncthreads();
     for (int i = tid; i < BQ * BK; i += THREADS) {
       const int r = i / BK, j = i % BK, qi = q0 + r, kj = k0 + j;
       float s = -INFINITY;
-      if (kj < S) {
+      if (kj < Skv) {
         const float dot = dot_f32(qs + r * Dh, ks + j * (Dh + 1), Dh, 1);
         bool ok = !causal || kj <= qi;
         if (window > 0) ok = ok && (qi - kj < window);
@@ -141,29 +143,29 @@ __global__ void flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, bool VEC>
 static int launch_as(const void* q, const void* k, const void* v, void* out, int B, int H,
-                     int KV, int S, int Dh, const long long* st, float scale, int causal,
-                     int window, float softcap, cudaStream_t stream) {
+                     int KV, int S, int Skv, int Dh, const long long* st, float scale,
+                     int causal, int window, float softcap, cudaStream_t stream) {
   const size_t smem = sizeof(float) *
       ((size_t)BQ * Dh + BK * (Dh + 1) + BK * Dh + BQ * BK + BQ * Dh + 3 * BQ);
   cudaError_t err = allow_smem(flash_kernel<T, VEC>, smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((S + BQ - 1) / BQ, H, B);
   flash_kernel<T, VEC><<<grid, THREADS, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)out, H, KV, S, Dh, st[0], st[1], st[2],
-      st[3], st[4], st[5], st[6], st[7], st[8], scale, causal, window, softcap);
+      (const T*)q, (const T*)k, (const T*)v, (T*)out, H, KV, S, Skv, Dh, st[0], st[1],
+      st[2], st[3], st[4], st[5], st[6], st[7], st[8], scale, causal, window, softcap);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 static int launch(const void* q, const void* k, const void* v, void* out, int B, int H,
-                  int KV, int S, int Dh, const long long* st, float scale, int causal,
-                  int window, float softcap, cudaStream_t stream) {
+                  int KV, int S, int Skv, int Dh, const long long* st, float scale,
+                  int causal, int window, float softcap, cudaStream_t stream) {
   // K/V strides only (st[3..8]): q is read scalar
   if (vec_ok<T>(Dh, k, v, st + 3, 6))
-    return launch_as<T, true>(q, k, v, out, B, H, KV, S, Dh, st, scale, causal, window,
-                              softcap, stream);
-  return launch_as<T, false>(q, k, v, out, B, H, KV, S, Dh, st, scale, causal, window,
-                             softcap, stream);
+    return launch_as<T, true>(q, k, v, out, B, H, KV, S, Skv, Dh, st, scale, causal,
+                              window, softcap, stream);
+  return launch_as<T, false>(q, k, v, out, B, H, KV, S, Skv, Dh, st, scale, causal,
+                             window, softcap, stream);
 }
 
 }  // namespace cuda_core
@@ -181,9 +183,9 @@ constexpr float LOG2E = 1.4426950408889634f;
 // The softmax runs in base 2 (exp2 is one instruction): logits times
 // log2(e). Masked logits stay exactly MASKED, the running max's start, so a
 // row that sees no key still weighs every key alike.
-__device__ __forceinline__ float logit2(float dot, int qi, int kj, int S, float scale,
+__device__ __forceinline__ float logit2(float dot, int qi, int kj, int Skv, float scale,
                                         int causal, int window, float softcap) {
-  if (kj >= S) return -INFINITY;
+  if (kj >= Skv) return -INFINITY;
   bool ok = !causal || kj <= qi;
   if (window > 0) ok = ok && (qi - kj < window);
   return ok ? attn_logit(dot, scale, softcap, true) * LOG2E : MASKED;
@@ -195,9 +197,10 @@ template <int DH>
 __global__ void __launch_bounds__(THREADS)
     flash_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                        const bf16* __restrict__ v, bf16* __restrict__ out, int H, int KV,
-                       int S, long long q_sb, long long q_sh, long long q_ss, long long k_sb,
-                       long long k_sh, long long k_ss, long long v_sb, long long v_sh,
-                       long long v_ss, float scale, int causal, int window, float softcap) {
+                       int S, int Skv, long long q_sb, long long q_sh, long long q_ss,
+                       long long k_sb, long long k_sh, long long k_ss, long long v_sb,
+                       long long v_sh, long long v_ss, float scale, int causal, int window,
+                       float softcap) {
   constexpr int TILE = BK * DH * 2;   // bytes of one [64, DH] bf16 tile
   constexpr int NO = DH / 2;          // O accumulator floats per thread
   extern __shared__ unsigned char tc_smem[];
@@ -211,13 +214,13 @@ __global__ void __launch_bounds__(THREADS)
   const bf16* vb = v + b * v_sb + kvh * v_sh;
 
   const int q_last = min(q0 + BQ, S) - 1;
-  const int k_end = causal ? q_last + 1 : S;
+  const int k_end = causal ? q_last + 1 : Skv;
   const int k_begin = window > 0 ? max(0, q0 - window + 1) / BK * BK : 0;
   const int n_tiles = (k_end - k_begin + BK - 1) / BK;
 
   load_tile<DH>(qs, qb, q_ss, q0, S);
-  load_tile<DH>(base + TILE, kb, k_ss, k_begin, S);
-  load_tile<DH>(base + 2 * TILE, vb, v_ss, k_begin, S);
+  load_tile<DH>(base + TILE, kb, k_ss, k_begin, Skv);
+  load_tile<DH>(base + 2 * TILE, vb, v_ss, k_begin, Skv);
   cp_async_commit();
 
   float o[NO];
@@ -233,8 +236,8 @@ __global__ void __launch_bounds__(THREADS)
     const uint32_t ks = base + TILE * (1 + 2 * (t & 1)), vs = ks + TILE;
     if (t + 1 < n_tiles) {   // the next tile into the other stage
       const uint32_t kn = base + TILE * (1 + 2 * ((t + 1) & 1));
-      load_tile<DH>(kn, kb, k_ss, k0 + BK, S);
-      load_tile<DH>(kn + TILE, vb, v_ss, k0 + BK, S);
+      load_tile<DH>(kn, kb, k_ss, k0 + BK, Skv);
+      load_tile<DH>(kn + TILE, vb, v_ss, k0 + BK, Skv);
     }
     cp_async_commit();
     cp_async_wait<1>();      // all but the newest group (tile t + 1) landed
@@ -255,7 +258,7 @@ __global__ void __launch_bounds__(THREADS)
     fence_regs(s);
 
     // a tile that every row of the block sees whole needs no per-element mask
-    const bool whole = k0 + BK <= S && (!causal || k0 + BK - 1 <= q0) &&
+    const bool whole = k0 + BK <= Skv && (!causal || k0 + BK - 1 <= q0) &&
                        (window <= 0 || q0 + BQ - 1 - k0 < window) && softcap <= 0.f;
     if (whole) {
 #pragma unroll
@@ -266,9 +269,9 @@ __global__ void __launch_bounds__(THREADS)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int kj = k0 + 8 * j + cq + e;
-          s[4 * j + e] = logit2(s[4 * j + e], r0, kj, S, scale, causal, window, softcap);
+          s[4 * j + e] = logit2(s[4 * j + e], r0, kj, Skv, scale, causal, window, softcap);
           s[4 * j + 2 + e] =
-              logit2(s[4 * j + 2 + e], r1, kj, S, scale, causal, window, softcap);
+              logit2(s[4 * j + 2 + e], r1, kj, Skv, scale, causal, window, softcap);
         }
       }
     }
@@ -343,15 +346,16 @@ __global__ void __launch_bounds__(THREADS)
 
 template <int DH>
 static int launch(const void* q, const void* k, const void* v, void* out, int B, int H,
-                  int KV, int S, const long long* st, float scale, int causal, int window,
-                  float softcap, cudaStream_t stream) {
+                  int KV, int S, int Skv, const long long* st, float scale, int causal,
+                  int window, float softcap, cudaStream_t stream) {
   const size_t smem = 1024 + (size_t)BK * DH * 2 * 5;   // alignment, Q, 2 x (K, V)
   cudaError_t err = allow_smem(flash_wgmma_kernel<DH>, smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((S + BQ - 1) / BQ, H, B);
   flash_wgmma_kernel<DH><<<grid, THREADS, smem, stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)out, H, KV, S, st[0], st[1],
-      st[2], st[3], st[4], st[5], st[6], st[7], st[8], scale, causal, window, softcap);
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)out, H, KV, S, Skv, st[0],
+      st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], scale, causal, window,
+      softcap);
   return (int)cudaGetLastError();
 }
 
@@ -359,19 +363,21 @@ static int launch(const void* q, const void* k, const void* v, void* out, int B,
 
 // The CUDA-core instance. strides (in elements): q_sb, q_sh, q_ss, k_sb,
 // k_sh, k_ss, v_sb, v_sh, v_ss; the head dimension is contiguous in q, k
-// and v; out is contiguous [B, H, S, Dh].
+// and v; out is contiguous [B, H, S, Dh]. K and V hold S_kv rows, which
+// must be S when causal.
 extern "C" int repro_flash_attention(const void* q, const void* k, const void* v,
-                                     void* out, int B, int H, int KV, int S, int Dh,
-                                     const long long* strides, float scale, int causal,
-                                     int window, float softcap, int dtype, void* stream) {
+                                     void* out, int B, int H, int KV, int S, int Skv,
+                                     int Dh, const long long* strides, float scale,
+                                     int causal, int window, float softcap, int dtype,
+                                     void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (KV <= 0 || H % KV != 0) return (int)cudaErrorInvalidValue;
+  if (KV <= 0 || H % KV != 0 || (causal && Skv != S)) return (int)cudaErrorInvalidValue;
   if (dtype == DT_F32)
-    return cuda_core::launch<float>(q, k, v, out, B, H, KV, S, Dh, strides, scale, causal,
-                                    window, softcap, s);
+    return cuda_core::launch<float>(q, k, v, out, B, H, KV, S, Skv, Dh, strides, scale,
+                                    causal, window, softcap, s);
   if (dtype == DT_BF16)
-    return cuda_core::launch<__nv_bfloat16>(q, k, v, out, B, H, KV, S, Dh, strides, scale,
-                                            causal, window, softcap, s);
+    return cuda_core::launch<__nv_bfloat16>(q, k, v, out, B, H, KV, S, Skv, Dh, strides,
+                                            scale, causal, window, softcap, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -379,19 +385,19 @@ extern "C" int repro_flash_attention(const void* q, const void* k, const void* v
 // multiple of 8 elements and every base 16-byte aligned (the wrapper's
 // flash_instance checks the same before it calls this entry).
 extern "C" int repro_flash_attention_wgmma(const void* q, const void* k, const void* v,
-                                           void* out, int B, int H, int KV, int S, int Dh,
-                                           const long long* strides, float scale,
+                                           void* out, int B, int H, int KV, int S, int Skv,
+                                           int Dh, const long long* strides, float scale,
                                            int causal, int window, float softcap,
                                            void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (KV <= 0 || H % KV != 0) return (int)cudaErrorInvalidValue;
+  if (KV <= 0 || H % KV != 0 || (causal && Skv != S)) return (int)cudaErrorInvalidValue;
   if ((size_t)q % 16 || !vec_ok<__nv_bfloat16>(Dh, k, v, strides, 9))
     return (int)cudaErrorInvalidValue;
   if (Dh == 64)
-    return tensor_core::launch<64>(q, k, v, out, B, H, KV, S, strides, scale, causal,
+    return tensor_core::launch<64>(q, k, v, out, B, H, KV, S, Skv, strides, scale, causal,
                                    window, softcap, s);
   if (Dh == 128)
-    return tensor_core::launch<128>(q, k, v, out, B, H, KV, S, strides, scale, causal,
-                                    window, softcap, s);
+    return tensor_core::launch<128>(q, k, v, out, B, H, KV, S, Skv, strides, scale,
+                                    causal, window, softcap, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -133,7 +133,8 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         _lib.check(err, name)
         # the C entry launched both kernels: count each, with its grid (the
         # shape leaves out the cache's slots, which only set the split)
-        shape = f"B{b} H{h} KV{kvh} Dh{dh} {_lib.dtype_name(q)}"
+        shape = (f"B{b} H{h} KV{kvh} Dh{dh} {_lib.dtype_name(q)}"
+                 + _lib.options_key(window=window, softcap=softcap))
         decode_attention.counts.launched("split", (n_split, kvh, b), shape)
         decode_attention.counts.launched("combine", (h, b), shape)
     return out

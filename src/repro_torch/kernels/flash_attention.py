@@ -27,8 +27,12 @@ after a failure):
   tolerance; other head dimensions; unaligned strides or bases): products
   on the f32 CUDA cores from f32 tiles in shared memory.
 
-Both keep the [S, S] scores on chip with an f32 online softmax and skip the
-KV tiles that the causal mask or the window hide entirely.
+Both keep the [S, S_kv] scores on chip with an f32 online softmax and skip
+the KV tiles that the causal mask or the window hide entirely. Keys and
+values may be of their own length S_kv when the call is not causal
+(whisper's cross-attention to its encoder states, which the reference
+computes outside any kernel); query row i and key j sit at positions i
+and j.
 """
 from __future__ import annotations
 
@@ -45,10 +49,11 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           *, causal: bool = True, window: int = 0,
                           softcap: float = 0.0,
                           scale: Optional[float] = None) -> torch.Tensor:
-    """q [B,H,S,Dh], k/v [B,KV,S,Dh] -> [B,H,S,Dh]; f32 softmax."""
+    """q [B,H,S,Dh], k/v [B,KV,S_kv,Dh] -> [B,H,S,Dh]; f32 softmax. Query
+    row i and key j sit at positions i and j."""
     flash_attention.counts.plain(q)
     b, h, s, dh = q.shape
-    kvh = k.shape[1]
+    kvh, s_kv = k.shape[1], k.shape[2]
     g = h // kvh
     if scale is None:
         scale = dh ** -0.5
@@ -56,9 +61,9 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     logits = torch.einsum("bkgqd,bktd->bkgqt", qg, k.float()) * scale
     if softcap > 0.0:
         logits = softcap * torch.tanh(logits / softcap)
-    pos = torch.arange(s, device=q.device)
-    qpos, kpos = pos[:, None], pos[None, :]
-    ok = torch.ones((s, s), dtype=torch.bool, device=q.device)
+    qpos = torch.arange(s, device=q.device)[:, None]
+    kpos = torch.arange(s_kv, device=q.device)[None, :]
+    ok = torch.ones((s, s_kv), dtype=torch.bool, device=q.device)
     if causal:
         ok = ok & (kpos <= qpos)
     if window > 0:
@@ -89,21 +94,24 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
                     softcap: float = 0.0,
                     scale: Optional[float] = None) -> torch.Tensor:
-    """q: [B, H, S, Dh]; k/v: [B, KV, S, Dh], any strides with Dh
-    contiguous -> contiguous [B, H, S, Dh].
+    """q: [B, H, S, Dh]; k/v: [B, KV, S_kv, Dh], any strides with Dh
+    contiguous -> contiguous [B, H, S, Dh]. ``S_kv`` may differ from
+    ``S`` only when ``causal`` is false (cross-attention).
 
     CPU tensors take the plain version; CUDA tensors launch the instance
     that ``flash_instance`` names."""
+    name = "flash_attention"
+    b, h, s, dh = q.shape
+    if (k.dim() != 4 or k.shape != v.shape or k.shape[0] != b
+            or k.shape[3] != dh or h % k.shape[1]
+            or (causal and k.shape[2] != s)):
+        raise ValueError(f"{name}: q {tuple(q.shape)} with k "
+                         f"{tuple(k.shape)} / v {tuple(v.shape)} (causal="
+                         f"{causal} needs as many keys as queries)")
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      softcap=softcap, scale=scale)
-    name = "flash_attention"
     _lib.require_cuda(name, q, k, v)
-    b, h, s, dh = q.shape
-    if (k.dim() != 4 or k.shape != v.shape or k.shape[0] != b
-            or k.shape[2] != s or k.shape[3] != dh or h % k.shape[1]):
-        raise ValueError(f"{name}: q {tuple(q.shape)} with k "
-                         f"{tuple(k.shape)} / v {tuple(v.shape)}")
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"{name}: q/k/v dtypes differ ({q.dtype}, {k.dtype}, "
                         f"{v.dtype})")
@@ -111,11 +119,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"{name}: the head dimension must be contiguous")
     if scale is None:
         scale = dh ** -0.5
+    s_kv = k.shape[2]
     out = torch.empty((b, h, s, dh), dtype=q.dtype, device=q.device)
-    if b and s:
+    if b and s and s_kv:
         st = _lib.strides((q, (0, 1, 2)), (k, (0, 1, 2)), (v, (0, 1, 2)))
         args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b,
-                h, k.shape[1], s, dh, st, float(scale), int(causal),
+                h, k.shape[1], s, s_kv, dh, st, float(scale), int(causal),
                 int(window), float(softcap))
         instance = flash_instance(q, k, v)
         if instance == "tensor_core":
@@ -127,7 +136,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         _lib.check(err, name)
         flash_attention.counts.launched(
             instance, shape=f"B{b} H{h} KV{k.shape[1]} S{s} Dh{dh} "
-                      f"{_lib.dtype_name(q)}")
+                      f"{_lib.dtype_name(q)}"
+                      + _lib.options_key(s_kv=(s_kv, s), full=not causal,
+                                         window=window, softcap=softcap))
     return out
 
 

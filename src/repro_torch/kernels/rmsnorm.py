@@ -164,7 +164,8 @@ def _launch(x, residual, weight, eps, plus_one, name):
             *pl.c_args, _lib.stream_handle(x.device))
         _lib.check(err, name)
         (rmsnorm if residual is None else rmsnorm_residual).counts.launched(
-            pl.instance, (pl.grid(m),), f"{m}x{d} {_lib.dtype_name(xf)}")
+            pl.instance, (pl.grid(m),), f"{m}x{d} {_lib.dtype_name(xf)}"
+            + (" plus_one" if plus_one else ""))
     out = out.view(x.shape)
     return out if res is None else (out, res.view(x.shape))
 

@@ -1,12 +1,19 @@
 """Model API of the port: ``build_model(cfg)`` -> ``Model``.
 
-Counterpart of src/repro/models/api.py for the dense, moe, ssm and hybrid
-LM families:
+Counterpart of src/repro/models/api.py for every family (dense, vlm, moe,
+ssm, hybrid and encdec):
 
     init_params(seed)                 -> params (dict of tensors)
     init_cache(batch_size, max_len)   -> cache (dict of tensors)
     prefill(params, batch)            -> (logits, cache)
     decode_step(params, batch)        -> (logits, cache)
+    encode(params, frames)            -> encoder states (encdec)
+
+An encdec ``prefill`` batch holds ``"frames"`` [B, F, d], ``"tokens"`` and
+``"cache"``; its ``decode_step`` batch ``"tokens"``, ``"enc_out"`` (from
+``encode``) and ``"cache"``. A vlm batch may hold ``"image_embeds"``
+[B, N, d], which go before the token embeddings only where no cache is
+given, as in the reference: ``prefill`` always has a cache and drops them.
 
 ``params_from_jax`` carries a parameter (or cache) tree exported from the
 JAX package through numpy into tensors, leaf by leaf, so that both packages
@@ -14,21 +21,20 @@ can be fed the same weights.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve_device
-from . import transformer
+from . import encdec, transformer
 
 
 class Model:
-    """An LM of a ported family on one device; methods are plain
-    functions of tensors."""
+    """An LM (or whisper's encoder-decoder) on one device; methods are
+    plain functions of tensors."""
 
     def __init__(self, cfg, device: torch.device):
-        transformer.check_supported(cfg)
         self.cfg = cfg
         self.device = device
 
@@ -38,18 +44,45 @@ class Model:
         those)."""
         gen = torch.Generator(device=self.device)
         gen.manual_seed(seed)
+        if self.cfg.family == "encdec":
+            return encdec.init_encdec(gen, self.cfg, self.device)
         return transformer.init_lm(gen, self.cfg, self.device)
 
     def init_cache(self, batch: int, max_len: int) -> dict:
+        if self.cfg.family == "encdec":
+            return encdec.init_dec_cache(self.cfg, batch, max_len,
+                                         self.device)
         return transformer.init_cache(self.cfg, batch, max_len, self.device)
 
+    def encode(self, params: dict, frames: torch.Tensor) -> torch.Tensor:
+        """encdec: frame embeddings [B, F, d] -> encoder states [B, F, d]."""
+        return encdec.encode(params, frames, self.cfg)
+
+    def _lm_forward(self, params: dict, batch: Dict[str, torch.Tensor],
+                    cache: Optional[dict] = None, **kw):
+        cfg = self.cfg
+        if cfg.family == "vlm":
+            tok = params["embed"][batch["tokens"].long()]
+            if "image_embeds" in batch and cache is None:
+                tok = torch.cat([batch["image_embeds"].to(tok.dtype), tok],
+                                dim=1)
+            return transformer.forward(params, cfg, embeds=tok, cache=cache,
+                                       **kw)
+        return transformer.forward(params, cfg, batch["tokens"], cache=cache,
+                                   **kw)
+
     def prefill(self, params: dict, batch: Dict[str, torch.Tensor]):
-        return transformer.forward(params, self.cfg, batch["tokens"],
-                                   cache=batch["cache"])
+        if self.cfg.family == "encdec":
+            enc_out = encdec.encode(params, batch["frames"], self.cfg)
+            return encdec.decode(params, batch["tokens"], enc_out, self.cfg,
+                                 cache=batch["cache"])
+        return self._lm_forward(params, batch, cache=batch["cache"])
 
     def decode_step(self, params: dict, batch: Dict[str, torch.Tensor]):
-        return transformer.forward(params, self.cfg, batch["tokens"],
-                                   cache=batch["cache"])
+        if self.cfg.family == "encdec":
+            return encdec.decode(params, batch["tokens"], batch["enc_out"],
+                                 self.cfg, cache=batch["cache"])
+        return self._lm_forward(params, batch, cache=batch["cache"])
 
 
 def build_model(arch_cfg, *, device: DeviceLike = None) -> Model:

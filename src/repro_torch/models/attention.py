@@ -1,20 +1,25 @@
 """GQA attention of the LM paths: projections, rope, KV cache, and the
 prefill and decode attention kernels.
 
-Counterpart of src/repro/models/attention.py (self-attention; no
-cross-attention yet). Parameters keep the reference layouts: ``wq
-[d, H, Dh]``, ``wk/wv [d, KV, Dh]``, ``wo [H, Dh, d_out]`` (``d_out`` is
-``d`` but for zamba2's shared block, which attends over ``2 d`` and
-projects back to ``d``). KV caches are dicts ``{"k", "v", "slots_pos",
-"length"}`` with ``k/v [B, T, KV, Dh]``, ``slots_pos [T]`` (absolute
-position per slot, -1 = empty) and a 0-d ``length``; an int8 cache adds
-``k_scale/v_scale [B, T, KV]`` f32, one absmax scale per token and head.
+Counterpart of src/repro/models/attention.py. Parameters keep the
+reference layouts: ``wq [d, H, Dh]``, ``wk/wv [d, KV, Dh]``, ``wo [H, Dh,
+d_out]`` (``d_out`` is ``d`` but for zamba2's shared block, which attends
+over ``2 d`` and projects back to ``d``), optional biases ``bq/bk/bv [.,
+Dh]`` and ``bo [d_out]`` (whisper). KV caches are dicts ``{"k", "v",
+"slots_pos", "length"}`` with ``k/v [B, T, KV, Dh]``, ``slots_pos [T]``
+(absolute position per slot, -1 = empty) and a 0-d ``length``; an int8
+cache adds ``k_scale/v_scale [B, T, KV]`` f32, one absmax scale per token
+and head.
 
 Prefill (more than one query token, or no cache) attends on the fresh k/v
 through the flash-attention kernel; decode (one token) reads the whole
 cache through the decode-attention kernel, which takes the cache's own
-layout through strides. An int8 cache is dequantized to the compute dtype
-before that kernel, as the reference dequantizes outside its kernels.
+layout through strides. Cross-attention (``x_kv``, whisper's decoder)
+projects k/v from the encoder states and attends through the flash kernel
+with keys of their own length, not causal, with no rope and no cache; the
+reference computes it in plain ``jnp`` outside any kernel. An int8 cache
+is dequantized to the compute dtype before the decode kernel, as the
+reference dequantizes outside its kernels.
 """
 from __future__ import annotations
 
@@ -28,7 +33,8 @@ from .layers import apply_rope, dense_init
 
 def init_attention(gen: torch.Generator, d: int, n_heads: int, n_kv: int,
                    head_dim: int, dtype: torch.dtype, *, lead=(),
-                   qkv_bias: bool = False, d_out: Optional[int] = None,
+                   qkv_bias: bool = False, out_bias: bool = False,
+                   d_out: Optional[int] = None,
                    device: Optional[torch.device] = None) -> dict:
     """Parameters for one attention block, or a stack of them when ``lead``
     (e.g. ``(n_layers,)``) is given; ``wo`` maps back to ``d_out``
@@ -50,6 +56,8 @@ def init_attention(gen: torch.Generator, d: int, n_heads: int, n_kv: int,
         for name, heads in (("bq", n_heads), ("bk", n_kv), ("bv", n_kv)):
             p[name] = torch.zeros(lead + (heads, head_dim), dtype=dtype,
                                   device=device)
+    if out_bias:
+        p["bo"] = torch.zeros(lead + (d_out,), dtype=dtype, device=device)
     return p
 
 
@@ -89,6 +97,17 @@ def _dequant(q: torch.Tensor, scale: torch.Tensor,
     return (q.float() * scale[..., None]).to(dtype)
 
 
+def write_slots(buf: torch.Tensor, val: torch.Tensor, slot: torch.Tensor,
+                dim: int) -> torch.Tensor:
+    """``val`` into a copy of ``buf`` at ``slot`` along ``dim``; the slot is
+    clamped to keep the block inside the buffer, as
+    ``lax.dynamic_update_slice`` clamps it."""
+    n, size = val.shape[dim], buf.shape[dim]
+    idx = torch.clamp(slot, 0, size - n).long() + torch.arange(
+        n, device=buf.device)
+    return buf.index_copy(dim, idx, val.to(buf.dtype))
+
+
 def update_kv_cache(cache: dict, k_new: torch.Tensor, v_new: torch.Tensor,
                     start: torch.Tensor) -> dict:
     """Write k/v [B, S_new, KV, D] at absolute position ``start`` (a 0-d
@@ -97,8 +116,7 @@ def update_kv_cache(cache: dict, k_new: torch.Tensor, v_new: torch.Tensor,
     Functional, as in the reference: returns a new cache and leaves
     ``cache`` untouched. The staged payloads share one prefilled donor
     cache across every job and lane, so an in-place write would corrupt
-    it for all of them. The slot is clamped to keep the block inside the
-    buffer, as ``lax.dynamic_update_slice`` clamps it."""
+    it for all of them; ``write_slots`` writes into copies."""
     out = dict(cache)
     s_new = k_new.shape[1]
     s_max = cache["k"].shape[1]
@@ -114,19 +132,15 @@ def update_kv_cache(cache: dict, k_new: torch.Tensor, v_new: torch.Tensor,
         slot = torch.zeros((), dtype=torch.int32, device=dev)
     else:
         slot = torch.remainder(start, s_max)
-    slot = torch.clamp(slot, 0, s_max - s_new).long()
-    ar = torch.arange(s_new, device=dev)
-    idx = slot + ar
     if cache["k"].dtype == torch.int8:
-        (kq, ks), (vq, vs) = _quant(k_new), _quant(v_new)
-        out["k_scale"] = cache["k_scale"].index_copy(1, idx, ks)
-        out["v_scale"] = cache["v_scale"].index_copy(1, idx, vs)
-    else:
-        kq, vq = k_new.to(cache["k"].dtype), v_new.to(cache["v"].dtype)
-    out["k"] = cache["k"].index_copy(1, idx, kq)
-    out["v"] = cache["v"].index_copy(1, idx, vq)
-    out["slots_pos"] = cache["slots_pos"].index_copy(
-        0, idx, (start + ar).to(torch.int32))
+        (k_new, ks), (v_new, vs) = _quant(k_new), _quant(v_new)
+        out["k_scale"] = write_slots(cache["k_scale"], ks, slot, 1)
+        out["v_scale"] = write_slots(cache["v_scale"], vs, slot, 1)
+    out["k"] = write_slots(cache["k"], k_new, slot, 1)
+    out["v"] = write_slots(cache["v"], v_new, slot, 1)
+    out["slots_pos"] = write_slots(
+        cache["slots_pos"],
+        start + torch.arange(s_new, dtype=torch.int32, device=dev), slot, 0)
     out["length"] = length_new
     return out
 
@@ -148,22 +162,32 @@ def attention_block(params: dict, x: torch.Tensor, *, positions: torch.Tensor,
                     rope_theta: float = 10000.0, causal: bool = True,
                     window: int = 0, attn_softcap: float = 0.0,
                     scale: Optional[float] = None,
-                    cache: Optional[dict] = None) -> tuple:
+                    cache: Optional[dict] = None,
+                    x_kv: Optional[torch.Tensor] = None) -> tuple:
     """x [B, S, d] -> (out [B, S, d], new_cache | None).
 
     - prefill: cache=None, or a fresh cache to fill;
-    - decode: the cache holds the history, x is the new token."""
+    - decode: the cache holds the history, x is the new token (the decode
+      kernel is causal by construction);
+    - cross-attention: ``x_kv`` [B, S_kv, d] (encoder states), cache=None;
+      not causal whatever ``causal`` says, as in the reference."""
     b, s, d = x.shape
+    src = x if x_kv is None else x_kv
+    s_kv = src.shape[1]
     h, dh = params["wq"].shape[-2:]
     kvh = params["wk"].shape[-2]
     q = (x @ params["wq"].reshape(d, h * dh)).view(b, s, h, dh)
-    k = (x @ params["wk"].reshape(d, kvh * dh)).view(b, s, kvh, dh)
-    v = (x @ params["wv"].reshape(d, kvh * dh)).view(b, s, kvh, dh)
+    k = (src @ params["wk"].reshape(d, kvh * dh)).view(b, s_kv, kvh, dh)
+    v = (src @ params["wv"].reshape(d, kvh * dh)).view(b, s_kv, kvh, dh)
     if "bq" in params:
         q = q + params["bq"]
         k = k + params["bk"]
         v = v + params["bv"]
-    if rope_theta > 0.0:
+    if x_kv is not None:
+        if cache is not None:
+            raise ValueError("cross-attention (x_kv) takes no cache")
+        causal = False
+    elif rope_theta > 0.0:
         q = apply_rope(q, positions, rope_theta)
         k = apply_rope(k, positions, rope_theta)
     if scale is None:
@@ -186,4 +210,6 @@ def attention_block(params: dict, x: torch.Tensor, *, positions: torch.Tensor,
             q[:, 0], kc.transpose(1, 2), vc.transpose(1, 2), kv_pos, q_pos,
             window=window, softcap=attn_softcap, scale=scale)[:, None]
     y = out.reshape(b, s, h * dh) @ params["wo"].reshape(h * dh, -1)
+    if "bo" in params:
+        y = y + params["bo"]
     return y, new_cache

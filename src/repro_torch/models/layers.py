@@ -2,15 +2,18 @@
 
 Counterpart of src/repro/models/layers.py. Functions take tensors and
 dicts of tensors with the JAX package's layouts (``w_gate/w_up [d, ff]``,
-``w_down [ff, d]``). The norms go through the kernel wrappers
+``w_down [ff, d]``). The RMS norms go through the kernel wrappers
 (``kernels/rmsnorm.py``): CUDA tensors launch the Hopper kernel, CPU
-tensors its plain version.
+tensors its plain version. Whisper's LayerNorm, biased MLP and position
+table, and gemma2's logit softcap, are plain torch ops, as they are plain
+``jnp`` in the reference.
 """
 from __future__ import annotations
 
 import math
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -38,6 +41,18 @@ def embed_init(gen: torch.Generator, vocab: int, d: int, dtype: torch.dtype,
     return w.to(dtype)
 
 
+def init_mlp(gen: torch.Generator, d: int, d_ff: int, dtype: torch.dtype,
+             *, device: Optional[torch.device] = None) -> dict:
+    """Plain two-layer MLP with biases (whisper)."""
+    return {
+        "w_in": dense_init(gen, (d, d_ff), dtype, fan_in=d, device=device),
+        "b_in": torch.zeros(d_ff, dtype=dtype, device=device),
+        "w_out": dense_init(gen, (d_ff, d), dtype, fan_in=d_ff,
+                            device=device),
+        "b_out": torch.zeros(d, dtype=dtype, device=device),
+    }
+
+
 def init_gated_mlp(gen: torch.Generator, d: int, d_ff: int,
                    dtype: torch.dtype, *, lead=(),
                    device: Optional[torch.device] = None) -> dict:
@@ -58,6 +73,18 @@ def init_gated_mlp(gen: torch.Generator, d: int, d_ff: int,
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6,
              plus_one: bool = False) -> torch.Tensor:
     return _rms.rmsnorm(x, weight, eps=eps, plus_one=plus_one)
+
+
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    y = F.layer_norm(x.float(), (x.shape[-1],), weight.float(), bias.float(),
+                     eps)
+    return y.to(x.dtype)
+
+
+def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
+    """Gemma2-style logit soft-capping: cap * tanh(x / cap), in f32."""
+    return (cap * torch.tanh(x.float() / cap)).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -83,6 +110,11 @@ def gated_mlp(params: dict, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
     return (act_fn(act)(g) * u) @ params["w_down"]
 
 
+def mlp(params: dict, x: torch.Tensor, act: str = "gelu") -> torch.Tensor:
+    h = act_fn(act)(x @ params["w_in"] + params["b_in"])
+    return h @ params["w_out"] + params["b_out"]
+
+
 # ---------------------------------------------------------------------------
 # Rotary position embeddings (f32 inside, cast back)
 # ---------------------------------------------------------------------------
@@ -104,3 +136,14 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_positions(n: int, d: int) -> torch.Tensor:
+    """Whisper-style sinusoidal position table [n, d] (f32; computed in
+    float64 with numpy, as the reference computes it)."""
+    pos = np.arange(n)[:, None]
+    dim = np.arange(d // 2)[None, :]
+    inv = 1.0 / (10000 ** (dim / max(d // 2 - 1, 1)))
+    ang = pos * inv
+    return torch.from_numpy(np.concatenate([np.sin(ang), np.cos(ang)],
+                                           axis=1).astype(np.float32))

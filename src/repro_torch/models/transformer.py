@@ -1,11 +1,15 @@
-"""Decoder-only LM assembly: the dense, ssm, hybrid and moe families.
+"""Decoder-only LM assembly for every LM family.
 
 Counterpart of src/repro/models/transformer.py:
 
-- dense  : ``[attn, mlp] x L`` (without gemma2's local/global alternation
-  or post-norms);
-- moe    : ``[attn, moe] x L`` after optional leading dense layers (not
-  with MLA attention);
+- dense, vlm : ``[attn, mlp] x L``; gemma2 (``local_global_alternating``)
+  as ``[(local attn, mlp), (global attn, mlp)] x L/2`` with its sliding
+  window on the local layers (whose cache is a ring of ``min(max_len,
+  window)`` slots), attention and final-logit softcaps, post-block norms
+  and ``(1 + w)`` norms; the vlm family takes precomputed embeddings
+  (``forward(..., embeds=)``) in place of tokens;
+- moe    : ``[attn | mla, moe] x L`` after optional leading dense layers
+  (deepseek-v2's MLA attention in both);
 - ssm    : ``[mamba2] x L``;
 - hybrid : ``[mamba2] x L`` with one weight-tied attention block over
   ``concat(x, x0)`` after every ``attn_every``-th layer (zamba2), each
@@ -24,34 +28,20 @@ import torch
 
 from ..kernels.rmsnorm import rmsnorm_residual
 from .attention import attention_block, init_attention, make_kv_cache
-from .layers import dense_init, embed_init, gated_mlp, init_gated_mlp, rms_norm
+from .layers import (dense_init, embed_init, gated_mlp, init_gated_mlp,
+                     rms_norm, softcap)
 from .mamba2 import init_mamba2, make_ssm_cache, mamba2_block
+from .mla import init_mla, make_mla_cache, mla_block
 from .moe import init_moe, moe_capacity, moe_dense_oracle
 
 TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
                 "int8": torch.int8}
-
-# what the port still refuses, and the ROADMAP.md item that will port it
-_NOT_PORTED = {"encdec": "Q8.4", "vlm": "Q8.5"}
+LM_FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid")
 
 
-def check_supported(cfg) -> None:
-    """The port has the dense, moe, ssm and hybrid families; everything
-    else says where it stands in the port's queue."""
-    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
-        item = _NOT_PORTED.get(cfg.family, "Q8")
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (ROADMAP.md, port "
-            f"queue item {item})")
-    if cfg.use_mla:
-        raise NotImplementedError(
-            "MLA attention (deepseek-v2) is not ported yet (ROADMAP.md, port "
-            "queue item Q8.3)")
-    if cfg.local_global_alternating or cfg.post_block_norms \
-            or cfg.attn_softcap or cfg.logit_softcap:
-        raise NotImplementedError(
-            "gemma2's alternation, post-norms and softcaps are not ported yet "
-            "(ROADMAP.md, port queue item Q8.6)")
+def _unknown(cfg) -> ValueError:
+    return ValueError(f"the LM assembly does not handle family "
+                      f"{cfg.family!r}")
 
 
 def index_tree(tree, i):
@@ -88,13 +78,17 @@ def default_moe_oracle(cfg) -> bool:
 # Param init and caches
 # ---------------------------------------------------------------------------
 def _init_attn_norms(gen, cfg, dt, lead, device) -> dict:
-    """A layer's two norms and its attention (a dense or moe layer)."""
+    """A layer's two norms and its attention (MLA where the config says)."""
     d = cfg.d_model
+    if cfg.use_mla:
+        attn = init_mla(gen, cfg, dt, lead=lead, device=device)
+    else:
+        attn = init_attention(gen, d, cfg.n_heads, cfg.n_kv_heads,
+                              cfg.resolved_head_dim, dt, lead=lead,
+                              qkv_bias=cfg.qkv_bias, device=device)
     return {
         "ln1": torch.ones(lead + (d,), dtype=dt, device=device),
-        "attn": init_attention(gen, d, cfg.n_heads, cfg.n_kv_heads,
-                               cfg.resolved_head_dim, dt, lead=lead,
-                               qkv_bias=cfg.qkv_bias, device=device),
+        "attn": attn,
         "ln2": torch.ones(lead + (d,), dtype=dt, device=device),
     }
 
@@ -103,6 +97,10 @@ def _init_dense_layers(gen, cfg, dt, lead, device) -> dict:
     p = _init_attn_norms(gen, cfg, dt, lead, device)
     p["mlp"] = init_gated_mlp(gen, cfg.d_model, cfg.d_ff, dt, lead=lead,
                               device=device)
+    if cfg.post_block_norms:
+        for name in ("ln1_post", "ln2_post"):
+            p[name] = torch.ones(lead + (cfg.d_model,), dtype=dt,
+                                 device=device)
     return p
 
 
@@ -122,9 +120,10 @@ def _init_shared_attn(gen, cfg, dt, device) -> dict:
 
 def init_lm(gen: torch.Generator, cfg,
             device: Optional[torch.device] = None) -> dict:
-    check_supported(cfg)
     dt = TORCH_DTYPES[cfg.dtype]
     d, n = cfg.d_model, cfg.n_layers
+    if cfg.family not in LM_FAMILIES:
+        raise _unknown(cfg)
     params = {"embed": embed_init(gen, cfg.vocab_size, d, dt, device),
               "final_norm": torch.ones(d, dtype=dt, device=device)}
     if not cfg.tie_embeddings:
@@ -138,6 +137,8 @@ def init_lm(gen: torch.Generator, cfg,
             params["shared_attn"] = _init_shared_attn(gen, cfg, dt, device)
     elif cfg.family == "moe":
         if cfg.n_dense_layers:
+            # deepseek's leading dense layers: MLA (where the config has
+            # it) and a plain gated MLP
             params["dense_layers"] = [
                 _init_dense_layers(gen, cfg, dt, (), device)
                 for _ in range(cfg.n_dense_layers)]
@@ -147,6 +148,11 @@ def init_lm(gen: torch.Generator, cfg,
                                  cfg.moe_d_ff, cfg.shared_d_ff, dt,
                                  lead=(n_moe,), device=device)
         params["layers"] = layers
+    elif cfg.local_global_alternating:
+        nb = n // 2                   # one (local, global) pair a block
+        params["layers"] = {
+            "local": _init_dense_layers(gen, cfg, dt, (nb,), device),
+            "global": _init_dense_layers(gen, cfg, dt, (nb,), device)}
     else:
         params["layers"] = _init_dense_layers(gen, cfg, dt, (n,), device)
     return params
@@ -158,12 +164,11 @@ def _stack(one: dict, n: int) -> dict:
 
 def init_cache(cfg, batch: int, max_len: int,
                device: Optional[torch.device] = None) -> dict:
-    check_supported(cfg)
+    kvd = TORCH_DTYPES[cfg.kv_cache_dtype]
 
-    def kv():
-        return make_kv_cache(batch, max_len, cfg.n_kv_heads,
-                             cfg.resolved_head_dim,
-                             TORCH_DTYPES[cfg.kv_cache_dtype], device)
+    def kv(length=max_len):
+        return make_kv_cache(batch, length, cfg.n_kv_heads,
+                             cfg.resolved_head_dim, kvd, device)
 
     def ssm():          # O(1) state: max_len plays no part
         return make_ssm_cache(batch, cfg, TORCH_DTYPES[cfg.dtype], device)
@@ -174,10 +179,19 @@ def init_cache(cfg, batch: int, max_len: int,
         return {"mamba": _stack(ssm(), cfg.n_layers),
                 "attn": _stack(kv(), cfg.n_layers // cfg.attn_every)}
     if cfg.family == "moe":
-        out = {"layers": _stack(kv(), cfg.n_layers - cfg.n_dense_layers)}
+        one = ((lambda: make_mla_cache(batch, max_len, cfg, kvd, device))
+               if cfg.use_mla else kv)
+        out = {"layers": _stack(one(), cfg.n_layers - cfg.n_dense_layers)}
         if cfg.n_dense_layers:
-            out["dense_layers"] = [kv() for _ in range(cfg.n_dense_layers)]
+            out["dense_layers"] = [one() for _ in range(cfg.n_dense_layers)]
         return out
+    if cfg.family not in LM_FAMILIES:
+        raise _unknown(cfg)
+    if cfg.local_global_alternating:
+        nb = cfg.n_layers // 2
+        local = (min(max_len, cfg.sliding_window) if cfg.sliding_window
+                 else max_len)            # a ring: slot = position % local
+        return {"local": _stack(kv(local), nb), "global": _stack(kv(), nb)}
     return _stack(kv(), cfg.n_layers)
 
 
@@ -187,34 +201,55 @@ def cache_length(cfg, cache: dict) -> torch.Tensor:
         return cache["layers"]["length"][0]
     if cfg.family == "hybrid":
         return cache["mamba"]["length"][0]
+    if cfg.local_global_alternating:
+        return cache["global"]["length"][0]
     return cache["length"][0]
 
 
 # ---------------------------------------------------------------------------
 # Layer bodies
 # ---------------------------------------------------------------------------
-def dense_body(lp: dict, x: torch.Tensor, cfg, positions: torch.Tensor,
-               cache: Optional[dict]) -> tuple:
-    """One dense layer: ``x + attn(ln1(x))`` then ``+ mlp(ln2(.))``. The
-    residual add and ln2 run as one fused kernel."""
-    h = rms_norm(x, lp["ln1"], cfg.norm_eps, plus_one=cfg.embed_scale)
-    a, new_cache = attention_block(
+def _attention(lp: dict, h: torch.Tensor, cfg, positions: torch.Tensor,
+               cache: Optional[dict], window: int = 0) -> tuple:
+    """A layer's attention: MLA where the config has it (deepseek's dense
+    and MoE layers), else GQA with the config's softcap and ``window``."""
+    if cfg.use_mla:
+        return mla_block(lp["attn"], h, cfg=cfg, positions=positions,
+                         cache=cache)
+    return attention_block(
         lp["attn"], h, positions=positions, rope_theta=cfg.rope_theta,
+        window=window, attn_softcap=cfg.attn_softcap,
         scale=cfg.resolved_head_dim ** -0.5, cache=cache)
+
+
+def dense_body(lp: dict, x: torch.Tensor, cfg, positions: torch.Tensor,
+               cache: Optional[dict], window: int = 0) -> tuple:
+    """One dense layer (also the moe family's leading ones): ``x +
+    attn(ln1(x))`` then ``+ mlp(ln2(.))``, each branch through its
+    post-block norm where the config has them (gemma2). The residual add
+    and ln2 run as one fused kernel."""
+    h = rms_norm(x, lp["ln1"], cfg.norm_eps, plus_one=cfg.embed_scale)
+    a, new_cache = _attention(lp, h, cfg, positions, cache, window)
+    if cfg.post_block_norms:
+        a = rms_norm(a, lp["ln1_post"], cfg.norm_eps,
+                     plus_one=cfg.embed_scale)
     h, x = rmsnorm_residual(x, a, lp["ln2"], eps=cfg.norm_eps,
                             plus_one=cfg.embed_scale)
-    return x + gated_mlp(lp["mlp"], h, cfg.mlp_act), new_cache
+    m = gated_mlp(lp["mlp"], h, cfg.mlp_act)
+    if cfg.post_block_norms:
+        m = rms_norm(m, lp["ln2_post"], cfg.norm_eps,
+                     plus_one=cfg.embed_scale)
+    return x + m, new_cache
 
 
 def moe_body(lp: dict, x: torch.Tensor, cfg, positions: torch.Tensor,
              cache: Optional[dict], use_oracle: bool) -> tuple:
-    """One MoE layer: ``x + attn(ln1(x))`` then ``+ experts(ln2(.))`` (plus
-    the shared experts where the layer has them); returns (x, new_cache,
-    aux). The residual add and ln2 run as one fused kernel."""
+    """One MoE layer: ``x + attn(ln1(x))`` (MLA where the config has it)
+    then ``+ experts(ln2(.))`` (plus the shared experts where the layer has
+    them); returns (x, new_cache, aux). The residual add and ln2 run as
+    one fused kernel."""
     h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-    a, new_cache = attention_block(
-        lp["attn"], h, positions=positions, rope_theta=cfg.rope_theta,
-        scale=cfg.resolved_head_dim ** -0.5, cache=cache)
+    a, new_cache = _attention(lp, h, cfg, positions, cache)
     h, x = rmsnorm_residual(x, a, lp["ln2"], eps=cfg.norm_eps)
     if use_oracle:
         mo, aux = moe_dense_oracle(lp["moe"], h, cfg.n_experts_active,
@@ -237,6 +272,18 @@ def ssm_body(lp: dict, x: torch.Tensor, cfg, positions: torch.Tensor,
     return x + y, new_cache
 
 
+def pair_body(lp: dict, x: torch.Tensor, cfg, positions: torch.Tensor,
+              cache: Optional[dict]) -> tuple:
+    """One gemma2 block: the local layer (sliding window) then the global
+    one, each with its own cache."""
+    x, ncl = dense_body(lp["local"], x, cfg, positions,
+                        None if cache is None else cache["local"],
+                        cfg.sliding_window)
+    x, ncg = dense_body(lp["global"], x, cfg, positions,
+                        None if cache is None else cache["global"], 0)
+    return x, (None if cache is None else {"local": ncl, "global": ncg})
+
+
 def shared_attn_body(sp: dict, x: torch.Tensor, x0: torch.Tensor, cfg,
                      positions: torch.Tensor, cache: Optional[dict]) -> tuple:
     """zamba2's shared block on ``concat(x, x0)``, ``x0`` the embedded
@@ -249,21 +296,28 @@ def shared_attn_body(sp: dict, x: torch.Tensor, x0: torch.Tensor, cfg,
     return x + gated_mlp(sp["mlp"], h, cfg.mlp_act), new_cache
 
 
+def _first_leaf(tree):
+    while isinstance(tree, dict):
+        tree = next(iter(tree.values()))
+    return tree
+
+
 def run_layers(layers: dict, x: torch.Tensor, cfg, positions: torch.Tensor,
                cache: Optional[dict], *, moe_oracle: bool = False
                ) -> Tuple[torch.Tensor, Optional[dict]]:
     """The reference's layer scan as a loop over the stacked axis (dense,
-    ssm and moe layers; ``moe_oracle`` picks the moe layers' expert
-    path)."""
-    n = layers["ln" if cfg.family == "ssm" else "ln1"].shape[0]
+    gemma2 pairs, ssm and moe layers; ``moe_oracle`` picks the moe layers'
+    expert path)."""
     new_caches = []
-    for li in range(n):
+    for li in range(_first_leaf(layers).shape[0]):
         lp = index_tree(layers, li)
         ca = None if cache is None else index_tree(cache, li)
         if cfg.family == "ssm":
             x, nc = ssm_body(lp, x, cfg, positions, ca)
         elif cfg.family == "moe":
             x, nc, _ = moe_body(lp, x, cfg, positions, ca, moe_oracle)
+        elif cfg.local_global_alternating:
+            x, nc = pair_body(lp, x, cfg, positions, ca)
         else:
             x, nc = dense_body(lp, x, cfg, positions, ca)
         new_caches.append(nc)
@@ -306,8 +360,11 @@ def run_hybrid(params: dict, x: torch.Tensor, cfg, positions: torch.Tensor,
 # ---------------------------------------------------------------------------
 # Forward
 # ---------------------------------------------------------------------------
-def embed(params: dict, cfg, tokens: torch.Tensor) -> torch.Tensor:
-    x = params["embed"][tokens.long()]
+def embed(params: dict, cfg, tokens: Optional[torch.Tensor] = None,
+          embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Token embeddings, or the given ``embeds``; gemma2 scales them by
+    sqrt(d) cast to their dtype first, as the reference does."""
+    x = params["embed"][tokens.long()] if embeds is None else embeds
     if cfg.embed_scale:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
     return x
@@ -317,19 +374,26 @@ def logits(params: dict, cfg, h: torch.Tensor) -> torch.Tensor:
     h = rms_norm(h, params["final_norm"], cfg.norm_eps,
                  plus_one=cfg.embed_scale)
     w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return h @ w
+    out = h @ w
+    if cfg.logit_softcap > 0:
+        out = softcap(out, cfg.logit_softcap)
+    return out
 
 
-def forward(params: dict, cfg, tokens: torch.Tensor, *,
+def forward(params: dict, cfg, tokens: Optional[torch.Tensor] = None, *,
+            embeds: Optional[torch.Tensor] = None,
             cache: Optional[dict] = None,
             positions: Optional[torch.Tensor] = None,
             moe_oracle: Optional[bool] = None):
     """Returns (logits, new_cache | None). cache=None: plain forward; a
     cache: prefill (S > 1) or decode (S == 1) at the cache's length.
-    ``moe_oracle`` picks the moe layers' expert path (default: the dense
-    oracle up to 16 experts, the capacity path above)."""
-    check_supported(cfg)
-    x = embed(params, cfg, tokens)
+    ``embeds`` [B, S, d] stand in for the tokens' embeddings (the vlm
+    family's image and token embeddings). ``moe_oracle`` picks the moe
+    layers' expert path (default: the dense oracle up to 16 experts, the
+    capacity path above)."""
+    if cfg.family not in LM_FAMILIES:
+        raise _unknown(cfg)
+    x = embed(params, cfg, tokens, embeds)
     sq = x.shape[1]
     if positions is None:
         ar = torch.arange(sq, dtype=torch.int32, device=x.device)

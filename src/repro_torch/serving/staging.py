@@ -1,12 +1,18 @@
 """Stage partitioning of the LMs (paper §III-B1 on transformers).
 
-Counterpart of src/repro/serving/staging.py (dense, ssm and moe families;
-the hybrid is refused, as there). A stacked LM is
-cut into ``n_stages`` contiguous layer groups; each stage is a function
+Counterpart of src/repro/serving/staging.py (the dense, vlm, gemma2, ssm
+and moe families; the hybrid is refused, as there). A stacked LM is cut
+into ``n_stages`` contiguous layer groups (gemma2: groups of its
+(local, global) blocks, ``n_layers // 2`` of them); each stage is a function
 (hidden, cache_slice) -> (hidden, cache_slice), so DARIS can preempt and
 migrate between groups. Stage 0 owns the embedding, the last stage the
 final norm and logits. Migration moves the inter-stage hidden and the cache
 slices to the target context's device between stage programs.
+
+The moe family is cut as the reference cuts it: the boundaries run over
+``cfg.n_layers`` and slice only ``params["layers"]``, so the leading dense
+layers (deepseek's first) never run staged and the last stages may hold
+no layer (ROADMAP.md §3, R4).
 """
 from __future__ import annotations
 
@@ -30,9 +36,15 @@ def stage_boundaries(n_layers: int, n_stages: int) -> List[tuple]:
     return out
 
 
+def _n_scan(cfg) -> int:
+    """Entries of the stacked layer axis the stages cut (gemma2: blocks of
+    two layers; moe: ``n_layers``, as the reference counts it)."""
+    return cfg.n_layers // (2 if cfg.local_global_alternating else 1)
+
+
 def make_lm_stage_fns(model: Model, n_stages: int = 4) -> List[Callable]:
-    """Stage callables of the dense, ssm and moe families (moe layers on
-    the dense expert oracle, as the reference stages them):
+    """Stage callables of the dense, vlm, gemma2, ssm and moe families (moe
+    layers on the dense expert oracle, as the reference stages them):
 
     stage_fn(params, hidden_or_tokens, cache_slice, positions)
       -> (hidden_or_logits, new_cache_slice)
@@ -42,7 +54,7 @@ def make_lm_stage_fns(model: Model, n_stages: int = 4) -> List[Callable]:
         raise NotImplementedError(
             "hybrid staging follows group boundaries; use n_stages == "
             "n_layers // attn_every")
-    bounds = stage_boundaries(cfg.n_layers, n_stages)
+    bounds = stage_boundaries(_n_scan(cfg), n_stages)
 
     def make(i):
         lo, hi = bounds[i]
@@ -66,7 +78,7 @@ def make_lm_stage_fns(model: Model, n_stages: int = 4) -> List[Callable]:
 def slice_cache(cfg, cache: dict, stage_idx: int, n_stages: int) -> dict:
     """Cache slice owned by one stage (moe at its ``"layers"`` level): views
     into ``cache``, which the functional cache update never writes."""
-    lo, hi = stage_boundaries(cfg.n_layers, n_stages)[stage_idx]
+    lo, hi = stage_boundaries(_n_scan(cfg), n_stages)[stage_idx]
     if cfg.family == "moe" and "layers" in cache:
         cache = cache["layers"]
     return transformer.index_tree(cache, slice(lo, hi))

@@ -1,7 +1,8 @@
 """Twin of tests/test_arch_smoke.py's ``test_reduced_forward_and_decode``
-over the port's architectures, on the CPU: each reduced config, with the
-port's own parameters, runs a plain forward, a prefill and a decode step
-with finite logits of the expected shapes. (The reference's loss and
+over all ten architectures, on the CPU: each reduced config, with the
+port's own parameters, runs a plain forward (whisper: its encoder and an
+uncached decoder pass), a prefill and a decode step with finite logits of
+the expected shapes. (The reference's loss and
 train step are training, which the port does not have yet: ROADMAP.md
 Q9.) The other ``test_torch_*`` files hold each family to the JAX
 package."""
@@ -11,7 +12,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.configs import ARCH_IDS, get_reduced  # noqa: E402
-from repro_torch.models import build_model, transformer  # noqa: E402
+from repro_torch.models import build_model, encdec, transformer  # noqa: E402
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -37,22 +38,34 @@ def test_reduced_forward_and_decode(arch, replace):
     b, s = 2, 16
     rng = np.random.default_rng(0)
     tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s)))
-    full, none = transformer.forward(params, cfg, tokens)
+    batch = {"tokens": tokens, "cache": m.init_cache(b, s + 4)}
+    step = {}
+    if cfg.family == "encdec":
+        frames = torch.from_numpy(rng.standard_normal(
+            (b, cfg.encoder_frames, cfg.d_model)).astype(np.float32))
+        batch["frames"] = frames
+        step["enc_out"] = m.encode(params, frames)
+        full, none = encdec.decode(params, tokens, step["enc_out"], cfg)
+    else:
+        full, none = transformer.forward(params, cfg, tokens)
     assert none is None and full.shape == (b, s, cfg.vocab_size)
     assert torch.isfinite(full).all()
 
-    logits, cache = m.prefill(params, {"tokens": tokens,
-                                       "cache": m.init_cache(b, s + 4)})
+    logits, cache = m.prefill(params, batch)
     assert logits.shape == (b, s, cfg.vocab_size)
     assert torch.isfinite(logits).all()
 
     dec = torch.from_numpy(np.random.default_rng(1).integers(
         0, cfg.vocab_size, (b, 1)))
-    logits2, _ = m.decode_step(params, {"tokens": dec, "cache": cache})
+    logits2, _ = m.decode_step(params, {"tokens": dec, "cache": cache,
+                                        **step})
     assert logits2.shape == (b, 1, cfg.vocab_size)
     assert torch.isfinite(logits2).all()
 
 
 def test_the_port_builds_every_family_it_has_ported():
+    """Every family of the reference, and every architecture: the port's
+    ARCH_IDS are the reference's."""
     assert {get_reduced(a).family for a in ARCH_IDS} == {
-        "dense", "moe", "ssm", "hybrid"}
+        "dense", "moe", "ssm", "hybrid", "vlm", "encdec"}
+    assert len(ARCH_IDS) == 10

@@ -1,9 +1,10 @@
-"""The port on the card: each CUDA kernel against its plain version, staged
-LM decode (dense and ssm) served on per-lane CUDA streams through the
-kernels, the moe and hybrid families and the int8 KV cache against the
-CPU, the staged CNNs (served, and each stage against the CPU), and the
-epoch engine with its rate-groups on the contention kernel (one device, and
-a reduced cluster fleet).
+"""The port on the card: each CUDA kernel against its plain version
+(flash attention also with keys of their own length), staged LM decode
+(dense and ssm) served on per-lane CUDA streams through the kernels, the
+moe, hybrid, MLA, gemma2, vlm and encdec families and the int8 KV cache
+against the CPU, the staged CNNs (served, and each stage against the
+CPU), and the epoch engine with its rate-groups on the contention kernel
+(one device, and a reduced cluster fleet).
 
 Every test here is marked ``cuda`` and skips without a CUDA device; on the
 card run ``python -m pytest -q -m cuda tests/test_torch_cuda.py``. The file
@@ -127,6 +128,31 @@ def test_cuda_kernels_match_plain_versions(dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_flash_attention_keys_of_their_own_length(dtype):
+    """Cross-attention on the card: keys and values of their own length
+    (ragged, shorter and longer than the queries, whisper's 1500 frames),
+    not causal, through both instances; causal with another key length is
+    refused."""
+    _need_cuda()
+    tdt, tol = DTYPES[dtype]
+    g = torch.Generator().manual_seed(2)
+
+    def r(*shape):
+        return torch.randn(shape, generator=g).to(tdt).cuda()
+    for dh in (64, 128, 192, 60):
+        for s, s_kv in ((1, 1500), (64, 1500), (70, 33)):
+            q = r(2, s, 6, dh).transpose(1, 2)
+            k, v = (r(2, s_kv, 3, dh).transpose(1, 2) for _ in range(2))
+            torch.testing.assert_close(
+                fa.flash_attention(q, k, v, causal=False),
+                fa.flash_attention_plain(q, k, v, causal=False),
+                rtol=tol, atol=tol)
+    with pytest.raises(ValueError, match="causal"):
+        fa.flash_attention(q, k, v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("m", [1, 4, 2048])
 @pytest.mark.parametrize("d", [576, 2560, 5120])
 def test_cuda_rmsnorm_plans_match_plain_versions(dtype, m, d):
@@ -219,25 +245,35 @@ def _to_cpu(tree):
 @pytest.mark.cuda
 @pytest.mark.parametrize("arch,replace", [
     ("qwen2-moe-a2.7b", {"n_experts": 20}), ("zamba2-7b", {}),
-    ("qwen1.5-32b", {"kv_cache_dtype": "int8"})],
-    ids=["moe_capacity", "hybrid", "int8_cache"])
+    ("qwen1.5-32b", {"kv_cache_dtype": "int8"}), ("deepseek-v2-236b", {}),
+    ("gemma2-27b", {}), ("pixtral-12b", {}), ("whisper-tiny", {})],
+    ids=["moe_capacity", "hybrid", "int8_cache", "mla", "gemma2", "vlm",
+         "encdec"])
 def test_new_families_on_the_card_match_the_cpu(arch, replace):
-    """The moe family (capacity path), the hybrid and the int8 cache in
-    f32: prefill and one decode step through the kernels on the card
-    against the plain versions on the CPU, from the same parameters. An
-    int8 code may land one step apart where the card's f32 projection
-    rounds differently: 1e-3 on the logits."""
+    """The moe family (capacity path), the hybrid, the int8 cache, MLA,
+    gemma2, the vlm and whisper's encoder-decoder in f32: prefill and one
+    decode step through the kernels on the card against the plain versions
+    on the CPU, from the same parameters. An int8 code may land one step
+    apart where the card's f32 projection rounds differently: 1e-3 on the
+    logits."""
     _need_cuda()
     cfg = get_reduced(arch).replace(dtype="float32", **replace)
     gm, cm = build_model(cfg), build_model(cfg, device="cpu")
     gp = gm.init_params(0)
     cp = _to_cpu(gp)
-    tokens = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 16))
+    rng = np.random.default_rng(0)
+    tokens = rng.integers(0, cfg.vocab_size, (2, 16))
+    frames = rng.standard_normal((2, cfg.encoder_frames or 1, cfg.d_model))
     outs = []
     for m, p, dev in ((gm, gp, "cuda"), (cm, cp, "cpu")):
         tk = torch.from_numpy(tokens).to(dev)
-        pl, cache = m.prefill(p, {"tokens": tk, "cache": m.init_cache(2, 17)})
-        dl, _ = m.decode_step(p, {"tokens": tk[:, :1], "cache": cache})
+        batch, step = {"tokens": tk, "cache": m.init_cache(2, 17)}, {}
+        if cfg.family == "encdec":
+            batch["frames"] = torch.from_numpy(frames).float().to(dev)
+            step["enc_out"] = m.encode(p, batch["frames"])
+        pl, cache = m.prefill(p, batch)
+        dl, _ = m.decode_step(p, {"tokens": tk[:, :1], "cache": cache,
+                                  **step})
         outs.append((pl.cpu(), dl.cpu()))
     for a, b in zip(*outs):
         torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-3)

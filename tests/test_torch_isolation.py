@@ -129,6 +129,9 @@ def test_the_scheduler_stack_is_copied():
                 "chaos/plan.py", "analysis/sanitizer.py", "configs/base.py",
                 "configs/smollm_135m.py", "configs/zamba2_7b.py",
                 "configs/qwen2_moe_a27b.py", "configs/qwen15_32b.py",
+                "configs/deepseek_v2_236b.py", "configs/gemma2_27b.py",
+                "configs/pixtral_12b.py", "configs/stablelm_12b.py",
+                "configs/whisper_tiny.py",
                 "serving/profiles.py",
                 "serving/requests.py", "cluster/__init__.py",
                 "cluster/devices.py", "cluster/scheduler.py",

@@ -117,6 +117,54 @@ def test_flash_attention_masks(window, softcap, causal):
                                     softcap=softcap), 2e-4)
 
 
+@pytest.mark.parametrize("s,s_kv,h,kv", [(5, 37, 4, 2), (64, 150, 6, 6),
+                                         (1, 70, 4, 4)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_keys_of_their_own_length(s, s_kv, h, kv, dtype):
+    """Cross-attention: k/v of S_kv rows, not causal, against a direct
+    softmax in float64 and against the reference's ``mha`` (which computes
+    whisper's cross-attention) on the same inputs."""
+    from repro.models.attention import mha
+    rng = np.random.default_rng(s + s_kv)
+    q, jq = _pair(rng, (2, h, s, 64), dtype)
+    k, jk = _pair(rng, (2, kv, s_kv, 64), dtype)
+    v, jv = _pair(rng, (2, kv, s_kv, 64), dtype)
+    ours = fa.flash_attention(q, k, v, causal=False)
+    assert ours.shape == (2, h, s, 64)
+    qd, kd, vd = (t.double().numpy() for t in (q, k, v))
+    kd, vd = (np.repeat(t, h // kv, axis=1) for t in (kd, vd))
+    logits = np.einsum("bhqd,bhtd->bhqt", qd, kd) / 8.0
+    p = np.exp(logits - logits.max(-1, keepdims=True))
+    direct = np.einsum("bhqt,bhtd->bhqd", p / p.sum(-1, keepdims=True), vd)
+    tol = DTYPES[dtype][2]
+    _close(ours, direct, tol)
+    ref = mha(jq.swapaxes(1, 2), jk.swapaxes(1, 2), jv.swapaxes(1, 2),
+              q_positions=jnp.arange(s), kv_positions=jnp.arange(s_kv),
+              causal=False)
+    _close(ours, ref.swapaxes(1, 2), tol)
+
+
+def test_flash_attention_refuses_causal_with_other_key_length():
+    q = torch.zeros((1, 2, 8, 16))
+    kv = torch.zeros((1, 2, 12, 16))
+    with pytest.raises(ValueError, match="causal"):
+        fa.flash_attention(q, kv, kv)
+    with pytest.raises(ValueError, match="causal"):
+        fa.flash_attention(q, kv, kv, causal=True, window=4)
+    assert fa.flash_attention(q, kv, kv, causal=False).shape == (1, 2, 8, 16)
+
+
+def test_launch_keys_name_the_options():
+    """The shape keys that chip_smoke.py's coverage check compares name
+    what a launch masks and caps, so a plain causal row cannot stand for
+    a softcapped, windowed, non-causal or cross-attention launch."""
+    from repro_torch.kernels import _lib
+    assert _lib.options_key() == ""
+    assert _lib.options_key(s_kv=(512, 512)) == ""
+    assert _lib.options_key(s_kv=(1500, 64), full=True) == " Skv1500 full"
+    assert _lib.options_key(window=4096, softcap=50.0) == " window softcap"
+
+
 def _decode_inputs(rng, h, kv, s, fill, dtype="float32", batch=2):
     q, jq = _pair(rng, (batch, h, 64), dtype)
     k, jk = _pair(rng, (batch, kv, s, 64), dtype)

@@ -159,14 +159,30 @@ def test_stage_boundaries_match_reference():
 
 
 def test_int8_cache_and_other_families_raise():
-    """The int8 cache, moe and hybrid are ported; what is still refused
-    names its ROADMAP.md item: encdec (Q8.4), MLA attention (Q8.3) and
-    gemma2's local/global alternation (Q8.6)."""
+    """Every family is ported: the int8 cache and each formerly refused
+    feature (encdec, Q8.4; MLA attention, Q8.3; gemma2's local/global
+    alternation, Q8.6) builds and decodes one step on the CPU; an unknown
+    family raises ValueError, as the reference's ``init_lm`` does."""
     cfg = get_reduced("smollm-135m")
     build_model(cfg.replace(kv_cache_dtype="int8"),
                 device="cpu").init_cache(1, 4)
-    for unported, item in ((dict(family="encdec"), "Q8.4"),
-                           (dict(family="moe", use_mla=True), "Q8.3"),
-                           (dict(local_global_alternating=True), "Q8.6")):
-        with pytest.raises(NotImplementedError, match=item):
-            build_model(cfg.replace(**unported), device="cpu")
+    tok = torch.zeros((1, 3), dtype=torch.int64)
+    for arch in ("whisper-tiny", "deepseek-v2-236b", "gemma2-27b"):
+        m = build_model(get_reduced(arch), device="cpu")
+        params = m.init_params(0)
+        batch = {"tokens": tok, "cache": m.init_cache(1, 4)}
+        if m.cfg.family == "encdec":
+            batch["frames"] = torch.zeros((1, m.cfg.encoder_frames,
+                                           m.cfg.d_model))
+        _, cache = m.prefill(params, batch)
+        step = {"tokens": tok[:, :1], "cache": cache}
+        if m.cfg.family == "encdec":
+            step["enc_out"] = m.encode(params, batch["frames"])
+        logits, _ = m.decode_step(params, step)
+        assert logits.shape == (1, 1, m.cfg.vocab_size)
+        assert torch.isfinite(logits).all()
+    bad = build_model(cfg.replace(family="rnn"), device="cpu")
+    with pytest.raises(ValueError, match="rnn"):
+        bad.init_params(0)
+    with pytest.raises(ValueError, match="rnn"):
+        bad.init_cache(1, 4)

@@ -174,13 +174,26 @@ def test_worker_pool_counts_payload_exceptions():
 
 
 def test_unported_features_name_their_roadmap_item(tmp_path):
+    """Nothing is refused any more: the features that named their
+    ROADMAP.md item (encdec Q8.4, MLA Q8.3, gemma2's alternation Q8.6)
+    build and decode one step on the CPU, an unknown family raises
+    ValueError, and checkpointing (Q5), cluster serving (Q6) and verify()
+    (Q7) run."""
     spec = make_spec(api, "t", api.HP, [1.0], 10.0)
     cfg = get_reduced("smollm-135m")
-    for unported, item in ((dict(family="encdec"), "Q8.4"),
-                           (dict(family="moe", use_mla=True), "Q8.3"),
-                           (dict(local_global_alternating=True), "Q8.6")):
-        with pytest.raises(NotImplementedError, match=item):
-            build_model(cfg.replace(**unported), device="cpu")
+    for arch in ("whisper-tiny", "deepseek-v2-236b", "gemma2-27b"):
+        model = build_model(get_reduced(arch), device="cpu")
+        params = model.init_params(1)
+        tok = torch.ones((2, 1), dtype=torch.int64)
+        batch = {"tokens": tok, "cache": model.init_cache(2, 2)}
+        if model.cfg.family == "encdec":
+            batch["enc_out"] = model.encode(params, torch.zeros(
+                (2, model.cfg.encoder_frames, model.cfg.d_model)))
+        logits, cache = model.decode_step(params, batch)
+        assert logits.shape == (2, 1, model.cfg.vocab_size)
+        assert torch.isfinite(logits).all()
+    with pytest.raises(ValueError, match="family"):
+        build_model(cfg.replace(family="rnn"), device="cpu").init_params(0)
     # checkpointing (Q5), cluster serving (Q6) and verify() (Q7) are ported
     srv = api.ServerConfig.sim().task(spec).horizon_ms(50.0).build()
     srv.run()
