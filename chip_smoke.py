@@ -9,6 +9,7 @@
     python3 chip_smoke.py --resume --repeats 2
     python3 chip_smoke.py --lm-paths
     python3 chip_smoke.py --families
+    python3 chip_smoke.py --train
 
 The --serve forms run only one model's serving phase (step 3, 5, 6, 9, 12
 or 13 below),
@@ -17,9 +18,10 @@ clocks after it, and with ``--trace`` what the card did during it
 (``device_timeline``); --epoch only the epoch phase (step 4), --resume only
 the resume phase (step 7), --cluster only the cluster phase (step 8, the
 fleet over 4000 ms), --lm-paths only the kernel phase and steps 9-11,
-and --families only the kernel phase and steps 12-15 with the Dh 160
-check, ``--repeats`` times (events/s on the host's clock vary from run to
-run).
+--families only the kernel phase and steps 12-15 with the Dh 160
+check, and --train only the kernel phase (gradient rows included) and
+steps 16-17, ``--repeats`` times (events/s on the host's clock vary from
+run to run).
 None of them prints a result line. Without arguments:
 
 1. Builds the port's Hopper kernels from ``src/repro_torch/kernels/csrc``
@@ -234,6 +236,51 @@ None of them prints a result line. Without arguments:
     averages hundreds of keys (non-causal over 1500, decode over 513
     slots without a sharpened query) are held to 3e-3 in bf16, since
     their outputs are about 0.03; the others to 3e-2.
+16. Training phase: smollm-135m at full width and
+    depth (30 layers, d 576, 9 / 3 heads at Dh 64, vocab 49,152 tied;
+    bf16 parameters, f32 moments, seed 0) trained 20 AdamW steps (lr
+    1e-3, 2 warmup steps, cosine over 20) by ``make_train_step`` with
+    ``accum`` 2, remat ``"dots"`` and ``q_chunk`` 1024 (the reference
+    dryrun's at S 4096: the attention's backward recomputes query blocks
+    of 1024 rows), on ``TokenPipeline(49152, 8, 4096,
+    seed=0)`` batches: 8 sequences of 4096 tokens a step (the reference's
+    train_4k cell has 256). Each wrapper's forward is its kernel; under
+    autograd it goes through its ``torch.autograd.Function``, whose
+    backward recomputes the plain version (the reference has no backward
+    kernel), counted in ``counts.backward``. A ``train_step`` line a step
+    (loss, grad_norm, lr, CUDA-event and host ms, tokens/s), then
+    ``train_summary``: model FLOPs a step (6 N D + causal attention) and
+    their share of 989 TFLOP/s at the median step, peak memory, launches
+    and backward recomputes a step by kernel and instance, and one more
+    step under ``torch.profiler`` (device busy ms against host wall, each
+    kernel's recompute device ms). It fails on a non-finite loss or
+    grad_norm, a last loss less than 10% below the first, a bf16 flash
+    launch off the tensor cores, a plain version on the card outside the
+    counted backward, a parameter leaf (each layer's slice of the
+    stacked ones) with a zero or non-finite gradient, or a shape the
+    backward recomputed at (``backward_recomputes_by_shape``) that no
+    gradient row checks.
+17. Cut-size training check: each of the ten architectures' reduced
+    configs (f32) one ``make_train_step`` step on the card against the
+    same step on the CPU, from the same parameters and batch, remat
+    ``"none"`` and ``"full"`` (smollm also ``"dots"``): loss, each
+    gradient leaf, grad_norm and lr within 1e-3 relative, new parameters
+    within 1e-5 where the gradient's sign is certain (``train_cut``
+    lines, with the card's launches by instance: the flash CUDA-core
+    instance and the SSD scan under autograd).
+    The kernel phase adds the training path's forward rows (norms over
+    16,384 rows of 576, causal flash at S 4096) and gradient rows
+    (``grad_check``): for rmsnorm, the fused residual norm and flash at
+    those shapes and the SSD scan at mamba2's donor-prefill shapes, bf16
+    and f32, a seeded cotangent's gradients through the Function against
+    a witness, the plain version differentiated in f64 on the card
+    (``GRAD_TOL``); the same output cut from the graph (a planted fault)
+    and the plain version computed in bf16 (a control) must leave it.
+    The flash row at S 4096 is held per query row (``ROW_TOL``), with a
+    planted fault that hides the oldest key tile from the last 64 rows.
+    Each gradient row times the
+    kernel's forward, the recompute, the plain version's forward and
+    backward and the library's (SDPA, ``F.rms_norm``).
 Each phase's model is freed before the next; ``phase_seconds`` and
 ``phase_peak_memory_gb`` give each phase's wall and peak of allocated card
 memory.
@@ -268,8 +315,8 @@ launcher run did not resume, the parameters did not round-trip bit for bit,
 the daemon example failed, the oracle was not ``ok`` on fig13_light or
 fig13_fail_1of4, an int8 check of step 11 failed, a planted fault
 agreed with a plain version, a step 12-15 instance or launch-shape check
-failed, or a model path launched a kernel at an instance and shape that
-no bf16 row checked. The
+failed, a gradient row or a check of steps 16-17 failed, or a model path
+launched a kernel at an instance and shape that no bf16 row checked. The
 last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -347,6 +394,40 @@ CNN_WIDTHS = {"resnet18": 64, "unet": 64, "inceptionv3": 24}
 CNN_HW, CNN_BATCH = 224, 1
 CNN_TOL = 1e-3                        # card vs CPU, of the output's scale
 RESUME_DNN = "resnet18"               # served cold, saved, then resumed
+# the training phase: smollm-135m at full width and depth (bf16, f32 m/v),
+# 20 AdamW steps of 8 sequences of 4096 tokens in 2 microbatches of 4
+# (the reference's train_4k cell is 256 sequences a step)
+TRAIN_ARCH, TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = "smollm-135m", 20, 8, 4096
+TRAIN_ACCUM, TRAIN_REMAT, TRAIN_LR, TRAIN_WARMUP = 2, "dots", 1e-3, 2
+TRAIN_MB = TRAIN_BATCH // TRAIN_ACCUM               # sequences a microbatch
+TRAIN_ROWS = TRAIN_MB * TRAIN_SEQ                   # norm rows a call
+TRAIN_MIN_DROP = 0.10          # the last step's loss below the first's by
+TRAIN_Q_CHUNK = 1024           # the reference dryrun's for train at S 4096
+# flash_attention_train_s4096: a causal row i averages i + 1 keys, so its
+# outputs shrink as about (e / (i + 1))^1/2 (1 at row 0, 0.026 at row 4095);
+# the error of each query row is taken over that row's largest |output|
+# (``row_rel_err``). On the H100: 7.8e-3 in bf16 (an ulp), 5.4e-6 in f32;
+# the oldest key tile hidden from the last 64 rows (a window of S - 64),
+# which must land past the limit, 0.448 in both (PERF.md, Findings)
+ROW_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
+# gradient rows: the Function (kernel forward, plain recompute backward)
+# against a witness, the plain version differentiated by autograd in f64
+# on the card; largest |difference| over the largest witness gradient of
+# each input. The Function rounds an f32 gradient to bf16 once (at most
+# 2^-8 = 3.9e-3 of it); the SSD's plain version also takes C.B in the
+# inputs' dtype, as the reference does. On the H100 the Functions read
+# 2.5e-3-2.9e-3 in bf16 (SSD 4.8e-3), 3.1e-6 at most in f32 (SSD 1.5e-5);
+# a bf16-compute control (the plain version with its f32 upcast taken
+# out, on bf16 inputs), which must land past the limit, 4.9e-3-8.2e-3 in
+# bf16 (SSD 0.55) and 6.1e-3 at least in f32 (PERF.md, Findings)
+GRAD_TOL = {"bfloat16": 4e-3, "float32": 1e-4}
+GRAD_TOL_SSD_BF16 = 1e-2
+# the cut-size training step, card against CPU (f32, reduced configs):
+# loss, grad_norm and each gradient leaf relative to its scale; new
+# parameters where |g| passes TRAIN_G_FLOOR of the leaf's scale (Adam's
+# first step moves every other element by up to lr either way)
+TRAIN_SMALL_TOL, TRAIN_G_FLOOR, TRAIN_P_TOL = 1e-3, 1e-3, 1e-5
+TRAIN_NOISE_FLOOR = 1e-3       # of the largest |g| of any leaf
 
 
 def emit(obj) -> None:
@@ -539,6 +620,10 @@ def kernel_cases(torch, F, dtype):
     res["rmsnorm_residual_vlm_d5120"] = (rand(VLM_BATCH * VLM_SEQ, 5120),
                                          rand(VLM_BATCH * VLM_SEQ, 5120),
                                          rand(5120))
+    # the training path's norms: smollm-135m's microbatch of 4 x 4096 rows
+    wide["rmsnorm_train_d576"] = (rand(TRAIN_ROWS, D), rand(D))
+    res["rmsnorm_residual_train_d576"] = (rand(TRAIN_ROWS, D),
+                                          rand(TRAIN_ROWS, D), rand(D))
 
     def decode_case(name, h, dh, kv=None, window=0, softcap=0.0,
                     q_scale=1.0, fault=None):
@@ -573,7 +658,8 @@ def kernel_cases(torch, F, dtype):
                 4 * B * h * seen * dh, PEAK_FLOPS[dname], opt)
 
     def flash_row(name, b, h, kv, sq, dh, s_kv=None, causal=True, window=0,
-                  softcap=0.0, q_scale=1.0, fault=None):
+                  softcap=0.0, q_scale=1.0, fault=None, heavy=False,
+                  per_row=False):
         """Prefill (or cross-) attention at the model paths' other shapes
         and options: keys of their own length ``s_kv``, not causal,
         windowed or softcapped (q scaled by ``q_scale`` so that the cap
@@ -581,7 +667,11 @@ def kernel_cases(torch, F, dtype):
         The library call is SDPA where it computes the same function (no
         softcap). ``fault`` names the option the planted-fault call drops
         (``s_kv``: the ragged last tile's keys, ``s_kv % FLASH_BK``). Rows
-        whose every query averages hundreds of keys take ``AVG_TOL``."""
+        whose every query averages hundreds of keys take ``AVG_TOL``;
+        ``per_row`` rows (causal: from one key to thousands) are held to
+        ``ROW_TOL`` of each query row's scale, and ``fault="old_tile"``
+        hides the oldest key tile from the last tile's rows. ``heavy`` rows (the plain version's f32 scores take gigabytes) are
+        timed eagerly, a few calls."""
         s_kv = sq if s_kv is None else s_kv
         qq = rand(b, sq, h, dh).transpose(1, 2) * q_scale
         kk, vv = (rand(b, s_kv, kv, dh).transpose(1, 2) for _ in range(2))
@@ -604,7 +694,15 @@ def kernel_cases(torch, F, dtype):
             opt.update(avg_tol)
         if not tc:                     # milliseconds a call: timed eagerly
             opt.update(reps=10, inner=4, graph=False)
-        if fault == "s_kv":
+        if heavy:
+            opt.update(reps=5, inner=2, graph=False)
+        if per_row:
+            opt.update(row_tol=ROW_TOL[dname])
+        if fault == "old_tile":
+            assert causal and sq > FLASH_BK
+            opt.update(fault=fault, fault_call=lambda: fa.flash_attention(
+                qq, kk, vv, **{**kw, "window": sq - FLASH_BK}))
+        elif fault == "s_kv":
             kept = s_kv - s_kv % FLASH_BK
             assert kept < s_kv, "the s_kv fault needs a ragged last tile"
             opt.update(fault=fault, fault_call=lambda: fa.flash_attention(
@@ -755,6 +853,9 @@ def kernel_cases(torch, F, dtype):
         decode_case("decode_attention_d128_h32kv8", 32, 128, kv=8),
         decode_case("decode_attention_d64_h6", 6, 64),
         decode_case("decode_attention_d160", 32, 160, kv=8),
+        # the training path: smollm-135m's causal prefill over 4096 tokens
+        flash_row("flash_attention_train_s4096", TRAIN_MB, H, KV, TRAIN_SEQ,
+                  DH, heavy=True, per_row=True, fault="old_tile"),
     ]
 
 
@@ -809,12 +910,16 @@ OTHER_SHAPES = {
     **{f"decode_attention_{k}": "decode_attention"
        for k in ("d128_softcap", "d128_window", "d128_h32kv8", "d64_h6",
                  "d160")},
+    # the training path
+    "rmsnorm_train_d576": "rmsnorm",
+    "rmsnorm_residual_train_d576": "rmsnorm_residual",
+    "flash_attention_train_s4096": "flash_attention",
 }
 # the model each model path serves or runs
 PATH_MODELS = {"dense": "smollm-135m", "ssm": "mamba2-2.7b",
                "moe": MOE_ARCH, "hybrid": HYBRID_ARCH, "int8": INT8_ARCH,
                "mla": MLA_ARCH, "gemma2": GEMMA_ARCH, "vlm": VLM_ARCH,
-               "encdec": ENCDEC_ARCH}
+               "encdec": ENCDEC_ARCH, "train": f"{TRAIN_ARCH} training"}
 DENSE_PATH = ("rmsnorm", "rmsnorm_residual", "decode_attention",
               "flash_attention")
 SSM_PATH = ("rmsnorm", "ssd")
@@ -824,6 +929,8 @@ HYBRID_PATH = DENSE_PATH + ("ssd",)
 # reference does; whisper's norms are LayerNorms
 MLA_PATH = ("rmsnorm", "rmsnorm_residual", "flash_attention")
 ENCDEC_PATH = ("decode_attention", "flash_attention")
+# training runs no decode (the wrapper raises under autograd)
+TRAIN_PATH = ("rmsnorm", "rmsnorm_residual", "flash_attention")
 EPOCH_PATH = ("contention_eta_f64",)
 
 
@@ -839,6 +946,13 @@ def launch_record(KERNELS):
             if grid is not None:
                 rec[inst].update(grid=list(grid), blocks=math.prod(grid))
     return rec
+
+
+def row_rel_err(x, y) -> float:
+    """The largest over the output rows (all but the last axis) of a row's
+    largest |x - y| over that row's largest |y|."""
+    d = (x.float() - y.float()).abs().amax(-1)
+    return float((d / y.float().abs().amax(-1).clamp_min(1e-30)).max())
 
 
 def kernel_phase(torch, F, failures):
@@ -869,8 +983,14 @@ def kernel_phase(torch, F, failures):
             pairs = list(zip(a, b)) if isinstance(a, tuple) else [(a, b)]
             err = max(float((x.float() - y.float()).abs().max())
                       for x, y in pairs)
-            ok = all(torch.allclose(x.float(), y.float(), rtol=tol, atol=tol)
-                     for x, y in pairs)
+            row_tol = opt.get("row_tol")
+
+            def within(ps):
+                if row_tol is not None:
+                    return max(row_rel_err(x, y) for x, y in ps) <= row_tol
+                return all(torch.allclose(x.float(), y.float(), rtol=tol,
+                                          atol=tol) for x, y in ps)
+            ok = within(pairs)
             row = {"name": name, "dtype": str(dtype).replace("torch.", ""),
                    "max_err": err, "tol": tol, "within_tol": ok,
                    "kernel_ms": dev_ms(torch, kern, reps, 2 * inner),
@@ -885,6 +1005,9 @@ def kernel_phase(torch, F, failures):
                 except (TypeError, RuntimeError) as e:   # yardstick only
                     row["library_error"] = repr(e)
             row["bound_ms"], row["bound_by"] = bound(nb, ops, peak)
+            if row_tol is not None:
+                row.update(tol=None, row_tol=row_tol, max_row_rel_err=max(
+                    row_rel_err(x, y) for x, y in pairs))
             if launched:
                 row["launched"] = launched
             if shapes:
@@ -912,13 +1035,14 @@ def kernel_phase(torch, F, failures):
             if fault is not None:   # the option dropped: the row must see it
                 c = fault()
                 fpairs = list(zip(c, b)) if isinstance(c, tuple) else [(c, b)]
-                caught = not all(torch.allclose(u.float(), v.float(),
-                                                rtol=tol, atol=tol)
-                                 for u, v in fpairs)
+                caught = not within(fpairs)
                 row["planted_fault"] = {
                     "dropped": opt["fault"], "caught": caught,
                     "max_err": max(float((u.float() - v.float()).abs().max())
                                    for u, v in fpairs)}
+                if row_tol is not None:
+                    row["planted_fault"]["max_row_rel_err"] = max(
+                        row_rel_err(u, v) for u, v in fpairs)
                 if not caught:
                     failures.append(f"{name} {row['dtype']}: the call "
                                     f"without {opt['fault']} agrees with "
@@ -934,7 +1058,9 @@ def kernel_phase(torch, F, failures):
                                     f"merge")
             emit({"kernel_check": row})
             if not ok or not math.isfinite(err):
-                failures.append(f"{name} {row['dtype']}: max_err {err} > {tol}")
+                failures.append(f"{name} {row['dtype']}: max_err {err} "
+                                f"(per row {row.get('max_row_rel_err')}) "
+                                f"past {tol or row_tol}")
             if dtype == torch.bfloat16:
                 rows[name] = row
     return rows
@@ -2290,7 +2416,7 @@ def mla_phase(torch, failures):
 
     def r4(p, tok, donor):
         pos = transformer.cache_length(cfg, donor)[None]
-        x, _ = transformer.run_layers(p["layers"], transformer.embed(
+        x, _, _ = transformer.run_layers(p["layers"], transformer.embed(
             p, cfg, tok), cfg, pos, donor["layers"], moe_oracle=True)
         return transformer.logits(p, cfg, x)
 
@@ -2872,6 +2998,520 @@ def daemon_example(failures, env) -> None:
                         f"{proc.returncode}: {stderr[-1500:]}")
 
 
+def grad_cases(torch, F, dtype, dev="cuda"):
+    """(name, leaf inputs, wrapper call, plain call, library call | None,
+    eager timing repeats) of the gradient rows, at the training path's
+    shapes (norms over 16,384 rows of 576; causal flash at B 4, H 9, KV 3,
+    S 4096, Dh 64, its backward in query blocks of ``TRAIN_Q_CHUNK`` as the
+    training phase runs it) and the SSD scan at mamba2's donor-prefill
+    shapes with no initial state (as its training forward calls it)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rmsnorm as rms
+    from repro_torch.kernels import ssd_scan
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(1)
+
+    def leaf(*shape, dt=dtype):
+        return torch.randn(shape, generator=g, device=dev).to(
+            dt).requires_grad_()
+
+    x, r, w = leaf(TRAIN_ROWS, D), leaf(TRAIN_ROWS, D), leaf(D)
+    # q, k, v in the model's [B, S, heads, Dh] layout, attended transposed
+    q, k, v = (leaf(TRAIN_MB, TRAIN_SEQ, n, DH) for n in (H, KV, KV))
+
+    def t12(*ts):
+        return [t.transpose(1, 2) for t in ts]
+
+    sx = leaf(B, PROMPT, SSM_H, SSM_P)
+    sdt = (torch.empty((B, PROMPT, SSM_H), device=dev).uniform_(
+        0.001, 0.1, generator=g).requires_grad_())
+    sal = torch.log(torch.linspace(1.0, 16.0, SSM_H, device=dev)).to(
+        dtype).requires_grad_()
+    sb, sc = leaf(B, PROMPT, SSM_G, SSM_N), leaf(B, PROMPT, SSM_G, SSM_N)
+    return [
+        ("rmsnorm", (x, w), lambda a, c: rms.rmsnorm(a, c),
+         lambda a, c: rms.rmsnorm_plain(a, c),
+         lambda a, c: F.rms_norm(a, (D,), c, 1e-6), 10),
+        ("rmsnorm_residual", (x, r, w),
+         lambda a, b, c: rms.rmsnorm_residual(a, b, c),
+         lambda a, b, c: rms.rmsnorm_residual_plain(a, b, c),
+         lambda a, b, c: (F.rms_norm(a + b, (D,), c, 1e-6), a + b), 10),
+        ("flash_attention", (q, k, v),
+         lambda a, b, c: fa.flash_attention(*t12(a, b, c),
+                                            q_chunk=TRAIN_Q_CHUNK),
+         lambda a, b, c: fa.flash_attention_plain(*t12(a, b, c)),
+         lambda a, b, c: F.scaled_dot_product_attention(
+             *t12(a, b, c), is_causal=True, enable_gqa=True), 2),
+        ("ssd", (sx, sdt, sal, sb, sc),
+         lambda *t: ssd_scan.ssd(*t, SSM_Q),
+         lambda *t: ssd_scan.ssd_plain(*t, SSM_Q), None, 2),
+    ]
+
+
+def as_tuple(out) -> tuple:
+    return out if isinstance(out, tuple) else (out,)
+
+
+def rel_grad_err(got, want) -> float:
+    """Largest |got - want| over the largest |want|, over the inputs; a
+    missing gradient counts as zeros (1.0)."""
+    worst = 0.0
+    for a, b in zip(got, want):
+        scale = max(float(b.double().abs().max()), 1e-30)
+        diff = (float(b.double().abs().max()) if a is None else
+                float((a.double() - b.double()).abs().max()))
+        worst = max(worst, diff / scale)
+    return worst
+
+
+@contextlib.contextmanager
+def no_upcast():
+    """The plain versions with their f32 upcast (``at_least_f32``) taken
+    out, so that bf16 inputs are computed in bf16 throughout: the
+    gradient rows' control."""
+    from repro_torch.kernels import _lib
+    from repro_torch.models import mamba2
+    saved = _lib.at_least_f32, mamba2.at_least_f32
+    _lib.at_least_f32 = mamba2.at_least_f32 = lambda t: t
+    try:
+        yield
+    finally:
+        _lib.at_least_f32, mamba2.at_least_f32 = saved
+
+
+def plain_grads_of(torch, plain, inputs, cots, cast):
+    """Gradients to ``inputs`` of ``plain`` on the inputs cast by ``cast``
+    (autograd through the cast), each cotangent in its output's dtype."""
+    outs = as_tuple(plain(*(cast(t) for t in inputs)))
+    return torch.autograd.grad(outs, inputs, [c.to(o.dtype) for c, o in
+                                              zip(cots, outs)])
+
+
+def grad_phase(torch, F, failures, dev="cuda") -> dict:
+    """The gradient rows, bf16 and f32: a seeded cotangent's gradients
+    through each Function (the kernel's forward, the plain version
+    recomputed in the backward) against a witness that is not the
+    Function's code, the plain version differentiated by autograd in f64
+    on the card (``GRAD_TOL``). Two controls must leave the tolerance: a
+    planted fault, the wrapper's output cut from the graph (what the
+    wrappers returned before the Functions), and the plain version
+    computed in bf16 (``no_upcast``, inputs rounded to bf16). Also read:
+    the Function against autograd of the plain version in the inputs'
+    dtype (the same arithmetic: 0 but for the order of sums), and the
+    shapes its backward counted. Times (µs, eager, CUDA events): the
+    kernel's forward, the Function's backward (the recompute), the plain
+    version's forward + backward and the library's (SDPA, ``F.rms_norm``;
+    a yardstick). Returns the bf16 rows by kernel name."""
+    from repro_torch.kernels import KERNELS
+
+    rows = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).replace("torch.", "")
+        for name, inputs, kern, plain, lib, reps in grad_cases(
+                torch, F, dtype, dev):
+            counts = KERNELS[name].counts
+            outs = as_tuple(kern(*inputs))
+            g = torch.Generator(device=dev)
+            g.manual_seed(2)
+            cots = [torch.randn(o.shape, generator=g, device=dev).to(
+                o.dtype) for o in outs]
+            counts.reset()
+            got = torch.autograd.grad(outs, inputs, cots, retain_graph=True)
+            backward_shapes = dict(counts.backward_by_shape)
+            wide = [t.detach().double().requires_grad_() for t in inputs]
+            witness = plain_grads_of(torch, plain, wide, cots, lambda t: t)
+            del wide
+            err = rel_grad_err(got, witness)
+            same = rel_grad_err(got, plain_grads_of(torch, plain, inputs,
+                                                    cots, lambda t: t))
+            with no_upcast():
+                control = rel_grad_err(plain_grads_of(
+                    torch, plain, inputs, cots,
+                    lambda t: t.to(torch.bfloat16)), witness)
+            cut = [o.detach().requires_grad_() for o in outs]
+            fault = rel_grad_err(torch.autograd.grad(
+                cut, inputs, cots, allow_unused=True), witness)
+            del witness
+            tol = (GRAD_TOL_SSD_BF16 if name == "ssd" and
+                   dtype == torch.bfloat16 else GRAD_TOL[dname])
+
+            def fwd_bwd(fn):
+                def run():
+                    torch.autograd.grad(as_tuple(fn(*inputs)), inputs, cots)
+                return run
+
+            with torch.no_grad():
+                fwd = cuda_ms(torch, lambda: kern(*inputs), reps, reps)
+            row = {"name": name, "dtype": dname,
+                   "shapes": [list(t.shape) for t in inputs],
+                   "backward_shapes": backward_shapes,
+                   "max_rel_err": err, "witness": "plain version, f64",
+                   "tol": tol, "within_tol": err <= tol,
+                   "same_arithmetic_max_rel_err": same,
+                   "bf16_compute_control": {"max_rel_err": control,
+                                            "caught": control > tol},
+                   "planted_fault": {"cut_from_graph": True,
+                                     "max_rel_err": fault,
+                                     "caught": fault > tol},
+                   "forward_kernel_us": fwd * 1e3,
+                   "backward_recompute_us": cuda_ms(
+                       torch, lambda: torch.autograd.grad(
+                           outs, inputs, cots, retain_graph=True),
+                       reps, reps) * 1e3,
+                   "plain_fwd_bwd_us": cuda_ms(torch, fwd_bwd(plain), reps,
+                                               reps) * 1e3,
+                   "library_fwd_bwd_us": None}
+            if lib is not None:
+                try:
+                    row["library_fwd_bwd_us"] = cuda_ms(
+                        torch, fwd_bwd(lib), reps, reps) * 1e3
+                except (TypeError, RuntimeError) as e:   # yardstick only
+                    row["library_error"] = repr(e)
+            emit({"grad_check": row})
+            if not (err <= tol and math.isfinite(err)
+                    and same <= tol and math.isfinite(same)):
+                failures.append(f"{name} {dname} gradients: {err} against "
+                                f"the f64 witness, {same} against the plain "
+                                f"version's autograd; tolerance {tol}")
+            if not fault > tol:
+                failures.append(f"{name} {dname}: gradients of the output "
+                                f"cut from the graph agree with the witness")
+            if not control > tol:
+                failures.append(f"{name} {dname}: the bf16-compute control "
+                                f"({control}) is within {tol}")
+            del outs, got, cut
+            if dtype == torch.bfloat16:
+                rows[name] = row
+        torch.cuda.empty_cache()
+    return rows
+
+
+def backward_coverage(grad_rows, shapes, failures) -> None:
+    """Every shape the training path's backward recomputed a kernel's plain
+    version at (``shapes``: kernel -> shape key -> count) must be one a
+    bf16 gradient row held to the witness."""
+    for name, per in shapes.items():
+        checked = grad_rows.get(name, {}).get("backward_shapes", {})
+        for key, n in per.items():
+            if key not in checked:
+                failures.append(f"{name}: {n} backward recomputes at {key} "
+                                f"on the training path, a shape no "
+                                f"gradient row checks")
+
+
+def attention_flops(cfg, batch: int, seq: int) -> float:
+    """Causal attention's products in a training step (forward and the two
+    backward products each): 2 products of 2 B H Dh S (S + 1) / 2 a layer
+    forward, times 3."""
+    return (6.0 * batch * cfg.n_heads * cfg.resolved_head_dim * seq
+            * (seq + 1) * cfg.n_layers)
+
+
+def recompute_ms(torch, events) -> dict:
+    """Device ms of each kernel's backward recompute: the kernels' busy time
+    inside the ``{name}_backward_recompute`` ranges of the card's timeline
+    (the backward runs on one stream, so nothing else runs inside them),
+    or an error where the trace holds no such range."""
+    suffix = "_backward_recompute"
+    dev = torch.autograd.DeviceType.CUDA
+    spans, kern = {}, []
+    for e in events:
+        if e.device_type == dev:
+            if e.name.endswith(suffix):
+                spans.setdefault(e.name[:-len(suffix)], []).append(
+                    (e.time_range.start, e.time_range.end))
+            else:
+                kern.append(e)
+    if not spans:
+        return {"error": "no device ranges of the backward recomputes"}
+    out = {}
+    for n, sp in spans.items():
+        inside = [e for e in kern if any(a <= e.time_range.start < b
+                                         for a, b in sp)]
+        out[n] = busy_us(inside) / 1e3
+    return out
+
+
+def train_phase(torch, failures, dev="cuda"):
+    """smollm-135m at full width and depth trained ``TRAIN_STEPS`` AdamW
+    steps on the card (bf16 params, f32 m/v, seed 0; ``TokenPipeline``
+    batches of 8 x 4096; ``accum`` 2, remat ``"dots"``, the attention's
+    backward recompute in query blocks of ``TRAIN_Q_CHUNK``): a ``train_step``
+    line a step, then a ``train_summary``. Counts are reset just before the
+    steps and read just after. Fails on a non-finite loss or grad_norm, a
+    last loss less than ``TRAIN_MIN_DROP`` below the first, a bf16 flash
+    launch off the tensor cores, a plain version on the card outside the
+    counted backward, or (one more microbatch's gradients, after the
+    steps) a parameter leaf, or one layer's slice of a stacked leaf, with
+    a zero or non-finite gradient. Returns (launches, launches by
+    instance, backward recomputes a step, backward recomputes by shape)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.kernels import KERNELS, reset_counts
+    from repro_torch.models import build_model
+    from repro_torch.training.optimizer import AdamWConfig, adamw_init
+    from repro_torch.training.train_step import (make_loss_fn,
+                                                 make_train_step,
+                                                 value_and_grad)
+
+    cfg = get_config(TRAIN_ARCH)
+    model = build_model(cfg, device=dev)
+    params = model.init_params(0)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    opt_cfg = AdamWConfig(lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
+                          total_steps=TRAIN_STEPS)
+    opt = adamw_init(params, opt_cfg)
+    step = make_train_step(model, opt_cfg, q_chunk=TRAIN_Q_CHUNK,
+                           accum=TRAIN_ACCUM, remat=TRAIN_REMAT)
+    pipe = TokenPipeline(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ, seed=0)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flops = 6.0 * n_params * tokens + attention_flops(cfg, TRAIN_BATCH,
+                                                      TRAIN_SEQ)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, norms, dev_ms, wall_ms, first = [], [], [], [], None
+    reset_counts()
+    for i in range(TRAIN_STEPS):
+        batch = {"tokens": torch.from_numpy(
+            pipe.next_batch()["tokens"]).to(dev)}
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        a.record()
+        params, opt, m = step(params, opt, batch)
+        b.record()
+        b.synchronize()
+        wall = time.perf_counter() - t0
+        loss, gn, lr = (float(m[k]) for k in ("loss", "grad_norm", "lr"))
+        losses.append(loss)
+        norms.append(gn)
+        dev_ms.append(a.elapsed_time(b))
+        wall_ms.append(wall * 1e3)
+        if first is None:         # one step's launches and recomputes
+            first = {n: (fn.counts.launches, dict(fn.counts.by_instance),
+                         fn.counts.backward)
+                     for n, fn in KERNELS.items() if fn.counts.launches
+                     or fn.counts.backward}
+        emit({"train_step": {"step": i, "loss": loss, "grad_norm": gn,
+                             "lr": lr, "device_ms": dev_ms[-1],
+                             "wall_ms": wall_ms[-1],
+                             "tokens_per_s": tokens / wall}})
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    launches = path_counts(KERNELS, TRAIN_PATH, PATH_MODELS["train"],
+                           failures)
+    instances = {n: dict(KERNELS[n].counts.by_instance) for n in TRAIN_PATH
+                 if KERNELS[n].counts.by_instance}
+    backward = {n: fn.counts.backward for n, fn in KERNELS.items()
+                if fn.counts.backward}
+    backward_shapes = {n: dict(fn.counts.backward_by_shape)
+                       for n, fn in KERNELS.items() if fn.counts.backward}
+    fa_inst = instances.get("flash_attention", {})
+    if set(fa_inst) != {"tensor_core"}:
+        failures.append(f"training: bf16 flash launches by instance "
+                        f"{fa_inst}, not all tensor_core")
+    if not all(math.isfinite(x) for x in losses + norms):
+        failures.append(f"training: loss {losses} / grad_norm {norms} not "
+                        f"finite")
+    drop = 1.0 - losses[-1] / losses[0]
+    if not drop >= TRAIN_MIN_DROP:
+        failures.append(f"training: last loss {losses[-1]} is not "
+                        f"{TRAIN_MIN_DROP:.0%} below the first {losses[0]}")
+
+    # every leaf the loss reaches gets a gradient, every layer's slice of
+    # a stacked leaf too (one microbatch from the next batch)
+    mb = {"tokens": torch.from_numpy(pipe.next_batch()["tokens"][
+        :TRAIN_MB]).to(dev)}
+    loss_fn = make_loss_fn(model, q_chunk=TRAIN_Q_CHUNK, remat=TRAIN_REMAT)
+    _, grads = value_and_grad(loss_fn, params, mb)
+    missing = []
+    for path, gl in tree_paths(grads):
+        stacked = path.startswith("layers/")    # [n_layers, ...]: each layer
+        per = gl.float().reshape(gl.shape[0] if stacked else 1, -1)
+        bad = [j for j, x in enumerate(per.abs().amax(1).tolist())
+               if not (x > 0 and math.isfinite(x))]
+        if bad:
+            missing.append(f"{path} layers {bad}" if stacked else path)
+    if missing:
+        failures.append(f"training: zero or non-finite gradients at "
+                        f"{missing}")
+    del grads
+
+    # where one step's time goes
+    batch = {"tokens": torch.from_numpy(
+        pipe.next_batch()["tokens"]).to(dev)}
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(params, opt, batch)
+            torch.cuda.synchronize()
+            prof_wall = (time.perf_counter() - t0) * 1e3
+        events = prof.events()
+        kern = [e for e in events
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and not e.name.endswith("_backward_recompute")]
+        profile_line = {"wall_ms": prof_wall,
+                        "device_busy_ms": busy_us(kern) / 1e3,
+                        "kernels": len(kern),
+                        "backward_recompute_ms": recompute_ms(torch, events),
+                        "top_kernels_us": {
+                            n[:60]: [c, t] for n, (c, t) in sorted(
+                                by_kernel(kern).items(),
+                                key=lambda kv: -kv[1][1])[:12]}}
+        profile_line["device_idle_share"] = (
+            1.0 - profile_line["device_busy_ms"] / prof_wall)
+    except Exception as e:   # noqa: BLE001 — a measurement, not a check
+        profile_line = {"error": repr(e)}
+    steady = sorted(dev_ms[2:]) or dev_ms
+    med_ms = steady[len(steady) // 2]
+    emit({"train_summary": {
+        "model": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
+        "params": n_params, "dtype": cfg.dtype, "moments": "float32",
+        "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "accum": TRAIN_ACCUM,
+        "remat": TRAIN_REMAT, "q_chunk": TRAIN_Q_CHUNK,
+        "steps": TRAIN_STEPS, "lr": TRAIN_LR,
+        "warmup_steps": TRAIN_WARMUP,
+        "cuts": "global batch 8 sequences (train_4k: 256); 20 steps",
+        "first_loss": losses[0], "last_loss": losses[-1], "drop": drop,
+        "median_device_ms_from_step_2": med_ms,
+        "tokens_per_s_at_median": tokens / med_ms * 1e3,
+        "model_flops_per_step": flops,
+        "model_flops_formula": "6 N D + 6 B H Dh S (S + 1) L (N all "
+                               "parameters, the tied head's included; D "
+                               "tokens a step; causal attention)",
+        "model_flop_share_of_989_tflops": flops / 989e12 / (med_ms / 1e3),
+        "peak_memory_gb": peak,
+        "launches_per_step": {n: v[0] for n, v in first.items()},
+        "launches_per_step_by_instance": {n: v[1] for n, v in first.items()
+                                          if v[1]},
+        "backward_recomputes_per_step": {n: v[2] for n, v in first.items()},
+        "launches": launches, "backward_recomputes": backward,
+        "backward_recomputes_by_shape": backward_shapes,
+        "profile_one_step": profile_line}})
+    per_step = {n: v[2] for n, v in first.items()}
+    del model, params, opt, step
+    return launches, instances, per_step, backward_shapes
+
+
+def tree_paths(tree, prefix: str = "") -> list:
+    """(path, leaf) of a tree of dicts and lists, paths joined by "/"."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        return [(prefix, tree)]
+    return [pl for k, v in items
+            for pl in tree_paths(v, f"{prefix}/{k}" if prefix else str(k))]
+
+
+def train_cut_check(torch, failures, dev="cuda") -> None:
+    """Every architecture's reduced config (f32) one training step on the
+    card (the kernels' forwards and the Functions' recomputes) against the
+    same step on the CPU (the plain versions), from the same parameters
+    (the port's init, seed 0) and a seeded batch of 2 x 16 tokens (whisper:
+    and 2 seeded frame sequences; pixtral: and 2 seeded image-embedding
+    sequences): remat "none" and "full", smollm also "dots". Compares the
+    loss and each gradient leaf (``value_and_grad``), then the step's loss,
+    grad_norm and lr, within ``TRAIN_SMALL_TOL`` relative (a gradient leaf
+    of its scale: its largest |g|, or ``TRAIN_NOISE_FLOOR`` of the largest
+    of any leaf where that is more), and every new parameter within
+    ``TRAIN_P_TOL`` where |g| passes ``TRAIN_G_FLOOR`` of its leaf's scale
+    and within 2 lr + ``TRAIN_P_TOL`` elsewhere. A
+    ``train_cut`` line an architecture, with the card's launches by
+    instance."""
+    import numpy as np
+
+    from repro_torch.configs import ARCH_IDS, get_reduced
+    from repro_torch.kernels import KERNELS, reset_counts
+    from repro_torch.models import build_model
+    from repro_torch.training.optimizer import AdamWConfig, adamw_init
+    from repro_torch.training.train_step import (make_loss_fn,
+                                                 make_train_step,
+                                                 value_and_grad)
+
+    opt_cfg = AdamWConfig(lr=TRAIN_LR, warmup_steps=1, total_steps=10)
+    for arch in ARCH_IDS:
+        cfg = get_reduced(arch)
+        cm, gm = build_model(cfg, device="cpu"), build_model(cfg, device=dev)
+        cp = cm.init_params(0)
+        gp = tree_map(lambda t: t.to(dev), cp)
+        rng = np.random.default_rng(0)
+        arrays = {"tokens": rng.integers(0, cfg.vocab_size, (2, 16))}
+        if cfg.family == "encdec":
+            arrays["frames"] = rng.standard_normal(
+                (2, cfg.encoder_frames, cfg.d_model)).astype(np.float32)
+        if cfg.family == "vlm":
+            arrays["image_embeds"] = rng.standard_normal(
+                (2, cfg.n_image_tokens, cfg.d_model)).astype(np.float32)
+        line = {"model": cfg.name, "family": cfg.family, "remat": {}}
+        reset_counts()
+        for remat in ("none", "full") + (("dots",) if arch == TRAIN_ARCH
+                                         else ()):
+            res = []
+            for mdl, p in ((gm, gp), (cm, cp)):
+                batch = {k: torch.from_numpy(v).to(mdl.device)
+                         for k, v in arrays.items()}
+                loss, grads = value_and_grad(make_loss_fn(mdl, remat=remat),
+                                             p, batch)
+                new, _, met = make_train_step(mdl, opt_cfg, remat=remat)(
+                    p, adamw_init(p, opt_cfg), batch)
+                res.append((loss, grads, new, met))
+            (gl, gg, gn, gmet), (cl, cg, cn, cmet) = res
+
+            def rel(a, b):
+                return abs(float(a) - float(b)) / max(abs(float(b)), 1e-30)
+
+            errs = {"loss": rel(gl, cl),
+                    **{f"step_{k}": rel(gmet[k], cmet[k])
+                       for k in ("loss", "grad_norm", "lr")}}
+            g_err, p_err, p_far = 0.0, 0.0, 0.0
+            # a leaf's scale: its largest |g|, or TRAIN_NOISE_FLOOR of the
+            # largest of any leaf where that is more (a leaf whose true
+            # gradient is 0, such as a key bias, holds rounding noise)
+            floor = TRAIN_NOISE_FLOOR * max(float(b.abs().max())
+                                            for _, b in tree_paths(cg))
+            for (_, a), (_, b), (_, na), (_, nb) in zip(
+                    tree_paths(gg), tree_paths(cg), tree_paths(gn),
+                    tree_paths(cn)):
+                a = a.cpu()
+                top = max(float(b.abs().max()), floor)
+                g_err = max(g_err, float((a - b).abs().max()) / top)
+                d = (na.cpu() - nb).abs()
+                sure = b.abs() > TRAIN_G_FLOOR * top
+                if sure.any():
+                    p_err = max(p_err, float(d[sure].max()))
+                p_far = max(p_far, float(d.max()))
+            errs.update(grad_leaf=g_err, new_params_sure=p_err,
+                        new_params_any=p_far)
+            line["remat"][remat] = errs
+            ok = (max(errs["loss"], errs["step_loss"], errs["step_grad_norm"],
+                      errs["step_lr"], g_err) <= TRAIN_SMALL_TOL
+                  and p_err <= TRAIN_P_TOL
+                  and p_far <= 2 * TRAIN_LR + TRAIN_P_TOL)
+            if not ok:
+                failures.append(f"{cfg.name} remat {remat}: card against CPU "
+                                f"{errs}")
+        line["launches_by_instance"] = {
+            n: dict(fn.counts.by_instance) for n, fn in KERNELS.items()
+            if fn.counts.by_instance}
+        line["backward_recomputes"] = {n: fn.counts.backward
+                                       for n, fn in KERNELS.items()
+                                       if fn.counts.backward}
+        line["plain_cuda_calls"] = {n: fn.counts.plain_cuda_calls
+                                    for n, fn in KERNELS.items()
+                                    if fn.counts.plain_cuda_calls}
+        emit({"train_cut": line})
+        if line["plain_cuda_calls"]:
+            failures.append(f"{cfg.name}: plain versions on the card outside "
+                            f"the counted backward: "
+                            f"{line['plain_cuda_calls']}")
+
+
 @contextlib.contextmanager
 def timed_phase(torch, name, seconds, peaks):
     """Records a phase's wall seconds and its peak of allocated card memory
@@ -2965,6 +3605,9 @@ def main() -> int:
     ap.add_argument("--families", action="store_true",
                     help="only the kernel phase, steps 12-15 and the Dh "
                          "160 check, --repeats times")
+    ap.add_argument("--train", action="store_true",
+                    help="only the kernel phase (gradient rows included) "
+                         "and the training phase, --repeats times")
     ap.add_argument("--repeats", type=int, default=1)
     ap.add_argument("--trace", action="store_true",
                     help="with --serve: each run under torch.profiler")
@@ -3000,10 +3643,25 @@ def main() -> int:
     if args.serve:
         return serve_repeats(torch, args.serve, args.repeats, args.trace)
     if (args.epoch or args.cluster or args.resume or args.lm_paths
-            or args.families):
+            or args.families or args.train):
         failures = []
         for _ in range(args.repeats):
-            if args.lm_paths or args.families:
+            if args.train:
+                seconds, peaks = {}, {}
+                with timed_phase(torch, "kernels", seconds, peaks):
+                    rows = kernel_phase(torch, F, failures)
+                    grad_rows = grad_phase(torch, F, failures)
+                free_card(torch)
+                with timed_phase(torch, "train_path", seconds, peaks):
+                    train = train_phase(torch, failures)
+                free_card(torch)
+                with timed_phase(torch, "train_cut", seconds, peaks):
+                    train_cut_check(torch, failures)
+                shape_coverage(rows, {"train": train[:2]}, failures)
+                backward_coverage(grad_rows, train[3], failures)
+                emit({"phase_seconds": seconds})
+                emit({"phase_peak_memory_gb": peaks})
+            elif args.lm_paths or args.families:
                 seconds, peaks = {}, {}
                 with timed_phase(torch, "kernels", seconds, peaks):
                     rows = kernel_phase(torch, F, failures)
@@ -3030,6 +3688,7 @@ def main() -> int:
 
     with phase("kernels"):
         rows = kernel_phase(torch, F, failures)
+        grad_rows = grad_phase(torch, F, failures)
         contention_rows, f32_launches = contention_phase(torch, failures)
         rows.update(contention_rows)
 
@@ -3068,6 +3727,15 @@ def main() -> int:
     paths.update(lm_paths(torch, failures, seconds, peaks))
     paths.update(family_paths(torch, failures, seconds, peaks))
 
+    free_card(torch)
+    with phase("train_path"):
+        launched, by_inst, train_backward, train_shapes = train_phase(
+            torch, failures)
+        paths["train"] = (launched, by_inst)
+    free_card(torch)
+    with phase("train_cut"):
+        train_cut_check(torch, failures)
+
     for dnn in CNN_WIDTHS:
         with phase(f"{dnn}_path"):
             spec = cnn_serving_phase(torch, failures, dnn)
@@ -3098,6 +3766,7 @@ def main() -> int:
                 by_inst.setdefault(kname, {})
                 by_inst[kname][i] = by_inst[kname].get(i, 0) + n
     shape_coverage(rows, paths, failures)
+    backward_coverage(grad_rows, train_shapes, failures)
     kernels = []
     for rname in (*SOURCES, *OTHER_SHAPES):
         kname = OTHER_SHAPES.get(rname, rname)
@@ -3128,6 +3797,10 @@ def main() -> int:
             entry["launches"] = sum(per.values())
             entry["launches_by_path"] = {p: n for p, n in per.items() if n}
             entry["launches_of"] = f"{kname} at {' and '.join(keys)}"
+        if rname in grad_rows:         # its backward recomputes the plain
+            entry["backward_recompute_us"] = grad_rows[rname][
+                "backward_recompute_us"]
+            entry["train_backward_per_step"] = train_backward.get(rname, 0)
         if rname == "ssd_cuda_core":   # bf16 serving takes the tensor cores
             entry["launches_f32_output_check"] = ssm_f32.get(
                 "ssd", {}).get("cuda_core", 0)

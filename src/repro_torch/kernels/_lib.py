@@ -12,6 +12,7 @@ every module of the package.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -85,6 +86,9 @@ class Counts:
     where the wrapper gives it, the grid of each one's last launch in
     ``grids``; where it gives the call's shape, the launches of each
     instance at each shape in ``by_shape`` (keyed ``"instance shape"``).
+    Under autograd, ``backward`` counts the backward passes that recompute
+    through the plain version (``backward_by_shape`` by the call's shape);
+    such a recompute is not a plain call.
 
     Lanes run on worker threads, so every increment takes the lock."""
 
@@ -96,6 +100,8 @@ class Counts:
         self.by_instance: Dict[str, int] = {}
         self.grids: Dict[str, Tuple[int, ...]] = {}
         self.by_shape: Dict[str, int] = {}
+        self.backward = 0
+        self.backward_by_shape: Dict[str, int] = {}
 
     def launched(self, instance: Optional[str] = None,
                  grid: Optional[Tuple[int, ...]] = None,
@@ -117,12 +123,20 @@ class Counts:
             if t.is_cuda:
                 self.plain_cuda_calls += 1
 
+    def recomputed(self, shape: str) -> None:
+        with self._lock:
+            self.backward += 1
+            self.backward_by_shape[shape] = \
+                self.backward_by_shape.get(shape, 0) + 1
+
     def reset(self) -> None:
         with self._lock:
             self.launches = self.plain_calls = self.plain_cuda_calls = 0
+            self.backward = 0
             self.by_instance = {}
             self.grids = {}
             self.by_shape = {}
+            self.backward_by_shape = {}
 
 
 def _nvcc() -> str:
@@ -234,6 +248,48 @@ def options_key(*, s_kv=None, full: bool = False, window: int = 0,
     if softcap > 0.0:
         key += " softcap"
     return key
+
+
+def at_least_f32(t: torch.Tensor) -> torch.Tensor:
+    """``t`` in f32, or f64 where it already is: the plain versions compute
+    "in f32" for bf16 and f32 inputs and keep f64 (``gradcheck``) in f64."""
+    return t.to(torch.promote_types(t.dtype, torch.float32))
+
+
+def needs_grad(*tensors) -> bool:
+    """Whether autograd records a call on these inputs: grad mode is on and
+    one of them requires grad (None entries are skipped)."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
+@contextlib.contextmanager
+def recompute(name: str, counts: "Counts", shape: str):
+    """The frame of a Function's backward that recomputes through the plain
+    version: grad mode on, one ``counts.backward`` at ``shape``, and a
+    profiler range ``{name}_backward_recompute``."""
+    counts.recomputed(shape)
+    with torch.enable_grad(), torch.profiler.record_function(
+            f"{name}_backward_recompute"):
+        yield
+
+
+def plain_grads(plain, inputs, grad_outputs) -> tuple:
+    """``plain(*inputs)`` under autograd from detached copies of ``inputs``,
+    differentiated against ``grad_outputs`` (one per output; None for an
+    output with no gradient). Returns one gradient per input: None for an
+    input that is None or not floating point."""
+    live = [None if t is None else t.detach().requires_grad_(
+        t.is_floating_point()) for t in inputs]
+    out = plain(*live)
+    outs = out if isinstance(out, tuple) else (out,)
+    pairs = [(o, g) for o, g in zip(outs, grad_outputs)
+             if g is not None and o.requires_grad]
+    wrt = [t for t in live if t is not None and t.requires_grad]
+    got = iter(torch.autograd.grad([o for o, _ in pairs], wrt,
+                                   [g for _, g in pairs], allow_unused=True))
+    return tuple(next(got) if t is not None and t.requires_grad else None
+                 for t in live)
 
 
 def require_cuda(name: str, *tensors: torch.Tensor) -> None:

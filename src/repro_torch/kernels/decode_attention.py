@@ -93,11 +93,18 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     CPU tensors take the plain version; CUDA tensors launch the split
     kernel and its merge, counted as instances ``split`` and ``combine``
-    with the grid of each."""
+    with the grid of each. No path trains through decode (nor does the
+    reference), so on a non-CPU input that autograd would record the
+    wrapper raises rather than return a result cut from the graph."""
     if q.device.type == "cpu":
         return decode_attention_plain(q, k, v, kv_pos, q_pos, window=window,
                                       softcap=softcap, scale=scale)
     name = "decode_attention"
+    if _lib.needs_grad(q, k, v):
+        raise RuntimeError(f"{name}: the kernel has no backward, and no "
+                           f"training path runs decode; call it under "
+                           f"torch.no_grad() or on inputs that need no "
+                           f"gradient")
     _lib.require_cuda(name, q, k, v, kv_pos, q_pos)
     b, h, dh = q.shape
     if (k.dim() != 4 or k.shape != v.shape or k.shape[0] != b

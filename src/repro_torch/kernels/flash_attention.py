@@ -33,6 +33,11 @@ values may be of their own length S_kv when the call is not causal
 (whisper's cross-attention to its encoder states, which the reference
 computes outside any kernel); query row i and key j sit at positions i
 and j.
+
+Under autograd (grad mode on and q, k or v requiring grad) the call goes
+through ``FlashAttentionFunction``: the kernel's forward, and a backward
+that recomputes the plain version (the reference has no backward kernel;
+without the Function the kernel's output would carry no gradient).
 """
 from __future__ import annotations
 
@@ -48,20 +53,46 @@ NEG_INF = -1.0e30
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           *, causal: bool = True, window: int = 0,
                           softcap: float = 0.0,
-                          scale: Optional[float] = None) -> torch.Tensor:
+                          scale: Optional[float] = None,
+                          q_chunk: int = 0) -> torch.Tensor:
     """q [B,H,S,Dh], k/v [B,KV,S_kv,Dh] -> [B,H,S,Dh]; f32 softmax. Query
-    row i and key j sit at positions i and j."""
+    row i and key j sit at positions i and j. ``q_chunk`` (as the
+    reference's ``mha``): where it divides S and is less than S, query
+    blocks of ``q_chunk`` rows attend to all keys one after another, so
+    that the f32 scores take [B, H, q_chunk, S_kv] at a time; the result
+    is the same."""
     flash_attention.counts.plain(q)
+    return _attention_math(q, k, v, causal, window, softcap, scale, q_chunk)
+
+
+def _q_blocks(s: int, q_chunk: int) -> list:
+    """The query rows' blocks: ``q_chunk`` rows each where the reference
+    would block them (``q_chunk`` divides S and is less than it), else
+    one block."""
+    if q_chunk and s > q_chunk and s % q_chunk == 0:
+        return [(r, r + q_chunk) for r in range(0, s, q_chunk)]
+    return [(0, s)]
+
+
+def _attention_math(q, k, v, causal, window, softcap, scale, q_chunk=0):
+    outs = [_attend(q[:, :, r0:r1], k, v, r0, causal, window, softcap, scale)
+            for r0, r1 in _q_blocks(q.shape[2], q_chunk)]
+    return outs[0] if len(outs) == 1 else torch.cat(outs, dim=2)
+
+
+def _attend(q, k, v, q0, causal, window, softcap, scale):
+    """Query rows at positions ``q0 ..`` against every key."""
     b, h, s, dh = q.shape
     kvh, s_kv = k.shape[1], k.shape[2]
     g = h // kvh
     if scale is None:
         scale = dh ** -0.5
-    qg = q.reshape(b, kvh, g, s, dh).float()
-    logits = torch.einsum("bkgqd,bktd->bkgqt", qg, k.float()) * scale
+    qg = _lib.at_least_f32(q.reshape(b, kvh, g, s, dh))
+    logits = torch.einsum("bkgqd,bktd->bkgqt", qg,
+                          _lib.at_least_f32(k)) * scale
     if softcap > 0.0:
         logits = softcap * torch.tanh(logits / softcap)
-    qpos = torch.arange(s, device=q.device)[:, None]
+    qpos = torch.arange(q0, q0 + s, device=q.device)[:, None]
     kpos = torch.arange(s_kv, device=q.device)[None, :]
     ok = torch.ones((s, s_kv), dtype=torch.bool, device=q.device)
     if causal:
@@ -70,7 +101,7 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         ok = ok & (qpos - kpos < window)
     logits = torch.where(ok, logits, torch.full_like(logits, NEG_INF))
     p = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bkgqt,bktd->bkgqd", p, v.float())
+    out = torch.einsum("bkgqt,bktd->bkgqd", p, _lib.at_least_f32(v))
     return out.reshape(b, h, s, dh).to(q.dtype)
 
 
@@ -90,16 +121,73 @@ def flash_instance(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
     return "tensor_core"
 
 
+def _shape_key(q, k, causal, window, softcap) -> str:
+    """A call's shape as its launch and backward counts name it."""
+    b, h, s, dh = q.shape
+    return (f"B{b} H{h} KV{k.shape[1]} S{s} Dh{dh} {_lib.dtype_name(q)}"
+            + _lib.options_key(s_kv=(k.shape[2], s), full=not causal,
+                               window=window, softcap=softcap))
+
+
+def _forward(q, k, v, causal, window, softcap, scale, q_chunk):
+    """The plain version for CPU tensors, the kernel for CUDA ones."""
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal, window=window,
+                                     softcap=softcap, scale=scale,
+                                     q_chunk=q_chunk)
+    return _launch(q, k, v, causal, window, softcap, scale)
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """``flash_attention`` under autograd: the wrapper's forward (the
+    kernel for CUDA tensors), and a backward that recomputes the plain
+    version from the saved q, k, v and differentiates it, one query block
+    of ``q_chunk`` rows at a time (so the recompute's f32 scores take [B,
+    H, q_chunk, S_kv]); the blocks' k and v gradients are summed in f32
+    and rounded once, and GQA's group sum falls out of the plain version's
+    broadcast. The reference has no backward kernel."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap, scale, q_chunk):
+        ctx.save_for_backward(q, k, v)
+        ctx.opts = (causal, window, softcap, scale, q_chunk)
+        return _forward(q, k, v, causal, window, softcap, scale, q_chunk)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        causal, window, softcap, scale, q_chunk = ctx.opts
+        dq, dk, dv = [], None, None
+        kf, vf = _lib.at_least_f32(k), _lib.at_least_f32(v)
+        with _lib.recompute("flash_attention", flash_attention.counts,
+                            _shape_key(q, k, causal, window, softcap)):
+            for r0, r1 in _q_blocks(q.shape[2], q_chunk):
+                gq, gk, gv = _lib.plain_grads(
+                    lambda a, b, c, r0=r0: _attend(a, b, c, r0, causal,
+                                                   window, softcap, scale),
+                    (q[:, :, r0:r1], kf, vf), (g[:, :, r0:r1],))
+                dq.append(gq)
+                dk = gk if dk is None else dk + gk
+                dv = gv if dv is None else dv + gv
+        dq = dq[0] if len(dq) == 1 else torch.cat(dq, dim=2)
+        return (dq, dk.to(k.dtype), dv.to(v.dtype), None, None, None, None,
+                None)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
                     softcap: float = 0.0,
-                    scale: Optional[float] = None) -> torch.Tensor:
+                    scale: Optional[float] = None,
+                    q_chunk: int = 0) -> torch.Tensor:
     """q: [B, H, S, Dh]; k/v: [B, KV, S_kv, Dh], any strides with Dh
     contiguous -> contiguous [B, H, S, Dh]. ``S_kv`` may differ from
-    ``S`` only when ``causal`` is false (cross-attention).
+    ``S`` only when ``causal`` is false (cross-attention). ``q_chunk``
+    blocks the plain version's queries (the kernel tiles them anyway and
+    ignores it).
 
     CPU tensors take the plain version; CUDA tensors launch the instance
-    that ``flash_instance`` names."""
+    that ``flash_instance`` names. Where autograd records the call, it
+    goes through ``FlashAttentionFunction``."""
     name = "flash_attention"
     b, h, s, dh = q.shape
     if (k.dim() != 4 or k.shape != v.shape or k.shape[0] != b
@@ -108,9 +196,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"{name}: q {tuple(q.shape)} with k "
                          f"{tuple(k.shape)} / v {tuple(v.shape)} (causal="
                          f"{causal} needs as many keys as queries)")
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal, window=window,
-                                     softcap=softcap, scale=scale)
+    if _lib.needs_grad(q, k, v):
+        return FlashAttentionFunction.apply(q, k, v, causal, window, softcap,
+                                            scale, q_chunk)
+    return _forward(q, k, v, causal, window, softcap, scale, q_chunk)
+
+
+def _launch(q, k, v, causal, window, softcap, scale):
+    name = "flash_attention"
+    b, h, s, dh = q.shape
     _lib.require_cuda(name, q, k, v)
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"{name}: q/k/v dtypes differ ({q.dtype}, {k.dtype}, "
@@ -135,10 +229,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                 *args, _lib.dtype_code(q, name), _lib.stream_handle(q.device))
         _lib.check(err, name)
         flash_attention.counts.launched(
-            instance, shape=f"B{b} H{h} KV{k.shape[1]} S{s} Dh{dh} "
-                      f"{_lib.dtype_name(q)}"
-                      + _lib.options_key(s_kv=(s_kv, s), full=not causal,
-                                         window=window, softcap=softcap))
+            instance, shape=_shape_key(q, k, causal, window, softcap))
     return out
 
 

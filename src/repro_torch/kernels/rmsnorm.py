@@ -16,6 +16,13 @@ trip through device memory.
 
 ``rmsnorm_residual`` norms the unrounded f32 sum ``x + r``, as the Pallas
 kernel does; the plain version below keeps that order.
+
+Under autograd (grad mode on and an input that requires grad) both go
+through ``RmsNormFunction``: the kernel's forward, and a backward that
+recomputes the plain version from the saved inputs. The kernel writes into
+a fresh tensor that autograd cannot see, so without the Function a
+parameter behind the norm would get no gradient on the card. The reference
+has no backward kernel (no ``custom_vjp``), so none is written here.
 """
 from __future__ import annotations
 
@@ -112,14 +119,22 @@ def plan_for(x: torch.Tensor, *others: torch.Tensor) -> RmsPlan:
 def rmsnorm_plain(x: torch.Tensor, weight: torch.Tensor, *, eps: float = 1e-6,
                   plus_one: bool = False) -> torch.Tensor:
     rmsnorm.counts.plain(x)
-    return _norm_f32(x.float(), weight, eps, plus_one).to(x.dtype)
+    return _rmsnorm_math(x, weight, eps, plus_one)
 
 
 def rmsnorm_residual_plain(x: torch.Tensor, residual: torch.Tensor,
                            weight: torch.Tensor, *, eps: float = 1e-6,
                            plus_one: bool = False):
     rmsnorm_residual.counts.plain(x)
-    s = x.float() + residual.float()
+    return _residual_math(x, residual, weight, eps, plus_one)
+
+
+def _rmsnorm_math(x, weight, eps, plus_one):
+    return _norm_f32(_lib.at_least_f32(x), weight, eps, plus_one).to(x.dtype)
+
+
+def _residual_math(x, residual, weight, eps, plus_one):
+    s = _lib.at_least_f32(x) + _lib.at_least_f32(residual)
     return _norm_f32(s, weight, eps, plus_one).to(x.dtype), s.to(x.dtype)
 
 
@@ -127,7 +142,7 @@ def _norm_f32(xf: torch.Tensor, weight: torch.Tensor, eps: float,
               plus_one: bool) -> torch.Tensor:
     var = xf.square().mean(dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
-    w = weight.float()
+    w = _lib.at_least_f32(weight)
     if plus_one:                      # gemma-style (1 + w) parameterization
         w = 1.0 + w
     return y * w
@@ -164,31 +179,78 @@ def _launch(x, residual, weight, eps, plus_one, name):
             *pl.c_args, _lib.stream_handle(x.device))
         _lib.check(err, name)
         (rmsnorm if residual is None else rmsnorm_residual).counts.launched(
-            pl.instance, (pl.grid(m),), f"{m}x{d} {_lib.dtype_name(xf)}"
-            + (" plus_one" if plus_one else ""))
+            pl.instance, (pl.grid(m),), _shape_key(xf, plus_one))
     out = out.view(x.shape)
     return out if res is None else (out, res.view(x.shape))
+
+
+def _shape_key(x: torch.Tensor, plus_one: bool) -> str:
+    """A call's shape as its launch and backward counts name it."""
+    d = x.shape[-1]
+    return (f"{x.numel() // max(d, 1)}x{d} {_lib.dtype_name(x)}"
+            + (" plus_one" if plus_one else ""))
+
+
+def _forward(x, residual, weight, eps, plus_one):
+    """The plain version for CPU tensors, the kernel for CUDA ones."""
+    if x.device.type == "cpu":
+        if residual is None:
+            return rmsnorm_plain(x, weight, eps=eps, plus_one=plus_one)
+        return rmsnorm_residual_plain(x, residual, weight, eps=eps,
+                                      plus_one=plus_one)
+    return _launch(x, residual, weight, eps, plus_one,
+                   "rmsnorm" if residual is None else "rmsnorm_residual")
+
+
+class RmsNormFunction(torch.autograd.Function):
+    """``rmsnorm`` (``residual`` None) or ``rmsnorm_residual`` under
+    autograd: the forward is the wrapper's (the kernel for CUDA tensors);
+    the backward recomputes the plain version from the saved inputs and
+    differentiates it (the reference has no backward kernel)."""
+
+    @staticmethod
+    def forward(ctx, x, residual, weight, eps, plus_one):
+        ctx.save_for_backward(x, residual, weight)
+        ctx.eps, ctx.plus_one = eps, plus_one
+        return _forward(x, residual, weight, eps, plus_one)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        x, r, w = ctx.saved_tensors
+        eps, plus_one = ctx.eps, ctx.plus_one
+        fn = rmsnorm if r is None else rmsnorm_residual
+        with _lib.recompute(fn.__name__, fn.counts, _shape_key(x, plus_one)):
+            if r is None:
+                gx, gw = _lib.plain_grads(
+                    lambda a, c: _rmsnorm_math(a, c, eps, plus_one), (x, w),
+                    grads)
+                return gx, None, gw, None, None
+            gx, gr, gw = _lib.plain_grads(
+                lambda a, b, c: _residual_math(a, b, c, eps, plus_one),
+                (x, r, w), grads)
+            return gx, gr, gw, None, None
 
 
 def rmsnorm(x: torch.Tensor, weight: torch.Tensor, *, eps: float = 1e-6,
             plus_one: bool = False) -> torch.Tensor:
     """x: [..., D] -> normalized [..., D] in x's dtype (f32 inside).
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel."""
-    if x.device.type == "cpu":
-        return rmsnorm_plain(x, weight, eps=eps, plus_one=plus_one)
-    return _launch(x, None, weight, eps, plus_one, "rmsnorm")
+    CPU tensors take the plain version; CUDA tensors launch the kernel.
+    Where autograd records the call, it goes through ``RmsNormFunction``."""
+    if _lib.needs_grad(x, weight):
+        return RmsNormFunction.apply(x, None, weight, eps, plus_one)
+    return _forward(x, None, weight, eps, plus_one)
 
 
 def rmsnorm_residual(x: torch.Tensor, residual: torch.Tensor,
                      weight: torch.Tensor, *, eps: float = 1e-6,
                      plus_one: bool = False):
     """Fused ``(rmsnorm(x + residual), x + residual)``; the norm reads the
-    unrounded f32 sum. CPU tensors take the plain version."""
-    if x.device.type == "cpu":
-        return rmsnorm_residual_plain(x, residual, weight, eps=eps,
-                                      plus_one=plus_one)
-    return _launch(x, residual, weight, eps, plus_one, "rmsnorm_residual")
+    unrounded f32 sum. CPU tensors take the plain version; under autograd
+    the call goes through ``RmsNormFunction``."""
+    if _lib.needs_grad(x, residual, weight):
+        return RmsNormFunction.apply(x, residual, weight, eps, plus_one)
+    return _forward(x, residual, weight, eps, plus_one)
 
 
 rmsnorm.counts = _lib.Counts()

@@ -23,6 +23,11 @@ softplus, and an optional f32 initial state; it returns ``y`` in x's dtype
 and the final state in f32. It needs ``L % chunk == 0`` (the model pads
 with dt = 0 tokens), ``H % G == 0``, a head dim of at most 64 and a state
 dim of at most 128: every assigned architecture fits.
+
+Under autograd (grad mode on and an input requiring grad) the call goes
+through ``SsdFunction``: the kernel's forward, and a backward that
+recomputes the plain version (the reference has no backward kernel;
+without the Function the kernel's outputs would carry no gradient).
 """
 from __future__ import annotations
 
@@ -64,13 +69,53 @@ def ssd_instance(x: torch.Tensor, b: torch.Tensor, chunk: int,
     return "tensor_core"
 
 
+def _shape_key(x, b, chunk) -> str:
+    """A call's shape as its launch and backward counts name it."""
+    bs, ln, h, p = x.shape
+    g, n = b.shape[2], b.shape[3]
+    return f"B{bs} L{ln} H{h} P{p} N{n} G{g} Q{chunk} {_lib.dtype_name(x)}"
+
+
+class SsdFunction(torch.autograd.Function):
+    """``ssd`` under autograd: the wrapper's forward (the kernel for CUDA
+    tensors), and a backward that recomputes ``ssd_reference`` from the
+    saved inputs and differentiates both outputs (y and the final state)
+    to x, dt, a_log, b, c and the initial state. The reference has no
+    backward kernel."""
+
+    @staticmethod
+    def forward(ctx, x, dt, a_log, b, c, chunk, init_state):
+        ctx.save_for_backward(x, dt, a_log, b, c, init_state)
+        ctx.chunk = chunk
+        return _forward(x, dt, a_log, b, c, chunk, init_state)
+
+    @staticmethod
+    def backward(ctx, gy, gs):
+        x, dt, a_log, b, c, s0 = ctx.saved_tensors
+        chunk = ctx.chunk
+        from ..models.mamba2 import ssd_reference
+        with _lib.recompute("ssd", ssd.counts, _shape_key(x, b, chunk)):
+            gx, gdt, ga, gb, gc, g0 = _lib.plain_grads(
+                lambda *t: ssd_reference(*t[:5], chunk, t[5]),
+                (x, dt, a_log, b, c, s0), (gy, gs))
+        return gx, gdt, ga, gb, gc, None, g0
+
+
 def ssd(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
         b: torch.Tensor, c: torch.Tensor, chunk: int = 256,
         init_state: Optional[torch.Tensor] = None
         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x [B,L,H,P]; dt [B,L,H] (post-softplus); a_log [H]; b/c [B,L,G,N];
     init_state [B,H,P,N] or None -> (y [B,L,H,P], final_state [B,H,P,N]
-    f32). CPU tensors take the plain version; CUDA tensors the kernel."""
+    f32). CPU tensors take the plain version; CUDA tensors the kernel.
+    Where autograd records the call, it goes through ``SsdFunction``."""
+    if _lib.needs_grad(x, dt, a_log, b, c, init_state):
+        return SsdFunction.apply(x, dt, a_log, b, c, chunk, init_state)
+    return _forward(x, dt, a_log, b, c, chunk, init_state)
+
+
+def _forward(x, dt, a_log, b, c, chunk, init_state):
+    """The plain version for CPU tensors, the kernel for CUDA ones."""
     if x.device.type == "cpu":
         return ssd_plain(x, dt, a_log, b, c, chunk, init_state)
     name = "ssd"
@@ -107,9 +152,8 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
         return torch.empty_like(x), sf
     instance = ssd_instance(x, b, chunk, c)
     y, sf, grids = launch(x, dt, a32, b, c, chunk, s0, instance)
-    shape = f"B{bs} L{ln} H{h} P{p} N{n} G{g} Q{chunk} {_lib.dtype_name(x)}"
     for kernel, grid in zip(INSTANCE_KERNELS[instance], grids):
-        ssd.counts.launched(kernel, grid, shape)
+        ssd.counts.launched(kernel, grid, _shape_key(x, b, chunk))
     return y, sf
 
 

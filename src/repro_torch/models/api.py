@@ -4,6 +4,7 @@ Counterpart of src/repro/models/api.py for every family (dense, vlm, moe,
 ssm, hybrid and encdec):
 
     init_params(seed)                 -> params (dict of tensors)
+    loss(params, batch)               -> 0-d f32 tensor (training)
     init_cache(batch_size, max_len)   -> cache (dict of tensors)
     prefill(params, batch)            -> (logits, cache)
     decode_step(params, batch)        -> (logits, cache)
@@ -30,9 +31,24 @@ from ..device import DeviceLike, resolve_device
 from . import encdec, transformer
 
 
+def loss_from_logits(logits: torch.Tensor, targets: torch.Tensor,
+                     mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean next-token NLL in f32 (logsumexp less the gold logit), over the
+    positions ``mask`` keeps where one is given."""
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    gold = lf.gather(-1, targets[..., None].long())[..., 0]
+    nll = lse - gold
+    if mask is not None:
+        return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return nll.mean()
+
+
 class Model:
     """An LM (or whisper's encoder-decoder) on one device; methods are
     plain functions of tensors."""
+
+    AUX_WEIGHT = 0.01          # the moe layers' load-balance loss, a layer
 
     def __init__(self, cfg, device: torch.device):
         self.cfg = cfg
@@ -70,6 +86,30 @@ class Model:
                                        **kw)
         return transformer.forward(params, cfg, batch["tokens"], cache=cache,
                                    **kw)
+
+    def loss(self, params: dict, batch: Dict[str, torch.Tensor], *,
+             q_chunk: int = 0, remat: str = "none") -> torch.Tensor:
+        """The training loss of ``batch`` (``"tokens"`` [B, S]; encdec also
+        ``"frames"``, vlm optionally ``"image_embeds"``): next-token NLL;
+        encdec teacher-forced on ``tokens[:, :-1]``; vlm over the token
+        rows after the image rows; moe plus ``AUX_WEIGHT`` times the aux
+        loss over ``n_layers``. ``q_chunk`` and ``remat`` as in
+        ``transformer.forward``."""
+        cfg = self.cfg
+        tokens = batch["tokens"]
+        if cfg.family == "encdec":
+            enc_out = encdec.encode(params, batch["frames"], cfg)
+            logits, _ = encdec.decode(params, tokens[:, :-1], enc_out, cfg,
+                                      q_chunk=q_chunk, remat=remat)
+            return loss_from_logits(logits, tokens[:, 1:])
+        logits, _, aux = self._lm_forward(params, batch, q_chunk=q_chunk,
+                                          remat=remat, with_aux=True)
+        if cfg.family == "vlm" and "image_embeds" in batch:
+            logits = logits[:, batch["image_embeds"].shape[1]:]
+        loss = loss_from_logits(logits[:, :-1], tokens[:, 1:])
+        if cfg.n_experts:
+            loss = loss + self.AUX_WEIGHT * aux / max(cfg.n_layers, 1)
+        return loss
 
     def prefill(self, params: dict, batch: Dict[str, torch.Tensor]):
         if self.cfg.family == "encdec":

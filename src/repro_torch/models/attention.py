@@ -163,8 +163,11 @@ def attention_block(params: dict, x: torch.Tensor, *, positions: torch.Tensor,
                     window: int = 0, attn_softcap: float = 0.0,
                     scale: Optional[float] = None,
                     cache: Optional[dict] = None,
-                    x_kv: Optional[torch.Tensor] = None) -> tuple:
-    """x [B, S, d] -> (out [B, S, d], new_cache | None).
+                    x_kv: Optional[torch.Tensor] = None,
+                    q_chunk: int = 0) -> tuple:
+    """x [B, S, d] -> (out [B, S, d], new_cache | None). ``q_chunk``
+    blocks the queries of the flash call's plain version (the reference's
+    ``mha``); the kernel ignores it.
 
     - prefill: cache=None, or a fresh cache to fill;
     - decode: the cache holds the history, x is the new token (the decode
@@ -201,7 +204,7 @@ def attention_block(params: dict, x: torch.Tensor, *, positions: torch.Tensor,
         out = _fa.flash_attention(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
             causal=causal, window=window, softcap=attn_softcap,
-            scale=scale).transpose(1, 2)
+            scale=scale, q_chunk=q_chunk).transpose(1, 2)
     else:
         kc, vc, kv_pos = read_kv_cache(new_cache, x.dtype)
         q_pos = (positions if positions.dim() == 1

@@ -19,7 +19,7 @@ import torch
 from .attention import attention_block, init_attention, make_kv_cache
 from .layers import (embed_init, init_mlp, layer_norm, mlp,
                      sinusoidal_positions)
-from .transformer import TORCH_DTYPES
+from .transformer import TORCH_DTYPES, maybe_remat
 
 
 def _init_ln(d: int, dt: torch.dtype, device) -> dict:
@@ -87,10 +87,12 @@ def init_dec_cache(cfg, batch: int, max_len: int,
 
 def decode(params: dict, tokens: torch.Tensor, enc_out: torch.Tensor, cfg,
            cache: Optional[dict] = None,
-           positions: Optional[torch.Tensor] = None
-           ) -> Tuple[torch.Tensor, Optional[dict]]:
+           positions: Optional[torch.Tensor] = None, q_chunk: int = 0,
+           remat: str = "none") -> Tuple[torch.Tensor, Optional[dict]]:
     """Decoder forward. tokens [B, S]; enc_out [B, F, d] -> (logits [B, S,
-    vocab], new_cache | None)."""
+    vocab], new_cache | None). ``q_chunk`` blocks the attention's plain
+    queries; any ``remat`` but ``"none"`` recomputes each decoder layer
+    whole in the backward, as the reference does."""
     x = params["embed"][tokens.long()]
     if positions is None:
         ar = torch.arange(tokens.shape[1], dtype=torch.int32,
@@ -98,23 +100,33 @@ def decode(params: dict, tokens: torch.Tensor, enc_out: torch.Tensor, cfg,
         positions = ar if cache is None else cache["self"][0]["length"] + ar
     x = x + _pos_embed(positions, cfg.d_model).to(x.dtype)[None]
     new_cache = {"self": []} if cache is not None else None
+    layer = maybe_remat(dec_layer, "none" if remat == "none" else "full")
     for i, lp in enumerate(params["dec_layers"]):
-        h = layer_norm(x, lp["ln1"]["w"], lp["ln1"]["b"])
-        a, nc = attention_block(lp["self_attn"], h, positions=positions,
-                                rope_theta=0.0, causal=True,
-                                cache=None if cache is None
-                                else cache["self"][i])
-        x = x + a
-        h = layer_norm(x, lp["ln_x"]["w"], lp["ln_x"]["b"])
-        a, _ = attention_block(lp["cross_attn"], h, positions=positions,
-                               rope_theta=0.0, causal=False, x_kv=enc_out)
-        x = x + a
-        h = layer_norm(x, lp["ln2"]["w"], lp["ln2"]["b"])
-        x = x + mlp(lp["mlp"], h, cfg.mlp_act)
+        x, nc = layer(lp, x, enc_out, cfg, positions,
+                      None if cache is None else cache["self"][i], q_chunk)
         if cache is not None:
             new_cache["self"].append(nc)
     x = layer_norm(x, params["dec_norm"]["w"], params["dec_norm"]["b"])
     return x @ params["embed"].T, new_cache
+
+
+def dec_layer(lp: dict, x: torch.Tensor, enc_out: torch.Tensor, cfg,
+              positions: torch.Tensor, cache: Optional[dict],
+              q_chunk: int = 0) -> tuple:
+    """One decoder layer: causal self-attention (with its cache), then
+    cross-attention to the encoder states, then the biased MLP."""
+    h = layer_norm(x, lp["ln1"]["w"], lp["ln1"]["b"])
+    a, nc = attention_block(lp["self_attn"], h, positions=positions,
+                            rope_theta=0.0, causal=True, cache=cache,
+                            q_chunk=q_chunk)
+    x = x + a
+    h = layer_norm(x, lp["ln_x"]["w"], lp["ln_x"]["b"])
+    a, _ = attention_block(lp["cross_attn"], h, positions=positions,
+                           rope_theta=0.0, causal=False, x_kv=enc_out,
+                           q_chunk=q_chunk)
+    x = x + a
+    h = layer_norm(x, lp["ln2"]["w"], lp["ln2"]["b"])
+    return x + mlp(lp["mlp"], h, cfg.mlp_act), nc
 
 
 def _pos_embed(positions: torch.Tensor, d: int) -> torch.Tensor:

@@ -17,6 +17,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..kernels._lib import at_least_f32
 from ..kernels.ssd_scan import ssd
 from .layers import dense_init, rms_norm
 
@@ -106,39 +107,40 @@ def ssd_reference(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     """Chunked SSD. x:[B,L,H,P] dt:[B,L,H] (post-softplus) b/c:[B,L,G,N].
 
     Returns (y [B,L,H,P], final_state [B,H,P,N] f32). The plain version of
-    the SSD kernel."""
+    the SSD kernel. It computes in f32 (in f64 for f64 inputs)."""
+    f32 = at_least_f32
     bs, ln, h, p = x.shape
     g, n = b.shape[2], b.shape[3]
     if ln % chunk:
         raise ValueError(f"L={ln} not divisible by chunk={chunk}")
     nc = ln // chunk
     rep = h // g
-    a = -torch.exp(a_log.float())                          # [H], negative
+    a = -torch.exp(f32(a_log))                             # [H], negative
     xc = x.reshape(bs, nc, chunk, h, p)
-    dtc = dt.reshape(bs, nc, chunk, h).float()
+    dtc = f32(dt.reshape(bs, nc, chunk, h))
     bc = b.reshape(bs, nc, chunk, g, n).repeat_interleave(rep, dim=3)
     cc = c.reshape(bs, nc, chunk, g, n).repeat_interleave(rep, dim=3)
     da_hq = (dtc * a).movedim(-1, 2)                        # [B,nc,H,Q]
     decay = torch.exp(_segsum(da_hq))                       # [B,nc,H,Q,Q]
     # intra-chunk (quadratic within the chunk); C.B in the inputs' dtype
-    cb = torch.einsum("bcqhn,bckhn->bchqk", cc, bc).float()
+    cb = f32(torch.einsum("bcqhn,bckhn->bchqk", cc, bc))
     y_intra = torch.einsum("bchqk,bckh,bckhp->bcqhp", cb * decay, dtc,
-                           xc.float())
+                           f32(xc))
     # per-chunk final states
     cum = torch.cumsum(da_hq, dim=-1)                       # [B,nc,H,Q]
     decay_to_end = torch.exp(cum[..., -1:] - cum)
-    states = torch.einsum("bckhn,bchk,bckh,bckhp->bchpn", bc.float(),
-                          decay_to_end, dtc, xc.float())
+    states = torch.einsum("bckhn,bchk,bckh,bckhp->bchpn", f32(bc),
+                          decay_to_end, dtc, f32(xc))
     # inter-chunk recurrence
     chunk_decay = torch.exp(cum[..., -1])                   # [B,nc,H]
-    prev = (torch.zeros((bs, h, p, n), dtype=torch.float32, device=x.device)
-            if init_state is None else init_state.float())
+    prev = f32(torch.zeros((bs, h, p, n), device=x.device, dtype=x.dtype)
+               if init_state is None else init_state)
     prev_states = []
     for ci in range(nc):
         prev_states.append(prev)
         prev = prev * chunk_decay[:, ci, :, None, None] + states[:, ci]
     prev_states = torch.stack(prev_states, dim=1)           # [B,nc,H,P,N]
-    y_inter = torch.einsum("bcqhn,bchq,bchpn->bcqhp", cc.float(),
+    y_inter = torch.einsum("bcqhn,bchq,bchpn->bcqhp", f32(cc),
                            torch.exp(cum), prev_states)
     y = (y_intra + y_inter).reshape(bs, ln, h, p)
     return y.to(x.dtype), prev

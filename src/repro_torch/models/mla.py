@@ -94,9 +94,10 @@ def _project_latent(params: dict, x: torch.Tensor, cfg, positions):
 
 def mla_block(params: dict, x: torch.Tensor, *, cfg,
               positions: torch.Tensor,
-              cache: Optional[dict] = None) -> tuple:
+              cache: Optional[dict] = None, q_chunk: int = 0) -> tuple:
     """x [B, S, d] -> (out [B, S, d], new_cache | None); one token with a
-    cache runs absorbed."""
+    cache runs absorbed. ``q_chunk`` blocks the naive path's queries in
+    the flash call's plain version."""
     scale = (cfg.qk_nope_head_dim + cfg.qk_rope_head_dim) ** -0.5
     q_nope, q_rope = _project_q(params, x, cfg, positions)
     latent, k_rope = _project_latent(params, x, cfg, positions)
@@ -144,7 +145,8 @@ def mla_block(params: dict, x: torch.Tensor, *, cfg,
     q = torch.cat([q_nope, q_rope], dim=-1)
     v = F.pad(v, (0, q.shape[-1] - vd))         # the reference's _pad_v
     out = _fa.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                              v.transpose(1, 2), causal=True, scale=scale)
+                              v.transpose(1, 2), causal=True, scale=scale,
+                              q_chunk=q_chunk)
     out = out.transpose(1, 2)[..., :vd]
     y = out.reshape(b, s, h * vd) @ params["wo"].reshape(h * vd, -1)
     return y, new_cache

@@ -210,26 +210,28 @@ def cache_length(cfg, cache: dict) -> torch.Tensor:
 # Layer bodies
 # ---------------------------------------------------------------------------
 def _attention(lp: dict, h: torch.Tensor, cfg, positions: torch.Tensor,
-               cache: Optional[dict], window: int = 0) -> tuple:
+               cache: Optional[dict], window: int = 0,
+               q_chunk: int = 0) -> tuple:
     """A layer's attention: MLA where the config has it (deepseek's dense
     and MoE layers), else GQA with the config's softcap and ``window``."""
     if cfg.use_mla:
         return mla_block(lp["attn"], h, cfg=cfg, positions=positions,
-                         cache=cache)
+                         cache=cache, q_chunk=q_chunk)
     return attention_block(
         lp["attn"], h, positions=positions, rope_theta=cfg.rope_theta,
         window=window, attn_softcap=cfg.attn_softcap,
-        scale=cfg.resolved_head_dim ** -0.5, cache=cache)
+        scale=cfg.resolved_head_dim ** -0.5, cache=cache, q_chunk=q_chunk)
 
 
 def dense_body(lp: dict, x: torch.Tensor, cfg, positions: torch.Tensor,
-               cache: Optional[dict], window: int = 0) -> tuple:
+               cache: Optional[dict], window: int = 0,
+               q_chunk: int = 0) -> tuple:
     """One dense layer (also the moe family's leading ones): ``x +
     attn(ln1(x))`` then ``+ mlp(ln2(.))``, each branch through its
     post-block norm where the config has them (gemma2). The residual add
     and ln2 run as one fused kernel."""
     h = rms_norm(x, lp["ln1"], cfg.norm_eps, plus_one=cfg.embed_scale)
-    a, new_cache = _attention(lp, h, cfg, positions, cache, window)
+    a, new_cache = _attention(lp, h, cfg, positions, cache, window, q_chunk)
     if cfg.post_block_norms:
         a = rms_norm(a, lp["ln1_post"], cfg.norm_eps,
                      plus_one=cfg.embed_scale)
@@ -243,13 +245,14 @@ def dense_body(lp: dict, x: torch.Tensor, cfg, positions: torch.Tensor,
 
 
 def moe_body(lp: dict, x: torch.Tensor, cfg, positions: torch.Tensor,
-             cache: Optional[dict], use_oracle: bool) -> tuple:
+             cache: Optional[dict], use_oracle: bool,
+             q_chunk: int = 0) -> tuple:
     """One MoE layer: ``x + attn(ln1(x))`` (MLA where the config has it)
     then ``+ experts(ln2(.))`` (plus the shared experts where the layer has
     them); returns (x, new_cache, aux). The residual add and ln2 run as
     one fused kernel."""
     h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-    a, new_cache = _attention(lp, h, cfg, positions, cache)
+    a, new_cache = _attention(lp, h, cfg, positions, cache, 0, q_chunk)
     h, x = rmsnorm_residual(x, a, lp["ln2"], eps=cfg.norm_eps)
     if use_oracle:
         mo, aux = moe_dense_oracle(lp["moe"], h, cfg.n_experts_active,
@@ -273,25 +276,27 @@ def ssm_body(lp: dict, x: torch.Tensor, cfg, positions: torch.Tensor,
 
 
 def pair_body(lp: dict, x: torch.Tensor, cfg, positions: torch.Tensor,
-              cache: Optional[dict]) -> tuple:
+              cache: Optional[dict], q_chunk: int = 0) -> tuple:
     """One gemma2 block: the local layer (sliding window) then the global
     one, each with its own cache."""
     x, ncl = dense_body(lp["local"], x, cfg, positions,
                         None if cache is None else cache["local"],
-                        cfg.sliding_window)
+                        cfg.sliding_window, q_chunk)
     x, ncg = dense_body(lp["global"], x, cfg, positions,
-                        None if cache is None else cache["global"], 0)
+                        None if cache is None else cache["global"], 0,
+                        q_chunk)
     return x, (None if cache is None else {"local": ncl, "global": ncg})
 
 
 def shared_attn_body(sp: dict, x: torch.Tensor, x0: torch.Tensor, cfg,
-                     positions: torch.Tensor, cache: Optional[dict]) -> tuple:
+                     positions: torch.Tensor, cache: Optional[dict],
+                     q_chunk: int = 0) -> tuple:
     """zamba2's shared block on ``concat(x, x0)``, ``x0`` the embedded
     input: ``x + attn(ln1(cat))`` then ``+ mlp(ln2(.))``."""
     h = rms_norm(torch.cat([x, x0], dim=-1), sp["ln1"], cfg.norm_eps)
     a, new_cache = attention_block(
         sp["attn"], h, positions=positions, rope_theta=cfg.rope_theta,
-        scale=cfg.resolved_head_dim ** -0.5, cache=cache)
+        scale=cfg.resolved_head_dim ** -0.5, cache=cache, q_chunk=q_chunk)
     h, x = rmsnorm_residual(x, a, sp["ln2"], eps=cfg.norm_eps)
     return x + gated_mlp(sp["mlp"], h, cfg.mlp_act), new_cache
 
@@ -302,55 +307,118 @@ def _first_leaf(tree):
     return tree
 
 
+REMAT_MODES = ("none", "full", "dots")
+_WEIGHT_PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_weight_products():
+    """Selective checkpointing's contexts for ``remat="dots"``: keep the
+    outputs of the weight products (``mm``/``addmm``: the reference's
+    ``dots_with_no_batch_dims_saveable``) and recompute everything else."""
+    from torch.utils.checkpoint import (CheckpointPolicy,
+                                        create_selective_checkpoint_contexts)
+
+    def policy(ctx, op, *args, **kwargs):
+        return (CheckpointPolicy.MUST_SAVE if op in _WEIGHT_PRODUCTS
+                else CheckpointPolicy.PREFER_RECOMPUTE)
+    return create_selective_checkpoint_contexts(policy)
+
+
+def maybe_remat(fn, remat: str):
+    """A layer body under the reference's remat policy (``_maybe_remat``):
+    ``"none"`` as it is; ``"full"`` recomputed whole in the backward
+    (``torch.utils.checkpoint``, non-reentrant); ``"dots"`` the same
+    keeping the weight products' outputs."""
+    if remat not in REMAT_MODES:
+        raise ValueError(f"remat must be one of {REMAT_MODES}, got {remat!r}")
+    if remat == "none":
+        return fn
+    from torch.utils.checkpoint import checkpoint
+    kw = {"context_fn": _save_weight_products} if remat == "dots" else {}
+
+    def body(*args):
+        return checkpoint(fn, *args, use_reentrant=False, **kw)
+    return body
+
+
+def layer_body(lp: dict, x: torch.Tensor, cfg, positions: torch.Tensor,
+               cache: Optional[dict], moe_oracle: bool = False,
+               q_chunk: int = 0) -> tuple:
+    """One layer of the stack (a gemma2 pair counts as one): (x, new_cache,
+    aux), aux None but for the moe family."""
+    if cfg.family == "ssm":
+        return (*ssm_body(lp, x, cfg, positions, cache), None)
+    if cfg.family == "moe":
+        return moe_body(lp, x, cfg, positions, cache, moe_oracle, q_chunk)
+    body = pair_body if cfg.local_global_alternating else dense_body
+    return (*body(lp, x, cfg, positions, cache, q_chunk=q_chunk), None)
+
+
 def run_layers(layers: dict, x: torch.Tensor, cfg, positions: torch.Tensor,
-               cache: Optional[dict], *, moe_oracle: bool = False
-               ) -> Tuple[torch.Tensor, Optional[dict]]:
+               cache: Optional[dict], *, moe_oracle: bool = False,
+               remat: str = "none", q_chunk: int = 0
+               ) -> Tuple[torch.Tensor, Optional[dict], torch.Tensor]:
     """The reference's layer scan as a loop over the stacked axis (dense,
     gemma2 pairs, ssm and moe layers; ``moe_oracle`` picks the moe layers'
-    expert path)."""
+    expert path), each layer under ``remat``. Returns (x, new_cache | None,
+    aux): the moe layers' aux losses summed in f32 (0 for the others)."""
+    body = maybe_remat(layer_body, remat)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     new_caches = []
     for li in range(_first_leaf(layers).shape[0]):
-        lp = index_tree(layers, li)
         ca = None if cache is None else index_tree(cache, li)
-        if cfg.family == "ssm":
-            x, nc = ssm_body(lp, x, cfg, positions, ca)
-        elif cfg.family == "moe":
-            x, nc, _ = moe_body(lp, x, cfg, positions, ca, moe_oracle)
-        elif cfg.local_global_alternating:
-            x, nc = pair_body(lp, x, cfg, positions, ca)
-        else:
-            x, nc = dense_body(lp, x, cfg, positions, ca)
+        x, nc, a = body(index_tree(layers, li), x, cfg, positions, ca,
+                        moe_oracle, q_chunk)
+        if a is not None:
+            aux = aux + a.float()
         new_caches.append(nc)
     if cache is None:
-        return x, None
+        return x, None, aux
     if not new_caches:
-        return x, cache
-    return x, stack_trees(new_caches)
+        return x, cache, aux
+    return x, stack_trees(new_caches), aux
+
+
+def hybrid_layer(lp: dict, x: torch.Tensor, cfg, positions: torch.Tensor,
+                 cache: Optional[dict], shared: Optional[tuple],
+                 q_chunk: int = 0) -> tuple:
+    """One Mamba2 layer and, where ``shared`` is ``(sp, x0, attn_cache)``,
+    the shared block after it: (x, new_cache, new_attn_cache | None)."""
+    x, nc = ssm_body(lp, x, cfg, positions, cache)
+    if shared is None:
+        return x, nc, None
+    sp, x0, attn_cache = shared
+    x, na = shared_attn_body(sp, x, x0, cfg, positions, attn_cache, q_chunk)
+    return x, nc, na
 
 
 def run_hybrid(params: dict, x: torch.Tensor, cfg, positions: torch.Tensor,
-               cache: Optional[dict]) -> Tuple[torch.Tensor, Optional[dict]]:
+               cache: Optional[dict], *, remat: str = "none",
+               q_chunk: int = 0) -> Tuple[torch.Tensor, Optional[dict]]:
     """Mamba2 layers with the shared block after layer ``li`` where ``li %
     attn_every == attn_every - 1``, application ``min(li // attn_every,
-    n_apps - 1)`` with its own KV cache."""
+    n_apps - 1)`` with its own KV cache; each layer (with the shared block
+    after it) under ``remat``, as the reference's scan body."""
     every = cfg.attn_every
     n_apps = cfg.n_layers // every
     x0 = x
     layers = params["layers"]
+    body = maybe_remat(hybrid_layer, remat)
     attn = (None if cache is None else
             [index_tree(cache["attn"], j) for j in range(n_apps)])
     mamba = []
     for li in range(layers["ln"].shape[0]):
         ca = None if cache is None else index_tree(cache["mamba"], li)
-        x, nc = ssm_body(index_tree(layers, li), x, cfg, positions, ca)
-        mamba.append(nc)
+        j = min(li // every, n_apps - 1)
+        shared = None
         if li % every == every - 1:
-            j = min(li // every, n_apps - 1)
-            x, nc = shared_attn_body(params["shared_attn"], x, x0, cfg,
-                                     positions,
-                                     None if attn is None else attn[j])
-            if attn is not None:
-                attn[j] = nc
+            shared = (params["shared_attn"], x0,
+                      None if attn is None else attn[j])
+        x, nc, na = body(index_tree(layers, li), x, cfg, positions, ca,
+                         shared, q_chunk)
+        mamba.append(nc)
+        if na is not None:
+            attn[j] = na
     if cache is None:
         return x, None
     return x, {"mamba": stack_trees(mamba) if mamba else cache["mamba"],
@@ -384,13 +452,19 @@ def forward(params: dict, cfg, tokens: Optional[torch.Tensor] = None, *,
             embeds: Optional[torch.Tensor] = None,
             cache: Optional[dict] = None,
             positions: Optional[torch.Tensor] = None,
-            moe_oracle: Optional[bool] = None):
-    """Returns (logits, new_cache | None). cache=None: plain forward; a
-    cache: prefill (S > 1) or decode (S == 1) at the cache's length.
-    ``embeds`` [B, S, d] stand in for the tokens' embeddings (the vlm
-    family's image and token embeddings). ``moe_oracle`` picks the moe
-    layers' expert path (default: the dense oracle up to 16 experts, the
-    capacity path above)."""
+            moe_oracle: Optional[bool] = None, q_chunk: int = 0,
+            remat: str = "none", with_aux: bool = False):
+    """Returns (logits, new_cache | None), and the moe layers' summed aux
+    loss (f32, 0 for the other families) after them when ``with_aux``.
+    cache=None: plain forward (training); a cache: prefill (S > 1) or
+    decode (S == 1) at the cache's length. ``embeds`` [B, S, d] stand in
+    for the tokens' embeddings (the vlm family's image and token
+    embeddings). ``moe_oracle`` picks the moe layers' expert path (default:
+    the dense oracle up to 16 experts, the capacity path above);
+    ``q_chunk`` blocks the attention's plain queries; ``remat`` ("none",
+    "full", "dots") recomputes each layer of the stack in the backward, as
+    the reference's scan body (deepseek's leading dense layers, outside
+    the scan there, are not)."""
     if cfg.family not in LM_FAMILIES:
         raise _unknown(cfg)
     x = embed(params, cfg, tokens, embeds)
@@ -398,8 +472,10 @@ def forward(params: dict, cfg, tokens: Optional[torch.Tensor] = None, *,
     if positions is None:
         ar = torch.arange(sq, dtype=torch.int32, device=x.device)
         positions = ar if cache is None else cache_length(cfg, cache) + ar
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.family == "hybrid":
-        x, new_cache = run_hybrid(params, x, cfg, positions, cache)
+        x, new_cache = run_hybrid(params, x, cfg, positions, cache,
+                                  remat=remat, q_chunk=q_chunk)
     elif cfg.family == "moe":
         if moe_oracle is None:
             moe_oracle = default_moe_oracle(cfg)
@@ -407,17 +483,19 @@ def forward(params: dict, cfg, tokens: Optional[torch.Tensor] = None, *,
         for i in range(cfg.n_dense_layers):
             x, nc = dense_body(params["dense_layers"][i], x, cfg, positions,
                                None if cache is None
-                               else cache["dense_layers"][i])
+                               else cache["dense_layers"][i], 0, q_chunk)
             dense.append(nc)
-        x, layer_cache = run_layers(
+        x, layer_cache, aux = run_layers(
             params["layers"], x, cfg, positions,
             None if cache is None else cache["layers"],
-            moe_oracle=moe_oracle)
+            moe_oracle=moe_oracle, remat=remat, q_chunk=q_chunk)
         new_cache = None
         if cache is not None:
             new_cache = {"layers": layer_cache}
             if dense:
                 new_cache["dense_layers"] = dense
     else:
-        x, new_cache = run_layers(params["layers"], x, cfg, positions, cache)
-    return logits(params, cfg, x), new_cache
+        x, new_cache, aux = run_layers(params["layers"], x, cfg, positions,
+                                       cache, remat=remat, q_chunk=q_chunk)
+    out = logits(params, cfg, x)
+    return (out, new_cache, aux) if with_aux else (out, new_cache)

@@ -63,9 +63,8 @@ def make_lm_stage_fns(model: Model, n_stages: int = 4) -> List[Callable]:
             if i == 0 and not torch.is_floating_point(x):
                 x = transformer.embed(params, cfg, x)
             layers = transformer.index_tree(params["layers"], slice(lo, hi))
-            x, new_cache = transformer.run_layers(layers, x, cfg, positions,
-                                                  cache_slice,
-                                                  moe_oracle=True)
+            x, new_cache, _ = transformer.run_layers(
+                layers, x, cfg, positions, cache_slice, moe_oracle=True)
             if i == n_stages - 1:
                 x = transformer.logits(params, cfg, x)
             return x, new_cache

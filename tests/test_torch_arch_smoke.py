@@ -2,10 +2,10 @@
 over all ten architectures, on the CPU: each reduced config, with the
 port's own parameters, runs a plain forward (whisper: its encoder and an
 uncached decoder pass), a prefill and a decode step with finite logits of
-the expected shapes. (The reference's loss and
-train step are training, which the port does not have yet: ROADMAP.md
-Q9.) The other ``test_torch_*`` files hold each family to the JAX
-package."""
+the expected shapes. The reference's loss and train step have their twins
+in tests/test_torch_train_families.py (loss and gradients of all ten
+against ``repro``) and tests/test_torch_training.py (the step); the other
+``test_torch_*`` files hold each family to the JAX package."""
 import numpy as np
 import pytest
 

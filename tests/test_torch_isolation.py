@@ -17,6 +17,7 @@ PORT = ROOT / "src" / "repro_torch"
 SOURCES = sorted(PORT.rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "examples" / "serve_realtime_torch.py",
     ROOT / "examples" / "serve_daemon_torch.py",
+    ROOT / "examples" / "train_smollm_torch.py",
     ROOT / "benchmarks" / "figure_specs_torch.py"]
 COPIED = sorted(p for p in PORT.rglob("*.py")
                 if p.read_text().startswith("# Copy of src/repro/"))
@@ -140,5 +141,5 @@ def test_the_scheduler_stack_is_copied():
                 "analysis/schedcheck/analyzer.py",
                 "analysis/schedcheck/oracle.py", "analysis/races.py",
                 "serve/__init__.py", "serve/journal.py", "serve/client.py",
-                "serve/config.py", "serve/daemon.py"):
+                "serve/config.py", "serve/daemon.py", "data/pipeline.py"):
         assert rel in copied

@@ -269,7 +269,7 @@ def test_staging_reproduces_r4(staged_pair):
     assert float((out - ref).abs().max()) > 1e-2
     # what the chain is: the MoE layers unstaged on the oracle over the
     # donor's cache, the dense layer skipped
-    x, _ = transformer.run_layers(
+    x, _, _ = transformer.run_layers(
         p["tparams"]["layers"], transformer.embed(p["tparams"], cfg, zeros),
         cfg, torch.tensor([PROMPT], dtype=torch.int32), tdonor["layers"],
         moe_oracle=True)
