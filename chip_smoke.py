@@ -10,6 +10,7 @@
     python3 chip_smoke.py --lm-paths
     python3 chip_smoke.py --families
     python3 chip_smoke.py --train
+    python3 chip_smoke.py --dist
 
 The --serve forms run only one model's serving phase (step 3, 5, 6, 9, 12
 or 13 below),
@@ -22,7 +23,9 @@ fleet over 4000 ms), --lm-paths only the kernel phase and steps 9-11,
 check, and --train only the kernel phase (gradient rows included) and
 steps 16-17, ``--repeats`` times (events/s on the host's clock vary from
 run to run).
-None of them prints a result line. Without arguments:
+None of them prints a result line, but --dist: the kernel phase and steps
+18-20, with the ``kernels`` line (launches from steps 18 and 20) and the
+result line. Without arguments:
 
 1. Builds the port's Hopper kernels from ``src/repro_torch/kernels/csrc``
    (into ``build/kernels/``).
@@ -281,6 +284,38 @@ None of them prints a result line. Without arguments:
     Each gradient row times the
     kernel's forward, the recompute, the plain version's forward and
     backward and the library's (SDPA, ``F.rms_norm``).
+18. Four ranks of the card (``dist_phase``): this script started four
+    times (``--dist-rank``; gloo, all on ``cuda:0``, the kernels built
+    once here) on a (1, 4) ("data", "model") mesh serves qwen2-moe-a2.7b
+    at its published width, 4 of 24 layers, bf16, seed 0, with TP 4 and
+    EP 4 (4 heads and 15 experts a rank): a prefill of 512 tokens at
+    batch 4 and 4 decode steps through ``Model`` with ``dist``, then the
+    same in f32. Held to the same layers run unsharded on the card (f32:
+    ``DIST_TOL_F32`` of the largest logit; bf16: the median position
+    within ``DIST_TOL``) and layer 0's ``moe_ep`` to ``moe_capacity`` in
+    f32 (``EP_TOL``); each rank's launches at its local shapes
+    (``dist_serving`` line).
+19. Dry-run (``start_dryruns``, ``finish_dryruns``): the reference's
+    three tiny-mesh cells, a cell a family at the 16 x 16 mesh and the
+    roofline cells at 1 x 1, each ``launch/dryrun.py`` in a process of
+    its own at the lowest CPU priority, started after the build and run
+    beside the kernel and gradient rows (timed on the card); the script
+    waits for them (``dryrun_wait``) before any phase that reads the
+    host's clock (``dryrun`` lines; a cell not ``ok`` or with no FLOPs
+    fails).
+20. Roofline (``roofline_phase``): smollm-135m at full width and depth
+    through ``build_model(..., dist=<1 x 1 mesh>)`` on train_4k cut to 8
+    sequences (the training phase's step), prefill_32k cut to 2 and
+    decode_32k to 16: ``FlopCounterMode`` on the card must count the
+    dry-run's FLOPs for the same cut cell exactly; the dry-run's peak
+    bytes over the card's, and the model-FLOP share (``Model.
+    model_flops`` over 989 TFLOP/s x the measured seconds) beside the
+    roofline row's ``roofline_fraction`` (``roofline`` lines).
+    The kernel phase adds the rows of their shapes: flash and decode at
+    4 heads of Dh 128, flash at S 32,768 (B 2), decode over 32,768 slots
+    (B 16; held per output row to ``ROW_TOL``, with a planted fault that
+    hides the kernel's first split of slots), the norms over 65,536 and
+    16 rows of 576.
 Each phase's model is freed before the next; ``phase_seconds`` and
 ``phase_peak_memory_gb`` give each phase's wall and peak of allocated card
 memory.
@@ -315,7 +350,7 @@ launcher run did not resume, the parameters did not round-trip bit for bit,
 the daemon example failed, the oracle was not ``ok`` on fig13_light or
 fig13_fail_1of4, an int8 check of step 11 failed, a planted fault
 agreed with a plain version, a step 12-15 instance or launch-shape check
-failed, a gradient row or a check of steps 16-17 failed, or a model path
+failed, a gradient row or a check of steps 16-20 failed, or a model path
 launched a kernel at an instance and shape that no bf16 row checked. The
 last line is ``{"ok": true, "device": {...}}``.
 """
@@ -428,6 +463,47 @@ GRAD_TOL_SSD_BF16 = 1e-2
 # first step moves every other element by up to lr either way)
 TRAIN_SMALL_TOL, TRAIN_G_FLOOR, TRAIN_P_TOL = 1e-3, 1e-3, 1e-5
 TRAIN_NOISE_FLOOR = 1e-3       # of the largest |g| of any leaf
+# slice 12 (steps 18-20). Four ranks of the one card (gloo: NCCL refuses
+# two ranks on one GPU) serve qwen2-moe-a2.7b at its published width on a
+# (1, 4) ("data", "model") mesh: TP 4 (4 heads a rank), EP 4 (15 experts
+# a rank), 4 of its 24 layers, bf16, seed 0; prefill of 512 tokens at
+# batch 4, then 4 decode steps
+DIST_LAYERS, DIST_MESH, DIST_LAST = 4, (1, 4), 8   # last prefill positions
+# The ranks' logits against the same layers run unsharded. In f32 (the
+# same weights, an f32 cache) the largest difference over the largest
+# |logit|: the runs sum partial products in other orders (the model
+# axis's all-reduces), 1e-6 relative a sum. In bf16 each rank rounds its
+# partial sums to bf16 before the f32 sum, where the unsharded run rounds
+# once; a difference that flips one token's top-4 experts changes that
+# token's logits whole (and, at capacity, which later pairs drop), so the
+# bf16 run is held by the median over positions of a position's error
+# over its largest |logit| (on the H100 the maxima read 0.03-0.77 over
+# the prefill's last 8 positions and the 4 steps: PERF.md, Findings)
+DIST_TOL_F32 = 1e-4
+DIST_TOL = 3e-2
+# one MoE layer in f32, moe_ep on the ranks against moe_capacity: the same
+# products; only the order in which a token's k pairs are summed differs
+EP_TOL = 1e-5
+DRYRUN_CELLS = (("smollm-135m", "train_4k", "tiny"),
+                ("qwen2-moe-a2.7b", "decode_32k", "tiny"),
+                ("mamba2-2.7b", "prefill_32k", "tiny-multi"))
+# a cell a family at the production mesh (16 x 16): dense, moe, ssm,
+# hybrid, encdec, vlm
+DRYRUN_SINGLE = (("smollm-135m", "decode_32k"),
+                 ("qwen2-moe-a2.7b", "decode_32k"),
+                 ("mamba2-2.7b", "decode_32k"), ("zamba2-7b", "decode_32k"),
+                 ("whisper-tiny", "decode_32k"),
+                 ("pixtral-12b", "decode_32k"))
+# the roofline cells: smollm-135m at full width and depth on a 1 x 1 mesh,
+# train_4k cut to 8 sequences (the training phase's step), prefill_32k to
+# 2 and decode_32k to 16 (its bf16 cache is about 12 GB)
+ROOF_SEQ, ROOF_PREFILL_B, ROOF_DECODE_B = 32768, 2, 16
+ROOF_CELLS = {
+    "train_4k": {"global_batch": TRAIN_BATCH, "accum": TRAIN_ACCUM,
+                 "remat": TRAIN_REMAT, "q_chunk": TRAIN_Q_CHUNK},
+    "prefill_32k": {"global_batch": ROOF_PREFILL_B, "q_chunk": 512},
+    "decode_32k": {"global_batch": ROOF_DECODE_B}}
+ROOF_REPS = 3
 
 
 def emit(obj) -> None:
@@ -624,6 +700,17 @@ def kernel_cases(torch, F, dtype):
     wide["rmsnorm_train_d576"] = (rand(TRAIN_ROWS, D), rand(D))
     res["rmsnorm_residual_train_d576"] = (rand(TRAIN_ROWS, D),
                                           rand(TRAIN_ROWS, D), rand(D))
+    # slice 12's roofline cells: smollm-135m's prefill_32k cut to 2
+    # sequences (65,536 rows) and decode_32k cut to 16 (16 rows)
+    if dtype == torch.bfloat16:
+        n32 = ROOF_PREFILL_B * ROOF_SEQ
+        wide["rmsnorm_prefill32k_d576"] = (rand(n32, D), rand(D))
+        res["rmsnorm_residual_prefill32k_d576"] = (rand(n32, D),
+                                                   rand(n32, D), rand(D))
+        wide["rmsnorm_b16_d576"] = (rand(ROOF_DECODE_B, 1, D), rand(D))
+        res["rmsnorm_residual_b16_d576"] = (rand(ROOF_DECODE_B, 1, D),
+                                            rand(ROOF_DECODE_B, 1, D),
+                                            rand(D))
 
     def decode_case(name, h, dh, kv=None, window=0, softcap=0.0,
                     q_scale=1.0, fault=None):
@@ -659,7 +746,7 @@ def kernel_cases(torch, F, dtype):
 
     def flash_row(name, b, h, kv, sq, dh, s_kv=None, causal=True, window=0,
                   softcap=0.0, q_scale=1.0, fault=None, heavy=False,
-                  per_row=False):
+                  per_row=False, q_chunk=0):
         """Prefill (or cross-) attention at the model paths' other shapes
         and options: keys of their own length ``s_kv``, not causal,
         windowed or softcapped (q scaled by ``q_scale`` so that the cap
@@ -671,7 +758,8 @@ def kernel_cases(torch, F, dtype):
         ``per_row`` rows (causal: from one key to thousands) are held to
         ``ROW_TOL`` of each query row's scale, and ``fault="old_tile"``
         hides the oldest key tile from the last tile's rows. ``heavy`` rows (the plain version's f32 scores take gigabytes) are
-        timed eagerly, a few calls."""
+        timed eagerly, a few calls. ``q_chunk`` blocks the plain version's
+        queries (its f32 scores would not fit the card whole)."""
         s_kv = sq if s_kv is None else s_kv
         qq = rand(b, sq, h, dh).transpose(1, 2) * q_scale
         kk, vv = (rand(b, s_kv, kv, dh).transpose(1, 2) for _ in range(2))
@@ -714,7 +802,8 @@ def kernel_cases(torch, F, dtype):
                        fault_call=lambda: fa.flash_attention(qq, kk, vv,
                                                              **bad))
         return (name, lambda: fa.flash_attention(qq, kk, vv, **kw),
-                lambda: fa.flash_attention_plain(qq, kk, vv, **kw), lib,
+                lambda: fa.flash_attention_plain(qq, kk, vv, q_chunk=q_chunk,
+                                                 **kw), lib,
                 nbytes(qq, kk, vv, qq), 4 * b * h * dh * pairs,
                 PEAK_FLOPS[dname], opt)
 
@@ -732,6 +821,44 @@ def kernel_cases(torch, F, dtype):
                 {"instance": fa_want, **({} if dtype == torch.bfloat16 else
                                          {"reps": 10, "inner": 4,
                                           "graph": False})})
+
+    def decode_long(name, b, s_len):
+        """Decode attention for ``b`` sequences over a cache of ``s_len``
+        slots, every one visible (smollm-135m's decode_32k cell). Its
+        outputs average tens of thousands of slots (RMS about 9e-3), so
+        each output row is held to ``ROW_TOL`` of its own scale; the
+        planted fault hides the kernel's first split (a window of
+        ``s_len`` less one split's slots), which must land past it."""
+        ck, cv = rand(b, s_len, KV, DH), rand(b, s_len, KV, DH)
+        kk, vv = ck.transpose(1, 2), cv.transpose(1, 2)
+        pos = torch.arange(s_len, dtype=torch.int32, device=dev)
+        qpos = torch.full((b,), s_len - 1, dtype=torch.int32, device=dev)
+        qq = rand(b, H, DH)
+        chunk, _ = dec.decode_split(
+            s_len, b, KV, torch.cuda.get_device_properties(0)
+            .multi_processor_count)
+        opt = {"row_tol": ROW_TOL[dname], "fault": "first_split",
+               "fault_call": lambda: dec.decode_attention(
+                   qq, kk, vv, pos, qpos, window=s_len - chunk)}
+        return (name, lambda: dec.decode_attention(qq, kk, vv, pos, qpos),
+                lambda: dec.decode_attention_plain(qq, kk, vv, pos, qpos),
+                lambda: sdpa(qq[:, :, None], kk, vv),
+                nbytes(qq, ck, cv, pos, qpos, qq), 4 * b * H * s_len * DH,
+                PEAK_FLOPS[dname], opt)
+
+    # slice 12: qwen2-moe-a2.7b's 4 local heads a rank under TP 4, and
+    # smollm-135m's prefill_32k (2 sequences) and decode_32k (16) cells
+    slice12 = [
+        flash_case("flash_attention_d128_h4", 4, 128),
+        decode_case("decode_attention_d128_h4", 4, 128),
+    ]
+    if dtype == torch.bfloat16:
+        slice12 += [
+            flash_row("flash_attention_s32768", ROOF_PREFILL_B, H, KV,
+                      ROOF_SEQ, DH, heavy=True, per_row=True,
+                      q_chunk=2048),
+            decode_long("decode_attention_b16_s32768", ROOF_DECODE_B,
+                        ROOF_SEQ)]
 
     # zamba2's shared block: 32 heads at Dh 112, which no tensor-core
     # instance takes
@@ -856,6 +983,7 @@ def kernel_cases(torch, F, dtype):
         # the training path: smollm-135m's causal prefill over 4096 tokens
         flash_row("flash_attention_train_s4096", TRAIN_MB, H, KV, TRAIN_SEQ,
                   DH, heavy=True, per_row=True, fault="old_tile"),
+        *slice12,
     ]
 
 
@@ -914,12 +1042,23 @@ OTHER_SHAPES = {
     "rmsnorm_train_d576": "rmsnorm",
     "rmsnorm_residual_train_d576": "rmsnorm_residual",
     "flash_attention_train_s4096": "flash_attention",
+    # slice 12: the ranks' local heads, the roofline cells
+    "flash_attention_d128_h4": "flash_attention",
+    "decode_attention_d128_h4": "decode_attention",
+    "flash_attention_s32768": "flash_attention",
+    "decode_attention_b16_s32768": "decode_attention",
+    "rmsnorm_prefill32k_d576": "rmsnorm",
+    "rmsnorm_residual_prefill32k_d576": "rmsnorm_residual",
+    "rmsnorm_b16_d576": "rmsnorm",
+    "rmsnorm_residual_b16_d576": "rmsnorm_residual",
 }
 # the model each model path serves or runs
 PATH_MODELS = {"dense": "smollm-135m", "ssm": "mamba2-2.7b",
                "moe": MOE_ARCH, "hybrid": HYBRID_ARCH, "int8": INT8_ARCH,
                "mla": MLA_ARCH, "gemma2": GEMMA_ARCH, "vlm": VLM_ARCH,
-               "encdec": ENCDEC_ARCH, "train": f"{TRAIN_ARCH} training"}
+               "encdec": ENCDEC_ARCH, "train": f"{TRAIN_ARCH} training",
+               "dist": f"{MOE_ARCH} on 4 ranks",
+               "roofline": f"{TRAIN_ARCH} roofline cells"}
 DENSE_PATH = ("rmsnorm", "rmsnorm_residual", "decode_attention",
               "flash_attention")
 SSM_PATH = ("rmsnorm", "ssd")
@@ -3200,14 +3339,6 @@ def backward_coverage(grad_rows, shapes, failures) -> None:
                                 f"gradient row checks")
 
 
-def attention_flops(cfg, batch: int, seq: int) -> float:
-    """Causal attention's products in a training step (forward and the two
-    backward products each): 2 products of 2 B H Dh S (S + 1) / 2 a layer
-    forward, times 3."""
-    return (6.0 * batch * cfg.n_heads * cfg.resolved_head_dim * seq
-            * (seq + 1) * cfg.n_layers)
-
-
 def recompute_ms(torch, events) -> dict:
     """Device ms of each kernel's backward recompute: the kernels' busy time
     inside the ``{name}_backward_recompute`` ranges of the card's timeline
@@ -3248,7 +3379,7 @@ def train_phase(torch, failures, dev="cuda"):
     instance, backward recomputes a step, backward recomputes by shape)."""
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.configs import get_config
+    from repro_torch.configs import ShapeCell, get_config
     from repro_torch.data.pipeline import TokenPipeline
     from repro_torch.kernels import KERNELS, reset_counts
     from repro_torch.models import build_model
@@ -3268,8 +3399,10 @@ def train_phase(torch, failures, dev="cuda"):
                            accum=TRAIN_ACCUM, remat=TRAIN_REMAT)
     pipe = TokenPipeline(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ, seed=0)
     tokens = TRAIN_BATCH * TRAIN_SEQ
-    flops = 6.0 * n_params * tokens + attention_flops(cfg, TRAIN_BATCH,
-                                                      TRAIN_SEQ)
+    # the reference's MODEL_FLOPS of the cut cell (6 N_active D, N without
+    # the embedding), the roofline's yardstick
+    flops = model.model_flops(ShapeCell("train_4k", TRAIN_SEQ, TRAIN_BATCH,
+                                        "train"))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     losses, norms, dev_ms, wall_ms, first = [], [], [], [], None
@@ -3380,9 +3513,9 @@ def train_phase(torch, failures, dev="cuda"):
         "median_device_ms_from_step_2": med_ms,
         "tokens_per_s_at_median": tokens / med_ms * 1e3,
         "model_flops_per_step": flops,
-        "model_flops_formula": "6 N D + 6 B H Dh S (S + 1) L (N all "
-                               "parameters, the tied head's included; D "
-                               "tokens a step; causal attention)",
+        "model_flops_formula": "Model.model_flops of train_4k cut to 8 "
+                               "sequences: 6 N_active D (N without the "
+                               "embedding; no attention term)",
         "model_flop_share_of_989_tflops": flops / 989e12 / (med_ms / 1e3),
         "peak_memory_gb": peak,
         "launches_per_step": {n: v[0] for n, v in first.items()},
@@ -3512,6 +3645,496 @@ def train_cut_check(torch, failures, dev="cuda") -> None:
                             f"{line['plain_cuda_calls']}")
 
 
+# ---------------------------------------------------------------------------
+# Slice 12 (steps 18-20): four ranks of the card, the dry-run, the roofline
+# ---------------------------------------------------------------------------
+def start_dryruns(out_dir: Path) -> list:
+    """Step 19's dry-run cells, each its own process at the lowest CPU
+    priority (fake tensors: CPU only), started before the kernel rows
+    (timed on the card) and awaited (``finish_dryruns``) before any phase
+    that reads the host's clock: the reference's three tiny-mesh cells, a cell a family at the
+    production mesh, and the roofline cells at a 1 x 1 mesh. Returns
+    [(cell, process, log path)]."""
+    out_dir.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               PYTHONWARNINGS="ignore")
+    jobs = [((a, s, m), []) for a, s, m in DRYRUN_CELLS]
+    jobs += [((a, s, "single"), []) for a, s in DRYRUN_SINGLE]
+    for shape, extra in ROOF_CELLS.items():
+        args = ["--tag", "roofline", "--global-batch",
+                str(extra["global_batch"])]
+        for key, flag in (("accum", "--accum"), ("remat", "--remat"),
+                          ("q_chunk", "--q-chunk")):
+            if key in extra:
+                args += [flag, str(extra[key])]
+        jobs.append(((TRAIN_ARCH, shape, "unit"), args))
+    procs = []
+    for (arch, shape, mesh), args in jobs:
+        log = out_dir / f"{arch}__{shape}__{mesh}.log"
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+               arch, "--shape", shape, "--mesh", mesh, "--out",
+               str(out_dir), *args]
+        with open(log, "w") as fh:
+            procs.append(((arch, shape, mesh), subprocess.Popen(
+                cmd, env=env, cwd=str(ROOT), stdout=fh,
+                stderr=subprocess.STDOUT,
+                preexec_fn=lambda: os.nice(19)), log))
+    return procs
+
+
+def dryrun_artifact(out_dir: Path, arch, shape, mesh, tag="") -> dict:
+    suffix = f"__{tag}" if tag else ""
+    path = out_dir / f"{arch}__{shape}__{mesh}{suffix}.json"
+    return json.loads(path.read_text()) if path.exists() else {
+        "status": "missing"}
+
+
+def finish_dryruns(procs, out_dir: Path, failures, timeout_s=900.0):
+    """Wait for the dry-run processes; emits a ``dryrun`` line a cell
+    (status, FLOPs and collective bytes a device, peak bytes and the fit
+    on 80 GB, seconds) and fails a cell whose status is not ``ok`` or
+    whose FLOPs are not positive."""
+    t0 = time.perf_counter()
+    for (arch, shape, mesh), proc, log in procs:
+        try:
+            proc.wait(timeout=max(1.0, timeout_s - (time.perf_counter()
+                                                     - t0)))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+            failures.append(f"dry-run {arch} {shape} {mesh}: no end in "
+                            f"{timeout_s:g} s")
+            continue
+        tag = "roofline" if mesh == "unit" else ""
+        art = dryrun_artifact(out_dir, arch, shape, mesh, tag)
+        line = {"arch": arch, "shape": shape, "mesh": mesh,
+                "status": art.get("status"), "returncode": proc.returncode}
+        if art.get("status") == "ok":
+            line.update({k: art[k] for k in (
+                "n_chips", "mesh_shape", "flops_per_device", "model_flops",
+                "peak_bytes_per_device", "resident_bytes_per_device",
+                "fits_80gb", "analytic_hbm_bytes_global", "accum",
+                "build_s", "run_s")})
+            line["collectives_per_device"] = art["collectives_per_device"]
+        else:
+            line["error"] = art.get("error") or log.read_text()[-1500:]
+        emit({"dryrun": line})
+        if art.get("status") != "ok" or not line.get("flops_per_device"):
+            failures.append(f"dry-run {arch} {shape} {mesh}: "
+                            f"{line.get('error', line)}")
+    return time.perf_counter() - t0
+
+
+def lm_run(model, params, tokens, cache, last: int = DIST_LAST):
+    """A prefill of ``PROMPT`` tokens and ``DECODE_STEPS`` decode steps:
+    [the prefill's last ``last`` positions' logits, each step's]."""
+    logits, cache = model.prefill(params, {"tokens": tokens[:, :PROMPT],
+                                           "cache": cache})
+    outs = [logits[:, -last:]]
+    for i in range(DECODE_STEPS):
+        logits, cache = model.decode_step(
+            params, {"tokens": tokens[:, PROMPT + i:PROMPT + i + 1],
+                     "cache": cache})
+        outs.append(logits)
+    return outs
+
+
+def shard_tree(tree, specs, mesh):
+    from repro_torch.parallel.sharding import shard_local
+    if isinstance(tree, dict):
+        return {k: shard_tree(v, specs[k], mesh) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [shard_tree(v, s, mesh) for v, s in zip(tree, specs)]
+    return shard_local(tree, specs, mesh)
+
+
+def f32_config(cfg):
+    """``cfg`` computing in f32 with an f32 KV cache."""
+    return cfg.replace(dtype="float32", kv_cache_dtype="float32")
+
+
+def moe_layer0_f32(params) -> dict:
+    """Layer 0's router and experts in f32 (the EP check's layer)."""
+    m = params["layers"]["moe"]
+    return {"router": m["router"][0].float(),
+            "experts": {k: v[0].float() for k, v in m["experts"].items()}}
+
+
+def dist_rank(rank: int, work: Path, port: int) -> int:
+    """One of step 18's four rank processes (``--dist-rank``): its shards
+    of qwen2-moe-a2.7b on the card, the prefill and decode steps through
+    ``Model`` with ``dist``, the logits gathered to rank 0, the f32 EP
+    check, and its launch counts, seconds and peak memory in
+    ``work/rank{rank}.json``."""
+    import torch
+    import torch.distributed as tdist
+    from torch.distributed.device_mesh import init_device_mesh
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import KERNELS, _lib, reset_counts
+    from repro_torch.models.api import build_model
+    from repro_torch.models.moe import moe_ep
+    from repro_torch.parallel.sharding import ShardingRules
+
+    torch.cuda.set_device(0)
+    world = math.prod(DIST_MESH)
+    tdist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                             rank=rank, world_size=world)
+    mesh = init_device_mesh("cpu", DIST_MESH,
+                            mesh_dim_names=("data", "model"))
+    _lib.lib()                        # the parent's build, loaded
+    cfg = get_config(MOE_ARCH).replace(n_layers=DIST_LAYERS)
+    tp = DIST_MESH[1]
+    whole = build_model(cfg, pad_for_tp=tp)
+    params = whole.init_params(0)     # every rank draws the same weights
+    rules = ShardingRules(whole.cfg, mesh).for_batch(B)
+    dist = rules.dist_ctx()
+    dist["param_specs"] = rules.param_specs(params)
+    local = shard_tree(params, dist["param_specs"], mesh)
+    del params
+    free_card(torch)
+    model = build_model(cfg, pad_for_tp=tp, dist=dist)
+    spmd = dist["spmd"]
+    inputs = torch.load(work / "inputs.pt")
+    tokens = inputs["tokens"].cuda()
+    cache = whole.init_cache(B, PROMPT + DECODE_STEPS)
+    cache = shard_tree(cache, rules.cache_specs(cache), mesh)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tdist.barrier()
+    reset_counts()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        outs = lm_run(model, local, tokens, cache)
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = {n: {"launches": fn.counts.launches,
+                  "by_shape": dict(fn.counts.by_shape),
+                  "by_instance": dict(fn.counts.by_instance),
+                  "plain_cuda_calls": fn.counts.plain_cuda_calls}
+              for n, fn in KERNELS.items()}
+    with torch.no_grad():
+        full = [spmd._all_gather(o, o.dim() - 1, "model") for o in outs]
+        # the same layers in f32 (the bf16 weights, an f32 cache); after
+        # the counts are read: f32 launches are no part of the served path
+        cfg32 = f32_config(cfg)
+        model32 = build_model(cfg32, pad_for_tp=tp, dist=dist)
+        cache32 = build_model(cfg32, pad_for_tp=tp).init_cache(
+            B, PROMPT + DECODE_STEPS)
+        cache32 = shard_tree(cache32, rules.cache_specs(cache32), mesh)
+        full32 = [spmd._all_gather(o, o.dim() - 1, "model") for o in lm_run(
+            model32, tree_map(lambda t: t.float(), local), tokens, cache32)]
+        lp = moe_layer0_f32(local)
+        ep, aux = moe_ep(lp, inputs["h"].cuda(), topk=cfg.n_experts_active,
+                         dist=dist, norm_topk=cfg.router_norm_topk,
+                         act=cfg.mlp_act, n_valid=cfg.n_experts)
+    torch.cuda.synchronize()
+    if rank == 0:
+        torch.save({"outs": [o.float().cpu() for o in full],
+                    "outs32": [o.cpu() for o in full32],
+                    "ep": ep.cpu(), "aux": aux.cpu()}, work / "rank0.pt")
+    (work / f"rank{rank}.json").write_text(json.dumps({
+        "rank": rank, "coord": spmd.coord, "seconds": seconds,
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "local_experts": lp["experts"]["w_gate"].shape[0],
+        "local_heads": local["layers"]["attn"]["wq"].shape[-2],
+        "collectives": spmd.counts.as_dict(), "counts": counts}))
+    tdist.barrier()
+    tdist.destroy_process_group()
+    return 0
+
+
+def free_tcp_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def dist_phase(torch, failures):
+    """Step 18: qwen2-moe-a2.7b at its published width (4 of 24 layers,
+    bf16, seed 0) on four ranks of the card, a (1, 4) mesh over gloo:
+    each rank holds 4 heads and 15 experts, prefills 512 tokens at batch
+    4 and decodes 4 steps. Held against the same layers run unsharded on
+    the card (``DIST_TOL``); layer 0's ``moe_ep`` in f32 against
+    ``moe_capacity`` (``EP_TOL``). Returns (launches, launches by
+    instance), summed over the ranks."""
+    import tempfile
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import build_model
+    from repro_torch.models.moe import moe_capacity
+
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_dist_"))
+    cfg = get_config(MOE_ARCH).replace(n_layers=DIST_LAYERS)
+    g = torch.Generator().manual_seed(7)
+    tokens = torch.randint(0, cfg.vocab_size, (B, PROMPT + DECODE_STEPS),
+                           generator=g)
+    h = torch.randn((B, PROMPT, cfg.d_model), generator=g) * 0.5
+    model = build_model(cfg)
+    params = model.init_params(0)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        ref = [o.float().cpu() for o in lm_run(
+            model, params, tokens.cuda(),
+            model.init_cache(B, PROMPT + DECODE_STEPS))]
+        torch.cuda.synchronize()
+        whole_s = time.perf_counter() - t0
+        model32 = build_model(f32_config(cfg))
+        ref32 = [o.cpu() for o in lm_run(
+            model32, tree_map(lambda t: t.float(), params), tokens.cuda(),
+            model32.init_cache(B, PROMPT + DECODE_STEPS))]
+        del model32
+        lp = moe_layer0_f32(params)
+        ref_ep, ref_aux = moe_capacity(
+            lp, h.cuda(), cfg.n_experts_active,
+            norm_topk=cfg.router_norm_topk, act=cfg.mlp_act,
+            n_valid=cfg.n_experts)
+        ref_ep, ref_aux = ref_ep.cpu(), float(ref_aux)
+    del model, params, lp
+    free_card(torch)
+    torch.save({"tokens": tokens, "h": h}, work / "inputs.pt")
+    port = free_tcp_port()
+    world = math.prod(DIST_MESH)
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--dist-rank",
+         str(r), "--dist-work", str(work), "--dist-port", str(port)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(world)]
+    errs = []
+    for p in procs:
+        try:
+            _, err = p.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            _, err = p.communicate()
+        if p.returncode:
+            errs.append(err[-2000:])
+    ranks_s = time.perf_counter() - t0
+    if errs:
+        failures.append(f"dist: a rank failed: {errs[0]}")
+        return {}, {}
+    got = torch.load(work / "rank0.pt")
+    ranks = [json.loads((work / f"rank{r}.json").read_text())
+             for r in range(world)]
+    errs = [float((a - b).abs().max() / b.abs().max())
+            for a, b in zip(got["outs"], ref)]
+    rows = [((a - b).abs().amax(-1) / b.abs().amax(-1)).flatten()
+            for a, b in zip(got["outs"], ref)]
+    median = [float(r.median()) for r in rows]
+    errs32 = [float((a - b).abs().max() / b.abs().max())
+              for a, b in zip(got["outs32"], ref32)]
+    ep_err = float((got["ep"] - ref_ep).abs().max() / ref_ep.abs().max())
+    # launches: the sum over the ranks; by instance and by shape too
+    launches, by_inst, by_shape = {}, {}, {}
+    for r in ranks:
+        for n, c in r["counts"].items():
+            launches[n] = launches.get(n, 0) + c["launches"]
+            for i, k in c["by_instance"].items():
+                by_inst.setdefault(n, {})
+                by_inst[n][i] = by_inst[n].get(i, 0) + k
+            for key, k in c["by_shape"].items():
+                by_shape.setdefault(n, {})
+                by_shape[n][key] = by_shape[n].get(key, 0) + k
+            if c["plain_cuda_calls"]:
+                failures.append(f"dist rank {r['rank']}: plain {n} on the "
+                                f"card")
+    PATH_SHAPES[PATH_MODELS["dist"]] = {n: by_shape[n] for n in DENSE_PATH
+                                        if n in by_shape}
+    for n in DENSE_PATH:
+        if not launches.get(n):
+            failures.append(f"{n}: no launch on the dist path")
+    emit({"dist_serving": {
+        "model": cfg.name, "layers": DIST_LAYERS, "mesh": list(DIST_MESH),
+        "axes": ["data", "model"], "backend": "gloo", "ranks": world,
+        "batch": B, "prompt": PROMPT, "decode_steps": DECODE_STEPS,
+        "local_heads": [r["local_heads"] for r in ranks],
+        "local_experts": [r["local_experts"] for r in ranks],
+        "logits_rel_err": errs, "logits_median_row_rel_err": median,
+        "tol_median": DIST_TOL, "logits_f32_rel_err": errs32,
+        "tol_f32": DIST_TOL_F32,
+        "ep_f32_rel_err": ep_err, "ep_tol": EP_TOL,
+        "aux_f32": [float(got["aux"]), ref_aux],
+        "unsharded_s": whole_s, "ranks_wall_s": ranks_s,
+        "rank_run_s": [r["seconds"] for r in ranks],
+        "rank_peak_memory_gb": [r["peak_memory_gb"] for r in ranks],
+        "collectives_per_rank": ranks[0]["collectives"],
+        "launches": {n: launches.get(n, 0) for n in DENSE_PATH},
+        "launches_by_shape_per_rank": [
+            {n: r["counts"][n]["by_shape"] for n in
+             ("flash_attention", "decode_attention")} for r in ranks]}})
+    if not all(math.isfinite(e) and e <= DIST_TOL for e in median):
+        failures.append(f"dist: bf16 logits of the four ranks off the "
+                        f"unsharded run by {median} (median over positions "
+                        f"of a position's largest |logit|), past {DIST_TOL}")
+    if not all(math.isfinite(e) and e <= DIST_TOL_F32 for e in errs32):
+        failures.append(f"dist: f32 logits of the four ranks off the "
+                        f"unsharded run by {errs32} (of the largest "
+                        f"|logit|), past {DIST_TOL_F32}")
+    if not (math.isfinite(ep_err) and ep_err <= EP_TOL):
+        failures.append(f"dist: moe_ep off moe_capacity in f32 by {ep_err}, "
+                        f"past {EP_TOL}")
+    return ({n: launches.get(n, 0) for n in DENSE_PATH},
+            {n: v for n, v in by_inst.items() if n in DENSE_PATH})
+
+
+def roofline_inputs(torch, model, cell, seed: int = 0) -> dict:
+    """A cut cell's batch on the card, in ``input_specs``' layout: tokens
+    drawn from ``seed``, an empty cache of the cell's length."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    out = {}
+    for k, v in model.input_specs(cell).items():
+        if k == "cache":
+            out[k] = model.init_cache(cell.global_batch, cell.seq_len)
+        else:
+            out[k] = torch.randint(0, model.cfg.vocab_size, tuple(v.shape),
+                                   generator=g, device="cuda",
+                                   dtype=v.dtype)
+    return out
+
+
+def roofline_phase(torch, failures, dry_dir: Path) -> dict:
+    """Step 20: smollm-135m at full width and depth through
+    ``build_model(..., dist=<1 x 1 mesh>)`` on the roofline cells
+    (``ROOF_CELLS``). For each: ``FlopCounterMode`` on the card's run
+    must equal the dry-run's FLOPs a device for the same cut cell at
+    mesh 1 x 1; the dry-run's peak bytes beside
+    ``torch.cuda.max_memory_allocated`` (less what was allocated before
+    the phase); the step's device seconds
+    (CUDA events, median of ``ROOF_REPS``) and the model-FLOP share
+    ``model_flops / (989e12 s)`` beside the roofline row's predicted
+    ``roofline_fraction``. Returns (launches, launches by instance) of
+    the timed runs."""
+    import dataclasses
+    import torch.distributed as tdist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.configs import get_config, shape_by_name
+    from repro_torch.kernels import KERNELS, reset_counts
+    from repro_torch.launch.roofline import PEAK_FLOPS as H100_FLOPS
+    from repro_torch.launch.roofline import roofline_row
+    from repro_torch.models.api import build_model
+    from repro_torch.parallel.sharding import ShardingRules
+    from repro_torch.training.optimizer import AdamWConfig, adamw_init
+    from repro_torch.training.train_step import make_train_step
+
+    # what earlier phases left on the card is no part of a cell's bytes
+    base = torch.cuda.memory_allocated()
+    tdist.init_process_group("gloo", world_size=1, rank=0,
+                             init_method=f"tcp://localhost:"
+                                         f"{free_tcp_port()}")
+    try:
+        mesh = init_device_mesh("cpu", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        cfg = get_config(TRAIN_ARCH)
+        rules = ShardingRules(cfg, mesh)
+        dist = rules.dist_ctx()
+        model = build_model(cfg, dist=dist)
+        params = model.init_params(0)
+        dist["param_specs"] = rules.param_specs(params)
+        reset_counts()
+        rows = {}
+        for shape, extra in ROOF_CELLS.items():
+            cell = dataclasses.replace(shape_by_name(shape),
+                                       global_batch=extra["global_batch"])
+            art = dryrun_artifact(dry_dir, TRAIN_ARCH, shape, "unit",
+                                  "roofline")
+            if art.get("status") != "ok":
+                failures.append(f"roofline {shape}: no dry-run artifact "
+                                f"({art.get('error', art.get('status'))})")
+                continue
+            batch = roofline_inputs(torch, model, cell)
+            if cell.kind == "train":
+                opt_cfg = AdamWConfig()
+                opt = adamw_init(params, opt_cfg)
+                step = make_train_step(model, opt_cfg,
+                                       q_chunk=extra["q_chunk"],
+                                       remat=extra["remat"],
+                                       accum=extra["accum"])
+
+                def run(opt=opt, step=step, batch=batch):
+                    return step(params, opt, batch)
+                grad = torch.enable_grad
+            else:
+                opt = None
+                q_chunk = extra.get("q_chunk", 0)
+
+                def run(batch=batch, kind=cell.kind, q_chunk=q_chunk):
+                    if kind == "prefill":
+                        return model.prefill(params, batch, q_chunk=q_chunk)
+                    return model.decode_step(params, batch)
+                grad = torch.no_grad
+            with grad():
+                with FlopCounterMode(display=False) as fc:
+                    out = run()
+                del out
+                torch.cuda.synchronize()
+                flops = float(fc.get_total_flops())
+                times = []
+                for _ in range(ROOF_REPS + 1):       # the first warms up
+                    free_card(torch)
+                    torch.cuda.reset_peak_memory_stats()
+                    a = torch.cuda.Event(enable_timing=True)
+                    b = torch.cuda.Event(enable_timing=True)
+                    a.record()
+                    out = run()
+                    b.record()
+                    b.synchronize()
+                    times.append(a.elapsed_time(b) / 1e3)
+                    peak = torch.cuda.max_memory_allocated() - base
+                    del out
+            del batch, opt
+            free_card(torch)
+            sec = statistics.median(times[1:])
+            row = roofline_row(art)
+            mf = model.model_flops(cell)
+            rows[shape] = {
+                "cell": shape, "cut": extra, "flops_card": flops,
+                "flops_dryrun": art["flops_per_device"],
+                "flops_equal": flops == art["flops_per_device"],
+                "peak_bytes_card": peak,
+                "peak_bytes_dryrun": art["peak_bytes_per_device"],
+                "peak_ratio_dryrun_over_card":
+                    art["peak_bytes_per_device"] / peak,
+                "device_s": times[1:], "median_s": sec,
+                "model_flops": mf,
+                "model_flop_share": mf / (H100_FLOPS * sec),
+                "counted_flop_share": flops / (H100_FLOPS * sec),
+                "roofline_fraction": row["roofline_fraction"],
+                "roofline_dominant": row["dominant"],
+                "roofline_terms_s": {k: row[f"t_{k}_s"] for k in
+                                     ("compute", "memory", "collective")}}
+            emit({"roofline": rows[shape]})
+            if flops != art["flops_per_device"]:
+                failures.append(f"roofline {shape}: FLOPs counted on the "
+                                f"card {flops:.6e} != dry-run "
+                                f"{art['flops_per_device']:.6e}")
+        launches = path_counts(KERNELS, DENSE_PATH,
+                               PATH_MODELS["roofline"], failures)
+        inst = {n: dict(KERNELS[n].counts.by_instance) for n in DENSE_PATH
+                if KERNELS[n].counts.by_instance}
+        del model, params
+        free_card(torch)
+        return launches, inst
+    finally:
+        tdist.destroy_process_group()
+
+
+def slice12_paths(torch, failures, seconds, peaks, dry_dir) -> dict:
+    """Steps 18 and 20 (step 19's dry-runs have ended), each freed before
+    the next; {path: (launches, launches by instance)}."""
+    paths = {}
+    free_card(torch)
+    with timed_phase(torch, "dist_path", seconds, peaks):
+        paths["dist"] = dist_phase(torch, failures)
+    free_card(torch)
+    with timed_phase(torch, "roofline_path", seconds, peaks):
+        paths["roofline"] = roofline_phase(torch, failures, dry_dir)
+    free_card(torch)
+    return paths
+
+
 @contextlib.contextmanager
 def timed_phase(torch, name, seconds, peaks):
     """Records a phase's wall seconds and its peak of allocated card memory
@@ -3608,10 +4231,20 @@ def main() -> int:
     ap.add_argument("--train", action="store_true",
                     help="only the kernel phase (gradient rows included) "
                          "and the training phase, --repeats times")
+    ap.add_argument("--dist", action="store_true",
+                    help="only the kernel phase and steps 18-20 (four "
+                         "ranks of the card, the dry-run, the roofline), "
+                         "with the result line")
     ap.add_argument("--repeats", type=int, default=1)
     ap.add_argument("--trace", action="store_true",
                     help="with --serve: each run under torch.profiler")
+    # one rank of step 18 (the script starts four of itself)
+    ap.add_argument("--dist-rank", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--dist-work", help=argparse.SUPPRESS)
+    ap.add_argument("--dist-port", type=int, help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.dist_rank is not None:
+        return dist_rank(args.dist_rank, Path(args.dist_work), args.dist_port)
     import torch
     import torch.nn.functional as F
     if not torch.cuda.is_available():
@@ -3640,6 +4273,18 @@ def main() -> int:
              if "Used" in ln or "Compiling entry" in ln
              or "Performance" in ln]
     emit({"build": {"seconds": build_s, "ptxas": ptxas}})
+    dry_dir = Path(ROOT / "build" / "dryrun")
+    if args.dist:
+        failures, seconds, peaks = [], {}, {}
+        procs = start_dryruns(dry_dir)
+        with timed_phase(torch, "kernels", seconds, peaks):
+            rows = kernel_phase(torch, F, failures)
+        with timed_phase(torch, "dryrun_wait", seconds, peaks):
+            finish_dryruns(procs, dry_dir, failures)
+        paths = slice12_paths(torch, failures, seconds, peaks, dry_dir)
+        emit({"phase_seconds": seconds})
+        emit({"phase_peak_memory_gb": peaks})
+        return result_line(torch, name, card, failures, rows, paths)
     if args.serve:
         return serve_repeats(torch, args.serve, args.repeats, args.trace)
     if (args.epoch or args.cluster or args.resume or args.lm_paths
@@ -3682,13 +4327,19 @@ def main() -> int:
         return 1 if failures else 0
 
     failures, seconds, peaks = [], {}, {}
+    procs = start_dryruns(dry_dir)     # CPU only, lowest priority
 
     def phase(name):
         return timed_phase(torch, name, seconds, peaks)
 
+    # the dry-runs share the host only with the kernel and gradient rows,
+    # which are timed on the card; every later phase has the host to itself
     with phase("kernels"):
         rows = kernel_phase(torch, F, failures)
         grad_rows = grad_phase(torch, F, failures)
+    with phase("dryrun_wait"):
+        finish_dryruns(procs, dry_dir, failures)
+    with phase("contention"):
         contention_rows, f32_launches = contention_phase(torch, failures)
         rows.update(contention_rows)
 
@@ -3735,6 +4386,7 @@ def main() -> int:
     free_card(torch)
     with phase("train_cut"):
         train_cut_check(torch, failures)
+    paths.update(slice12_paths(torch, failures, seconds, peaks, dry_dir))
 
     for dnn in CNN_WIDTHS:
         with phase(f"{dnn}_path"):
@@ -3752,6 +4404,23 @@ def main() -> int:
     emit({"phase_seconds": seconds})
     emit({"phase_peak_memory_gb": peaks})
 
+    return result_line(torch, name, card, failures, rows, paths,
+                       epoch=epoch, cluster=cluster,
+                       f32_launches=f32_launches, grad_rows=grad_rows,
+                       train_backward=train_backward,
+                       train_shapes=train_shapes, ssm_f32=ssm_f32)
+
+
+def result_line(torch, name, card, failures, rows, paths, epoch=None,
+                cluster=None, f32_launches=0, grad_rows=None,
+                train_backward=None, train_shapes=None,
+                ssm_f32=None) -> int:
+    """The ``kernels`` line (every row of the kernel phase that ran, its
+    launches on the paths run) and the result line, or the failures and
+    exit code 1."""
+    epoch, cluster = epoch or {}, cluster or {}
+    grad_rows, train_backward = grad_rows or {}, train_backward or {}
+    ssm_f32 = ssm_f32 or {}
     # launches: the sum over the paths, each counted from a reset just
     # before it; the f32 contention kernel's own fleet-sweep call
     counted = [p for p, _ in paths.values()] + [epoch, *cluster.values()]
@@ -3766,9 +4435,12 @@ def main() -> int:
                 by_inst.setdefault(kname, {})
                 by_inst[kname][i] = by_inst[kname].get(i, 0) + n
     shape_coverage(rows, paths, failures)
-    backward_coverage(grad_rows, train_shapes, failures)
+    if train_shapes is not None:
+        backward_coverage(grad_rows, train_shapes, failures)
     kernels = []
     for rname in (*SOURCES, *OTHER_SHAPES):
+        if rname not in rows:          # --dist runs no contention rows
+            continue
         kname = OTHER_SHAPES.get(rname, rname)
         src, replaces = SOURCES[kname]
         row = rows[rname]
@@ -3814,6 +4486,8 @@ def main() -> int:
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})
     return 0
+
+
 
 
 if __name__ == "__main__":

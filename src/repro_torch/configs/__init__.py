@@ -31,5 +31,19 @@ def get_reduced(arch_id: str) -> ArchConfig:
     return _MODULES[arch_id].reduced()
 
 
+def cells(arch_id: str):
+    """All (arch, shape) cells for this arch, with skip markers, as the
+    reference's: a list of (ShapeCell, runnable, reason)."""
+    cfg = get_config(arch_id)
+    out = []
+    for s in SHAPES:
+        if s.name == "long_500k" and not cfg.subquadratic:
+            out.append((s, False, "skipped: pure full-attention arch "
+                                  "(DESIGN.md §4)"))
+        else:
+            out.append((s, True, ""))
+    return out
+
+
 __all__ = ["ArchConfig", "ShapeCell", "SHAPES", "ARCH_IDS", "get_config",
-           "get_reduced", "shape_by_name"]
+           "get_reduced", "cells", "shape_by_name"]

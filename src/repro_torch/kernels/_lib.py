@@ -314,3 +314,27 @@ def strides(*ts_dims) -> ctypes.Array:
     """Pack (tensor, dims) pairs' element strides for a C entry."""
     vals = [t.stride(d) for t, dims in ts_dims for d in dims]
     return (ctypes.c_longlong * len(vals))(*vals)
+
+
+# ---------------------------------------------------------------------------
+# Operators: each wrapper's call is one ``repro_torch::<name>`` operator
+# whose CPU kernel is the plain version and whose CUDA kernel launches the
+# Hopper kernel; its fake kernel gives the output shapes (fake and meta
+# tensors, the dry-run) and its FLOP formula what the kernel multiplies, so
+# ``FlopCounterMode`` counts the same number on the card and on fake tensors.
+# ---------------------------------------------------------------------------
+def define_op(name: str, schema: str, cpu, cuda, fake, flops):
+    """Define (once) and return the operator ``repro_torch::name``."""
+    qual = f"repro_torch::{name}"
+    try:
+        return getattr(torch.ops.repro_torch, name).default
+    except (AttributeError, RuntimeError):
+        pass
+    torch.library.define(qual, schema[schema.index("("):])
+    torch.library.impl(qual, "cpu", cpu)
+    torch.library.impl(qual, "cuda", cuda)
+    torch.library.register_fake(qual, fake)
+    op = getattr(torch.ops.repro_torch, name)
+    from torch.utils.flop_counter import register_flop_formula
+    register_flop_formula(op)(flops)
+    return op.default

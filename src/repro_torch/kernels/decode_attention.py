@@ -84,6 +84,28 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+def decode_flops(q_shape, k_shape, v_shape, kv_pos_shape, q_pos_shape,
+                 window, softcap, scale, out_shape=None, **kw) -> int:
+    """The products the kernel performs: q . k and p . v over every slot
+    of the cache (it reads them all, windowed or empty ones too), 2 Dh a
+    (head, slot) pair each."""
+    b, h, dh = q_shape
+    return 4 * b * h * k_shape[2] * dh
+
+
+def _fake(q, k, v, kv_pos, q_pos, window, softcap, scale):
+    return q.new_empty(q.shape)
+
+
+_op = _lib.define_op(
+    "decode_attention",
+    "decode_attention(Tensor q, Tensor k, Tensor v, Tensor kv_pos, "
+    "Tensor q_pos, int window, float softcap, float? scale) -> Tensor",
+    lambda q, k, v, kp, qp, w, sc, scale: decode_attention_plain(
+        q, k, v, kp, qp, window=w, softcap=sc, scale=scale),
+    lambda *a: _launch(*a), _fake, decode_flops)
+
+
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      kv_pos: torch.Tensor, q_pos: torch.Tensor, *,
                      window: int = 0, softcap: float = 0.0,
@@ -95,16 +117,25 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kernel and its merge, counted as instances ``split`` and ``combine``
     with the grid of each. No path trains through decode (nor does the
     reference), so on a non-CPU input that autograd would record the
-    wrapper raises rather than return a result cut from the graph."""
-    if q.device.type == "cpu":
-        return decode_attention_plain(q, k, v, kv_pos, q_pos, window=window,
-                                      softcap=softcap, scale=scale)
-    name = "decode_attention"
+    wrapper raises rather than return a result cut from the graph.
+
+    The call is the operator ``repro_torch::decode_attention`` (``_lib.
+    define_op``): its fake kernel gives the output's shape on fake and meta
+    tensors and ``decode_flops`` its count under ``FlopCounterMode``."""
     if _lib.needs_grad(q, k, v):
-        raise RuntimeError(f"{name}: the kernel has no backward, and no "
-                           f"training path runs decode; call it under "
-                           f"torch.no_grad() or on inputs that need no "
-                           f"gradient")
+        if q.device.type == "cpu":        # the plain version keeps the graph
+            return decode_attention_plain(q, k, v, kv_pos, q_pos,
+                                          window=window, softcap=softcap,
+                                          scale=scale)
+        raise RuntimeError("decode_attention: the kernel has no backward, "
+                           "and no training path runs decode; call it "
+                           "under torch.no_grad() or on inputs that need no "
+                           "gradient")
+    return _op(q, k, v, kv_pos, q_pos, window, softcap, scale)
+
+
+def _launch(q, k, v, kv_pos, q_pos, window, softcap, scale):
+    name = "decode_attention"
     _lib.require_cuda(name, q, k, v, kv_pos, q_pos)
     b, h, dh = q.shape
     if (k.dim() != 4 or k.shape != v.shape or k.shape[0] != b

@@ -38,6 +38,11 @@ Under autograd (grad mode on and q, k or v requiring grad) the call goes
 through ``FlashAttentionFunction``: the kernel's forward, and a backward
 that recomputes the plain version (the reference has no backward kernel;
 without the Function the kernel's output would carry no gradient).
+
+The forward is the operator ``repro_torch::flash_attention`` (``_lib.
+define_op``): the plain version for CPU tensors, the kernel for CUDA ones,
+the output's shape on fake and meta tensors, and ``flash_flops`` under
+``FlopCounterMode``.
 """
 from __future__ import annotations
 
@@ -129,13 +134,55 @@ def _shape_key(q, k, causal, window, softcap) -> str:
                                window=window, softcap=softcap))
 
 
-def _forward(q, k, v, causal, window, softcap, scale, q_chunk):
-    """The plain version for CPU tensors, the kernel for CUDA ones."""
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal, window=window,
-                                     softcap=softcap, scale=scale,
-                                     q_chunk=q_chunk)
+def _cpu(q, k, v, causal, window, softcap, scale, q_chunk):
+    return flash_attention_plain(q, k, v, causal=causal, window=window,
+                                 softcap=softcap, scale=scale,
+                                 q_chunk=q_chunk)
+
+
+def _cuda(q, k, v, causal, window, softcap, scale, q_chunk):
     return _launch(q, k, v, causal, window, softcap, scale)
+
+
+def _fake(q, k, v, causal, window, softcap, scale, q_chunk):
+    return q.new_empty(q.shape)
+
+
+def visited_keys(s: int, s_kv: int, causal: bool, window: int,
+                 bq: int = 64, bk: int = 64) -> int:
+    """Sum over query rows of the keys in the tiles the kernel visits for
+    that row's query tile (both instances: ``bq`` query rows a block, key
+    tiles of ``bk`` from the window's first tile to the causal end)."""
+    total = 0
+    for q0 in range(0, s, bq):
+        q_last = min(q0 + bq, s) - 1
+        k_end = q_last + 1 if causal else s_kv
+        k_begin = max(0, q0 - window + 1) // bk * bk if window > 0 else 0
+        n_tiles = max(0, -(-(k_end - k_begin) // bk))
+        keys = min(n_tiles * bk, s_kv - k_begin)
+        total += (q_last + 1 - q0) * keys
+    return total
+
+
+def flash_flops(q_shape, k_shape, v_shape, causal, window, softcap, scale,
+                q_chunk, out_shape=None, **kw) -> int:
+    """The products the kernel performs: S = Q K^T and P V over the keys of
+    every visited tile, 2 Dh a (query, key) pair each."""
+    b, h, s, dh = q_shape
+    return 4 * b * h * dh * visited_keys(s, k_shape[2], causal, window)
+
+
+_op = _lib.define_op(
+    "flash_attention",
+    "flash_attention(Tensor q, Tensor k, Tensor v, bool causal, int window, "
+    "float softcap, float? scale, int q_chunk) -> Tensor",
+    _cpu, _cuda, _fake, flash_flops)
+
+
+def _forward(q, k, v, causal, window, softcap, scale, q_chunk):
+    """The operator: the plain version for CPU tensors, the kernel for CUDA
+    ones."""
+    return _op(q, k, v, causal, window, softcap, scale, q_chunk)
 
 
 class FlashAttentionFunction(torch.autograd.Function):

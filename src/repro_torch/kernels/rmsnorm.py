@@ -191,15 +191,35 @@ def _shape_key(x: torch.Tensor, plus_one: bool) -> str:
             + (" plus_one" if plus_one else ""))
 
 
+def _norm_flops(*args, out_shape=None, **kw) -> int:
+    """The norms multiply no matrices: 0 under ``FlopCounterMode``, which
+    counts the products of matmuls, convolutions and attention only."""
+    return 0
+
+
+_op = _lib.define_op(
+    "rmsnorm", "rmsnorm(Tensor x, Tensor weight, float eps, bool plus_one) "
+    "-> Tensor",
+    lambda x, w, eps, po: rmsnorm_plain(x, w, eps=eps, plus_one=po),
+    lambda x, w, eps, po: _launch(x, None, w, eps, po, "rmsnorm"),
+    lambda x, w, eps, po: x.new_empty(x.shape), _norm_flops)
+_op_residual = _lib.define_op(
+    "rmsnorm_residual",
+    "rmsnorm_residual(Tensor x, Tensor residual, Tensor weight, float eps, "
+    "bool plus_one) -> (Tensor, Tensor)",
+    lambda x, r, w, eps, po: rmsnorm_residual_plain(x, r, w, eps=eps,
+                                                    plus_one=po),
+    lambda x, r, w, eps, po: _launch(x, r, w, eps, po, "rmsnorm_residual"),
+    lambda x, r, w, eps, po: (x.new_empty(x.shape), x.new_empty(x.shape)),
+    _norm_flops)
+
+
 def _forward(x, residual, weight, eps, plus_one):
-    """The plain version for CPU tensors, the kernel for CUDA ones."""
-    if x.device.type == "cpu":
-        if residual is None:
-            return rmsnorm_plain(x, weight, eps=eps, plus_one=plus_one)
-        return rmsnorm_residual_plain(x, residual, weight, eps=eps,
-                                      plus_one=plus_one)
-    return _launch(x, residual, weight, eps, plus_one,
-                   "rmsnorm" if residual is None else "rmsnorm_residual")
+    """The operators: the plain version for CPU tensors, the kernel for
+    CUDA ones."""
+    if residual is None:
+        return _op(x, weight, eps, plus_one)
+    return _op_residual(x, residual, weight, eps, plus_one)
 
 
 class RmsNormFunction(torch.autograd.Function):

@@ -114,10 +114,38 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     return _forward(x, dt, a_log, b, c, chunk, init_state)
 
 
+def ssd_flops(x_shape, dt_shape, a_shape, b_shape, c_shape, chunk,
+              init_shape=None, out_shape=None, **kw) -> int:
+    """The products of the chunked scan, chunk by chunk and head by head
+    (Q = chunk): C B^T (2 Q^2 N), its decay-weighted product with X (2 Q^2
+    P), the chunk's state B^T X (2 Q N P) and the carried state's read C S
+    (2 Q N P)."""
+    bs, ln, h, p = x_shape
+    n, q = b_shape[3], chunk
+    return bs * h * (ln // q) * (2 * q * q * n + 2 * q * q * p + 4 * q * n * p)
+
+
+def _fake(x, dt, a_log, b, c, chunk, init_state):
+    bs, ln, h, p = x.shape
+    return (x.new_empty(x.shape),
+            x.new_empty((bs, h, p, b.shape[3]), dtype=torch.float32))
+
+
+_op = _lib.define_op(
+    "ssd", "ssd(Tensor x, Tensor dt, Tensor a_log, Tensor b, Tensor c, "
+    "int chunk, Tensor? init_state) -> (Tensor, Tensor)",
+    lambda *a: ssd_plain(*a), lambda *a: _launch_checked(*a), _fake,
+    ssd_flops)
+
+
 def _forward(x, dt, a_log, b, c, chunk, init_state):
-    """The plain version for CPU tensors, the kernel for CUDA ones."""
-    if x.device.type == "cpu":
-        return ssd_plain(x, dt, a_log, b, c, chunk, init_state)
+    """The operator ``repro_torch::ssd``: the plain version for CPU
+    tensors, the kernel for CUDA ones; on fake and meta tensors its
+    outputs' shapes, and ``ssd_flops`` under ``FlopCounterMode``."""
+    return _op(x, dt, a_log, b, c, chunk, init_state)
+
+
+def _launch_checked(x, dt, a_log, b, c, chunk, init_state):
     name = "ssd"
     tensors = [x, dt, a_log, b, c] + ([] if init_state is None
                                       else [init_state])

@@ -29,7 +29,10 @@ import torch
 
 from ..kernels import decode_attention as _dec
 from ..kernels import flash_attention as _fa
+from ..parallel.sharding import tp_if
 from .layers import apply_rope, dense_init
+
+SEQ_KEYS = ("k", "v", "k_scale", "v_scale", "latent", "k_rope")
 
 def init_attention(gen: torch.Generator, d: int, n_heads: int, n_kv: int,
                    head_dim: int, dtype: torch.dtype, *, lead=(),
@@ -155,6 +158,43 @@ def read_kv_cache(cache: dict, compute_dtype: torch.dtype) -> tuple:
             cache["slots_pos"])
 
 
+def seq_split(dist: Optional[dict], key: str) -> tuple:
+    """(spmd, axes) where ``dist`` splits a cache's sequence axis over mesh
+    axes of more than one rank (``dist[key]``: the cache spec's sequence
+    entry), else (None, ())."""
+    if not dist or dist.get("spmd") is None:
+        return None, ()
+    spmd = dist["spmd"]
+    axes = spmd._live(dist.get(key))
+    return (spmd, axes) if axes else (None, ())
+
+
+def gather_seq(cache: dict, spmd, axes) -> dict:
+    """A cache whose sequence axis (dim 1) is split over ``axes``, whole."""
+    return {k: (spmd._all_gather(v, 1, axes) if k in SEQ_KEYS else v)
+            for k, v in cache.items()}
+
+
+def slice_seq(cache: dict, spmd, axes) -> dict:
+    """This rank's part of a whole cache's sequence axis."""
+    n, r = spmd.size(axes), spmd.rank(axes)
+
+    def cut(v):
+        step = v.shape[1] // n
+        return v.narrow(1, r * step, step).clone()
+    return {k: (cut(v) if k in SEQ_KEYS else v) for k, v in cache.items()}
+
+
+def kv_head_range(dist: dict, h_loc: int, kvh: int) -> tuple:
+    """The kv heads [lo, hi) that this rank's ``h_loc`` query heads read,
+    when the query heads are split over the model axis and the kv heads
+    are not (GQA: global head j reads kv head ``j // (H / KV)``)."""
+    spmd, tp = dist["spmd"], dist["tp"]
+    group = h_loc * spmd.size(tp) // kvh
+    first = spmd.rank(tp) * h_loc
+    return first // group, (first + h_loc - 1) // group + 1
+
+
 # ---------------------------------------------------------------------------
 # Full attention block (projections + rope + core + output)
 # ---------------------------------------------------------------------------
@@ -164,10 +204,19 @@ def attention_block(params: dict, x: torch.Tensor, *, positions: torch.Tensor,
                     scale: Optional[float] = None,
                     cache: Optional[dict] = None,
                     x_kv: Optional[torch.Tensor] = None,
-                    q_chunk: int = 0) -> tuple:
+                    q_chunk: int = 0, cons=None,
+                    dist: Optional[dict] = None) -> tuple:
     """x [B, S, d] -> (out [B, S, d], new_cache | None). ``q_chunk``
     blocks the queries of the flash call's plain version (the reference's
     ``mha``); the kernel ignores it.
+
+    Under ``dist`` the block runs on this rank's shards: its query heads
+    (and kv heads where those split too) of ``wq``/``wk``/``wv``/``wo``,
+    the output summed over the model axis. Where the kv heads do not split,
+    every rank computes them whole and reads the subset of its query
+    heads (their gradient summed over the ranks); a cache whose sequence
+    axis is split is gathered whole, written, and cut back to this rank's
+    part.
 
     - prefill: cache=None, or a fresh cache to fill;
     - decode: the cache holds the history, x is the new token (the decode
@@ -175,7 +224,13 @@ def attention_block(params: dict, x: torch.Tensor, *, positions: torch.Tensor,
     - cross-attention: ``x_kv`` [B, S_kv, d] (encoder states), cache=None;
       not causal whatever ``causal`` says, as in the reference."""
     b, s, d = x.shape
+    tp = tp_if(dist, "shard_heads")
+    split_kv = tp is not None and dist.get("shard_kv")
     src = x if x_kv is None else x_kv
+    if tp is not None:
+        x = tp[0].copy(x, tp[1])
+        if split_kv:
+            src = tp[0].copy(src, tp[1])
     s_kv = src.shape[1]
     h, dh = params["wq"].shape[-2:]
     kvh = params["wk"].shape[-2]
@@ -186,6 +241,10 @@ def attention_block(params: dict, x: torch.Tensor, *, positions: torch.Tensor,
         q = q + params["bq"]
         k = k + params["bk"]
         v = v + params["bv"]
+    if tp is not None and not split_kv:   # whole k/v, read in part
+        k, v = tp[0].copy(k, tp[1]), tp[0].copy(v, tp[1])
+    if cons is not None:
+        q, k, v = cons.heads(q), cons.kv_heads(k), cons.kv_heads(v)
     if x_kv is not None:
         if cache is not None:
             raise ValueError("cross-attention (x_kv) takes no cache")
@@ -196,23 +255,36 @@ def attention_block(params: dict, x: torch.Tensor, *, positions: torch.Tensor,
     if scale is None:
         scale = dh ** -0.5
 
-    new_cache = None
+    new_cache = full = None
     if cache is not None:
-        new_cache = update_kv_cache(cache, k, v, cache["length"])
+        spmd, axes = seq_split(dist, "kv_seq")
+        if spmd is None:
+            new_cache = full = update_kv_cache(cache, k, v, cache["length"])
+        else:
+            full = update_kv_cache(gather_seq(cache, spmd, axes), k, v,
+                                   cache["length"])
+            new_cache = slice_seq(full, spmd, axes)
+    # this rank's query heads read a subset of whole kv heads
+    pick = ((lambda t: t) if tp is None or split_kv else
+            (lambda t, r=kv_head_range(dist, h, kvh): t[:, :, r[0]:r[1]]))
     if cache is None or s > 1:
         # prefill from scratch: attend on the fresh k/v
         out = _fa.flash_attention(
-            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            q.transpose(1, 2), pick(k).transpose(1, 2),
+            pick(v).transpose(1, 2),
             causal=causal, window=window, softcap=attn_softcap,
             scale=scale, q_chunk=q_chunk).transpose(1, 2)
     else:
-        kc, vc, kv_pos = read_kv_cache(new_cache, x.dtype)
+        kc, vc, kv_pos = read_kv_cache(full, x.dtype)
         q_pos = (positions if positions.dim() == 1
                  else positions[:, -1]).reshape(-1).expand(b)
         out = _dec.decode_attention(
-            q[:, 0], kc.transpose(1, 2), vc.transpose(1, 2), kv_pos, q_pos,
-            window=window, softcap=attn_softcap, scale=scale)[:, None]
+            q[:, 0], pick(kc).transpose(1, 2), pick(vc).transpose(1, 2),
+            kv_pos, q_pos, window=window, softcap=attn_softcap,
+            scale=scale)[:, None]
     y = out.reshape(b, s, h * dh) @ params["wo"].reshape(h * dh, -1)
+    if tp is not None:
+        y = tp[0].reduce(y, tp[1])
     if "bo" in params:
         y = y + params["bo"]
     return y, new_cache

@@ -16,10 +16,12 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..parallel.sharding import tp_if
 from .attention import attention_block, init_attention, make_kv_cache
 from .layers import (embed_init, init_mlp, layer_norm, mlp,
                      sinusoidal_positions)
-from .transformer import TORCH_DTYPES, maybe_remat
+from .transformer import (TORCH_DTYPES, fsdp_gather, lookup, maybe_remat,
+                          project_vocab)
 
 
 def _init_ln(d: int, dt: torch.dtype, device) -> dict:
@@ -61,19 +63,30 @@ def init_encdec(gen: torch.Generator, cfg,
     }
 
 
-def encode(params: dict, frames: torch.Tensor, cfg) -> torch.Tensor:
-    """frames: [B, F, d] stub embeddings -> encoder states [B, F, d]."""
+def _layer_specs(dist: Optional[dict], key: str, i: int):
+    specs = (dist or {}).get("param_specs")
+    return None if specs is None else specs[key][i]
+
+
+def encode(params: dict, frames: torch.Tensor, cfg, cons=None,
+           dist: Optional[dict] = None) -> torch.Tensor:
+    """frames: [B, F, d] stub embeddings -> encoder states [B, F, d].
+    Under ``dist`` one rank's program (``transformer.forward``)."""
     pos = sinusoidal_positions(frames.shape[1], cfg.d_model)
     x = frames + pos.to(frames.device, frames.dtype)[None]
     f_pos = torch.arange(frames.shape[1], dtype=torch.int32,
                          device=frames.device)
-    for lp in params["enc_layers"]:
+    for i, lp in enumerate(params["enc_layers"]):
+        lp = fsdp_gather(lp, dist, _layer_specs(dist, "enc_layers", i))
         h = layer_norm(x, lp["ln1"]["w"], lp["ln1"]["b"])
         a, _ = attention_block(lp["attn"], h, positions=f_pos,
-                               rope_theta=0.0, causal=False)
+                               rope_theta=0.0, causal=False, cons=cons,
+                               dist=dist)
         x = x + a
         h = layer_norm(x, lp["ln2"]["w"], lp["ln2"]["b"])
-        x = x + mlp(lp["mlp"], h, cfg.mlp_act)
+        x = x + mlp(lp["mlp"], h, cfg.mlp_act, tp_if(dist, "dff_tp"))
+        if cons is not None:
+            x = cons.hidden(x)
     return layer_norm(x, params["enc_norm"]["w"], params["enc_norm"]["b"])
 
 
@@ -88,45 +101,56 @@ def init_dec_cache(cfg, batch: int, max_len: int,
 def decode(params: dict, tokens: torch.Tensor, enc_out: torch.Tensor, cfg,
            cache: Optional[dict] = None,
            positions: Optional[torch.Tensor] = None, q_chunk: int = 0,
-           remat: str = "none") -> Tuple[torch.Tensor, Optional[dict]]:
+           remat: str = "none", cons=None,
+           dist: Optional[dict] = None
+           ) -> Tuple[torch.Tensor, Optional[dict]]:
     """Decoder forward. tokens [B, S]; enc_out [B, F, d] -> (logits [B, S,
     vocab], new_cache | None). ``q_chunk`` blocks the attention's plain
     queries; any ``remat`` but ``"none"`` recomputes each decoder layer
     whole in the backward, as the reference does."""
-    x = params["embed"][tokens.long()]
+    x = lookup(params["embed"], tokens, cfg.vocab_size, dist)
     if positions is None:
         ar = torch.arange(tokens.shape[1], dtype=torch.int32,
                           device=x.device)
         positions = ar if cache is None else cache["self"][0]["length"] + ar
     x = x + _pos_embed(positions, cfg.d_model).to(x.dtype)[None]
+    if cons is not None:
+        x = cons.hidden(x)
     new_cache = {"self": []} if cache is not None else None
     layer = maybe_remat(dec_layer, "none" if remat == "none" else "full")
     for i, lp in enumerate(params["dec_layers"]):
         x, nc = layer(lp, x, enc_out, cfg, positions,
-                      None if cache is None else cache["self"][i], q_chunk)
+                      None if cache is None else cache["self"][i], q_chunk,
+                      cons, dist, _layer_specs(dist, "dec_layers", i))
         if cache is not None:
             new_cache["self"].append(nc)
     x = layer_norm(x, params["dec_norm"]["w"], params["dec_norm"]["b"])
-    return x @ params["embed"].T, new_cache
+    logits = project_vocab(x, params["embed"].T, cfg.vocab_size, dist)
+    if cons is not None:
+        logits = cons.logits(logits)
+    return logits, new_cache
 
 
 def dec_layer(lp: dict, x: torch.Tensor, enc_out: torch.Tensor, cfg,
               positions: torch.Tensor, cache: Optional[dict],
-              q_chunk: int = 0) -> tuple:
+              q_chunk: int = 0, cons=None, dist: Optional[dict] = None,
+              specs=None) -> tuple:
     """One decoder layer: causal self-attention (with its cache), then
     cross-attention to the encoder states, then the biased MLP."""
+    lp = fsdp_gather(lp, dist, specs)
     h = layer_norm(x, lp["ln1"]["w"], lp["ln1"]["b"])
     a, nc = attention_block(lp["self_attn"], h, positions=positions,
                             rope_theta=0.0, causal=True, cache=cache,
-                            q_chunk=q_chunk)
+                            q_chunk=q_chunk, cons=cons, dist=dist)
     x = x + a
     h = layer_norm(x, lp["ln_x"]["w"], lp["ln_x"]["b"])
     a, _ = attention_block(lp["cross_attn"], h, positions=positions,
                            rope_theta=0.0, causal=False, x_kv=enc_out,
-                           q_chunk=q_chunk)
+                           q_chunk=q_chunk, cons=cons, dist=dist)
     x = x + a
     h = layer_norm(x, lp["ln2"]["w"], lp["ln2"]["b"])
-    return x + mlp(lp["mlp"], h, cfg.mlp_act), nc
+    x = x + mlp(lp["mlp"], h, cfg.mlp_act, tp_if(dist, "dff_tp"))
+    return (x if cons is None else cons.hidden(x)), nc
 
 
 def _pos_embed(positions: torch.Tensor, d: int) -> torch.Tensor:

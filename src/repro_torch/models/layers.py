@@ -104,15 +104,30 @@ def act_fn(name: str):
     return _ACTS[name]
 
 
-def gated_mlp(params: dict, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
+def gated_mlp(params: dict, x: torch.Tensor, act: str = "silu",
+              cons=None, tp=None) -> torch.Tensor:
+    """``tp`` (``parallel.sharding.tp_if``): the ffn axis is this rank's
+    slice, the output summed over the model axis."""
+    if tp is not None:
+        x = tp[0].copy(x, tp[1])
     g = x @ params["w_gate"]
     u = x @ params["w_up"]
-    return (act_fn(act)(g) * u) @ params["w_down"]
+    h = act_fn(act)(g) * u
+    if cons is not None:
+        h = cons.ffn(h)
+    out = h @ params["w_down"]
+    return out if tp is None else tp[0].reduce(out, tp[1])
 
 
-def mlp(params: dict, x: torch.Tensor, act: str = "gelu") -> torch.Tensor:
+def mlp(params: dict, x: torch.Tensor, act: str = "gelu",
+        tp=None) -> torch.Tensor:
+    if tp is not None:
+        x = tp[0].copy(x, tp[1])
     h = act_fn(act)(x @ params["w_in"] + params["b_in"])
-    return h @ params["w_out"] + params["b_out"]
+    out = h @ params["w_out"]
+    if tp is not None:
+        out = tp[0].reduce(out, tp[1])
+    return out + params["b_out"]
 
 
 # ---------------------------------------------------------------------------

@@ -19,6 +19,7 @@ import torch.nn.functional as F
 
 from ..kernels._lib import at_least_f32
 from ..kernels.ssd_scan import ssd
+from ..parallel.sharding import tp_if
 from .layers import dense_init, rms_norm
 
 
@@ -167,18 +168,28 @@ def ssd_decode_step(state: torch.Tensor, x: torch.Tensor, dt: torch.Tensor,
 
 
 def mamba2_block(params: dict, x: torch.Tensor, *, cfg,
-                 cache: Optional[dict] = None
+                 cache: Optional[dict] = None, cons=None,
+                 dist: Optional[dict] = None
                  ) -> Tuple[torch.Tensor, Optional[dict]]:
     """[B,L,d] -> ([B,L,d], new_cache). Decode (a cache and L == 1) runs
-    the recurrent step; otherwise the chunked SSD."""
+    the recurrent step; otherwise the chunked SSD. Under ``dist`` with the
+    SSM heads split over the model axis the block runs on this rank's
+    heads (``w_z``/``w_x``/``w_dt``, their conv channels, ``A_log``,
+    ``D``, the norm's slice and ``w_out``'s rows): B and C are whole on
+    every rank, the gated norm's mean square is summed over the ranks and
+    the output too."""
     bsz, ln, _ = x.shape
-    h, p, g, n = cfg.ssm_nheads, cfg.ssm_headdim, cfg.ssm_ngroups, \
-        cfg.ssm_state
-    z = x @ params["w_z"]
-    xin = x @ params["w_x"]
+    tp = tp_if(dist, "shard_ssm")
+    xs = x if tp is None else tp[0].copy(x, tp[1])
+    p, g, n = cfg.ssm_headdim, cfg.ssm_ngroups, cfg.ssm_state
+    h = params["A_log"].shape[-1]           # this rank's heads
+    z = xs @ params["w_z"]
+    xin = xs @ params["w_x"]
     bc = x @ params["w_bc"]
-    dt = F.softplus((x @ params["w_dt"]).float()
+    dt = F.softplus((xs @ params["w_dt"]).float()
                     + params["dt_bias"].float())
+    if cons is not None:
+        z, xin = cons.ssm_inner(z), cons.ssm_inner(xin)
 
     hist_x = cache["conv_x"] if cache is not None else None
     hist_bc = cache["conv_bc"] if cache is not None else None
@@ -186,6 +197,8 @@ def mamba2_block(params: dict, x: torch.Tensor, *, cfg,
                                   hist_x)
     bc, new_hist_bc = causal_conv(bc, params["conv_bc"], params["conv_bc_b"],
                                   hist_bc)
+    if tp is not None:                  # whole B and C, read by this rank's
+        bc = tp[0].copy(bc, tp[1])      # heads: their gradients summed
 
     xh = xin.reshape(bsz, ln, h, p)
     bmat = bc[..., :g * n].reshape(bsz, ln, g, n)
@@ -213,10 +226,19 @@ def mamba2_block(params: dict, x: torch.Tensor, *, cfg,
             y = y[:, :ln]
 
     y = y + params["D"].to(y.dtype)[None, None, :, None] * xh
-    y = y.reshape(bsz, ln, cfg.d_inner)
-    y = rms_norm(y * F.silu(z.float()).to(y.dtype), params["norm"],
-                 eps=cfg.norm_eps)
+    y = y.reshape(bsz, ln, h * p)
+    y = y * F.silu(z.float()).to(y.dtype)
+    if tp is None:
+        y = rms_norm(y, params["norm"], eps=cfg.norm_eps)
+    else:
+        # the norm spans every rank's heads: sum the squares over them
+        ms = tp[0].reduce_shared(y.float().square().sum(-1, keepdim=True),
+                                 tp[1]) / cfg.d_inner
+        y = (y.float() * torch.rsqrt(ms + cfg.norm_eps)
+             * params["norm"].float()).to(y.dtype)
     out = y @ params["w_out"]
+    if tp is not None:
+        out = tp[0].reduce(out, tp[1])
 
     new_cache = None
     if cache is not None:

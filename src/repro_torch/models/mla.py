@@ -26,7 +26,8 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import flash_attention as _fa
-from .attention import write_slots
+from ..parallel.sharding import tp_if
+from .attention import gather_seq, seq_split, slice_seq, write_slots
 from .layers import apply_rope, dense_init, rms_norm
 
 NEG_INF = -2.0e38               # the reference's additive mask value
@@ -71,11 +72,12 @@ def make_mla_cache(batch: int, max_len: int, cfg,
     }
 
 
-def _project_q(params: dict, x: torch.Tensor, cfg, positions):
+def _project_q(params: dict, x: torch.Tensor, cfg, positions,
+               share=lambda t: t):
     b, s, _ = x.shape
     q_up = params["q_up"]
     r, h, qk = q_up.shape
-    cq = rms_norm(x @ params["q_down"], params["q_norm"])
+    cq = share(rms_norm(x @ params["q_down"], params["q_norm"]))
     q = (cq @ q_up.reshape(r, h * qk)).view(b, s, h, qk)
     nope = cfg.qk_nope_head_dim
     return q[..., :nope], apply_rope(q[..., nope:], positions,
@@ -94,32 +96,48 @@ def _project_latent(params: dict, x: torch.Tensor, cfg, positions):
 
 def mla_block(params: dict, x: torch.Tensor, *, cfg,
               positions: torch.Tensor,
-              cache: Optional[dict] = None, q_chunk: int = 0) -> tuple:
+              cache: Optional[dict] = None, q_chunk: int = 0, cons=None,
+              dist: Optional[dict] = None) -> tuple:
     """x [B, S, d] -> (out [B, S, d], new_cache | None); one token with a
     cache runs absorbed. ``q_chunk`` blocks the naive path's queries in
-    the flash call's plain version."""
+    the flash call's plain version. Under ``dist`` with the heads split
+    over the model axis the block runs on this rank's heads (``q_up``,
+    ``k_up``, ``v_up``, ``wo``), the output summed over the ranks; a
+    latent cache split on its sequence axis is gathered whole, written,
+    and cut back to this rank's part."""
+    tp = tp_if(dist, "shard_heads")
     scale = (cfg.qk_nope_head_dim + cfg.qk_rope_head_dim) ** -0.5
-    q_nope, q_rope = _project_q(params, x, cfg, positions)
-    latent, k_rope = _project_latent(params, x, cfg, positions)
+    # the low-rank projections are whole on every rank and read by its
+    # heads: their gradients are summed over the ranks (``share``)
+    share = (lambda t: t) if tp is None else (
+        lambda t: tp[0].copy(t, tp[1]))
+    q_nope, q_rope = _project_q(params, x, cfg, positions, share)
+    latent, k_rope = map(share, _project_latent(params, x, cfg, positions))
+    if cons is not None:
+        q_nope, q_rope = cons.heads(q_nope), cons.heads(q_rope)
+        latent = cons.hidden(latent)
     b, s, _ = x.shape
 
-    new_cache = None
+    new_cache = full = None
     if cache is not None:
-        start = cache["length"]
-        slot = torch.remainder(start, cache["latent"].shape[1])
-        new_cache = dict(cache)
-        new_cache["latent"] = write_slots(cache["latent"], latent, slot, 1)
-        new_cache["k_rope"] = write_slots(cache["k_rope"], k_rope, slot, 1)
+        spmd, axes = seq_split(dist, "latent_seq")
+        whole = cache if spmd is None else gather_seq(cache, spmd, axes)
+        start = whole["length"]
+        slot = torch.remainder(start, whole["latent"].shape[1])
+        full = dict(whole)
+        full["latent"] = write_slots(whole["latent"], latent, slot, 1)
+        full["k_rope"] = write_slots(whole["k_rope"], k_rope, slot, 1)
         pos_new = start + torch.arange(s, dtype=torch.int32, device=x.device)
-        new_cache["slots_pos"] = write_slots(cache["slots_pos"], pos_new,
-                                             slot, 0)
-        new_cache["length"] = start + s
+        full["slots_pos"] = write_slots(whole["slots_pos"], pos_new,
+                                        slot, 0)
+        full["length"] = start + s
+        new_cache = full if spmd is None else slice_seq(full, spmd, axes)
 
     if cache is not None and s == 1:
         # ----- absorbed decode over the latent cache -----
-        lat = new_cache["latent"].to(x.dtype)                 # [B, T, R]
-        kr = new_cache["k_rope"].to(x.dtype)                  # [B, T, Rr]
-        kv_pos = new_cache["slots_pos"]
+        lat = full["latent"].to(x.dtype)                      # [B, T, R]
+        kr = full["k_rope"].to(x.dtype)                       # [B, T, Rr]
+        kv_pos = full["slots_pos"]
         q_lat = torch.einsum("bshk,rhk->bshr", q_nope, params["k_up"])
         sc = (torch.einsum("bshr,btr->bhst", q_lat, lat)
               + torch.einsum("bshk,btk->bhst", q_rope, kr)).float() * scale
@@ -132,7 +150,7 @@ def mla_block(params: dict, x: torch.Tensor, *, cfg,
         out_lat = torch.einsum("bhst,btr->bshr", p, lat)
         o = torch.einsum("bshr,rhv->bshv", out_lat, params["v_up"])
         y = torch.einsum("bshv,hvd->bsd", o, params["wo"])
-        return y, new_cache
+        return (y if tp is None else tp[0].reduce(y, tp[1])), new_cache
 
     # ----- naive path (prefill; attends on the fresh latents) -----
     k_up, v_up = params["k_up"], params["v_up"]
@@ -149,4 +167,4 @@ def mla_block(params: dict, x: torch.Tensor, *, cfg,
                               q_chunk=q_chunk)
     out = out.transpose(1, 2)[..., :vd]
     y = out.reshape(b, s, h * vd) @ params["wo"].reshape(h * vd, -1)
-    return y, new_cache
+    return (y if tp is None else tp[0].reduce(y, tp[1])), new_cache

@@ -19,6 +19,13 @@ Layers are stacked on a leading ``[L, ...]`` axis as in the reference; the
 reference's ``lax.scan`` over them becomes a loop over that axis (its
 ``lax.cond`` for the hybrid's shared block a Python ``if``), and the
 stacked cache is rebuilt from the per-layer caches the loop returns.
+
+With ``dist`` (``ShardingRules.dist_ctx()`` plus ``"param_specs"``) the
+forward is one rank's program on its shards: a layer's weights gathered
+over the FSDP axes where the rules shard them there (inside the layer, so
+remat regathers them), the embedding and logits split over the vocabulary,
+attention over heads, MLPs over their ffn axis, the experts through
+``moe_ep``; ``ActConstraint`` sits where the reference puts it.
 """
 from __future__ import annotations
 
@@ -27,12 +34,13 @@ from typing import Optional, Tuple
 import torch
 
 from ..kernels.rmsnorm import rmsnorm_residual
+from ..parallel.sharding import ActConstraint, index_specs, tp_if
 from .attention import attention_block, init_attention, make_kv_cache
 from .layers import (dense_init, embed_init, gated_mlp, init_gated_mlp,
                      rms_norm, softcap)
 from .mamba2 import init_mamba2, make_ssm_cache, mamba2_block
 from .mla import init_mla, make_mla_cache, mla_block
-from .moe import init_moe, moe_capacity, moe_dense_oracle
+from .moe import init_moe, moe_capacity, moe_dense_oracle, moe_ep
 
 TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
                 "int8": torch.int8}
@@ -209,52 +217,80 @@ def cache_length(cfg, cache: dict) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # Layer bodies
 # ---------------------------------------------------------------------------
+def fsdp_gather(tree, dist: Optional[dict], specs):
+    """``tree``'s leaves gathered over the FSDP axes where ``specs`` shard
+    them there; ``tree`` itself without ``dist`` or specs."""
+    if not dist or specs is None or dist.get("spmd") is None:
+        return tree
+    return dist["spmd"].gather_tree(tree, specs, dist.get("fsdp"))
+
+
+def _cons(dist: Optional[dict]):
+    return ActConstraint(dist) if dist else None
+
+
+def _hidden(cons, x):
+    return x if cons is None else cons.hidden(x)
+
+
 def _attention(lp: dict, h: torch.Tensor, cfg, positions: torch.Tensor,
                cache: Optional[dict], window: int = 0,
-               q_chunk: int = 0) -> tuple:
+               q_chunk: int = 0, cons=None, dist=None) -> tuple:
     """A layer's attention: MLA where the config has it (deepseek's dense
     and MoE layers), else GQA with the config's softcap and ``window``."""
     if cfg.use_mla:
         return mla_block(lp["attn"], h, cfg=cfg, positions=positions,
-                         cache=cache, q_chunk=q_chunk)
+                         cache=cache, q_chunk=q_chunk, cons=cons, dist=dist)
     return attention_block(
         lp["attn"], h, positions=positions, rope_theta=cfg.rope_theta,
         window=window, attn_softcap=cfg.attn_softcap,
-        scale=cfg.resolved_head_dim ** -0.5, cache=cache, q_chunk=q_chunk)
+        scale=cfg.resolved_head_dim ** -0.5, cache=cache, q_chunk=q_chunk,
+        cons=cons, dist=dist)
 
 
 def dense_body(lp: dict, x: torch.Tensor, cfg, positions: torch.Tensor,
                cache: Optional[dict], window: int = 0,
-               q_chunk: int = 0) -> tuple:
+               q_chunk: int = 0, dist: Optional[dict] = None) -> tuple:
     """One dense layer (also the moe family's leading ones): ``x +
     attn(ln1(x))`` then ``+ mlp(ln2(.))``, each branch through its
     post-block norm where the config has them (gemma2). The residual add
     and ln2 run as one fused kernel."""
+    cons = _cons(dist)
     h = rms_norm(x, lp["ln1"], cfg.norm_eps, plus_one=cfg.embed_scale)
-    a, new_cache = _attention(lp, h, cfg, positions, cache, window, q_chunk)
+    a, new_cache = _attention(lp, h, cfg, positions, cache, window, q_chunk,
+                              cons, dist)
     if cfg.post_block_norms:
         a = rms_norm(a, lp["ln1_post"], cfg.norm_eps,
                      plus_one=cfg.embed_scale)
     h, x = rmsnorm_residual(x, a, lp["ln2"], eps=cfg.norm_eps,
                             plus_one=cfg.embed_scale)
-    m = gated_mlp(lp["mlp"], h, cfg.mlp_act)
+    x = _hidden(cons, x)
+    m = gated_mlp(lp["mlp"], h, cfg.mlp_act, cons, tp_if(dist, "dff_tp"))
     if cfg.post_block_norms:
         m = rms_norm(m, lp["ln2_post"], cfg.norm_eps,
                      plus_one=cfg.embed_scale)
-    return x + m, new_cache
+    return _hidden(cons, x + m), new_cache
 
 
 def moe_body(lp: dict, x: torch.Tensor, cfg, positions: torch.Tensor,
              cache: Optional[dict], use_oracle: bool,
-             q_chunk: int = 0) -> tuple:
+             q_chunk: int = 0, dist: Optional[dict] = None) -> tuple:
     """One MoE layer: ``x + attn(ln1(x))`` (MLA where the config has it)
     then ``+ experts(ln2(.))`` (plus the shared experts where the layer has
     them); returns (x, new_cache, aux). The residual add and ln2 run as
-    one fused kernel."""
+    one fused kernel. Where ``dist`` splits the model axis, the experts go
+    through ``moe_ep`` (the reference's ``moe_ep_shardmap``)."""
+    cons = _cons(dist)
     h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-    a, new_cache = _attention(lp, h, cfg, positions, cache, 0, q_chunk)
+    a, new_cache = _attention(lp, h, cfg, positions, cache, 0, q_chunk,
+                              cons, dist)
     h, x = rmsnorm_residual(x, a, lp["ln2"], eps=cfg.norm_eps)
-    if use_oracle:
+    x = _hidden(cons, x)
+    if tp_if(dist) is not None:
+        mo, aux = moe_ep(lp["moe"], h, topk=cfg.n_experts_active, dist=dist,
+                         norm_topk=cfg.router_norm_topk, act=cfg.mlp_act,
+                         n_valid=cfg.n_experts)
+    elif use_oracle:
         mo, aux = moe_dense_oracle(lp["moe"], h, cfg.n_experts_active,
                                    cfg.router_norm_topk, cfg.mlp_act,
                                    cfg.n_experts)
@@ -263,42 +299,50 @@ def moe_body(lp: dict, x: torch.Tensor, cfg, positions: torch.Tensor,
                                norm_topk=cfg.router_norm_topk,
                                act=cfg.mlp_act, n_valid=cfg.n_experts)
     if "shared" in lp["moe"]:
-        mo = mo + gated_mlp(lp["moe"]["shared"], h, cfg.mlp_act)
-    return x + mo, new_cache, aux
+        mo = mo + gated_mlp(lp["moe"]["shared"], h, cfg.mlp_act, cons,
+                            tp_if(dist, "shared_tp"))
+    return _hidden(cons, x + mo), new_cache, aux
 
 
 def ssm_body(lp: dict, x: torch.Tensor, cfg, positions: torch.Tensor,
-             cache: Optional[dict]) -> tuple:
+             cache: Optional[dict], dist: Optional[dict] = None) -> tuple:
     """One Mamba2 layer: ``x + mamba2(ln(x))`` (positions play no part)."""
+    cons = _cons(dist)
     h = rms_norm(x, lp["ln"], cfg.norm_eps)
-    y, new_cache = mamba2_block(lp["mamba"], h, cfg=cfg, cache=cache)
-    return x + y, new_cache
+    y, new_cache = mamba2_block(lp["mamba"], h, cfg=cfg, cache=cache,
+                                cons=cons, dist=dist)
+    return _hidden(cons, x + y), new_cache
 
 
 def pair_body(lp: dict, x: torch.Tensor, cfg, positions: torch.Tensor,
-              cache: Optional[dict], q_chunk: int = 0) -> tuple:
+              cache: Optional[dict], q_chunk: int = 0,
+              dist: Optional[dict] = None) -> tuple:
     """One gemma2 block: the local layer (sliding window) then the global
     one, each with its own cache."""
     x, ncl = dense_body(lp["local"], x, cfg, positions,
                         None if cache is None else cache["local"],
-                        cfg.sliding_window, q_chunk)
+                        cfg.sliding_window, q_chunk, dist)
     x, ncg = dense_body(lp["global"], x, cfg, positions,
                         None if cache is None else cache["global"], 0,
-                        q_chunk)
+                        q_chunk, dist)
     return x, (None if cache is None else {"local": ncl, "global": ncg})
 
 
 def shared_attn_body(sp: dict, x: torch.Tensor, x0: torch.Tensor, cfg,
                      positions: torch.Tensor, cache: Optional[dict],
-                     q_chunk: int = 0) -> tuple:
+                     q_chunk: int = 0, dist: Optional[dict] = None) -> tuple:
     """zamba2's shared block on ``concat(x, x0)``, ``x0`` the embedded
     input: ``x + attn(ln1(cat))`` then ``+ mlp(ln2(.))``."""
+    cons = _cons(dist)
     h = rms_norm(torch.cat([x, x0], dim=-1), sp["ln1"], cfg.norm_eps)
     a, new_cache = attention_block(
         sp["attn"], h, positions=positions, rope_theta=cfg.rope_theta,
-        scale=cfg.resolved_head_dim ** -0.5, cache=cache, q_chunk=q_chunk)
+        scale=cfg.resolved_head_dim ** -0.5, cache=cache, q_chunk=q_chunk,
+        cons=cons, dist=dist)
     h, x = rmsnorm_residual(x, a, sp["ln2"], eps=cfg.norm_eps)
-    return x + gated_mlp(sp["mlp"], h, cfg.mlp_act), new_cache
+    x = _hidden(cons, x)
+    return x + gated_mlp(sp["mlp"], h, cfg.mlp_act, cons,
+                         tp_if(dist, "dff_tp")), new_cache
 
 
 def _first_leaf(tree):
@@ -343,32 +387,51 @@ def maybe_remat(fn, remat: str):
 
 def layer_body(lp: dict, x: torch.Tensor, cfg, positions: torch.Tensor,
                cache: Optional[dict], moe_oracle: bool = False,
-               q_chunk: int = 0) -> tuple:
+               q_chunk: int = 0, dist: Optional[dict] = None,
+               specs=None) -> tuple:
     """One layer of the stack (a gemma2 pair counts as one): (x, new_cache,
-    aux), aux None but for the moe family."""
+    aux), aux None but for the moe family. Under ``dist`` its weights are
+    first gathered over the FSDP axes (``specs``: the layer's specs)."""
+    lp = fsdp_gather(lp, dist, specs)
     if cfg.family == "ssm":
-        return (*ssm_body(lp, x, cfg, positions, cache), None)
+        return (*ssm_body(lp, x, cfg, positions, cache, dist), None)
     if cfg.family == "moe":
-        return moe_body(lp, x, cfg, positions, cache, moe_oracle, q_chunk)
+        return moe_body(lp, x, cfg, positions, cache, moe_oracle, q_chunk,
+                        dist)
     body = pair_body if cfg.local_global_alternating else dense_body
-    return (*body(lp, x, cfg, positions, cache, q_chunk=q_chunk), None)
+    return (*body(lp, x, cfg, positions, cache, q_chunk=q_chunk,
+                  dist=dist), None)
+
+
+def _specs(dist: Optional[dict], *path):
+    """The param specs at ``path`` in ``dist["param_specs"]`` (None when
+    there are none)."""
+    specs = (dist or {}).get("param_specs")
+    for k in path:
+        if specs is None:
+            return None
+        specs = specs[k]
+    return specs
 
 
 def run_layers(layers: dict, x: torch.Tensor, cfg, positions: torch.Tensor,
                cache: Optional[dict], *, moe_oracle: bool = False,
-               remat: str = "none", q_chunk: int = 0
+               remat: str = "none", q_chunk: int = 0,
+               dist: Optional[dict] = None, specs=None
                ) -> Tuple[torch.Tensor, Optional[dict], torch.Tensor]:
     """The reference's layer scan as a loop over the stacked axis (dense,
     gemma2 pairs, ssm and moe layers; ``moe_oracle`` picks the moe layers'
     expert path), each layer under ``remat``. Returns (x, new_cache | None,
-    aux): the moe layers' aux losses summed in f32 (0 for the others)."""
+    aux): the moe layers' aux losses summed in f32 (0 for the others).
+    ``specs``: the stacked layers' param specs (under ``dist``)."""
     body = maybe_remat(layer_body, remat)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     new_caches = []
+    lspecs = None if specs is None else index_specs(specs)
     for li in range(_first_leaf(layers).shape[0]):
         ca = None if cache is None else index_tree(cache, li)
         x, nc, a = body(index_tree(layers, li), x, cfg, positions, ca,
-                        moe_oracle, q_chunk)
+                        moe_oracle, q_chunk, dist, lspecs)
         if a is not None:
             aux = aux + a.float()
         new_caches.append(nc)
@@ -381,20 +444,27 @@ def run_layers(layers: dict, x: torch.Tensor, cfg, positions: torch.Tensor,
 
 def hybrid_layer(lp: dict, x: torch.Tensor, cfg, positions: torch.Tensor,
                  cache: Optional[dict], shared: Optional[tuple],
-                 q_chunk: int = 0) -> tuple:
+                 q_chunk: int = 0, dist: Optional[dict] = None,
+                 specs=None) -> tuple:
     """One Mamba2 layer and, where ``shared`` is ``(sp, x0, attn_cache)``,
-    the shared block after it: (x, new_cache, new_attn_cache | None)."""
-    x, nc = ssm_body(lp, x, cfg, positions, cache)
+    the shared block after it: (x, new_cache, new_attn_cache | None).
+    ``specs``: (the layer's, the shared block's) param specs (under
+    ``dist``)."""
+    lspecs, sspecs = specs if specs is not None else (None, None)
+    x, nc = ssm_body(fsdp_gather(lp, dist, lspecs), x, cfg, positions,
+                     cache, dist)
     if shared is None:
         return x, nc, None
     sp, x0, attn_cache = shared
-    x, na = shared_attn_body(sp, x, x0, cfg, positions, attn_cache, q_chunk)
+    x, na = shared_attn_body(fsdp_gather(sp, dist, sspecs), x, x0, cfg,
+                             positions, attn_cache, q_chunk, dist)
     return x, nc, na
 
 
 def run_hybrid(params: dict, x: torch.Tensor, cfg, positions: torch.Tensor,
                cache: Optional[dict], *, remat: str = "none",
-               q_chunk: int = 0) -> Tuple[torch.Tensor, Optional[dict]]:
+               q_chunk: int = 0, dist: Optional[dict] = None
+               ) -> Tuple[torch.Tensor, Optional[dict]]:
     """Mamba2 layers with the shared block after layer ``li`` where ``li %
     attn_every == attn_every - 1``, application ``min(li // attn_every,
     n_apps - 1)`` with its own KV cache; each layer (with the shared block
@@ -407,6 +477,10 @@ def run_hybrid(params: dict, x: torch.Tensor, cfg, positions: torch.Tensor,
     attn = (None if cache is None else
             [index_tree(cache["attn"], j) for j in range(n_apps)])
     mamba = []
+    specs = None
+    if _specs(dist, "layers") is not None:
+        specs = (index_specs(_specs(dist, "layers")),
+                 _specs(dist, "shared_attn"))
     for li in range(layers["ln"].shape[0]):
         ca = None if cache is None else index_tree(cache["mamba"], li)
         j = min(li // every, n_apps - 1)
@@ -415,7 +489,7 @@ def run_hybrid(params: dict, x: torch.Tensor, cfg, positions: torch.Tensor,
             shared = (params["shared_attn"], x0,
                       None if attn is None else attn[j])
         x, nc, na = body(index_tree(layers, li), x, cfg, positions, ca,
-                         shared, q_chunk)
+                         shared, q_chunk, dist, specs)
         mamba.append(nc)
         if na is not None:
             attn[j] = na
@@ -428,24 +502,54 @@ def run_hybrid(params: dict, x: torch.Tensor, cfg, positions: torch.Tensor,
 # ---------------------------------------------------------------------------
 # Forward
 # ---------------------------------------------------------------------------
+def lookup(table: torch.Tensor, tokens: torch.Tensor, vocab: int,
+           dist: Optional[dict] = None) -> torch.Tensor:
+    """``table[tokens]``; where ``dist`` split the table's vocabulary over
+    the model axis (fewer rows than ``vocab``), each rank looks up the
+    tokens of its rows and the ranks sum."""
+    split = tp_if(dist)
+    if split is None or table.shape[0] == vocab:
+        return table[tokens.long()]
+    spmd, tp = split
+    v_loc = table.shape[0]
+    ids = tokens.long() - spmd.rank(tp) * v_loc
+    mine = (ids >= 0) & (ids < v_loc)
+    x = table[ids.clamp(0, v_loc - 1)] * mine[..., None].to(table.dtype)
+    return spmd.reduce(x, tp)
+
+
+def project_vocab(h: torch.Tensor, w: torch.Tensor, vocab: int,
+                  dist: Optional[dict] = None) -> torch.Tensor:
+    """``h @ w``; where ``w`` [d, V] is this rank's vocabulary slice the
+    logits stay split over the model axis (the reference's
+    ``logits_spec``)."""
+    split = tp_if(dist)
+    if split is not None and w.shape[-1] != vocab:
+        h = split[0].copy(h, split[1])
+    return h @ w
+
+
 def embed(params: dict, cfg, tokens: Optional[torch.Tensor] = None,
-          embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+          embeds: Optional[torch.Tensor] = None,
+          dist: Optional[dict] = None) -> torch.Tensor:
     """Token embeddings, or the given ``embeds``; gemma2 scales them by
     sqrt(d) cast to their dtype first, as the reference does."""
-    x = params["embed"][tokens.long()] if embeds is None else embeds
+    x = (lookup(params["embed"], tokens, cfg.vocab_size, dist)
+         if embeds is None else embeds)
     if cfg.embed_scale:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
     return x
 
 
-def logits(params: dict, cfg, h: torch.Tensor) -> torch.Tensor:
+def logits(params: dict, cfg, h: torch.Tensor,
+           dist: Optional[dict] = None) -> torch.Tensor:
     h = rms_norm(h, params["final_norm"], cfg.norm_eps,
                  plus_one=cfg.embed_scale)
     w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    out = h @ w
+    out = project_vocab(h, w, cfg.vocab_size, dist)
     if cfg.logit_softcap > 0:
         out = softcap(out, cfg.logit_softcap)
-    return out
+    return out if dist is None else ActConstraint(dist).logits(out)
 
 
 def forward(params: dict, cfg, tokens: Optional[torch.Tensor] = None, *,
@@ -453,7 +557,8 @@ def forward(params: dict, cfg, tokens: Optional[torch.Tensor] = None, *,
             cache: Optional[dict] = None,
             positions: Optional[torch.Tensor] = None,
             moe_oracle: Optional[bool] = None, q_chunk: int = 0,
-            remat: str = "none", with_aux: bool = False):
+            remat: str = "none", with_aux: bool = False,
+            dist: Optional[dict] = None):
     """Returns (logits, new_cache | None), and the moe layers' summed aux
     loss (f32, 0 for the other families) after them when ``with_aux``.
     cache=None: plain forward (training); a cache: prefill (S > 1) or
@@ -464,10 +569,11 @@ def forward(params: dict, cfg, tokens: Optional[torch.Tensor] = None, *,
     ``q_chunk`` blocks the attention's plain queries; ``remat`` ("none",
     "full", "dots") recomputes each layer of the stack in the backward, as
     the reference's scan body (deepseek's leading dense layers, outside
-    the scan there, are not)."""
+    the scan there, are not). ``dist``: run as one rank of a mesh on its
+    shards (module docstring)."""
     if cfg.family not in LM_FAMILIES:
         raise _unknown(cfg)
-    x = embed(params, cfg, tokens, embeds)
+    x = _hidden(_cons(dist), embed(params, cfg, tokens, embeds, dist))
     sq = x.shape[1]
     if positions is None:
         ar = torch.arange(sq, dtype=torch.int32, device=x.device)
@@ -475,20 +581,24 @@ def forward(params: dict, cfg, tokens: Optional[torch.Tensor] = None, *,
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.family == "hybrid":
         x, new_cache = run_hybrid(params, x, cfg, positions, cache,
-                                  remat=remat, q_chunk=q_chunk)
+                                  remat=remat, q_chunk=q_chunk, dist=dist)
     elif cfg.family == "moe":
         if moe_oracle is None:
             moe_oracle = default_moe_oracle(cfg)
         dense = []
         for i in range(cfg.n_dense_layers):
-            x, nc = dense_body(params["dense_layers"][i], x, cfg, positions,
+            lp = fsdp_gather(params["dense_layers"][i], dist,
+                             _specs(dist, "dense_layers", i))
+            x, nc = dense_body(lp, x, cfg, positions,
                                None if cache is None
-                               else cache["dense_layers"][i], 0, q_chunk)
+                               else cache["dense_layers"][i], 0, q_chunk,
+                               dist)
             dense.append(nc)
         x, layer_cache, aux = run_layers(
             params["layers"], x, cfg, positions,
             None if cache is None else cache["layers"],
-            moe_oracle=moe_oracle, remat=remat, q_chunk=q_chunk)
+            moe_oracle=moe_oracle, remat=remat, q_chunk=q_chunk, dist=dist,
+            specs=_specs(dist, "layers"))
         new_cache = None
         if cache is not None:
             new_cache = {"layers": layer_cache}
@@ -496,6 +606,8 @@ def forward(params: dict, cfg, tokens: Optional[torch.Tensor] = None, *,
                 new_cache["dense_layers"] = dense
     else:
         x, new_cache, aux = run_layers(params["layers"], x, cfg, positions,
-                                       cache, remat=remat, q_chunk=q_chunk)
-    out = logits(params, cfg, x)
+                                       cache, remat=remat, q_chunk=q_chunk,
+                                       dist=dist,
+                                       specs=_specs(dist, "layers"))
+    out = logits(params, cfg, x, dist)
     return (out, new_cache, aux) if with_aux else (out, new_cache)

@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Tuple
+from typing import Any, Optional, Tuple
 
 import torch
 
@@ -99,11 +99,15 @@ def global_norm(tree: Any) -> torch.Tensor:
 
 @torch.no_grad()
 def adamw_update(params: Any, grads: Any, state: dict,
-                 cfg: AdamWConfig) -> Tuple[Any, dict, dict]:
+                 cfg: AdamWConfig, *,
+                 grad_norm: Optional[torch.Tensor] = None
+                 ) -> Tuple[Any, dict, dict]:
     """One AdamW step: (new params, new state, {"grad_norm", "lr"}); the
-    gradients are clipped to ``grad_clip`` by their global norm first."""
+    gradients are clipped to ``grad_clip`` by their global norm first
+    (``grad_norm`` where the caller has it: the norm over every rank's
+    shards)."""
     step = state["step"] + 1
-    gn = global_norm(grads)
+    gn = global_norm(grads) if grad_norm is None else grad_norm
     scale = (torch.clamp(cfg.grad_clip / (gn + 1e-12), max=1.0)
              if cfg.grad_clip else 1.0)
     lr = lr_at(cfg, step)

@@ -15,6 +15,14 @@ for the step only: the caller's tensors never get ``requires_grad`` or a
 ``.grad``. On the card the kernel wrappers' forwards run the Hopper
 kernels and their backwards recompute through the plain versions
 (``kernels/*.py``: the reference has no backward kernel).
+
+Under a model's ``dist`` (one rank of a mesh) the step is that rank's: the
+FSDP gathers' backward has summed each sharded gradient over its FSDP
+axes; the other gradients are summed over the data axes here, all are
+divided by the data-parallel width (each rank's loss is the mean over its
+own rows), the norm that clips them is taken over every rank's shards, and
+the loss is averaged over the data axes (``tests/test_torch_spmd.py``
+holds the result to the unsharded step's).
 """
 from __future__ import annotations
 
@@ -72,8 +80,39 @@ def make_train_step(model, opt_cfg: AdamWConfig, *, q_chunk: int = 0,
                 del gi
             loss = loss / accum
             grads = tree_map(lambda g: g / accum, grads)
+        gn = None
+        if getattr(model, "dist", None) and model.dist.get("spmd"):
+            loss, grads, gn = _sync(model.dist, loss, grads)
         new_params, new_opt, metrics = adamw_update(params, grads, opt_state,
-                                                    opt_cfg)
+                                                    opt_cfg, grad_norm=gn)
         return new_params, new_opt, dict(metrics, loss=loss)
 
     return train_step
+
+
+def _sync(dist: dict, loss, grads):
+    """A rank's loss and gradients made the data-parallel step's, and the
+    global gradient norm (module docstring)."""
+    from ..parallel.sharding import _zip_map, entry_axes
+    spmd, specs = dist["spmd"], dist["param_specs"]
+    dp = entry_axes(dist.get("dp"))
+    n_dp = spmd.size(dp) if dp else 1
+    world = spmd.size(spmd.names)
+
+    def leaf(g, spec):
+        named = {a for e in spec for a in entry_axes(e)}
+        rest = tuple(a for a in dp if a not in named)
+        g = spmd._all_reduce(g, rest) if rest else g
+        return g / n_dp if n_dp > 1 else g
+    grads = _zip_map(leaf, grads, specs)
+    sq = []
+
+    def norm_leaf(g, spec):
+        named = {a for e in spec for a in entry_axes(e)}
+        copies = world // spmd.size(tuple(named)) if named else world
+        sq.append(g.float().square().sum() / copies)
+    _zip_map(norm_leaf, grads, specs)
+    total = spmd._all_reduce(torch.stack(sq).sum(), spmd.names)
+    if dp:
+        loss = spmd._all_reduce(loss.float(), dp) / n_dp
+    return loss, grads, torch.sqrt(total)

@@ -18,6 +18,8 @@ SOURCES = sorted(PORT.rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "examples" / "serve_realtime_torch.py",
     ROOT / "examples" / "serve_daemon_torch.py",
     ROOT / "examples" / "train_smollm_torch.py",
+    ROOT / "examples" / "quickstart_torch.py",
+    ROOT / "examples" / "migrate_zero_delay_torch.py",
     ROOT / "benchmarks" / "figure_specs_torch.py"]
 COPIED = sorted(p for p in PORT.rglob("*.py")
                 if p.read_text().startswith("# Copy of src/repro/"))
@@ -143,3 +145,19 @@ def test_the_scheduler_stack_is_copied():
                 "serve/__init__.py", "serve/journal.py", "serve/client.py",
                 "serve/config.py", "serve/daemon.py", "data/pipeline.py"):
         assert rel in copied
+
+
+def test_mesh_and_launch_tooling_are_covered():
+    """The mesh, sharding, dry-run and roofline modules are scanned above
+    (and imported in the fresh interpreter, with every module of the
+    port); ``analysis/lint.py`` is a byte copy of the reference's, first
+    line aside -- its path rule still names ``repro/chaos/``, as the
+    reference's does."""
+    scanned = {p.relative_to(PORT).as_posix() for p in SOURCES
+               if p.is_relative_to(PORT)}
+    for rel in ("parallel/sharding.py", "launch/mesh.py",
+                "launch/dryrun.py", "launch/roofline.py",
+                "analysis/lint.py"):
+        assert rel in scanned
+    assert PORT / "analysis" / "lint.py" in COPIED
+    assert "repro/chaos/" in (PORT / "analysis" / "lint.py").read_text()

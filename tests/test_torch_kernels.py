@@ -237,8 +237,11 @@ def test_cpu_calls_count_plain_versions_only():
 
 @pytest.mark.parametrize("name", sorted(KERNELS))
 def test_non_cpu_tensors_never_fall_back_to_plain(name):
-    """A tensor off the CPU goes to the kernel path, which raises for any
-    device but CUDA: there is no quiet fallback to the plain version."""
+    """A tensor off the CPU never falls back to the plain version. The
+    contention kernel's path raises for any device but CUDA; the four
+    operator-backed wrappers (``repro_torch::*``) give meta tensors their
+    outputs' shapes from the fake kernel (the dry-run's use), with no
+    launch and no plain call."""
     m = torch.device("meta")
     lanes = ([1.0, 2.0], [4.0, 4.0], [0.5, 0.5], [1.0, 1.0])
     kwargs = {"contention_eta_f64": {"device": m},
@@ -264,6 +267,12 @@ def test_non_cpu_tensors_never_fall_back_to_plain(name):
                 torch.empty(1, 8, 1, 4, device=m), 8),
     }[name]
     reset_counts()
-    with pytest.raises(ValueError, match="CUDA"):
-        KERNELS[name](*args, **kwargs)
+    if name.startswith("contention"):
+        with pytest.raises(ValueError, match="CUDA"):
+            KERNELS[name](*args, **kwargs)
+    else:
+        out = KERNELS[name](*args, **kwargs)
+        first = out[0] if isinstance(out, tuple) else out
+        assert first.device == m and first.shape == args[0].shape
+        assert KERNELS[name].counts.launches == 0
     assert KERNELS[name].counts.plain_calls == 0

@@ -107,7 +107,7 @@ def test_dispatch_indices_match_reference(capacity, e):
                    ).astype(np.int32)
     w = rng.uniform(0.1, 1.0, (12, 2)).astype(np.float32)
     ours = moe.dispatch_indices(torch.from_numpy(ids), torch.from_numpy(w),
-                                capacity, e)
+                                capacity, 0, e)
     ref = jax_moe.dispatch_indices(jnp.asarray(ids), jnp.asarray(w), capacity,
                                    0, e)
     for a, b in zip(ours, ref):
