@@ -294,10 +294,25 @@ result line. Without arguments:
     ``DIST_TOL_F32`` of the largest logit; bf16: the median position
     within ``DIST_TOL``) and layer 0's ``moe_ep`` to ``moe_capacity`` in
     f32 (``EP_TOL``); each rank's launches at its local shapes
-    (``dist_serving`` line).
+    (``dist_serving`` line). The same prefill and decode once more under
+    ``serve_seq_shard`` (a rank's 128 of the 512 rows between blocks),
+    held to the same unsharded logits (``dist_seq_prefill`` line). Then
+    the same ranks, as a (2, 2) mesh, run smollm-135m at full width (10
+    of 30 layers) one AdamW step of 4 x 4096 tokens under each of the
+    reference's layouts (``LAYOUTS``: seq_shard, no_seq_shard, no_fsdp,
+    mlp_fsdp, dp_only), in f32 held to the same step unsharded on the
+    card (``SPMD_TOL``: loss, gradient norm, every gradient and new
+    parameter) and in bf16 (the loss, ``LAYOUT_BF16_TOL``); each rank's
+    FLOPs (``FlopCounterMode``) and collectives must equal the dry-run's
+    for the same cut cell and flags (the ``2x2`` cells of step 19), its
+    peak GB printed beside the dry-run's (``dist_layouts`` line a
+    layout).
 19. Dry-run (``start_dryruns``, ``finish_dryruns``): the reference's
-    three tiny-mesh cells, a cell a family at the 16 x 16 mesh and the
-    roofline cells at 1 x 1, each ``launch/dryrun.py`` in a process of
+    three tiny-mesh cells, a cell a family at the 16 x 16 mesh, the
+    roofline cells at 1 x 1 and step 18's layout cells at 2 x 2 (train_4k
+    cut to 4 sequences and 10 layers, heads unpadded), each
+    ``launch/dryrun.py`` in a
+    process of
     its own at the lowest CPU priority, started after the build and run
     beside the kernel and gradient rows (timed on the card); the script
     waits for them (``dryrun_wait``) before any phase that reads the
@@ -315,7 +330,9 @@ result line. Without arguments:
     4 heads of Dh 128, flash at S 32,768 (B 2), decode over 32,768 slots
     (B 16; held per output row to ``ROW_TOL``, with a planted fault that
     hides the kernel's first split of slots), the norms over 65,536 and
-    16 rows of 576.
+    16 rows of 576; and those of step 18's later runs: the norms over a
+    rank's 512 rows of 2048 (the ``serve_seq_shard`` prefill) and over
+    4096 rows of 576, flash over one sequence of 4096 (9 heads over 3).
 Each phase's model is freed before the next; ``phase_seconds`` and
 ``phase_peak_memory_gb`` give each phase's wall and peak of allocated card
 memory.
@@ -484,6 +501,31 @@ DIST_TOL = 3e-2
 # one MoE layer in f32, moe_ep on the ranks against moe_capacity: the same
 # products; only the order in which a token's k pairs are summed differs
 EP_TOL = 1e-5
+# slice 13: the reference's layouts. Step 18's ranks also run smollm-135m
+# at full width, 10 of its 30 layers, on a (2, 2) ("data", "model") mesh
+# (at full depth the ten steps took 167 s over gloo on an NVIDIA H100
+# 80GB HBM3 at 700 W, PERF.md §6: a collective costs about 8 ms there):
+# one AdamW step of train_4k
+# cut to a global batch of 4 sequences of 4096 tokens
+# (the dry-run's accum for it: 2 microbatches a rank, 1 under dp_only;
+# remat "full", q_chunk 1024), under each layout, in f32 and then in
+# bf16. The heads run unpadded: the reference's padding for tp 2 (9 -> 10
+# heads over 3 KV heads) leaves GQA's groups uneven, which neither
+# package's attention can run, so every model rank computes the 9 heads
+# whole (the sequence's gather with a slice in its backward) while the
+# MLP (1536 / 2) and the vocabulary (49,152 / 2) split
+LAYOUT_MESH, LAYOUT_BATCH, LAYOUT_PAD, LAYOUT_LAYERS = (2, 2), 4, 1, 10
+LAYOUTS = {"seq_shard": [], "no_seq_shard": ["--no_seq_shard"],
+           "no_fsdp": ["--no_fsdp"], "mlp_fsdp": ["--mlp_fsdp"],
+           "dp_only": ["--dp_only"]}
+# f32: loss and global gradient norm relative, every gradient (gathered
+# whole) of the largest, and every new parameter whose gradient passes
+# TRAIN_G_FLOOR of its leaf's scale of the largest parameter (elsewhere 2
+# lr more: Adam's first step moves an element by lr either way), against
+# the same step unsharded on the card (the test suite's SPMD_TOL); bf16:
+# the loss against the unsharded bf16 step's
+SPMD_TOL = 1e-4
+LAYOUT_BF16_TOL = 3e-2
 DRYRUN_CELLS = (("smollm-135m", "train_4k", "tiny"),
                 ("qwen2-moe-a2.7b", "decode_32k", "tiny"),
                 ("mamba2-2.7b", "prefill_32k", "tiny-multi"))
@@ -700,6 +742,17 @@ def kernel_cases(torch, F, dtype):
     wide["rmsnorm_train_d576"] = (rand(TRAIN_ROWS, D), rand(D))
     res["rmsnorm_residual_train_d576"] = (rand(TRAIN_ROWS, D),
                                           rand(TRAIN_ROWS, D), rand(D))
+    # slice 13: qwen2-moe's serve_seq_shard prefill (a rank's 128 of 512
+    # rows, B 4, at 2048) and the layouts' microbatch of one sequence of
+    # 4096 rows (no_seq_shard, dp_only; the sequence-split layouts' 2048
+    # rows are the donor prefills' shape)
+    seq_rows = B * PROMPT // DIST_MESH[1]
+    wide["rmsnorm_seq_d2048"] = (rand(seq_rows, 2048), rand(2048))
+    res["rmsnorm_residual_seq_d2048"] = (rand(seq_rows, 2048),
+                                         rand(seq_rows, 2048), rand(2048))
+    wide["rmsnorm_layout_d576"] = (rand(TRAIN_SEQ, D), rand(D))
+    res["rmsnorm_residual_layout_d576"] = (rand(TRAIN_SEQ, D),
+                                           rand(TRAIN_SEQ, D), rand(D))
     # slice 12's roofline cells: smollm-135m's prefill_32k cut to 2
     # sequences (65,536 rows) and decode_32k cut to 16 (16 rows)
     if dtype == torch.bfloat16:
@@ -984,6 +1037,10 @@ def kernel_cases(torch, F, dtype):
         flash_row("flash_attention_train_s4096", TRAIN_MB, H, KV, TRAIN_SEQ,
                   DH, heavy=True, per_row=True, fault="old_tile"),
         *slice12,
+        # slice 13: the layouts' 9 heads whole on each rank's microbatch of
+        # one sequence
+        flash_row("flash_attention_layout_s4096", 1, H, KV, TRAIN_SEQ, DH,
+                  heavy=True, per_row=True),
     ]
 
 
@@ -1051,6 +1108,12 @@ OTHER_SHAPES = {
     "rmsnorm_residual_prefill32k_d576": "rmsnorm_residual",
     "rmsnorm_b16_d576": "rmsnorm",
     "rmsnorm_residual_b16_d576": "rmsnorm_residual",
+    # slice 13: the serve_seq_shard prefill's rows, the layouts' shapes
+    "rmsnorm_seq_d2048": "rmsnorm",
+    "rmsnorm_residual_seq_d2048": "rmsnorm_residual",
+    "rmsnorm_layout_d576": "rmsnorm",
+    "rmsnorm_residual_layout_d576": "rmsnorm_residual",
+    "flash_attention_layout_s4096": "flash_attention",
 }
 # the model each model path serves or runs
 PATH_MODELS = {"dense": "smollm-135m", "ssm": "mamba2-2.7b",
@@ -1058,6 +1121,8 @@ PATH_MODELS = {"dense": "smollm-135m", "ssm": "mamba2-2.7b",
                "mla": MLA_ARCH, "gemma2": GEMMA_ARCH, "vlm": VLM_ARCH,
                "encdec": ENCDEC_ARCH, "train": f"{TRAIN_ARCH} training",
                "dist": f"{MOE_ARCH} on 4 ranks",
+               "dist_seq": f"{MOE_ARCH} on 4 ranks, serve_seq_shard",
+               "layouts": f"{TRAIN_ARCH} layouts on 4 ranks",
                "roofline": f"{TRAIN_ARCH} roofline cells"}
 DENSE_PATH = ("rmsnorm", "rmsnorm_residual", "decode_attention",
               "flash_attention")
@@ -1202,12 +1267,17 @@ def kernel_phase(torch, F, failures):
                                 f"past {tol or row_tol}")
             if dtype == torch.bfloat16:
                 rows[name] = row
+            else:
+                F32_CHECKED.update((k, key) for k, keys in shapes.items()
+                                   for key in keys)
     return rows
 
 
 # launches by instance and shape of each model path's kernels, keyed by
 # the model's name (``path_counts`` fills it when it reads a path)
 PATH_SHAPES = {}
+# (kernel, instance and shape) of every f32 row's checked call
+F32_CHECKED = set()
 
 
 def shape_coverage(rows, paths, failures) -> None:
@@ -3652,30 +3722,36 @@ def start_dryruns(out_dir: Path) -> list:
     """Step 19's dry-run cells, each its own process at the lowest CPU
     priority (fake tensors: CPU only), started before the kernel rows
     (timed on the card) and awaited (``finish_dryruns``) before any phase
-    that reads the host's clock: the reference's three tiny-mesh cells, a cell a family at the
-    production mesh, and the roofline cells at a 1 x 1 mesh. Returns
-    [(cell, process, log path)]."""
+    that reads the host's clock: the reference's three tiny-mesh cells, a
+    cell a family at the production mesh, the roofline cells at a 1 x 1
+    mesh and the layout cells at 2 x 2 (``LAYOUTS``). Returns [(cell,
+    process, log path)], a cell (arch, shape, mesh, tag)."""
     out_dir.mkdir(parents=True, exist_ok=True)
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
                PYTHONWARNINGS="ignore")
-    jobs = [((a, s, m), []) for a, s, m in DRYRUN_CELLS]
-    jobs += [((a, s, "single"), []) for a, s in DRYRUN_SINGLE]
+    jobs = [((a, s, m, ""), []) for a, s, m in DRYRUN_CELLS]
+    jobs += [((a, s, "single", ""), []) for a, s in DRYRUN_SINGLE]
     for shape, extra in ROOF_CELLS.items():
-        args = ["--tag", "roofline", "--global-batch",
-                str(extra["global_batch"])]
+        args = ["--global-batch", str(extra["global_batch"])]
         for key, flag in (("accum", "--accum"), ("remat", "--remat"),
                           ("q_chunk", "--q-chunk")):
             if key in extra:
                 args += [flag, str(extra[key])]
-        jobs.append(((TRAIN_ARCH, shape, "unit"), args))
+        jobs.append(((TRAIN_ARCH, shape, "unit", "roofline"), args))
+    for name, flags in LAYOUTS.items():
+        jobs.append(((TRAIN_ARCH, "train_4k", "2x2", f"layout_{name}"),
+                     ["--global-batch", str(LAYOUT_BATCH), "--layers",
+                      str(LAYOUT_LAYERS), "--pad-for-tp", str(LAYOUT_PAD),
+                      *flags]))
     procs = []
-    for (arch, shape, mesh), args in jobs:
-        log = out_dir / f"{arch}__{shape}__{mesh}.log"
+    for (arch, shape, mesh, tag), args in jobs:
+        suffix = f"__{tag}" if tag else ""
+        log = out_dir / f"{arch}__{shape}__{mesh}{suffix}.log"
         cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
                arch, "--shape", shape, "--mesh", mesh, "--out",
-               str(out_dir), *args]
+               str(out_dir), *(["--tag", tag] if tag else []), *args]
         with open(log, "w") as fh:
-            procs.append(((arch, shape, mesh), subprocess.Popen(
+            procs.append(((arch, shape, mesh, tag), subprocess.Popen(
                 cmd, env=env, cwd=str(ROOT), stdout=fh,
                 stderr=subprocess.STDOUT,
                 preexec_fn=lambda: os.nice(19)), log))
@@ -3695,32 +3771,31 @@ def finish_dryruns(procs, out_dir: Path, failures, timeout_s=900.0):
     on 80 GB, seconds) and fails a cell whose status is not ``ok`` or
     whose FLOPs are not positive."""
     t0 = time.perf_counter()
-    for (arch, shape, mesh), proc, log in procs:
+    for (arch, shape, mesh, tag), proc, log in procs:
         try:
             proc.wait(timeout=max(1.0, timeout_s - (time.perf_counter()
                                                      - t0)))
         except subprocess.TimeoutExpired:
             proc.kill()
             proc.wait()
-            failures.append(f"dry-run {arch} {shape} {mesh}: no end in "
-                            f"{timeout_s:g} s")
+            failures.append(f"dry-run {arch} {shape} {mesh} {tag}: no end "
+                            f"in {timeout_s:g} s")
             continue
-        tag = "roofline" if mesh == "unit" else ""
         art = dryrun_artifact(out_dir, arch, shape, mesh, tag)
-        line = {"arch": arch, "shape": shape, "mesh": mesh,
+        line = {"arch": arch, "shape": shape, "mesh": mesh, "tag": tag,
                 "status": art.get("status"), "returncode": proc.returncode}
         if art.get("status") == "ok":
             line.update({k: art[k] for k in (
-                "n_chips", "mesh_shape", "flops_per_device", "model_flops",
-                "peak_bytes_per_device", "resident_bytes_per_device",
-                "fits_80gb", "analytic_hbm_bytes_global", "accum",
-                "build_s", "run_s")})
+                "n_chips", "mesh_shape", "extra", "flops_per_device",
+                "model_flops", "peak_bytes_per_device",
+                "resident_bytes_per_device", "fits_80gb",
+                "analytic_hbm_bytes_global", "accum", "build_s", "run_s")})
             line["collectives_per_device"] = art["collectives_per_device"]
         else:
             line["error"] = art.get("error") or log.read_text()[-1500:]
         emit({"dryrun": line})
         if art.get("status") != "ok" or not line.get("flops_per_device"):
-            failures.append(f"dry-run {arch} {shape} {mesh}: "
+            failures.append(f"dry-run {arch} {shape} {mesh} {tag}: "
                             f"{line.get('error', line)}")
     return time.perf_counter() - t0
 
@@ -3808,11 +3883,7 @@ def dist_rank(rank: int, work: Path, port: int) -> int:
         outs = lm_run(model, local, tokens, cache)
         torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    counts = {n: {"launches": fn.counts.launches,
-                  "by_shape": dict(fn.counts.by_shape),
-                  "by_instance": dict(fn.counts.by_instance),
-                  "plain_cuda_calls": fn.counts.plain_cuda_calls}
-              for n, fn in KERNELS.items()}
+    counts = kernel_counts(KERNELS)
     with torch.no_grad():
         full = [spmd._all_gather(o, o.dim() - 1, "model") for o in outs]
         # the same layers in f32 (the bf16 weights, an f32 cache); after
@@ -3839,9 +3910,219 @@ def dist_rank(rank: int, work: Path, port: int) -> int:
         "local_experts": lp["experts"]["w_gate"].shape[0],
         "local_heads": local["layers"]["attn"]["wq"].shape[-2],
         "collectives": spmd.counts.as_dict(), "counts": counts}))
+    # the same prefill and decode under serve_seq_shard, then the layouts
+    seq_prefill_rank(torch, rank, work, cfg, rules, whole, local, tokens,
+                     dist["param_specs"])
+    del local, model, model32, cache, cache32, lp, outs, full, full32
+    free_card(torch)
+    (work / f"layouts_rank{rank}.json").write_text(json.dumps(
+        layout_rank(torch, tdist, rank, work)))
     tdist.barrier()
     tdist.destroy_process_group()
     return 0
+
+
+def kernel_counts(KERNELS) -> dict:
+    """What each wrapper counted since the last reset: launches, by shape,
+    by instance, plain versions run on the card."""
+    return {n: {"launches": fn.counts.launches,
+                "by_shape": dict(fn.counts.by_shape),
+                "by_instance": dict(fn.counts.by_instance),
+                "plain_cuda_calls": fn.counts.plain_cuda_calls}
+            for n, fn in KERNELS.items()}
+
+
+def seq_prefill_rank(torch, rank, work, cfg, rules, whole, local, tokens,
+                     specs) -> None:
+    """Step 18 once more under ``serve_seq_shard``: the hidden states
+    between blocks are this rank's 128 of the prompt's 512 rows, each
+    block gathers the sequence and reduce-scatters its output (decode's
+    one token takes none). bf16 (counted), then f32; the logits gathered
+    to rank 0 (``rank0_seq.pt``), each rank's counts in
+    ``rank{rank}_seq.json``."""
+    from repro_torch.kernels import KERNELS, reset_counts
+    from repro_torch.models.api import build_model
+    tp = DIST_MESH[1]
+    mesh = rules.mesh
+    dist = rules.dist_ctx()
+    dist["seq_shard"] = True
+    dist["param_specs"] = specs
+    spmd = dist["spmd"]
+    model = build_model(cfg, pad_for_tp=tp, dist=dist)
+    cache = whole.init_cache(B, PROMPT + DECODE_STEPS)
+    cache = shard_tree(cache, rules.cache_specs(cache), mesh)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        outs = lm_run(model, local, tokens, cache)
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = kernel_counts(KERNELS)
+    collectives = spmd.counts.as_dict()
+    with torch.no_grad():
+        full = [spmd._all_gather(o, o.dim() - 1, "model") for o in outs]
+        cfg32 = f32_config(cfg)
+        model32 = build_model(cfg32, pad_for_tp=tp, dist=dist)
+        cache32 = build_model(cfg32, pad_for_tp=tp).init_cache(
+            B, PROMPT + DECODE_STEPS)
+        cache32 = shard_tree(cache32, rules.cache_specs(cache32), mesh)
+        full32 = [spmd._all_gather(o, o.dim() - 1, "model") for o in lm_run(
+            model32, tree_map(lambda t: t.float(), local), tokens, cache32)]
+    torch.cuda.synchronize()
+    if rank == 0:
+        torch.save({"outs": [o.float().cpu() for o in full],
+                    "outs32": [o.cpu() for o in full32]},
+                   work / "rank0_seq.pt")
+    (work / f"rank{rank}_seq.json").write_text(json.dumps({
+        "rank": rank, "seconds": seconds, "collectives": collectives,
+        "counts": counts}))
+
+
+def layout_opt_cfg():
+    from repro_torch.training.optimizer import AdamWConfig
+    return AdamWConfig(lr=TRAIN_LR, warmup_steps=1, total_steps=10)
+
+
+def spec_at(specs, path: str):
+    """The spec at a ``tree_paths`` path of a tree of specs."""
+    for k in path.split("/"):
+        specs = specs[int(k)] if isinstance(specs, list) else specs[k]
+    return specs
+
+
+class GradSpy:
+    """Inside the ``with`` block, the gradients ``make_train_step`` hands
+    AdamW (after the data-parallel sync) are kept in ``grads``."""
+
+    def __enter__(self):
+        from repro_torch.training import train_step
+        self._mod, self._update = train_step, train_step.adamw_update
+
+        def spy(params, grads, *args, **kwargs):
+            self.grads = grads
+            return self._update(params, grads, *args, **kwargs)
+        train_step.adamw_update = spy
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.adamw_update = self._update
+
+
+def layout_errors(torch, spmd, specs, grads, new, ref) -> dict:
+    """The f32 step's gradients and new parameters gathered whole (every
+    rank takes part; ``ref`` on rank 0 only) against the unsharded step's
+    (``SPMD_TOL``): the largest |difference| of a gradient over the
+    largest gradient, of a new parameter whose gradient passes
+    ``TRAIN_G_FLOOR`` of its leaf's scale over the largest parameter, and
+    of any new parameter (absolute)."""
+    def whole(t, spec):
+        for i, e in enumerate(spec):
+            if e is not None:
+                t = spmd._all_gather(t, i, e)
+        return t
+    g_err = p_err = p_far = 0.0
+    if ref is not None:
+        g_top = max(float(g.abs().max()) for g in ref["grads"].values())
+        p_top = max(float(p.abs().max()) for p in ref["new"].values())
+        floor = TRAIN_NOISE_FLOOR * g_top
+    with torch.no_grad():
+        for (path, g), (_, p) in zip(tree_paths(grads), tree_paths(new)):
+            spec = spec_at(specs, path)
+            g, p = whole(g, spec), whole(p, spec)
+            if ref is None:
+                continue
+            rg, rp = ref["grads"][path].cuda(), ref["new"][path].cuda()
+            g_err = max(g_err, float((g - rg).abs().max()) / g_top)
+            d = (p - rp).abs()
+            sure = rg.abs() > TRAIN_G_FLOOR * max(float(rg.abs().max()),
+                                                  floor)
+            if sure.any():
+                p_err = max(p_err, float(d[sure].max()) / p_top)
+            p_far = max(p_far, float(d.max()))
+    return {"grad_rel_err": g_err, "new_params_sure_rel_err": p_err,
+            "new_params_any_abs_err": p_far}
+
+
+def layout_rank(torch, tdist, rank: int, work: Path) -> list:
+    """This rank's steps of the layouts (``LAYOUTS``) on the (2, 2) mesh:
+    smollm-135m at full width, ``LAYOUT_LAYERS`` of its layers, params
+    drawn whole from seed 0
+    and cut to this rank's shards, its rows of the seeded batch, one
+    ``make_train_step`` step (the dry-run's accum for the cut cell, remat
+    "full", q_chunk 1024) under ``FlopCounterMode`` with the kernels' and
+    the ``Spmd``'s counts reset just before it; every layout in f32, then
+    in bf16. A record a step: seconds, FLOPs, collectives, peak memory,
+    loss, grad_norm, launches; in f32 the gradients and new parameters
+    against the unsharded step (``layout_errors``)."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import KERNELS, reset_counts
+    from repro_torch.models.api import build_model
+    from repro_torch.parallel.sharding import ShardingRules
+    from repro_torch.training.optimizer import adamw_init
+    from repro_torch.training.train_step import make_train_step
+
+    mesh = init_device_mesh("cpu", LAYOUT_MESH,
+                            mesh_dim_names=("data", "model"))
+    tokens = torch.load(work / "inputs.pt")["layout_tokens"]
+    ref = torch.load(work / "layout_ref.pt") if rank == 0 else None
+    opt_cfg = layout_opt_cfg()
+    out = []
+    for dtype in ("float32", "bfloat16"):
+        for name, flags in LAYOUTS.items():
+            opts = {f.lstrip("-"): True for f in flags}
+            cfg = get_config(TRAIN_ARCH).replace(n_layers=LAYOUT_LAYERS)
+            if dtype == "float32":
+                cfg = f32_config(cfg)
+            whole = build_model(cfg, pad_for_tp=LAYOUT_PAD)
+            params = whole.init_params(0)     # the same on every rank
+            rules = ShardingRules(
+                whole.cfg, mesh, no_fsdp=opts.get("no_fsdp", False),
+                dp_only=opts.get("dp_only", False),
+                mlp_fsdp=opts.get("mlp_fsdp", False)).for_batch(LAYOUT_BATCH)
+            dist = rules.dist_ctx()
+            dist["seq_shard"] = not opts.get("no_seq_shard")
+            dist["param_specs"] = specs = rules.param_specs(params)
+            local = shard_tree(params, specs, mesh)
+            del params, whole
+            model = build_model(cfg, pad_for_tp=LAYOUT_PAD, dist=dist)
+            spmd = dist["spmd"]
+            nd, rd = spmd.size(rules.dp), spmd.rank(rules.dp)
+            n = LAYOUT_BATCH // nd
+            batch = {"tokens": tokens[rd * n:(rd + 1) * n].cuda()}
+            accum = max(1, min(16, LAYOUT_BATCH // rules._dp_size))
+            step = make_train_step(model, opt_cfg, q_chunk=TRAIN_Q_CHUNK,
+                                   remat="full", accum=accum)
+            opt = adamw_init(local, opt_cfg)
+            free_card(torch)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            tdist.barrier()
+            reset_counts()
+            spmd.counts.reset()
+            t0 = time.perf_counter()
+            with GradSpy() as spy, FlopCounterMode(display=False) as fc:
+                new, _, met = step(local, opt, batch)
+                torch.cuda.synchronize()
+            rec = {"layout": name, "dtype": dtype, "rank": rank,
+                   "coord": spmd.coord, "accum": accum,
+                   "seconds": time.perf_counter() - t0,
+                   "flops": float(fc.get_total_flops()),
+                   "collectives": spmd.counts.as_dict(),
+                   "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+                   "loss": float(met["loss"]),
+                   "grad_norm": float(met["grad_norm"]),
+                   "seq_rows": sorted(spmd.seq_rows),
+                   "counts": kernel_counts(KERNELS)}
+            if dtype == "float32":
+                rec.update(layout_errors(torch, spmd, specs, spy.grads, new,
+                                         ref))
+            out.append(rec)
+            del local, opt, new, spy, model, dist, step
+            free_card(torch)
+    return out
 
 
 def free_tcp_port() -> int:
@@ -3851,14 +4132,17 @@ def free_tcp_port() -> int:
         return s.getsockname()[1]
 
 
-def dist_phase(torch, failures):
+def dist_phase(torch, failures, dry_dir: Path) -> dict:
     """Step 18: qwen2-moe-a2.7b at its published width (4 of 24 layers,
     bf16, seed 0) on four ranks of the card, a (1, 4) mesh over gloo:
     each rank holds 4 heads and 15 experts, prefills 512 tokens at batch
     4 and decodes 4 steps. Held against the same layers run unsharded on
     the card (``DIST_TOL``); layer 0's ``moe_ep`` in f32 against
-    ``moe_capacity`` (``EP_TOL``). Returns (launches, launches by
-    instance), summed over the ranks."""
+    ``moe_capacity`` (``EP_TOL``). Then the same under
+    ``serve_seq_shard``, held to the same unsharded logits, and the
+    layouts (``layout_report``). Returns {path: (launches, launches by
+    instance)} for the paths "dist", "dist_seq" and "layouts", summed over
+    the ranks."""
     import tempfile
     from repro_torch.configs import get_config
     from repro_torch.models.api import build_model
@@ -3892,7 +4176,13 @@ def dist_phase(torch, failures):
         ref_ep, ref_aux = ref_ep.cpu(), float(ref_aux)
     del model, params, lp
     free_card(torch)
-    torch.save({"tokens": tokens, "h": h}, work / "inputs.pt")
+    layout_tokens = torch.randint(0, get_config(TRAIN_ARCH).vocab_size,
+                                  (LAYOUT_BATCH, TRAIN_SEQ), generator=g)
+    t0 = time.perf_counter()
+    layout_ref = layout_reference(torch, work, layout_tokens)
+    layout_ref_s = time.perf_counter() - t0
+    torch.save({"tokens": tokens, "h": h, "layout_tokens": layout_tokens},
+               work / "inputs.pt")
     port = free_tcp_port()
     world = math.prod(DIST_MESH)
     t0 = time.perf_counter()
@@ -3913,7 +4203,7 @@ def dist_phase(torch, failures):
     ranks_s = time.perf_counter() - t0
     if errs:
         failures.append(f"dist: a rank failed: {errs[0]}")
-        return {}, {}
+        return {}
     got = torch.load(work / "rank0.pt")
     ranks = [json.loads((work / f"rank{r}.json").read_text())
              for r in range(world)]
@@ -3926,24 +4216,10 @@ def dist_phase(torch, failures):
               for a, b in zip(got["outs32"], ref32)]
     ep_err = float((got["ep"] - ref_ep).abs().max() / ref_ep.abs().max())
     # launches: the sum over the ranks; by instance and by shape too
-    launches, by_inst, by_shape = {}, {}, {}
-    for r in ranks:
-        for n, c in r["counts"].items():
-            launches[n] = launches.get(n, 0) + c["launches"]
-            for i, k in c["by_instance"].items():
-                by_inst.setdefault(n, {})
-                by_inst[n][i] = by_inst[n].get(i, 0) + k
-            for key, k in c["by_shape"].items():
-                by_shape.setdefault(n, {})
-                by_shape[n][key] = by_shape[n].get(key, 0) + k
-            if c["plain_cuda_calls"]:
-                failures.append(f"dist rank {r['rank']}: plain {n} on the "
-                                f"card")
+    launches, by_inst, by_shape = sum_counts(
+        [r["counts"] for r in ranks], DENSE_PATH, "dist", failures)
     PATH_SHAPES[PATH_MODELS["dist"]] = {n: by_shape[n] for n in DENSE_PATH
                                         if n in by_shape}
-    for n in DENSE_PATH:
-        if not launches.get(n):
-            failures.append(f"{n}: no launch on the dist path")
     emit({"dist_serving": {
         "model": cfg.name, "layers": DIST_LAYERS, "mesh": list(DIST_MESH),
         "axes": ["data", "model"], "backend": "gloo", "ranks": world,
@@ -3974,8 +4250,211 @@ def dist_phase(torch, failures):
     if not (math.isfinite(ep_err) and ep_err <= EP_TOL):
         failures.append(f"dist: moe_ep off moe_capacity in f32 by {ep_err}, "
                         f"past {EP_TOL}")
+    paths = {"dist": ({n: launches.get(n, 0) for n in DENSE_PATH},
+                      {n: v for n, v in by_inst.items() if n in DENSE_PATH})}
+    paths["dist_seq"] = seq_prefill_report(torch, failures, work, ref, ref32,
+                                           world)
+    paths["layouts"] = layout_report(failures, work, world, dry_dir,
+                                     layout_ref, layout_ref_s, ranks_s)
+    return paths
+
+
+def sum_counts(records, names, path, failures):
+    """Launches (by kernel), launches by instance and by shape summed over
+    ``records`` (each a ``kernel_counts``); a plain version on the card
+    fails."""
+    launches, by_inst, by_shape = {}, {}, {}
+    for rec in records:
+        for n, c in rec.items():
+            launches[n] = launches.get(n, 0) + c["launches"]
+            for key, per in (("by_instance", by_inst),
+                             ("by_shape", by_shape)):
+                for i, k in c[key].items():
+                    per.setdefault(n, {})
+                    per[n][i] = per[n].get(i, 0) + k
+            if c["plain_cuda_calls"]:
+                failures.append(f"{path}: plain {n} on the card")
+    for n in names:
+        if not launches.get(n):
+            failures.append(f"{n}: no launch on the {path} path")
+    return launches, by_inst, by_shape
+
+
+def seq_prefill_report(torch, failures, work, ref, ref32, world):
+    """Step 18 under ``serve_seq_shard`` against the unsharded logits:
+    the ``dist_seq_prefill`` line; (launches, by instance) of its bf16
+    run."""
+    got = torch.load(work / "rank0_seq.pt")
+    ranks = [json.loads((work / f"rank{r}_seq.json").read_text())
+             for r in range(world)]
+    rows = [((a - b).abs().amax(-1) / b.abs().amax(-1)).flatten()
+            for a, b in zip(got["outs"], ref)]
+    median = [float(r.median()) for r in rows]
+    errs32 = [float((a - b).abs().max() / b.abs().max())
+              for a, b in zip(got["outs32"], ref32)]
+    launches, by_inst, by_shape = sum_counts(
+        [r["counts"] for r in ranks], DENSE_PATH, "dist_seq", failures)
+    PATH_SHAPES[PATH_MODELS["dist_seq"]] = {n: by_shape[n] for n in DENSE_PATH
+                                            if n in by_shape}
+    emit({"dist_seq_prefill": {
+        "model": MOE_ARCH, "layers": DIST_LAYERS, "mesh": list(DIST_MESH),
+        "serve_seq_shard": True, "prompt_rows_per_rank": PROMPT
+        // DIST_MESH[1], "logits_median_row_rel_err": median,
+        "tol_median": DIST_TOL, "logits_f32_rel_err": errs32,
+        "tol_f32": DIST_TOL_F32, "rank_run_s": [r["seconds"] for r in ranks],
+        "collectives_per_rank": ranks[0]["collectives"],
+        "launches": {n: launches.get(n, 0) for n in DENSE_PATH}}})
+    if not all(math.isfinite(e) and e <= DIST_TOL for e in median):
+        failures.append(f"dist seq_shard: bf16 logits off the unsharded run "
+                        f"by {median} (median over positions), past "
+                        f"{DIST_TOL}")
+    if not all(math.isfinite(e) and e <= DIST_TOL_F32 for e in errs32):
+        failures.append(f"dist seq_shard: f32 logits off the unsharded run "
+                        f"by {errs32}, past {DIST_TOL_F32}")
+    if not ranks[0]["collectives"]["counts"].get("reduce-scatter"):
+        failures.append("dist seq_shard: no reduce-scatter: the prefill ran "
+                        "without sequence parallelism")
     return ({n: launches.get(n, 0) for n in DENSE_PATH},
             {n: v for n, v in by_inst.items() if n in DENSE_PATH})
+
+
+def layout_reference(torch, work: Path, tokens) -> dict:
+    """The layouts' step run unsharded on the card from the same seed-0
+    parameters and batch (4 microbatches of one sequence: the shapes of
+    the layouts' kernel calls), in f32 (its gradients and new parameters
+    saved to ``layout_ref.pt`` for rank 0) and in bf16: {dtype: loss,
+    grad_norm, seconds}."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import build_model
+    from repro_torch.training.optimizer import adamw_init
+    from repro_torch.training.train_step import make_train_step
+    opt_cfg = layout_opt_cfg()
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        cfg = get_config(TRAIN_ARCH).replace(n_layers=LAYOUT_LAYERS)
+        if dtype == "float32":
+            cfg = f32_config(cfg)
+        model = build_model(cfg, pad_for_tp=LAYOUT_PAD)
+        params = model.init_params(0)
+        step = make_train_step(model, opt_cfg, q_chunk=TRAIN_Q_CHUNK,
+                               remat="full", accum=LAYOUT_BATCH)
+        t0 = time.perf_counter()
+        with GradSpy() as spy:
+            new, _, met = step(params, adamw_init(params, opt_cfg),
+                               {"tokens": tokens.cuda()})
+            torch.cuda.synchronize()
+        out[dtype] = {"loss": float(met["loss"]),
+                      "grad_norm": float(met["grad_norm"]),
+                      "seconds": time.perf_counter() - t0}
+        if dtype == "float32":
+            torch.save({"grads": {p: g.cpu() for p, g in
+                                  tree_paths(spy.grads)},
+                        "new": {p: t.cpu() for p, t in tree_paths(new)}},
+                       work / "layout_ref.pt")
+        del model, params, step, spy, new
+        free_card(torch)
+    return out
+
+
+def rel(a: float, b: float) -> float:
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+def layout_report(failures, work: Path, world: int, dry_dir: Path, ref,
+                  ref_s: float, ranks_s: float):
+    """The layouts' records of the four ranks: a ``dist_layouts`` line a
+    layout. f32 is held to the unsharded step (``SPMD_TOL``), bf16's loss
+    to the unsharded bf16 step's (``LAYOUT_BF16_TOL``); each rank's FLOPs
+    and collectives (calls, and in bf16 bytes, by kind) must equal the
+    dry-run's for the same cut cell and flags exactly, its peak memory
+    beside the dry-run's. Every f32 launch must be at an instance and
+    shape an f32 kernel row checked. Returns (launches, by instance) of
+    the bf16 steps (the counted path)."""
+    recs = [r for k in range(world) for r in json.loads(
+        (work / f"layouts_rank{k}.json").read_text())]
+    counted, f32_counts = [], []
+    for name, flags in LAYOUTS.items():
+        art = dryrun_artifact(dry_dir, TRAIN_ARCH, "train_4k", "2x2",
+                              f"layout_{name}")
+        mine = {d: sorted((r for r in recs if r["layout"] == name
+                           and r["dtype"] == d), key=lambda r: r["rank"])
+                for d in ("float32", "bfloat16")}
+        f32, bf16 = mine["float32"][0], mine["bfloat16"][0]
+        counted += [r["counts"] for r in mine["bfloat16"]]
+        f32_counts += [r["counts"] for r in mine["float32"]]
+        errs = {"loss": rel(f32["loss"], ref["float32"]["loss"]),
+                "grad_norm": rel(f32["grad_norm"],
+                                 ref["float32"]["grad_norm"]),
+                **{k: f32[k] for k in ("grad_rel_err",
+                                       "new_params_sure_rel_err",
+                                       "new_params_any_abs_err")}}
+        bf16_err = rel(bf16["loss"], ref["bfloat16"]["loss"])
+        dry = ({"flops": art["flops_per_device"],
+                "collectives": art["collectives_per_device"],
+                "peak_gb": art["peak_bytes_per_device"] / 1e9,
+                "accum": art["accum"]} if art.get("status") == "ok"
+               else {"status": art.get("status")})
+        emit({"dist_layouts": {
+            "layout": name, "flags": flags, "model": TRAIN_ARCH,
+            "mesh": list(LAYOUT_MESH), "global_batch": LAYOUT_BATCH,
+            "layers": LAYOUT_LAYERS,
+            "seq": TRAIN_SEQ, "heads_padded_for": LAYOUT_PAD,
+            "accum": f32["accum"], "seq_rows": f32["seq_rows"],
+            "f32": {**errs, "loss_value": f32["loss"],
+                    "rank_s": [r["seconds"] for r in mine["float32"]]},
+            "bf16": {"loss_rel_err": bf16_err, "loss_value": bf16["loss"],
+                     "rank_s": [r["seconds"] for r in mine["bfloat16"]]},
+            "flops_per_rank": [r["flops"] for r in mine["bfloat16"]],
+            "collectives_per_rank": bf16["collectives"],
+            "f32_collectives_per_rank": f32["collectives"],
+            "peak_memory_gb_per_rank": {
+                d: [r["peak_memory_gb"] for r in mine[d]] for d in mine},
+            "dryrun": dry, "unsharded": ref, "unsharded_s": ref_s,
+            "ranks_wall_s": ranks_s}})
+        bad = {k: v for k, v in errs.items()
+               if k != "new_params_any_abs_err"
+               and not (math.isfinite(v) and v <= SPMD_TOL)}
+        if not (errs["new_params_any_abs_err"]
+                <= 2 * TRAIN_LR + SPMD_TOL):
+            bad["new_params_any_abs_err"] = errs["new_params_any_abs_err"]
+        if bad:
+            failures.append(f"layout {name} f32 off the unsharded step: "
+                            f"{bad}")
+        if not (math.isfinite(bf16_err) and bf16_err <= LAYOUT_BF16_TOL):
+            failures.append(f"layout {name} bf16 loss off the unsharded "
+                            f"step's by {bf16_err}")
+        if "flops" not in dry:
+            failures.append(f"layout {name}: no dry-run artifact ({dry})")
+            continue
+        want = dry["collectives"]
+        for d, rs in mine.items():
+            for r in rs:
+                got = r["collectives"]
+                same = (r["flops"] == dry["flops"]
+                        and got["counts"] == want["counts"]
+                        and (d == "float32"
+                             or got["bytes_by_op"] == want["bytes_by_op"]))
+                if not same:
+                    failures.append(
+                        f"layout {name} {d} rank {r['rank']}: FLOPs "
+                        f"{r['flops']} and collectives {got} against the "
+                        f"dry-run's {dry['flops']} and {want}")
+    launches, by_inst, by_shape = sum_counts(counted, TRAIN_PATH, "layouts",
+                                             failures)
+    PATH_SHAPES[PATH_MODELS["layouts"]] = {n: by_shape[n] for n in TRAIN_PATH
+                                           if n in by_shape}
+    fa = by_inst.get("flash_attention", {})
+    if fa.get("tensor_core", 0) != launches.get("flash_attention"):
+        failures.append(f"layouts: bf16 flash launches by instance {fa}, "
+                        f"not all tensor_core")
+    _, _, f32_shapes = sum_counts(f32_counts, (), "layouts f32", failures)
+    for n, per in f32_shapes.items():
+        for key, k in per.items():
+            if (n, key) not in F32_CHECKED:
+                failures.append(f"{n}: {k} f32 launches at {key} on the "
+                                f"layouts path, a shape no f32 row checks")
+    return ({n: launches.get(n, 0) for n in TRAIN_PATH},
+            {n: v for n, v in by_inst.items() if n in TRAIN_PATH})
 
 
 def roofline_inputs(torch, model, cell, seed: int = 0) -> dict:
@@ -4127,7 +4606,7 @@ def slice12_paths(torch, failures, seconds, peaks, dry_dir) -> dict:
     paths = {}
     free_card(torch)
     with timed_phase(torch, "dist_path", seconds, peaks):
-        paths["dist"] = dist_phase(torch, failures)
+        paths.update(dist_phase(torch, failures, dry_dir))
     free_card(torch)
     with timed_phase(torch, "roofline_path", seconds, peaks):
         paths["roofline"] = roofline_phase(torch, failures, dry_dir)

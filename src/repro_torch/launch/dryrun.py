@@ -6,16 +6,17 @@ analyses; the port runs each cell's step as rank 0 of the mesh, on fake
 tensors (``FakeTensorMode``) over the ``"fake"`` process group of the
 mesh's size, so that nothing is allocated and no collective moves data:
 
-  * the model is built with ``pad_for_tp`` = the mesh's ``model`` width,
-    its parameters, optimizer state, inputs and cache made as this rank's
-    shards under ``ShardingRules`` (fake tensors of the local shapes);
+  * the model is built with ``pad_for_tp`` = the mesh's ``model`` width
+    (1 under ``--dp_only``), its parameters, optimizer state, inputs and
+    cache made as this rank's shards under ``ShardingRules`` (fake
+    tensors of the local shapes), with the reference's layout flags:
+    ``--dp_only``, ``--no_fsdp`` and ``--mlp_fsdp`` pass to the rules;
+    train cells take sequence parallelism (``seq_shard``: the hidden
+    states split over ``model`` between blocks) unless ``--no_seq_shard``,
+    serving cells only with ``--serve_seq_shard``;
   * the step is the reference's: ``make_train_step`` with its ``accum``,
     ``remat`` and ``q_chunk`` choices, ``prefill`` or ``decode_step``,
-    running the port's SPMD forward (``models/transformer.py``). One
-    layout differs: the reference splits a train cell's hidden states
-    over ``model`` between blocks (sequence parallelism); the port keeps
-    them whole there, so a train cell's peak bytes hold more activations
-    than the reference's layout would;
+    running the port's SPMD forward (``models/transformer.py``);
   * ``FlopCounterMode`` counts the FLOPs of the products this rank runs
     (its local ops: per device, not the global count a DTensor op would
     give); the kernels count through their operators' FLOP formulas;
@@ -26,7 +27,8 @@ mesh's size, so that nothing is allocated and no collective moves data:
     storages the step makes while they are alive (``PeakBytes``).
 
 ``launch/hlo_cost.py`` has no counterpart: the FLOP counter replaces its
-walk of the HLO. Each cell writes a JSON artifact with the reference's
+walk of the HLO, and the reference's ``--save-hlo`` has none either (no
+HLO is made). Each cell writes a JSON artifact with the reference's
 keys (``cost_per_device.flops`` and ``collectives_per_device`` where
 ``roofline.py`` reads them) and ``fits_80gb`` (one H100's 80 GB) in place
 of ``fits_16gb``.
@@ -34,6 +36,7 @@ of ``fits_16gb``.
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch all --shape all --mesh single
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen1.5-32b --shape decode_32k --mesh tiny
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch smollm-135m --shape train_4k --mesh single --no_seq_shard --tag noseq
 """
 from __future__ import annotations
 
@@ -65,15 +68,18 @@ HBM_BYTES = 80 * 10 ** 9          # one H100 80GB HBM3
 # ---------------------------------------------------------------------------
 # Fake process group and mesh
 # ---------------------------------------------------------------------------
-MESH_KINDS = ("single", "multi", "tiny", "tiny-multi", "unit")
+MESH_KINDS = ("single", "multi", "tiny", "tiny-multi", "unit", "2x2")
 
 
 def mesh_for(kind: str):
     """(shape, axis names) of a mesh kind: the reference's single, multi,
-    tiny and tiny-multi, and ``unit``, one rank (1 x 1: a cell run whole
-    on one card, for comparison with a measured run)."""
+    tiny and tiny-multi, ``unit``, one rank (1 x 1: a cell run whole on
+    one card, for comparison with a measured run), and ``2x2`` (four ranks
+    of one card, ``chip_smoke.py --dist``'s layouts)."""
     if kind == "unit":
         return (1, 1), ("data", "model")
+    if kind == "2x2":
+        return (2, 2), ("data", "model")
     multi = kind in ("multi", "tiny-multi")
     return tiny_shape(multi) if kind.startswith("tiny") else \
         production_shape(multi)
@@ -93,7 +99,7 @@ def fake_mesh(kind: str):
         tdist.init_process_group("fake", store=FakeStore(), rank=0,
                                  world_size=n)
     multi = kind in ("multi", "tiny-multi")
-    if kind == "unit":
+    if kind in ("unit", "2x2"):
         return meshes._mesh(shape, axes)
     return (meshes.make_tiny_mesh(multi_pod=multi) if kind.startswith("tiny")
             else meshes.make_production_mesh(multi_pod=multi))
@@ -176,19 +182,34 @@ def build_cell(arch_id: str, shape_name: str, mesh, *,
                extra: dict | None = None) -> dict:
     """The cell's model, rules, step and local inputs, as fake tensors
     under the caller's FakeTensorMode (the reference's ``build_cell``
-    choices). ``extra`` may set ``global_batch`` (a cut cell), ``accum``,
-    ``remat``, ``q_chunk``, ``tag`` (the artifact's suffix) and
-    ``reduced`` (the arch's reduced config)."""
+    choices). ``extra`` may set ``global_batch`` and ``n_layers`` (a cut
+    cell), ``accum``,
+    ``remat``, ``q_chunk``, ``tag`` (the artifact's suffix), ``reduced``
+    (the arch's reduced config), ``kv_dtype`` (the KV cache's), the
+    layout flags ``dp_only``, ``no_fsdp``, ``mlp_fsdp``, ``no_seq_shard``
+    and ``serve_seq_shard``, and ``pad_for_tp`` (the head padding's width
+    in place of the model axis's)."""
     extra = extra or {}
     cell = shape_by_name(shape_name)
     if extra.get("global_batch"):          # a cut cell
         cell = dataclasses.replace(cell, global_batch=extra["global_batch"])
     cfg = (get_reduced if extra.get("reduced") else get_config)(arch_id)
+    if extra.get("n_layers"):              # a cut cell
+        cfg = cfg.replace(n_layers=extra["n_layers"])
+    if extra.get("kv_dtype"):
+        cfg = cfg.replace(kv_cache_dtype=extra["kv_dtype"])
     _, sizes = mesh_axes(mesh)
-    pad = sizes["model"]
+    dp_only = bool(extra.get("dp_only"))
+    pad = extra.get("pad_for_tp", 1 if dp_only else sizes["model"])
     model0 = build_model(cfg, pad_for_tp=pad, device="meta")
-    rules = ShardingRules(model0.cfg, mesh).for_batch(cell.global_batch)
+    rules = ShardingRules(model0.cfg, mesh, no_fsdp=bool(extra.get("no_fsdp")),
+                          dp_only=dp_only,
+                          mlp_fsdp=bool(extra.get("mlp_fsdp"))
+                          ).for_batch(cell.global_batch)
     dist = rules.dist_ctx()
+    if ((cell.kind == "train" or extra.get("serve_seq_shard"))
+            and not extra.get("no_seq_shard")):
+        dist["seq_shard"] = True      # Megatron-style sequence parallelism
     model = build_model(cfg, pad_for_tp=pad, dist=dist, device="meta")
     params_meta = model.init_params(0)
     pspecs = rules.param_specs(params_meta)
@@ -300,17 +321,37 @@ def run_cell(arch_id: str, shape_name: str, mesh_kind: str,
 
 
 def main(argv=None) -> int:
-    ap = argparse.ArgumentParser()
+    ap = argparse.ArgumentParser(
+        epilog="The reference's --save-hlo has no counterpart: no HLO is "
+               "made (launch/hlo_cost.py has none either; the FLOP counter "
+               "replaces it).")
     ap.add_argument("--arch", default="all")
     ap.add_argument("--shape", default="all")
     ap.add_argument("--mesh", default="single",
                     choices=list(MESH_KINDS) + ["both"])
     ap.add_argument("--out", default="artifacts/dryrun_torch")
+    ap.add_argument("--skip-existing", action="store_true",
+                    help="keep a cell whose artifact says ok")
     ap.add_argument("--q-chunk", type=int, default=-1)
     ap.add_argument("--remat", default="")
     ap.add_argument("--accum", type=int, default=0)
     ap.add_argument("--global-batch", type=int, default=0,
                     help="cut the cell's global batch (a cut cell)")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="cut the model's depth (a cut cell)")
+    ap.add_argument("--pad-for-tp", type=int, default=0,
+                    help="pad heads and vocabulary for this width, not the "
+                         "model axis's (1: no padding)")
+    ap.add_argument("--dp_only", action="store_true",
+                    help="the model axis joins data parallelism")
+    ap.add_argument("--no_fsdp", action="store_true",
+                    help="parameters replicated over the data axes")
+    ap.add_argument("--serve_seq_shard", action="store_true",
+                    help="sequence parallelism in serving cells too")
+    ap.add_argument("--no_seq_shard", action="store_true",
+                    help="no sequence parallelism in train cells")
+    ap.add_argument("--mlp_fsdp", action="store_true",
+                    help="MLP weights over data and model, MLPs whole")
     ap.add_argument("--tag", default="")
     ap.add_argument("--jobs", type=int, default=1,
                     help="cells run at once, each in a process of its own")
@@ -337,6 +378,15 @@ def main(argv=None) -> int:
                     print(f"SKIP {arch} {cell.name} {mk}: {reason}")
                     n_skip += 1
                     continue
+                if args.skip_existing and fname.exists():
+                    try:
+                        if json.loads(fname.read_text()).get(
+                                "status") == "ok":
+                            print(f"CACHED {arch} {cell.name} {mk}")
+                            n_ok += 1
+                            continue
+                    except ValueError:
+                        pass
                 extra = {"tag": args.tag} if args.tag else {}
                 if args.q_chunk >= 0:
                     extra["q_chunk"] = args.q_chunk
@@ -346,6 +396,14 @@ def main(argv=None) -> int:
                     extra["accum"] = args.accum
                 if args.global_batch:
                     extra["global_batch"] = args.global_batch
+                if args.layers:
+                    extra["n_layers"] = args.layers
+                if args.pad_for_tp:
+                    extra["pad_for_tp"] = args.pad_for_tp
+                for flag in ("dp_only", "no_fsdp", "serve_seq_shard",
+                             "no_seq_shard", "mlp_fsdp"):
+                    if getattr(args, flag):
+                        extra[flag] = True
                 try:
                     art = run_cell(arch, cell.name, mk, out_dir,
                                    extra=extra or None)
@@ -403,14 +461,15 @@ def _fan_out(args, argv, archs, kinds) -> int:
         for p in done:
             running.remove(p)
             for ln in p.stdout.read().splitlines():
-                if ln.startswith(("OK ", "FAIL ", "SKIP ")):
+                if ln.startswith(("OK ", "FAIL ", "SKIP ", "CACHED ")):
                     print(ln, flush=True)
                     lines.append(ln)
         if not done:
             time.sleep(0.5)
     n = {k: sum(ln.startswith(k) for ln in lines)
-         for k in ("OK ", "SKIP ", "FAIL ")}
-    print(f"dry-run done: ok={n['OK ']} skipped={n['SKIP ']} "
+         for k in ("OK ", "CACHED ", "SKIP ", "FAIL ")}
+    print(f"dry-run done: ok={n['OK '] + n['CACHED ']} "
+          f"skipped={n['SKIP ']} "
           f"failed={n['FAIL ']}")
     return 1 if n["FAIL "] else 0
 

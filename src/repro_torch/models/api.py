@@ -373,8 +373,12 @@ def build_model(arch_cfg, *, pad_for_tp: Optional[int] = None,
     raises when no GPU is present and no device is named. ``pad_for_tp``
     pads heads and vocab for that tensor-parallel width
     (``pad_heads_for_tp``) and, for MoE, sets ``ep_shards`` to it; the
-    published config stays ``Model.orig``."""
+    published config stays ``Model.orig``. Under a ``dist`` with no model
+    axis for tensor parallelism (``ShardingRules(dp_only=True)``) it is 1,
+    as the reference's dry-run builds such a cell."""
     cfg = arch_cfg
+    if pad_for_tp and dist is not None and not dist.get("tp"):
+        pad_for_tp = 1
     if pad_for_tp:
         cfg = pad_heads_for_tp(arch_cfg, pad_for_tp)
         if cfg.n_experts:

@@ -29,7 +29,7 @@ import torch
 
 from ..kernels import decode_attention as _dec
 from ..kernels import flash_attention as _fa
-from ..parallel.sharding import tp_if
+from ..parallel.sharding import Region
 from .layers import apply_rope, dense_init
 
 SEQ_KEYS = ("k", "v", "k_scale", "v_scale", "latent", "k_rope")
@@ -216,21 +216,24 @@ def attention_block(params: dict, x: torch.Tensor, *, positions: torch.Tensor,
     every rank computes them whole and reads the subset of its query
     heads (their gradient summed over the ranks); a cache whose sequence
     axis is split is gathered whole, written, and cut back to this rank's
-    part.
+    part. Under sequence parallelism (``dist["seq"]``) ``x`` is this
+    rank's rows: the block gathers the sequence first and returns this
+    rank's rows (``parallel.sharding.Region``); ``x_kv`` is whole.
 
     - prefill: cache=None, or a fresh cache to fill;
     - decode: the cache holds the history, x is the new token (the decode
       kernel is causal by construction);
     - cross-attention: ``x_kv`` [B, S_kv, d] (encoder states), cache=None;
       not causal whatever ``causal`` says, as in the reference."""
+    reg = Region(dist, "shard_heads")
+    split_kv = reg.split and dist.get("shard_kv")
+    xs, xw = reg.enter_both(x)
+    x = xs if reg.split else xw
+    if x_kv is None:
+        src = xs if split_kv else xw
+    else:
+        src = Region(dist, split_kv, seq=False).enter(x_kv)
     b, s, d = x.shape
-    tp = tp_if(dist, "shard_heads")
-    split_kv = tp is not None and dist.get("shard_kv")
-    src = x if x_kv is None else x_kv
-    if tp is not None:
-        x = tp[0].copy(x, tp[1])
-        if split_kv:
-            src = tp[0].copy(src, tp[1])
     s_kv = src.shape[1]
     h, dh = params["wq"].shape[-2:]
     kvh = params["wk"].shape[-2]
@@ -241,8 +244,8 @@ def attention_block(params: dict, x: torch.Tensor, *, positions: torch.Tensor,
         q = q + params["bq"]
         k = k + params["bk"]
         v = v + params["bv"]
-    if tp is not None and not split_kv:   # whole k/v, read in part
-        k, v = tp[0].copy(k, tp[1]), tp[0].copy(v, tp[1])
+    if reg.split and not split_kv:         # whole k/v, read in part
+        k, v = reg.spmd.copy(k, reg.tp), reg.spmd.copy(v, reg.tp)
     if cons is not None:
         q, k, v = cons.heads(q), cons.kv_heads(k), cons.kv_heads(v)
     if x_kv is not None:
@@ -265,7 +268,7 @@ def attention_block(params: dict, x: torch.Tensor, *, positions: torch.Tensor,
                                    cache["length"])
             new_cache = slice_seq(full, spmd, axes)
     # this rank's query heads read a subset of whole kv heads
-    pick = ((lambda t: t) if tp is None or split_kv else
+    pick = ((lambda t: t) if not reg.split or split_kv else
             (lambda t, r=kv_head_range(dist, h, kvh): t[:, :, r[0]:r[1]]))
     if cache is None or s > 1:
         # prefill from scratch: attend on the fresh k/v
@@ -282,9 +285,8 @@ def attention_block(params: dict, x: torch.Tensor, *, positions: torch.Tensor,
             q[:, 0], pick(kc).transpose(1, 2), pick(vc).transpose(1, 2),
             kv_pos, q_pos, window=window, softcap=attn_softcap,
             scale=scale)[:, None]
-    y = out.reshape(b, s, h * dh) @ params["wo"].reshape(h * dh, -1)
-    if tp is not None:
-        y = tp[0].reduce(y, tp[1])
+    y = reg.leave(out.reshape(b, s, h * dh) @ params["wo"].reshape(h * dh,
+                                                                    -1))
     if "bo" in params:
         y = y + params["bo"]
     return y, new_cache

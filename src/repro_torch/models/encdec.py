@@ -8,7 +8,10 @@ cross-attention to the encoder states (recomputed every step, as the
 reference does: the flash kernel with keys of their own length F), then a
 biased GELU MLP; logits are tied to the embedding. Whisper's LayerNorms
 and biased MLPs are plain torch ops; positions are sinusoidal (no rope).
-Layers are lists, not stacks, as in the reference.
+Layers are lists, not stacks, as in the reference. Under sequence
+parallelism (``transformer``'s module docstring) the encoder and the
+decoder each split their rows over the model axis where their own length
+divides it; the encoder's states leave it gathered whole.
 """
 from __future__ import annotations
 
@@ -16,7 +19,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from ..parallel.sharding import tp_if
+from ..parallel.sharding import Region, seq_dist
 from .attention import attention_block, init_attention, make_kv_cache
 from .layers import (embed_init, init_mlp, layer_norm, mlp,
                      sinusoidal_positions)
@@ -72,8 +75,10 @@ def encode(params: dict, frames: torch.Tensor, cfg, cons=None,
            dist: Optional[dict] = None) -> torch.Tensor:
     """frames: [B, F, d] stub embeddings -> encoder states [B, F, d].
     Under ``dist`` one rank's program (``transformer.forward``)."""
+    dist = seq_dist(dist, frames.shape[1], ("enc_layers", "enc_norm"))
     pos = sinusoidal_positions(frames.shape[1], cfg.d_model)
-    x = frames + pos.to(frames.device, frames.dtype)[None]
+    x = Region(dist).leave(frames + pos.to(frames.device, frames.dtype)[None],
+                           summed=False)
     f_pos = torch.arange(frames.shape[1], dtype=torch.int32,
                          device=frames.device)
     for i, lp in enumerate(params["enc_layers"]):
@@ -84,10 +89,11 @@ def encode(params: dict, frames: torch.Tensor, cfg, cons=None,
                                dist=dist)
         x = x + a
         h = layer_norm(x, lp["ln2"]["w"], lp["ln2"]["b"])
-        x = x + mlp(lp["mlp"], h, cfg.mlp_act, tp_if(dist, "dff_tp"))
+        x = x + mlp(lp["mlp"], h, cfg.mlp_act, Region(dist, "dff_tp"))
         if cons is not None:
             x = cons.hidden(x)
-    return layer_norm(x, params["enc_norm"]["w"], params["enc_norm"]["b"])
+    x = layer_norm(x, params["enc_norm"]["w"], params["enc_norm"]["b"])
+    return Region(dist, False).enter(x)
 
 
 def init_dec_cache(cfg, batch: int, max_len: int,
@@ -108,12 +114,14 @@ def decode(params: dict, tokens: torch.Tensor, enc_out: torch.Tensor, cfg,
     vocab], new_cache | None). ``q_chunk`` blocks the attention's plain
     queries; any ``remat`` but ``"none"`` recomputes each decoder layer
     whole in the backward, as the reference does."""
+    dist = seq_dist(dist, tokens.shape[1], ("dec_layers", "dec_norm"))
     x = lookup(params["embed"], tokens, cfg.vocab_size, dist)
     if positions is None:
         ar = torch.arange(tokens.shape[1], dtype=torch.int32,
                           device=x.device)
         positions = ar if cache is None else cache["self"][0]["length"] + ar
-    x = x + _pos_embed(positions, cfg.d_model).to(x.dtype)[None]
+    x = x + Region(dist).rows(_pos_embed(positions, cfg.d_model),
+                              0).to(x.dtype)[None]
     if cons is not None:
         x = cons.hidden(x)
     new_cache = {"self": []} if cache is not None else None
@@ -149,7 +157,7 @@ def dec_layer(lp: dict, x: torch.Tensor, enc_out: torch.Tensor, cfg,
                            q_chunk=q_chunk, cons=cons, dist=dist)
     x = x + a
     h = layer_norm(x, lp["ln2"]["w"], lp["ln2"]["b"])
-    x = x + mlp(lp["mlp"], h, cfg.mlp_act, tp_if(dist, "dff_tp"))
+    x = x + mlp(lp["mlp"], h, cfg.mlp_act, Region(dist, "dff_tp"))
     return (x if cons is None else cons.hidden(x)), nc
 
 

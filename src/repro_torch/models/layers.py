@@ -105,28 +105,29 @@ def act_fn(name: str):
 
 
 def gated_mlp(params: dict, x: torch.Tensor, act: str = "silu",
-              cons=None, tp=None) -> torch.Tensor:
-    """``tp`` (``parallel.sharding.tp_if``): the ffn axis is this rank's
-    slice, the output summed over the model axis."""
-    if tp is not None:
-        x = tp[0].copy(x, tp[1])
+              cons=None, region=None) -> torch.Tensor:
+    """``region`` (``parallel.sharding.Region``): where ``region.split``
+    the ffn axis is this rank's slice and the output is summed over the
+    model axis; under sequence parallelism ``x`` is this rank's rows."""
+    if region is not None:
+        x = region.enter(x)
     g = x @ params["w_gate"]
     u = x @ params["w_up"]
     h = act_fn(act)(g) * u
     if cons is not None:
         h = cons.ffn(h)
     out = h @ params["w_down"]
-    return out if tp is None else tp[0].reduce(out, tp[1])
+    return out if region is None else region.leave(out)
 
 
 def mlp(params: dict, x: torch.Tensor, act: str = "gelu",
-        tp=None) -> torch.Tensor:
-    if tp is not None:
-        x = tp[0].copy(x, tp[1])
+        region=None) -> torch.Tensor:
+    if region is not None:
+        x = region.enter(x)
     h = act_fn(act)(x @ params["w_in"] + params["b_in"])
     out = h @ params["w_out"]
-    if tp is not None:
-        out = tp[0].reduce(out, tp[1])
+    if region is not None:
+        out = region.leave(out)
     return out + params["b_out"]
 
 

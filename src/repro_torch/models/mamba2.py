@@ -19,7 +19,7 @@ import torch.nn.functional as F
 
 from ..kernels._lib import at_least_f32
 from ..kernels.ssd_scan import ssd
-from ..parallel.sharding import tp_if
+from ..parallel.sharding import Region
 from .layers import dense_init, rms_norm
 
 
@@ -177,10 +177,13 @@ def mamba2_block(params: dict, x: torch.Tensor, *, cfg,
     heads (``w_z``/``w_x``/``w_dt``, their conv channels, ``A_log``,
     ``D``, the norm's slice and ``w_out``'s rows): B and C are whole on
     every rank, the gated norm's mean square is summed over the ranks and
-    the output too."""
+    the output too. Under sequence parallelism ``x`` is this rank's rows:
+    the conv and the scan run on the sequence gathered whole, and the
+    block returns this rank's rows (``parallel.sharding.Region``)."""
+    reg = Region(dist, "shard_ssm")
+    xs, x = reg.enter_both(x)
+    xs = xs if reg.split else x
     bsz, ln, _ = x.shape
-    tp = tp_if(dist, "shard_ssm")
-    xs = x if tp is None else tp[0].copy(x, tp[1])
     p, g, n = cfg.ssm_headdim, cfg.ssm_ngroups, cfg.ssm_state
     h = params["A_log"].shape[-1]           # this rank's heads
     z = xs @ params["w_z"]
@@ -197,8 +200,8 @@ def mamba2_block(params: dict, x: torch.Tensor, *, cfg,
                                   hist_x)
     bc, new_hist_bc = causal_conv(bc, params["conv_bc"], params["conv_bc_b"],
                                   hist_bc)
-    if tp is not None:                  # whole B and C, read by this rank's
-        bc = tp[0].copy(bc, tp[1])      # heads: their gradients summed
+    if reg.split:                       # whole B and C, read by this rank's
+        bc = reg.spmd.copy(bc, reg.tp)  # heads: their gradients summed
 
     xh = xin.reshape(bsz, ln, h, p)
     bmat = bc[..., :g * n].reshape(bsz, ln, g, n)
@@ -228,17 +231,15 @@ def mamba2_block(params: dict, x: torch.Tensor, *, cfg,
     y = y + params["D"].to(y.dtype)[None, None, :, None] * xh
     y = y.reshape(bsz, ln, h * p)
     y = y * F.silu(z.float()).to(y.dtype)
-    if tp is None:
+    if not reg.split:
         y = rms_norm(y, params["norm"], eps=cfg.norm_eps)
     else:
         # the norm spans every rank's heads: sum the squares over them
-        ms = tp[0].reduce_shared(y.float().square().sum(-1, keepdim=True),
-                                 tp[1]) / cfg.d_inner
+        ms = reg.spmd.reduce_shared(
+            y.float().square().sum(-1, keepdim=True), reg.tp) / cfg.d_inner
         y = (y.float() * torch.rsqrt(ms + cfg.norm_eps)
              * params["norm"].float()).to(y.dtype)
-    out = y @ params["w_out"]
-    if tp is not None:
-        out = tp[0].reduce(out, tp[1])
+    out = reg.leave(y @ params["w_out"])
 
     new_cache = None
     if cache is not None:

@@ -26,7 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import flash_attention as _fa
-from ..parallel.sharding import tp_if
+from ..parallel.sharding import Region
 from .attention import gather_seq, seq_split, slice_seq, write_slots
 from .layers import apply_rope, dense_init, rms_norm
 
@@ -74,22 +74,23 @@ def make_mla_cache(batch: int, max_len: int, cfg,
 
 def _project_q(params: dict, x: torch.Tensor, cfg, positions,
                share=lambda t: t):
-    b, s, _ = x.shape
+    cq = share(rms_norm(x @ params["q_down"], params["q_norm"]))
+    b, s, _ = cq.shape
     q_up = params["q_up"]
     r, h, qk = q_up.shape
-    cq = share(rms_norm(x @ params["q_down"], params["q_norm"]))
     q = (cq @ q_up.reshape(r, h * qk)).view(b, s, h, qk)
     nope = cfg.qk_nope_head_dim
     return q[..., :nope], apply_rope(q[..., nope:], positions,
                                      cfg.rope_theta)
 
 
-def _project_latent(params: dict, x: torch.Tensor, cfg, positions):
+def _project_latent(params: dict, x: torch.Tensor, cfg, positions,
+                    share=lambda t: t):
     ckv = x @ params["kv_down"]
     r = cfg.kv_lora_rank
-    latent = rms_norm(ckv[..., :r], params["kv_norm"])
+    latent = share(rms_norm(ckv[..., :r], params["kv_norm"]))
     # the shared single-head rope key
-    k_rope = apply_rope(ckv[..., None, r:], positions,
+    k_rope = apply_rope(share(ckv[..., None, r:]), positions,
                         cfg.rope_theta)[..., 0, :]
     return latent, k_rope
 
@@ -104,19 +105,22 @@ def mla_block(params: dict, x: torch.Tensor, *, cfg,
     over the model axis the block runs on this rank's heads (``q_up``,
     ``k_up``, ``v_up``, ``wo``), the output summed over the ranks; a
     latent cache split on its sequence axis is gathered whole, written,
-    and cut back to this rank's part."""
-    tp = tp_if(dist, "shard_heads")
+    and cut back to this rank's part. Under sequence parallelism ``x`` is
+    this rank's rows: the low-rank projections and their norms run on
+    them, and the query and kv latents and the rope key are gathered
+    whole along the sequence (the reference's ``cons.hidden`` on the
+    latent) before the heads."""
+    reg = Region(dist, "shard_heads")
     scale = (cfg.qk_nope_head_dim + cfg.qk_rope_head_dim) ** -0.5
-    # the low-rank projections are whole on every rank and read by its
-    # heads: their gradients are summed over the ranks (``share``)
-    share = (lambda t: t) if tp is None else (
-        lambda t: tp[0].copy(t, tp[1]))
-    q_nope, q_rope = _project_q(params, x, cfg, positions, share)
-    latent, k_rope = map(share, _project_latent(params, x, cfg, positions))
+    # the low-rank outputs enter the heads' region: read in part by each
+    # rank's heads (their gradients summed over the ranks), gathered along
+    # the sequence first under sequence parallelism
+    q_nope, q_rope = _project_q(params, x, cfg, positions, reg.enter)
+    latent, k_rope = _project_latent(params, x, cfg, positions, reg.enter)
     if cons is not None:
         q_nope, q_rope = cons.heads(q_nope), cons.heads(q_rope)
         latent = cons.hidden(latent)
-    b, s, _ = x.shape
+    b, s, _ = latent.shape
 
     new_cache = full = None
     if cache is not None:
@@ -150,7 +154,7 @@ def mla_block(params: dict, x: torch.Tensor, *, cfg,
         out_lat = torch.einsum("bhst,btr->bshr", p, lat)
         o = torch.einsum("bshr,rhv->bshv", out_lat, params["v_up"])
         y = torch.einsum("bshv,hvd->bsd", o, params["wo"])
-        return (y if tp is None else tp[0].reduce(y, tp[1])), new_cache
+        return reg.leave(y), new_cache
 
     # ----- naive path (prefill; attends on the fresh latents) -----
     k_up, v_up = params["k_up"], params["v_up"]
@@ -167,4 +171,4 @@ def mla_block(params: dict, x: torch.Tensor, *, cfg,
                               q_chunk=q_chunk)
     out = out.transpose(1, 2)[..., :vd]
     y = out.reshape(b, s, h * vd) @ params["wo"].reshape(h * vd, -1)
-    return (y if tp is None else tp[0].reduce(y, tp[1])), new_cache
+    return reg.leave(y), new_cache

@@ -30,6 +30,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..parallel.sharding import Region
 from .layers import act_fn, dense_init, init_gated_mlp
 
 
@@ -210,13 +211,18 @@ def moe_ep(params: dict, x: torch.Tensor, *, topk: int, dist: dict,
     reference's ``moe_ep_shardmap``: [B, S, d] -> ([B, S, d], aux).
 
     ``x`` is this rank's tokens, whole over the model axis (the attention's
-    all-reduce before it makes it so); ``params["experts"]`` holds this
-    rank's ``E_loc`` experts and ``params["router"]`` all of them. Each
-    rank routes its tokens, takes ``offset = rank * E_loc``, computes only
-    its slice and the ranks sum their outputs over the model axis; a pair
-    lands in exactly one rank's slice, so the sum adds zeros elsewhere.
-    ``aux`` is averaged over the data axes."""
-    spmd, tp = dist["spmd"], dist["tp"]
+    all-reduce before it makes it so; under sequence parallelism they are
+    gathered along the sequence first, so that every rank routes all of
+    them and capacity counts the same pairs); ``params["experts"]`` holds
+    this rank's ``E_loc`` experts and ``params["router"]`` all of them.
+    Each rank routes its tokens, takes ``offset = rank * E_loc``, computes
+    only its slice and the ranks sum their outputs over the model axis (a
+    reduce-scatter onto the rows under sequence parallelism); a pair lands
+    in exactly one rank's slice, so the sum adds zeros elsewhere. ``aux``
+    is averaged over the data axes."""
+    reg = Region(dist)
+    spmd, tp = reg.spmd, reg.tp
+    xs, x = reg.enter_both(x)
     b, s, d = x.shape
     xf = x.reshape(-1, d)
     n = xf.shape[0]
@@ -229,11 +235,11 @@ def moe_ep(params: dict, x: torch.Tensor, *, topk: int, dist: dict,
     # of their weights, whose gradients the ranks sum
     slot_pair, slot_w, valid = dispatch_indices(
         ids, spmd.copy(weights, tp), capacity, spmd.rank(tp) * e_loc, e_loc)
-    out = _expert_compute(params["experts"], spmd.copy(xf, tp), slot_pair,
+    out = _expert_compute(params["experts"], xs.reshape(-1, d), slot_pair,
                           slot_w, valid, capacity, act, topk)
-    out = spmd.reduce(out, tp)
+    out = reg.leave(out.reshape(b, s, d))
     aux = load_balance_loss(probs, ids, e_valid)
     dp = dist.get("dp")
     if dp:
         aux = spmd.reduce(aux, dp) / spmd.size(dp)
-    return out.reshape(b, s, d), aux
+    return out, aux

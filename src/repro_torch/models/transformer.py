@@ -25,7 +25,13 @@ forward is one rank's program on its shards: a layer's weights gathered
 over the FSDP axes where the rules shard them there (inside the layer, so
 remat regathers them), the embedding and logits split over the vocabulary,
 attention over heads, MLPs over their ffn axis, the experts through
-``moe_ep``; ``ActConstraint`` sits where the reference puts it.
+``moe_ep``; ``ActConstraint`` sits where the reference puts it. With
+``dist["seq_shard"]`` (sequence parallelism, the reference's train cells)
+and a sequence that splits over the model axis, the hidden states between
+the blocks are this rank's rows ``[B, S/tp, d]``: the norms run on them,
+each block gathers the sequence on entry and leaves with its rows
+(``parallel.sharding.Region``), the embedding ends in a reduce-scatter and
+the head gathers the sequence back.
 """
 from __future__ import annotations
 
@@ -34,7 +40,8 @@ from typing import Optional, Tuple
 import torch
 
 from ..kernels.rmsnorm import rmsnorm_residual
-from ..parallel.sharding import ActConstraint, index_specs, tp_if
+from ..parallel.sharding import (ActConstraint, Region, index_specs,
+                                 seq_dist, tp_if)
 from .attention import attention_block, init_attention, make_kv_cache
 from .layers import (dense_init, embed_init, gated_mlp, init_gated_mlp,
                      rms_norm, softcap)
@@ -219,10 +226,28 @@ def cache_length(cfg, cache: dict) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 def fsdp_gather(tree, dist: Optional[dict], specs):
     """``tree``'s leaves gathered over the FSDP axes where ``specs`` shard
-    them there; ``tree`` itself without ``dist`` or specs."""
+    them there; ``tree`` itself without ``dist`` or specs. Under
+    ``mlp_fsdp`` a gated MLP's weights are gathered over the model axis
+    too: every rank computes that MLP whole."""
     if not dist or specs is None or dist.get("spmd") is None:
         return tree
-    return dist["spmd"].gather_tree(tree, specs, dist.get("fsdp"))
+    spmd, fsdp = dist["spmd"], dist.get("fsdp")
+    whole = dist.get("tp") if dist.get("mlp_fsdp") else None
+
+    def walk(t, sp, key=None):
+        if whole and key == "mlp" and "w_gate" in t:
+            return spmd.gather_tree(t, sp, fsdp, whole=whole)
+        if isinstance(t, dict):
+            return {k: walk(v, sp[k], k) for k, v in t.items()}
+        return spmd.gather_tree(t, sp, fsdp)
+    return walk(tree, specs)
+
+
+def mlp_region(dist: Optional[dict]) -> Region:
+    """A layer's gated MLP: split over its ffn axis where that divides,
+    whole on every rank under ``mlp_fsdp`` (the reference's ``ffn``
+    constraint)."""
+    return Region(dist, not (dist or {}).get("mlp_fsdp") and "dff_tp")
 
 
 def _cons(dist: Optional[dict]):
@@ -265,7 +290,7 @@ def dense_body(lp: dict, x: torch.Tensor, cfg, positions: torch.Tensor,
     h, x = rmsnorm_residual(x, a, lp["ln2"], eps=cfg.norm_eps,
                             plus_one=cfg.embed_scale)
     x = _hidden(cons, x)
-    m = gated_mlp(lp["mlp"], h, cfg.mlp_act, cons, tp_if(dist, "dff_tp"))
+    m = gated_mlp(lp["mlp"], h, cfg.mlp_act, cons, mlp_region(dist))
     if cfg.post_block_norms:
         m = rms_norm(m, lp["ln2_post"], cfg.norm_eps,
                      plus_one=cfg.embed_scale)
@@ -300,7 +325,7 @@ def moe_body(lp: dict, x: torch.Tensor, cfg, positions: torch.Tensor,
                                act=cfg.mlp_act, n_valid=cfg.n_experts)
     if "shared" in lp["moe"]:
         mo = mo + gated_mlp(lp["moe"]["shared"], h, cfg.mlp_act, cons,
-                            tp_if(dist, "shared_tp"))
+                            Region(dist, "shared_tp"))
     return _hidden(cons, x + mo), new_cache, aux
 
 
@@ -342,7 +367,7 @@ def shared_attn_body(sp: dict, x: torch.Tensor, x0: torch.Tensor, cfg,
     h, x = rmsnorm_residual(x, a, sp["ln2"], eps=cfg.norm_eps)
     x = _hidden(cons, x)
     return x + gated_mlp(sp["mlp"], h, cfg.mlp_act, cons,
-                         tp_if(dist, "dff_tp")), new_cache
+                         mlp_region(dist)), new_cache
 
 
 def _first_leaf(tree):
@@ -506,36 +531,40 @@ def lookup(table: torch.Tensor, tokens: torch.Tensor, vocab: int,
            dist: Optional[dict] = None) -> torch.Tensor:
     """``table[tokens]``; where ``dist`` split the table's vocabulary over
     the model axis (fewer rows than ``vocab``), each rank looks up the
-    tokens of its rows and the ranks sum."""
-    split = tp_if(dist)
-    if split is None or table.shape[0] == vocab:
-        return table[tokens.long()]
-    spmd, tp = split
+    tokens of its rows and the ranks sum (a reduce-scatter onto this
+    rank's rows under sequence parallelism)."""
+    reg = Region(dist, table.shape[0] != vocab)
+    if not reg.split:
+        return reg.leave(table[tokens.long()])
     v_loc = table.shape[0]
-    ids = tokens.long() - spmd.rank(tp) * v_loc
+    ids = tokens.long() - reg.spmd.rank(reg.tp) * v_loc
     mine = (ids >= 0) & (ids < v_loc)
     x = table[ids.clamp(0, v_loc - 1)] * mine[..., None].to(table.dtype)
-    return spmd.reduce(x, tp)
+    return reg.leave(x)
 
 
 def project_vocab(h: torch.Tensor, w: torch.Tensor, vocab: int,
                   dist: Optional[dict] = None) -> torch.Tensor:
     """``h @ w``; where ``w`` [d, V] is this rank's vocabulary slice the
     logits stay split over the model axis (the reference's
-    ``logits_spec``)."""
-    split = tp_if(dist)
-    if split is not None and w.shape[-1] != vocab:
-        h = split[0].copy(h, split[1])
-    return h @ w
+    ``logits_spec``). Under sequence parallelism ``h`` is this rank's rows
+    and the logits cover the whole sequence."""
+    return Region(dist, w.shape[-1] != vocab).enter(h) @ w
+
+
+# the LM's top-level parameter keys whose row leaves run on this rank's
+# sequence shard under sequence parallelism (``sharding.seq_row_leaf``)
+LM_ROOTS = ("layers", "dense_layers", "shared_attn", "final_norm")
 
 
 def embed(params: dict, cfg, tokens: Optional[torch.Tensor] = None,
           embeds: Optional[torch.Tensor] = None,
           dist: Optional[dict] = None) -> torch.Tensor:
     """Token embeddings, or the given ``embeds``; gemma2 scales them by
-    sqrt(d) cast to their dtype first, as the reference does."""
+    sqrt(d) cast to their dtype first, as the reference does. Under
+    sequence parallelism, this rank's rows."""
     x = (lookup(params["embed"], tokens, cfg.vocab_size, dist)
-         if embeds is None else embeds)
+         if embeds is None else Region(dist).leave(embeds, summed=False))
     if cfg.embed_scale:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
     return x
@@ -573,8 +602,9 @@ def forward(params: dict, cfg, tokens: Optional[torch.Tensor] = None, *,
     shards (module docstring)."""
     if cfg.family not in LM_FAMILIES:
         raise _unknown(cfg)
+    sq = (tokens if embeds is None else embeds).shape[1]
+    dist = seq_dist(dist, sq, LM_ROOTS)
     x = _hidden(_cons(dist), embed(params, cfg, tokens, embeds, dist))
-    sq = x.shape[1]
     if positions is None:
         ar = torch.arange(sq, dtype=torch.int32, device=x.device)
         positions = ar if cache is None else cache_length(cfg, cache) + ar

@@ -12,9 +12,8 @@ reference's: FSDP over ("pod", "data"), tensor and expert parallelism over
   * MoE experts [E, d, f]  -> E over "model" (expert parallelism)
 
 ``ShardingRules`` keeps the reference's rule table and methods word for
-word (but the ``no_fsdp``, ``dp_only`` and ``mlp_fsdp`` options, which
-only the reference's dry-run flags set) and returns its specs as ``P`` (a
-tuple, as ``PartitionSpec`` is);
+word, with its ``no_fsdp``, ``dp_only`` and ``mlp_fsdp`` options, and
+returns its specs as ``P`` (a tuple, as ``PartitionSpec`` is);
 ``params_tree``/``cache_tree`` give a ``Sharding`` (mesh and spec) a leaf.
 ``placements(spec, mesh)`` turns a spec into DTensor placements over a
 ``DeviceMesh``. A mesh is a ``torch.distributed.DeviceMesh`` with named
@@ -30,13 +29,26 @@ reduce-scatter its operand). The collectives are the in-place ``c10d``
 ones: they run over gloo (several ranks of one card, or CPU ranks) and
 over the ``"fake"`` process group of the dry-run alike; the functional
 collectives that DTensor's redistributions issue crash over gloo on CUDA
-tensors (torch 2.11). Under autograd ``reduce`` is Megatron's ``g``
-(all-reduce forward, identity backward: the sum feeds the same work on
-every rank), ``copy`` its ``f`` (identity forward, all-reduce backward: a
-tensor every rank holds whole feeds work split over the ranks, each
-seeing part of its gradient), ``reduce_shared`` an all-reduce both ways
-(a sum that feeds split work) and ``gather`` an FSDP all-gather whose
-backward reduce-scatters.
+tensors (torch 2.11).
+
+A block meets the model axis through a ``Region``. Work split over the
+ranks (heads, ffn columns, experts) gets gradients that are partial sums
+over the ranks; work every rank computes whole (replicated heads, an MLP
+under ``mlp_fsdp``, an unsplit SSM, a router) gets whole gradients. With
+the hidden states whole on the model axis, entering is Megatron's ``f``
+for split work (``copy``: identity forward, all-reduce backward) and
+leaving is its ``g`` (``reduce``: all-reduce forward, identity backward).
+Under sequence parallelism (the reference's ``seq_shard``: the hidden
+states between blocks are ``[B, S/tp, d]``, the rows of this rank's
+``model`` coordinate) entering all-gathers the sequence, whose backward
+reduce-scatters the split work's gradient and takes this rank's rows of
+the whole work's; leaving reduce-scatters split work's sum (backward: an
+all-gather) or takes this rank's rows of whole work (backward: an
+all-gather, so that the whole work sees the gradient of every row).
+``reduce_shared`` is an all-reduce both ways (a sum that feeds split work)
+and ``gather`` an FSDP all-gather whose backward reduce-scatters (or,
+over an axis whose ranks computed the same gradient, takes this rank's
+slice).
 """
 from __future__ import annotations
 
@@ -178,17 +190,25 @@ def shard_local(t: torch.Tensor, spec: P, mesh,
 
 
 class ShardingRules:
-    def __init__(self, cfg, mesh, *, fsdp_axes=None, tp_axis: str = "model"):
-        """The reference's defaults. Its ``no_fsdp``, ``dp_only`` and
-        ``mlp_fsdp`` options, which only its dry-run's flags set, are not
-        ported: no cell of the port's dry-run or card runs takes them."""
+    def __init__(self, cfg, mesh, *, fsdp_axes=None, tp_axis: str = "model",
+                 no_fsdp: bool = False, dp_only: bool = False,
+                 mlp_fsdp: bool = False):
+        """no_fsdp: params replicate across data (weight-stationary serving —
+        kills per-step FSDP all-gathers). dp_only: the ``model`` axis joins
+        data parallelism (tiny archs where TP-16 is pure collective waste)."""
         self.cfg = cfg
         self.mesh = mesh
         axis_names, shape = mesh_axes(mesh)
         self._sizes = shape
+        if dp_only:
+            tp_axis = "__none__"
+            fsdp_axes = tuple(a for a in ("pod", "data", "model")
+                              if a in axis_names)
         if fsdp_axes is None:
             fsdp_axes = tuple(a for a in ("pod", "data") if a in axis_names)
         dp_axes = fsdp_axes
+        if no_fsdp:
+            fsdp_axes = ()
         self.fsdp = (None if not fsdp_axes else
                      (fsdp_axes if len(fsdp_axes) > 1 else fsdp_axes[0]))
         self.tp = tp_axis if tp_axis in axis_names else None
@@ -200,6 +220,7 @@ class ShardingRules:
                          and cfg.n_kv_heads % tp_size == 0)
         self.shard_ssm_heads = (bool(self.tp) and cfg.ssm_state > 0
                                 and cfg.ssm_nheads % tp_size == 0)
+        self.mlp_fsdp = mlp_fsdp
         self.dp = (dp_axes if len(dp_axes) > 1 else dp_axes[0])  # batch axes
         self._dp_size = math.prod(
             shape[a] for a in ((self.dp,) if isinstance(self.dp, str)
@@ -252,10 +273,13 @@ class ShardingRules:
             (r"attn/k_up$", P(None, heads, None)),
             (r"attn/v_up$", P(None, heads, None)),
             (r"attn/(q_norm|kv_norm)$", P(None,)),
-            # mlp (gated + plain)
-            (r"mlp/w_gate$", P(f, t)),
-            (r"mlp/w_up$", P(f, t)),
-            (r"mlp/w_down$", P(t, f)),
+            # mlp (gated + plain); mlp_fsdp = weight-gather MLP: weights
+            # shard over BOTH axes on d, activations stay full-d batch-
+            # sharded -> no TP all-reduce after the MLP (weight all-gather
+            # traffic replaces the larger activation all-reduce)
+            (r"mlp/w_gate$", P(_join(f, t), None) if self.mlp_fsdp else P(f, t)),
+            (r"mlp/w_up$", P(_join(f, t), None) if self.mlp_fsdp else P(f, t)),
+            (r"mlp/w_down$", P(None, _join(f, t)) if self.mlp_fsdp else P(t, f)),
             (r"mlp/w_in$", P(f, t)),
             (r"mlp/w_out$", P(t, f)),
             (r"mlp/b_in$", P(t,)),
@@ -385,9 +409,12 @@ class ShardingRules:
             "tp_size": self.tp_size,
             "shard_heads": self.shard_heads, "shard_kv": self.shard_kv,
             "shard_ssm": self.shard_ssm_heads,
+            "mlp_fsdp": self.mlp_fsdp,
             "vocab_tp": c.vocab_size % self.tp_size == 0,
             "dff_tp": (c.d_ff % self.tp_size == 0 if c.d_ff else False),
-            # the port's additions
+            # the port's additions: sequence parallelism, which the
+            # reference's dry-run sets after this call (``seq_shard``)
+            "seq_shard": False,
             "fsdp": self.fsdp,
             "shared_tp": (c.shared_d_ff % self.tp_size == 0
                           if c.shared_d_ff else False),
@@ -402,11 +429,10 @@ class ShardingRules:
 class ActConstraint:
     """The activation boundaries where the reference constrains a layout
     (``with_sharding_constraint``). The port's forward runs as one rank on
-    its local shards, whose layout the code holds by construction, so each
-    boundary is the identity; the calls mark where the reference places
-    them. The reference's ``seq_shard`` (Megatron-style sequence
-    parallelism at ``hidden``, set for its train cells) is not ported: the
-    port's hidden states stay whole on the ``model`` axis."""
+    its local shards, whose layout the code holds by construction (the
+    blocks' ``Region``s place the collectives, sequence parallelism's
+    among them), so each boundary is the identity; the calls mark where
+    the reference places them."""
 
     def __init__(self, dist: Optional[dict]):
         self.d = dist
@@ -462,6 +488,9 @@ class Spmd:
         self.coord = {n: mesh.get_local_rank(n) for n in self.names}
         self.groups = {n: mesh.get_group(n) for n in self.names}
         self.counts = CollectiveCounts()
+        # the top-level parameter keys whose row leaves (``SEQ_ROW_LEAF``)
+        # ran on this rank's sequence shard (``seq_dist``)
+        self.seq_rows = set()
         # gloo sums bf16 through f32 here: its own bf16 sum rounds each
         # partial, and the bytes counted stay the operand's
         self.upcast = tdist.get_backend() == "gloo"
@@ -501,18 +530,34 @@ class Spmd:
             x = out.movedim(0, dim)
         return x
 
-    def _reduce_scatter(self, x: torch.Tensor, dim: int, axes):
+    def _reduce_scatter(self, x: torch.Tensor, dim: int, axes, whole=()):
+        """Sum over ``axes`` and keep this rank's chunk along ``dim``; over
+        an axis of ``whole`` (whose ranks hold the same tensor) only keep
+        the chunk."""
+        whole = entry_axes(whole)
+        up = self.upcast and x.dtype in (torch.bfloat16, torch.float16)
         for a in self._live(axes):                  # major axis first
             n = self.sizes[a]
+            if a in whole:
+                x = self._rows(x, a, dim)
+                continue
             src = x.movedim(dim, 0).contiguous()
             out = torch.empty((src.shape[0] // n,) + tuple(src.shape[1:]),
-                              dtype=x.dtype, device=x.device)
+                              dtype=torch.float32 if up else x.dtype,
+                              device=x.device)
             self.counts.add("reduce-scatter", _nbytes(src))
             with warnings.catch_warnings():
                 warnings.simplefilter("ignore", FutureWarning)
-                tdist.reduce_scatter_tensor(out, src, group=self.groups[a])
-            x = out.movedim(0, dim)
+                tdist.reduce_scatter_tensor(out, src.float() if up else src,
+                                            group=self.groups[a])
+            x = (out.to(x.dtype) if up else out).movedim(0, dim)
         return x
+
+    def _rows(self, x: torch.Tensor, axes, dim: int = 1) -> torch.Tensor:
+        """This rank's chunk of ``x`` along ``dim`` split over ``axes``."""
+        n = self.size(axes)
+        step = x.shape[dim] // n
+        return x.narrow(dim, self.rank(axes) * step, step)
 
     # -- autograd-aware ---------------------------------------------------
     def reduce(self, x: torch.Tensor, axes) -> torch.Tensor:
@@ -539,30 +584,56 @@ class Spmd:
             return x
         return _Copy.apply(x, self, axes)
 
-    def gather(self, x: torch.Tensor, dim: int, axes) -> torch.Tensor:
+    def gather(self, x: torch.Tensor, dim: int, axes,
+               whole=()) -> torch.Tensor:
         """All-gather along ``dim`` over ``axes`` (backward:
-        reduce-scatter)."""
+        reduce-scatter; over the axes of ``whole``, whose ranks compute the
+        same gradient, this rank's slice)."""
         if not self._live(axes):
             return x
         if torch.is_grad_enabled() and x.requires_grad:
-            return _Gather.apply(x, self, dim, axes)
+            return _Gather.apply(x, self, dim, axes, whole)
         return self._all_gather(x, dim, axes)
+
+    def seq_enter(self, x: torch.Tensor, axes) -> Tuple[torch.Tensor,
+                                                         torch.Tensor]:
+        """Rows split over ``axes`` gathered whole along the sequence (dim
+        1), twice: for work split over ``axes`` (backward: reduce-scatter)
+        and for work every rank computes whole (backward: this rank's
+        rows). One all-gather forward, at most one reduce-scatter
+        backward."""
+        if torch.is_grad_enabled() and x.requires_grad:
+            return _SeqEnter.apply(x, self, axes)
+        out = self._all_gather(x, 1, axes)
+        return out, out
+
+    def seq_leave(self, y: torch.Tensor, axes, summed: bool) -> torch.Tensor:
+        """This rank's rows of ``y`` (dim 1): a reduce-scatter of split
+        work's partial sums (``summed``), else a slice of whole work; the
+        backward all-gathers the rows' gradient."""
+        if torch.is_grad_enabled() and y.requires_grad:
+            return _SeqLeave.apply(y, self, axes, summed)
+        if summed:
+            return self._reduce_scatter(y, 1, axes)
+        return self._rows(y, axes).clone()
 
     def max(self, x: torch.Tensor, axes) -> torch.Tensor:
         return self._all_reduce(x.detach(), axes, "max")
 
-    def gather_tree(self, tree, specs, fsdp):
+    def gather_tree(self, tree, specs, fsdp, whole=()):
         """Each leaf gathered along the dimensions its spec shards over the
-        FSDP axes (the weights of one layer, just before use)."""
-        fs = set(entry_axes(fsdp))
-        if not fs or not any(self.sizes[a] > 1 for a in fs):
+        FSDP axes (the weights of one layer, just before use), and over
+        the axes of ``whole`` (the ``model`` axis of ``mlp_fsdp``'s
+        weights, which every rank then uses whole: backward, a slice)."""
+        fs = set(entry_axes(fsdp)) | set(entry_axes(whole))
+        if not any(self.sizes[a] > 1 for a in fs):
             return tree
 
         def leaf(t, spec):
             for i, entry in enumerate(spec):
                 axes = tuple(a for a in entry_axes(entry) if a in fs)
                 if axes:
-                    t = self.gather(t, i, axes)
+                    t = self.gather(t, i, axes, whole)
             return t
         return _zip_map(leaf, tree, specs)
 
@@ -619,14 +690,46 @@ class _Copy(torch.autograd.Function):
 
 class _Gather(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, spmd, dim, axes):
-        ctx.spmd, ctx.dim, ctx.axes = spmd, dim, axes
+    def forward(ctx, x, spmd, dim, axes, whole):
+        ctx.spmd, ctx.dim, ctx.axes, ctx.whole = spmd, dim, axes, whole
         return spmd._all_gather(x, dim, axes)
 
     @staticmethod
     def backward(ctx, g):
-        return (ctx.spmd._reduce_scatter(g, ctx.dim, ctx.axes), None, None,
-                None)
+        return (ctx.spmd._reduce_scatter(g, ctx.dim, ctx.axes, ctx.whole),
+                None, None, None, None)
+
+
+class _SeqEnter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, spmd, axes):
+        ctx.set_materialize_grads(False)
+        ctx.spmd, ctx.axes = spmd, axes
+        out = spmd._all_gather(x, 1, axes)
+        return out, out.view_as(out)
+
+    @staticmethod
+    def backward(ctx, g_split, g_whole):
+        out = None
+        if g_split is not None:
+            out = ctx.spmd._reduce_scatter(g_split, 1, ctx.axes)
+        if g_whole is not None:
+            mine = ctx.spmd._rows(g_whole, ctx.axes)
+            out = mine if out is None else out + mine
+        return out, None, None
+
+
+class _SeqLeave(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, y, spmd, axes, summed):
+        ctx.spmd, ctx.axes = spmd, axes
+        if summed:
+            return spmd._reduce_scatter(y, 1, axes)
+        return spmd._rows(y, axes).clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.spmd._all_gather(g, 1, ctx.axes), None, None, None
 
 
 # ---------------------------------------------------------------------------
@@ -642,6 +745,93 @@ def tp_if(dist: Optional[dict], flag: Optional[str] = None):
             or dist["spmd"].size(dist["tp"]) <= 1):
         return None
     return dist["spmd"], dist["tp"]
+
+
+class Region:
+    """Where a block's hidden rows meet the work it spreads over the
+    model axis (module docstring). ``split`` (a bool, or a key of
+    ``dist`` such as ``"shard_heads"``) says the block's own work is
+    split over the ranks; ``seq`` (default ``dist["seq"]``, set by
+    ``seq_dist``) that the rows are this rank's sequence shard. Without a
+    model axis of more than one rank every step is the identity."""
+
+    def __init__(self, dist: Optional[dict], split=True, *, seq=None):
+        live = tp_if(dist)
+        self.spmd, self.tp = live if live is not None else (None, None)
+        if isinstance(split, str):
+            split = bool(dist and dist.get(split))
+        self.split = live is not None and bool(split)
+        if seq is None:
+            seq = bool(dist and dist.get("seq"))
+        self.seq = live is not None and bool(seq)
+
+    def enter_both(self, x: torch.Tensor) -> Tuple[torch.Tensor,
+                                                   torch.Tensor]:
+        """(``x`` for work split over the ranks, ``x`` for work every rank
+        computes whole), whole along the sequence."""
+        if self.spmd is None:
+            return x, x
+        if self.seq:
+            return self.spmd.seq_enter(x, self.tp)
+        return (self.spmd.copy(x, self.tp) if self.split else x), x
+
+    def enter(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` for this region's own work (split or whole)."""
+        xs, xw = self.enter_both(x)
+        return xs if self.split else xw
+
+    def leave(self, y: torch.Tensor, summed: Optional[bool] = None
+              ) -> torch.Tensor:
+        """The block's output on the hidden rows: summed over the ranks
+        where it is split work's partial sum (``summed``, by default
+        ``split``), else the whole work's own."""
+        if self.spmd is None:
+            return y
+        summed = self.split if summed is None else summed
+        if self.seq:
+            return self.spmd.seq_leave(y, self.tp, summed)
+        return self.spmd.reduce(y, self.tp) if summed else y
+
+    def rows(self, t: torch.Tensor, dim: int = 1) -> torch.Tensor:
+        """This rank's rows of ``t`` (a tensor every rank holds whole that
+        needs no gradient across the ranks, e.g. positions)."""
+        if not self.seq:
+            return t
+        return self.spmd._rows(t, self.tp, dim)
+
+
+def seq_dist(dist: Optional[dict], s: int, roots=()) -> Optional[dict]:
+    """``dist`` for a stream of hidden states of ``s`` rows, with ``"seq"``
+    set where sequence parallelism applies: ``seq_shard`` asked for, a
+    model axis of more than one rank, and ``s`` divisible by its width
+    (the reference's ``ActConstraint.hidden``; never at decode, S 1).
+    ``roots`` (the stream's top-level parameter keys) are recorded on the
+    ``Spmd`` where it applies, for the gradient sync of their row
+    leaves."""
+    if not dist:
+        return dist
+    live = tp_if(dist)
+    on = bool(live is not None and dist.get("seq_shard")
+              and s % live[0].size(live[1]) == 0)
+    if on:
+        live[0].seq_rows.update(roots)
+    return dict(dist, seq=on)
+
+
+# leaves that act on the hidden rows between the blocks (the norms, the
+# output biases added after a block leaves the model axis, MLA's low-rank
+# projections and their norms, which run on the rows before the latent's
+# gather): under sequence parallelism each rank's gradient of one covers
+# its own rows only
+SEQ_ROW_LEAF = re.compile(
+    r"(^|/)(ln\w*|final_norm|enc_norm|dec_norm)(/[wb])?$"
+    r"|attn/(bo|q_down|kv_down|q_norm|kv_norm)$|mlp/b_out$")
+
+
+def seq_row_leaf(path: str, roots) -> bool:
+    """``path`` (a parameter leaf) is a row leaf of a stream that ran on
+    sequence shards (``roots``: ``Spmd.seq_rows``)."""
+    return path.split("/")[0] in roots and bool(SEQ_ROW_LEAF.search(path))
 
 
 def vocab_parallel_nll(logits: torch.Tensor, targets: torch.Tensor,

@@ -18,11 +18,14 @@ kernels and their backwards recompute through the plain versions
 
 Under a model's ``dist`` (one rank of a mesh) the step is that rank's: the
 FSDP gathers' backward has summed each sharded gradient over its FSDP
-axes; the other gradients are summed over the data axes here, all are
-divided by the data-parallel width (each rank's loss is the mean over its
-own rows), the norm that clips them is taken over every rank's shards, and
-the loss is averaged over the data axes (``tests/test_torch_spmd.py``
-holds the result to the unsharded step's).
+axes; the other gradients are summed over the data axes here, and a row
+leaf of a stream that ran on sequence shards (a norm, an output bias:
+``parallel.sharding.seq_row_leaf``) over the model axis too, its ranks
+having seen their own rows only; all are divided by the data-parallel
+width (each rank's loss is the mean over its own rows), the norm that
+clips them is taken over every rank's shards, each leaf counted once, and
+the loss is averaged over the data axes (``tests/test_torch_spmd.py`` and
+``tests/test_torch_layouts.py`` hold the result to the unsharded step's).
 """
 from __future__ import annotations
 
@@ -61,6 +64,9 @@ def make_train_step(model, opt_cfg: AdamWConfig, *, q_chunk: int = 0,
     loss_fn = make_loss_fn(model, q_chunk=q_chunk, remat=remat)
 
     def train_step(params, opt_state, batch) -> tuple:
+        spmd = (getattr(model, "dist", None) or {}).get("spmd")
+        if spmd is not None:
+            spmd.seq_rows.clear()       # this step's streams record theirs
         if accum <= 1:
             loss, grads = value_and_grad(loss_fn, params, batch)
         else:
@@ -81,7 +87,7 @@ def make_train_step(model, opt_cfg: AdamWConfig, *, q_chunk: int = 0,
             loss = loss / accum
             grads = tree_map(lambda g: g / accum, grads)
         gn = None
-        if getattr(model, "dist", None) and model.dist.get("spmd"):
+        if spmd is not None:
             loss, grads, gn = _sync(model.dist, loss, grads)
         new_params, new_opt, metrics = adamw_update(params, grads, opt_state,
                                                     opt_cfg, grad_norm=gn)
@@ -93,26 +99,42 @@ def make_train_step(model, opt_cfg: AdamWConfig, *, q_chunk: int = 0,
 def _sync(dist: dict, loss, grads):
     """A rank's loss and gradients made the data-parallel step's, and the
     global gradient norm (module docstring)."""
-    from ..parallel.sharding import _zip_map, entry_axes
+    from ..parallel.sharding import entry_axes, seq_row_leaf
     spmd, specs = dist["spmd"], dist["param_specs"]
     dp = entry_axes(dist.get("dp"))
     n_dp = spmd.size(dp) if dp else 1
     world = spmd.size(spmd.names)
+    tp = entry_axes(dist.get("tp"))
 
-    def leaf(g, spec):
+    def leaf(path, g, spec):
         named = {a for e in spec for a in entry_axes(e)}
         rest = tuple(a for a in dp if a not in named)
+        if seq_row_leaf(path, spmd.seq_rows):
+            # it ran on this rank's sequence shard: its ranks' rows summed
+            rest += tuple(a for a in tp if a not in named)
         g = spmd._all_reduce(g, rest) if rest else g
         return g / n_dp if n_dp > 1 else g
-    grads = _zip_map(leaf, grads, specs)
+    grads = _zip_path(leaf, grads, specs)
     sq = []
 
-    def norm_leaf(g, spec):
+    def norm_leaf(path, g, spec):
         named = {a for e in spec for a in entry_axes(e)}
         copies = world // spmd.size(tuple(named)) if named else world
         sq.append(g.float().square().sum() / copies)
-    _zip_map(norm_leaf, grads, specs)
+    _zip_path(norm_leaf, grads, specs)
     total = spmd._all_reduce(torch.stack(sq).sum(), spmd.names)
     if dp:
         loss = spmd._all_reduce(loss.float(), dp) / n_dp
     return loss, grads, torch.sqrt(total)
+
+
+def _zip_path(fn, tree, specs, path=""):
+    """``fn(path, leaf, spec)`` over a tree of dicts and lists and its
+    specs (paths as ``ShardingRules`` reads them)."""
+    if isinstance(tree, dict):
+        return {k: _zip_path(fn, v, specs[k], f"{path}{k}/")
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_zip_path(fn, v, s, f"{path}{i}/")
+                          for i, (v, s) in enumerate(zip(tree, specs)))
+    return fn(path[:-1], tree, specs)

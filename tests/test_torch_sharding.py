@@ -106,9 +106,8 @@ def test_param_and_cache_specs_match_reference(arch, kind, pad):
     for b in (1, 128):
         assert tr.for_batch(b).dp == jr.for_batch(b).dp
     jd, td = jr.dist_ctx(), tr.dist_ctx()
-    assert jd["mlp_fsdp"] is False     # the only layout the port has
     for k, v in jd.items():
-        if k not in ("mesh", "mlp_fsdp"):
+        if k != "mesh":
             assert td[k] == v, k
 
 

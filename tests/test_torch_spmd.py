@@ -11,6 +11,7 @@ model unsharded on the CPU. Tolerance 1e-4 of the logits' scale (f32: the
 sharded run sums partial products over the ranks, as
 ``tests/test_torch_moe.py``'s MODEL_TOL allows for a different order).
 """
+import json
 import os
 import socket
 import subprocess
@@ -36,9 +37,9 @@ RANK = textwrap.dedent("""
     from repro_torch.configs import get_reduced
     from repro_torch.models.api import build_model
     from repro_torch.parallel.sharding import ShardingRules, shard_local
-    rank, world, port, arch, shape, dst = (
+    rank, world, port, arch, shape, dst, layout = (
         int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4],
-        json.loads(sys.argv[5]), sys.argv[6])
+        json.loads(sys.argv[5]), sys.argv[6], json.loads(sys.argv[7]))
     dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
                             rank=rank, world_size=world)
     mesh = init_device_mesh("cpu", tuple(shape),
@@ -49,6 +50,7 @@ RANK = textwrap.dedent("""
     params = whole.init_params(0)
     rules = ShardingRules(whole.cfg, mesh).for_batch(%(B)d)
     dist_ctx = rules.dist_ctx()
+    dist_ctx["seq_shard"] = bool(layout.get("seq_shard"))
     specs = rules.param_specs(params)
     dist_ctx["param_specs"] = specs
     model = build_model(cfg, pad_for_tp=tp, dist=dist_ctx, device="cpu")
@@ -112,15 +114,19 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def run_sharded(arch, shape, dst, timeout=300):
+def run_sharded(arch, shape, dst, timeout=300, layout=None):
+    """The RANK script: loss, prefill and decode on the ranks, under
+    ``layout`` (``{"seq_shard": True}``: sequence parallelism in the loss
+    and the prefill; decode's one token takes none)."""
     # one thread a rank: the ranks share the host with the other tests
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
     port = str(free_port())
     world = shape[0] * shape[1]
     procs = [subprocess.Popen(
         [sys.executable, "-c", RANK, str(r), str(world), port, arch,
-         str(list(shape)), str(dst)], env=env, stdout=subprocess.PIPE,
-        stderr=subprocess.PIPE, text=True) for r in range(world)]
+         str(list(shape)), str(dst), json.dumps(layout or {})], env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(world)]
     errs = []
     for p in procs:
         _, err = p.communicate(timeout=timeout)
@@ -208,102 +214,106 @@ GRAD = textwrap.dedent("""
     from repro_torch.parallel.sharding import ShardingRules, shard_local
     from repro_torch.training.train_step import (_sync, make_loss_fn,
                                                  value_and_grad)
-    rank, world, port, arch, shape, dst = (
-        int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4],
-        json.loads(sys.argv[5]), sys.argv[6])
+    rank, world, port, shape, dst, layouts = (
+        int(sys.argv[1]), int(sys.argv[2]), sys.argv[3],
+        json.loads(sys.argv[4]), sys.argv[5], json.loads(sys.argv[6]))
     dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
                             rank=rank, world_size=world)
     mesh = init_device_mesh("cpu", tuple(shape),
                             mesh_dim_names=("data", "model"))
-    cfg = get_reduced(arch)
-    whole = build_model(cfg, pad_for_tp=shape[1], device="cpu")
-    params = whole.init_params(0)
-    rules = ShardingRules(whole.cfg, mesh).for_batch(%(GB)d)
-    ctx = rules.dist_ctx()
-    specs = rules.param_specs(params)
-    ctx["param_specs"] = specs
-    model = build_model(cfg, pad_for_tp=shape[1], dist=ctx, device="cpu")
-    spmd = ctx["spmd"]
+    for li, layout in enumerate(layouts):
+        cfg = get_reduced(layout["arch"]).replace(**layout.get("cfg", {}))
+        flags = {k: bool(layout.get(k))
+                 for k in ("no_fsdp", "dp_only", "mlp_fsdp")}
+        pad = 1 if flags["dp_only"] else shape[1]
+        whole = build_model(cfg, pad_for_tp=pad, device="cpu")
+        params = whole.init_params(0)
+        rules = ShardingRules(whole.cfg, mesh, **flags).for_batch(%(GB)d)
+        ctx = rules.dist_ctx()
+        ctx["seq_shard"] = bool(layout.get("seq_shard"))
+        specs = rules.param_specs(params)
+        ctx["param_specs"] = specs
+        model = build_model(cfg, pad_for_tp=pad, dist=ctx, device="cpu")
+        spmd = ctx["spmd"]
 
-    def tree(fn, t, sp):
-        if isinstance(t, dict):
-            return {k: tree(fn, v, sp[k]) for k, v in t.items()}
-        if isinstance(t, list):
-            return [tree(fn, v, s) for v, s in zip(t, sp)]
-        return fn(t, sp)
-
-    def whole_leaf(t, sp):
-        for i, e in enumerate(sp):
-            if e is not None:
-                t = spmd._all_gather(t, i, e)
-        return t
-    local = tree(lambda t, sp: shard_local(t, sp, mesh), params, specs)
-    rng = np.random.default_rng(1)
-    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size,
-                                           (%(GB)d, %(S)d)))
-    dp = rules.dp
-    nd, rd = (spmd.size(dp), spmd.rank(dp)) if dp else (1, 0)
-    rows = slice(rd * %(GB)d // nd, (rd + 1) * %(GB)d // nd)
-    batch = {"tokens": tokens[rows]}
-    if cfg.family == "encdec":
-        batch["frames"] = torch.from_numpy(rng.standard_normal(
-            (%(GB)d, cfg.encoder_frames, cfg.d_model)).astype(np.float32)
-            )[rows]
-    loss, grads = value_and_grad(make_loss_fn(model, remat="none"), local,
-                                 batch)
-    loss, grads, norm = _sync(ctx, loss, grads)
-    grads = tree(whole_leaf, grads, specs)
-    if rank == 0:
-        flat = {}
-
-        def walk(t, p):
+        def tree(fn, t, sp):
             if isinstance(t, dict):
-                for k, v in t.items():
-                    walk(v, p + "/" + k)
-            elif isinstance(t, list):
-                for i, v in enumerate(t):
-                    walk(v, p + f"/{i}")
-            else:
-                flat[p] = t.float().numpy()
-        walk(grads, "")
-        np.savez(dst, loss=loss.numpy(), norm=norm.numpy(), **flat)
+                return {k: tree(fn, v, sp[k]) for k, v in t.items()}
+            if isinstance(t, list):
+                return [tree(fn, v, s) for v, s in zip(t, sp)]
+            return fn(t, sp)
+
+        def whole_leaf(t, sp):
+            for i, e in enumerate(sp):
+                if e is not None:
+                    t = spmd._all_gather(t, i, e)
+            return t
+        local = tree(lambda t, sp: shard_local(t, sp, mesh), params, specs)
+        rng = np.random.default_rng(1)
+        tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                               (%(GB)d, %(S)d)))
+        dp = rules.dp
+        nd, rd = (spmd.size(dp), spmd.rank(dp)) if dp else (1, 0)
+        rows = slice(rd * %(GB)d // nd, (rd + 1) * %(GB)d // nd)
+        batch = {"tokens": tokens[rows]}
+        if cfg.family == "encdec":
+            batch["frames"] = torch.from_numpy(rng.standard_normal(
+                (%(GB)d, cfg.encoder_frames, cfg.d_model)).astype(np.float32)
+                )[rows]
+        loss, grads = value_and_grad(make_loss_fn(model, remat="none"), local,
+                                     batch)
+        loss, grads, norm = _sync(ctx, loss, grads)
+        counts = spmd.counts.as_dict()
+        grads = tree(whole_leaf, grads, specs)
+        if rank == 0:
+            flat = {}
+
+            def walk(t, p):
+                if isinstance(t, dict):
+                    for k, v in t.items():
+                        walk(v, p + "/" + k)
+                elif isinstance(t, list):
+                    for i, v in enumerate(t):
+                        walk(v, p + f"/{i}")
+                else:
+                    flat[p] = t.float().numpy()
+            walk(grads, "")
+            np.savez(f"{dst}{li}.npz", loss=loss.numpy(), norm=norm.numpy(),
+                     counts=np.array(json.dumps(counts)),
+                     seq_rows=np.array(sorted(spmd.seq_rows)), **flat)
     dist.barrier()          # no rank tears gloo down under another's read
     dist.destroy_process_group()
 """) % {"GB": 4, "S": 16}
 
 
-GRAD_CASES = [("smollm-135m", (2, 2)), ("qwen1.5-32b", (1, 4)),
-              ("gemma2-27b", (2, 2)), ("mamba2-2.7b", (2, 2)),
-              ("zamba2-7b", (2, 2)), ("qwen2-moe-a2.7b", (1, 4)),
-              ("deepseek-v2-236b", (1, 2)), ("pixtral-12b", (2, 2)),
-              ("whisper-tiny", (2, 2))]
-
-
-@pytest.mark.parametrize("arch,shape", GRAD_CASES,
-                         ids=[f"{a}-{s[0]}x{s[1]}" for a, s in GRAD_CASES])
-def test_sharded_gradients_match_whole(arch, shape, tmp_path):
-    """One training step's loss, gradients (gathered whole) and global
-    gradient norm on the ranks against unsharded autograd of the same
-    padded model (MoE layers on the capacity path, as ``moe_ep``), 1e-4
-    of the largest gradient: the f/g pairs, the FSDP gathers'
-    reduce-scatters, the sums of gradients of tensors every rank holds
-    whole, and the data-parallel sync."""
-    from repro_torch.training.optimizer import global_norm
-    from repro_torch.training.train_step import value_and_grad
+def run_grads(shape, layouts, dst, timeout=300):
+    """The GRAD ranks on a mesh of ``shape``, one training step's loss and
+    gradients under each layout of ``layouts`` (dicts: the ``arch``,
+    ``ShardingRules``' ``no_fsdp``/``dp_only``/``mlp_fsdp``, the dry-run's
+    ``seq_shard``, ``cfg`` overrides of the reduced config), in one set of
+    processes; rank 0's results, one npz a layout."""
     # one thread a rank: the ranks share the host with the other tests
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
     port, world = str(free_port()), shape[0] * shape[1]
-    dst = tmp_path / "grads.npz"
     procs = [subprocess.Popen(
-        [sys.executable, "-c", GRAD, str(r), str(world), port, arch,
-         str(list(shape)), str(dst)], env=env, stdout=subprocess.PIPE,
-        stderr=subprocess.PIPE, text=True) for r in range(world)]
+        [sys.executable, "-c", GRAD, str(r), str(world), port,
+         str(list(shape)), str(dst), json.dumps(layouts)], env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(world)]
     for p in procs:
-        _, err = p.communicate(timeout=300)
+        _, err = p.communicate(timeout=timeout)
         assert p.returncode == 0, err[-3000:]
-    got = np.load(dst)
-    cfg = get_reduced(arch)
-    model = build_model(cfg, pad_for_tp=shape[1], device="cpu")
+    return [np.load(f"{dst}{i}.npz") for i in range(len(layouts))]
+
+
+def whole_grads(arch, pad, cfg_over=None):
+    """The unsharded step's loss, global gradient norm and gradients (by
+    path) of the reduced ``arch`` padded for ``pad`` ranks, on GRAD's
+    batch."""
+    from repro_torch.training.optimizer import global_norm
+    from repro_torch.training.train_step import value_and_grad
+    cfg = get_reduced(arch).replace(**(cfg_over or {}))
+    model = build_model(cfg, pad_for_tp=pad, device="cpu")
     params = model.init_params(0)
     rng = np.random.default_rng(1)
     batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab_size,
@@ -322,9 +332,6 @@ def test_sharded_gradients_match_whole(arch, shape, tmp_path):
             loss = loss + model.AUX_WEIGHT * aux / max(cfg.n_layers, 1)
         return loss
     loss, grads = value_and_grad(loss_fn, params, batch)
-    assert float(got["loss"]) == pytest.approx(float(loss), rel=SPMD_TOL)
-    assert float(got["norm"]) == pytest.approx(float(global_norm(grads)),
-                                               rel=SPMD_TOL)
     flat = {}
 
     def walk(t, p):
@@ -337,6 +344,35 @@ def test_sharded_gradients_match_whole(arch, shape, tmp_path):
         else:
             flat[p] = t.float().numpy()
     walk(grads, "")
+    return float(loss), float(global_norm(grads)), flat
+
+
+def assert_grads_match(got, want):
+    """Loss and norm within SPMD_TOL relative, every gradient within
+    SPMD_TOL of the largest."""
+    loss, norm, flat = want
+    assert float(got["loss"]) == pytest.approx(loss, rel=SPMD_TOL)
+    assert float(got["norm"]) == pytest.approx(norm, rel=SPMD_TOL)
     top = max(float(np.abs(v).max()) for v in flat.values())
     for k, v in flat.items():
         assert float(np.abs(got[k] - v).max()) <= SPMD_TOL * top, k
+
+
+GRAD_CASES = [("smollm-135m", (2, 2)), ("qwen1.5-32b", (1, 4)),
+              ("gemma2-27b", (2, 2)), ("mamba2-2.7b", (2, 2)),
+              ("zamba2-7b", (2, 2)), ("qwen2-moe-a2.7b", (1, 4)),
+              ("deepseek-v2-236b", (1, 2)), ("pixtral-12b", (2, 2)),
+              ("whisper-tiny", (2, 2))]
+
+
+@pytest.mark.parametrize("arch,shape", GRAD_CASES,
+                         ids=[f"{a}-{s[0]}x{s[1]}" for a, s in GRAD_CASES])
+def test_sharded_gradients_match_whole(arch, shape, tmp_path):
+    """One training step's loss, gradients (gathered whole) and global
+    gradient norm on the ranks against unsharded autograd of the same
+    padded model (MoE layers on the capacity path, as ``moe_ep``), 1e-4
+    of the largest gradient: the f/g pairs, the FSDP gathers'
+    reduce-scatters, the sums of gradients of tensors every rank holds
+    whole, and the data-parallel sync."""
+    got, = run_grads(shape, [{"arch": arch}], tmp_path / "grads")
+    assert_grads_match(got, whole_grads(arch, shape[1]))
