@@ -15,8 +15,13 @@
 The --serve forms run only one model's serving phase (step 3, 5, 6, 9, 12
 or 13 below),
 ``--repeats`` times, each with the host's side of the run and the card's
-clocks after it, and with ``--trace`` what the card did during it
-(``device_timeline``); --epoch only the epoch phase (step 4), --resume only
+clocks after it, the profile of a decode step (``decode_step_profile``)
+or of each CNN stage (``cnn_stage_profile``), and with ``--trace`` what
+the card did during it (``device_timeline``); a ``serve_repeats`` line
+sums the runs up (runs with an HP miss, HP mean, p99 and max response).
+Copied into a checkout from before the compiled stage (``git archive``
+under ``build/``), the same forms measure that tree, without the
+``stage_graphs`` fields; --epoch only the epoch phase (step 4), --resume only
 the resume phase (step 7), --cluster only the cluster phase (step 8, the
 fleet over 4000 ms), --lm-paths only the kernel phase and steps 9-11,
 --families only the kernel phase and steps 12-15 with the Dh 160
@@ -91,7 +96,20 @@ result line. Without arguments:
    task's payload chain gives finite logits of the expected shape that
    match the unstaged ``decode_step``, and a cut-depth f32 model run on
    the card through the kernels matches the same model run on the CPU
-   through the plain versions.
+   through the plain versions. Each stage payload is a ``StageProgram``
+   (``serving/stage_graph.py``): a CUDA graph a (stage, lane stream),
+   captured in the lanes' warm-up and replayed for every job. The
+   ``serving`` line's ``stage_graphs`` gives the warm-up's captures and
+   their seconds (within ``warm_up_s``) and, over the run, the replays,
+   the launches they counted and the payload stages the lanes ran: every
+   one must have been a replay. Then the ``stage_graphs`` check: two jobs
+   of differing seeded inputs through the served task's payloads on two
+   new streams, interleaved (job A's stage k, then job B's, on stream k %
+   2), each stage against its eager stage function on the same state:
+   bit for bit for the LMs (output and cache slice), within ``CNN_TOL``
+   of the scale for the CNNs; a job's state must be what its last stage
+   made of it when its next stage reads it. Every served model of steps
+   3, 5, 6, 9, 12 and 13 runs it; ``phase_seconds`` gives its seconds.
 4. Epoch phase: one single-device simulated scenario (4 contexts x 6
    streams, twelve tasks, chaos with a brownout) on the heap engine, on
    ``engine("epoch")`` at its default threshold, and on ``engine("epoch")``
@@ -361,9 +379,11 @@ a CUDA tensor during a path, a flash-attention launch on the dense or MoE
 path took the CUDA-core instance, an SSD launch on the ssm or hybrid path
 took the CUDA-core instance, a worker caught an exception, no HP job
 completed, the three runs of the epoch phase or of a cluster scenario
-differ, a port kernel or its plain version ran on the CNN path, an output
-check failed, a restored scheduler state differs from its file, the second
-launcher run did not resume, the parameters did not round-trip bit for bit,
+differ, a port kernel or its plain version ran on the CNN path, a payload
+stage on a served lane was not a CUDA-graph replay, a ``stage_graphs``
+check failed, an output check failed, a restored scheduler state differs
+from its file, the second launcher run did not resume, the parameters did
+not round-trip bit for bit,
 the daemon example failed, the oracle was not ``ok`` on fig13_light or
 fig13_fail_1of4, an int8 check of step 11 failed, a planted fault
 agreed with a plain version, a step 12-15 instance or launch-shape check
@@ -1448,6 +1468,7 @@ def serving_phase(torch, failures, arch, n_layers, jps, kernels,
     _, launches, instances, _ = serve(torch, failures, specs,
                                       time.perf_counter() - t0, jps,
                                       kernels, desc, trace=trace)
+    stage_graph_check(torch, cfg.name, specs[0], failures)
     return model, params, specs[0], launches, instances
 
 
@@ -1501,6 +1522,14 @@ def serve(torch, failures, specs, setup_s, jps, kernels, desc, trace=False,
     instances = {n: dict(KERNELS[n].counts.by_instance) for n in kernels
                  if KERNELS[n].counts.by_instance}
     be = srv.backend
+    graphs = be.graph_summary() if has_stage_graphs() else None
+    SERVED.append({"model": name, "hp_missed": m.missed[HP],
+                   "hp_response_ms": list(m.response_ms[HP])})
+    if graphs is not None and (graphs["stage_runs"] == 0
+                               or graphs["replays"] != graphs["stage_runs"]):
+        failures.append(f"{name}: {graphs['stage_runs']} payload stages "
+                        f"ran on the lanes, {graphs['replays']} of them "
+                        f"CUDA-graph replays (every one must be)")
     emit({"serving": {
         **desc, "sm_count": sm,
         "jobs_per_s": jps, "setup_s": setup_s, "horizon_ms": HORIZON_MS,
@@ -1514,12 +1543,18 @@ def serve(torch, failures, specs, setup_s, jps, kernels, desc, trace=False,
         "mean_response_ms": {
             "hp": m.resp_stats(HP)["mean"] if m.response_ms[HP] else None,
             "lp": m.resp_stats(LP)["mean"] if m.response_ms[LP] else None},
+        "p99_response_ms": {
+            "hp": m.resp_stats(HP)["p99"] if m.response_ms[HP] else None,
+            "lp": m.resp_stats(LP)["p99"] if m.response_ms[LP] else None},
         "migrations": m.migrations,
         # before the clock starts; in host's wall and CPU seconds
         "warm_up_s": be.warm_s,
         "worker_exceptions": be.worker_exceptions,
         "last_worker_exception": repr(be.last_worker_exception),
         "stage_times": be.stage_time_summary(),
+        # the stage programs' CUDA graphs: captured in the warm-up (within
+        # warm_up_s), one replay a payload stage run on a lane after it
+        "stage_graphs": graphs,
         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
         "launches": launches, "launches_by_instance": instances,
         "host": host,
@@ -1533,6 +1568,125 @@ def serve(torch, failures, specs, setup_s, jps, kernels, desc, trace=False,
     if m.completed[HP] == 0:
         failures.append(f"{name}: no HP job completed")
     return m, launches, instances, srv
+
+
+# seconds of each served model's stage_graphs check (``phase_seconds``)
+STAGE_GRAPH_S = {}
+# each served run's HP side, in order (``serve_repeats`` sums them up)
+SERVED = []
+
+
+def has_stage_graphs() -> bool:
+    """Whether the port beside this script compiles its stages
+    (``serving/stage_graph.py``): not so in a checkout from before it,
+    where this script runs as the other side of an A/B (``--serve``)."""
+    import importlib.util
+    return importlib.util.find_spec("repro_torch.serving.stage_graph") \
+        is not None
+
+
+def eager_payload(payload):
+    """``payload`` with its stage program's function called in place of the
+    program (an LM payload's ``program`` keyword, or the CNN payload, a
+    ``StageProgram``, itself): the eager stage the compiled one is held
+    to."""
+    import functools
+    if isinstance(payload, functools.partial):
+        prog = payload.keywords["program"]
+        return functools.partial(payload.func,
+                                 **{**payload.keywords, "program": prog.fn})
+    return payload.fn
+
+
+def stage_graph_check(torch, name, spec, failures, tol=None):
+    """The ``stage_graphs`` phase for one served model: two jobs (seeded
+    inputs that differ: tokens for an LM, images for a CNN) through the
+    served task's compiled payloads on two lane streams, interleaved (job
+    A's stage k, then job B's, on stream k % 2: B's replay on A's lane
+    overwrites the graph's static outputs A's state came from), each stage
+    held to its eager stage function run from the same input state. An
+    LM's output and cache slice must be bit-identical (``tol`` None), a
+    CNN's within ``tol`` of the output's scale; a job's state must still
+    be what its last stage made of it when its next stage reads it, and
+    at the end. Emits the ``stage_graphs`` line with the captures,
+    replays and seconds."""
+    import numpy as np
+
+    if not has_stage_graphs():
+        return
+    from repro_torch.kernels import _lib
+    from torch.utils._pytree import tree_flatten
+
+    t0 = time.perf_counter()
+    g0 = _lib.stage_graphs.snapshot()
+    rng = np.random.default_rng(11)
+    payloads = [st.payload for st in spec.stages]
+    lm = tol is None
+    if lm:      # tokens below 200: below every vocabulary, reduced ones too
+        fresh = payloads[0].keywords["fresh"]
+        states = [{"hidden": torch.from_numpy(rng.integers(
+            0, 200, tuple(fresh.shape))).to(fresh.device, torch.int32),
+            "slices": {}} for _ in range(2)]
+    else:
+        states = [torch.from_numpy(rng.standard_normal(
+            (spec.batch, CNN_HW, CNN_HW, 3)).astype(np.float32)).cuda()
+            for _ in range(2)]
+
+    def leaves(state):
+        return tree_flatten(state)[0]
+
+    def unchanged(j):
+        return kept[j] is None or all(
+            torch.equal(a, b) for a, b in zip(leaves(states[j]), kept[j]))
+
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    worst, same, held = 0.0, True, True
+    kept = [None, None]       # each job's state as its last stage made it
+    for k, p in enumerate(payloads):
+        for j in range(2):
+            held = held and unchanged(j)
+            with torch.cuda.stream(streams[k % 2]):
+                out = p(states[j])
+            torch.cuda.synchronize()
+            ref = eager_payload(p)(states[j])
+            torch.cuda.synchronize()
+            for a, b in zip(leaves(out), leaves(ref)):
+                if lm:
+                    same = same and torch.equal(a, b)
+                else:
+                    scale = max(1.0, float(b.abs().max()))
+                    worst = max(worst, float((a - b).abs().max()) / scale)
+            states[j] = out
+            kept[j] = [t.clone() for t in leaves(out)]
+    torch.cuda.synchronize()
+    held = held and unchanged(0) and unchanged(1)
+    g1 = _lib.stage_graphs.snapshot()
+    seconds = time.perf_counter() - t0
+    STAGE_GRAPH_S[name] = seconds
+    line = {"model": name, "stages": len(payloads), "jobs": 2, "streams": 2,
+            "captures": g1["captures"] - g0["captures"],
+            "capture_s": g1["capture_s"] - g0["capture_s"],
+            "replays": g1["replays"] - g0["replays"],
+            "replayed_launches": (g1["replayed_launches"]
+                                  - g0["replayed_launches"]),
+            "states_held": held, "seconds": seconds}
+    if lm:
+        line["bit_identical"] = same
+    else:
+        line.update(max_rel_err=worst, tol=tol)
+    emit({"stage_graphs": line})
+    if not held:
+        failures.append(f"{name}: a job's state changed after its stage "
+                        f"(a later replay overwrote it)")
+    if lm and not same:
+        failures.append(f"{name}: compiled stages differ from the eager "
+                        f"ones on the same state")
+    if not lm and not worst <= tol:
+        failures.append(f"{name}: compiled CNN stages differ from the eager "
+                        f"ones by {worst} of the output's scale (> {tol})")
+    if line["replays"] != 2 * len(payloads):
+        failures.append(f"{name}: {line['replays']} replays for "
+                        f"{2 * len(payloads)} compiled stage calls")
 
 
 def schedcheck_served(name, report, m) -> dict:
@@ -2034,6 +2188,12 @@ def cluster_phase(torch, failures, fleet_horizon_ms=FLEET_HORIZON_MS):
         if not res.ok:
             failures.append(f"SchedCheck oracle on {name}: {res.violations}")
     return launches
+
+
+def percentile(xs, q: float) -> float:
+    """The ``q``-th percentile of ``xs``, interpolated as numpy's."""
+    import numpy as np
+    return float(np.percentile(np.asarray(xs), q))
 
 
 def finite(x: float):
@@ -2898,6 +3058,7 @@ def cnn_serving_phase(torch, failures, name, trace=False):
     if ran:
         failures.append(f"{name}: port kernels or their plain versions ran "
                         f"on the CNN path (launches, plain CUDA calls): {ran}")
+    stage_graph_check(torch, name, specs[0], failures, tol=CNN_TOL)
     return specs[0]
 
 
@@ -2918,8 +3079,11 @@ def cnn_stage_profile(torch, spec, reps: int = 5):
         try:
             call()
             wall_ms, kern = profiled(torch, call, reps)
+            # a replay dispatches no operator: count the stage function's
+            # (a checkout before the compiled stage: the payload's own)
             with FlopCounterMode(display=False) as fc:
-                out = call()
+                getattr(st.payload, "fn", st.payload)(state)
+            out = call()
             flops = fc.get_flop_counts().get("Global", {})
             conv = sum(n for op, n in flops.items() if "convolution" in str(op))
             busy = busy_us(kern) / 1e3 / reps
@@ -4662,14 +4826,22 @@ def serve_repeats(torch, arch: str, repeats: int, trace: bool) -> int:
     depth = {MLA_ARCH: MLA_LAYERS, GEMMA_ARCH: GEMMA_LAYERS}.get(arch)
     heavy = arch in (MOE_ARCH, MLA_ARCH, GEMMA_ARCH)
     runs = []
+    SERVED.clear()
     for i in range(repeats):
         failures = []
+        # after the run, where each stage's (or decode step's) time goes
         if arch in CNN_WIDTHS:
-            cnn_serving_phase(torch, failures, arch, trace=trace)
+            spec = cnn_serving_phase(torch, failures, arch, trace=trace)
+            emit({"cnn_stage_profile": {
+                "model": arch, "stages": cnn_stage_profile(torch, spec)[0]}})
         else:
-            serving_phase(torch, failures, arch, depth, jps, path,
-                          trace=trace,
-                          max_load=MOE_MAX_LOAD if heavy else None)
+            spec = serving_phase(torch, failures, arch, depth, jps, path,
+                                 trace=trace,
+                                 max_load=MOE_MAX_LOAD if heavy else None)[2]
+            emit({"decode_step_profile": {
+                "model": arch, **profile_step(torch, staged_step(spec)),
+                "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}})
+        del spec
         free_card(torch)
         try:
             clocks = subprocess.run(
@@ -4682,8 +4854,15 @@ def serve_repeats(torch, arch: str, repeats: int, trace: bool) -> int:
         emit({"after_run": {"run": i, "card": clocks,
                             "failures": failures}})
         runs.append(not failures)
-    emit({"serve_repeats": {"model": arch, "runs": repeats,
-                            "runs_without_failure": sum(runs)}})
+    hp = [r for run in SERVED for r in run["hp_response_ms"]]
+    emit({"serve_repeats": {
+        "model": arch, "runs": repeats, "runs_without_failure": sum(runs),
+        "runs_with_hp_miss": sum(1 for run in SERVED if run["hp_missed"]),
+        "hp_missed": sum(run["hp_missed"] for run in SERVED),
+        "hp_completed": len(hp),
+        "hp_mean_ms": statistics.fmean(hp) if hp else None,
+        "hp_p99_ms": percentile(hp, 99) if hp else None,
+        "hp_max_ms": max(hp) if hp else None}})
     return 0 if all(runs) else 1
 
 
@@ -4880,6 +5059,9 @@ def main() -> int:
 
     with phase("cluster_path"):
         cluster = cluster_phase(torch, failures)
+    # within the served paths' seconds: each model's stage_graphs check
+    seconds["stage_graphs"] = dict(STAGE_GRAPH_S,
+                                   total=sum(STAGE_GRAPH_S.values()))
     emit({"phase_seconds": seconds})
     emit({"phase_peak_memory_gb": peaks})
 

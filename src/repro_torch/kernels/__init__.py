@@ -8,8 +8,11 @@ wrapper carries ``.counts`` (launches, plain calls, plain calls on CUDA
 tensors, and launches by instance where the wrapper picks one, as flash
 attention does, or launches two, as decode attention does, with each
 one's last grid where the wrapper records it) so that a run can show
-which path it went through.
+which path it went through. A replayed stage program (a CUDA graph) adds
+the launches its capture recorded to these counts at each replay, and
+``_lib.stage_graphs`` counts its captures and replays.
 """
+from . import _lib
 from . import contention_eta as _ce
 from . import decode_attention as _dec
 from . import flash_attention as _fa
@@ -30,6 +33,7 @@ KERNELS = {
 def reset_counts() -> None:
     for fn in KERNELS.values():
         fn.counts.reset()
+    _lib.stage_graphs.reset()
 
 
 __all__ = ["KERNELS", "reset_counts"]

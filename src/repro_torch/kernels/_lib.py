@@ -77,6 +77,8 @@ _SIGNATURES = {
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 build_log = ""        # nvcc's output (-Xptxas -v: registers, shared memory)
+# this thread's open ``recording()`` log, if any
+_recording = threading.local()
 
 
 class Counts:
@@ -106,6 +108,10 @@ class Counts:
     def launched(self, instance: Optional[str] = None,
                  grid: Optional[Tuple[int, ...]] = None,
                  shape: Optional[str] = None) -> None:
+        log = getattr(_recording, "log", None)
+        if log is not None:           # a capture: counted at each replay
+            log.calls.append((self, instance, grid, shape))
+            return
         with self._lock:
             self.launches += 1
             if instance is not None:
@@ -137,6 +143,70 @@ class Counts:
             self.grids = {}
             self.by_shape = {}
             self.backward_by_shape = {}
+
+
+class LaunchLog:
+    """The ``Counts.launched`` calls one thread made inside ``recording()``,
+    kept instead of counted. A CUDA graph's replay launches the kernels
+    its capture enqueued without entering the wrappers' Python code, so
+    ``replay`` counts the capture's launches once more at each replay."""
+
+    def __init__(self) -> None:
+        self.calls: list = []
+
+    def replay(self) -> int:
+        for counts, instance, grid, shape in self.calls:
+            counts.launched(instance, grid, shape)
+        return len(self.calls)
+
+
+@contextlib.contextmanager
+def recording():
+    """Within the block, this thread's kernel launches go to the yielded
+    ``LaunchLog`` rather than to the wrappers' counts (a CUDA graph's
+    capture, whose kernels run only when it is replayed)."""
+    log = LaunchLog()
+    outer = getattr(_recording, "log", None)
+    _recording.log = log
+    try:
+        yield log
+    finally:
+        _recording.log = outer
+
+
+class GraphCounts:
+    """The stage programs' CUDA graphs (``serving/stage_graph.py``):
+    captures and their host seconds (each with its eager warm-up call),
+    replays, and the kernel launches the replays added to the wrappers'
+    counts."""
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self.reset()
+
+    def captured(self, seconds: float) -> None:
+        with self._lock:
+            self.captures += 1
+            self.capture_s += seconds
+
+    def replayed(self, launches: int) -> None:
+        with self._lock:
+            self.replays += 1
+            self.replayed_launches += launches
+
+    def snapshot(self) -> Dict[str, float]:
+        with self._lock:
+            return {"captures": self.captures, "capture_s": self.capture_s,
+                    "replays": self.replays,
+                    "replayed_launches": self.replayed_launches}
+
+    def reset(self) -> None:
+        with self._lock:
+            self.captures = self.replays = self.replayed_launches = 0
+            self.capture_s = 0.0
+
+
+stage_graphs = GraphCounts()
 
 
 def _nvcc() -> str:

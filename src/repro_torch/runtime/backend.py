@@ -53,6 +53,7 @@ import numpy as np
 import torch
 
 from ..core.task import Job, StageInstance
+from ..kernels._lib import stage_graphs
 from .contention import batch_cost, batched_stage_ms
 from .engine_core import Completion, EngineCore
 
@@ -598,6 +599,11 @@ class RealtimeBackend:
         self.ctx_devices: Dict[int, object] = dict(ctx_devices or {})
         self.resharded = 0
         self.warm_s = 0.0          # wall seconds of the lanes' warm-up
+        # the stage programs' graph counts (``_lib.stage_graphs``) before
+        # and after the warm-up, and payload stages the workers ran since
+        self._graphs_warm: Dict[str, Dict[str, float]] = {}
+        self.stage_runs = 0
+        self._runs_lock = threading.Lock()
         # lane -> its CUDA stream (made on the engine thread at first launch)
         self._streams: Dict[tuple, object] = {}
         # stage name -> [completions, wall ms sum, device-timed completions,
@@ -643,10 +649,13 @@ class RealtimeBackend:
 
     def start(self) -> None:
         self._ensure_pool()
+        before = stage_graphs.snapshot()
         if self.device.type == "cuda":
             t0 = time.perf_counter()
             self._warm_lanes()
             self.warm_s = time.perf_counter() - t0
+        self._graphs_warm = {"before": before,
+                             "after": stage_graphs.snapshot()}
         self._t0 = time.perf_counter()
 
     def _lane_stream(self, lane: tuple):
@@ -663,7 +672,10 @@ class RealtimeBackend:
         allocator keeps its blocks per stream, so without this the first
         stages of each lane pay for both while their jobs wait: the lanes'
         threads burn CPU, the card idles and the first HP jobs of a served
-        run miss their deadlines. The workers take their turns one at a
+        run miss their deadlines. The staged payloads' stage programs
+        capture their CUDA graph for each lane's stream here too
+        (``graph_summary``: captures and their seconds, within
+        ``warm_s``). The workers take their turns one at a
         time: on an H100, four threads warming staged mamba2-2.7b decode at
         once took 4.5-5.5 s in all, one at a time 0.8-1.2 s. Tasks with a
         synthetic stage (no payload) are not run."""
@@ -702,6 +714,28 @@ class RealtimeBackend:
 
     def stop(self) -> None:
         self._pool.stop()
+
+    def graph_summary(self) -> Dict[str, float]:
+        """The stage programs' CUDA graphs around this run: captures and
+        their host seconds in the lanes' warm-up (within ``warm_s``),
+        captures and replays since the clock started (a lane made after
+        the start captures at its first launch), the kernel launches those
+        replays counted, and the payload stages the workers ran since
+        (each one replay on the card). Counts are process-wide
+        (``kernels._lib.stage_graphs``), so nothing else may replay a
+        stage program meanwhile."""
+        before = self._graphs_warm.get("before", {})
+        after = self._graphs_warm.get("after", {})
+        now = stage_graphs.snapshot()
+
+        def since(a, b, k):
+            return b.get(k, 0) - a.get(k, 0)
+        return {"warm_captures": since(before, after, "captures"),
+                "warm_capture_s": since(before, after, "capture_s"),
+                "captures": since(after, now, "captures"),
+                "replays": since(after, now, "replays"),
+                "replayed_launches": since(after, now, "replayed_launches"),
+                "stage_runs": self.stage_runs}
 
     @property
     def worker_exceptions(self) -> int:
@@ -817,6 +851,7 @@ class RealtimeBackend:
             out = self._job_state.get(inst.job.job_id)
         elif stream is None:
             out = prof.payload(self._stage_input(inst, lane))
+            self._ran_stage()
         else:
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
@@ -831,8 +866,13 @@ class RealtimeBackend:
             # the stage is done when the stream is: time to that point
             end.synchronize()
             dev_ms = start.elapsed_time(end)
+            self._ran_stage()
         et_ms = (time.perf_counter() - t0) * 1000.0
         self._done_q.put((lane, inst, et_ms, out, token, failed, dev_ms))
+
+    def _ran_stage(self) -> None:
+        with self._runs_lock:
+            self.stage_runs += 1
 
     def _stage_input(self, inst: StageInstance, lane: tuple) -> object:
         """The job's inter-stage state (moved to this lane's context if it

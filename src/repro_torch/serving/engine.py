@@ -2,14 +2,19 @@
 decode.
 
 Counterpart of ``staged_cnn_taskspec`` and ``staged_lm_taskspec`` in
-src/repro/serving/engine.py. The stage functions run eagerly (PyTorch has
-no ``jit`` the port needs); a payload runs on whatever stream is current,
-which the realtime backend sets to the lane's own. ``t_alone`` per stage is
-one timed call after one warm-up call (which also takes cuDNN's first-call
-set-up), ended by a stream synchronize.
+src/repro/serving/engine.py. As the reference jits each stage function
+once, each stage here is a ``StageProgram`` (``serving/stage_graph.py``):
+on the card a CUDA graph a stream, captured at its first call on that
+stream and replayed for every later job; on the CPU the stage function
+called eagerly. A payload runs on whatever stream is current, which the
+realtime backend sets to the lane's own. ``t_alone`` per stage is one
+timed call after one warm-up call (on the card the warm-up captures, so
+the timed call is a replay, as the reference times its jitted call after
+the compile call), ended by a stream synchronize.
 """
 from __future__ import annotations
 
+import functools
 import time
 from typing import Optional
 
@@ -19,13 +24,16 @@ import torch
 from ..core.task import StageProfile, TaskSpec
 from ..device import DeviceLike, resolve_device, synchronize
 from ..models.cnn import StagedCNN
+from .stage_graph import StageProgram
 from .staging import make_lm_stage_fns, slice_cache
 
-__all__ = ["staged_cnn_taskspec", "staged_lm_taskspec"]
+__all__ = ["lm_stage", "staged_cnn_taskspec", "staged_lm_taskspec"]
 
 
 def _calibrate(payloads, state, dev) -> list:
-    """ms of one call of each payload in turn, after a warm-up call."""
+    """ms of one call of each payload in turn, after a warm-up call (on
+    the card the stage program's capture, so the timed call is a
+    replay)."""
     times = []
     for fn in payloads:
         fn(state)                                 # warm-up
@@ -53,9 +61,9 @@ def staged_cnn_taskspec(model: StagedCNN, *, priority: int, jps: float,
                         device: DeviceLike = None,
                         params: Optional[dict] = None) -> TaskSpec:
     """Wrap a StagedCNN into a TaskSpec whose stage payloads are its stage
-    functions; ``t_alone`` is measured on this device (AFET-style) from an
-    NHWC zero input of ``batch x input_hw x input_hw x 3``, or 1.0 ms a
-    stage with ``calibrate=False``.
+    functions, each a ``StageProgram``; ``t_alone`` is measured on this
+    device (AFET-style) from an NHWC zero input of ``batch x input_hw x
+    input_hw x 3``, or 1.0 ms a stage with ``calibrate=False``.
 
     Everything runs on the card unless ``device`` names another device,
     which must be the model's (``BUILDERS[name](device=...)``); there the
@@ -64,7 +72,9 @@ def staged_cnn_taskspec(model: StagedCNN, *, priority: int, jps: float,
     dev = _resolve_model_device(model, device)
     if params is None:
         params = model.params
-    payloads = [(lambda s, st=st: st(params, s)) for st in model.stages]
+    payloads = [StageProgram(lambda s, st=st: st(params, s),
+                             name=f"{model.name}/s{j}")
+                for j, st in enumerate(model.stages)]
     if calibrate:
         x0 = torch.zeros((batch, input_hw, input_hw, 3), dtype=torch.float32,
                          device=dev)
@@ -79,6 +89,22 @@ def staged_cnn_taskspec(model: StagedCNN, *, priority: int, jps: float,
                     priority=priority, stages=stages, batch=batch)
 
 
+def lm_stage(state, *, stage: int, program, donor_slice: dict,
+             fresh: torch.Tensor) -> dict:
+    """Stage ``stage`` of a staged LM decode step: the job's hidden state
+    (a fresh job's: one new token a sequence, ``fresh``) and this stage's
+    cache slice (the job's own where it has one, else the donor's)
+    through ``program``; the updated slice joins the job's state, so a
+    migration moves hidden AND cache."""
+    if state is None or not isinstance(state, dict):
+        state = {"hidden": fresh, "slices": {}}
+    sl = state["slices"].get(stage)
+    if sl is None:
+        sl = donor_slice
+    h, new_sl = program(state["hidden"], sl)
+    return {"hidden": h, "slices": {**state["slices"], stage: new_sl}}
+
+
 def staged_lm_taskspec(model, *, priority: int, jps: float,
                        n_stages: int = 4, prompt_len: int = 16,
                        batch: int = 2, tag: str = "",
@@ -88,7 +114,8 @@ def staged_lm_taskspec(model, *, priority: int, jps: float,
     """Wrap a staged LM decode step into a TaskSpec with real payloads.
 
     Each job is ONE decode step split across ``n_stages`` stage programs
-    (``serving.staging.make_lm_stage_fns``). The inter-stage state is the
+    (``serving.staging.make_lm_stage_fns``, each a ``StageProgram``; each
+    payload a ``lm_stage``). The inter-stage state is the
     hidden activation plus the KV-cache slices touched so far: each stage
     takes its layer slice of a prefilled donor cache
     (``serving.staging.slice_cache``) and threads the updated slice
@@ -110,22 +137,14 @@ def staged_lm_taskspec(model, *, priority: int, jps: float,
         params, {"tokens": tokens,
                  "cache": model.init_cache(batch, prompt_len + 1)})
     pos = torch.tensor([prompt_len], dtype=torch.int32, device=dev)
-
-    def make_payload(i):
-        def payload(state):
-            if state is None or not isinstance(state, dict):
-                # fresh job: one new token per sequence
-                state = {"hidden": torch.zeros((batch, 1), dtype=torch.int32,
-                                               device=dev),
-                         "slices": {}}
-            sl = state["slices"].get(i)
-            if sl is None:
-                sl = slice_cache(cfg, donor, i, n_stages)
-            h, new_sl = stage_fns[i](params, state["hidden"], sl, pos)
-            return {"hidden": h, "slices": {**state["slices"], i: new_sl}}
-        return payload
-
-    payloads = [make_payload(i) for i in range(n_stages)]
+    fresh = torch.zeros((batch, 1), dtype=torch.int32, device=dev)
+    payloads = [functools.partial(
+        lm_stage, stage=i, fresh=fresh,
+        donor_slice=slice_cache(cfg, donor, i, n_stages),
+        program=StageProgram(
+            lambda h, sl, fn=fn: fn(params, h, sl, pos),
+            name=f"{cfg.name}/lm-s{i}"))
+        for i, fn in enumerate(stage_fns)]
     times = _calibrate(payloads, None, dev)
     stages = [StageProfile(name=f"{cfg.name}/lm-s{j}", t_alone_ms=t,
                            n_sat=n_sat, mem_frac=mem_frac,

@@ -234,6 +234,96 @@ def test_realtime_staged_lm_decode_on_cuda_streams():
     assert all(fn.counts.plain_cuda_calls == 0 for fn in KERNELS.values())
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["smollm-135m", "resnet18"])
+def test_stage_programs_replay_on_two_streams(name):
+    """Each staged payload is a CUDA graph a stream: two jobs through the
+    payloads on two streams, interleaved, equal the eager stage
+    functions (the LM bit for bit, the CNN within 2e-4 of the scale);
+    each call after a stream's first is one replay, which counts its
+    capture's launches again."""
+    _need_cuda()
+    import functools
+
+    from repro_torch.kernels import KERNELS, _lib, reset_counts
+    if name == "smollm-135m":
+        model = build_model(get_reduced(name).replace(n_layers=8,
+                                                      dtype="bfloat16"))
+        spec = staged_lm_taskspec(model, priority=api.HP, jps=20.0, batch=2)
+        states = [{"hidden": torch.full((2, 1), t, dtype=torch.int32,
+                                        device="cuda"), "slices": {}}
+                  for t in (3, 7)]
+    else:
+        model = BUILDERS[name](width=8)
+        spec = staged_cnn_taskspec(model, priority=api.HP, jps=20.0,
+                                   input_hw=33, batch=2)
+        g = torch.Generator().manual_seed(0)
+        states = [torch.randn((2, 33, 33, 3), generator=g).cuda()
+                  for _ in range(2)]
+
+    def eager(p):
+        if isinstance(p, functools.partial):
+            return functools.partial(p.func, **{
+                **p.keywords, "program": p.keywords["program"].fn})
+        return p.fn
+
+    def leaves(t):
+        if isinstance(t, dict):
+            return [x for v in t.values() for x in leaves(v)]
+        if isinstance(t, (list, tuple)):
+            return [x for v in t for x in leaves(v)]
+        return [t]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    reset_counts()
+    for k, st in enumerate(spec.stages):
+        for j in range(2):
+            with torch.cuda.stream(streams[k % 2]):
+                out = st.payload(states[j])
+            torch.cuda.synchronize()
+            ref = eager(st.payload)(states[j])
+            for a, b in zip(leaves(out), leaves(ref)):
+                if name == "smollm-135m":
+                    assert torch.equal(a, b)
+                else:
+                    scale = max(1.0, float(b.abs().max()))
+                    assert float((a - b).abs().max()) <= 2e-4 * scale
+            states[j] = out
+    g = _lib.stage_graphs.snapshot()
+    assert g["captures"] == len(spec.stages)          # one a stream
+    assert g["replays"] == 2 * len(spec.stages)
+    launched = sum(fn.counts.launches for fn in KERNELS.values())
+    if name == "smollm-135m":
+        # a stage's 2 replays count again what its warm-up call and the
+        # 2 eager references launch: 5 runs of it in all
+        assert g["replayed_launches"] > 0
+        assert 2 * launched == 5 * g["replayed_launches"]
+    assert all(fn.counts.plain_cuda_calls == 0 for fn in KERNELS.values())
+
+
+@pytest.mark.cuda
+def test_lanes_made_mid_run_capture_while_others_replay():
+    """A reconfigure adds contexts, and so lanes, after the clock started:
+    their stage programs capture at their first launch while the other
+    lanes replay (thread-local capture). Every payload stage the lanes
+    ran is still one replay."""
+    _need_cuda()
+    model = build_model(get_reduced("smollm-135m").replace(n_layers=8,
+                                                           dtype="bfloat16"))
+    specs = [staged_lm_taskspec(model, priority=p, jps=40.0, batch=2,
+                                tag=tag)
+             for p, tag in ((api.HP, "-hp"), (api.LP, "-lp"))]
+    srv = (api.ServerConfig.realtime().tasks(specs).contexts(2).streams(2)
+           .oversubscribe(2.0).device(api.DeviceModel(n_units=2.0))
+           .reconfigure_at(300.0, n_contexts=4)
+           .horizon_ms(900.0).build())
+    m = srv.run()
+    g = srv.backend.graph_summary()
+    assert m.completed[api.HP] > 0
+    assert srv.backend.worker_exceptions == 0
+    assert g["warm_captures"] > 0 and g["captures"] > 0
+    assert g["replays"] == g["stage_runs"] > 0
+
+
 def _to_cpu(tree):
     if isinstance(tree, dict):
         return {k: _to_cpu(v) for k, v in tree.items()}

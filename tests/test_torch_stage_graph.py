@@ -1,0 +1,406 @@
+"""The compiled stage (``repro_torch.serving.stage_graph``) on the CPU.
+
+A ``StageProgram`` keeps static buffers a lane and takes three steps a call
+under the lane's lock: copy in, run, copy out. On the card the run is a
+CUDA graph's replay; on the CPU the eager call. These tests run that
+discipline with both: the CPU's eager call, and ``CpuGraph``, which takes
+the card's path (a warm-up call, the capture's launches recorded, static
+outputs written in place at each replay, the recorded launches counted
+again) except the capture and replay calls themselves.
+
+- Two jobs go stage by stage through the same programs on two lanes (two
+  worker threads), interleaved: each job's state (hidden and every cache
+  slice, or the CNN's maps) is bit-identical to that job run alone through
+  the eager stage functions; no job state shares storage with a
+  program's static tensors, and overwriting those leaves every job's
+  state as it was.
+- Many threads on one lane: the lock keeps each call's copy in, run and
+  copy out together.
+- A replay adds its capture's launches (by instance and shape) once.
+- The payloads still equal the reference's jitted stages: reduced
+  smollm-135m within ``test_torch_model.py``'s 1e-4, a reduced ResNet18
+  within ``test_torch_cnn.py``'s 2e-4 of the output's scale.
+"""
+import concurrent.futures
+import functools
+import sys
+import threading
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+from torch.utils._pytree import tree_flatten  # noqa: E402
+
+import repro.models.cnn as ref_cnn  # noqa: E402
+from repro.configs import get_reduced as jax_get_reduced  # noqa: E402
+from repro.models import build_model as jax_build_model  # noqa: E402
+from repro.serving import engine as ref_engine  # noqa: E402
+
+from repro_torch import api  # noqa: E402
+from repro_torch.configs import get_reduced  # noqa: E402
+from repro_torch.kernels import KERNELS, _lib, reset_counts  # noqa: E402
+from repro_torch.models import (BUILDERS, build_model,  # noqa: E402
+                                cnn_params_from_jax, params_from_jax)
+from repro_torch.serving import stage_graph  # noqa: E402
+from repro_torch.serving.engine import (staged_cnn_taskspec,  # noqa: E402
+                                        staged_lm_taskspec)
+
+LM_TOL = dict(rtol=1e-4, atol=1e-4)     # test_torch_model.py's
+CNN_TOL = 2e-4                          # test_torch_cnn.py's, of the scale
+N_STAGES, BATCH, PROMPT = 4, 2, 8
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Small tensors: one intra-op thread keeps these tests from taking
+    every core from wall-clock tests in other workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+class CpuGraph(stage_graph._Graph):
+    """The card's run on the CPU but for the capture and replay calls: the
+    capture records the launches of an eager call, and a replay writes the
+    eager call's results into the static outputs without counting (the
+    wrappers' Python code never runs at a replay on the card)."""
+
+    def _capture(self, fn, args):
+        fn(*args)                                   # the warm-up call
+        with _lib.recording() as self.log:
+            out = fn(*args)
+        self.fn, self.args = fn, args
+        return out
+
+    def _replay(self):
+        with _lib.recording():
+            new = self.fn(*self.args)
+        for s, t in zip(tree_flatten(self.out)[0], tree_flatten(new)[0]):
+            s.copy_(t)
+
+
+class CpuGraphProgram(stage_graph.StageProgram):
+    def _runner(self, device):
+        return CpuGraph
+
+
+class OneLaneProgram(CpuGraphProgram):
+    """Every thread on one lane, as two workers on one stream are."""
+
+    def _lane_of(self, device):
+        return "one lane"
+
+
+def _program(payload):
+    return (payload.keywords["program"] if isinstance(
+        payload, functools.partial) else payload)
+
+
+def _with_program(payload, program):
+    """``payload`` with ``program`` in place of its stage program (an LM
+    payload's keyword, or the CNN payload itself)."""
+    if isinstance(payload, functools.partial):
+        return functools.partial(payload.func,
+                                 **{**payload.keywords, "program": program})
+    return program
+
+
+def _eager(payload):
+    """The payload with its stage function called directly."""
+    return _with_program(payload, _program(payload).fn)
+
+
+# ------------------------------------------------------------------ models
+@functools.lru_cache(maxsize=None)
+def _lm_model():
+    return build_model(get_reduced("smollm-135m").replace(n_layers=4),
+                       device="cpu")
+
+
+def _lm_spec():
+    model = _lm_model()
+    return staged_lm_taskspec(model, priority=api.HP, jps=10.0,
+                              n_stages=N_STAGES, prompt_len=PROMPT,
+                              batch=BATCH, device="cpu",
+                              params=model.init_params(0))
+
+
+def _cnn_spec(name):
+    model = BUILDERS[name](width=8, device="cpu")
+    return staged_cnn_taskspec(model, priority=api.HP, jps=10.0,
+                               input_hw=33, batch=2, calibrate=False,
+                               device="cpu")
+
+
+def _job_inputs(name, vocab=None):
+    """Two jobs' first-stage inputs, made different so that one job's
+    result showing up in the other's state is seen."""
+    rng = np.random.default_rng(5)
+    if name == "smollm-135m":
+        return [{"hidden": torch.from_numpy(
+                    rng.integers(0, vocab, (BATCH, 1))).to(torch.int32),
+                 "slices": {}} for _ in range(2)]
+    return [torch.from_numpy(rng.standard_normal((2, 33, 33, 3))
+                             .astype(np.float32)) for _ in range(2)]
+
+
+def _spec(name):
+    return _lm_spec() if name == "smollm-135m" else _cnn_spec(name)
+
+
+def _leaves(state):
+    return tree_flatten(state)[0]
+
+
+def _statics(payloads):
+    """Every static tensor the payloads' programs hold: inputs, and the
+    outputs a graph's replays write."""
+    out = []
+    for p in payloads:
+        for lane in _program(p)._lanes.values():
+            out += lane.inputs
+            if isinstance(lane.runner, CpuGraph):
+                out += _leaves(lane.runner.out)
+    return out
+
+
+MODELS = ["smollm-135m", "resnet18", "unet"]
+PROGRAMS = {"eager": stage_graph.StageProgram, "graph": CpuGraphProgram}
+
+
+def _interleaved(name, kind):
+    """Jobs A and B stage by stage on lanes X and Y (two worker threads):
+    A's stage k, then B's stage k, on lane k % 2. Returns the payloads,
+    the two jobs' final states and each job run alone eagerly."""
+    spec = _spec(name)
+    payloads = [_with_program(st.payload,
+                              PROGRAMS[kind](_program(st.payload).fn))
+                for st in spec.stages]
+    vocab = _lm_model().cfg.vocab_size if name == "smollm-135m" else None
+    first = _job_inputs(name, vocab)
+    alone = []
+    for x in first:
+        for p in payloads:
+            x = _eager(p)(x)
+        alone.append(x)
+    lanes = [concurrent.futures.ThreadPoolExecutor(1) for _ in range(2)]
+    try:
+        states = list(first)
+        for k, p in enumerate(payloads):
+            for j in range(2):
+                states[j] = lanes[k % 2].submit(p, states[j]).result(
+                    timeout=120)
+    finally:
+        for ex in lanes:
+            ex.shutdown()
+    return payloads, states, alone
+
+
+@pytest.mark.parametrize("kind", sorted(PROGRAMS))
+@pytest.mark.parametrize("name", MODELS)
+def test_interleaved_jobs_equal_each_job_alone_bit_for_bit(name, kind):
+    payloads, states, alone = _interleaved(name, kind)
+    for got, want in zip(states, alone):
+        a, b = _leaves(got), _leaves(want)
+        assert len(a) == len(b) and a
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+    # the two jobs differ, so neither holds the other's results
+    assert not torch.equal(_leaves(states[0])[0], _leaves(states[1])[0])
+    if name == "smollm-135m":
+        assert sorted(states[0]["slices"]) == list(range(N_STAGES))
+    # each stage ran both jobs on one lane, one set of static buffers
+    assert [len(_program(p)._lanes) for p in payloads] == [1] * N_STAGES
+
+
+@pytest.mark.parametrize("kind", sorted(PROGRAMS))
+@pytest.mark.parametrize("name", MODELS)
+def test_job_state_never_aliases_a_static_buffer(name, kind):
+    payloads, states, alone = _interleaved(name, kind)
+    statics = _statics(payloads)
+    assert statics
+    held = {t.untyped_storage().data_ptr() for t in statics}
+    for state in states:
+        assert not any(t.untyped_storage().data_ptr() in held
+                       for t in _leaves(state))
+    for t in statics:
+        t.fill_(float("nan") if t.is_floating_point() else -7)
+    for got, want in zip(states, alone):
+        assert all(torch.equal(x, y)
+                   for x, y in zip(_leaves(got), _leaves(want)))
+
+
+def test_many_threads_on_one_lane_keep_their_own_results():
+    """Eight threads call one program on one lane (as a ghost worker and a
+    new launch share a stream), with a short switch interval: every
+    result is its own input's, so no call read another's static inputs
+    or outputs between its copy in and its copy out."""
+    prog = OneLaneProgram(lambda x, w: {"y": (x @ w).tanh(), "x": x})
+    w = torch.randn(16, 16, generator=torch.Generator().manual_seed(0))
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        def call(i):
+            x = torch.full((4, 16), float(i))
+            out = [prog(x, w) for _ in range(20)]
+            want = (x @ w).tanh()
+            return all(torch.equal(o["y"], want) and torch.equal(o["x"], x)
+                       for o in out)
+        with concurrent.futures.ThreadPoolExecutor(8) as ex:
+            ok = list(ex.map(call, range(8), timeout=120))
+    finally:
+        sys.setswitchinterval(old)
+    assert ok == [True] * 8
+    assert len(prog._lanes) == 1
+
+
+def test_replays_add_the_captured_launches_once_each():
+    rms, dec = KERNELS["rmsnorm"].counts, KERNELS["decode_attention"].counts
+
+    def stage(x):        # a stage whose wrappers launch three kernels
+        rms.launched("block", (1, 4), "M4 D8 float32")
+        dec.launched("split", (3, 1, 4), "B4 H2 KV1 Dh8 float32")
+        dec.launched("combine", (2, 4), "B4 H2 KV1 Dh8 float32")
+        return x * 2.0
+    reset_counts()
+    prog = CpuGraphProgram(stage)
+    x = torch.ones(4, 8)
+    for _ in range(5):
+        assert torch.equal(prog(x), x * 2.0)
+    # the warm-up call launched once; the capture counted nothing; each of
+    # the 5 replays added its 3 launches
+    assert rms.launches == 1 + 5 and dec.launches == 2 * (1 + 5)
+    assert rms.by_instance == {"block": 6}
+    assert dec.by_instance == {"split": 6, "combine": 6}
+    assert rms.by_shape == {"block M4 D8 float32": 6}
+    assert dec.by_shape == {"split B4 H2 KV1 Dh8 float32": 6,
+                            "combine B4 H2 KV1 Dh8 float32": 6}
+    assert dec.grids == {"split": (3, 1, 4), "combine": (2, 4)}
+    g = _lib.stage_graphs.snapshot()
+    assert (g["captures"], g["replays"], g["replayed_launches"]) == (1, 5, 15)
+    # a second lane captures once more
+    other = threading.Thread(target=prog, args=(x,))
+    other.start()
+    other.join(timeout=60)
+    assert not other.is_alive()
+    assert _lib.stage_graphs.captures == 2 and _lib.stage_graphs.replays == 6
+    assert rms.launches == 6 + 2
+    reset_counts()
+    assert _lib.stage_graphs.snapshot() == {
+        "captures": 0, "capture_s": 0.0, "replays": 0,
+        "replayed_launches": 0}
+
+
+def test_eager_run_counts_nothing_as_a_graph():
+    reset_counts()
+    prog = stage_graph.StageProgram(lambda x: x + 1.0)
+    prog(torch.zeros(3))
+    prog(torch.zeros(3))
+    assert _lib.stage_graphs.snapshot()["captures"] == 0
+    assert _lib.stage_graphs.snapshot()["replays"] == 0
+
+
+def test_program_refuses_arguments_that_are_not_tensors():
+    prog = stage_graph.StageProgram(lambda x, n: x * n, name="scale")
+    with pytest.raises(TypeError, match="scale"):
+        prog(torch.ones(2), 3)
+
+
+def test_realtime_backend_counts_its_stage_runs():
+    """On the CPU no stage program captures: the backend's graph summary
+    reads no capture and no replay beside the payload stages it ran."""
+    spec = _cnn_spec("resnet18")
+    srv = (api.ServerConfig.realtime(device="cpu").tasks([spec])
+           .contexts(2).streams(2).oversubscribe(2.0)
+           .device(api.DeviceModel(n_units=4.0)).realtime_io(input_hw=33,
+                                                            batch=2)
+           .horizon_ms(400.0).build())
+    m = srv.run()
+    g = srv.backend.graph_summary()
+    assert m.completed[api.HP] > 0
+    assert g["stage_runs"] >= sum(
+        t["n"] for t in srv.backend.stage_time_summary().values()) > 0
+    assert (g["warm_captures"], g["captures"], g["replays"]) == (0, 0, 0)
+
+
+# --------------------------------------------------- against the reference
+def test_lm_payloads_equal_the_reference_jitted_stages():
+    """Reduced smollm-135m (4 layers, f32 cache), the reference's
+    parameters: the port's payload chain (through its stage programs)
+    against the reference's ``staged_lm_taskspec`` payloads (jitted)."""
+    jcfg = jax_get_reduced("smollm-135m").replace(n_layers=4,
+                                                   kv_cache_dtype="float32")
+    jmodel = jax_build_model(jcfg)
+    jspec = ref_engine.staged_lm_taskspec(jmodel, priority=api.HP, jps=10.0,
+                                          n_stages=N_STAGES,
+                                          prompt_len=PROMPT, batch=BATCH)
+    tmodel = build_model(get_reduced("smollm-135m").replace(
+        n_layers=4, kv_cache_dtype="float32"), device="cpu")
+    tparams = params_from_jax(jax.device_get(jmodel.init_params(0)),
+                              device="cpu")
+    tspec = staged_lm_taskspec(tmodel, priority=api.HP, jps=10.0,
+                               n_stages=N_STAGES, prompt_len=PROMPT,
+                               batch=BATCH, device="cpu", params=tparams)
+    js, ts = None, None
+    for jst, tst in zip(jspec.stages, tspec.stages):
+        js, ts = jst.payload(js), tst.payload(ts)
+        np.testing.assert_allclose(ts["hidden"].numpy(),
+                                   np.asarray(js["hidden"]), **LM_TOL)
+    for i in range(N_STAGES):
+        ref = jax.device_get(js["slices"][i])
+        for k in ref:
+            np.testing.assert_allclose(ts["slices"][i][k].float().numpy(),
+                                       np.asarray(ref[k], np.float32),
+                                       **LM_TOL)
+
+
+def _reference_resnet18():
+    """The reference's ResNet18 at width 8 with parameters drawn by numpy
+    (as ``test_torch_cnn.py`` draws them: its own initialisers compile a
+    program per shape)."""
+    rng = np.random.default_rng(0)
+
+    def conv_init(ctx, kh, kw, cin, cout):
+        return (rng.standard_normal((kh, kw, cin, cout))
+                / np.sqrt(kh * kw * cin)).astype(np.float32)
+
+    def bn_init(ctx, c):
+        return {"scale": rng.uniform(0.5, 1.5, c).astype(np.float32),
+                "bias": (0.1 * rng.standard_normal(c)).astype(np.float32)}
+
+    def dense_init(ctx, shape):
+        return (rng.standard_normal(shape) / np.sqrt(shape[0])).astype(
+            np.float32)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(ref_cnn, "conv_init", conv_init)
+        mp.setattr(ref_cnn, "bn_init", bn_init)
+        mp.setattr(ref_cnn, "dense_init", dense_init)
+        return ref_cnn.BUILDERS["resnet18"](width=8)
+
+
+def test_cnn_payloads_equal_the_reference_jitted_stages():
+    ref = _reference_resnet18()
+    jspec = ref_engine.staged_cnn_taskspec(ref, priority=api.HP, jps=10.0,
+                                           input_hw=33, batch=2,
+                                           calibrate=False)
+    port = BUILDERS["resnet18"](width=8, device="cpu")
+    tspec = staged_cnn_taskspec(
+        port, priority=api.HP, jps=10.0, input_hw=33, batch=2,
+        calibrate=False, device="cpu",
+        params=cnn_params_from_jax(jax.device_get(ref.params),
+                                   device="cpu"))
+    x = np.random.default_rng(3).standard_normal((2, 33, 33, 3)).astype(
+        np.float32)
+    js, ts = jnp.asarray(x), torch.from_numpy(x)
+    last = len(tspec.stages) - 1
+    for i, (jst, tst) in enumerate(zip(jspec.stages, tspec.stages)):
+        js, ts = jst.payload(js), tst.payload(ts)
+        r = np.asarray(js)
+        p = ts.numpy() if i == last else ts.numpy().transpose(0, 2, 3, 1)
+        assert p.shape == r.shape
+        err = float(np.abs(r - p).max()) / max(1.0, float(np.abs(r).max()))
+        assert err <= CNN_TOL, (i, err)
