@@ -98,18 +98,29 @@ result line. Without arguments:
    the card through the kernels matches the same model run on the CPU
    through the plain versions. Each stage payload is a ``StageProgram``
    (``serving/stage_graph.py``): a CUDA graph a (stage, lane stream),
-   captured in the lanes' warm-up and replayed for every job. The
+   captured in the lanes' warm-up into the lane's graph pool (one a lane,
+   shared by the programs that replay there) and replayed for every job;
+   an LM stage writes its static copy of the cache slice in place. The
    ``serving`` line's ``stage_graphs`` gives the warm-up's captures and
    their seconds (within ``warm_up_s``) and, over the run, the replays,
    the launches they counted and the payload stages the lanes ran: every
-   one must have been a replay. Then the ``stage_graphs`` check: two jobs
-   of differing seeded inputs through the served task's payloads on two
-   new streams, interleaved (job A's stage k, then job B's, on stream k %
-   2), each stage against its eager stage function on the same state:
-   bit for bit for the LMs (output and cache slice), within ``CNN_TOL``
-   of the scale for the CNNs; a job's state must be what its last stage
-   made of it when its next stage reads it. Every served model of steps
-   3, 5, 6, 9, 12 and 13 runs it; ``phase_seconds`` gives its seconds.
+   one must have been a replay; and the graph pools and the GB they hold:
+   one a lane and one for the calibration's stream. Its
+   ``hp_response_parts`` splits each HP job's response by stage (release
+   -> first launch; hand-off, stream wait, device, notice, gap; ROADMAP
+   C7): the parts must sum to the response within ``PARTS_TOL_MS``. Then
+   the ``stage_graphs`` check: two jobs of differing seeded inputs through
+   the served task's payloads on two new streams, interleaved (job A's
+   stage k, then job B's, on stream k % 2), each stage against its
+   functional eager stage function on the same state: bit for bit for
+   the LMs (output and cache slice), within ``CNN_TOL`` of the scale for
+   the CNNs; a job's state must be what its last stage made of it when
+   its next stage reads it. An LM's donor caches (HP and LP) must keep
+   their checksum over the run and the check (``donor_checksum``). Every
+   served model of steps 3, 5, 6, 9, 12 and 13 runs it;
+   ``phase_seconds`` gives its seconds. The ``serving`` line also gives
+   the allocated block sizes that hold the most card memory
+   (``allocated_blocks_mib``).
 4. Epoch phase: one single-device simulated scenario (4 contexts x 6
    streams, twelve tasks, chaos with a brownout) on the heap engine, on
    ``engine("epoch")`` at its default threshold, and on ``engine("epoch")``
@@ -380,11 +391,13 @@ path took the CUDA-core instance, an SSD launch on the ssm or hybrid path
 took the CUDA-core instance, a worker caught an exception, no HP job
 completed, the three runs of the epoch phase or of a cluster scenario
 differ, a port kernel or its plain version ran on the CNN path, a payload
-stage on a served lane was not a CUDA-graph replay, a ``stage_graphs``
-check failed, an output check failed, a restored scheduler state differs
-from its file, the second launcher run did not resume, the parameters did
-not round-trip bit for bit,
-the daemon example failed, the oracle was not ``ok`` on fig13_light or
+stage on a served lane was not a CUDA-graph replay, a served run's
+graph pools were not one a lane (and the calibration's), an HP job's
+response parts missed its response, a donor cache changed, a
+``stage_graphs`` check failed, an output check failed, a restored
+scheduler state differs from its file, the second launcher run did not
+resume, the parameters did not round-trip bit for bit, the daemon
+example failed, the oracle was not ``ok`` on fig13_light or
 fig13_fail_1of4, an int8 check of step 11 failed, a planted fault
 agreed with a plain version, a step 12-15 instance or launch-shape check
 failed, a gradient row or a check of steps 16-20 failed, or a model path
@@ -465,6 +478,7 @@ DEFAULT_SM_MHZ = 1980.0               # H100 SXM top boost clock (data sheet)
 CNN_WIDTHS = {"resnet18": 64, "unet": 64, "inceptionv3": 24}
 CNN_HW, CNN_BATCH = 224, 1
 CNN_TOL = 1e-3                        # card vs CPU, of the output's scale
+PARTS_TOL_MS = 0.01                   # an HP job's parts against its response
 RESUME_DNN = "resnet18"               # served cold, saved, then resumed
 # the training phase: smollm-135m at full width and depth (bf16, f32 m/v),
 # 20 AdamW steps of 8 sequences of 4096 tokens in 2 microbatches of 4
@@ -1464,16 +1478,44 @@ def serving_phase(torch, failures, arch, n_layers, jps, kernels,
             "d_model": cfg.d_model, "batch": B, "prompt_len": PROMPT,
             "stages": N_STAGES, "params": sum(t.numel() for t in leaves),
             "param_gb": sum(t.numel() * t.element_size()
-                            for t in leaves) / 1e9}
+                            for t in leaves) / 1e9,
+            # the donors' prefill and the calibration, and what they left
+            "setup_peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "allocated_before_serve_gb": torch.cuda.memory_allocated() / 1e9}
+    donors = [donor_checksum(torch, sp) for sp in specs]
     _, launches, instances, _ = serve(torch, failures, specs,
                                       time.perf_counter() - t0, jps,
                                       kernels, desc, trace=trace)
     stage_graph_check(torch, cfg.name, specs[0], failures)
+    after = [donor_checksum(torch, sp) for sp in specs]
+    emit({"donor_checksum": {"model": cfg.name, "before": donors,
+                             "after": after, "unchanged": after == donors}})
+    if after != donors:
+        failures.append(f"{cfg.name}: a donor cache changed over the run "
+                        f"({donors} -> {after})")
     return model, params, specs[0], launches, instances
 
 
+def donor_checksum(torch, spec) -> list:
+    """One checksum a stage of an LM task: the bytes of its donor cache
+    slice (``lm_stage``'s ``donor_slice``), each weighted by its offset
+    modulo 65,521 plus 1, summed in int64 (in chunks of 64 MiB)."""
+    sums = []
+    for st in spec.stages:
+        total, off = 0, 0
+        for t in tree_leaves(st.payload.keywords["donor_slice"]):
+            flat = t.contiguous().view(-1).view(torch.uint8)
+            for chunk in flat.split(1 << 26):
+                w = (torch.arange(off, off + chunk.numel(),
+                                  device=chunk.device) % 65521) + 1
+                total += int((chunk.long() * w).sum())
+                off += chunk.numel()
+        sums.append(total)
+    return sums
+
+
 def serve(torch, failures, specs, setup_s, jps, kernels, desc, trace=False,
-          input_hw=None, schedcheck=False, prepare=None):
+          input_hw=None, schedcheck=False, prepare=None, fresh=True):
     """Serve ``specs`` (an HP and an LP task) in real time for
     ``HORIZON_MS`` (2 contexts x 2 streams, oversubscription 2.0, n_units
     the card's SM count, seed 0; NHWC inputs of ``input_hw`` where given)
@@ -1484,7 +1526,8 @@ def serve(torch, failures, specs, setup_s, jps, kernels, desc, trace=False,
     ``verify(enforce=False)`` on the config before it is built and emits
     the report beside the run (``schedcheck_served``); ``prepare`` is
     called with the built server before it runs. Launch counts were reset
-    before the tasks were built. Returns the metrics, the launches of
+    before the tasks were built; ``fresh``: and no server ran them since
+    (so the graph pools are the lanes' and the calibration's). Returns the metrics, the launches of
     ``kernels``, the launches by instance and the server."""
     from repro_torch.api import HP, LP, DeviceModel, ServerConfig
     from repro_torch.kernels import KERNELS
@@ -1523,13 +1566,30 @@ def serve(torch, failures, specs, setup_s, jps, kernels, desc, trace=False,
                  if KERNELS[n].counts.by_instance}
     be = srv.backend
     graphs = be.graph_summary() if has_stage_graphs() else None
+    # where each HP response went (a tree from before the stamps has none)
+    parts = (be.hp_response_parts() if hasattr(be, "hp_response_parts")
+             else None)
+    lanes = len(be.core.sched.lanes)
     SERVED.append({"model": name, "hp_missed": m.missed[HP],
-                   "hp_response_ms": list(m.response_ms[HP])})
+                   "hp_response_ms": list(m.response_ms[HP]),
+                   "hp_parts_total_ms": parts and parts["total_ms"],
+                   "graph_pools": graphs and graphs.get("pools")})
     if graphs is not None and (graphs["stage_runs"] == 0
                                or graphs["replays"] != graphs["stage_runs"]):
         failures.append(f"{name}: {graphs['stage_runs']} payload stages "
                         f"ran on the lanes, {graphs['replays']} of them "
                         f"CUDA-graph replays (every one must be)")
+    if graphs is not None and "pools" in graphs and (
+            graphs["run_pools"] != lanes
+            or fresh and graphs["pools"] != lanes + 1):
+        failures.append(f"{name}: graph pools {graphs['run_pools']} for "
+                        f"{lanes} lanes, {graphs['pools']} with the "
+                        f"calibration's stream (one a lane)")
+    if parts is not None and (parts["jobs"] != len(m.response_ms[HP])
+                              or not parts["sum_err_ms"] <= PARTS_TOL_MS):
+        failures.append(f"{name}: HP response parts of {parts['jobs']} of "
+                        f"{len(m.response_ms[HP])} jobs, off their responses "
+                        f"by up to {parts['sum_err_ms']} ms")
     emit({"serving": {
         **desc, "sm_count": sm,
         "jobs_per_s": jps, "setup_s": setup_s, "horizon_ms": HORIZON_MS,
@@ -1554,8 +1614,10 @@ def serve(torch, failures, specs, setup_s, jps, kernels, desc, trace=False,
         "stage_times": be.stage_time_summary(),
         # the stage programs' CUDA graphs: captured in the warm-up (within
         # warm_up_s), one replay a payload stage run on a lane after it
-        "stage_graphs": graphs,
+        "stage_graphs": graphs, "lanes": lanes,
+        "hp_response_parts": parts,
         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "allocated_blocks_mib": allocated_blocks(torch),
         "launches": launches, "launches_by_instance": instances,
         "host": host,
         **({"device_timeline": device_timeline(torch, tracer)}
@@ -1568,6 +1630,18 @@ def serve(torch, failures, specs, setup_s, jps, kernels, desc, trace=False,
     if m.completed[HP] == 0:
         failures.append(f"{name}: no HP job completed")
     return m, launches, instances, srv
+
+
+def allocated_blocks(torch, top: int = 6) -> list:
+    """What holds the card's allocated memory: [MiB a block, blocks] of
+    the allocated block sizes that hold the most bytes."""
+    sizes = {}
+    for seg in torch.cuda.memory_snapshot():
+        for b in seg["blocks"]:
+            if b["state"] == "active_allocated":
+                sizes[b["size"]] = sizes.get(b["size"], 0) + 1
+    return [[size / 2**20, n] for size, n in sorted(
+        sizes.items(), key=lambda kv: -kv[0] * kv[1])[:top]]
 
 
 # seconds of each served model's stage_graphs check (``phase_seconds``)
@@ -1586,16 +1660,18 @@ def has_stage_graphs() -> bool:
 
 
 def eager_payload(payload):
-    """``payload`` with its stage program's function called in place of the
-    program (an LM payload's ``program`` keyword, or the CNN payload, a
-    ``StageProgram``, itself): the eager stage the compiled one is held
-    to."""
+    """``payload`` with its stage program's functional stage function
+    called in place of the program (an LM payload's ``program`` keyword,
+    or the CNN payload, a ``StageProgram``, itself): the eager stage the
+    compiled one is held to. An LM program's own ``fn`` writes its static
+    cache copy in place; a tree from before that has no ``functional``."""
     import functools
     if isinstance(payload, functools.partial):
         prog = payload.keywords["program"]
-        return functools.partial(payload.func,
-                                 **{**payload.keywords, "program": prog.fn})
-    return payload.fn
+        return functools.partial(payload.func, **{
+            **payload.keywords,
+            "program": getattr(prog, "functional", prog.fn)})
+    return getattr(payload, "functional", payload.fn)
 
 
 def stage_graph_check(torch, name, spec, failures, tol=None):
@@ -3188,12 +3264,14 @@ def resume_phase(torch, failures):
     import tempfile
 
     from repro_torch.api import HP, LP
+    from repro_torch.kernels import reset_counts
     from repro_torch.models import BUILDERS
     from repro_torch.serving.engine import staged_cnn_taskspec
     from repro_torch.serving.requests import TABLE2
 
     jps = TABLE2[RESUME_DNN][2]
     model = BUILDERS[RESUME_DNN](width=CNN_WIDTHS[RESUME_DNN])
+    reset_counts()                    # the graph pools since the tasks
     t0 = time.perf_counter()
     specs = [staged_cnn_taskspec(model, priority=p, jps=jps, input_hw=CNN_HW,
                                  batch=CNN_BATCH, tag=tag)
@@ -3244,7 +3322,8 @@ def served_resume(torch, failures, specs, setup_s, jps, work) -> dict:
                 "input_hw": CNN_HW, "batch": CNN_BATCH,
                 "stages": len(specs[0].stages), "resume_run": run}
         m, _, _, srv = serve(torch, failures, specs, setup_s, jps, (), desc,
-                             input_hw=CNN_HW, prepare=prepare)
+                             input_hw=CNN_HW, prepare=prepare,
+                             fresh=run == "cold")
         if run == "cold":
             t0 = time.perf_counter()
             srv.save_state(path)
@@ -4862,7 +4941,10 @@ def serve_repeats(torch, arch: str, repeats: int, trace: bool) -> int:
         "hp_completed": len(hp),
         "hp_mean_ms": statistics.fmean(hp) if hp else None,
         "hp_p99_ms": percentile(hp, 99) if hp else None,
-        "hp_max_ms": max(hp) if hp else None}})
+        "hp_max_ms": max(hp) if hp else None,
+        "graph_pools": [run["graph_pools"] for run in SERVED],
+        # each run's HP responses by part, summed over its jobs
+        "hp_parts_total_ms": [run["hp_parts_total_ms"] for run in SERVED]}})
     return 0 if all(runs) else 1
 
 

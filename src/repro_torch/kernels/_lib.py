@@ -177,17 +177,24 @@ def recording():
 class GraphCounts:
     """The stage programs' CUDA graphs (``serving/stage_graph.py``):
     captures and their host seconds (each with its eager warm-up call),
-    replays, and the kernel launches the replays added to the wrappers'
-    counts."""
+    the graph pools they went into (one a lane), replays, and the kernel
+    launches the replays added to the wrappers' counts."""
 
     def __init__(self) -> None:
         self._lock = threading.Lock()
         self.reset()
 
-    def captured(self, seconds: float) -> None:
+    def captured(self, seconds: float, pool=None) -> None:
         with self._lock:
             self.captures += 1
             self.capture_s += seconds
+            if pool is not None:
+                self.pools.add(tuple(pool))
+
+    def pool_ids(self) -> list:
+        """The graph pools captured into since the last ``reset``."""
+        with self._lock:
+            return list(self.pools)
 
     def replayed(self, launches: int) -> None:
         with self._lock:
@@ -197,13 +204,14 @@ class GraphCounts:
     def snapshot(self) -> Dict[str, float]:
         with self._lock:
             return {"captures": self.captures, "capture_s": self.capture_s,
-                    "replays": self.replays,
+                    "pools": len(self.pools), "replays": self.replays,
                     "replayed_launches": self.replayed_launches}
 
     def reset(self) -> None:
         with self._lock:
             self.captures = self.replays = self.replayed_launches = 0
             self.capture_s = 0.0
+            self.pools: set = set()
 
 
 stage_graphs = GraphCounts()

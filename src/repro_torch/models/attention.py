@@ -30,7 +30,7 @@ import torch
 from ..kernels import decode_attention as _dec
 from ..kernels import flash_attention as _fa
 from ..parallel.sharding import Region
-from .layers import apply_rope, dense_init
+from .layers import dense_init, rope_apply, rope_tables
 
 SEQ_KEYS = ("k", "v", "k_scale", "v_scale", "latent", "k_rope")
 
@@ -101,26 +101,34 @@ def _dequant(q: torch.Tensor, scale: torch.Tensor,
 
 
 def write_slots(buf: torch.Tensor, val: torch.Tensor, slot: torch.Tensor,
-                dim: int) -> torch.Tensor:
-    """``val`` into a copy of ``buf`` at ``slot`` along ``dim``; the slot is
-    clamped to keep the block inside the buffer, as
-    ``lax.dynamic_update_slice`` clamps it."""
+                dim: int, in_place: bool = False) -> torch.Tensor:
+    """``val`` into a copy of ``buf`` (into ``buf`` itself with
+    ``in_place``) at ``slot`` along ``dim``; the slot is clamped to keep
+    the block inside the buffer, as ``lax.dynamic_update_slice`` clamps
+    it."""
     n, size = val.shape[dim], buf.shape[dim]
     idx = torch.clamp(slot, 0, size - n).long() + torch.arange(
         n, device=buf.device)
+    if in_place:
+        return buf.index_copy_(dim, idx, val.to(buf.dtype))
     return buf.index_copy(dim, idx, val.to(buf.dtype))
 
 
 def update_kv_cache(cache: dict, k_new: torch.Tensor, v_new: torch.Tensor,
-                    start: torch.Tensor) -> dict:
+                    start: torch.Tensor, in_place: bool = False) -> dict:
     """Write k/v [B, S_new, KV, D] at absolute position ``start`` (a 0-d
     tensor, so the host never waits for the device to learn it).
 
-    Functional, as in the reference: returns a new cache and leaves
-    ``cache`` untouched. The staged payloads share one prefilled donor
-    cache across every job and lane, so an in-place write would corrupt
-    it for all of them; ``write_slots`` writes into copies."""
-    out = dict(cache)
+    Functional by default, as in the reference: returns a new cache and
+    leaves ``cache`` untouched. The staged payloads share one prefilled
+    donor cache across every job and lane, so an in-place write would
+    corrupt it for all of them; ``write_slots`` writes into copies. With
+    ``in_place`` the slots, ``slots_pos`` and ``length`` are written into
+    ``cache``'s own tensors (a stage program's static copy, never the
+    donor) and the same dict is returned, as XLA writes a scan's stacked
+    output in place; ``length`` is written last, since ``start`` may be
+    it."""
+    out = cache if in_place else dict(cache)
     s_new = k_new.shape[1]
     s_max = cache["k"].shape[1]
     dev = cache["k"].device
@@ -137,14 +145,18 @@ def update_kv_cache(cache: dict, k_new: torch.Tensor, v_new: torch.Tensor,
         slot = torch.remainder(start, s_max)
     if cache["k"].dtype == torch.int8:
         (k_new, ks), (v_new, vs) = _quant(k_new), _quant(v_new)
-        out["k_scale"] = write_slots(cache["k_scale"], ks, slot, 1)
-        out["v_scale"] = write_slots(cache["v_scale"], vs, slot, 1)
-    out["k"] = write_slots(cache["k"], k_new, slot, 1)
-    out["v"] = write_slots(cache["v"], v_new, slot, 1)
+        out["k_scale"] = write_slots(cache["k_scale"], ks, slot, 1, in_place)
+        out["v_scale"] = write_slots(cache["v_scale"], vs, slot, 1, in_place)
+    out["k"] = write_slots(cache["k"], k_new, slot, 1, in_place)
+    out["v"] = write_slots(cache["v"], v_new, slot, 1, in_place)
     out["slots_pos"] = write_slots(
         cache["slots_pos"],
-        start + torch.arange(s_new, dtype=torch.int32, device=dev), slot, 0)
-    out["length"] = length_new
+        start + torch.arange(s_new, dtype=torch.int32, device=dev), slot, 0,
+        in_place)
+    if in_place:
+        out["length"].copy_(length_new)
+    else:
+        out["length"] = length_new
     return out
 
 
@@ -205,10 +217,16 @@ def attention_block(params: dict, x: torch.Tensor, *, positions: torch.Tensor,
                     cache: Optional[dict] = None,
                     x_kv: Optional[torch.Tensor] = None,
                     q_chunk: int = 0, cons=None,
-                    dist: Optional[dict] = None) -> tuple:
+                    dist: Optional[dict] = None,
+                    rope: Optional[tuple] = None,
+                    in_place: bool = False) -> tuple:
     """x [B, S, d] -> (out [B, S, d], new_cache | None). ``q_chunk``
     blocks the queries of the flash call's plain version (the reference's
-    ``mha``); the kernel ignores it.
+    ``mha``); the kernel ignores it. ``rope``: (cos, sin) from
+    ``layers.rope_tables`` at this block's head width and ``positions``,
+    shared by the layers of a stack (built here when None).
+    ``in_place``: the cache update writes ``cache`` itself
+    (``update_kv_cache``).
 
     Under ``dist`` the block runs on this rank's shards: its query heads
     (and kv heads where those split too) of ``wq``/``wk``/``wv``/``wo``,
@@ -253,8 +271,9 @@ def attention_block(params: dict, x: torch.Tensor, *, positions: torch.Tensor,
             raise ValueError("cross-attention (x_kv) takes no cache")
         causal = False
     elif rope_theta > 0.0:
-        q = apply_rope(q, positions, rope_theta)
-        k = apply_rope(k, positions, rope_theta)
+        if rope is None:
+            rope = rope_tables(positions, dh, rope_theta, q.device)
+        q, k = rope_apply(q, *rope), rope_apply(k, *rope)
     if scale is None:
         scale = dh ** -0.5
 
@@ -262,7 +281,11 @@ def attention_block(params: dict, x: torch.Tensor, *, positions: torch.Tensor,
     if cache is not None:
         spmd, axes = seq_split(dist, "kv_seq")
         if spmd is None:
-            new_cache = full = update_kv_cache(cache, k, v, cache["length"])
+            new_cache = full = update_kv_cache(cache, k, v, cache["length"],
+                                               in_place)
+        elif in_place:
+            raise ValueError("in_place takes a whole cache, not a "
+                             "sequence-split one")
         else:
             full = update_kv_cache(gather_seq(cache, spmd, axes), k, v,
                                    cache["length"])

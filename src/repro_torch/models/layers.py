@@ -141,17 +141,30 @@ def rope_freqs(head_dim: int, theta: float,
     return 1.0 / (theta ** exps)
 
 
-def apply_rope(x: torch.Tensor, positions: torch.Tensor,
-               theta: float) -> torch.Tensor:
-    """x: [..., S, H, Dh]; positions: broadcastable to [..., S]."""
-    dh = x.shape[-1]
-    freqs = rope_freqs(dh, theta, x.device)                 # [Dh/2]
+def rope_tables(positions: torch.Tensor, head_dim: int, theta: float,
+                device: Optional[torch.device] = None) -> tuple:
+    """(cos, sin) [..., S, 1, Dh/2] in f32 for ``positions`` (broadcastable
+    to [..., S]): what every layer of a stack with one theta and head
+    width shares, so a stage builds them once (XLA's CSE does so inside
+    the reference's jitted stage)."""
+    freqs = rope_freqs(head_dim, theta, device)             # [Dh/2]
     ang = positions[..., :, None].float() * freqs           # [..., S, Dh/2]
-    cos = torch.cos(ang)[..., :, None, :]                   # [..., S, 1, Dh/2]
-    sin = torch.sin(ang)[..., :, None, :]
+    return torch.cos(ang)[..., :, None, :], torch.sin(ang)[..., :, None, :]
+
+
+def rope_apply(x: torch.Tensor, cos: torch.Tensor,
+               sin: torch.Tensor) -> torch.Tensor:
+    """x: [..., S, H, Dh] rotated by ``rope_tables``' (cos, sin)."""
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: [..., S, H, Dh]; positions: broadcastable to [..., S]."""
+    return rope_apply(x, *rope_tables(positions, x.shape[-1], theta,
+                                      x.device))
 
 
 def sinusoidal_positions(n: int, d: int) -> torch.Tensor:

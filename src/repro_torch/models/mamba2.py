@@ -148,11 +148,16 @@ def ssd_reference(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
 
 
 def ssd_decode_step(state: torch.Tensor, x: torch.Tensor, dt: torch.Tensor,
-                    a_log: torch.Tensor, b: torch.Tensor, c: torch.Tensor
+                    a_log: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
+                    in_place: bool = False
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Single-token recurrence. x:[B,H,P] dt:[B,H] b/c:[B,G,N].
 
-    state' = state * exp(dt*A) + dt * (B outer x);  y = C . state'"""
+    state' = state * exp(dt*A) + dt * (B outer x);  y = C . state'
+
+    With ``in_place`` state' is written into ``state`` (``mul_`` by the
+    decay, then ``add_`` of the same product, in the same order: the f32
+    state is bit-identical to the functional step's) and returned."""
     rep = x.shape[1] // b.shape[1]
     a = -torch.exp(a_log.float())
     bh = b.repeat_interleave(rep, dim=1).float()            # [B,H,N]
@@ -160,16 +165,20 @@ def ssd_decode_step(state: torch.Tensor, x: torch.Tensor, dt: torch.Tensor,
     dtf = dt.float()
     decay = torch.exp(dtf * a[None])                        # [B,H]
     xt = x.float()
-    new_state = (state * decay[:, :, None, None]
-                 + dtf[:, :, None, None] * xt[:, :, :, None]
-                 * bh[:, :, None, :])
+    if in_place:
+        upd = dtf[:, :, None, None] * xt[:, :, :, None] * bh[:, :, None, :]
+        new_state = state.mul_(decay[:, :, None, None]).add_(upd)
+    else:
+        new_state = (state * decay[:, :, None, None]
+                     + dtf[:, :, None, None] * xt[:, :, :, None]
+                     * bh[:, :, None, :])
     y = torch.einsum("bhpn,bhn->bhp", new_state, ch)
     return y.to(x.dtype), new_state
 
 
 def mamba2_block(params: dict, x: torch.Tensor, *, cfg,
                  cache: Optional[dict] = None, cons=None,
-                 dist: Optional[dict] = None
+                 dist: Optional[dict] = None, in_place: bool = False
                  ) -> Tuple[torch.Tensor, Optional[dict]]:
     """[B,L,d] -> ([B,L,d], new_cache). Decode (a cache and L == 1) runs
     the recurrent step; otherwise the chunked SSD. Under ``dist`` with the
@@ -179,7 +188,9 @@ def mamba2_block(params: dict, x: torch.Tensor, *, cfg,
     every rank, the gated norm's mean square is summed over the ranks and
     the output too. Under sequence parallelism ``x`` is this rank's rows:
     the conv and the scan run on the sequence gathered whole, and the
-    block returns this rank's rows (``parallel.sharding.Region``)."""
+    block returns this rank's rows (``parallel.sharding.Region``).
+    ``in_place`` (decode): the new state, conv histories and ``length``
+    are written into ``cache``'s own tensors, and ``cache`` returned."""
     reg = Region(dist, "shard_ssm")
     xs, x = reg.enter_both(x)
     xs = xs if reg.split else x
@@ -210,8 +221,11 @@ def mamba2_block(params: dict, x: torch.Tensor, *, cfg,
     if cache is not None and ln == 1:
         y1, new_state = ssd_decode_step(cache["state"], xh[:, 0], dt[:, 0],
                                         params["A_log"], bmat[:, 0],
-                                        cmat[:, 0])
+                                        cmat[:, 0], in_place)
         y = y1[:, None]
+    elif in_place:
+        raise ValueError("in_place writes a decode step's state (one token "
+                         "with a cache)")
     else:
         init_state = cache["state"] if cache is not None else None
         # pad to a chunk multiple with dt = 0 tokens: zero dt means no state
@@ -242,7 +256,12 @@ def mamba2_block(params: dict, x: torch.Tensor, *, cfg,
     out = reg.leave(y @ params["w_out"])
 
     new_cache = None
-    if cache is not None:
+    if in_place:
+        cache["conv_x"].copy_(new_hist_x)
+        cache["conv_bc"].copy_(new_hist_bc)
+        cache["length"].add_(ln)
+        new_cache = cache
+    elif cache is not None:
         new_cache = {"conv_x": new_hist_x, "conv_bc": new_hist_bc,
                      "state": new_state, "length": cache["length"] + ln}
     return out, new_cache

@@ -28,7 +28,7 @@ import torch.nn.functional as F
 from ..kernels import flash_attention as _fa
 from ..parallel.sharding import Region
 from .attention import gather_seq, seq_split, slice_seq, write_slots
-from .layers import apply_rope, dense_init, rms_norm
+from .layers import dense_init, rms_norm, rope_apply, rope_tables
 
 NEG_INF = -2.0e38               # the reference's additive mask value
 
@@ -72,7 +72,16 @@ def make_mla_cache(batch: int, max_len: int, cfg,
     }
 
 
-def _project_q(params: dict, x: torch.Tensor, cfg, positions,
+def mla_rope(cfg, positions: torch.Tensor,
+             device: Optional[torch.device] = None) -> tuple:
+    """The rope head's tables (``layers.rope_tables`` at
+    ``qk_rope_head_dim``), which the query's and the key's rope heads of
+    every MLA layer share."""
+    return rope_tables(positions, cfg.qk_rope_head_dim, cfg.rope_theta,
+                       device)
+
+
+def _project_q(params: dict, x: torch.Tensor, cfg, rope: tuple,
                share=lambda t: t):
     cq = share(rms_norm(x @ params["q_down"], params["q_norm"]))
     b, s, _ = cq.shape
@@ -80,25 +89,24 @@ def _project_q(params: dict, x: torch.Tensor, cfg, positions,
     r, h, qk = q_up.shape
     q = (cq @ q_up.reshape(r, h * qk)).view(b, s, h, qk)
     nope = cfg.qk_nope_head_dim
-    return q[..., :nope], apply_rope(q[..., nope:], positions,
-                                     cfg.rope_theta)
+    return q[..., :nope], rope_apply(q[..., nope:], *rope)
 
 
-def _project_latent(params: dict, x: torch.Tensor, cfg, positions,
+def _project_latent(params: dict, x: torch.Tensor, cfg, rope: tuple,
                     share=lambda t: t):
     ckv = x @ params["kv_down"]
     r = cfg.kv_lora_rank
     latent = share(rms_norm(ckv[..., :r], params["kv_norm"]))
     # the shared single-head rope key
-    k_rope = apply_rope(share(ckv[..., None, r:]), positions,
-                        cfg.rope_theta)[..., 0, :]
+    k_rope = rope_apply(share(ckv[..., None, r:]), *rope)[..., 0, :]
     return latent, k_rope
 
 
 def mla_block(params: dict, x: torch.Tensor, *, cfg,
               positions: torch.Tensor,
               cache: Optional[dict] = None, q_chunk: int = 0, cons=None,
-              dist: Optional[dict] = None) -> tuple:
+              dist: Optional[dict] = None, rope: Optional[tuple] = None,
+              in_place: bool = False) -> tuple:
     """x [B, S, d] -> (out [B, S, d], new_cache | None); one token with a
     cache runs absorbed. ``q_chunk`` blocks the naive path's queries in
     the flash call's plain version. Under ``dist`` with the heads split
@@ -109,14 +117,19 @@ def mla_block(params: dict, x: torch.Tensor, *, cfg,
     this rank's rows: the low-rank projections and their norms run on
     them, and the query and kv latents and the rope key are gathered
     whole along the sequence (the reference's ``cons.hidden`` on the
-    latent) before the heads."""
+    latent) before the heads. ``rope``: ``mla_rope``'s tables, shared by the
+    layers of a stack (built here when None); ``in_place``: the latent,
+    ``k_rope``, ``slots_pos`` and ``length`` are written into ``cache``
+    itself (``length`` last), which is returned."""
     reg = Region(dist, "shard_heads")
+    if rope is None:
+        rope = mla_rope(cfg, positions, x.device)
     scale = (cfg.qk_nope_head_dim + cfg.qk_rope_head_dim) ** -0.5
     # the low-rank outputs enter the heads' region: read in part by each
     # rank's heads (their gradients summed over the ranks), gathered along
     # the sequence first under sequence parallelism
-    q_nope, q_rope = _project_q(params, x, cfg, positions, reg.enter)
-    latent, k_rope = _project_latent(params, x, cfg, positions, reg.enter)
+    q_nope, q_rope = _project_q(params, x, cfg, rope, reg.enter)
+    latent, k_rope = _project_latent(params, x, cfg, rope, reg.enter)
     if cons is not None:
         q_nope, q_rope = cons.heads(q_nope), cons.heads(q_rope)
         latent = cons.hidden(latent)
@@ -125,16 +138,24 @@ def mla_block(params: dict, x: torch.Tensor, *, cfg,
     new_cache = full = None
     if cache is not None:
         spmd, axes = seq_split(dist, "latent_seq")
+        if in_place and spmd is not None:
+            raise ValueError("in_place takes a whole cache, not a "
+                             "sequence-split one")
         whole = cache if spmd is None else gather_seq(cache, spmd, axes)
         start = whole["length"]
         slot = torch.remainder(start, whole["latent"].shape[1])
-        full = dict(whole)
-        full["latent"] = write_slots(whole["latent"], latent, slot, 1)
-        full["k_rope"] = write_slots(whole["k_rope"], k_rope, slot, 1)
+        full = whole if in_place else dict(whole)
+        full["latent"] = write_slots(whole["latent"], latent, slot, 1,
+                                     in_place)
+        full["k_rope"] = write_slots(whole["k_rope"], k_rope, slot, 1,
+                                     in_place)
         pos_new = start + torch.arange(s, dtype=torch.int32, device=x.device)
         full["slots_pos"] = write_slots(whole["slots_pos"], pos_new,
-                                        slot, 0)
-        full["length"] = start + s
+                                        slot, 0, in_place)
+        if in_place:
+            full["length"].copy_(start + s)
+        else:
+            full["length"] = start + s
         new_cache = full if spmd is None else slice_seq(full, spmd, axes)
 
     if cache is not None and s == 1:

@@ -44,9 +44,9 @@ from ..parallel.sharding import (ActConstraint, Region, index_specs,
                                  seq_dist, tp_if)
 from .attention import attention_block, init_attention, make_kv_cache
 from .layers import (dense_init, embed_init, gated_mlp, init_gated_mlp,
-                     rms_norm, softcap)
+                     rms_norm, rope_tables, softcap)
 from .mamba2 import init_mamba2, make_ssm_cache, mamba2_block
-from .mla import init_mla, make_mla_cache, mla_block
+from .mla import init_mla, make_mla_cache, mla_block, mla_rope
 from .moe import init_moe, moe_capacity, moe_dense_oracle, moe_ep
 
 TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -258,32 +258,52 @@ def _hidden(cons, x):
     return x if cons is None else cons.hidden(x)
 
 
+def layer_rope(cfg, positions: torch.Tensor,
+               device: Optional[torch.device] = None) -> Optional[tuple]:
+    """The rope tables every attention layer of a stack shares (one
+    ``rope_theta`` a config): MLA's at its rope head's width, GQA's at the
+    head width; None where the layers take no rope (the ssm family, or a
+    theta of 0)."""
+    if cfg.use_mla:
+        return mla_rope(cfg, positions, device)
+    if cfg.family == "ssm" or cfg.rope_theta <= 0.0:
+        return None
+    return rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta,
+                       device)
+
+
 def _attention(lp: dict, h: torch.Tensor, cfg, positions: torch.Tensor,
                cache: Optional[dict], window: int = 0,
-               q_chunk: int = 0, cons=None, dist=None) -> tuple:
+               q_chunk: int = 0, cons=None, dist=None, rope=None,
+               in_place: bool = False) -> tuple:
     """A layer's attention: MLA where the config has it (deepseek's dense
-    and MoE layers), else GQA with the config's softcap and ``window``."""
+    and MoE layers), else GQA with the config's softcap and ``window``.
+    ``rope``: ``layer_rope``'s tables (None: the block builds them);
+    ``in_place``: the cache update writes ``cache`` itself."""
     if cfg.use_mla:
         return mla_block(lp["attn"], h, cfg=cfg, positions=positions,
-                         cache=cache, q_chunk=q_chunk, cons=cons, dist=dist)
+                         cache=cache, q_chunk=q_chunk, cons=cons, dist=dist,
+                         rope=rope, in_place=in_place)
     return attention_block(
         lp["attn"], h, positions=positions, rope_theta=cfg.rope_theta,
         window=window, attn_softcap=cfg.attn_softcap,
         scale=cfg.resolved_head_dim ** -0.5, cache=cache, q_chunk=q_chunk,
-        cons=cons, dist=dist)
+        cons=cons, dist=dist, rope=rope, in_place=in_place)
 
 
 def dense_body(lp: dict, x: torch.Tensor, cfg, positions: torch.Tensor,
                cache: Optional[dict], window: int = 0,
-               q_chunk: int = 0, dist: Optional[dict] = None) -> tuple:
+               q_chunk: int = 0, dist: Optional[dict] = None, rope=None,
+               in_place: bool = False) -> tuple:
     """One dense layer (also the moe family's leading ones): ``x +
     attn(ln1(x))`` then ``+ mlp(ln2(.))``, each branch through its
     post-block norm where the config has them (gemma2). The residual add
-    and ln2 run as one fused kernel."""
+    and ln2 run as one fused kernel. ``rope`` and ``in_place`` as in
+    ``_attention``."""
     cons = _cons(dist)
     h = rms_norm(x, lp["ln1"], cfg.norm_eps, plus_one=cfg.embed_scale)
     a, new_cache = _attention(lp, h, cfg, positions, cache, window, q_chunk,
-                              cons, dist)
+                              cons, dist, rope, in_place)
     if cfg.post_block_norms:
         a = rms_norm(a, lp["ln1_post"], cfg.norm_eps,
                      plus_one=cfg.embed_scale)
@@ -299,16 +319,18 @@ def dense_body(lp: dict, x: torch.Tensor, cfg, positions: torch.Tensor,
 
 def moe_body(lp: dict, x: torch.Tensor, cfg, positions: torch.Tensor,
              cache: Optional[dict], use_oracle: bool,
-             q_chunk: int = 0, dist: Optional[dict] = None) -> tuple:
+             q_chunk: int = 0, dist: Optional[dict] = None, rope=None,
+             in_place: bool = False) -> tuple:
     """One MoE layer: ``x + attn(ln1(x))`` (MLA where the config has it)
     then ``+ experts(ln2(.))`` (plus the shared experts where the layer has
     them); returns (x, new_cache, aux). The residual add and ln2 run as
     one fused kernel. Where ``dist`` splits the model axis, the experts go
-    through ``moe_ep`` (the reference's ``moe_ep_shardmap``)."""
+    through ``moe_ep`` (the reference's ``moe_ep_shardmap``). ``rope``
+    and ``in_place`` as in ``_attention``."""
     cons = _cons(dist)
     h = rms_norm(x, lp["ln1"], cfg.norm_eps)
     a, new_cache = _attention(lp, h, cfg, positions, cache, 0, q_chunk,
-                              cons, dist)
+                              cons, dist, rope, in_place)
     h, x = rmsnorm_residual(x, a, lp["ln2"], eps=cfg.norm_eps)
     x = _hidden(cons, x)
     if tp_if(dist) is not None:
@@ -330,26 +352,29 @@ def moe_body(lp: dict, x: torch.Tensor, cfg, positions: torch.Tensor,
 
 
 def ssm_body(lp: dict, x: torch.Tensor, cfg, positions: torch.Tensor,
-             cache: Optional[dict], dist: Optional[dict] = None) -> tuple:
-    """One Mamba2 layer: ``x + mamba2(ln(x))`` (positions play no part)."""
+             cache: Optional[dict], dist: Optional[dict] = None,
+             in_place: bool = False) -> tuple:
+    """One Mamba2 layer: ``x + mamba2(ln(x))`` (positions play no part;
+    ``in_place`` as in ``mamba2_block``)."""
     cons = _cons(dist)
     h = rms_norm(x, lp["ln"], cfg.norm_eps)
     y, new_cache = mamba2_block(lp["mamba"], h, cfg=cfg, cache=cache,
-                                cons=cons, dist=dist)
+                                cons=cons, dist=dist, in_place=in_place)
     return _hidden(cons, x + y), new_cache
 
 
 def pair_body(lp: dict, x: torch.Tensor, cfg, positions: torch.Tensor,
               cache: Optional[dict], q_chunk: int = 0,
-              dist: Optional[dict] = None) -> tuple:
+              dist: Optional[dict] = None, rope=None,
+              in_place: bool = False) -> tuple:
     """One gemma2 block: the local layer (sliding window) then the global
-    one, each with its own cache."""
+    one, each with its own cache (both take the same ``rope``)."""
     x, ncl = dense_body(lp["local"], x, cfg, positions,
                         None if cache is None else cache["local"],
-                        cfg.sliding_window, q_chunk, dist)
+                        cfg.sliding_window, q_chunk, dist, rope, in_place)
     x, ncg = dense_body(lp["global"], x, cfg, positions,
                         None if cache is None else cache["global"], 0,
-                        q_chunk, dist)
+                        q_chunk, dist, rope, in_place)
     return x, (None if cache is None else {"local": ncl, "global": ncg})
 
 
@@ -413,19 +438,22 @@ def maybe_remat(fn, remat: str):
 def layer_body(lp: dict, x: torch.Tensor, cfg, positions: torch.Tensor,
                cache: Optional[dict], moe_oracle: bool = False,
                q_chunk: int = 0, dist: Optional[dict] = None,
-               specs=None) -> tuple:
+               specs=None, rope=None, in_place: bool = False) -> tuple:
     """One layer of the stack (a gemma2 pair counts as one): (x, new_cache,
     aux), aux None but for the moe family. Under ``dist`` its weights are
-    first gathered over the FSDP axes (``specs``: the layer's specs)."""
+    first gathered over the FSDP axes (``specs``: the layer's specs).
+    ``rope``: ``layer_rope``'s tables; ``in_place``: the layer writes its
+    new cache into ``cache`` (a view into the stack's static copy)."""
     lp = fsdp_gather(lp, dist, specs)
     if cfg.family == "ssm":
-        return (*ssm_body(lp, x, cfg, positions, cache, dist), None)
+        return (*ssm_body(lp, x, cfg, positions, cache, dist, in_place),
+                None)
     if cfg.family == "moe":
         return moe_body(lp, x, cfg, positions, cache, moe_oracle, q_chunk,
-                        dist)
+                        dist, rope, in_place)
     body = pair_body if cfg.local_global_alternating else dense_body
     return (*body(lp, x, cfg, positions, cache, q_chunk=q_chunk,
-                  dist=dist), None)
+                  dist=dist, rope=rope, in_place=in_place), None)
 
 
 def _specs(dist: Optional[dict], *path):
@@ -442,27 +470,39 @@ def _specs(dist: Optional[dict], *path):
 def run_layers(layers: dict, x: torch.Tensor, cfg, positions: torch.Tensor,
                cache: Optional[dict], *, moe_oracle: bool = False,
                remat: str = "none", q_chunk: int = 0,
-               dist: Optional[dict] = None, specs=None
+               dist: Optional[dict] = None, specs=None,
+               in_place: bool = False
                ) -> Tuple[torch.Tensor, Optional[dict], torch.Tensor]:
     """The reference's layer scan as a loop over the stacked axis (dense,
     gemma2 pairs, ssm and moe layers; ``moe_oracle`` picks the moe layers'
     expert path), each layer under ``remat``. Returns (x, new_cache | None,
     aux): the moe layers' aux losses summed in f32 (0 for the others).
-    ``specs``: the stacked layers' param specs (under ``dist``)."""
+    ``specs``: the stacked layers' param specs (under ``dist``). The rope
+    tables are built once for every layer (``layer_rope``).
+
+    ``in_place`` (a stage program's decode on its own static copy of the
+    cache): each layer writes its new slots, or its new SSM state, conv
+    histories and ``length``, into its view of the stacked ``cache``,
+    which is returned as it is, unstacked, as XLA writes the scan's
+    stacked output in place. Every other caller keeps the functional
+    update, which leaves ``cache`` untouched."""
     body = maybe_remat(layer_body, remat)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if in_place and cache is None:
+        raise ValueError("in_place writes a cache: none was given")
+    rope = layer_rope(cfg, positions, x.device)
     new_caches = []
     lspecs = None if specs is None else index_specs(specs)
     for li in range(_first_leaf(layers).shape[0]):
         ca = None if cache is None else index_tree(cache, li)
         x, nc, a = body(index_tree(layers, li), x, cfg, positions, ca,
-                        moe_oracle, q_chunk, dist, lspecs)
+                        moe_oracle, q_chunk, dist, lspecs, rope, in_place)
         if a is not None:
             aux = aux + a.float()
         new_caches.append(nc)
     if cache is None:
         return x, None, aux
-    if not new_caches:
+    if in_place or not new_caches:
         return x, cache, aux
     return x, stack_trees(new_caches), aux
 

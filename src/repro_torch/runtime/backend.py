@@ -39,6 +39,7 @@ earlier or later, and never draw speculatively.
 """
 from __future__ import annotations
 
+import collections
 import functools
 import heapq
 import itertools
@@ -52,7 +53,7 @@ from typing import Callable, Dict, List, Optional, Protocol
 import numpy as np
 import torch
 
-from ..core.task import Job, StageInstance
+from ..core.task import HP, Job, StageInstance
 from ..kernels._lib import stage_graphs
 from .contention import batch_cost, batched_stage_ms
 from .engine_core import Completion, EngineCore
@@ -537,6 +538,48 @@ class _WorkerPool:
                     f"stage payload never returned")
 
 
+# the stages of an HP response (``RealtimeBackend.hp_response_parts``), in
+# order: release to the first launch, then a stage's own
+RESPONSE_PARTS = ("release_to_launch", "hand_off", "stream_wait", "device",
+                  "notice", "gap")
+HP_CHAINS_KEPT = 100_000        # completed HP jobs whose stamps are kept
+
+
+def _anchor_event(clock_ms: Callable[[float], float], tries: int = 5):
+    """A CUDA event put on the host's clock: recorded on the current stream
+    and polled to its completion, which lies between the host stamps
+    around that (the narrowest of ``tries``). Returns (event, its time in
+    ms on ``clock_ms``'s clock, half the window's width)."""
+    best = None
+    for _ in range(tries):
+        ev = torch.cuda.Event(enable_timing=True)
+        a = time.perf_counter()
+        ev.record()
+        while not ev.query():
+            pass
+        b = time.perf_counter()
+        if best is None or b - a < best[2] - best[1]:
+            best = (ev, a, b)
+    ev, a, b = best
+    return ev, clock_ms((a + b) / 2.0), (b - a) / 2.0 * 1000.0
+
+
+def _stage_parts(st: dict, nxt: float) -> dict:
+    """One launch's parts from its stamps (ms on the backend's clock);
+    ``nxt``: the job's next launch, or its completion after its last
+    stage. ``enqueue`` (the payload's copy in, run and copy out enqueued)
+    and ``sync_wake`` (the device's end to the worker's return from the
+    synchronize) lie within ``stream_wait`` + ``device`` and ``notice``."""
+    return {"stage": st["stage"], "failed": st["failed"],
+            "hand_off": st["start"] - st["launch"],
+            "stream_wait": st["dev_start"] - st["start"],
+            "device": st["dev_end"] - st["dev_start"],
+            "notice": st["harvest"] - st["dev_end"],
+            "gap": nxt - st["harvest"],
+            "enqueue": st["enqueued"] - st["start"],
+            "sync_wake": st["synced"] - st["dev_end"]}
+
+
 class RealtimeBackend:
     """Wall-clock substrate: persistent worker pool, one lane per worker.
 
@@ -580,6 +623,17 @@ class RealtimeBackend:
     Slots without an entry keep the state where it is (single-device
     mode: on one card nothing moves). ``resharded`` counts the migrations
     actually performed.
+
+    Every launch carries host stamps on the backend's clock (``now_ms``):
+    the engine's ``launch``, the worker's start, the payload enqueued (on
+    the card its copy in, replay and copy out; on the CPU its call), the
+    worker's return from the end event's synchronize, and ``advance``'s
+    harvest; on the card the CUDA events' device interval is put on the
+    same clock by two events polled to completion between host stamps,
+    one as the clock starts and one at ``stop`` (``_anchor_event``). A
+    completed HP
+    job's chain of them, with its release and the engine's completion
+    stamp (``job.finish_ms``), is kept for ``hp_response_parts``.
 
     ``device`` defaults to the card and raises without one: pass
     ``device="cpu"`` to run payloads on the host (no streams, no events).
@@ -627,6 +681,14 @@ class RealtimeBackend:
         # one-worker-per-lane-ever would leak a thread per dead lane
         self._lanes_seen = -1
         self._pool_target = 0
+        # job_id -> stamps of its harvested launches; then the completed HP
+        # jobs' (response index, releases, completion, stamps, task)
+        self._stamps: Dict[int, list] = {}
+        self._hp_chains: "collections.deque" = collections.deque(
+            maxlen=HP_CHAINS_KEPT)
+        # CUDA events put on the backend's clock as it starts and at stop
+        # (``_anchor_event``): (event, ms, half-width ms) each
+        self._anchors: list = []
 
     # ----------------------------------------------------------- lifecycle
     def bind(self, core: EngineCore) -> None:
@@ -657,6 +719,8 @@ class RealtimeBackend:
         self._graphs_warm = {"before": before,
                              "after": stage_graphs.snapshot()}
         self._t0 = time.perf_counter()
+        if self.device.type == "cuda":
+            self._anchors = [_anchor_event(self._ms)]
 
     def _lane_stream(self, lane: tuple):
         stream = self._streams.get(lane)
@@ -714,6 +778,22 @@ class RealtimeBackend:
 
     def stop(self) -> None:
         self._pool.stop()
+        if len(self._anchors) == 1:
+            self._anchors.append(_anchor_event(self._ms))
+
+    def _ms(self, t: float) -> float:
+        """A ``time.perf_counter`` reading on the backend's clock."""
+        return (t - self._t0) * 1000.0
+
+    def _device_ms(self, raw: float) -> float:
+        """An event's time on the backend's clock from its device ms after
+        the first anchor, scaled by the anchors' host-to-device rate where
+        the run's end has its own anchor."""
+        ev0, at0, _ = self._anchors[0]
+        if len(self._anchors) < 2:
+            return at0 + raw
+        ev1, at1, _ = self._anchors[1]
+        return at0 + raw * (at1 - at0) / ev0.elapsed_time(ev1)
 
     def graph_summary(self) -> Dict[str, float]:
         """The stage programs' CUDA graphs around this run: captures and
@@ -721,21 +801,30 @@ class RealtimeBackend:
         captures and replays since the clock started (a lane made after
         the start captures at its first launch), the kernel launches those
         replays counted, and the payload stages the workers ran since
-        (each one replay on the card). Counts are process-wide
-        (``kernels._lib.stage_graphs``), so nothing else may replay a
-        stage program meanwhile."""
+        (each one replay on the card), and the graph pools (one a lane)
+        first captured into in the warm-up and the run, and all since the
+        counts were last reset with the card memory they hold. Counts are process-wide (``kernels._lib.stage_graphs``),
+        so nothing else may replay a stage program meanwhile."""
         before = self._graphs_warm.get("before", {})
         after = self._graphs_warm.get("after", {})
         now = stage_graphs.snapshot()
 
         def since(a, b, k):
             return b.get(k, 0) - a.get(k, 0)
+        from ..serving.stage_graph import pool_reserved_bytes
         return {"warm_captures": since(before, after, "captures"),
                 "warm_capture_s": since(before, after, "capture_s"),
                 "captures": since(after, now, "captures"),
                 "replays": since(after, now, "replays"),
                 "replayed_launches": since(after, now, "replayed_launches"),
-                "stage_runs": self.stage_runs}
+                "stage_runs": self.stage_runs,
+                # pools first captured into in the warm-up and the run: one
+                # a lane; and all since the counts' reset (before the tasks
+                # were built, whose calibration captured on one more lane)
+                "run_pools": since(before, now, "pools"),
+                "pools": now["pools"],
+                "pool_gb": pool_reserved_bytes(stage_graphs.pool_ids())
+                / 1e9}
 
     @property
     def worker_exceptions(self) -> int:
@@ -774,7 +863,8 @@ class RealtimeBackend:
                     item = self._done_q.get(timeout=timeout_s)
             except queue.Empty:
                 return []
-            lane, inst, et, out, token, failed, dev_ms = item
+            got = self.now_ms()
+            lane, inst, et, out, token, failed, dev_ms, stamps = item
             self._inflight -= 1
             if lane[0] in self._cancelled_ctx:
                 # ghost completion from a failed context: fail_context
@@ -787,6 +877,8 @@ class RealtimeBackend:
                 # the stage; this worker's late result is a ghost
                 continue
             self._live_token.pop(lane, None)
+            stamps.update(harvest=got, failed=failed)
+            self._stamps.setdefault(inst.job.job_id, []).append(stamps)
             st = self.stage_times.setdefault(inst.profile.name,
                                              [0, 0.0, 0, 0.0, 0.0])
             st[0] += 1
@@ -837,21 +929,30 @@ class RealtimeBackend:
 
     def _worker(self, lane: tuple, inst: StageInstance, *,
                 token=None, stall_ms: float = 0.0,
-                failed: bool = False, stream=None) -> None:
+                failed: bool = False, stream=None, stamps: dict) -> None:
         prof = inst.profile
         t0 = time.perf_counter()
+        stamps["start"] = self._ms(t0)
         dev_ms = math.nan
         if stall_ms:
             # chaos-injected lane stall (driver hiccup / ECC scrub): the
             # stage runs, just late — the stall serializes ahead of it
             time.sleep(stall_ms / 1000.0)
-        if prof.payload is None:
-            # synthetic stage: sleep the batched work (b/g(b) scaling)
-            time.sleep(batched_stage_ms(prof, inst.job.n_inputs) / 1000.0)
-            out = self._job_state.get(inst.job.job_id)
-        elif stream is None:
-            out = prof.payload(self._stage_input(inst, lane))
-            self._ran_stage()
+        if prof.payload is None or stream is None:
+            # on the host: its run is the "device" interval
+            x = (self._job_state.get(inst.job.job_id) if prof.payload is None
+                 else self._stage_input(inst, lane))
+            stamps["dev_start"] = self.now_ms()
+            if prof.payload is None:
+                # synthetic stage: sleep the batched work (b/g(b) scaling)
+                time.sleep(batched_stage_ms(prof, inst.job.n_inputs)
+                           / 1000.0)
+                out = x
+            else:
+                out = prof.payload(x)
+                self._ran_stage()
+            now = self.now_ms()
+            stamps.update(dev_end=now, enqueued=now, synced=now)
         else:
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
@@ -863,12 +964,20 @@ class RealtimeBackend:
                 start.record(stream)
                 out = prof.payload(x)
                 end.record(stream)
+            stamps["enqueued"] = self.now_ms()
             # the stage is done when the stream is: time to that point
             end.synchronize()
+            stamps["synced"] = self.now_ms()
             dev_ms = start.elapsed_time(end)
+            # device ms after the first anchor: on the host's clock later
+            # (``_device_ms``), once the run's end has its anchor
+            ev0 = self._anchors[0][0]
+            stamps["dev_raw"] = (ev0.elapsed_time(start),
+                                 ev0.elapsed_time(end))
             self._ran_stage()
         et_ms = (time.perf_counter() - t0) * 1000.0
-        self._done_q.put((lane, inst, et_ms, out, token, failed, dev_ms))
+        self._done_q.put((lane, inst, et_ms, out, token, failed, dev_ms,
+                          stamps))
 
     def _ran_stage(self) -> None:
         with self._runs_lock:
@@ -897,9 +1006,11 @@ class RealtimeBackend:
         stream = None
         if self.device.type == "cuda":
             stream = self._lane_stream(lane)
+        stamps = {"stage": inst.job.stage_idx, "launch": self.now_ms()}
         self._pool.submit(
             functools.partial(self._worker, token=token, stall_ms=stall,
-                              failed=cfail, stream=stream), lane, inst)
+                              failed=cfail, stream=stream, stamps=stamps),
+            lane, inst)
 
     def kill_lane(self, lane: tuple, inst: StageInstance) -> None:
         # workers can't be interrupted: forget the launch token so the
@@ -917,6 +1028,73 @@ class RealtimeBackend:
     def on_job_done(self, job: Job) -> None:
         self._job_state.pop(job.job_id, None)
         self._state_ctx.pop(job.job_id, None)
+        chain = self._stamps.pop(job.job_id, None)
+        # a completed HP job: its last stage harvested and not failed (an
+        # abort follows a failed stage, a cancel sets ``cancelled``); the
+        # engine appends its responses after this call
+        if (chain and self.core is not None and job.task.priority == HP
+                and not job.cancelled and job.finish_ms is not None
+                and job.is_last_stage() and not chain[-1]["failed"]
+                and chain[-1]["stage"] == job.stage_idx):
+            live = [r for r in job.release_times
+                    if r not in job.dropped_releases]
+            self._hp_chains.append((len(self.core.metrics.response_ms[HP]),
+                                    live, job.finish_ms, chain,
+                                    job.task.name))
+
+    def hp_response_parts(self, slowest: int = 3) -> dict:
+        """Where each completed HP job's response went (ROADMAP C7), from
+        the stamps of its harvested launches (class docstring): release ->
+        first launch, then per launch ``hand_off`` (launch -> the worker's
+        start), ``stream_wait`` (-> the device's start of the stage, on the
+        CPU its call), ``device``, ``notice`` (-> the harvest) and ``gap``
+        (-> the next launch, or after the last stage the engine's
+        completion stamp). The parts sum to the response the engine
+        recorded; ``sum_err_ms`` is the largest difference. ``by_job``:
+        one row a job of [response, then each of ``RESPONSE_PARTS`` summed
+        over its launches]; ``slowest``: that many of the slowest jobs with
+        every launch's parts."""
+        resp = self.core.metrics.response_ms[HP] if self.core else []
+        for _, _, _, chain, _ in self._hp_chains:
+            for st in chain:
+                if "dev_raw" in st:
+                    st["dev_start"], st["dev_end"] = map(self._device_ms,
+                                                         st.pop("dev_raw"))
+        jobs = []
+        for idx, releases, finish, chain, name in self._hp_chains:
+            launches = [c["launch"] for c in chain[1:]] + [finish]
+            stages = [_stage_parts(st, nxt)
+                      for st, nxt in zip(chain, launches)]
+            for i, rel in enumerate(releases):
+                if idx + i >= len(resp):
+                    continue
+                parts = {"release_to_launch": chain[0]["launch"] - rel}
+                for k in RESPONSE_PARTS[1:]:
+                    parts[k] = sum(s[k] for s in stages)
+                total = sum(parts.values())
+                jobs.append({"task": name, "release_ms": rel,
+                             "response_ms": resp[idx + i],
+                             "sum_err_ms": abs(total - resp[idx + i]),
+                             "parts": parts, "stages": stages})
+        by_part = {k: sum(j["parts"][k] for j in jobs)
+                   for k in RESPONSE_PARTS}
+        drift = None
+        if len(self._anchors) == 2:
+            (ev0, at0, _), (ev1, at1, _) = self._anchors
+            drift = ((at1 - at0) / ev0.elapsed_time(ev1) - 1.0) * 1e6
+        return {"jobs": len(jobs),
+                "sum_err_ms": max((j["sum_err_ms"] for j in jobs),
+                                  default=0.0),
+                # the anchors' half-widths, and the host's clock against
+                # the card's over the run in parts per million
+                "anchor_uncertainty_ms": [a[2] for a in self._anchors],
+                "clock_drift_ppm": drift,
+                "parts": list(RESPONSE_PARTS), "total_ms": by_part,
+                "by_job": [[j["response_ms"]]
+                           + [j["parts"][k] for k in RESPONSE_PARTS]
+                           for j in jobs],
+                "slowest": sorted(jobs, key=lambda j: -j["response_ms"])[
+                    :slowest]}
 
     def on_reconfigure(self) -> None:
         # new contexts mean new lanes: grow the worker pool to match

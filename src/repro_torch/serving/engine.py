@@ -5,12 +5,16 @@ Counterpart of ``staged_cnn_taskspec`` and ``staged_lm_taskspec`` in
 src/repro/serving/engine.py. As the reference jits each stage function
 once, each stage here is a ``StageProgram`` (``serving/stage_graph.py``):
 on the card a CUDA graph a stream, captured at its first call on that
-stream and replayed for every later job; on the CPU the stage function
-called eagerly. A payload runs on whatever stream is current, which the
-realtime backend sets to the lane's own. ``t_alone`` per stage is one
-timed call after one warm-up call (on the card the warm-up captures, so
-the timed call is a replay, as the reference times its jitted call after
-the compile call), ended by a stream synchronize.
+stream into the lane's graph pool and replayed for every later job; on
+the CPU the stage function called eagerly. A payload runs on whatever
+stream is current, which the realtime backend sets to the lane's own; the
+calibration's stream is one more lane. An LM stage program writes its
+static copy of the cache slice in place (``make_lm_stage_fns(...,
+in_place=True)``); the donor's slices are views it only copies from.
+``t_alone`` per stage is one timed call after one warm-up call (on the
+card the warm-up captures, so the timed call is a replay, as the
+reference times its jitted call after the compile call), ended by a
+stream synchronize.
 """
 from __future__ import annotations
 
@@ -32,8 +36,8 @@ __all__ = ["lm_stage", "staged_cnn_taskspec", "staged_lm_taskspec"]
 
 def _calibrate(payloads, state, dev) -> list:
     """ms of one call of each payload in turn, after a warm-up call (on
-    the card the stage program's capture, so the timed call is a
-    replay)."""
+    the card the stage program's capture, into the pool of the current
+    stream's lane, so the timed call is a replay)."""
     times = []
     for fn in payloads:
         fn(state)                                 # warm-up
@@ -119,7 +123,10 @@ def staged_lm_taskspec(model, *, priority: int, jps: float,
     hidden activation plus the KV-cache slices touched so far: each stage
     takes its layer slice of a prefilled donor cache
     (``serving.staging.slice_cache``) and threads the updated slice
-    forward, so a migration moves hidden AND cache.
+    forward, so a migration moves hidden AND cache. The programs' stage
+    functions write the new slots (or SSM state) into the program's
+    static copy of the slice (``in_place=True``); each program's
+    ``functional`` is the stage with the reference's functional update.
 
     Everything runs on the card unless ``device`` names another device,
     which must be the model's (``build_model(cfg, device=...)``).
@@ -128,7 +135,8 @@ def staged_lm_taskspec(model, *, priority: int, jps: float,
     dev = _resolve_model_device(model, device)
     if params is None:
         params = model.init_params(0)
-    stage_fns = make_lm_stage_fns(model, n_stages=n_stages)
+    stage_fns = make_lm_stage_fns(model, n_stages=n_stages, in_place=True)
+    functional = make_lm_stage_fns(model, n_stages=n_stages)
     # prefill a donor cache once with the model's own forward; every job
     # then decodes one token against (its own copy of) that cache
     tokens = torch.from_numpy(np.random.default_rng(0).integers(
@@ -143,8 +151,9 @@ def staged_lm_taskspec(model, *, priority: int, jps: float,
         donor_slice=slice_cache(cfg, donor, i, n_stages),
         program=StageProgram(
             lambda h, sl, fn=fn: fn(params, h, sl, pos),
-            name=f"{cfg.name}/lm-s{i}"))
-        for i, fn in enumerate(stage_fns)]
+            name=f"{cfg.name}/lm-s{i}",
+            functional=lambda h, sl, fn=ffn: fn(params, h, sl, pos)))
+        for i, (fn, ffn) in enumerate(zip(stage_fns, functional))]
     times = _calibrate(payloads, None, dev)
     stages = [StageProfile(name=f"{cfg.name}/lm-s{j}", t_alone_ms=t,
                            n_sat=n_sat, mem_frac=mem_frac,

@@ -42,13 +42,20 @@ def _n_scan(cfg) -> int:
     return cfg.n_layers // (2 if cfg.local_global_alternating else 1)
 
 
-def make_lm_stage_fns(model: Model, n_stages: int = 4) -> List[Callable]:
+def make_lm_stage_fns(model: Model, n_stages: int = 4,
+                      in_place: bool = False) -> List[Callable]:
     """Stage callables of the dense, vlm, gemma2, ssm and moe families (moe
     layers on the dense expert oracle, as the reference stages them):
 
     stage_fn(params, hidden_or_tokens, cache_slice, positions)
       -> (hidden_or_logits, new_cache_slice)
-    """
+
+    With ``in_place`` (a decode step, one token) each layer writes its new
+    slots, or its new SSM state, conv histories and ``length``, into the
+    ``cache_slice`` it was given, and ``new_cache_slice`` is that same
+    tree (``transformer.run_layers``): for a stage program, whose slice is
+    its own static copy; never for a slice of a cache that must stay as
+    it is (``slice_cache``'s views of a donor)."""
     cfg = model.cfg
     if cfg.family == "hybrid":
         raise NotImplementedError(
@@ -64,7 +71,8 @@ def make_lm_stage_fns(model: Model, n_stages: int = 4) -> List[Callable]:
                 x = transformer.embed(params, cfg, x)
             layers = transformer.index_tree(params["layers"], slice(lo, hi))
             x, new_cache, _ = transformer.run_layers(
-                layers, x, cfg, positions, cache_slice, moe_oracle=True)
+                layers, x, cfg, positions, cache_slice, moe_oracle=True,
+                in_place=in_place)
             if i == n_stages - 1:
                 x = transformer.logits(params, cfg, x)
             return x, new_cache

@@ -238,10 +238,11 @@ def test_realtime_staged_lm_decode_on_cuda_streams():
 @pytest.mark.parametrize("name", ["smollm-135m", "resnet18"])
 def test_stage_programs_replay_on_two_streams(name):
     """Each staged payload is a CUDA graph a stream: two jobs through the
-    payloads on two streams, interleaved, equal the eager stage
-    functions (the LM bit for bit, the CNN within 2e-4 of the scale);
-    each call after a stream's first is one replay, which counts its
-    capture's launches again."""
+    payloads on two streams, interleaved, equal the functional eager stage
+    functions (the LM, whose programs write their cache copy in place,
+    bit for bit; the CNN within 2e-4 of the scale); each call after a
+    stream's first is one replay, which counts its capture's launches
+    again; the captures went into one graph pool a stream."""
     _need_cuda()
     import functools
 
@@ -264,8 +265,8 @@ def test_stage_programs_replay_on_two_streams(name):
     def eager(p):
         if isinstance(p, functools.partial):
             return functools.partial(p.func, **{
-                **p.keywords, "program": p.keywords["program"].fn})
-        return p.fn
+                **p.keywords, "program": p.keywords["program"].functional})
+        return p.functional
 
     def leaves(t):
         if isinstance(t, dict):
@@ -290,6 +291,7 @@ def test_stage_programs_replay_on_two_streams(name):
             states[j] = out
     g = _lib.stage_graphs.snapshot()
     assert g["captures"] == len(spec.stages)          # one a stream
+    assert g["pools"] == 2                            # one a stream
     assert g["replays"] == 2 * len(spec.stages)
     launched = sum(fn.counts.launches for fn in KERNELS.values())
     if name == "smollm-135m":
@@ -322,6 +324,87 @@ def test_lanes_made_mid_run_capture_while_others_replay():
     assert srv.backend.worker_exceptions == 0
     assert g["warm_captures"] > 0 and g["captures"] > 0
     assert g["replays"] == g["stage_runs"] > 0
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in _leaves(v)]
+    return [tree]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,replace", [
+    ("smollm-135m", {}), ("smollm-135m", {"kv_cache_dtype": "int8"}),
+    ("mamba2-2.7b", {}), ("qwen2-moe-a2.7b", {}), ("deepseek-v2-236b", {}),
+    ("gemma2-27b", {})],
+    ids=["dense", "int8_cache", "ssm", "moe", "mla", "gemma2"])
+def test_in_place_stage_programs_equal_the_functional_stages(arch, replace):
+    """Every served LM family in bf16: three jobs through the compiled
+    payloads (CUDA graphs whose stage functions write their static cache
+    copy in place) on two streams equal the functional eager stages bit
+    for bit, hidden states, logits and cache slices; the donor cache's
+    bytes stay as they were; the captures went into one pool a stream."""
+    _need_cuda()
+    import functools
+
+    from repro_torch.kernels import _lib, reset_counts
+    cfg = get_reduced(arch).replace(dtype="bfloat16", **replace)
+    model = build_model(cfg)
+    spec = staged_lm_taskspec(model, priority=api.HP, jps=20.0, batch=2,
+                              prompt_len=20)
+    donors = [[t.clone() for t in _leaves(st.payload.keywords["donor_slice"])]
+              for st in spec.stages]
+    reset_counts()
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for job in range(3):
+        state = {"hidden": torch.full((2, 1), 5 + job, dtype=torch.int32,
+                                      device="cuda"), "slices": {}}
+        for k, st in enumerate(spec.stages):
+            with torch.cuda.stream(streams[(k + job) % 2]):
+                out = st.payload(state)
+            torch.cuda.synchronize()
+            prog = st.payload.keywords["program"]
+            ref = functools.partial(st.payload.func, **{
+                **st.payload.keywords, "program": prog.functional})(state)
+            assert all(torch.equal(a, b) for a, b in zip(_leaves(out),
+                                                         _leaves(ref)))
+            state = out
+        assert state["hidden"].shape[-1] == cfg.vocab_size
+    for st, kept in zip(spec.stages, donors):
+        assert all(torch.equal(a, b) for a, b in zip(
+            _leaves(st.payload.keywords["donor_slice"]), kept))
+    g = _lib.stage_graphs.snapshot()
+    # each stage met both streams: a capture on each, a replay a call
+    assert g["pools"] == 2 and g["captures"] == 2 * len(spec.stages)
+    assert g["replays"] == 3 * len(spec.stages)
+
+
+@pytest.mark.cuda
+def test_a_served_run_keeps_one_graph_pool_a_lane():
+    """2 contexts x 2 streams: the captures of both tasks' stage programs
+    went into 5 pools (4 lanes and the calibration's stream), which hold
+    card memory; every HP job's response parts sum to its response."""
+    _need_cuda()
+    from repro_torch.kernels import reset_counts
+    model = build_model(get_reduced("smollm-135m").replace(n_layers=8,
+                                                           dtype="bfloat16"))
+    reset_counts()
+    specs = [staged_lm_taskspec(model, priority=p, jps=40.0, batch=2,
+                                tag=tag)
+             for p, tag in ((api.HP, "-hp"), (api.LP, "-lp"))]
+    srv = (api.ServerConfig.realtime().tasks(specs).contexts(2).streams(2)
+           .oversubscribe(2.0).device(api.DeviceModel(n_units=2.0))
+           .horizon_ms(600.0).build())
+    m = srv.run()
+    g = srv.backend.graph_summary()
+    assert m.completed[api.HP] > 0 and srv.backend.worker_exceptions == 0
+    assert g["replays"] == g["stage_runs"] > 0
+    assert g["run_pools"] == 4 and g["pools"] == 5 and g["pool_gb"] > 0
+    parts = srv.backend.hp_response_parts()
+    assert parts["jobs"] == len(m.response_ms[api.HP])
+    assert parts["sum_err_ms"] <= 0.01
 
 
 def _to_cpu(tree):

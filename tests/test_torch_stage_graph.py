@@ -20,11 +20,18 @@ again) except the capture and replay calls themselves.
 - The payloads still equal the reference's jitted stages: reduced
   smollm-135m within ``test_torch_model.py``'s 1e-4, a reduced ResNet18
   within ``test_torch_cnn.py``'s 2e-4 of the output's scale.
+- The lanes are the process's: two programs on one lane never overlap
+  (one lock a lane), two lanes run at once, a lane's programs of one
+  signature share its static inputs, and a lane's captures go into its
+  one graph pool (``PooledCpuGraph``, with a stand-in pool handle).
+- A CPU ``RealtimeBackend`` run with real payloads splits every HP job's
+  response into parts that sum to it (``hp_response_parts``).
 """
 import concurrent.futures
 import functools
 import sys
 import threading
+import time
 
 import numpy as np
 import pytest
@@ -110,8 +117,9 @@ def _with_program(payload, program):
 
 
 def _eager(payload):
-    """The payload with its stage function called directly."""
-    return _with_program(payload, _program(payload).fn)
+    """The payload with its functional stage function called directly (an
+    LM program's ``fn`` writes its static cache copy in place)."""
+    return _with_program(payload, _program(payload).functional)
 
 
 # ------------------------------------------------------------------ models
@@ -177,9 +185,9 @@ def _interleaved(name, kind):
     A's stage k, then B's stage k, on lane k % 2. Returns the payloads,
     the two jobs' final states and each job run alone eagerly."""
     spec = _spec(name)
-    payloads = [_with_program(st.payload,
-                              PROGRAMS[kind](_program(st.payload).fn))
-                for st in spec.stages]
+    payloads = [_with_program(st.payload, PROGRAMS[kind](
+        _program(st.payload).fn,
+        functional=_program(st.payload).functional)) for st in spec.stages]
     vocab = _lm_model().cfg.vocab_size if name == "smollm-135m" else None
     first = _job_inputs(name, vocab)
     alone = []
@@ -290,7 +298,7 @@ def test_replays_add_the_captured_launches_once_each():
     assert rms.launches == 6 + 2
     reset_counts()
     assert _lib.stage_graphs.snapshot() == {
-        "captures": 0, "capture_s": 0.0, "replays": 0,
+        "captures": 0, "capture_s": 0.0, "pools": 0, "replays": 0,
         "replayed_launches": 0}
 
 
@@ -404,3 +412,189 @@ def test_cnn_payloads_equal_the_reference_jitted_stages():
         assert p.shape == r.shape
         err = float(np.abs(r - p).max()) / max(1.0, float(np.abs(r).max()))
         assert err <= CNN_TOL, (i, err)
+
+
+# ------------------------------------------------------ lanes, pools, parts
+class _Recorder:
+    """A stage function that records its entries and exits (by program)
+    and holds the lane for a moment, so that two calls that could overlap
+    do."""
+
+    def __init__(self):
+        self.events, self.lock = [], threading.Lock()
+
+    def stage(self, tag):
+        def fn(x):
+            with self.lock:
+                self.events.append(("in", tag))
+            time.sleep(0.002)
+            with self.lock:
+                self.events.append(("out", tag))
+            return x + 1.0
+        return fn
+
+
+def _overlaps(events) -> int:
+    inside, most = 0, 0
+    for kind, _ in events:
+        inside += 1 if kind == "in" else -1
+        most = max(most, inside)
+    return most
+
+
+def test_two_programs_on_one_lane_share_one_lock():
+    """Two programs of one signature, sixteen threads on one lane (as LP
+    and HP stages, and a ghost worker, share a stream), with a short switch
+    interval: no call of either program runs inside another's copy in, run
+    and copy out, and each call returns its own input's result, though
+    both programs copy into the same static inputs."""
+    rec = _Recorder()
+    progs = [OneLaneProgram(rec.stage(t)) for t in "AB"]
+
+    def call(i):
+        x = torch.full((3,), float(i))
+        return all(torch.equal(progs[i % 2](x), x + 1.0) for _ in range(5))
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        with concurrent.futures.ThreadPoolExecutor(16) as ex:
+            ok = list(ex.map(call, range(16), timeout=120))
+    finally:
+        sys.setswitchinterval(old)
+    assert ok == [True] * 16
+    assert _overlaps(rec.events) == 1
+    assert {t for _, t in rec.events} == {"A", "B"}
+    assert stage_graph.lane("one lane") is stage_graph.lane("one lane")
+
+
+def test_two_lanes_run_at_once():
+    """Programs on two lanes (two threads on the CPU) do not wait for each
+    other: both calls are inside their stage function together."""
+    both = threading.Barrier(2, timeout=30)
+    progs = [stage_graph.StageProgram(lambda x: (both.wait(), x * 2.0)[1])
+             for _ in range(2)]
+    with concurrent.futures.ThreadPoolExecutor(2) as ex:
+        outs = list(ex.map(lambda p: p(torch.ones(2)), progs, timeout=60))
+    assert all(torch.equal(o, torch.full((2,), 2.0)) for o in outs)
+
+
+class PooledCpuGraph(CpuGraph):
+    """``CpuGraph`` whose capture takes its lane's graph pool, as the card's
+    does."""
+
+    def _capture(self, fn, args):
+        self.pool = self.lane.graph_pool()
+        return super()._capture(fn, args)
+
+
+class PooledProgram(stage_graph.StageProgram):
+    def _runner(self, device):
+        return PooledCpuGraph
+
+
+def test_captures_take_one_graph_pool_a_lane(monkeypatch):
+    """Three programs on two lanes (two worker threads): each lane's
+    captures go into that lane's one pool, made at its first capture; the
+    counts name two pools for six captures."""
+    made = iter(range(1000))
+    monkeypatch.setattr(torch.cuda, "graph_pool_handle",
+                        lambda: (0, 1000 + next(made)))
+    reset_counts()
+    progs = [PooledProgram(lambda x, k=k: x + k) for k in range(3)]
+    lanes = [concurrent.futures.ThreadPoolExecutor(1) for _ in range(2)]
+    try:
+        for ex in lanes:
+            for _ in range(2):
+                for p in progs:
+                    ex.submit(p, torch.zeros(2)).result(timeout=60)
+        pools = [ex.submit(lambda: stage_graph.lane(
+            threading.get_ident()).pool).result(timeout=60) for ex in lanes]
+    finally:
+        for ex in lanes:
+            ex.shutdown()
+    g = _lib.stage_graphs.snapshot()
+    assert g["captures"] == 6 and g["replays"] == 12 and g["pools"] == 2
+    assert pools[0] != pools[1]
+    assert sorted(_lib.stage_graphs.pool_ids()) == sorted(pools)
+    for p in progs:
+        assert {st.runner.pool for st in p._lanes.values()} == set(pools)
+    assert stage_graph.pool_reserved_bytes([]) == 0
+    reset_counts()
+    assert _lib.stage_graphs.snapshot()["pools"] == 0
+
+
+def _served(name):
+    if name == "smollm-135m":
+        model = _lm_model()
+        specs = [staged_lm_taskspec(model, priority=p, jps=10.0,
+                                    n_stages=N_STAGES, prompt_len=PROMPT,
+                                    batch=BATCH, device="cpu", tag=t,
+                                    params=model.init_params(0))
+                 for p, t in ((api.HP, "-hp"), (api.LP, "-lp"))]
+        io = {}
+    else:
+        model = BUILDERS[name](width=8, device="cpu")
+        specs = [staged_cnn_taskspec(model, priority=p, jps=20.0,
+                                     input_hw=33, batch=2, calibrate=False,
+                                     device="cpu", tag=t)
+                 for p, t in ((api.HP, "-hp"), (api.LP, "-lp"))]
+        io = dict(input_hw=33, batch=2)
+    cfg = (api.ServerConfig.realtime(device="cpu").tasks(specs).contexts(2)
+           .streams(2).oversubscribe(2.0)
+           .device(api.DeviceModel(n_units=4.0)).horizon_ms(500.0))
+    if io:
+        cfg = cfg.realtime_io(**io)
+    srv = cfg.build()
+    return srv, srv.run()
+
+
+@pytest.mark.parametrize("name", ["resnet18", "smollm-135m"])
+def test_hp_response_parts_sum_to_each_response(name):
+    """A CPU ``RealtimeBackend`` run with real payloads: every completed HP
+    job has its parts (release -> first launch; a stage's hand-off, stream
+    wait, device, notice and gap), none negative, one launch a stage, and
+    they sum to the response the engine recorded within 0.01 ms."""
+    srv, m = _served(name)
+    parts = srv.backend.hp_response_parts(slowest=2)
+    resp = m.response_ms[api.HP]
+    assert m.completed[api.HP] > 0 and parts["jobs"] == len(resp)
+    assert parts["sum_err_ms"] <= 0.01
+    assert sorted(r[0] for r in parts["by_job"]) == sorted(resp)
+    for row in parts["by_job"]:
+        assert abs(sum(row[1:]) - row[0]) <= 0.01
+        assert all(np.isfinite(v) and v >= -1e-9 for v in row)
+    worst = parts["slowest"][0]
+    assert worst["response_ms"] == max(resp)
+    assert [s["stage"] for s in worst["stages"]] == list(range(N_STAGES))
+    total = sum(parts["total_ms"].values())
+    assert abs(total - sum(resp)) <= 0.01 * len(resp)
+
+
+def test_a_lanes_programs_of_one_signature_share_static_inputs():
+    """Static inputs are the lane's, a signature: two programs that take
+    the same shapes on one lane copy into the same buffers (as HP and LP
+    stages of one model, or equal stages, on a stream); another signature
+    or another lane has its own. A lane goes with its programs."""
+    import gc
+    progs = [OneLaneProgram(lambda x, k=k: x * k) for k in (2.0, 3.0, 5.0)]
+    for p in progs[:2]:
+        assert torch.equal(p(torch.ones(4)), torch.ones(4) * p.fn(1.0))
+    assert torch.equal(progs[2](torch.ones(2, 2)), torch.full((2, 2), 5.0))
+    (a,), (b,), (c,) = (list(p._lanes.values()) for p in progs)
+    assert a.inputs is b.inputs and a.inputs is not c.inputs
+    assert a.lane is b.lane is c.lane is stage_graph.lane("one lane")
+    # the shared buffer holds the last call's input, and each program
+    # still returns its own result for its own input
+    assert torch.equal(progs[0](torch.full((4,), 7.0)),
+                       torch.full((4,), 14.0))
+    assert torch.equal(a.inputs[0], torch.full((4,), 7.0))
+    other = threading.Thread(target=stage_graph.StageProgram.__call__,
+                             args=(progs[0], torch.ones(4)))
+    other.start()
+    other.join(timeout=60)
+    assert len(progs[0]._lanes) == 1         # every thread on one lane
+    del p, progs, a, b, c
+    gc.collect()
+    assert "one lane" not in stage_graph._lanes
+    fresh = stage_graph.lane("one lane")
+    assert fresh.pool is None and not len(fresh.inputs)
