@@ -4,6 +4,7 @@
     python3 chip_smoke.py          # from the root of a checkout
     python3 chip_smoke.py --serve mamba2-2.7b --repeats 2 [--trace]
     python3 chip_smoke.py --serve resnet18 --repeats 8
+    python3 chip_smoke.py --serve resnet18 --repeats 3 --switch-interval 0.0005
     python3 chip_smoke.py --epoch --repeats 10
     python3 chip_smoke.py --cluster --repeats 2
     python3 chip_smoke.py --resume --repeats 2
@@ -18,7 +19,10 @@ or 13 below),
 clocks after it, the profile of a decode step (``decode_step_profile``)
 or of each CNN stage (``cnn_stage_profile``), and with ``--trace`` what
 the card did during it (``device_timeline``); a ``serve_repeats`` line
-sums the runs up (runs with an HP miss, HP mean, p99 and max response).
+sums the runs up (runs with an HP miss, HP mean, p99 and max response,
+and for the CNNs the runs and HP jobs over SchedCheck's static bound).
+``--switch-interval S`` sets the process's ``sys.setswitchinterval``
+before the runs.
 Copied into a checkout from before the compiled stage (``git archive``
 under ``build/``), the same forms measure that tree, without the
 ``stage_graphs`` fields; --epoch only the epoch phase (step 4), --resume only
@@ -104,11 +108,21 @@ result line. Without arguments:
    ``serving`` line's ``stage_graphs`` gives the warm-up's captures and
    their seconds (within ``warm_up_s``) and, over the run, the replays,
    the launches they counted and the payload stages the lanes ran: every
-   one must have been a replay; and the graph pools and the GB they hold:
-   one a lane and one for the calibration's stream. Its
+   one must have been a replay, and every one enqueued on the engine
+   thread (``pool_stage_runs`` 0: on the card the worker pool runs no
+   stage); and the graph pools and the GB they hold:
+   one a lane and one for the calibration's stream. The caching
+   allocator must not call the driver in the run (``allocator_in_run``:
+   no device allocation and no retry after the lanes' warm-up). Its
    ``hp_response_parts`` splits each HP job's response by stage (release
    -> first launch; hand-off, stream wait, device, notice, gap; ROADMAP
-   C7): the parts must sum to the response within ``PARTS_TOL_MS``. Then
+   C7): the parts must sum to the response within ``PARTS_TOL_MS``. The
+   host events behind a stall beside them: the interpreter's switch
+   interval (``switch_interval_s``; ``--serve ... --switch-interval S``
+   sets this process's), the garbage collections in the run by
+   generation (count, seconds, longest pause, each on the backend's
+   clock; ``gc``) and, for the slowest HP jobs, whether the largest part
+   overlaps one (``slowest_vs_gc``). Then
    the ``stage_graphs`` check: two jobs of differing seeded inputs through
    the served task's payloads on two new streams, interleaved (job A's
    stage k, then job B's, on stream k % 2), each stage against its
@@ -479,6 +493,9 @@ CNN_WIDTHS = {"resnet18": 64, "unet": 64, "inceptionv3": 24}
 CNN_HW, CNN_BATCH = 224, 1
 CNN_TOL = 1e-3                        # card vs CPU, of the output's scale
 PARTS_TOL_MS = 0.01                   # an HP job's parts against its response
+# the stage parts of an HP response after its release -> first launch
+RESPONSE_PARTS = ("release_to_launch", "hand_off", "stream_wait", "device",
+                  "notice", "gap")
 RESUME_DNN = "resnet18"               # served cold, saved, then resumed
 # the training phase: smollm-135m at full width and depth (bf16, f32 m/v),
 # 20 AdamW steps of 8 sequences of 4096 tokens in 2 microbatches of 4
@@ -1550,11 +1567,21 @@ def serve(torch, failures, specs, setup_s, jps, kernels, desc, trace=False,
         tracer = profile(activities=[ProfilerActivity.CUDA])
     else:
         tracer = contextlib.nullcontext()
+    # the allocator's counters as the clock starts (after the warm-up)
+    started = srv.backend.start
+    warm = {}
+
+    def start():
+        started()
+        warm["alloc"] = allocator_counts(torch)
+    srv.backend.start = start
     ru0, w0 = resource.getrusage(resource.RUSAGE_SELF), time.perf_counter()
-    with tracer, ThreadCpu() as threads:
+    with tracer, ThreadCpu() as threads, GcTime() as gc_time:
         m = srv.run()
         torch.cuda.synchronize()
     ru1, w1 = resource.getrusage(resource.RUSAGE_SELF), time.perf_counter()
+    alloc = {k: v - warm["alloc"][k]
+             for k, v in allocator_counts(torch).items()}
     host = {"wall_s": w1 - w0, "cpu_user_s": ru1.ru_utime - ru0.ru_utime,
             "cpu_sys_s": ru1.ru_stime - ru0.ru_stime,
             "involuntary_switches": ru1.ru_nivcsw - ru0.ru_nivcsw,
@@ -1570,10 +1597,18 @@ def serve(torch, failures, specs, setup_s, jps, kernels, desc, trace=False,
     parts = (be.hp_response_parts() if hasattr(be, "hp_response_parts")
              else None)
     lanes = len(be.core.sched.lanes)
+    # the collections on the backend's clock: in the served run (from the
+    # clock's start), and before it (the lanes' warm-up)
+    collections = gc_time.on_clock(be._t0)
+    in_run = [c for c in collections if c[1] >= 0.0]
+    bound = report.hp_bound_ms() if report is not None else None
+    hp = list(m.response_ms[HP])
     SERVED.append({"model": name, "hp_missed": m.missed[HP],
-                   "hp_response_ms": list(m.response_ms[HP]),
+                   "hp_response_ms": hp,
                    "hp_parts_total_ms": parts and parts["total_ms"],
-                   "graph_pools": graphs and graphs.get("pools")})
+                   "graph_pools": graphs and graphs.get("pools"),
+                   "hp_bound_ms": bound,
+                   "gc": gc_summary(in_run)})
     if graphs is not None and (graphs["stage_runs"] == 0
                                or graphs["replays"] != graphs["stage_runs"]):
         failures.append(f"{name}: {graphs['stage_runs']} payload stages "
@@ -1585,6 +1620,14 @@ def serve(torch, failures, specs, setup_s, jps, kernels, desc, trace=False,
         failures.append(f"{name}: graph pools {graphs['run_pools']} for "
                         f"{lanes} lanes, {graphs['pools']} with the "
                         f"calibration's stream (one a lane)")
+    if graphs is not None and graphs.get("pool_stage_runs"):
+        failures.append(f"{name}: {graphs['pool_stage_runs']} payload "
+                        f"stages ran on the worker pool (every one must be "
+                        f"enqueued on the engine thread)")
+    if alloc["num_device_alloc"] or alloc["num_alloc_retries"]:
+        failures.append(f"{name}: the caching allocator called the driver "
+                        f"in the served run ({alloc}): the lanes' warm-up "
+                        f"left a stream without its stages' blocks")
     if parts is not None and (parts["jobs"] != len(m.response_ms[HP])
                               or not parts["sum_err_ms"] <= PARTS_TOL_MS):
         failures.append(f"{name}: HP response parts of {parts['jobs']} of "
@@ -1616,8 +1659,21 @@ def serve(torch, failures, specs, setup_s, jps, kernels, desc, trace=False,
         # warm_up_s), one replay a payload stage run on a lane after it
         "stage_graphs": graphs, "lanes": lanes,
         "hp_response_parts": parts,
+        # the host events behind a stall: the interpreter lock's switch
+        # interval, the collections in the run by generation (and each
+        # one on the backend's clock), those of the warm-up, and whether
+        # the slowest HP jobs' largest part overlaps one
+        "switch_interval_s": sys.getswitchinterval(),
+        "gc": {"run": gc_summary(in_run), "run_events_ms": in_run,
+               "warm_up": gc_summary([c for c in collections
+                                      if c[1] < 0.0])},
+        "slowest_vs_gc": (slowest_vs_collections(parts, in_run)
+                          if parts is not None else None),
         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
         "allocated_blocks_mib": allocated_blocks(torch),
+        # the caching allocator's calls to the driver in the run (a retry
+        # frees cached blocks after synchronizing every stream)
+        "allocator_in_run": alloc,
         "launches": launches, "launches_by_instance": instances,
         "host": host,
         **({"device_timeline": device_timeline(torch, tracer)}
@@ -1630,6 +1686,16 @@ def serve(torch, failures, specs, setup_s, jps, kernels, desc, trace=False,
     if m.completed[HP] == 0:
         failures.append(f"{name}: no HP job completed")
     return m, launches, instances, srv
+
+
+ALLOCATOR_COUNTS = ("num_alloc_retries", "num_sync_all_streams",
+                    "num_device_alloc", "num_device_free", "num_ooms")
+
+
+def allocator_counts(torch) -> dict:
+    """The caching allocator's counters of its calls to the driver."""
+    stats = torch.cuda.memory_stats()
+    return {k: stats.get(k, 0) for k in ALLOCATOR_COUNTS}
 
 
 def allocated_blocks(torch, top: int = 6) -> list:
@@ -2014,11 +2080,13 @@ def time_rates(srv) -> dict:
 
 class GcTime:
     """The interpreter's garbage collections inside the ``with`` block:
-    how many, and the host seconds they took (``gc.callbacks``)."""
+    how many, the host seconds they took, and each one's generation and
+    start and end ``time.perf_counter`` seconds (``gc.callbacks``)."""
 
     def __enter__(self):
         import gc
         self._gc, self.collections, self.s, self._t0 = gc, 0, 0.0, 0.0
+        self.events = []
         gc.callbacks.append(self._callback)
         return self
 
@@ -2026,11 +2094,55 @@ class GcTime:
         if phase == "start":
             self._t0 = time.perf_counter()
         else:
-            self.s += time.perf_counter() - self._t0
+            t1 = time.perf_counter()
+            self.s += t1 - self._t0
             self.collections += 1
+            self.events.append((info["generation"], self._t0, t1))
 
     def __exit__(self, *exc):
         self._gc.callbacks.remove(self._callback)
+
+    def on_clock(self, t0: float) -> list:
+        """[generation, start ms, end ms] of each collection on a clock
+        that reads 0 at ``time.perf_counter()`` ``t0`` (a realtime
+        backend's)."""
+        return [[g, (a - t0) * 1000.0, (b - t0) * 1000.0]
+                for g, a, b in self.events]
+
+
+def gc_summary(events: list) -> dict:
+    """Collections ([generation, start ms, end ms]) by generation: how
+    many, their seconds and the longest pause in ms."""
+    out = {}
+    for g, a, b in events:
+        row = out.setdefault(str(g), {"count": 0, "s": 0.0, "max_ms": 0.0})
+        row["count"] += 1
+        row["s"] += (b - a) / 1000.0
+        row["max_ms"] = max(row["max_ms"], b - a)
+    return out
+
+
+def slowest_vs_collections(parts: dict, events: list) -> list:
+    """For each of ``hp_response_parts``' slowest jobs: its largest stage
+    part (the parts follow each other from the release, so each has its
+    interval on the backend's clock) and the collections that overlap it
+    ([generation, ms of the part they cover])."""
+    rows = []
+    for job in parts["slowest"]:
+        t = job["release_ms"] + job["parts"]["release_to_launch"]
+        best = None
+        for st in job["stages"]:
+            for k in RESPONSE_PARTS[1:]:
+                if best is None or st[k] > best[2]:
+                    best = (st["stage"], k, st[k], t, t + st[k])
+                t += st[k]
+        stage, part, ms, a, b = best
+        hit = [[g, min(b, e) - max(a, s)] for g, s, e in events
+               if s < b and e > a]
+        rows.append({"response_ms": job["response_ms"], "stage": stage,
+                     "part": part, "ms": ms,
+                     "overlaps_collection": bool(hit), "collections": hit})
+    return rows
 
 
 def run_engines(make_cfg, path, failures, rate_groups=False):
@@ -4943,6 +5055,19 @@ def serve_repeats(torch, arch: str, repeats: int, trace: bool) -> int:
         "hp_p99_ms": percentile(hp, 99) if hp else None,
         "hp_max_ms": max(hp) if hp else None,
         "graph_pools": [run["graph_pools"] for run in SERVED],
+        # SchedCheck's static HP bound against the runs (CNNs): the runs
+        # whose observed HP maximum exceeds it, and the HP jobs above it
+        "hp_bound_ms": [run["hp_bound_ms"] for run in SERVED],
+        "runs_over_bound": sum(
+            1 for run in SERVED if run["hp_bound_ms"] is not None
+            and run["hp_response_ms"]
+            and max(run["hp_response_ms"]) > run["hp_bound_ms"] + 1e-6),
+        "hp_jobs_over_bound": sum(
+            sum(1 for r in run["hp_response_ms"]
+                if r > run["hp_bound_ms"] + 1e-6)
+            for run in SERVED if run["hp_bound_ms"] is not None),
+        "switch_interval_s": sys.getswitchinterval(),
+        "gc_by_run": [run["gc"] for run in SERVED],
         # each run's HP responses by part, summed over its jobs
         "hp_parts_total_ms": [run["hp_parts_total_ms"] for run in SERVED]}})
     return 0 if all(runs) else 1
@@ -4978,6 +5103,9 @@ def main() -> int:
     ap.add_argument("--repeats", type=int, default=1)
     ap.add_argument("--trace", action="store_true",
                     help="with --serve: each run under torch.profiler")
+    ap.add_argument("--switch-interval", type=float, metavar="S",
+                    help="with --serve: this process's interpreter switch "
+                         "interval (sys.setswitchinterval) for its runs")
     # one rank of step 18 (the script starts four of itself)
     ap.add_argument("--dist-rank", type=int, help=argparse.SUPPRESS)
     ap.add_argument("--dist-work", help=argparse.SUPPRESS)
@@ -5026,6 +5154,8 @@ def main() -> int:
         emit({"phase_peak_memory_gb": peaks})
         return result_line(torch, name, card, failures, rows, paths)
     if args.serve:
+        if args.switch_interval is not None:
+            sys.setswitchinterval(args.switch_interval)
         return serve_repeats(torch, args.serve, args.repeats, args.trace)
     if (args.epoch or args.cluster or args.resume or args.lm_paths
             or args.families or args.train):

@@ -4,7 +4,8 @@ Counterpart of src/repro/runtime/backend.py. ``SimBackend``,
 ``launch_values`` and ``_WorkerPool`` are the reference's (the pool also
 counts the payload exceptions it survives); ``RealtimeBackend`` runs torch
 payloads, each lane on its own CUDA stream, timed to the stream's
-completion.
+completion: on the card the engine thread enqueues a stage and polls its
+end event, where the reference hands every stage to a worker thread.
 
 A backend owns *time* and *stage execution* and nothing else; scheduling
 policy lives entirely in ``EngineCore``/``DarisScheduler``. The contract:
@@ -22,8 +23,8 @@ policy lives entirely in ``EngineCore``/``DarisScheduler``. The contract:
 
 ``SimBackend`` wraps the processor-sharing fluid simulation (versioned
 finish predictions, lognormal stage noise, straggler mitigation);
-``RealtimeBackend`` wraps pooled-thread execution of real (torch, CUDA)
-stage payloads on wall-clock time. Both are driven by the same EngineCore
+``RealtimeBackend`` executes real (torch, CUDA) stage payloads on
+wall-clock time. Both are driven by the same EngineCore
 loop, which is what makes sim-vs-real scheduler-decision parity testable.
 
 RNG-draw-order invariant
@@ -443,8 +444,8 @@ class SimBackend:
 def _default_input_factory(input_hw: int, batch: int,
                            device: torch.device) -> Callable[[Job], object]:
     """Image-shaped zero input matching the staged-CNN payload convention,
-    made on the backend's device (on the lane's stream: the worker calls
-    it there). A dynamically batched job widens the leading axis by
+    made on the backend's device (on the card under the lane's stream,
+    where ``_stage_input`` calls it). A dynamically batched job widens the leading axis by
     ``n_inputs`` so the whole batch rides through the staged payload in
     one dispatch."""
     def make(job: Job):
@@ -502,14 +503,20 @@ class _WorkerPool:
                 # thread-per-stage design did) but must not kill the
                 # worker: a dead worker would starve every later stage
                 # queued to the pool
-                import sys
-                with self._exc_lock:
-                    self.exceptions += 1
-                    self.last_exception = e
-                # a warm-up (``_warm_lanes``) runs with no stage instance
-                name = getattr(getattr(inst, "task", None), "name", "warm-up")
-                print(f"worker: stage {name} on lane {lane} raised {e!r}",
-                      file=sys.stderr)
+                self.caught(e, lane, inst)
+
+    def caught(self, e: Exception, lane: tuple,
+               inst: Optional[StageInstance]) -> None:
+        """Count and report a payload exception that serving survives (a
+        worker's, or the engine thread's on the inline path)."""
+        import sys
+        with self._exc_lock:
+            self.exceptions += 1
+            self.last_exception = e
+        # a warm-up (``_warm_lanes``) runs with no stage instance
+        name = getattr(getattr(inst, "task", None), "name", "warm-up")
+        print(f"worker: stage {name} on lane {lane} raised {e!r}",
+              file=sys.stderr)
 
     def submit(self, fn, lane: tuple, inst: Optional[StageInstance]) -> None:
         self._q.put((fn, lane, inst))
@@ -545,14 +552,34 @@ RESPONSE_PARTS = ("release_to_launch", "hand_off", "stream_wait", "device",
 HP_CHAINS_KEPT = 100_000        # completed HP jobs whose stamps are kept
 
 
-def _anchor_event(clock_ms: Callable[[float], float], tries: int = 5):
-    """A CUDA event put on the host's clock: recorded on the current stream
+class CudaSeam:
+    """The card as the inline path sees it: a lane's stream, the context
+    that makes a stream current, and the CUDA events that time a stage
+    and put it on the host's clock. A CPU test hands ``RealtimeBackend``
+    a stand-in with the same three calls (its ``_seam``); on the card the
+    seam is this one, with no host fallback."""
+
+    def __init__(self, device: torch.device) -> None:
+        self.device = device
+
+    def stream(self):
+        return torch.cuda.Stream(self.device)
+
+    def use(self, stream):
+        return torch.cuda.stream(stream)
+
+    def event(self):
+        return torch.cuda.Event(enable_timing=True)
+
+
+def _anchor_event(seam, clock_ms: Callable[[float], float], tries: int = 5):
+    """An event put on the host's clock: recorded on the current stream
     and polled to its completion, which lies between the host stamps
     around that (the narrowest of ``tries``). Returns (event, its time in
     ms on ``clock_ms``'s clock, half the window's width)."""
     best = None
     for _ in range(tries):
-        ev = torch.cuda.Event(enable_timing=True)
+        ev = seam.event()
         a = time.perf_counter()
         ev.record()
         while not ev.query():
@@ -568,8 +595,9 @@ def _stage_parts(st: dict, nxt: float) -> dict:
     """One launch's parts from its stamps (ms on the backend's clock);
     ``nxt``: the job's next launch, or its completion after its last
     stage. ``enqueue`` (the payload's copy in, run and copy out enqueued)
-    and ``sync_wake`` (the device's end to the worker's return from the
-    synchronize) lie within ``stream_wait`` + ``device`` and ``notice``."""
+    and ``sync_wake`` (the device's end to the host seeing it: the
+    worker's return from the synchronize, or the poll) lie within
+    ``stream_wait`` + ``device`` and ``notice``."""
     return {"stage": st["stage"], "failed": st["failed"],
             "hand_off": st["start"] - st["launch"],
             "stream_wait": st["dev_start"] - st["start"],
@@ -580,39 +608,78 @@ def _stage_parts(st: dict, nxt: float) -> dict:
             "sync_wake": st["synced"] - st["dev_end"]}
 
 
+class _Flight:
+    """One launched stage until its harvest. The inline path fills
+    ``t0`` at the launch and ``start``/``end`` (its events) and ``out`` as
+    it enqueues; ``done`` is ``(et_ms, output, device ms)`` once the stage
+    is seen complete (the poll on the inline path, the done queue on the
+    host path)."""
+
+    __slots__ = ("lane", "inst", "token", "failed", "stamps", "t0",
+                 "start", "end", "out", "done")
+
+    def __init__(self, lane: tuple, inst: StageInstance, token: int,
+                 failed: bool, stamps: dict) -> None:
+        self.lane, self.inst, self.token = lane, inst, token
+        self.failed, self.stamps = failed, stamps
+        self.t0 = 0.0
+        self.start = self.end = self.out = self.done = None
+
+
 class RealtimeBackend:
-    """Wall-clock substrate: persistent worker pool, one lane per worker.
+    """Wall-clock substrate: stage payloads on the engine thread (the
+    card, one lane a stream) or on a worker pool (the CPU, one lane a
+    worker).
 
     Stage payloads are arbitrary callables (torch stage functions in
-    production). On a CUDA ``device`` every lane owns a ``torch.cuda.Stream``:
-    the worker runs the payload under it, records CUDA events around it and
-    waits for the end event before it reports the completion. ``et_ms``,
-    which feeds MRET, is therefore the wall time from the stage's start to
-    its completion on the stream, never the launch latency of an
-    asynchronous payload; the events' device time is kept beside it per
-    stage name (``stage_time_summary``). Inter-stage state made on one
-    lane's stream and read on another's is ``record_stream``-ed for the
-    reader, so the caching allocator cannot hand its memory out while the
-    reader still uses it. On a CUDA device ``start`` runs each task's
-    payloads once in every worker and on every lane's stream before the
-    clock starts (``_warm_lanes``). A stage whose profile has no payload is
-    *emulated* by sleeping its ``t_alone``: that keeps analytic task sets
-    runnable on the real engine, which is what the sim-vs-real parity test
-    exercises.
+    production). A stage takes one of two paths:
+
+    - *inline* (a CUDA ``device``, where every lane owns a
+      ``torch.cuda.Stream``): ``launch`` enqueues the stage on the engine
+      thread, under the lane's stream, between a start and an end CUDA
+      event, and returns; ``advance`` polls the in-flight stages' end
+      events (``Event.query``, never a blocking synchronize) and commits
+      the first one done, in launch order where several are. Every served
+      stage is one CUDA-graph replay (``serving/stage_graph.py``), so the
+      enqueue is short and the stage's end event is the synchronisation
+      point between stages. Nothing there blocks the host: a launch with
+      a chaos stall is enqueued by the poll once the stall has passed,
+      and a stage without a payload ends at the poll ``t_alone`` after it
+      began.
+    - *host* (``device="cpu"``): a worker of ``_WorkerPool`` sleeps the
+      stall, runs the payload or sleeps a synthetic stage's ``t_alone``,
+      and ships the result through the done queue, which ``advance``
+      drains as it polls.
+
+    ``et_ms``, which feeds MRET, is on both paths the wall time from the
+    stage's start on the host to its completion on the stream as the host
+    sees it, never the launch latency of an asynchronous payload; the
+    events' device time is kept beside it per stage name
+    (``stage_time_summary``). Inter-stage state made on one lane's stream
+    and read on another's is ``record_stream``-ed for the reader, so the
+    caching allocator cannot hand its memory out while the reader still
+    uses it. On a CUDA device ``start`` runs each task's payloads on
+    every lane's stream on the engine thread before the clock starts, and
+    a reconfigure on the lanes it adds (``_warm_lanes``). A stage whose
+    profile has no payload is *emulated* by waiting its ``t_alone``: that
+    keeps analytic task sets runnable on the real engine, which is what
+    the sim-vs-real parity test exercises.
 
     Scheduler state AND inter-stage activation state (``_job_state``) are
-    touched only on the engine thread: workers ship their output through
-    the done queue and ``advance`` commits it at harvest, so a ghost
-    worker from a failed context can never clobber a replayed job's
-    activations. No lock is needed.
+    touched only on the engine thread: the inline path runs there, workers
+    ship their output through the done queue, and ``advance`` commits
+    either at harvest, so a ghost stage from a failed context or a
+    watchdog kill can never clobber a replayed job's activations. No lock
+    is needed.
 
     Zero-delay migration (``ctx_devices``): when a job's next stage
     dispatches on a different context than the one that produced its
     inter-stage state — scheduler migration, fail_context re-homing, or an
-    online ``reconfigure`` — the worker moves the whole inter-stage
-    tree (hidden activation + the remaining stages' cache slices, see
-    ``serving/staging.slice_cache``) onto the target context's device
-    via ``serving.staging.migrate`` before running the stage. This is the
+    online ``reconfigure`` — the stage's input (``_stage_input``) is the
+    whole inter-stage tree (hidden activation + the remaining stages'
+    cache slices, see ``serving/staging.slice_cache``) moved onto the
+    target context's device via ``serving.staging.migrate`` before the
+    stage runs. This is the
     paper's zero-delay mechanism made physical: the move happens between
     stage programs, never inside one. Keys are **live slot positions**
     (0 = lowest-indexed live context), not raw context indices: an online
@@ -625,13 +692,15 @@ class RealtimeBackend:
     actually performed.
 
     Every launch carries host stamps on the backend's clock (``now_ms``):
-    the engine's ``launch``, the worker's start, the payload enqueued (on
+    the engine's ``launch``, the stage's start (the engine's own on the
+    inline path, before any stall; the worker's on the host path), the
+    payload enqueued (on
     the card its copy in, replay and copy out; on the CPU its call), the
-    worker's return from the end event's synchronize, and ``advance``'s
-    harvest; on the card the CUDA events' device interval is put on the
-    same clock by two events polled to completion between host stamps,
-    one as the clock starts and one at ``stop`` (``_anchor_event``). A
-    completed HP
+    host seeing the stage complete (the poll, or the worker's return from
+    the end event's synchronize), and ``advance``'s harvest; on the card
+    the CUDA events' device interval is put on the same clock by two
+    events polled to completion between host stamps, one as the clock
+    starts and one at ``stop`` (``_anchor_event``). A completed HP
     job's chain of them, with its release and the engine's completion
     stamp (``job.finish_ms``), is kept for ``hp_response_parts``.
 
@@ -654,12 +723,20 @@ class RealtimeBackend:
         self.resharded = 0
         self.warm_s = 0.0          # wall seconds of the lanes' warm-up
         # the stage programs' graph counts (``_lib.stage_graphs``) before
-        # and after the warm-up, and payload stages the workers ran since
+        # and after the warm-up, and payload stages run on the lanes since
+        # (and of them those the worker pool ran)
         self._graphs_warm: Dict[str, Dict[str, float]] = {}
-        self.stage_runs = 0
+        self.stage_runs = self.pool_stage_runs = 0
         self._runs_lock = threading.Lock()
-        # lane -> its CUDA stream (made on the engine thread at first launch)
+        # the inline path's streams and events: the card's (None on the
+        # CPU, where every stage takes the host path)
+        self._seam = CudaSeam(self.device) if self.device.type == "cuda" \
+            else None
+        # lane -> its stream (made on the engine thread at first use)
         self._streams: Dict[tuple, object] = {}
+        # warm-ups of the lanes a reconfigure added: how many, their host
+        # seconds and the captures and replays they made
+        self.rewarm = {"count": 0, "s": 0.0, "captures": 0, "replays": 0}
         # stage name -> [completions, wall ms sum, device-timed completions,
         #                device ms sum, device ms max]
         self.stage_times: Dict[str, List[float]] = {}
@@ -667,26 +744,25 @@ class RealtimeBackend:
         self._done_q: "queue.Queue" = queue.Queue()
         self._job_state: Dict[int, object] = {}
         self._state_ctx: Dict[int, int] = {}   # job_id -> producing context
-        self._inflight = 0
+        # token -> launched stage until its harvest, in launch order; and
+        # the inline path's (perf_counter second, stage, what it does
+        # then) of a stage that waits: a chaos stall before its enqueue,
+        # a synthetic stage's work
+        self._flight: Dict[int, _Flight] = {}
+        self._deferred: list = []
         self._cancelled_ctx: set = set()
         # lane -> token of the launch the engine still believes in; a
         # watchdog kill_lane drops the token so the un-interruptible
-        # worker's eventual completion is discarded at harvest
+        # stage's eventual completion is discarded at harvest
         self._live_token: Dict[tuple, int] = {}
         self._t0 = 0.0
         self._pool = _WorkerPool()
-        # pool sizing is by LIVE lane count (plus in-flight stages on
-        # retired lanes), recomputed only when the lane table grows: a
-        # reconfigure-heavy run accumulates retired lanes forever, and
-        # one-worker-per-lane-ever would leak a thread per dead lane
-        self._lanes_seen = -1
-        self._pool_target = 0
         # job_id -> stamps of its harvested launches; then the completed HP
         # jobs' (response index, releases, completion, stamps, task)
         self._stamps: Dict[int, list] = {}
         self._hp_chains: "collections.deque" = collections.deque(
             maxlen=HP_CHAINS_KEPT)
-        # CUDA events put on the backend's clock as it starts and at stop
+        # events put on the backend's clock as it starts and at stop
         # (``_anchor_event``): (event, ms, half-width ms) each
         self._anchors: list = []
 
@@ -695,91 +771,84 @@ class RealtimeBackend:
         self.core = core
 
     def _ensure_pool(self) -> None:
-        """Grow the worker pool to one worker per live lane (+ stages
-        still finishing on retired lanes); concurrency is bounded by that
-        count, so a bigger pool would only idle."""
+        """The host path's pool: one worker per live lane (+ stages still
+        finishing on retired lanes), at the start and after a reconfigure
+        adds lanes; concurrency is bounded by that count, so a bigger pool
+        would only idle. By LIVE lanes: a reconfigure-heavy run accumulates
+        retired lanes forever, and a worker per lane ever would leak a
+        thread per dead lane."""
         sched = self.core.sched
-        n = len(sched.lanes)
-        if n != self._lanes_seen:
-            self._lanes_seen = n
-            live = sum(c.n_streams for c in sched.live_contexts())
-            draining = sum(1 for ln, i in sched.lanes.items()
-                           if i is not None
-                           and not sched.contexts[ln[0]].alive)
-            self._pool_target = live + draining
-        self._pool.ensure(self._pool_target)
+        live = sum(c.n_streams for c in sched.live_contexts())
+        draining = sum(1 for ln, i in sched.lanes.items()
+                       if i is not None and not sched.contexts[ln[0]].alive)
+        self._pool.ensure(live + draining)
 
     def start(self) -> None:
-        self._ensure_pool()
         before = stage_graphs.snapshot()
-        if self.device.type == "cuda":
+        if self._seam is None:
+            self._ensure_pool()
+        else:
             t0 = time.perf_counter()
-            self._warm_lanes()
+            self._warm_lanes(self._live_lanes())
             self.warm_s = time.perf_counter() - t0
         self._graphs_warm = {"before": before,
                              "after": stage_graphs.snapshot()}
         self._t0 = time.perf_counter()
-        if self.device.type == "cuda":
-            self._anchors = [_anchor_event(self._ms)]
+        if self._seam is not None:
+            self._anchors = [_anchor_event(self._seam, self._ms)]
 
     def _lane_stream(self, lane: tuple):
         stream = self._streams.get(lane)
         if stream is None:
-            stream = self._streams[lane] = torch.cuda.Stream(self.device)
+            stream = self._streams[lane] = self._seam.stream()
         return stream
 
-    def _warm_lanes(self) -> None:
-        """Before the clock starts, every worker runs each task's payload
-        chain once, each on a lane's stream (every lane's stream once
-        while there are as many workers as lanes, as at start). PyTorch
-        builds cuDNN's execution plans once per thread and the caching
-        allocator keeps its blocks per stream, so without this the first
-        stages of each lane pay for both while their jobs wait: the lanes'
-        threads burn CPU, the card idles and the first HP jobs of a served
-        run miss their deadlines. The staged payloads' stage programs
-        capture their CUDA graph for each lane's stream here too
-        (``graph_summary``: captures and their seconds, within
-        ``warm_s``). The workers take their turns one at a
-        time: on an H100, four threads warming staged mamba2-2.7b decode at
-        once took 4.5-5.5 s in all, one at a time 0.8-1.2 s. Tasks with a
-        synthetic stage (no payload) are not run."""
-        sched = self.core.sched
-        tasks = [t for t in sched.tasks
-                 if all(st.payload is not None for st in t.spec.stages)]
-        lanes = sorted(sched.lanes)
-        if not tasks or not lanes:
-            return
-        n = len(self._pool._threads)
-        # each worker takes one warm-up and then waits here, so none
-        # takes two; the engine thread waits for all of them
-        done = threading.Barrier(n + 1)
-        turn = threading.Lock()
-        for i in range(n):
-            lane = lanes[i % len(lanes)]
-            stream = (self._lane_stream(lane) if self.device.type == "cuda"
-                      else None)
-            self._pool.submit(functools.partial(
-                self._warm, tasks=tasks, stream=stream, turn=turn,
-                done=done), lane, None)
-        done.wait()
+    def _live_lanes(self) -> list:
+        return sorted((c.index, s) for c in self.core.sched.live_contexts()
+                      for s in range(c.n_streams))
 
-    def _warm(self, lane: tuple, _inst, *, tasks, stream, turn,
-              done) -> None:
-        try:
-            with turn, torch.cuda.stream(stream):   # no stream on the CPU
-                for task in tasks:
-                    x = self.input_factory(Job(task, 0.0, job_id=-1))
-                    for st in task.spec.stages:
-                        x = st.payload(x)
-                if stream is not None:
-                    stream.synchronize()
-        finally:
-            done.wait()
+    def _warm_tasks(self) -> list:
+        """The tasks whose stages all have payloads (a synthetic stage
+        is not run)."""
+        return [t for t in self.core.sched.tasks
+                if all(st.payload is not None for st in t.spec.stages)]
+
+    def _warm_lanes(self, new: list) -> None:
+        """On the card, on the engine thread, which enqueues every stage:
+        each task's payload chain runs on the stream of each lane in
+        ``new``, then on every live lane's once more. PyTorch builds
+        cuDNN's execution plans once per thread and the caching allocator
+        keeps its blocks per stream, so without this the first stages of
+        each lane pay for both while their jobs wait and the first HP jobs
+        of a served run miss their deadlines. The staged payloads' stage
+        programs capture their CUDA graph for each new lane's stream here
+        (``graph_summary``: captures and their seconds). The second pass:
+        a capture empties the caching allocator's cache
+        (``torch.cuda.graph``), so only a pass after every lane's captures
+        leaves each lane's stream the blocks its stages' outputs take;
+        without it the first served stages allocate from the driver on the
+        engine thread (the first HP job of staged qwen2-moe once took
+        90-219 ms on an H100). One thread: cuBLAS makes its workspace once
+        a stream, not once a (thread, stream)."""
+        tasks = self._warm_tasks()
+        if not tasks or not new:
+            return
+        for lane in new + self._live_lanes():
+            stream = self._lane_stream(lane)
+            try:
+                with self._seam.use(stream):
+                    for task in tasks:
+                        x = self.input_factory(Job(task, 0.0, job_id=-1))
+                        for st in task.spec.stages:
+                            x = st.payload(x)
+                stream.synchronize()
+            except Exception as e:   # noqa: BLE001 — serving goes on
+                self._pool.caught(e, lane, None)
 
     def stop(self) -> None:
         self._pool.stop()
         if len(self._anchors) == 1:
-            self._anchors.append(_anchor_event(self._ms))
+            self._anchors.append(_anchor_event(self._seam, self._ms))
 
     def _ms(self, t: float) -> float:
         """A ``time.perf_counter`` reading on the backend's clock."""
@@ -798,13 +867,16 @@ class RealtimeBackend:
     def graph_summary(self) -> Dict[str, float]:
         """The stage programs' CUDA graphs around this run: captures and
         their host seconds in the lanes' warm-up (within ``warm_s``),
-        captures and replays since the clock started (a lane made after
-        the start captures at its first launch), the kernel launches those
-        replays counted, and the payload stages the workers ran since
-        (each one replay on the card), and the graph pools (one a lane)
-        first captured into in the warm-up and the run, and all since the
-        counts were last reset with the card memory they hold. Counts are process-wide (``kernels._lib.stage_graphs``),
-        so nothing else may replay a stage program meanwhile."""
+        captures and replays since the clock started (of them, those in
+        the warm-up of the lanes a reconfigure added: ``rewarm_captures``
+        and ``rewarm_replays``), the kernel launches those replays counted,
+        the payload stages run on the lanes since (each one replay on the
+        card) and how many of them the worker pool ran
+        (``pool_stage_runs``: the host path's), and the graph pools (one a
+        lane) first captured into in the warm-up and the run, and all
+        since the counts were last reset with the card memory they hold.
+        Counts are process-wide (``kernels._lib.stage_graphs``), so
+        nothing else may replay a stage program meanwhile."""
         before = self._graphs_warm.get("before", {})
         after = self._graphs_warm.get("after", {})
         now = stage_graphs.snapshot()
@@ -815,9 +887,12 @@ class RealtimeBackend:
         return {"warm_captures": since(before, after, "captures"),
                 "warm_capture_s": since(before, after, "capture_s"),
                 "captures": since(after, now, "captures"),
+                "rewarm_captures": self.rewarm["captures"],
+                "rewarm_replays": self.rewarm["replays"],
                 "replays": since(after, now, "replays"),
                 "replayed_launches": since(after, now, "replayed_launches"),
                 "stage_runs": self.stage_runs,
+                "pool_stage_runs": self.pool_stage_runs,
                 # pools first captured into in the warm-up and the run: one
                 # a lane; and all since the counts' reset (before the tasks
                 # were built, whose calibration captured on one more lane)
@@ -828,7 +903,8 @@ class RealtimeBackend:
 
     @property
     def worker_exceptions(self) -> int:
-        """Payload exceptions the worker pool caught (and survived)."""
+        """Payload exceptions serving survived (the worker pool's and the
+        inline path's)."""
         return self._pool.exceptions
 
     @property
@@ -850,55 +926,113 @@ class RealtimeBackend:
         return (time.perf_counter() - self._t0) * 1000.0
 
     def has_inflight(self) -> bool:
-        return self._inflight > 0
+        return bool(self._flight)
 
     # ---------------------------------------------------------------- time
+    def _poll(self) -> Optional[_Flight]:
+        """The first in-flight stage, in launch order, that is done: on
+        the host path the done queue drained into its stages; on the
+        inline path the waits that are over acted on, then every enqueued
+        stage's end event queried (``synced``, ``et_ms`` and the device
+        times at the poll that first sees it)."""
+        if self._seam is None:
+            while True:
+                try:
+                    rec, *done = self._done_q.get_nowait()
+                except queue.Empty:
+                    break
+                rec.done = done
+        elif self._deferred:
+            t = time.perf_counter()
+            due = [d for d in self._deferred if d[0] <= t]
+            if due:
+                self._deferred = [d for d in self._deferred if d[0] > t]
+                for _, rec, then in due:
+                    then(rec)
+        first = None
+        for rec in self._flight.values():
+            if rec.done is None and rec.end is not None and rec.end.query():
+                t = time.perf_counter()
+                rec.stamps["synced"] = self._ms(t)
+                rec.done = ((t - rec.t0) * 1000.0, rec.out,
+                            rec.start.elapsed_time(rec.end))
+                rec.out = None
+                # device ms after the first anchor: on the host's clock
+                # later (``_device_ms``), once the run's end has its anchor
+                ev0 = self._anchors[0][0]
+                rec.stamps["dev_raw"] = (ev0.elapsed_time(rec.start),
+                                         ev0.elapsed_time(rec.end))
+                rec.start = rec.end = None
+            if first is None and rec.done is not None:
+                first = rec
+        return first
+
+    def _wait(self, cap_ms: float) -> None:
+        """Wait for a stage to complete, at most until ``cap_ms``: sleep
+        while nothing is in flight, block on the done queue while the host
+        path's stages are, and on the inline path return at once (the
+        next poll spins)."""
+        timeout_s = max(cap_ms - self.now_ms(), 0.0) / 1000.0
+        if not self._flight:
+            time.sleep(timeout_s)
+        elif self._seam is None:
+            try:
+                rec, *done = self._done_q.get(timeout=timeout_s)
+            except queue.Empty:
+                return
+            rec.done = done
+
     def advance(self, cap_ms: float) -> List[Completion]:
         while True:
-            timeout_s = (cap_ms - self.now_ms()) / 1000.0
-            try:
-                if timeout_s <= 0:
-                    item = self._done_q.get_nowait()
-                else:
-                    item = self._done_q.get(timeout=timeout_s)
-            except queue.Empty:
+            rec = self._poll()
+            if rec is not None:
+                c = self._harvest(rec)
+                if c is not None:
+                    return [c]
+                continue
+            if self.now_ms() >= cap_ms:
                 return []
-            got = self.now_ms()
-            lane, inst, et, out, token, failed, dev_ms, stamps = item
-            self._inflight -= 1
-            if lane[0] in self._cancelled_ctx:
-                # ghost completion from a failed context: fail_context
-                # already re-enqueued the instance, and dead contexts never
-                # launch again, so anything arriving on them is stale —
-                # drop its output along with it
-                continue
-            if token is not None and self._live_token.get(lane) != token:
-                # watchdog-killed launch: the engine already re-enqueued
-                # the stage; this worker's late result is a ghost
-                continue
-            self._live_token.pop(lane, None)
-            stamps.update(harvest=got, failed=failed)
-            self._stamps.setdefault(inst.job.job_id, []).append(stamps)
-            st = self.stage_times.setdefault(inst.profile.name,
-                                             [0, 0.0, 0, 0.0, 0.0])
-            st[0] += 1
-            st[1] += et
-            if not math.isnan(dev_ms):
-                st[2] += 1
-                st[3] += dev_ms
-                st[4] = max(st[4], dev_ms)
-            if not failed:
-                # a chaos-failed stage's output is garbage: never commit
-                # it over the job's last good inter-stage state
-                self._job_state[inst.job.job_id] = out
-                self._state_ctx[inst.job.job_id] = lane[0]
-            return [Completion(lane, inst, et, failed)]
+            self._wait(cap_ms)
+
+    def _harvest(self, rec: _Flight) -> Optional[Completion]:
+        """Commit a done stage on the engine thread; None for a ghost."""
+        del self._flight[rec.token]
+        lane, inst = rec.lane, rec.inst
+        et, out, dev_ms = rec.done
+        if lane[0] in self._cancelled_ctx:
+            # ghost completion from a failed context: fail_context
+            # already re-enqueued the instance, and dead contexts never
+            # launch again, so anything arriving on them is stale —
+            # drop its output along with it
+            return None
+        if self._live_token.get(lane) != rec.token:
+            # watchdog-killed launch: the engine already re-enqueued
+            # the stage; this late result is a ghost
+            return None
+        self._live_token.pop(lane, None)
+        stamps = rec.stamps
+        stamps.update(harvest=self.now_ms(), failed=rec.failed)
+        self._stamps.setdefault(inst.job.job_id, []).append(stamps)
+        st = self.stage_times.setdefault(inst.profile.name,
+                                         [0, 0.0, 0, 0.0, 0.0])
+        st[0] += 1
+        st[1] += et
+        if not math.isnan(dev_ms):
+            st[2] += 1
+            st[3] += dev_ms
+            st[4] = max(st[4], dev_ms)
+        if not rec.failed:
+            # a chaos-failed stage's output is garbage: never commit
+            # it over the job's last good inter-stage state
+            self._job_state[inst.job.job_id] = out
+            self._state_ctx[inst.job.job_id] = lane[0]
+        return Completion(lane, inst, et, rec.failed)
 
     def peek_eta(self) -> float:
         """Wall clock: in-flight work can complete at any instant, so the
         earliest actionable time is "now"; inf when idle (the serving
         pump then has nothing to harvest and must not spin)."""
-        return self.now_ms() if self._inflight else math.inf
+        return self.now_ms() if self._flight else math.inf
 
     # ----------------------------------------------------------- execution
     def _device_for(self, ctx: int):
@@ -927,74 +1061,58 @@ class RealtimeBackend:
         self.resharded += 1
         return migrate(x, tgt)
 
-    def _worker(self, lane: tuple, inst: StageInstance, *,
-                token=None, stall_ms: float = 0.0,
-                failed: bool = False, stream=None, stamps: dict) -> None:
+    def _worker(self, lane: tuple, inst: StageInstance, *, rec: _Flight,
+                stall_ms: float, x) -> None:
+        """The host path, on a worker: ``x`` is the stage's input, taken
+        on the engine thread at ``launch``; the stage's run is its
+        "device" interval."""
         prof = inst.profile
+        stamps = rec.stamps
         t0 = time.perf_counter()
         stamps["start"] = self._ms(t0)
-        dev_ms = math.nan
         if stall_ms:
             # chaos-injected lane stall (driver hiccup / ECC scrub): the
             # stage runs, just late — the stall serializes ahead of it
             time.sleep(stall_ms / 1000.0)
-        if prof.payload is None or stream is None:
-            # on the host: its run is the "device" interval
-            x = (self._job_state.get(inst.job.job_id) if prof.payload is None
-                 else self._stage_input(inst, lane))
-            stamps["dev_start"] = self.now_ms()
-            if prof.payload is None:
-                # synthetic stage: sleep the batched work (b/g(b) scaling)
-                time.sleep(batched_stage_ms(prof, inst.job.n_inputs)
-                           / 1000.0)
-                out = x
-            else:
-                out = prof.payload(x)
-                self._ran_stage()
-            now = self.now_ms()
-            stamps.update(dev_end=now, enqueued=now, synced=now)
+        stamps["dev_start"] = self.now_ms()
+        if prof.payload is None:
+            # synthetic stage: sleep the batched work (b/g(b) scaling)
+            time.sleep(batched_stage_ms(prof, inst.job.n_inputs) / 1000.0)
+            out = x
         else:
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            with torch.cuda.stream(stream):
-                x = self._stage_input(inst, lane)
-                for t in _tensors(x):
-                    if t.is_cuda:
-                        t.record_stream(stream)
-                start.record(stream)
-                out = prof.payload(x)
-                end.record(stream)
-            stamps["enqueued"] = self.now_ms()
-            # the stage is done when the stream is: time to that point
-            end.synchronize()
-            stamps["synced"] = self.now_ms()
-            dev_ms = start.elapsed_time(end)
-            # device ms after the first anchor: on the host's clock later
-            # (``_device_ms``), once the run's end has its anchor
-            ev0 = self._anchors[0][0]
-            stamps["dev_raw"] = (ev0.elapsed_time(start),
-                                 ev0.elapsed_time(end))
-            self._ran_stage()
+            out = prof.payload(x)
+            self._ran_stage(pool=True)
+        now = self.now_ms()
+        stamps.update(dev_end=now, enqueued=now, synced=now)
         et_ms = (time.perf_counter() - t0) * 1000.0
-        self._done_q.put((lane, inst, et_ms, out, token, failed, dev_ms,
-                          stamps))
+        self._done_q.put((rec, et_ms, out, math.nan))
 
-    def _ran_stage(self) -> None:
+    def _ran_stage(self, pool: bool = False) -> None:
         with self._runs_lock:
             self.stage_runs += 1
+            self.pool_stage_runs += pool
 
-    def _stage_input(self, inst: StageInstance, lane: tuple) -> object:
-        """The job's inter-stage state (moved to this lane's context if it
-        was produced elsewhere), or a fresh input for its first stage."""
+    def _stage_input(self, inst: StageInstance, lane: tuple, stream=None):
+        """On the engine thread: the job's inter-stage state (moved to this
+        lane's context if it was produced elsewhere), or a fresh input for
+        its first stage, made under ``stream`` (the lane's, None on the
+        CPU) and ``record_stream``-ed for it, the stream that reads it."""
         x = self._job_state.get(inst.job.job_id)
-        if x is None:
-            return self.input_factory(inst.job)
-        return self._migrate_state(x, inst.job.job_id, lane[0])
+        if inst.profile.payload is None:
+            return x              # a synthetic stage hands its state on
+        if stream is None:
+            return (self.input_factory(inst.job) if x is None
+                    else self._migrate_state(x, inst.job.job_id, lane[0]))
+        with self._seam.use(stream):
+            if x is None:
+                return self.input_factory(inst.job)
+            x = self._migrate_state(x, inst.job.job_id, lane[0])
+        for t in _tensors(x):
+            if t.is_cuda:
+                t.record_stream(stream)
+        return x
 
     def launch(self, lane: tuple, inst: StageInstance) -> None:
-        self._inflight += 1
-        # elastic scale-out/reconfigure may have added lanes since start()
-        self._ensure_pool()
         # chaos draws happen HERE, on the engine thread in dispatch order
         # (the deterministic stream position), never on the worker
         cfail, stall = False, 0.0
@@ -1003,23 +1121,74 @@ class RealtimeBackend:
             cfail, stall = ch.draw_launch()
         token = next(_tie)
         self._live_token[lane] = token
-        stream = None
-        if self.device.type == "cuda":
-            stream = self._lane_stream(lane)
-        stamps = {"stage": inst.job.stage_idx, "launch": self.now_ms()}
-        self._pool.submit(
-            functools.partial(self._worker, token=token, stall_ms=stall,
-                              failed=cfail, stream=stream, stamps=stamps),
-            lane, inst)
+        rec = self._flight[token] = _Flight(
+            lane, inst, token, cfail,
+            {"stage": inst.job.stage_idx, "launch": self.now_ms()})
+        if self._seam is None:
+            self._pool.submit(functools.partial(
+                self._worker, rec=rec, stall_ms=stall,
+                x=self._stage_input(inst, lane)), lane, inst)
+            return
+        rec.t0 = time.perf_counter()
+        rec.stamps["start"] = self._ms(rec.t0)
+        if stall:
+            # chaos-injected lane stall (driver hiccup / ECC scrub): the
+            # stage runs, just late — the poll begins it after the stall
+            self._deferred.append((rec.t0 + stall / 1000.0, rec,
+                                   self._begin))
+        else:
+            self._begin(rec)
+
+    def _begin(self, rec: _Flight) -> None:
+        """The inline path at the stage's start (its launch, or the end of
+        its stall): a payload enqueued on the lane's stream; a synthetic
+        stage's batched work (b/g(b) scaling) begun, which the poll ends
+        when its time has passed, handing the job's state on."""
+        inst = rec.inst
+        if inst.profile.payload is not None:
+            self._enqueue(rec, self._lane_stream(rec.lane))
+            return
+        rec.stamps["dev_start"] = self.now_ms()
+        rec.out = self._job_state.get(inst.job.job_id)
+        work_s = batched_stage_ms(inst.profile, inst.job.n_inputs) / 1000.0
+        self._deferred.append((time.perf_counter() + work_s, rec,
+                               self._synthetic_done))
+
+    def _synthetic_done(self, rec: _Flight) -> None:
+        t = time.perf_counter()
+        now = self._ms(t)
+        rec.stamps.update(dev_end=now, enqueued=now, synced=now)
+        rec.done = ((t - rec.t0) * 1000.0, rec.out, math.nan)
+        rec.out = None
+
+    def _enqueue(self, rec: _Flight, stream) -> None:
+        """The inline path: the stage's input, its start event, its
+        payload and its end event, enqueued on the lane's stream from the
+        engine thread. A payload that raises loses its stage, as on a
+        worker."""
+        seam = self._seam
+        try:
+            x = self._stage_input(rec.inst, rec.lane, stream)
+            with seam.use(stream):
+                rec.start, rec.end = seam.event(), seam.event()
+                rec.start.record(stream)
+                rec.out = rec.inst.profile.payload(x)
+                rec.end.record(stream)
+        except Exception as e:   # noqa: BLE001 — serving goes on
+            del self._flight[rec.token]
+            self._pool.caught(e, rec.lane, rec.inst)
+            return
+        rec.stamps["enqueued"] = self.now_ms()
+        self._ran_stage()
 
     def kill_lane(self, lane: tuple, inst: StageInstance) -> None:
-        # workers can't be interrupted: forget the launch token so the
-        # harvest loop discards the ghost completion when it lands (the
-        # in-flight count still drains through advance)
+        # a launched stage can't be interrupted: forget the launch token
+        # so the harvest discards the ghost completion when it lands (the
+        # in-flight set still drains through advance)
         self._live_token.pop(lane, None)
 
     def cancel_ctx(self, ctx_idx: int) -> None:
-        # workers can't be interrupted; mark the context so their
+        # launched stages can't be interrupted; mark the context so their
         # completions are dropped at harvest (fail_context re-enqueues the
         # instances, whose .lane is reset — that's the drop signal
         # advance() checks)
@@ -1045,9 +1214,12 @@ class RealtimeBackend:
     def hp_response_parts(self, slowest: int = 3) -> dict:
         """Where each completed HP job's response went (ROADMAP C7), from
         the stamps of its harvested launches (class docstring): release ->
-        first launch, then per launch ``hand_off`` (launch -> the worker's
-        start), ``stream_wait`` (-> the device's start of the stage, on the
-        CPU its call), ``device``, ``notice`` (-> the harvest) and ``gap``
+        first launch, then per launch ``hand_off`` (launch -> the stage's
+        start: the worker's on the host path, on the inline path the
+        engine's own delay), ``stream_wait`` (-> the device's start of the
+        stage, on the CPU its call), ``device``, ``notice`` (-> the
+        harvest: on the inline path the poll's latency and any earlier
+        stage committed first) and ``gap``
         (-> the next launch, or after the last stage the engine's
         completion stamp). The parts sum to the response the engine
         recorded; ``sum_err_ms`` is the largest difference. ``by_job``:
@@ -1097,10 +1269,24 @@ class RealtimeBackend:
                     :slowest]}
 
     def on_reconfigure(self) -> None:
-        # new contexts mean new lanes: grow the worker pool to match
-        # (force the recompute — lane count AND liveness both changed)
-        self._lanes_seen = -1
-        self._ensure_pool()
+        """New contexts mean new lanes: on the host path the pool grows to
+        match; on the card they are warmed on the engine thread before
+        their first launch (``_warm_lanes``: their captures stop every
+        lane, as the start's do, once here rather than at each new lane's
+        first stages), and the warm-up is counted in ``rewarm``."""
+        if self._seam is None:
+            self._ensure_pool()
+            return
+        new = [ln for ln in self._live_lanes() if ln not in self._streams]
+        if not new:
+            return
+        before, t0 = stage_graphs.snapshot(), time.perf_counter()
+        self._warm_lanes(new)
+        self.rewarm["count"] += 1
+        self.rewarm["s"] += time.perf_counter() - t0
+        after = stage_graphs.snapshot()
+        for k in ("captures", "replays"):
+            self.rewarm[k] += after[k] - before[k]
 
     def running_set_changed(self) -> None:
         pass

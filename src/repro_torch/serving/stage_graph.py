@@ -133,21 +133,40 @@ def pool_reserved_bytes(pools) -> int:
                if tuple(seg.get("segment_pool_id", ())) in ids)
 
 
+def _signature(tree, leaves: list):
+    """Append ``tree``'s leaves to ``leaves`` in ``tree_flatten``'s order
+    (dicts in insertion order, None a node with none) and return a
+    hashable key of its structure and of each tensor's shape, dtype and
+    device, built without string work."""
+    if isinstance(tree, torch.Tensor):
+        leaves.append(tree)
+        return tree.shape, tree.dtype, tree.device
+    if isinstance(tree, dict):
+        return dict, tuple(tree), tuple(_signature(v, leaves)
+                                        for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return type(tree), tuple(_signature(v, leaves) for v in tree)
+    if tree is not None:
+        leaves.append(tree)
+    return type(tree)
+
+
 class _Eager:
-    """The CPU's run: ``fn`` called on the static arguments."""
+    """The CPU's run: ``fn`` called on the static arguments; returns its
+    output flattened."""
 
     def __init__(self, fn: Callable, args: tuple, lane: Lane) -> None:
         self.fn, self.args = fn, args
 
     def run(self):
-        return self.fn(*self.args)
+        return tree_flatten(self.fn(*self.args))
 
 
 class _Graph:
     """``fn`` on the static arguments, captured into a CUDA graph in the
     lane's pool after one eager warm-up call (both on a side stream that
     waits for the current one); ``run`` replays it on the current stream
-    and returns its static outputs."""
+    and returns its static outputs, flattened once at the capture."""
 
     def __init__(self, fn: Callable, args: tuple, lane: Lane) -> None:
         self.lane, self.pool = lane, None
@@ -163,6 +182,7 @@ class _Graph:
             finally:
                 if collecting:
                     gc.enable()
+        self.flat = tree_flatten(self.out)
         _lib.stage_graphs.captured(time.perf_counter() - t0, self.pool)
 
     def _capture(self, fn: Callable, args: tuple):
@@ -185,7 +205,7 @@ class _Graph:
     def run(self):
         self._replay()
         _lib.stage_graphs.replayed(self.log.replay())
-        return self.out
+        return self.flat
 
 
 class _Static:
@@ -224,19 +244,24 @@ class StageProgram:
         return threading.get_ident()
 
     def __call__(self, *args):
-        flat, spec = tree_flatten(args)
+        flat = []
+        sig = _signature(args, flat)
         if not flat or not all(isinstance(t, torch.Tensor) for t in flat):
             raise TypeError(f"stage program {self.name!r} takes tensors "
                             f"only, got {[type(t).__name__ for t in flat]}")
         dev = flat[0].device
         ln = lane(self._lane_of(dev))
-        sig = (str(spec),
-               tuple((tuple(t.shape), t.dtype, t.device) for t in flat))
-        key = (ln.key,) + sig
+        key = (ln.key, sig)
         with ln.lock:
             with self._lock:
                 st = self._lanes.get(key)
             if st is None:
+                leaves, spec = tree_flatten(args)
+                if len(leaves) != len(flat) or any(
+                        a is not b for a, b in zip(leaves, flat)):
+                    raise TypeError(f"stage program {self.name!r}: its "
+                                    f"arguments flatten in another order "
+                                    f"than tree_flatten's")
                 inputs = ln.static_inputs(sig, flat)
                 for s, t in zip(inputs, flat):
                     s.copy_(t)
@@ -247,5 +272,5 @@ class StageProgram:
             # again after a capture, whose warm-up call may write its inputs
             for s, t in zip(st.inputs, flat):
                 s.copy_(t)
-            out, out_spec = tree_flatten(st.runner.run())
+            out, out_spec = st.runner.run()
             return tree_unflatten([t.clone() for t in out], out_spec)

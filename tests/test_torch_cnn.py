@@ -12,10 +12,8 @@ traps of the reference's XLA semantics: 65 gives odd maps, asymmetric SAME
 padding and UNet's odd resize targets; ResNet18 at 32 and batch 1 reaches a
 1x1 map in stage 3, where ``bn_apply`` normalises one value a channel.
 """
-import collections
 import dataclasses
 import importlib.util
-import threading
 from pathlib import Path
 
 import numpy as np
@@ -288,81 +286,6 @@ def test_realtime_backend_chaos_faults_and_retry():
     assert isinstance(s, Sanitizer) and s.violations == 0 and s.audits > 0
     assert m.chaos_faults > 0 and m.retries > 0
     assert sum(m.completed.values()) > 0
-
-
-def test_warm_lanes_runs_every_task_once_in_every_worker():
-    """The realtime backend's warm-up (run before the clock starts on the
-    card, where cuDNN's plans are per thread and the allocator's blocks per
-    stream): each worker runs each task's payload chain once and takes no
-    second warm-up; a task with a synthetic stage is not run."""
-    model = BUILDERS["resnet18"](width=8, device="cpu")
-    specs = _resnet18_specs(model, calibrate=False)
-    ran = collections.Counter()
-    for spec in specs:
-        for st in spec.stages:
-            def counted(x, inner=st.payload, key=(spec.name, st.name)):
-                ran[(threading.get_ident(), *key)] += 1
-                return inner(x)
-            st.payload = counted
-    synthetic = api.TaskSpec(name="synthetic", period_ms=50.0,
-                             priority=api.LP,
-                             stages=[api.StageProfile(
-                                 "synthetic/s0", 1.0, n_sat=1.0,
-                                 mem_frac=0.0)])
-    srv = (api.ServerConfig.realtime(device="cpu")
-           .tasks([*specs, synthetic]).contexts(2).streams(2)
-           .oversubscribe(2.0).device(api.DeviceModel(n_units=4.0))
-           .realtime_io(input_hw=32).build())
-    be = srv.backend
-    be.bind(srv.core)
-    be._ensure_pool()
-    n_workers = len(be._pool._threads)
-    try:
-        be._warm_lanes()
-    finally:
-        be.stop()
-    workers = {k[0] for k in ran}
-    assert len(workers) == n_workers == 4
-    assert set(ran.values()) == {1}
-    assert len(ran) == len(workers) * 2 * 4
-    assert be.worker_exceptions == 0
-
-
-def test_warm_lanes_survives_a_raising_payload(capsys):
-    """A warm-up payload that raises (on the card: out of memory, a bad
-    model) counts as one worker exception and kills no worker: a second
-    warm-up, which needs every worker, runs to its end."""
-    model = BUILDERS["resnet18"](width=8, device="cpu")
-    spec = _resnet18_specs(model, calibrate=False)[0]
-    calls = collections.Counter()
-
-    def flaky(x, inner=spec.stages[0].payload):
-        calls["s0"] += 1                 # the warm-ups take turns
-        if calls["s0"] == 1:
-            raise RuntimeError("warm-up failure")
-        return inner(x)
-    spec.stages[0].payload = flaky
-    srv = (api.ServerConfig.realtime(device="cpu")
-           .tasks([spec]).contexts(2).streams(2)
-           .oversubscribe(2.0).device(api.DeviceModel(n_units=4.0))
-           .realtime_io(input_hw=32).build())
-    be = srv.backend
-    be.bind(srv.core)
-    be._ensure_pool()
-    n_workers = len(be._pool._threads)
-    try:
-        be._warm_lanes()
-        # a dead worker would leave the second warm-up's barrier short
-        second = threading.Thread(target=be._warm_lanes, daemon=True)
-        second.start()
-        second.join(timeout=60)
-        assert not second.is_alive()
-    finally:
-        be.stop()
-    assert be.worker_exceptions == 1
-    assert "warm-up failure" in repr(be.last_worker_exception)
-    assert calls["s0"] == 2 * n_workers
-    assert "stage warm-up on lane" in capsys.readouterr().err
 
 
 # ------------------------------------------------------------ entry points

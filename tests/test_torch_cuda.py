@@ -14,6 +14,8 @@ f32 for the SSD scan, whose sums run over a whole chunk); the f64 contention
 kernel must return its plain version's bits, the f32 one agree within 2e-6
 relative (a few f32 ulps: the plain version rounds on the host).
 """
+import time
+
 import numpy as np
 import pytest
 
@@ -305,9 +307,13 @@ def test_stage_programs_replay_on_two_streams(name):
 @pytest.mark.cuda
 def test_lanes_made_mid_run_capture_while_others_replay():
     """A reconfigure adds contexts, and so lanes, after the clock started:
-    their stage programs capture at their first launch while the other
-    lanes replay (thread-local capture). Every payload stage the lanes
-    ran is still one replay."""
+    the engine thread warms them in the reconfigure, before their first
+    launch (every capture after the start is that warm-up's), while the
+    other lanes' stages already enqueued replay on; its second pass over
+    every live lane leaves each stream its blocks, so the caching
+    allocator calls the driver no more in the rest of the run. Every
+    payload stage the lanes ran is still one replay (the warm-up's
+    replays are counted apart)."""
     _need_cuda()
     model = build_model(get_reduced("smollm-135m").replace(n_layers=8,
                                                            dtype="bfloat16"))
@@ -318,12 +324,25 @@ def test_lanes_made_mid_run_capture_while_others_replay():
            .oversubscribe(2.0).device(api.DeviceModel(n_units=2.0))
            .reconfigure_at(300.0, n_contexts=4)
            .horizon_ms(900.0).build())
+    be = srv.backend
+    rewarmed, reconfigure = {}, be.on_reconfigure
+
+    def counted():
+        reconfigure()
+        rewarmed["alloc"] = torch.cuda.memory_stats()["num_device_alloc"]
+    be.on_reconfigure = counted
     m = srv.run()
-    g = srv.backend.graph_summary()
+    g = be.graph_summary()
     assert m.completed[api.HP] > 0
-    assert srv.backend.worker_exceptions == 0
-    assert g["warm_captures"] > 0 and g["captures"] > 0
-    assert g["replays"] == g["stage_runs"] > 0
+    assert be.worker_exceptions == 0
+    assert be.rewarm["count"] == 1 and be.rewarm["s"] > 0.0
+    assert g["warm_captures"] > 0
+    assert g["captures"] == g["rewarm_captures"] > 0
+    assert g["replays"] == g["stage_runs"] + g["rewarm_replays"]
+    assert g["stage_runs"] > 0 and g["rewarm_replays"] > 0
+    assert g["pool_stage_runs"] == 0 and not be._pool._threads
+    assert (torch.cuda.memory_stats()["num_device_alloc"]
+            == rewarmed["alloc"])
 
 
 def _leaves(tree):
@@ -491,6 +510,78 @@ def test_realtime_staged_cnn_on_cuda_streams():
     assert srv.backend.warm_s > 0 and len(srv.backend._streams) == 4
     assert all(fn.counts.launches == 0 and fn.counts.plain_cuda_calls == 0
                for fn in KERNELS.values())
+
+
+def _served_resnet18(chaos=None):
+    """ResNet18 at width 8 served 800 ms on 2 x 2 lanes (with ``chaos``
+    where given); returns the server, its metrics, the instances the
+    worker pool was handed and, for each stage begun on the engine
+    thread, the ms from its launch to its begin."""
+    from repro_torch.kernels import reset_counts
+    model = BUILDERS["resnet18"](width=8)
+    reset_counts()
+    specs = [staged_cnn_taskspec(model, priority=p, jps=20.0, input_hw=64,
+                                 tag=tag)
+             for p, tag in ((api.HP, "-hp"), (api.LP, "-lp"))]
+    cfg = (api.ServerConfig.realtime().tasks(specs).contexts(2).streams(2)
+           .oversubscribe(2.0).device(api.DeviceModel(n_units=2.0))
+           .horizon_ms(800.0).realtime_io(input_hw=64))
+    if chaos is not None:
+        cfg = cfg.chaos(chaos)
+    srv = cfg.build()
+    pooled, submit = [], srv.backend._pool.submit
+
+    def counted(fn, lane, inst):
+        if inst is not None:
+            pooled.append(inst)
+        return submit(fn, lane, inst)
+    srv.backend._pool.submit = counted
+    late, begin = [], srv.backend._begin
+
+    def begun(rec):
+        late.append((time.perf_counter() - rec.t0) * 1000.0)
+        return begin(rec)
+    srv.backend._begin = begun
+    return srv, srv.run(), pooled, late
+
+
+@pytest.mark.cuda
+def test_served_stages_are_enqueued_on_the_engine_thread():
+    """Every payload stage of a served ResNet18 is enqueued on the engine
+    thread and harvested by polling its end event: none goes to the worker
+    pool, each is one replay, one graph pool a lane, and each HP job's
+    parts sum to its response."""
+    _need_cuda()
+    srv, m, pooled, late = _served_resnet18()
+    be = srv.backend
+    g = be.graph_summary()
+    assert m.completed[api.HP] > 0 and be.worker_exceptions == 0
+    assert pooled == [] and g["pool_stage_runs"] == 0
+    assert g["stage_runs"] == g["replays"] == len(late) > 0
+    assert g["run_pools"] == 4 and g["pools"] == 5
+    parts = be.hp_response_parts()
+    assert parts["jobs"] == len(m.response_ms[api.HP])
+    assert parts["sum_err_ms"] <= 0.01
+
+
+@pytest.mark.cuda
+def test_stalled_stages_on_the_card_start_late_on_the_engine_thread():
+    """A chaos stall on about half the launches: the engine thread
+    enqueues each such stage once its stall has passed, and no stage goes
+    to the worker pool; every stage is still one replay, and the HP jobs'
+    parts (a stall within the stream wait) still sum to their responses."""
+    _need_cuda()
+    srv, m, pooled, late = _served_resnet18(
+        api.ChaosPlan(seed=3, stall_rate=0.5, stall_ms=2.0))
+    be = srv.backend
+    g = be.graph_summary()
+    assert m.completed[api.HP] > 0 and be.worker_exceptions == 0
+    assert pooled == [] and g["pool_stage_runs"] == 0
+    assert not be._pool._threads
+    assert g["stage_runs"] == g["replays"] == len(late) > 0
+    # the stalled ones begun by the poll, the stall after their launch
+    assert 0 < sum(1 for ms in late if ms >= 2.0) < len(late)
+    assert be.hp_response_parts()["sum_err_ms"] <= 0.01
 
 
 @pytest.mark.cuda

@@ -1,0 +1,420 @@
+"""The realtime backend's inline path on the CPU: on the card every stage
+is enqueued on the engine thread under its lane's stream and harvested by
+polling its end event (a chaos stall delays its enqueue, a synthetic
+stage ends at the poll after its ``t_alone``), and the lanes are warmed
+there; the worker pool (the host path) is the CPU's.
+
+The card's streams and events come from one seam (``CudaSeam``). Here a
+stand-in takes its place: a "stream" is the wall-clock instant its queued
+work ends, a payload adds its stage's ``t_alone`` to the current stream,
+and an event recorded on a stream completes when the stream's work
+before it has. The engine thread, the poll, the harvest and every stamp
+are the production code's.
+"""
+import contextlib
+import threading
+import time
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import repro_torch.api as api  # noqa: E402
+from repro_torch.core.task import Job, StageInstance  # noqa: E402
+from tests.test_torch_serving import fixed_time  # noqa: E402
+
+PARTS_TOL_MS = 0.01       # an HP job's parts against its response
+
+
+class WallStream:
+    """A lane's stream: ``free_at`` is the perf_counter second its queued
+    work ends."""
+
+    def __init__(self):
+        self.free_at = 0.0
+
+    def synchronize(self):
+        wait = self.free_at - time.perf_counter()
+        if wait > 0:
+            time.sleep(wait)
+
+
+class WallEvent:
+    def __init__(self, seam):
+        self.seam, self.t = seam, None
+
+    def record(self, stream=None):
+        stream = stream or self.seam.current
+        now = time.perf_counter()
+        self.t = max(now, stream.free_at) if stream is not None else now
+
+    def query(self):
+        return time.perf_counter() >= self.t
+
+    def synchronize(self):
+        wait = self.t - time.perf_counter()
+        if wait > 0:
+            time.sleep(wait)
+
+    def elapsed_time(self, other):
+        return (other.t - self.t) * 1000.0
+
+
+class WallSeam:
+    """Stand-in for ``CudaSeam``: streams, the stream context and events
+    (which a host-path worker also waits for) on the host's clock."""
+
+    def __init__(self):
+        self.current = None
+
+    def stream(self):
+        return WallStream()
+
+    @contextlib.contextmanager
+    def use(self, stream):
+        prev, self.current = self.current, stream
+        try:
+            yield
+        finally:
+            self.current = prev
+
+    def event(self):
+        return WallEvent(self)
+
+    def work(self, ms: float):
+        """A payload's device time: ``ms`` more of the current stream."""
+        s = self.current
+        s.free_at = max(time.perf_counter(), s.free_at) + ms / 1000.0
+
+
+def with_payloads(cfg, seam):
+    """Every stage of ``cfg``'s tasks gets a payload that keeps its lane
+    busy for its ``t_alone`` and hands its input on."""
+    for spec in cfg._specs:
+        for st in spec.stages:
+            def payload(x, ms=st.t_alone_ms):
+                seam.work(ms)
+                return x
+            st.payload = payload
+    return cfg
+
+
+def slowed(cfg, k: float = 2.0):
+    """``cfg`` with every period, stage time and the horizon ``k`` times
+    longer: the fixed-time scenario keeps 10 ms between events, and a
+    loaded CPU has been seen to keep the polling engine thread off it for
+    8 ms."""
+    for spec in cfg._specs:
+        spec.period_ms *= k
+        for st in spec.stages:
+            st.t_alone_ms *= k
+    cfg._horizon_ms *= k
+    return cfg
+
+
+def on_stand_in(srv, seam):
+    """The server's backend on the stand-in seam, with every submission
+    to the pool and every inline enqueue recorded as (path, instance)."""
+    be = srv.backend
+    be._seam = seam
+    paths = []
+    submit, enqueue = be._pool.submit, be._enqueue
+
+    def counted_submit(fn, lane, inst):
+        if inst is not None:
+            paths.append(("pool", inst))
+        return submit(fn, lane, inst)
+
+    def counted_enqueue(rec, stream):
+        paths.append(("inline", rec.inst))
+        return enqueue(rec, stream)
+    be._pool.submit, be._enqueue = counted_submit, counted_enqueue
+    return paths
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def test_inline_path_makes_the_simulators_decisions():
+    """The fixed-time scenario (at twice its times) with a payload on
+    every stage: every stage inline, none to the pool, decisions identical
+    to the simulator's, and each HP job's parts sum to its response."""
+    sim = slowed(fixed_time(api)).build()
+    m_sim = sim.run()
+    seam = WallSeam()
+    real = with_payloads(slowed(fixed_time(api, realtime=True)),
+                         seam).build()
+    paths = on_stand_in(real, seam)
+    m_real = real.run()
+    assert real.decisions == sim.decisions and len(sim.decisions) > 20
+    assert m_real.completed == m_sim.completed
+    assert m_real.rejected == m_sim.rejected
+    be = real.backend
+    assert paths and {p for p, _ in paths} == {"inline"}
+    assert be.worker_exceptions == 0 and not be._pool._threads
+    assert be.stage_runs == len(paths) and be.pool_stage_runs == 0
+    assert be.warm_s > 0 and len(be._streams) == 2
+    parts = be.hp_response_parts()
+    assert parts["jobs"] == len(m_real.response_ms[api.HP]) > 0
+    assert parts["sum_err_ms"] <= PARTS_TOL_MS
+    # the engine's own delay to the stage's start, and the poll that saw
+    # the stage's end, which lies within the notice
+    for job in parts["slowest"]:
+        for st in job["stages"]:
+            assert st["hand_off"] >= 0.0
+            assert 0.0 <= st["sync_wake"] <= st["notice"] + 1e-9
+
+
+def test_stalls_and_synthetic_stages_stay_on_the_engine_thread():
+    """With a chaos stall on half the launches and a task whose stage has
+    no payload: nothing goes to the pool; a stage begins at its launch, or
+    once its stall has passed; every payload stage begun is enqueued
+    inline, and a synthetic stage ends no sooner than its ``t_alone``
+    after it began."""
+    seam = WallSeam()
+    specs = [api.TaskSpec(name=n, period_ms=40.0, priority=p, stages=[
+        api.StageProfile(f"{n}/s{j}", t, n_sat=1.0, mem_frac=0.0,
+                         overhead_ms=0.0) for j, t in enumerate(ts)])
+        for n, p, ts in (("hp", api.HP, [3.0, 2.0]),
+                         ("lp", api.LP, [4.0, 3.0]))]
+    synthetic = api.TaskSpec(name="synthetic", period_ms=60.0,
+                             priority=api.LP, stages=[api.StageProfile(
+                                 "synthetic/s0", 2.0, n_sat=1.0,
+                                 mem_frac=0.0, overhead_ms=0.0)])
+    cfg = (api.ServerConfig.realtime(device="cpu").tasks(specs)
+           .contexts(2).streams(2).oversubscribe(2.0)
+           .device(api.DeviceModel(n_units=4.0)).horizon_ms(400.0)
+           .phase_offsets(False).seed(0)
+           .chaos(api.ChaosPlan(seed=3, stall_rate=0.5, stall_ms=2.0)))
+    with_payloads(cfg, seam)
+    cfg.task(synthetic)
+    srv = cfg.build()
+    paths = on_stand_in(srv, seam)
+    be = srv.backend
+    draws, stalled, begun, ended = [], {}, [], []
+    draw, launch = srv.core._chaos.draw_launch, be.launch
+    begin, synthetic_done = be._begin, be._synthetic_done
+
+    def launched(lane, inst):
+        launch(lane, inst)
+        stalled[id(inst)] = draws[-1]
+
+    def recorded():
+        cfail, stall = draw()
+        draws.append(stall)
+        return cfail, stall
+
+    def begun_(rec):
+        begun.append((rec.inst, (time.perf_counter() - rec.t0) * 1000.0))
+        return begin(rec)
+
+    def ended_(rec):
+        synthetic_done(rec)
+        ended.append(rec.stamps["dev_end"] - rec.stamps["dev_start"])
+    srv.core._chaos.draw_launch = recorded
+    be.launch, be._begin, be._synthetic_done = launched, begun_, ended_
+    m = srv.run()
+    assert sum(m.completed.values()) > 0
+    assert {p for p, _ in paths} == {"inline"} and not be._pool._threads
+    assert be.pool_stage_runs == 0 and be.worker_exceptions == 0
+    assert len(begun) <= len(stalled)
+    for inst, late in begun:
+        assert (late >= 2.0) == (stalled[id(inst)] > 0)
+    assert {stalled[id(inst)] > 0 for inst, _ in begun} == {True, False}
+    assert [i for p, i in paths] == [
+        i for i, _ in begun if i.profile.payload is not None]
+    assert ended and min(ended) >= 2.0
+    assert be.stage_time_summary()["synthetic/s0"]["n"] == len(ended)
+    assert be.hp_response_parts()["sum_err_ms"] <= PARTS_TOL_MS
+
+
+def _warm_server(seam, fail_first=False):
+    """A server on the stand-in (2 contexts x 2 streams) whose tasks "a"
+    (two stages) and "b" have payloads that record (thread, stream, stage)
+    and a task with a synthetic stage; ``fail_first``: "a"'s first stage
+    raises at its first call. Returns the server and the record."""
+    calls = []
+
+    def profile(name, ms):
+        return api.StageProfile(name, ms, n_sat=1.0, mem_frac=0.0)
+    specs = [api.TaskSpec(name=n, period_ms=100.0, priority=p,
+                          stages=[profile(f"{n}/s{j}", 1.0)
+                                  for j in range(k)])
+             for n, p, k in (("a", api.HP, 2), ("b", api.LP, 1))]
+    for spec in specs:
+        for st in spec.stages:
+            def payload(x, name=st.name):
+                calls.append((threading.get_ident(), id(seam.current),
+                              name))
+                if fail_first and len(calls) == 1:
+                    raise RuntimeError("warm-up failure")
+                return x
+            st.payload = payload
+    specs.append(api.TaskSpec(name="synthetic", period_ms=100.0,
+                              priority=api.LP,
+                              stages=[profile("synthetic/s0", 1.0)]))
+    srv = (api.ServerConfig.realtime(device="cpu").tasks(specs)
+           .contexts(2).streams(2).oversubscribe(2.0)
+           .device(api.DeviceModel(n_units=4.0)).build())
+    srv.backend._seam = seam
+    srv.backend.bind(srv.core)
+    return srv, calls
+
+
+def _chains(be, lanes):
+    """The warm-up's calls: each payload task's chain on each lane's
+    stream, on this thread."""
+    me = threading.get_ident()
+    return [(me, id(be._streams[ln]), name) for ln in lanes
+            for name in ("a/s0", "a/s1", "b/s0")]
+
+
+def test_warm_lanes_runs_every_task_twice_a_lane_on_the_engine_thread():
+    """The backend's start on the card: the engine thread runs each
+    payload task's chain on every lane's stream, once to capture and once
+    more after every lane's captures; a task with a synthetic stage is not
+    run, and no worker is started."""
+    seam = WallSeam()
+    srv, calls = _warm_server(seam)
+    be = srv.backend
+    be.start()
+    be.stop()
+    lanes = be._live_lanes()
+    assert len(lanes) == 4 and len(be._streams) == 4
+    assert calls == _chains(be, lanes) * 2
+    assert be.warm_s > 0 and not be._pool._threads
+    assert be.worker_exceptions == 0
+
+
+def test_warm_lanes_survives_a_raising_payload(capsys):
+    """A warm-up payload that raises (on the card: out of memory, a bad
+    model) counts as one payload exception and loses that lane's chain;
+    the warm-up goes on to every other lane's, and serving goes on."""
+    seam = WallSeam()
+    srv, calls = _warm_server(seam, fail_first=True)
+    be = srv.backend
+    be.start()
+    be.stop()
+    want = _chains(be, be._live_lanes()) * 2
+    assert calls == want[:1] + want[3:]
+    assert be.worker_exceptions == 1
+    assert "warm-up failure" in repr(be.last_worker_exception)
+    assert "stage warm-up on lane" in capsys.readouterr().err
+
+
+def test_reconfigure_warms_the_new_lanes_before_their_first_launch():
+    """A reconfigure that adds contexts: the engine thread runs the chains
+    on each new lane's stream, then once more on every live lane's, and
+    counts the warm-up; one that adds no lane warms nothing."""
+    seam = WallSeam()
+    srv, calls = _warm_server(seam)
+    be = srv.backend
+    be.start()
+    try:
+        old = set(be._streams)
+        calls.clear()
+        srv.core.sched.reconfigure(be.now_ms(), n_contexts=3)
+        be.on_reconfigure()
+        live = be._live_lanes()
+        new = [ln for ln in live if ln not in old]
+        assert new and len(live) == 6
+        assert calls == _chains(be, new) + _chains(be, live)
+        assert be.rewarm["count"] == 1 and be.rewarm["s"] > 0.0
+        calls.clear()
+        be.on_reconfigure()
+        assert calls == [] and be.rewarm["count"] == 1
+        assert not be._pool._threads
+    finally:
+        be.stop()
+
+
+def _bare_backend(seam, work):
+    """A started backend on the stand-in (2 contexts x 1 stream), bound
+    to its server's core, with one HP task whose payload keeps its lane
+    busy ``work[0]`` ms and returns a count of its calls."""
+    calls = []
+    spec = api.TaskSpec(name="t", period_ms=100.0, priority=api.HP,
+                        stages=[api.StageProfile("t/s0", 1.0, n_sat=1.0,
+                                                 mem_frac=0.0)])
+    srv = (api.ServerConfig.realtime(device="cpu").tasks([spec])
+           .contexts(2).streams(1).oversubscribe(1.0)
+           .device(api.DeviceModel(n_units=4.0)).build())
+    be = srv.backend
+    be._seam = seam
+
+    def payload(x):
+        seam.work(work[0])
+        calls.append(len(calls))
+        return torch.tensor(float(len(calls)))
+    spec.stages[0].payload = payload
+    be.bind(srv.core)
+    be.start()
+    calls.clear()                     # the warm-up's
+    task = srv.scheduler.tasks[0]
+
+    def instance():
+        return StageInstance(Job(task, 0.0), enqueue_ms=0.0,
+                             virtual_deadline_ms=100.0)
+    return be, instance
+
+
+def _drain(be, cap_ms: float):
+    out = []
+    while be.has_inflight() and be.now_ms() < cap_ms:
+        out += be.advance(cap_ms)
+    return out
+
+
+def test_ghosts_are_dropped_while_the_flight_drains():
+    """A watchdog kill_lane's ghost and a cancelled context's stage are
+    polled to their end and dropped; only the relaunched stage commits,
+    with its own output."""
+    seam, work = WallSeam(), [30.0]
+    be, instance = _bare_backend(seam, work)
+    try:
+        a, c = instance(), instance()
+        be.launch((0, 0), a)                 # call 1: becomes a ghost
+        be.kill_lane((0, 0), a)
+        work[0] = 5.0
+        be.launch((0, 0), a)                 # call 2, behind call 1
+        work[0] = 10.0
+        be.launch((1, 0), c)                 # call 3, on a failed context
+        be.cancel_ctx(1)
+        assert be.has_inflight() and len(be._flight) == 3
+        done = _drain(be, be.now_ms() + 2000.0)
+        assert [(d.lane, d.inst) for d in done] == [((0, 0), a)]
+        assert not be.has_inflight()
+        assert float(be._job_state[a.job.job_id]) == 2.0
+        assert c.job.job_id not in be._job_state
+        assert be.stage_time_summary()["t/s0"]["n"] == 1
+        assert 30.0 <= done[0].et_ms < 1000.0      # behind the ghost
+    finally:
+        be.stop()
+
+
+@pytest.mark.parametrize("works", [(20.0, 5.0), (5.0, 20.0)],
+                         ids=["first_ends_last", "first_ends_first"])
+def test_simultaneous_completions_commit_in_launch_order(works):
+    """Two stages done by the time of the poll: committed one a call, the
+    first launched first, whichever ended first."""
+    seam, work = WallSeam(), [0.0]
+    be, instance = _bare_backend(seam, work)
+    try:
+        x, y = instance(), instance()
+        work[0] = works[0]
+        be.launch((0, 0), x)
+        work[0] = works[1]
+        be.launch((1, 0), y)
+        time.sleep((max(works) + 10.0) / 1000.0)
+        first = be.advance(be.now_ms() + 1000.0)
+        second = be.advance(be.now_ms() + 1000.0)
+        assert [c.inst for c in first + second] == [x, y]
+        assert not be.has_inflight()
+        assert be.pool_stage_runs == 0 and be.stage_runs == 2
+    finally:
+        be.stop()

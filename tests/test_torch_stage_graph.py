@@ -598,3 +598,29 @@ def test_a_lanes_programs_of_one_signature_share_static_inputs():
     assert "one lane" not in stage_graph._lanes
     fresh = stage_graph.lane("one lane")
     assert fresh.pool is None and not len(fresh.inputs)
+
+
+def test_a_repeated_call_builds_no_signature_string(monkeypatch):
+    """A call keys its lane's static inputs by the arguments' structure,
+    shapes, dtypes and devices without string work: once a signature has
+    its static inputs, a call of it renders no tree spec; another
+    structure or shape is another signature, with its own inputs, and
+    each returns its own input's result."""
+    from torch.utils import _pytree
+    prog = OneLaneProgram(lambda h, s: (h + 1.0, {k: v * 2.0
+                                                  for k, v in s.items()}))
+    h, s = torch.ones(2), {"k": torch.ones(3), "v": torch.zeros(3)}
+    prog(h, s)
+
+    def refused(self):
+        raise AssertionError("a repeated call rendered its tree spec")
+    monkeypatch.setattr(_pytree.TreeSpec, "__str__", refused)
+    monkeypatch.setattr(_pytree.TreeSpec, "__repr__", refused)
+    out_h, out_s = prog(h + 1.0, {"k": torch.full((3,), 3.0), "v": s["v"]})
+    assert torch.equal(out_h, torch.full((2,), 3.0))
+    assert torch.equal(out_s["k"], torch.full((3,), 6.0))
+    monkeypatch.undo()
+    prog(h, {"v": s["v"], "k": s["k"]})            # keys in another order
+    prog(torch.ones(4), s)                          # another shape
+    assert len(prog._lanes) == 3
+    assert len({id(st.inputs) for st in prog._lanes.values()}) == 3
