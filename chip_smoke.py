@@ -5,6 +5,7 @@
     python3 chip_smoke.py --serve mamba2-2.7b --repeats 2 [--trace]
     python3 chip_smoke.py --serve resnet18 --repeats 8
     python3 chip_smoke.py --serve resnet18 --repeats 3 --switch-interval 0.0005
+    python3 chip_smoke.py --drill smollm-135m --repeats 3
     python3 chip_smoke.py --epoch --repeats 10
     python3 chip_smoke.py --cluster --repeats 2
     python3 chip_smoke.py --resume --repeats 2
@@ -22,7 +23,9 @@ the card did during it (``device_timeline``); a ``serve_repeats`` line
 sums the runs up (runs with an HP miss, HP mean, p99 and max response,
 and for the CNNs the runs and HP jobs over SchedCheck's static bound).
 ``--switch-interval S`` sets the process's ``sys.setswitchinterval``
-before the runs.
+before the runs. ``--drill ARCH`` runs only step 21's drills of
+``resnet18`` or ``smollm-135m``, ``--repeats`` times in turns, and sums
+them up in a ``drill_repeats`` line.
 Copied into a checkout from before the compiled stage (``git archive``
 under ``build/``), the same forms measure that tree, without the
 ``stage_graphs`` fields; --epoch only the epoch phase (step 4), --resume only
@@ -376,6 +379,32 @@ result line. Without arguments:
     16 rows of 576; and those of step 18's later runs: the norms over a
     rank's 512 rows of 2048 (the ``serve_seq_shard`` prefill) and over
     4096 rows of 576, flash over one sequence of 4096 (9 heads over 3).
+21. Drill phase (``drill_phase``), the paper's elastic mechanism served:
+    ResNet18 and full-width smollm-135m (their tasks as in 6 and 3)
+    served as in 3 with a fault plan through the entry point's own calls
+    (``DRILLS``): ``reshape``, ``reconfigure_at`` 750 ms to 4 contexts x 1
+    stream at oversubscription 4.0, 1500 ms to 3 x 2 at 3.0, 2250 ms to 2
+    x 2 at 2.0 (4 -> 4 -> 6 -> 4 lanes, each reshape's lanes new to the
+    scheduler); ``fault``, ``fail_context_at(0, 1000)`` and
+    ``scale_out_at(2000)`` (4 -> 2 -> 4 lanes; no task is placed on the
+    added context, whose lanes stay idle); ``scale_out``,
+    ``scale_out_at(1000)`` and ``fail_context_at(1, 2000)`` (4 -> 6 -> 4
+    lanes; the LP task of the failed context is re-placed onto the added
+    one, whose lanes first launch then). A ``drill`` line a run
+    gives, event by event (to the next): the engine thread's stop (the
+    lane warm-ups after the clock started and captures outside them),
+    ``rewarm``, captures, replays, the lanes first launched, streams and
+    pools made, the caching allocator's driver calls, and the HP jobs
+    released in the 500 ms
+    after the event (misses, maximum) against those away from every
+    event; and the run's streams, pools and their GB, and warm-up. The
+    backend reads the plan at its start and warms a stream for each lane
+    of the busiest moment (6 for ``reshape`` and ``scale_out``, 4 for
+    ``fault``), and a new
+    lane takes a retired or failed lane's stream: it fails on a capture
+    after the clock started, another count of streams, two live lanes on
+    one stream handle, or an HP miss, besides the served run's own
+    gates (one replay a stage, one pool a stream, no driver allocation).
 Each phase's model is freed before the next; ``phase_seconds`` and
 ``phase_peak_memory_gb`` give each phase's wall and peak of allocated card
 memory.
@@ -406,13 +435,15 @@ took the CUDA-core instance, a worker caught an exception, no HP job
 completed, the three runs of the epoch phase or of a cluster scenario
 differ, a port kernel or its plain version ran on the CNN path, a payload
 stage on a served lane was not a CUDA-graph replay, a served run's
-graph pools were not one a lane (and the calibration's), an HP job's
+graph pools were not one a lane stream (and the calibration's), an HP
+job's
 response parts missed its response, a donor cache changed, a
 ``stage_graphs`` check failed, an output check failed, a restored
 scheduler state differs from its file, the second launcher run did not
 resume, the parameters did not round-trip bit for bit, the daemon
 example failed, the oracle was not ``ok`` on fig13_light or
-fig13_fail_1of4, an int8 check of step 11 failed, a planted fault
+fig13_fail_1of4, an int8 check of step 11 failed, a drill of step 21
+failed a gate, a planted fault
 agreed with a plain version, a step 12-15 instance or launch-shape check
 failed, a gradient row or a check of steps 16-20 failed, or a model path
 launched a kernel at an instance and shape that no bf16 row checked. The
@@ -497,6 +528,24 @@ PARTS_TOL_MS = 0.01                   # an HP job's parts against its response
 RESPONSE_PARTS = ("release_to_launch", "hand_off", "stream_wait", "device",
                   "notice", "gap")
 RESUME_DNN = "resnet18"               # served cold, saved, then resumed
+# step 21, the elastic drills on the served configuration's 3 s (2 x 2
+# lanes at 2.0): events (kind, ms, argument) and the most lanes live at
+# once. A scale-out's context gets work only where a failure re-places a
+# task onto it, the least used survivor (or an LP task fails admission on
+# its own): ``fault``'s never does; ``scale_out``'s takes the LP task once
+# context 1, its home, fails
+DRILLS = {
+    "reshape": (("reconfigure", 750.0, {"n_contexts": 4, "n_streams": 1,
+                                        "oversubscription": 4.0}),
+                ("reconfigure", 1500.0, {"n_contexts": 3, "n_streams": 2,
+                                         "oversubscription": 3.0}),
+                ("reconfigure", 2250.0, {"n_contexts": 2, "n_streams": 2,
+                                         "oversubscription": 2.0})),
+    "fault": (("fail_context", 1000.0, 0), ("scale_out", 2000.0, None)),
+    "scale_out": (("scale_out", 1000.0, None), ("fail_context", 2000.0, 1))}
+DRILL_LANES = {"reshape": 6, "fault": 4, "scale_out": 6}
+DRILL_ARCHS = ("resnet18", "smollm-135m")
+DRILL_WINDOW_MS = 500.0               # HP jobs released this long after one
 # the training phase: smollm-135m at full width and depth (bf16, f32 m/v),
 # 20 AdamW steps of 8 sequences of 4096 tokens in 2 microbatches of 4
 # (the reference's train_4k cell is 256 sequences a step)
@@ -1174,7 +1223,8 @@ PATH_MODELS = {"dense": "smollm-135m", "ssm": "mamba2-2.7b",
                "dist": f"{MOE_ARCH} on 4 ranks",
                "dist_seq": f"{MOE_ARCH} on 4 ranks, serve_seq_shard",
                "layouts": f"{TRAIN_ARCH} layouts on 4 ranks",
-               "roofline": f"{TRAIN_ARCH} roofline cells"}
+               "roofline": f"{TRAIN_ARCH} roofline cells",
+               **{f"drill_{d}": f"smollm-135m/{d}" for d in DRILLS}}
 DENSE_PATH = ("rmsnorm", "rmsnorm_residual", "decode_attention",
               "flash_attention")
 SSM_PATH = ("rmsnorm", "ssd")
@@ -1186,6 +1236,8 @@ MLA_PATH = ("rmsnorm", "rmsnorm_residual", "flash_attention")
 ENCDEC_PATH = ("decode_attention", "flash_attention")
 # training runs no decode (the wrapper raises under autograd)
 TRAIN_PATH = ("rmsnorm", "rmsnorm_residual", "flash_attention")
+# the drills' stages replay rows 1-3; flash runs in the donors' prefill only
+DRILL_PATH = ("rmsnorm", "rmsnorm_residual", "decode_attention")
 EPOCH_PATH = ("contention_eta_f64",)
 
 
@@ -1460,11 +1512,9 @@ def serving_phase(torch, failures, arch, n_layers, jps, kernels,
     With ``max_load``, where the calibrated HP stage sum exceeds that share
     of the period, both tasks' rate drops until it does not (a
     ``rate_lowered`` line says why)."""
-    from repro_torch.api import HP, LP
     from repro_torch.configs import get_config
     from repro_torch.kernels import reset_counts
     from repro_torch.models import build_model
-    from repro_torch.serving.engine import staged_lm_taskspec
 
     cfg = get_config(arch)
     if n_layers is not None:
@@ -1475,10 +1525,7 @@ def serving_phase(torch, failures, arch, n_layers, jps, kernels,
 
     reset_counts()
     t0 = time.perf_counter()
-    specs = [staged_lm_taskspec(model, priority=p, jps=jps, n_stages=N_STAGES,
-                                prompt_len=PROMPT, batch=B, tag=tag,
-                                params=params)
-             for p, tag in ((HP, "-hp"), (LP, "-lp"))]
+    specs = lm_specs(model, params, jps)
     hp_sum = sum(st.t_alone_ms for st in specs[0].stages)
     if max_load is not None and hp_sum > max_load * 1000.0 / jps:
         lowered = 1000.0 * max_load / hp_sum
@@ -1513,6 +1560,27 @@ def serving_phase(torch, failures, arch, n_layers, jps, kernels,
     return model, params, specs[0], launches, instances
 
 
+def lm_specs(model, params, jps) -> list:
+    """An HP and an LP staged decode task of ``model`` at ``jps`` (batch
+    ``B`` after a ``PROMPT``-token prompt, ``N_STAGES`` stages)."""
+    from repro_torch.api import HP, LP
+    from repro_torch.serving.engine import staged_lm_taskspec
+    return [staged_lm_taskspec(model, priority=p, jps=jps, n_stages=N_STAGES,
+                               prompt_len=PROMPT, batch=B, tag=tag,
+                               params=params)
+            for p, tag in ((HP, "-hp"), (LP, "-lp"))]
+
+
+def cnn_specs(model, jps) -> list:
+    """An HP and an LP staged task of the CNN ``model`` at ``jps``
+    (``CNN_HW`` x ``CNN_HW`` x 3, batch ``CNN_BATCH``)."""
+    from repro_torch.api import HP, LP
+    from repro_torch.serving.engine import staged_cnn_taskspec
+    return [staged_cnn_taskspec(model, priority=p, jps=jps, input_hw=CNN_HW,
+                                batch=CNN_BATCH, tag=tag)
+            for p, tag in ((HP, "-hp"), (LP, "-lp"))]
+
+
 def donor_checksum(torch, spec) -> list:
     """One checksum a stage of an LM task: the bytes of its donor cache
     slice (``lm_stage``'s ``donor_slice``), each weighted by its offset
@@ -1532,7 +1600,8 @@ def donor_checksum(torch, spec) -> list:
 
 
 def serve(torch, failures, specs, setup_s, jps, kernels, desc, trace=False,
-          input_hw=None, schedcheck=False, prepare=None, fresh=True):
+          input_hw=None, schedcheck=False, prepare=None, fresh=True,
+          plan=None):
     """Serve ``specs`` (an HP and an LP task) in real time for
     ``HORIZON_MS`` (2 contexts x 2 streams, oversubscription 2.0, n_units
     the card's SM count, seed 0; NHWC inputs of ``input_hw`` where given)
@@ -1542,10 +1611,12 @@ def serve(torch, failures, specs, setup_s, jps, kernels, desc, trace=False,
     ``torch.profiler`` and adds ``device_timeline``; ``schedcheck`` runs
     ``verify(enforce=False)`` on the config before it is built and emits
     the report beside the run (``schedcheck_served``); ``prepare`` is
-    called with the built server before it runs. Launch counts were reset
+    called with the built server before it runs; ``plan`` with the config
+    before it is built (the drills' events). Launch counts were reset
     before the tasks were built; ``fresh``: and no server ran them since
-    (so the graph pools are the lanes' and the calibration's). Returns the metrics, the launches of
-    ``kernels``, the launches by instance and the server."""
+    (so the graph pools are the lane streams' and the calibration's).
+    Returns the metrics, the launches of ``kernels``, the launches by
+    instance and the server."""
     from repro_torch.api import HP, LP, DeviceModel, ServerConfig
     from repro_torch.kernels import KERNELS
 
@@ -1557,6 +1628,8 @@ def serve(torch, failures, specs, setup_s, jps, kernels, desc, trace=False,
            .horizon_ms(HORIZON_MS).seed(0))
     if input_hw is not None:
         cfg = cfg.realtime_io(input_hw=input_hw, batch=specs[0].batch)
+    if plan is not None:
+        cfg = plan(cfg)
     report = cfg.verify(enforce=False).schedcheck_report if schedcheck \
         else None
     srv = cfg.build()
@@ -1597,6 +1670,9 @@ def serve(torch, failures, specs, setup_s, jps, kernels, desc, trace=False,
     parts = (be.hp_response_parts() if hasattr(be, "hp_response_parts")
              else None)
     lanes = len(be.core.sched.lanes)
+    # lane streams the run made: one a lane live at once (a tree before
+    # their reuse made one a lane it ever had)
+    streams = (graphs or {}).get("streams", len(be._streams))
     # the collections on the backend's clock: in the served run (from the
     # clock's start), and before it (the lanes' warm-up)
     collections = gc_time.on_clock(be._t0)
@@ -1615,11 +1691,11 @@ def serve(torch, failures, specs, setup_s, jps, kernels, desc, trace=False,
                         f"ran on the lanes, {graphs['replays']} of them "
                         f"CUDA-graph replays (every one must be)")
     if graphs is not None and "pools" in graphs and (
-            graphs["run_pools"] != lanes
-            or fresh and graphs["pools"] != lanes + 1):
+            graphs["run_pools"] != streams
+            or fresh and graphs["pools"] != streams + 1):
         failures.append(f"{name}: graph pools {graphs['run_pools']} for "
-                        f"{lanes} lanes, {graphs['pools']} with the "
-                        f"calibration's stream (one a lane)")
+                        f"{streams} lane streams, {graphs['pools']} with "
+                        f"the calibration's stream (one a stream)")
     if graphs is not None and graphs.get("pool_stage_runs"):
         failures.append(f"{name}: {graphs['pool_stage_runs']} payload "
                         f"stages ran on the worker pool (every one must be "
@@ -3220,10 +3296,8 @@ def cnn_serving_phase(torch, failures, name, trace=False):
     per-task rate, served as the LM paths are (``serve``). No port kernel
     may run: the convolutions go to cuDNN through torch. Returns the HP
     task."""
-    from repro_torch.api import HP, LP
     from repro_torch.kernels import KERNELS, reset_counts
     from repro_torch.models import BUILDERS
-    from repro_torch.serving.engine import staged_cnn_taskspec
     from repro_torch.serving.requests import TABLE2
 
     jps = TABLE2[name][2]
@@ -3232,9 +3306,7 @@ def cnn_serving_phase(torch, failures, name, trace=False):
     torch.cuda.synchronize()
     reset_counts()
     t0 = time.perf_counter()
-    specs = [staged_cnn_taskspec(model, priority=p, jps=jps, input_hw=CNN_HW,
-                                 batch=CNN_BATCH, tag=tag)
-             for p, tag in ((HP, "-hp"), (LP, "-lp"))]
+    specs = cnn_specs(model, jps)
     desc = {"model": name, "width": CNN_WIDTHS[name], "input_hw": CNN_HW,
             "batch": CNN_BATCH, "stages": len(specs[0].stages),
             "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32}
@@ -5001,6 +5073,312 @@ def free_card(torch) -> None:
     torch.cuda.empty_cache()
 
 
+def drill_plan(cfg, drill: str):
+    """``cfg`` with ``drill``'s events (``DRILLS``) through the entry
+    point's own calls."""
+    for kind, t_ms, arg in DRILLS[drill]:
+        if kind == "reconfigure":
+            cfg = cfg.reconfigure_at(t_ms, **arg)
+        elif kind == "fail_context":
+            cfg = cfg.fail_context_at(arg, t_ms)
+        else:
+            cfg = cfg.scale_out_at(t_ms)
+    return cfg
+
+
+def drill_specs(torch, arch: str) -> dict:
+    """``arch``'s HP and LP tasks as its serving phase builds them
+    (ResNet18: Table II's rate, 224 x 224, batch 1, f32; smollm-135m: full
+    width and depth, bf16, decode batch 4 after a 512-token prompt, 4
+    stages, random weights from seed 0), with launch counts reset just
+    before they are built."""
+    from repro_torch.kernels import reset_counts
+    torch.cuda.reset_peak_memory_stats()
+    if arch in CNN_WIDTHS:
+        from repro_torch.models import BUILDERS
+        from repro_torch.serving.requests import TABLE2
+        jps = TABLE2[arch][2]
+        model = BUILDERS[arch](width=CNN_WIDTHS[arch])
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        specs = cnn_specs(model, jps)
+        return {"specs": specs, "jps": jps, "kernels": (), "input_hw": CNN_HW,
+                "setup_s": time.perf_counter() - t0,
+                "desc": {"width": CNN_WIDTHS[arch], "input_hw": CNN_HW,
+                         "batch": CNN_BATCH, "stages": len(specs[0].stages)}}
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    cfg = get_config(arch)
+    model = build_model(cfg)
+    params = model.init_params(0)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    specs = lm_specs(model, params, JPS)
+    return {"specs": specs, "jps": JPS, "kernels": DRILL_PATH,
+            "input_hw": None, "setup_s": time.perf_counter() - t0,
+            "desc": {"layers": cfg.n_layers, "d_model": cfg.d_model,
+                     "batch": B, "prompt_len": PROMPT, "stages": N_STAGES}}
+
+
+def stage_programs(spec) -> list:
+    """The stage programs behind a task's payloads (an LM payload's
+    ``program`` keyword, or the CNN payload itself)."""
+    import functools
+    return [st.payload.keywords["program"]
+            if isinstance(st.payload, functools.partial) else st.payload
+            for st in spec.stages]
+
+
+def drop_stage_graphs(torch, specs) -> None:
+    """Forget the graphs the tasks' stage programs hold (and with them
+    their lanes and pools), so that the next server starts as a fresh one
+    would, whatever stream handles PyTorch hands out again."""
+    torch.cuda.synchronize()
+    for spec in specs:
+        for prog in stage_programs(spec):
+            prog._lanes.clear()
+    free_card(torch)
+
+
+class DrillRecorder:
+    """Put on a built server (``serve``'s ``prepare``): a mark as the
+    clock starts, at each of the drill's events (the scheduler's
+    ``reconfigure``, ``fail_context`` and ``add_context``) and at
+    ``stop``: the backend's clock, the live lanes, the lane streams made,
+    the stage programs' graph counts (``_lib.stage_graphs``), the caching
+    allocator's driver calls, ``rewarm`` and the lane warm-ups' host and
+    capture seconds since the clock started. Each completed HP job's
+    release, response and miss; at each lane's first launch, how many
+    live lanes share a stream handle with another."""
+
+    def __init__(self, torch, srv) -> None:
+        from repro_torch.api import HP
+        from repro_torch.kernels import _lib
+        be, sched = srv.backend, srv.core.sched
+        self.torch, self.be, self.sched = torch, be, sched
+        self.graphs = _lib.stage_graphs
+        self.marks, self.hp, self.seen, self.shared = [], [], set(), 0
+        self.warm = {"s": 0.0, "capture_s": 0.0}
+        for name, kind in (("reconfigure", "reconfigure"),
+                           ("fail_context", "fail_context"),
+                           ("add_context", "scale_out")):
+            def event(*a, fn=getattr(sched, name), kind=kind, **k):
+                out = fn(*a, **k)
+                self.marks.append(self.mark(kind))
+                return out
+            setattr(sched, name, event)
+        # the lane warm-ups: the tree's streams, or a tree before their
+        # reuse warming lanes
+        wname = ("_warm_streams" if hasattr(be, "_warm_streams")
+                 else "_warm_lanes")
+        warm, start, stop = getattr(be, wname), be.start, be.stop
+        launch, job_done = be.launch, be.on_job_done
+
+        def warmed(new):
+            if not be._t0:                  # before the clock starts
+                return warm(new)
+            g0, t0 = self.graphs.snapshot(), time.perf_counter()
+            try:
+                return warm(new)
+            finally:
+                self.warm["s"] += time.perf_counter() - t0
+                self.warm["capture_s"] += (self.graphs.snapshot()["capture_s"]
+                                           - g0["capture_s"])
+
+        def started():
+            start()
+            self.marks.append(self.mark("start"))
+
+        def stopped():
+            self.marks.append(self.mark("end"))
+            stop()
+
+        def launched(lane, inst):
+            launch(lane, inst)
+            if lane not in self.seen:
+                self.seen.add(lane)
+                alive = self.sched.contexts
+                held = [st.cuda_stream for ln, st in be._streams.items()
+                        if alive[ln[0]].alive]
+                self.shared = max(self.shared, len(held) - len(set(held)))
+
+        def done(job):
+            job_done(job)
+            if (job.task.priority == HP and not job.cancelled
+                    and job.finish_ms is not None and job.is_last_stage()):
+                for r in job.release_times:
+                    self.hp.append((r, job.finish_ms - r,
+                                    job.finish_ms > job.abs_deadline_ms))
+        setattr(be, wname, warmed)
+        be.start, be.stop, be.launch, be.on_job_done = (started, stopped,
+                                                        launched, done)
+
+    def mark(self, kind: str) -> dict:
+        be = self.be
+        return {"kind": kind, "t_ms": be.now_ms(),
+                "live_lanes": len(be._live_lanes()),
+                "lanes_launched": len(self.seen),
+                "streams": len(getattr(be, "_slots", be._streams)),
+                "graphs": self.graphs.snapshot(),
+                "alloc": allocator_counts(self.torch),
+                "rewarm": dict(be.rewarm), "warm": dict(self.warm)}
+
+    def report(self) -> dict:
+        """Each event, from its mark to the next: the engine thread's stop
+        (the warm-ups' host seconds and the captures outside them),
+        ``rewarm``, captures, replays, lanes first launched, streams and
+        pools made, the
+        allocator's driver calls; the HP jobs released in the
+        ``DRILL_WINDOW_MS`` after it (count, misses, maximum response)
+        against the HP jobs released away from every event."""
+        def delta(a, b, *keys):
+            for k in keys[:-1]:
+                a, b = a[k], b[k]
+            return b[keys[-1]] - a[keys[-1]]
+        events = []
+        windows = []
+        for a, b in zip(self.marks[1:-1], self.marks[2:]):
+            t = a["t_ms"]
+            windows.append((t, t + DRILL_WINDOW_MS))
+            after = [j for j in self.hp if t <= j[0] < t + DRILL_WINDOW_MS]
+            capture_s = delta(a, b, "graphs", "capture_s")
+            warm_s = delta(a, b, "warm", "s")
+            events.append({
+                "kind": a["kind"], "t_ms": t, "live_lanes": a["live_lanes"],
+                "engine_stop_s": warm_s + capture_s
+                - delta(a, b, "warm", "capture_s"),
+                "rewarm_count": delta(a, b, "rewarm", "count"),
+                "rewarm_s": delta(a, b, "rewarm", "s"),
+                "captures": delta(a, b, "graphs", "captures"),
+                "capture_s": capture_s,
+                "replays": delta(a, b, "graphs", "replays"),
+                "lanes_first_launched": delta(a, b, "lanes_launched"),
+                "streams_made": delta(a, b, "streams"),
+                "pools_made": delta(a, b, "graphs", "pools"),
+                "driver_allocs": delta(a, b, "alloc", "num_device_alloc"),
+                "alloc_retries": delta(a, b, "alloc", "num_alloc_retries"),
+                "hp_jobs_after": len(after),
+                "hp_missed_after": sum(j[2] for j in after),
+                "hp_max_after_ms": max((j[1] for j in after), default=None)})
+        away = [j for j in self.hp
+                if not any(lo <= j[0] < hi for lo, hi in windows)]
+        return {"events": events, "hp_jobs": len(self.hp),
+                "hp_missed": sum(j[2] for j in self.hp),
+                "hp_max_away_ms": max((j[1] for j in away), default=None),
+                "hp_jobs_away": len(away),
+                "live_lanes_sharing_a_stream": self.shared}
+
+
+def drill_phase(torch, failures, arch: str, repeats: int = 1):
+    """Step 21, the elastic drills (``DRILLS``) served on the card: each
+    drill on ``arch``'s tasks (``drill_specs``) through ``serve`` with the
+    drill's plan, ``repeats`` times in turns; a ``drill`` line a run
+    (``DrillRecorder.report``, with the run's streams, pools, pool GB and
+    warm-up). Gates: no capture after the clock starts, a stream a lane
+    of the busiest moment (``DRILL_LANES``), no two live lanes on one
+    stream handle, HP misses 0; ``serve`` gates one replay a stage, the
+    pools (one a stream) and no driver allocation in the run. Returns
+    each drill's path (its last run's launches and launches by instance,
+    keyed ``drill_<name>``) and the ``drill`` lines."""
+    from repro_torch.api import HP
+    from repro_torch.kernels import KERNELS, reset_counts
+    built = drill_specs(torch, arch)
+    paths, lines = {}, []
+    for i in range(repeats):
+        for k, drill in enumerate(DRILLS):
+            if i or k:
+                drop_stage_graphs(torch, built["specs"])
+                reset_counts()
+            rec = []
+            desc = {"model": f"{arch}/{drill}", **built["desc"]}
+            m, launches, instances, srv = serve(
+                torch, failures, built["specs"], built["setup_s"],
+                built["jps"], built["kernels"], desc,
+                input_hw=built["input_hw"], fresh=not (i or k),
+                prepare=lambda s: rec.append(DrillRecorder(torch, s)),
+                plan=lambda cfg, d=drill: drill_plan(cfg, d))
+            g = srv.backend.graph_summary()
+            report = rec[0].report()
+            name = desc["model"]
+            lines.append({
+                "model": name, "run": i, "drill": drill,
+                "plan": [list(e) for e in DRILLS[drill]],
+                **report, "streams": g.get("streams", len(
+                    srv.backend._streams)),
+                "captures_in_run": g["captures"],
+                "pools": g["pools"], "run_pools": g["run_pools"],
+                "pool_gb": g["pool_gb"], "warm_up_s": srv.backend.warm_s,
+                "rewarm": srv.backend.rewarm,
+                # a stop of the engine thread skips the releases it
+                # overran (the arrival process re-anchors on its schedule)
+                "completed_hp": m.completed[HP], "missed_hp": m.missed[HP],
+                "skipped_releases": m.skipped_releases})
+            emit({"drill": lines[-1]})
+            if g["captures"]:
+                failures.append(f"{name}: {g['captures']} captures after "
+                                f"the clock started")
+            if g.get("streams") != DRILL_LANES[drill]:
+                failures.append(f"{name}: {g.get('streams')} lane streams "
+                                f"for {DRILL_LANES[drill]} lanes live at "
+                                f"most")
+            if report["live_lanes_sharing_a_stream"]:
+                failures.append(f"{name}: live lanes shared a stream "
+                                f"handle")
+            if m.missed[HP] or report["hp_missed"]:
+                failures.append(f"{name}: {m.missed[HP]} HP misses")
+            if len(report["events"]) != len(DRILLS[drill]):
+                failures.append(f"{name}: {len(report['events'])} of "
+                                f"{len(DRILLS[drill])} events happened")
+            if arch in CNN_WIDTHS:
+                ran = {n: [fn.counts.launches, fn.counts.plain_cuda_calls]
+                       for n, fn in KERNELS.items()
+                       if fn.counts.launches or fn.counts.plain_cuda_calls}
+                if ran:
+                    failures.append(f"{name}: port kernels or their plain "
+                                    f"versions ran on the CNN path: {ran}")
+            else:
+                paths[f"drill_{drill}"] = (launches, instances)
+            del srv
+    del built
+    free_card(torch)
+    return paths, lines
+
+
+def drill_repeats(torch, arch: str, repeats: int) -> int:
+    """``--drill ARCH``: only the drill phase of ``arch``, ``repeats`` times
+    in this process; a ``drill_repeats`` line sums the runs up by drill
+    and event. For runs of one tree against another, as ``--serve``."""
+    from repro_torch.kernels import _lib
+    _lib.lib()
+    failures = []
+    lines = drill_phase(torch, failures, arch, repeats)[1]
+    summary = {}
+    for drill in DRILLS:
+        runs = [ln for ln in lines if ln["drill"] == drill]
+        summary[drill] = {
+            "runs": len(runs),
+            "events": [{k: [r["events"][e][k] if e < len(r["events"])
+                            else None for r in runs]
+                        for k in ("kind", "engine_stop_s", "rewarm_s",
+                                  "captures", "lanes_first_launched",
+                                  "streams_made", "pools_made",
+                                  "driver_allocs", "hp_missed_after",
+                                  "hp_max_after_ms")}
+                       for e in range(len(DRILLS[drill]))],
+            **{k: [r[k] for r in runs]
+               for k in ("streams", "captures_in_run", "run_pools",
+                         "pool_gb", "warm_up_s", "completed_hp",
+                         "skipped_releases", "hp_missed",
+                         "hp_max_away_ms")}}
+    emit({"drill_repeats": {"model": arch, "repeats": repeats,
+                            "failures": failures, **summary}})
+    for f in failures:
+        print(f"chip_smoke: FAIL {f}", file=sys.stderr)
+    return 1 if failures else 0
+
+
 def serve_repeats(torch, arch: str, repeats: int, trace: bool) -> int:
     """``--serve ARCH``: only ``arch``'s serving phase, ``repeats`` times
     in this process, each followed by the card's clocks, power and
@@ -5100,6 +5478,9 @@ def main() -> int:
                     help="only the kernel phase and steps 18-20 (four "
                          "ranks of the card, the dry-run, the roofline), "
                          "with the result line")
+    ap.add_argument("--drill", metavar="ARCH",
+                    help="only the elastic drills of this model (resnet18 "
+                         "or smollm-135m), --repeats times")
     ap.add_argument("--repeats", type=int, default=1)
     ap.add_argument("--trace", action="store_true",
                     help="with --serve: each run under torch.profiler")
@@ -5153,6 +5534,8 @@ def main() -> int:
         emit({"phase_seconds": seconds})
         emit({"phase_peak_memory_gb": peaks})
         return result_line(torch, name, card, failures, rows, paths)
+    if args.drill:
+        return drill_repeats(torch, args.drill, args.repeats)
     if args.serve:
         if args.switch_interval is not None:
             sys.setswitchinterval(args.switch_interval)
@@ -5264,6 +5647,10 @@ def main() -> int:
             cnn_output_checks(torch, dnn, spec, failures)
             del spec
             torch.cuda.empty_cache()
+
+    with phase("drills"):
+        for arch in DRILL_ARCHS:
+            paths.update(drill_phase(torch, failures, arch)[0])
 
     with phase("resume_path"):
         resume_phase(torch, failures)

@@ -57,7 +57,8 @@ import torch
 from ..core.task import HP, Job, StageInstance
 from ..kernels._lib import stage_graphs
 from .contention import batch_cost, batched_stage_ms
-from .engine_core import Completion, EngineCore
+from .engine_core import (ADD_CTX, FAULT, RECONFIG, Completion,
+                          EngineCore)
 
 _tie = itertools.count()
 
@@ -513,7 +514,7 @@ class _WorkerPool:
         with self._exc_lock:
             self.exceptions += 1
             self.last_exception = e
-        # a warm-up (``_warm_lanes``) runs with no stage instance
+        # a warm-up (``_warm_streams``) runs with no stage instance
         name = getattr(getattr(inst, "task", None), "name", "warm-up")
         print(f"worker: stage {name} on lane {lane} raised {e!r}",
               file=sys.stderr)
@@ -659,8 +660,8 @@ class RealtimeBackend:
     and read on another's is ``record_stream``-ed for the reader, so the
     caching allocator cannot hand its memory out while the reader still
     uses it. On a CUDA device ``start`` runs each task's payloads on
-    every lane's stream on the engine thread before the clock starts, and
-    a reconfigure on the lanes it adds (``_warm_lanes``). A stage whose
+    every lane's stream on the engine thread before the clock starts
+    (``_warm_streams``). A stage whose
     profile has no payload is *emulated* by waiting its ``t_alone``: that
     keeps analytic task sets runnable on the real engine, which is what
     the sim-vs-real parity test exercises.
@@ -704,6 +705,22 @@ class RealtimeBackend:
     job's chain of them, with its release and the engine's completion
     stamp (``job.finish_ms``), is kept for ``hp_response_parts``.
 
+    Lane streams are slots the run reuses (the inline path): a lane new
+    to the scheduler (a reconfigure's, a scale-out's) takes the stream of
+    a lane whose context was retired or failed, the first made of those
+    with no stage in flight, before a new stream is made. So a run holds
+    as many streams, each with its stage programs' graphs and pool, as it
+    ever has lanes live at once, and a lane's first stages replay the
+    graphs its stream already holds. ``start`` makes and warms that many
+    for the run's own fault plan (``_planned_lanes``); a growth the plan
+    did not name (an autoscale, or a scale-out past the plan) makes and
+    warms the missing streams before their first launch, counted in
+    ``rewarm``. A ghost still in flight on a reused stream (a failed
+    context's stage) is safe: stream order runs the new lane's stage
+    after it, its stage program's copy out was enqueued before the new
+    copy in, and its time shows as that stage's ``stream_wait``; harvest
+    stays keyed by the lane, which drops it.
+
     ``device`` defaults to the card and raises without one: pass
     ``device="cpu"`` to run payloads on the host (no streams, no events).
     """
@@ -732,10 +749,13 @@ class RealtimeBackend:
         # CPU, where every stage takes the host path)
         self._seam = CudaSeam(self.device) if self.device.type == "cuda" \
             else None
-        # lane -> its stream (made on the engine thread at first use)
+        # the lane streams in the order they were made, and lane -> the
+        # stream it holds: a live lane's, or a retired lane's while a stage
+        # of it is in flight (class docstring)
+        self._slots: list = []
         self._streams: Dict[tuple, object] = {}
-        # warm-ups of the lanes a reconfigure added: how many, their host
-        # seconds and the captures and replays they made
+        # warm-ups of streams made after the clock started: how many, their
+        # host seconds and the captures and replays they made
         self.rewarm = {"count": 0, "s": 0.0, "captures": 0, "replays": 0}
         # stage name -> [completions, wall ms sum, device-timed completions,
         #                device ms sum, device ms max]
@@ -789,7 +809,11 @@ class RealtimeBackend:
             self._ensure_pool()
         else:
             t0 = time.perf_counter()
-            self._warm_lanes(self._live_lanes())
+            lanes = self._live_lanes()
+            new = self._new_streams(max(len(lanes), self._planned_lanes()))
+            for lane in lanes:
+                self._lane_stream(lane)
+            self._warm_streams(new)
             self.warm_s = time.perf_counter() - t0
         self._graphs_warm = {"before": before,
                              "after": stage_graphs.snapshot()}
@@ -797,10 +821,75 @@ class RealtimeBackend:
         if self._seam is not None:
             self._anchors = [_anchor_event(self._seam, self._ms)]
 
+    def _planned_lanes(self) -> int:
+        """The most lanes live at once under the run's own fault plan:
+        from the live contexts, its context failure, scale-out and
+        reconfigures within the horizon in the engine's order (time, then
+        kind), each as the scheduler applies it."""
+        core = self.core
+        sched, fp = core.sched, core.fault_plan
+        live = {c.index: c.n_streams for c in sched.live_contexts()}
+        peak = sum(live.values())
+        if fp is None:
+            return peak
+        events = [(t, RECONFIG, kw) for t, kw in fp.reconfigure_at or ()]
+        if fp.fail_ctx_at:
+            events.append((fp.fail_ctx_at[1], FAULT, fp.fail_ctx_at[0]))
+        if fp.add_ctx_at is not None:
+            events.append((fp.add_ctx_at, ADD_CTX, None))
+        n_streams, made = sched.cfg.n_streams, len(sched.contexts)
+        for t, kind, arg in sorted(events, key=lambda e: e[:2]):
+            if t > core.horizon:
+                continue
+            if kind == FAULT:
+                live.pop(arg, None)
+                continue
+            if kind == ADD_CTX:
+                fresh = 1
+            else:
+                n_streams = arg.get("n_streams", n_streams)
+                fresh = arg.get("n_contexts", len(live))
+                live = {}
+            live.update((made + k, n_streams) for k in range(fresh))
+            made += fresh
+            peak = max(peak, sum(live.values()))
+        return peak
+
+    def _new_streams(self, n: int) -> list:
+        made = [self._seam.stream() for _ in range(n)]
+        self._slots += made
+        return made
+
+    def _free_streams(self) -> list:
+        """The streams no live lane holds, in the order they were made,
+        those with no stage in flight first. A retired lane lets go of its
+        stream here once no stage of it is in flight."""
+        contexts = self.core.sched.contexts
+        flying = {}               # lane -> whether a stage of it still runs
+        for rec in self._flight.values():
+            flying[rec.lane] = flying.get(rec.lane, False) or rec.done is None
+        held, busy = set(), set()
+        for lane, stream in list(self._streams.items()):
+            if contexts[lane[0]].alive:
+                held.add(id(stream))
+            elif lane not in flying:
+                del self._streams[lane]
+            elif flying[lane]:
+                busy.add(id(stream))
+        return sorted((s for s in self._slots if id(s) not in held),
+                      key=lambda s: id(s) in busy)
+
     def _lane_stream(self, lane: tuple):
+        """The lane's stream: at its first use a free one, or a new one
+        warmed first where none is free (a lane no hook announced: a
+        scale-out past the plan)."""
         stream = self._streams.get(lane)
         if stream is None:
-            stream = self._streams[lane] = self._seam.stream()
+            free = self._free_streams()
+            if not free:
+                self._rewarm(1)
+                free = self._free_streams()
+            stream = self._streams[lane] = free[0]
         return stream
 
     def _live_lanes(self) -> list:
@@ -813,19 +902,19 @@ class RealtimeBackend:
         return [t for t in self.core.sched.tasks
                 if all(st.payload is not None for st in t.spec.stages)]
 
-    def _warm_lanes(self, new: list) -> None:
+    def _warm_streams(self, new: list) -> None:
         """On the card, on the engine thread, which enqueues every stage:
-        each task's payload chain runs on the stream of each lane in
-        ``new``, then on every live lane's once more. PyTorch builds
-        cuDNN's execution plans once per thread and the caching allocator
-        keeps its blocks per stream, so without this the first stages of
-        each lane pay for both while their jobs wait and the first HP jobs
-        of a served run miss their deadlines. The staged payloads' stage
-        programs capture their CUDA graph for each new lane's stream here
+        each task's payload chain runs on each stream in ``new``, then on
+        every stream of the run once more. PyTorch builds cuDNN's
+        execution plans once per thread and the caching allocator keeps
+        its blocks per stream, so without this the first stages of each
+        lane pay for both while their jobs wait and the first HP jobs of a
+        served run miss their deadlines. The staged payloads' stage
+        programs capture their CUDA graph for each new stream here
         (``graph_summary``: captures and their seconds). The second pass:
         a capture empties the caching allocator's cache
-        (``torch.cuda.graph``), so only a pass after every lane's captures
-        leaves each lane's stream the blocks its stages' outputs take;
+        (``torch.cuda.graph``), so only a pass after every stream's
+        captures leaves each stream the blocks its stages' outputs take;
         without it the first served stages allocate from the driver on the
         engine thread (the first HP job of staged qwen2-moe once took
         90-219 ms on an H100). One thread: cuBLAS makes its workspace once
@@ -833,8 +922,7 @@ class RealtimeBackend:
         tasks = self._warm_tasks()
         if not tasks or not new:
             return
-        for lane in new + self._live_lanes():
-            stream = self._lane_stream(lane)
+        for stream in new + self._slots:
             try:
                 with self._seam.use(stream):
                     for task in tasks:
@@ -843,7 +931,19 @@ class RealtimeBackend:
                             x = st.payload(x)
                 stream.synchronize()
             except Exception as e:   # noqa: BLE001 — serving goes on
-                self._pool.caught(e, lane, None)
+                self._pool.caught(e, ("stream", self._slots.index(stream)),
+                                  None)
+
+    def _rewarm(self, n: int) -> None:
+        """``n`` more streams, made and warmed after the clock started
+        (``rewarm``; every lane waits for it, through its captures)."""
+        before, t0 = stage_graphs.snapshot(), time.perf_counter()
+        self._warm_streams(self._new_streams(n))
+        self.rewarm["count"] += 1
+        self.rewarm["s"] += time.perf_counter() - t0
+        after = stage_graphs.snapshot()
+        for k in ("captures", "replays"):
+            self.rewarm[k] += after[k] - before[k]
 
     def stop(self) -> None:
         self._pool.stop()
@@ -868,12 +968,13 @@ class RealtimeBackend:
         """The stage programs' CUDA graphs around this run: captures and
         their host seconds in the lanes' warm-up (within ``warm_s``),
         captures and replays since the clock started (of them, those in
-        the warm-up of the lanes a reconfigure added: ``rewarm_captures``
-        and ``rewarm_replays``), the kernel launches those replays counted,
+        the warm-up of streams made after it: ``rewarm_captures`` and
+        ``rewarm_replays``), the kernel launches those replays counted,
         the payload stages run on the lanes since (each one replay on the
         card) and how many of them the worker pool ran
-        (``pool_stage_runs``: the host path's), and the graph pools (one a
-        lane) first captured into in the warm-up and the run, and all
+        (``pool_stage_runs``: the host path's), the lane streams the run
+        made (``streams``), and the graph pools (one a stream) first
+        captured into in the warm-up and the run, and all
         since the counts were last reset with the card memory they hold.
         Counts are process-wide (``kernels._lib.stage_graphs``), so
         nothing else may replay a stage program meanwhile."""
@@ -892,9 +993,10 @@ class RealtimeBackend:
                 "replays": since(after, now, "replays"),
                 "replayed_launches": since(after, now, "replayed_launches"),
                 "stage_runs": self.stage_runs,
+                "streams": len(self._slots),
                 "pool_stage_runs": self.pool_stage_runs,
                 # pools first captured into in the warm-up and the run: one
-                # a lane; and all since the counts' reset (before the tasks
+                # a stream; and all since the counts' reset (before the tasks
                 # were built, whose calibration captured on one more lane)
                 "run_pools": since(before, now, "pools"),
                 "pools": now["pools"],
@@ -1270,23 +1372,18 @@ class RealtimeBackend:
 
     def on_reconfigure(self) -> None:
         """New contexts mean new lanes: on the host path the pool grows to
-        match; on the card they are warmed on the engine thread before
-        their first launch (``_warm_lanes``: their captures stop every
-        lane, as the start's do, once here rather than at each new lane's
-        first stages), and the warm-up is counted in ``rewarm``."""
+        match; on the card each takes a free stream (the retired lanes'),
+        and only the lanes beyond those get new streams, warmed on the
+        engine thread before their first launch (``_rewarm``)."""
         if self._seam is None:
             self._ensure_pool()
             return
         new = [ln for ln in self._live_lanes() if ln not in self._streams]
-        if not new:
-            return
-        before, t0 = stage_graphs.snapshot(), time.perf_counter()
-        self._warm_lanes(new)
-        self.rewarm["count"] += 1
-        self.rewarm["s"] += time.perf_counter() - t0
-        after = stage_graphs.snapshot()
-        for k in ("captures", "replays"):
-            self.rewarm[k] += after[k] - before[k]
+        short = len(new) - len(self._free_streams())
+        if short > 0:
+            self._rewarm(short)
+        for lane in new:
+            self._lane_stream(lane)
 
     def running_set_changed(self) -> None:
         pass

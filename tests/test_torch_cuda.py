@@ -306,14 +306,14 @@ def test_stage_programs_replay_on_two_streams(name):
 
 @pytest.mark.cuda
 def test_lanes_made_mid_run_capture_while_others_replay():
-    """A reconfigure adds contexts, and so lanes, after the clock started:
-    the engine thread warms them in the reconfigure, before their first
-    launch (every capture after the start is that warm-up's), while the
-    other lanes' stages already enqueued replay on; its second pass over
-    every live lane leaves each stream its blocks, so the caching
-    allocator calls the driver no more in the rest of the run. Every
-    payload stage the lanes ran is still one replay (the warm-up's
-    replays are counted apart)."""
+    """A planned reconfigure adds contexts, and so lanes (4 -> 8), after
+    the clock started: the backend read the plan at its start and made
+    and warmed 8 streams before the clock started, so the reconfigure's
+    lanes take the retired lanes' 4 streams and the 4 made for it, each
+    of whose graphs was captured then; nothing is captured or warmed
+    after the start, and the caching allocator calls the driver no more
+    after the reconfigure. Every payload stage the lanes ran is one
+    replay (a warm-up's replays would be counted apart)."""
     _need_cuda()
     model = build_model(get_reduced("smollm-135m").replace(n_layers=8,
                                                            dtype="bfloat16"))
@@ -333,14 +333,16 @@ def test_lanes_made_mid_run_capture_while_others_replay():
     be.on_reconfigure = counted
     m = srv.run()
     g = be.graph_summary()
-    assert m.completed[api.HP] > 0
+    assert m.completed[api.HP] > 0 and m.reconfigures == 1
     assert be.worker_exceptions == 0
-    assert be.rewarm["count"] == 1 and be.rewarm["s"] > 0.0
-    assert g["warm_captures"] > 0
-    assert g["captures"] == g["rewarm_captures"] > 0
+    assert be.rewarm["count"] == 0 and be.rewarm["s"] == 0.0
+    assert g["warm_captures"] > 0 and g["streams"] == 8
+    assert g["captures"] == g["rewarm_captures"] == 0
     assert g["replays"] == g["stage_runs"] + g["rewarm_replays"]
-    assert g["stage_runs"] > 0 and g["rewarm_replays"] > 0
+    assert g["stage_runs"] > 0 and g["rewarm_replays"] == 0
     assert g["pool_stage_runs"] == 0 and not be._pool._threads
+    live = [be._streams[ln].cuda_stream for ln in be._live_lanes()]
+    assert len(set(live)) == len(live) == 8
     assert (torch.cuda.memory_stats()["num_device_alloc"]
             == rewarmed["alloc"])
 

@@ -269,8 +269,13 @@ def _warm_server(seam, fail_first=False):
 def _chains(be, lanes):
     """The warm-up's calls: each payload task's chain on each lane's
     stream, on this thread."""
+    return _stream_chains([be._streams[ln] for ln in lanes])
+
+
+def _stream_chains(streams):
+    """Each payload task's chain on each of ``streams``, on this thread."""
     me = threading.get_ident()
-    return [(me, id(be._streams[ln]), name) for ln in lanes
+    return [(me, id(s), name) for s in streams
             for name in ("a/s0", "a/s1", "b/s0")]
 
 
@@ -308,22 +313,27 @@ def test_warm_lanes_survives_a_raising_payload(capsys):
 
 
 def test_reconfigure_warms_the_new_lanes_before_their_first_launch():
-    """A reconfigure that adds contexts: the engine thread runs the chains
-    on each new lane's stream, then once more on every live lane's, and
-    counts the warm-up; one that adds no lane warms nothing."""
+    """A reconfigure that adds lanes (4 -> 6): the new lanes take the
+    retired lanes' 4 streams, and the engine thread makes and warms only
+    the 2 streams beyond those (their chains, then once more on every
+    stream of the run) and counts the warm-up; every live lane holds a
+    stream of its own; one that adds no lane warms nothing."""
     seam = WallSeam()
     srv, calls = _warm_server(seam)
     be = srv.backend
     be.start()
     try:
-        old = set(be._streams)
+        old = list(be._slots)
         calls.clear()
         srv.core.sched.reconfigure(be.now_ms(), n_contexts=3)
         be.on_reconfigure()
         live = be._live_lanes()
-        new = [ln for ln in live if ln not in old]
-        assert new and len(live) == 6
-        assert calls == _chains(be, new) + _chains(be, live)
+        made = be._slots[len(old):]
+        assert len(live) == 6 and len(old) == 4 and len(made) == 2
+        assert calls == _stream_chains(made) + _stream_chains(be._slots)
+        held = [be._streams[ln] for ln in live]
+        assert len({id(s) for s in held}) == 6
+        assert {id(s) for s in held} == {id(s) for s in be._slots}
         assert be.rewarm["count"] == 1 and be.rewarm["s"] > 0.0
         calls.clear()
         be.on_reconfigure()
