@@ -5,6 +5,7 @@
     python3 chip_smoke.py --serve mamba2-2.7b --repeats 2 [--trace]
     python3 chip_smoke.py --serve resnet18 --repeats 8
     python3 chip_smoke.py --serve resnet18 --repeats 3 --switch-interval 0.0005
+    python3 chip_smoke.py --host-calls
     python3 chip_smoke.py --drill smollm-135m --repeats 3
     python3 chip_smoke.py --epoch --repeats 10
     python3 chip_smoke.py --cluster --repeats 2
@@ -23,7 +24,9 @@ the card did during it (``device_timeline``); a ``serve_repeats`` line
 sums the runs up (runs with an HP miss, HP mean, p99 and max response,
 and for the CNNs the runs and HP jobs over SchedCheck's static bound).
 ``--switch-interval S`` sets the process's ``sys.setswitchinterval``
-before the runs. ``--drill ARCH`` runs only step 21's drills of
+before the runs.
+``--host-calls`` prints only what each call of a served stage's enqueue
+costs the host (``host_calls``). ``--drill ARCH`` runs only step 21's drills of
 ``resnet18`` or ``smollm-135m``, ``--repeats`` times in turns, and sums
 them up in a ``drill_repeats`` line.
 Copied into a checkout from before the compiled stage (``git archive``
@@ -118,9 +121,15 @@ result line. Without arguments:
    allocator must not call the driver in the run (``allocator_in_run``:
    no device allocation and no retry after the lanes' warm-up). Its
    ``hp_response_parts`` splits each HP job's response by stage (release
-   -> first launch; hand-off, stream wait, device, notice, gap; ROADMAP
-   C7): the parts must sum to the response within ``PARTS_TOL_MS``. The
-   host events behind a stall beside them: the interpreter's switch
+   -> first launch; hand-off, prep, stream wait, device, notice, gap;
+   ROADMAP C7): the parts must sum to the response within
+   ``PARTS_TOL_MS``. ``enqueue`` gives the card stages' enqueues on the
+   engine thread (ms from the stage's start to its last step, median,
+   p99 and max, and each step's), ``engine_stalls`` every stretch of the
+   engine thread over 1 ms (the step that ends it, its wall and CPU ms,
+   the collections that overlap it) and ``over_bound`` each HP job above
+   SchedCheck's bound with its largest part and that stage's largest
+   step. The host events behind a stall beside them: the interpreter's switch
    interval (``switch_interval_s``; ``--serve ... --switch-interval S``
    sets this process's), the garbage collections in the run by
    generation (count, seconds, longest pause, each on the backend's
@@ -525,8 +534,8 @@ CNN_HW, CNN_BATCH = 224, 1
 CNN_TOL = 1e-3                        # card vs CPU, of the output's scale
 PARTS_TOL_MS = 0.01                   # an HP job's parts against its response
 # the stage parts of an HP response after its release -> first launch
-RESPONSE_PARTS = ("release_to_launch", "hand_off", "stream_wait", "device",
-                  "notice", "gap")
+RESPONSE_PARTS = ("release_to_launch", "hand_off", "prep", "stream_wait",
+                  "device", "notice", "gap")
 RESUME_DNN = "resnet18"               # served cold, saved, then resumed
 # step 21, the elastic drills on the served configuration's 3 s (2 x 2
 # lanes at 2.0): events (kind, ms, argument) and the most lanes live at
@@ -1418,51 +1427,39 @@ def path_counts(KERNELS, names, path, failures):
 
 class ThreadCpu:
     """CPU seconds each thread of this process spends inside the ``with``
-    block, from ``/proc/self/task`` sampled every 0.25 s (a thread that
-    ends keeps its last sample), named as ``threading`` names them: which
-    thread burns the host's time in a stalled run."""
+    block, from ``/proc/self/task`` read as the block starts and as it
+    ends (no thread of the script's own runs meanwhile, so the measured
+    work shares the host with nothing of it), named as ``threading``
+    names them: which thread burns the host's time in a stalled run. A
+    thread born inside the block counts from zero; one that ends inside
+    it is not seen."""
 
     def __init__(self):
-        import threading
-        self._threading = threading
-        self._stop = threading.Event()
         self._tick = os.sysconf("SC_CLK_TCK")
         self.first, self.last, self.names = {}, {}, {}
 
-    def _sample(self):
-        names = {t.native_id: t.name for t in self._threading.enumerate()}
+    def _sample(self, into: dict):
+        import threading
+        names = {t.native_id: t.name for t in threading.enumerate()}
         for tid in os.listdir("/proc/self/task"):
             try:
                 with open(f"/proc/self/task/{tid}/stat") as f:
                     fields = f.read().rsplit(")", 1)[1].split()
             except OSError:                   # the thread just ended
                 continue
-            cpu = (int(fields[11]) + int(fields[12])) / self._tick
-            # a thread born inside the block counts from zero
-            self.first.setdefault(tid, cpu if self._entering else 0.0)
-            self.last[tid] = cpu
+            into[tid] = (int(fields[11]) + int(fields[12])) / self._tick
             self.names.setdefault(tid, names.get(int(tid), f"native-{tid}"))
 
-    def _loop(self):
-        while not self._stop.wait(0.25):
-            self._sample()
-
     def __enter__(self):
-        self._entering = True
-        self._sample()
-        self._entering = False
-        self._thread = self._threading.Thread(target=self._loop, daemon=True)
-        self._thread.start()
+        self._sample(self.first)
         return self
 
     def __exit__(self, *exc):
-        self._stop.set()
-        self._thread.join()
-        self._sample()
+        self._sample(self.last)
 
     def top(self, n: int = 6) -> list:
-        used = sorted(((self.last[t] - self.first[t], self.names[t])
-                       for t in self.last), reverse=True)
+        used = sorted(((cpu - self.first.get(t, 0.0), self.names[t])
+                       for t, cpu in self.last.items()), reverse=True)
         return [[name, round(cpu, 3)] for cpu, name in used[:n]]
 
 
@@ -1648,27 +1645,42 @@ def serve(torch, failures, specs, setup_s, jps, kernels, desc, trace=False,
         started()
         warm["alloc"] = allocator_counts(torch)
     srv.backend.start = start
+    engine_cpus = sorted(os.sched_getaffinity(0))
+    stat0 = proc_stat()
     ru0, w0 = resource.getrusage(resource.RUSAGE_SELF), time.perf_counter()
     with tracer, ThreadCpu() as threads, GcTime() as gc_time:
         m = srv.run()
         torch.cuda.synchronize()
     ru1, w1 = resource.getrusage(resource.RUSAGE_SELF), time.perf_counter()
+    stat1 = proc_stat()
     alloc = {k: v - warm["alloc"][k]
              for k, v in allocator_counts(torch).items()}
     host = {"wall_s": w1 - w0, "cpu_user_s": ru1.ru_utime - ru0.ru_utime,
             "cpu_sys_s": ru1.ru_stime - ru0.ru_stime,
             "involuntary_switches": ru1.ru_nivcsw - ru0.ru_nivcsw,
             "voluntary_switches": ru1.ru_nvcsw - ru0.ru_nvcsw,
-            "cpu_s_by_thread": threads.top()}
+            "cpu_s_by_thread": threads.top(), "engine_cpus": engine_cpus,
+            # the machine's CPU seconds by kind over the run (/proc/stat)
+            "proc_stat_s": (None if None in (stat0, stat1) else
+                            {k: stat1[k] - stat0[k] for k in stat0})}
     name = desc["model"]
     launches = path_counts(KERNELS, kernels, name, failures)
     instances = {n: dict(KERNELS[n].counts.by_instance) for n in kernels
                  if KERNELS[n].counts.by_instance}
     be = srv.backend
     graphs = be.graph_summary() if has_stage_graphs() else None
-    # where each HP response went (a tree from before the stamps has none)
-    parts = (be.hp_response_parts() if hasattr(be, "hp_response_parts")
-             else None)
+    bound = report.hp_bound_ms() if report is not None else None
+    hp = list(m.response_ms[HP])
+    # where each HP response went (a tree from before the stamps has
+    # none): every job in full for the jobs over the bound and the HP
+    # stages' enqueues, then the 3 slowest shown
+    parts = (be.hp_response_parts(slowest=len(hp) + 3)
+             if hasattr(be, "hp_response_parts") else None)
+    over = hp_enqueue = None
+    if parts is not None:
+        over = over_bound_jobs(parts, bound)
+        hp_enqueue = stage_enqueues(parts)
+        parts["slowest"] = parts["slowest"][:3]
     lanes = len(be.core.sched.lanes)
     # lane streams the run made: one a lane live at once (a tree before
     # their reuse made one a lane it ever had)
@@ -1677,13 +1689,26 @@ def serve(torch, failures, specs, setup_s, jps, kernels, desc, trace=False,
     # clock's start), and before it (the lanes' warm-up)
     collections = gc_time.on_clock(be._t0)
     in_run = [c for c in collections if c[1] >= 0.0]
-    bound = report.hp_bound_ms() if report is not None else None
-    hp = list(m.response_ms[HP])
+    # the engine thread's stalls and the card stages' enqueues (none in a
+    # tree from before their stamps)
+    stalls = (be.engine_stalls(in_run) if hasattr(be, "engine_stalls")
+              else None)
+    enqueue = (be.enqueue_summary() if hasattr(be, "enqueue_summary")
+               else None)
     SERVED.append({"model": name, "hp_missed": m.missed[HP],
+                   "lp_completed": m.completed[LP],
                    "hp_response_ms": hp,
                    "hp_parts_total_ms": parts and parts["total_ms"],
+                   "hp_jobs": parts and parts["jobs"],
                    "graph_pools": graphs and graphs.get("pools"),
-                   "hp_bound_ms": bound,
+                   "hp_bound_ms": bound, "over_bound": over,
+                   "hp_enqueue": hp_enqueue,
+                   "hp_engine_median_ms": enqueue and enqueue.get(
+                       "engine_median_by", {}).get("hp"),
+                   "stage_device_ms": {
+                       k: v["mean_device_ms"]
+                       for k, v in be.stage_time_summary().items()},
+                   "stalls": stalls_by_step(stalls),
                    "gc": gc_summary(in_run)})
     if graphs is not None and (graphs["stage_runs"] == 0
                                or graphs["replays"] != graphs["stage_runs"]):
@@ -1696,6 +1721,10 @@ def serve(torch, failures, specs, setup_s, jps, kernels, desc, trace=False,
         failures.append(f"{name}: graph pools {graphs['run_pools']} for "
                         f"{streams} lane streams, {graphs['pools']} with "
                         f"the calibration's stream (one a stream)")
+    if graphs is not None and graphs.get("events_in_run"):
+        failures.append(f"{name}: {graphs['events_in_run']} CUDA events made "
+                        f"after the clock started (each lane stream's ring "
+                        f"is made with the stream)")
     if graphs is not None and graphs.get("pool_stage_runs"):
         failures.append(f"{name}: {graphs['pool_stage_runs']} payload "
                         f"stages ran on the worker pool (every one must be "
@@ -1735,6 +1764,10 @@ def serve(torch, failures, specs, setup_s, jps, kernels, desc, trace=False,
         # warm_up_s), one replay a payload stage run on a lane after it
         "stage_graphs": graphs, "lanes": lanes,
         "hp_response_parts": parts,
+        "enqueue": enqueue, "hp_enqueue": hp_enqueue, "over_bound": over,
+        "engine_stalls": (None if stalls is None else {
+            "count": len(stalls), "by_step": stalls_by_step(stalls),
+            "rows": stalls}),
         # the host events behind a stall: the interpreter lock's switch
         # interval, the collections in the run by generation (and each
         # one on the backend's clock), those of the warm-up, and whether
@@ -2209,9 +2242,10 @@ def slowest_vs_collections(parts: dict, events: list) -> list:
         best = None
         for st in job["stages"]:
             for k in RESPONSE_PARTS[1:]:
-                if best is None or st[k] > best[2]:
-                    best = (st["stage"], k, st[k], t, t + st[k])
-                t += st[k]
+                ms = st.get(k, 0.0)           # no prep in an older tree
+                if best is None or ms > best[2]:
+                    best = (st["stage"], k, ms, t, t + ms)
+                t += ms
         stage, part, ms, a, b = best
         hit = [[g, min(b, e) - max(a, s)] for g, s, e in events
                if s < b and e > a]
@@ -2219,6 +2253,75 @@ def slowest_vs_collections(parts: dict, events: list) -> list:
                      "part": part, "ms": ms,
                      "overlaps_collection": bool(hit), "collections": hit})
     return rows
+
+
+PROC_STAT = ("user", "nice", "system", "idle", "iowait", "irq", "softirq",
+             "steal")
+
+
+def proc_stat():
+    """The machine's CPU seconds by kind since boot (``/proc/stat``'s
+    first line), or None where it cannot be read."""
+    try:
+        with open("/proc/stat") as f:
+            fields = f.readline().split()[1:1 + len(PROC_STAT)]
+    except OSError:
+        return None
+    tick = os.sysconf("SC_CLK_TCK")
+    return {k: int(v) / tick for k, v in zip(PROC_STAT, fields)}
+
+
+def over_bound_jobs(parts: dict, bound) -> list:
+    """Each HP job of ``parts["slowest"]`` above ``bound`` (SchedCheck's
+    static HP bound, ms): its response, its largest stage part, and that
+    stage's enqueue and its largest step (where the tree stamps them)."""
+    if bound is None:
+        return []
+    rows = []
+    for job in parts["slowest"]:
+        if job["response_ms"] <= bound + 1e-6:
+            continue
+        best = max(((st, k, st.get(k, 0.0)) for st in job["stages"]
+                    for k in RESPONSE_PARTS[1:]), key=lambda b: b[2])
+        st, part, ms = best
+        steps = st.get("steps") or {}
+        step = max(steps, key=steps.get) if steps else None
+        rows.append({"response_ms": job["response_ms"], "stage": st["stage"],
+                     "part": part, "ms": ms, "enqueue_ms": st["enqueue"],
+                     "step": step, "step_ms": steps.get(step)})
+    return rows
+
+
+def stage_enqueues(parts: dict) -> dict:
+    """The completed HP jobs' stages' ``enqueue`` ms (the stage's start to
+    its payload enqueued, in every tree that stamps the parts): how many,
+    median, p99 and max, and the median by stage index."""
+    by = {}
+    for job in parts["slowest"]:
+        for st in job["stages"]:
+            by.setdefault(st["stage"], []).append(st["enqueue"])
+    xs = sorted(x for v in by.values() for x in v)
+    if not xs:
+        return {"n": 0}
+    return {"n": len(xs), "median": statistics.median(xs),
+            "p99": percentile(xs, 99), "max": xs[-1],
+            "median_by_stage": {f"s{k}": statistics.median(v)
+                                for k, v in sorted(by.items())}}
+
+
+def stalls_by_step(stalls) -> dict:
+    """Engine-thread stalls by the step that ends them: [count, wall ms,
+    CPU ms, longest wall ms]."""
+    if stalls is None:
+        return None
+    out = {}
+    for row in stalls:
+        acc = out.setdefault(row["step"], [0, 0.0, 0.0, 0.0])
+        acc[0] += 1
+        acc[1] += row["wall_ms"]
+        acc[2] += row["cpu_ms"]
+        acc[3] = max(acc[3], row["wall_ms"])
+    return out
 
 
 def run_engines(make_cfg, path, failures, rate_groups=False):
@@ -3322,12 +3425,35 @@ def cnn_serving_phase(torch, failures, name, trace=False):
     return specs[0]
 
 
+def device_alone(torch, payload, x, reps: int):
+    """The mean device ms of ``reps`` calls of a stage program on ``x``,
+    each alone on the current stream, between the events its graph
+    records (a served stage's device interval); None for a payload
+    without ``prepare``."""
+    prepare = getattr(payload, "prepare", None)
+    if prepare is None:
+        return None
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    for ev in events:
+        ev.record()                         # makes it
+    ms = []
+    for _ in range(reps):
+        call = prepare(x)
+        call.issue(*events)
+        call.result()
+        events[1].synchronize()
+        ms.append(events[0].elapsed_time(events[1]))
+    return statistics.fmean(ms)
+
+
 def cnn_stage_profile(torch, spec, reps: int = 5):
     """Where each stage's time goes, on a seeded input (the 4 payloads in
     turn): per call, the CUDA kernels, host wall ms against device busy ms
     (``torch.profiler``), the conv FLOPs reckoned from the shapes
     (``FlopCounterMode``) and their bound at 67 TFLOP/s (f32 outside the
-    tensor cores: TF32 is off). Returns the rows and the chain's output."""
+    tensor cores: TF32 is off), and the mean device ms between the stage
+    graph's own event nodes, each call alone (``device_alone_ms``; None
+    in a tree without them). Returns the rows and the chain's output."""
     from torch.utils.flop_counter import FlopCounterMode
     gen = torch.Generator(device="cuda").manual_seed(0)
     state = torch.randn((CNN_BATCH, CNN_HW, CNN_HW, 3), generator=gen,
@@ -3350,6 +3476,8 @@ def cnn_stage_profile(torch, spec, reps: int = 5):
             top = sorted(by_kernel(kern).items(), key=lambda kv: -kv[1][1])[:5]
             rows.append({
                 "stage": st.name, "t_alone_ms": st.t_alone_ms,
+                "device_alone_ms": device_alone(torch, st.payload, state,
+                                                reps),
                 "kernels": len(kern) / reps,
                 "host_wall_ms": wall_ms / reps, "device_busy_ms": busy,
                 "device_idle_share": 1.0 - busy * reps / wall_ms,
@@ -5398,11 +5526,19 @@ def serve_repeats(torch, arch: str, repeats: int, trace: bool) -> int:
     SERVED.clear()
     for i in range(repeats):
         failures = []
+        served = len(SERVED)
         # after the run, where each stage's (or decode step's) time goes
         if arch in CNN_WIDTHS:
             spec = cnn_serving_phase(torch, failures, arch, trace=trace)
-            emit({"cnn_stage_profile": {
-                "model": arch, "stages": cnn_stage_profile(torch, spec)[0]}})
+            rows = cnn_stage_profile(torch, spec)[0]
+            emit({"cnn_stage_profile": {"model": arch, "stages": rows}})
+            # each stage's served device ms over its device ms alone (both
+            # between the stage graph's own event nodes)
+            alone = {r["stage"]: r.get("device_alone_ms") for r in rows}
+            if len(SERVED) > served:
+                SERVED[-1]["device_vs_alone"] = {
+                    k: v / alone[k] for k, v in
+                    SERVED[-1]["stage_device_ms"].items() if alone.get(k)}
         else:
             spec = serving_phase(torch, failures, arch, depth, jps, path,
                                  trace=trace,
@@ -5445,10 +5581,107 @@ def serve_repeats(torch, arch: str, repeats: int, trace: bool) -> int:
                 if r > run["hp_bound_ms"] + 1e-6)
             for run in SERVED if run["hp_bound_ms"] is not None),
         "switch_interval_s": sys.getswitchinterval(),
+        # each run's LP completions; its HP stages' median enqueue (ms,
+        # the stage's start to its payload enqueued), its HP jobs' prep
+        # and device ms a job, and its engine stalls by step
+        "lp_completed": [run["lp_completed"] for run in SERVED],
+        "hp_enqueue_median_ms": [(run["hp_enqueue"] or {}).get("median")
+                                 for run in SERVED],
+        # its HP stages' median engine-thread ms a stage: the enqueue and
+        # the output's result after it (a tree whose enqueue holds both:
+        # None), and each CNN stage's served device ms over its own alone
+        "hp_engine_median_ms": [run["hp_engine_median_ms"] for run in SERVED],
+        "device_vs_alone": [run.get("device_vs_alone") for run in SERVED],
+        "hp_prep_ms_per_job": [per_job(run, "prep") for run in SERVED],
+        "hp_device_ms_per_job": [per_job(run, "device") for run in SERVED],
+        "stalls_by_run": [run["stalls"] for run in SERVED],
+        "over_bound": [row for run in SERVED for row in run["over_bound"]
+                       or ()],
         "gc_by_run": [run["gc"] for run in SERVED],
         # each run's HP responses by part, summed over its jobs
         "hp_parts_total_ms": [run["hp_parts_total_ms"] for run in SERVED]}})
     return 0 if all(runs) else 1
+
+
+def host_calls(torch, reps: int = 200) -> int:
+    """``--host-calls``: what the calls a served stage's enqueue makes
+    cost the calling thread on this host, each timed alone ``reps`` times
+    on a lane stream (median and p90 µs; the card is synchronized every
+    50 calls so that no queue builds up): ResNet18's second stage program
+    (width 64, 224 x 224) captured on that stream, its input and output,
+    and the events and contexts around them. The ``serving`` line's
+    ``enqueue`` steps are made of these calls."""
+    from repro_torch.api import HP
+    from repro_torch.kernels import _lib
+    from repro_torch.models import BUILDERS
+    from repro_torch.serving.engine import staged_cnn_taskspec
+    _lib.lib()
+    model = BUILDERS["resnet18"](width=CNN_WIDTHS["resnet18"])
+    spec = staged_cnn_taskspec(model, priority=HP, jps=30.0, input_hw=CNN_HW,
+                               batch=CNN_BATCH)
+    first, prog = spec.stages[0].payload, spec.stages[1].payload
+    stream = torch.cuda.Stream()
+    shape = (CNN_BATCH, CNN_HW, CNN_HW, 3)
+    rows = {}
+
+    def timed(name, fn):
+        us = []
+        for i in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            us.append((time.perf_counter() - t0) * 1e6)
+            if i % 50 == 49:
+                torch.cuda.synchronize()
+        us.sort()
+        rows[name] = [us[len(us) // 2], us[int(0.9 * len(us))]]
+    with torch.cuda.stream(stream):
+        x = first(torch.zeros(shape, device="cuda"))
+        out = prog(x)                             # the capture
+        ev, ev2 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        ev.record()
+        ev2.record()
+        timed("torch.zeros (a first stage's input)",
+              lambda: torch.zeros(shape, device="cuda"))
+        timed("torch.cuda.Event() and its first record",
+              lambda: torch.cuda.Event(enable_timing=True).record())
+        timed("Event.record (an event made before)", ev.record)
+        timed("torch.cuda.current_stream", torch.cuda.current_stream)
+        buf = torch.empty_like(x)
+        timed("Tensor.copy_ (the stage's input)", lambda: buf.copy_(x))
+        timed("Tensor.clone (the stage's output)", out.clone)
+        timed("torch.empty_like (the stage's output)",
+              lambda: torch.empty_like(out))
+        timed("StageProgram call (resolve, copies, replay, output)",
+              lambda: prog(x))
+        timed("StageProgram.prepare", lambda: prog.prepare(x))
+        timed("StageProgram.prepare, then StageCall.issue (the "
+              "graph's nodes set, one launch)",
+              lambda: prog.prepare(x).issue(ev, ev2))
+        timed("Event.query (done)", ev.query)
+    torch.cuda.synchronize()
+
+    def ctx():
+        with torch.cuda.stream(stream):
+            pass
+    timed("torch.cuda.stream context, entered and left", ctx)
+    timed("time.perf_counter", time.perf_counter)
+    timed("time.thread_time", time.thread_time)
+    timed("resource.getrusage(RUSAGE_THREAD)",
+          lambda: resource.getrusage(resource.RUSAGE_THREAD))
+    emit({"host_calls": {"us_median_p90": rows, "reps": reps,
+                         "thread_time_resolution_s":
+                             time.get_clock_info("thread_time").resolution,
+                         "card": gpu_line()}})
+    return 0
+
+
+def per_job(run: dict, part: str):
+    """A served run's ms of ``part`` a completed HP job (None without the
+    parts, or without that part)."""
+    total = run["hp_parts_total_ms"]
+    if not total or part not in total or not run["hp_jobs"]:
+        return None
+    return total[part] / run["hp_jobs"]
 
 
 def main() -> int:
@@ -5481,6 +5714,9 @@ def main() -> int:
     ap.add_argument("--drill", metavar="ARCH",
                     help="only the elastic drills of this model (resnet18 "
                          "or smollm-135m), --repeats times")
+    ap.add_argument("--host-calls", action="store_true",
+                    help="only the host cost of each call a served stage's "
+                         "enqueue makes (µs, on one lane stream)")
     ap.add_argument("--repeats", type=int, default=1)
     ap.add_argument("--trace", action="store_true",
                     help="with --serve: each run under torch.profiler")
@@ -5536,6 +5772,8 @@ def main() -> int:
         return result_line(torch, name, card, failures, rows, paths)
     if args.drill:
         return drill_repeats(torch, args.drill, args.repeats)
+    if args.host_calls:
+        return host_calls(torch)
     if args.serve:
         if args.switch_interval is not None:
             sys.setswitchinterval(args.switch_interval)

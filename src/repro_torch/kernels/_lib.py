@@ -26,7 +26,7 @@ import torch
 
 CSRC = Path(__file__).resolve().with_name("csrc")
 SOURCES = ("rmsnorm.cu", "decode_attention.cu", "flash_attention.cu",
-           "contention_eta.cu", "ssd_scan.cu")
+           "contention_eta.cu", "ssd_scan.cu", "stage_burst.cu")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-lineinfo", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -72,6 +72,12 @@ _SIGNATURES = {
     # N, chunk, stream (bf16 only)
     "repro_ssd_wgmma": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                         _I, _I, _I, _P),
+    # a stage program's graph (csrc/stage_burst.cu; no kernel): stream,
+    # event, node out; stream, dst, src, bytes, node out; and stream,
+    # graph_exec, nodes, n_in, n_out, start, end, ptrs, bytes, stamps
+    "repro_stage_capture_event": (_P, _P, _P),
+    "repro_stage_capture_copy": (_P, _P, _P, _LL, _P),
+    "repro_stage_launch": (_P, _P, _P, _I, _I, _P, _P, _P, _P, _P),
 }
 
 _lock = threading.Lock()
@@ -123,6 +129,19 @@ class Counts:
                 key = shape if instance is None else f"{instance} {shape}"
                 self.by_shape[key] = self.by_shape.get(key, 0) + 1
 
+    def add(self, launches: int, by_instance: Dict[str, int],
+            grids: Dict[str, Tuple[int, ...]],
+            by_shape: Dict[str, int]) -> None:
+        """``launches`` launches at once, as ``launched`` would count them
+        one by one (``grids``: each instance's last)."""
+        with self._lock:
+            self.launches += launches
+            for k, n in by_instance.items():
+                self.by_instance[k] = self.by_instance.get(k, 0) + n
+            self.grids.update(grids)
+            for k, n in by_shape.items():
+                self.by_shape[k] = self.by_shape.get(k, 0) + n
+
     def plain(self, t: torch.Tensor) -> None:
         with self._lock:
             self.plain_calls += 1
@@ -149,14 +168,34 @@ class LaunchLog:
     """The ``Counts.launched`` calls one thread made inside ``recording()``,
     kept instead of counted. A CUDA graph's replay launches the kernels
     its capture enqueued without entering the wrappers' Python code, so
-    ``replay`` counts the capture's launches once more at each replay."""
+    ``replay`` counts the capture's launches once more at each replay:
+    summed by wrapper at the first replay (the log is complete once the
+    capture ends), one ``Counts.add`` a wrapper after that."""
 
     def __init__(self) -> None:
         self.calls: list = []
+        self._sums: Optional[list] = None
 
     def replay(self) -> int:
-        for counts, instance, grid, shape in self.calls:
-            counts.launched(instance, grid, shape)
+        if getattr(_recording, "log", None) is not None:
+            for counts, instance, grid, shape in self.calls:
+                counts.launched(instance, grid, shape)   # into the capture
+            return len(self.calls)
+        if self._sums is None:
+            sums: Dict[int, list] = {}
+            for counts, instance, grid, shape in self.calls:
+                acc = sums.setdefault(id(counts), [counts, 0, {}, {}, {}])
+                acc[1] += 1
+                if instance is not None:
+                    acc[2][instance] = acc[2].get(instance, 0) + 1
+                    if grid is not None:
+                        acc[3][instance] = grid
+                if shape is not None:
+                    key = shape if instance is None else f"{instance} {shape}"
+                    acc[4][key] = acc[4].get(key, 0) + 1
+            self._sums = list(sums.values())
+        for counts, *sums in self._sums:
+            counts.add(*sums)
         return len(self.calls)
 
 

@@ -455,18 +455,6 @@ def _default_input_factory(input_hw: int, batch: int,
     return make
 
 
-def _tensors(tree):
-    """Every tensor in a state tree (dicts, lists, tuples)."""
-    if isinstance(tree, torch.Tensor):
-        yield tree
-    elif isinstance(tree, dict):
-        for v in tree.values():
-            yield from _tensors(v)
-    elif isinstance(tree, (list, tuple)):
-        for v in tree:
-            yield from _tensors(v)
-
-
 class _WorkerPool:
     """Persistent daemon-thread pool for ``RealtimeBackend``.
 
@@ -548,39 +536,140 @@ class _WorkerPool:
 
 # the stages of an HP response (``RealtimeBackend.hp_response_parts``), in
 # order: release to the first launch, then a stage's own
-RESPONSE_PARTS = ("release_to_launch", "hand_off", "stream_wait", "device",
-                  "notice", "gap")
+RESPONSE_PARTS = ("release_to_launch", "hand_off", "prep", "stream_wait",
+                  "device", "notice", "gap")
 HP_CHAINS_KEPT = 100_000        # completed HP jobs whose stamps are kept
+STALL_MS = 1.0                  # an engine-thread stretch longer is a stall
+# the engine thread's CPU clock is read at most this often (a read is a
+# system call, and on the H100 machine the clock moves in 10 ms ticks)
+CPU_EVERY_MS = 10.0
+STALLS_KEPT = 10_000
+EVENT_PAIRS = 4                 # a lane stream's ring of (start, end) events
+# the enqueue's steps that enqueue the start event: its record (a payload
+# without ``prepare``, a stage program run by PyTorch) or the launch of a
+# graph that holds it (``serving/stage_graph.py``); the start event is
+# recorded (``recorded``) as such a step begins
+START_RECORDED = ("start", "launch")
+ANCHOR_TRIES = 5                # polled events an anchor takes the best of
+
+
+class _EngineClock:
+    """The engine thread's wall clock (``time.perf_counter``) read at named
+    instants: a launch's steps, each poll, each harvest, and ``engine``
+    where the engine core hands over (its own work since the backend's
+    last instant). A stretch between two instants longer than ``STALL_MS``
+    is a stall, named by the instant that ends it, with the thread's CPU
+    time (``time.thread_time``) over a window that holds it: near the
+    window's wall time the thread ran (Python, or inside a call), near 0
+    it was off the CPU (blocked in a call, or not scheduled). The CPU
+    clock is a system call, so it is read at a stall's end and otherwise
+    at most every ``CPU_EVERY_MS``: the window starts at most that long
+    before the stall. A deliberate wait (the idle sleep, the host path's
+    queue) is no stall; a sleep's overshoot is (``wake``)."""
+
+    def __init__(self) -> None:
+        # (step, start s, end s, CPU s in the window, the window's start s)
+        self.stalls: list = []
+        self.restart()
+
+    def restart(self) -> None:
+        self.wall = self.cpu_at = time.perf_counter()
+        self.cpu = time.thread_time()
+
+    def __call__(self, name: str, wall: Optional[float] = None) -> float:
+        """The instant ``name`` (now, or the given ``perf_counter``
+        reading); returns its wall time."""
+        if wall is None:
+            wall = time.perf_counter()
+        if wall - self.wall > STALL_MS / 1000.0:
+            self._stall(name, self.wall, wall)
+        elif wall - self.cpu_at > CPU_EVERY_MS / 1000.0:
+            self.cpu, self.cpu_at = time.thread_time(), wall
+        self.wall = wall
+        return wall
+
+    def _stall(self, name: str, start: float, end: float) -> None:
+        cpu = time.thread_time()
+        if len(self.stalls) < STALLS_KEPT:
+            self.stalls.append((name, start, end, cpu - self.cpu,
+                                self.cpu_at))
+        self.cpu, self.cpu_at = cpu, end
+
+    def waited(self, until: Optional[float]) -> None:
+        """After a deliberate wait meant to end at ``until`` (a
+        ``perf_counter`` second; None: whenever work arrived)."""
+        wall = time.perf_counter()
+        if until is not None and wall - until > STALL_MS / 1000.0:
+            self._stall("wake", until, wall)
+        else:
+            self.cpu, self.cpu_at = time.thread_time(), wall
+        self.wall = wall
+
+
+class _StreamUse:
+    """``stream`` current for the block and the stream current before it
+    restored: ``torch.cuda.stream``'s work without its device checks (the
+    seam's streams are all on its one device), made once a stream."""
+
+    __slots__ = ("stream", "prev")
+
+    def __init__(self, stream) -> None:
+        self.stream, self.prev = stream, []
+
+    def __enter__(self):
+        self.prev.append(torch.cuda.current_stream())
+        torch.cuda.set_stream(self.stream)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        torch.cuda.set_stream(self.prev.pop())
 
 
 class CudaSeam:
     """The card as the inline path sees it: a lane's stream, the context
-    that makes a stream current, and the CUDA events that time a stage
-    and put it on the host's clock. A CPU test hands ``RealtimeBackend``
-    a stand-in with the same three calls (its ``_seam``); on the card the
-    seam is this one, with no host fallback."""
+    that makes a stream current, the CUDA events that time a stage and put
+    it on the host's clock, and a stream's key among the stage programs'
+    lanes. A CPU test hands ``RealtimeBackend`` a stand-in with the same
+    calls (its ``_seam``); on the card the seam is this one, with no host
+    fallback."""
 
     def __init__(self, device: torch.device) -> None:
         self.device = device
+        self._uses: Dict[int, _StreamUse] = {}
 
     def stream(self):
         return torch.cuda.Stream(self.device)
 
-    def use(self, stream):
-        return torch.cuda.stream(stream)
+    def use(self, stream) -> _StreamUse:
+        use = self._uses.get(id(stream))
+        if use is None:
+            use = self._uses[id(stream)] = _StreamUse(stream)
+        return use
+
+    def lane_key(self, stream) -> tuple:
+        """The stream's key among the stage programs' lanes."""
+        return self.device.index or 0, stream.cuda_stream
 
     def event(self):
         return torch.cuda.Event(enable_timing=True)
 
 
-def _anchor_event(seam, clock_ms: Callable[[float], float], tries: int = 5):
+def _stats(xs: list) -> dict:
+    """Median, p99, max and sum of ``xs`` (not empty)."""
+    xs = sorted(xs)
+    return {"median": xs[len(xs) // 2],
+            "p99": xs[min(len(xs) - 1, int(0.99 * len(xs)))],
+            "max": xs[-1], "sum": sum(xs)}
+
+
+def _anchor_event(events: list, clock_ms: Callable[[float], float]):
     """An event put on the host's clock: recorded on the current stream
     and polled to its completion, which lies between the host stamps
-    around that (the narrowest of ``tries``). Returns (event, its time in
-    ms on ``clock_ms``'s clock, half the window's width)."""
+    around that (the narrowest of one try an event of ``events``).
+    Returns (event, its time in ms on ``clock_ms``'s clock, half the
+    window's width)."""
     best = None
-    for _ in range(tries):
-        ev = seam.event()
+    for ev in events:
         a = time.perf_counter()
         ev.record()
         while not ev.query():
@@ -595,36 +684,45 @@ def _anchor_event(seam, clock_ms: Callable[[float], float], tries: int = 5):
 def _stage_parts(st: dict, nxt: float) -> dict:
     """One launch's parts from its stamps (ms on the backend's clock);
     ``nxt``: the job's next launch, or its completion after its last
-    stage. ``enqueue`` (the payload's copy in, run and copy out enqueued)
-    and ``sync_wake`` (the device's end to the host seeing it: the
-    worker's return from the synchronize, or the poll) lie within
-    ``stream_wait`` + ``device`` and ``notice``."""
+    stage. ``prep`` runs from the stage's start to its start event's
+    record (the stage's start where nothing is recorded: the host path,
+    a synthetic stage). ``enqueue`` (the stage's start to its last step
+    on the engine thread) and ``sync_wake`` (the device's end to the host
+    seeing it: the worker's return from the synchronize, or the poll) lie
+    within ``prep`` + ``stream_wait`` + ``device`` and ``notice``;
+    ``steps``: the enqueue's ms by step, which sum to it."""
+    recorded = st.get("recorded", st["start"])
     return {"stage": st["stage"], "failed": st["failed"],
             "hand_off": st["start"] - st["launch"],
-            "stream_wait": st["dev_start"] - st["start"],
+            "prep": recorded - st["start"],
+            "stream_wait": st["dev_start"] - recorded,
             "device": st["dev_end"] - st["dev_start"],
             "notice": st["harvest"] - st["dev_end"],
             "gap": nxt - st["harvest"],
             "enqueue": st["enqueued"] - st["start"],
-            "sync_wake": st["synced"] - st["dev_end"]}
+            "sync_wake": st["synced"] - st["dev_end"],
+            "steps": st.get("steps", {})}
 
 
 class _Flight:
     """One launched stage until its harvest. The inline path fills
-    ``t0`` at the launch and ``start``/``end`` (its events) and ``out`` as
-    it enqueues; ``done`` is ``(et_ms, output, device ms)`` once the stage
-    is seen complete (the poll on the inline path, the done queue on the
-    host path)."""
+    ``t0`` at the launch and, as it enqueues, ``start``/``end`` (its
+    events, a pair of its stream's ``ring``), ``inp`` (its input, kept
+    until the poll sees its end) and ``out``; ``done`` is ``(et_ms,
+    output, device ms)`` once the stage is seen complete (the poll on the
+    inline path, the done queue on the host path)."""
 
     __slots__ = ("lane", "inst", "token", "failed", "stamps", "t0",
-                 "start", "end", "out", "done")
+                 "stalled", "start", "end", "ring", "inp", "out", "done")
 
     def __init__(self, lane: tuple, inst: StageInstance, token: int,
                  failed: bool, stamps: dict) -> None:
         self.lane, self.inst, self.token = lane, inst, token
         self.failed, self.stamps = failed, stamps
         self.t0 = 0.0
-        self.start = self.end = self.out = self.done = None
+        self.stalled = False
+        self.start = self.end = self.ring = self.inp = None
+        self.out = self.done = None
 
 
 class RealtimeBackend:
@@ -641,9 +739,13 @@ class RealtimeBackend:
       event, and returns; ``advance`` polls the in-flight stages' end
       events (``Event.query``, never a blocking synchronize) and commits
       the first one done, in launch order where several are. Every served
-      stage is one CUDA-graph replay (``serving/stage_graph.py``), so the
-      enqueue is short and the stage's end event is the synchronisation
-      point between stages. Nothing there blocks the host: a launch with
+      stage is one CUDA-graph launch (``serving/stage_graph.py``), resolved
+      before its start event: the graph holds the stage's copies and its
+      start and end events, so the events bracket the device's work and
+      no host time; its end event is the synchronisation point between
+      stages. A lane stream's events come from its ring (``EVENT_PAIRS``,
+      made with the stream), so no event is made after the clock starts.
+      Nothing there blocks the host: a launch with
       a chaos stall is enqueued by the poll once the stall has passed,
       and a stage without a payload ends at the poll ``t_alone`` after it
       began.
@@ -656,10 +758,10 @@ class RealtimeBackend:
     stage's start on the host to its completion on the stream as the host
     sees it, never the launch latency of an asynchronous payload; the
     events' device time is kept beside it per stage name
-    (``stage_time_summary``). Inter-stage state made on one lane's stream
-    and read on another's is ``record_stream``-ed for the reader, so the
-    caching allocator cannot hand its memory out while the reader still
-    uses it. On a CUDA device ``start`` runs each task's payloads on
+    (``stage_time_summary``). A launch keeps its input (inter-stage state
+    made on another lane's stream) until the poll sees its end event, so
+    the caching allocator cannot hand that memory out while the reader
+    may still use it. On a CUDA device ``start`` runs each task's payloads on
     every lane's stream on the engine thread before the clock starts
     (``_warm_streams``). A stage whose
     profile has no payload is *emulated* by waiting its ``t_alone``: that
@@ -694,8 +796,8 @@ class RealtimeBackend:
 
     Every launch carries host stamps on the backend's clock (``now_ms``):
     the engine's ``launch``, the stage's start (the engine's own on the
-    inline path, before any stall; the worker's on the host path), the
-    payload enqueued (on
+    inline path, before any stall; the worker's on the host path), its
+    start event recorded (the inline path), the payload enqueued (on
     the card its copy in, replay and copy out; on the CPU its call), the
     host seeing the stage complete (the poll, or the worker's return from
     the end event's synchronize), and ``advance``'s harvest; on the card
@@ -754,6 +856,15 @@ class RealtimeBackend:
         # of it is in flight (class docstring)
         self._slots: list = []
         self._streams: Dict[tuple, object] = {}
+        # each lane stream's free (start, end) event pairs (by the
+        # stream's id), made with the stream; the anchors' events; the
+        # events made, and of them those made after the clock started
+        self._rings: Dict[int, list] = {}
+        # each lane stream's key among the stage programs' lanes (its
+        # device index and handle, ``stage_graph.StageProgram.prepare``)
+        self._lane_keys: Dict[int, tuple] = {}
+        self._anchor_events: list = []
+        self.events_made = self._events_at_start = 0
         # warm-ups of streams made after the clock started: how many, their
         # host seconds and the captures and replays they made
         self.rewarm = {"count": 0, "s": 0.0, "captures": 0, "replays": 0}
@@ -785,6 +896,12 @@ class RealtimeBackend:
         # events put on the backend's clock as it starts and at stop
         # (``_anchor_event``): (event, ms, half-width ms) each
         self._anchors: list = []
+        # the engine thread's clocks and stalls (``engine_stalls``), and
+        # the card stages' enqueues: (stage, priority, ms, ms by step, ms
+        # of the output's result after it)
+        self._clock = _EngineClock()
+        self._enqueues: "collections.deque" = collections.deque(
+            maxlen=HP_CHAINS_KEPT)
 
     # ----------------------------------------------------------- lifecycle
     def bind(self, core: EngineCore) -> None:
@@ -814,12 +931,18 @@ class RealtimeBackend:
             for lane in lanes:
                 self._lane_stream(lane)
             self._warm_streams(new)
+            self._anchor_events = [self._event() for _ in range(
+                2 * ANCHOR_TRIES)]
             self.warm_s = time.perf_counter() - t0
         self._graphs_warm = {"before": before,
                              "after": stage_graphs.snapshot()}
+        self._events_at_start = self.events_made
         self._t0 = time.perf_counter()
         if self._seam is not None:
-            self._anchors = [_anchor_event(self._seam, self._ms)]
+            self._anchors = [_anchor_event(
+                self._anchor_events[:ANCHOR_TRIES], self._ms)]
+        self._clock.stalls.clear()
+        self._clock.restart()
 
     def _planned_lanes(self) -> int:
         """The most lanes live at once under the run's own fault plan:
@@ -856,9 +979,24 @@ class RealtimeBackend:
         return peak
 
     def _new_streams(self, n: int) -> list:
+        """``n`` lane streams, each with its ring of event pairs."""
         made = [self._seam.stream() for _ in range(n)]
+        for stream in made:
+            self._rings[id(stream)] = [(self._event(stream),
+                                        self._event(stream))
+                                       for _ in range(EVENT_PAIRS)]
+            self._lane_keys[id(stream)] = self._seam.lane_key(stream)
         self._slots += made
         return made
+
+    def _event(self, stream=None):
+        """A new event of the seam, made (recorded once, on ``stream`` or
+        the current one) now: the driver makes a CUDA event at its first
+        record."""
+        ev = self._seam.event()
+        ev.record(stream)
+        self.events_made += 1
+        return ev
 
     def _free_streams(self) -> list:
         """The streams no live lane holds, in the order they were made,
@@ -948,7 +1086,8 @@ class RealtimeBackend:
     def stop(self) -> None:
         self._pool.stop()
         if len(self._anchors) == 1:
-            self._anchors.append(_anchor_event(self._seam, self._ms))
+            self._anchors.append(_anchor_event(
+                self._anchor_events[ANCHOR_TRIES:], self._ms))
 
     def _ms(self, t: float) -> float:
         """A ``time.perf_counter`` reading on the backend's clock."""
@@ -994,6 +1133,9 @@ class RealtimeBackend:
                 "replayed_launches": since(after, now, "replayed_launches"),
                 "stage_runs": self.stage_runs,
                 "streams": len(self._slots),
+                # CUDA events made after the clock started (a lane stream's
+                # ring ran dry)
+                "events_in_run": self.events_made - self._events_at_start,
                 "pool_stage_runs": self.pool_stage_runs,
                 # pools first captured into in the warm-up and the run: one
                 # a stream; and all since the counts' reset (before the tasks
@@ -1064,27 +1206,34 @@ class RealtimeBackend:
                 ev0 = self._anchors[0][0]
                 rec.stamps["dev_raw"] = (ev0.elapsed_time(rec.start),
                                          ev0.elapsed_time(rec.end))
-                rec.start = rec.end = None
+                rec.ring.append((rec.start, rec.end))
+                rec.start = rec.end = rec.inp = None
             if first is None and rec.done is not None:
                 first = rec
+        self._clock("poll")
         return first
 
     def _wait(self, cap_ms: float) -> None:
         """Wait for a stage to complete, at most until ``cap_ms``: sleep
         while nothing is in flight, block on the done queue while the host
-        path's stages are, and on the inline path return at once (the
-        next poll spins)."""
+        path's stages are, and on the inline path return at once (the next
+        poll spins)."""
         timeout_s = max(cap_ms - self.now_ms(), 0.0) / 1000.0
         if not self._flight:
+            until = time.perf_counter() + timeout_s
             time.sleep(timeout_s)
+            self._clock.waited(until)
         elif self._seam is None:
             try:
                 rec, *done = self._done_q.get(timeout=timeout_s)
             except queue.Empty:
                 return
+            finally:
+                self._clock.waited(None)
             rec.done = done
 
     def advance(self, cap_ms: float) -> List[Completion]:
+        self._clock("engine")
         while True:
             rec = self._poll()
             if rec is not None:
@@ -1112,6 +1261,7 @@ class RealtimeBackend:
             # the stage; this late result is a ghost
             return None
         self._live_token.pop(lane, None)
+        self._clock("harvest")
         stamps = rec.stamps
         stamps.update(harvest=self.now_ms(), failed=rec.failed)
         self._stamps.setdefault(inst.job.job_id, []).append(stamps)
@@ -1194,27 +1344,19 @@ class RealtimeBackend:
             self.stage_runs += 1
             self.pool_stage_runs += pool
 
-    def _stage_input(self, inst: StageInstance, lane: tuple, stream=None):
+    def _stage_input(self, inst: StageInstance, lane: tuple):
         """On the engine thread: the job's inter-stage state (moved to this
         lane's context if it was produced elsewhere), or a fresh input for
-        its first stage, made under ``stream`` (the lane's, None on the
-        CPU) and ``record_stream``-ed for it, the stream that reads it."""
+        its first stage, made on the current stream (on the card the
+        lane's)."""
         x = self._job_state.get(inst.job.job_id)
         if inst.profile.payload is None:
             return x              # a synthetic stage hands its state on
-        if stream is None:
-            return (self.input_factory(inst.job) if x is None
-                    else self._migrate_state(x, inst.job.job_id, lane[0]))
-        with self._seam.use(stream):
-            if x is None:
-                return self.input_factory(inst.job)
-            x = self._migrate_state(x, inst.job.job_id, lane[0])
-        for t in _tensors(x):
-            if t.is_cuda:
-                t.record_stream(stream)
-        return x
+        return (self.input_factory(inst.job) if x is None
+                else self._migrate_state(x, inst.job.job_id, lane[0]))
 
     def launch(self, lane: tuple, inst: StageInstance) -> None:
+        t0 = self._clock("engine")
         # chaos draws happen HERE, on the engine thread in dispatch order
         # (the deterministic stream position), never on the worker
         cfail, stall = False, 0.0
@@ -1225,17 +1367,18 @@ class RealtimeBackend:
         self._live_token[lane] = token
         rec = self._flight[token] = _Flight(
             lane, inst, token, cfail,
-            {"stage": inst.job.stage_idx, "launch": self.now_ms()})
+            {"stage": inst.job.stage_idx, "launch": self._ms(t0)})
         if self._seam is None:
             self._pool.submit(functools.partial(
                 self._worker, rec=rec, stall_ms=stall,
                 x=self._stage_input(inst, lane)), lane, inst)
             return
-        rec.t0 = time.perf_counter()
-        rec.stamps["start"] = self._ms(rec.t0)
+        rec.t0 = t0
+        rec.stamps["start"] = self._ms(t0)
         if stall:
             # chaos-injected lane stall (driver hiccup / ECC scrub): the
             # stage runs, just late — the poll begins it after the stall
+            rec.stalled = True
             self._deferred.append((rec.t0 + stall / 1000.0, rec,
                                    self._begin))
         else:
@@ -1264,23 +1407,67 @@ class RealtimeBackend:
         rec.out = None
 
     def _enqueue(self, rec: _Flight, stream) -> None:
-        """The inline path: the stage's input, its start event, its
-        payload and its end event, enqueued on the lane's stream from the
-        engine thread. A payload that raises loses its stage, as on a
-        worker."""
-        seam = self._seam
+        """The inline path, on the engine thread under the lane's stream:
+        the stage's input, its payload's call resolved (``prepare``: the
+        program's lookup, the tensors its outputs land in), then its start
+        event, its device work and its end event as one burst of driver
+        calls (``StageCall.issue``): the stage is enqueued. Its output
+        (``result``: the launches counted, the output's tree) comes after.
+        Each step of the enqueue is stamped (``steps``: ms from the
+        stage's start, or the end of its stall, to the step's end; they
+        sum to ``enqueued`` - ``start``). A payload without ``prepare``
+        runs whole between the events. The launch keeps its input until
+        the poll sees its end event, so the caching allocator cannot hand
+        its memory to another stream's work while this one may still read
+        it. A payload that raises loses its stage, as on a worker."""
+        seam, clock = self._seam, self._clock
+        steps = rec.stamps["steps"] = {}
+        last = [rec.t0]
+
+        def step(name, wall=None) -> None:
+            if name in START_RECORDED:
+                rec.stamps["recorded"] = self._ms(last[0])
+            t = clock(name, wall)
+            steps[name] = steps.get(name, 0.0) + (t - last[0]) * 1000.0
+            last[0] = t
+        if rec.stalled:
+            step("stall")
+        payload = rec.inst.profile.payload
+        prepare = getattr(payload, "prepare", None)
+        rec.ring = ring = self._rings[id(stream)]
         try:
-            x = self._stage_input(rec.inst, rec.lane, stream)
             with seam.use(stream):
-                rec.start, rec.end = seam.event(), seam.event()
-                rec.start.record(stream)
-                rec.out = rec.inst.profile.payload(x)
-                rec.end.record(stream)
+                rec.inp = x = self._stage_input(rec.inst, rec.lane)
+                rec.start, rec.end = (ring.pop() if ring
+                                      else (self._event(), self._event()))
+                step("input")
+                if prepare is None:
+                    rec.start.record(stream)
+                    step("start")
+                    rec.out = payload(x)
+                    step("payload")
+                    rec.end.record(stream)
+                    step("end")
+                else:
+                    # the call holds its arguments
+                    rec.inp = call = prepare(x, lane=self._lane_keys[
+                        id(stream)])
+                    step("resolve")
+                    call.issue(rec.start, rec.end, step)
+            enqueued = last[0]
+            if prepare is not None:
+                rec.out = call.result()
         except Exception as e:   # noqa: BLE001 — serving goes on
             del self._flight[rec.token]
+            if rec.start is not None:
+                ring.append((rec.start, rec.end))
             self._pool.caught(e, rec.lane, rec.inst)
             return
-        rec.stamps["enqueued"] = self.now_ms()
+        rec.stamps["enqueued"] = self._ms(enqueued)
+        inst = rec.inst
+        self._enqueues.append((inst.job.stage_idx, inst.task.priority,
+                               sum(steps.values()), steps,
+                               (clock("result") - enqueued) * 1000.0))
         self._ran_stage()
 
     def kill_lane(self, lane: tuple, inst: StageInstance) -> None:
@@ -1369,6 +1556,60 @@ class RealtimeBackend:
                            for j in jobs],
                 "slowest": sorted(jobs, key=lambda j: -j["response_ms"])[
                     :slowest]}
+
+    def engine_stalls(self, collections: Optional[list] = None) -> list:
+        """The engine thread's stretches over ``STALL_MS`` since the clock
+        started (``_EngineClock``), on the backend's clock: the step that
+        ends each, its start, its wall ms, and the thread's CPU ms in a
+        window that holds it (``cpu_window_ms`` long); with
+        ``collections`` ([generation, start ms, end ms] on this clock),
+        the generations of those that overlap it."""
+        out = []
+        for name, a, b, cpu, at in self._clock.stalls:
+            row = {"step": name, "start_ms": self._ms(a),
+                   "wall_ms": (b - a) * 1000.0, "cpu_ms": cpu * 1000.0,
+                   "cpu_window_ms": (b - at) * 1000.0}
+            if collections is not None:
+                lo, hi = row["start_ms"], self._ms(b)
+                row["gc"] = [g for g, s, e in collections
+                             if s < hi and e > lo]
+            out.append(row)
+        return out
+
+    def enqueue_summary(self) -> dict:
+        """The card stages' enqueues on the engine thread (the stage's
+        start to its end event enqueued): how many, their ms (median, p99,
+        max, sum), each step's, the ms of the output's ``result`` after
+        it, the engine thread's whole ms a stage (the enqueue and the
+        result) and its median by priority, the enqueue's median by stage
+        index and by priority, and each step's median by stage index."""
+        rows = list(self._enqueues)
+        if not rows:
+            return {"n": 0}
+        names = []
+        for *_, steps, _ in rows:
+            names += [k for k in steps if k not in names]
+        by: Dict[str, list] = {}
+        engine: Dict[str, list] = {}
+        for stage, prio, ms, _, result in rows:
+            by.setdefault(f"s{stage}", []).append(ms)
+            by.setdefault("hp" if prio == HP else "lp", []).append(ms)
+            engine.setdefault("hp" if prio == HP else "lp", []).append(
+                ms + result)
+        return {"n": len(rows), "ms": _stats([r[2] for r in rows]),
+                "steps": {k: _stats([r[3].get(k, 0.0) for r in rows])
+                          for k in names},
+                "result_ms": _stats([r[4] for r in rows]),
+                "engine_ms": _stats([r[2] + r[4] for r in rows]),
+                "engine_median_by": {k: _stats(v)["median"]
+                                     for k, v in sorted(engine.items())},
+                "median_by": {k: _stats(v)["median"]
+                              for k, v in sorted(by.items())},
+                "step_median_by_stage": {
+                    f"s{j}": {k: _stats([r[3].get(k, 0.0) for r in rows
+                                         if r[0] == j])["median"]
+                              for k in names}
+                    for j in sorted({r[0] for r in rows})}}
 
     def on_reconfigure(self) -> None:
         """New contexts mean new lanes: on the host path the pool grows to

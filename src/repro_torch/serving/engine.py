@@ -31,7 +31,7 @@ from ..models.cnn import StagedCNN
 from .stage_graph import StageProgram
 from .staging import make_lm_stage_fns, slice_cache
 
-__all__ = ["lm_stage", "staged_cnn_taskspec", "staged_lm_taskspec"]
+__all__ = ["LmStage", "lm_stage", "staged_cnn_taskspec", "staged_lm_taskspec"]
 
 
 def _calibrate(payloads, state, dev) -> list:
@@ -93,6 +93,21 @@ def staged_cnn_taskspec(model: StagedCNN, *, priority: int, jps: float,
                     priority=priority, stages=stages, batch=batch)
 
 
+def _lm_inputs(state, stage: int, donor_slice: dict, fresh: torch.Tensor):
+    """A staged LM state (a fresh job's made from ``fresh``) and stage
+    ``stage``'s cache slice: the job's own where it has one, else the
+    donor's."""
+    if state is None or not isinstance(state, dict):
+        state = {"hidden": fresh, "slices": {}}
+    sl = state["slices"].get(stage)
+    return state, (donor_slice if sl is None else sl)
+
+
+def _lm_output(state: dict, stage: int, out) -> dict:
+    h, new_sl = out
+    return {"hidden": h, "slices": {**state["slices"], stage: new_sl}}
+
+
 def lm_stage(state, *, stage: int, program, donor_slice: dict,
              fresh: torch.Tensor) -> dict:
     """Stage ``stage`` of a staged LM decode step: the job's hidden state
@@ -100,13 +115,23 @@ def lm_stage(state, *, stage: int, program, donor_slice: dict,
     cache slice (the job's own where it has one, else the donor's)
     through ``program``; the updated slice joins the job's state, so a
     migration moves hidden AND cache."""
-    if state is None or not isinstance(state, dict):
-        state = {"hidden": fresh, "slices": {}}
-    sl = state["slices"].get(stage)
-    if sl is None:
-        sl = donor_slice
-    h, new_sl = program(state["hidden"], sl)
-    return {"hidden": h, "slices": {**state["slices"], stage: new_sl}}
+    state, sl = _lm_inputs(state, stage, donor_slice, fresh)
+    return _lm_output(state, stage, program(state["hidden"], sl))
+
+
+class LmStage(functools.partial):
+    """A staged LM payload, ``functools.partial(lm_stage, ...)``, whose
+    ``prepare`` resolves its program's call on a state with ``lm_stage``'s
+    dict work before it and after it (``StageCall.then``): the realtime
+    backend enqueues its device work alone between the stage's events."""
+
+    def prepare(self, state, lane=None):
+        kw = self.keywords
+        state, sl = _lm_inputs(state, kw["stage"], kw["donor_slice"],
+                               kw["fresh"])
+        return kw["program"].prepare(
+            state["hidden"], sl, lane=lane,
+            then=functools.partial(_lm_output, state, kw["stage"]))
 
 
 def staged_lm_taskspec(model, *, priority: int, jps: float,
@@ -119,9 +144,9 @@ def staged_lm_taskspec(model, *, priority: int, jps: float,
 
     Each job is ONE decode step split across ``n_stages`` stage programs
     (``serving.staging.make_lm_stage_fns``, each a ``StageProgram``; each
-    payload a ``lm_stage``). The inter-stage state is the
-    hidden activation plus the KV-cache slices touched so far: each stage
-    takes its layer slice of a prefilled donor cache
+    payload an ``LmStage``, a partial of ``lm_stage``). The inter-stage
+    state is the hidden activation plus the KV-cache slices touched so
+    far: each stage takes its layer slice of a prefilled donor cache
     (``serving.staging.slice_cache``) and threads the updated slice
     forward, so a migration moves hidden AND cache. The programs' stage
     functions write the new slots (or SSM state) into the program's
@@ -146,7 +171,7 @@ def staged_lm_taskspec(model, *, priority: int, jps: float,
                  "cache": model.init_cache(batch, prompt_len + 1)})
     pos = torch.tensor([prompt_len], dtype=torch.int32, device=dev)
     fresh = torch.zeros((batch, 1), dtype=torch.int32, device=dev)
-    payloads = [functools.partial(
+    payloads = [LmStage(
         lm_stage, stage=i, fresh=fresh,
         donor_slice=slice_cache(cfg, donor, i, n_stages),
         program=StageProgram(

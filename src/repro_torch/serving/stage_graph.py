@@ -11,10 +11,12 @@ with itself, and the lanes would lose their spatial concurrency.
 The lanes are the process's (``lane``): each holds one lock, the static
 inputs a signature, and on the card one CUDA-graph memory pool, all of
 which every program that runs on that lane shares, as XLA plans one arena
-an executable. A lane lives as long as a program keeps state on it. Every
-call takes three steps under its lane's lock, so that no other call on
-the lane (another program's, or a watchdog's ghost worker beside a new
-launch) comes between them:
+an executable. A lane lives as long as a program keeps state on it. A call
+is resolved first (``prepare``: its signature, its lane's static entry,
+on the card the tensors its outputs land in), then issues three steps
+under its lane's lock, so that no other call on the lane (another
+program's, or a watchdog's ghost worker beside a new launch) comes between
+them (``StageCall.issue``):
 
 1. copy the arguments into the lane's static inputs of their signature
    (outside the pool: a job's input never lands in a graph's scratch);
@@ -23,6 +25,18 @@ launch) comes between them:
 3. copy the outputs into tensors the caller owns. The next call on the
    lane overwrites the static outputs, and a stage may hand an input
    through unchanged, so no job's state may alias them.
+
+and then gives its output (``StageCall.result``: the replay's launches
+counted, the output's tree built). On the card the three steps are in the
+graph itself, between a start and an end event node
+(``kernels/csrc/stage_burst.cu``): a call points the copy nodes at its
+tensors and the event nodes at the events its caller hands it, and
+launches the graph, one burst of driver calls, so the events bracket the
+device's work and no host time. An argument laid out otherwise than its
+static input (the same shape, other strides) is first copied by PyTorch
+into one laid out alike; an output that is not one dense block (which a
+copy node cannot read) is made contiguous inside the graph before its
+copy, as ``clone`` would return it; an empty tensor takes no node.
 
 A graph captured after another into the lane's pool may keep its outputs
 in what was the other's scratch, and the programs of one signature read
@@ -45,6 +59,7 @@ eager call is not a fallback.
 """
 from __future__ import annotations
 
+import ctypes
 import gc
 import threading
 import time
@@ -151,25 +166,49 @@ def _signature(tree, leaves: list):
     return type(tree)
 
 
+def _dense(t: torch.Tensor) -> bool:
+    """Whether ``t``'s elements fill ``t.nbytes`` bytes from its
+    ``data_ptr()`` without gap or overlap, its dimensions in any order."""
+    expect = 1
+    for stride, size in sorted((st, sz) for sz, st in zip(t.shape, t.stride())
+                               if sz > 1):
+        if stride != expect:
+            return False
+        expect *= size
+    return True
+
+
+def _no_step(name: str, wall=None) -> None:
+    pass
+
+
 class _Eager:
     """The CPU's run: ``fn`` called on the static arguments; returns its
-    output flattened."""
+    output flattened. Its kernels count themselves as they run."""
 
-    def __init__(self, fn: Callable, args: tuple, lane: Lane) -> None:
+    burst = None
+
+    def __init__(self, fn: Callable, args: tuple, lane: Lane,
+                 inputs: list) -> None:
         self.fn, self.args = fn, args
 
     def run(self):
         return tree_flatten(self.fn(*self.args))
 
+    def counted(self) -> None:
+        pass
+
 
 class _Graph:
-    """``fn`` on the static arguments, captured into a CUDA graph in the
-    lane's pool after one eager warm-up call (both on a side stream that
-    waits for the current one); ``run`` replays it on the current stream
-    and returns its static outputs, flattened once at the capture."""
+    """``fn`` on the static ``inputs`` (``args``, flat), captured into a
+    CUDA graph in the lane's pool after one eager warm-up call (both on a
+    side stream that waits for the current one), with the call's copies
+    and its events around it (``burst``, the module docstring); its static
+    outputs are flattened once at the capture (``flat``)."""
 
-    def __init__(self, fn: Callable, args: tuple, lane: Lane) -> None:
-        self.lane, self.pool = lane, None
+    def __init__(self, fn: Callable, args: tuple, lane: Lane,
+                 inputs: list) -> None:
+        self.lane, self.pool, self.inputs = lane, None, inputs
         t0 = time.perf_counter()
         # no collection while capturing: a dead graph in cyclic garbage
         # (an earlier server's) destroyed on the capturing thread would
@@ -190,22 +229,111 @@ class _Graph:
         self.side = self.lane.side_stream(cur.device)
         self.side.wait_stream(cur)
         with torch.cuda.stream(self.side):
-            fn(*args)                           # warm-up, counted as launched
+            warm = tree_flatten(fn(*args))[0]   # counted as launched
         cur.wait_stream(self.side)
-        self.graph = torch.cuda.CUDAGraph()
+        self.graph = torch.cuda.CUDAGraph(keep_graph=True)
         self.pool = self.lane.graph_pool()
+        # the copies' other ends for the capture (each call points the
+        # nodes at its own tensors; an output's is laid out as ``clone``
+        # lays it out), and the events its own calls take
+        ends = ([torch.empty_like(t) for t in self.inputs],
+                [torch.empty_like(t) for t in warm])
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        for ev in events:
+            ev.record()                         # makes it
         with _lib.recording() as self.log, torch.cuda.graph(
                 self.graph, pool=self.pool, stream=self.side,
                 capture_error_mode="thread_local"):
-            return fn(*args)
+            side = self.side.cuda_stream
+            nodes = [_capture_event(side, events[0]), None]
+            nodes += [_capture_copy(side, s, t)
+                      for s, t in zip(self.inputs, ends[0]) if s.nbytes]
+            leaves, spec = tree_flatten(fn(*args))
+            leaves = [o if _dense(o) else o.contiguous() for o in leaves]
+            nodes += [_capture_copy(side, t, o)
+                      for o, t in zip(leaves, ends[1]) if o.nbytes]
+            nodes[1] = _capture_event(side, events[1])
+        self.graph.instantiate()
+        self.burst = _Burst(self.graph, nodes, events, self.inputs, leaves)
+        return tree_unflatten(leaves, spec)
 
-    def _replay(self) -> None:
-        self.graph.replay()
-
-    def run(self):
-        self._replay()
+    def counted(self) -> None:
+        """A replay's kernel launches, counted once it is enqueued."""
         _lib.stage_graphs.replayed(self.log.replay())
-        return self.flat
+
+
+def _capture_event(stream: int, event) -> int:
+    node = ctypes.c_void_p()
+    _lib.check(_lib.lib().repro_stage_capture_event(
+        stream, event.cuda_event, ctypes.byref(node)),
+        "repro_stage_capture_event")
+    return node.value
+
+
+def _capture_copy(stream: int, dst: torch.Tensor, src: torch.Tensor) -> int:
+    node = ctypes.c_void_p()
+    _lib.check(_lib.lib().repro_stage_capture_copy(
+        stream, dst.data_ptr(), src.data_ptr(), dst.nbytes,
+        ctypes.byref(node)), "repro_stage_capture_copy")
+    return node.value
+
+
+class _Burst:
+    """On the card: a call of a graph that holds its copies and events,
+    as one C call (``repro_stage_launch``) on the lane's stream: the event
+    nodes set to the call's events, the copy nodes to its tensors (an
+    empty one has none), then the launch; each step stamped on the host's
+    wall clock (``STEPS``)."""
+
+    STEPS = ("nodes", "launch")
+
+    def __init__(self, graph, nodes: list, events: list, inputs: list,
+                 outs: list) -> None:
+        self.run = _lib.lib().repro_stage_launch
+        self.exec = graph.raw_cuda_graph_exec()
+        self.events = events                  # a call handed none takes these
+        self.nodes = (ctypes.c_void_p * len(nodes))(*nodes)
+        self.outs = outs
+        self.strides = [s.stride() for s in inputs]
+        self.copied = ([i for i, s in enumerate(inputs) if s.nbytes],
+                       [i for i, o in enumerate(self.outs) if o.nbytes])
+        ins = [inputs[i] for i in self.copied[0]]
+        outs = [self.outs[i] for i in self.copied[1]]
+        self.fixed = ([s.data_ptr() for s in ins],
+                      [o.data_ptr() for o in outs])
+        sizes = [t.nbytes for t in (*ins, *outs)]
+        self.bytes = (ctypes.c_longlong * len(sizes))(*sizes)
+        self.n_in, self.n_out = len(ins), len(outs)
+        self.ptrs = ctypes.c_void_p * (2 * len(sizes))
+        # the launch's stamps: one call at a time a lane, under its lock
+        self.stamps = (ctypes.c_double * len(self.STEPS))()
+
+    def args(self, flat: list, inputs: list):
+        """One call's pointers, the tensors its outputs land in (made here
+        on the current stream) and its arguments, of which one whose
+        strides differ from its static input's is first copied by PyTorch
+        into one laid out alike (held by the call)."""
+        held = flat
+        if any(t.stride() != s for t, s in zip(flat, self.strides)):
+            held = [t if t.stride() == s.stride() else torch.empty_strided(
+                s.shape, s.stride(), dtype=s.dtype, device=s.device).copy_(t)
+                for t, s in zip(flat, inputs)]
+        outs = [torch.empty_like(o) for o in self.outs]
+        (c_in, c_out), (dst_in, src_out) = self.copied, self.fixed
+        return self.ptrs(*[held[i].data_ptr() for i in c_in], *dst_in,
+                         *src_out, *[outs[i].data_ptr() for i in c_out]), \
+            outs, held
+
+    def issue(self, stream: int, ptrs, before, after, step) -> None:
+        before, after = (before, after) if before is not None \
+            else self.events
+        stamps = self.stamps
+        err = self.run(stream, self.exec, self.nodes, self.n_in, self.n_out,
+                       before.cuda_event, after.cuda_event, ptrs,
+                       self.bytes, stamps)
+        for name, wall in zip(self.STEPS, stamps):
+            step(name, wall)
+        _lib.check(err, "repro_stage_launch")
 
 
 class _Static:
@@ -215,6 +343,57 @@ class _Static:
 
     def __init__(self, lane: Lane, inputs: list, runner) -> None:
         self.lane, self.inputs, self.runner = lane, inputs, runner
+
+
+class StageCall:
+    """One call of a stage program, resolved (``StageProgram.prepare``):
+    its static entry, its arguments flattened, on the card its burst's
+    pointers, output tensors and held inputs, and ``then``, applied to its
+    output."""
+
+    __slots__ = ("static", "flat", "burst", "outs", "spec", "then")
+
+    def __init__(self, static: _Static, flat: list, then) -> None:
+        self.static, self.flat, self.then = static, flat, then
+        burst = static.runner.burst
+        self.burst = self.outs = self.spec = None
+        if burst is not None:
+            self.burst, self.outs, self.flat = burst.args(flat, static.inputs)
+            self.spec = static.runner.flat[1]
+
+    def issue(self, before=None, after=None, step=_no_step) -> None:
+        """Under the lane's lock: ``before`` recorded on the current
+        stream, the copies in, the run, the copies out, ``after``
+        recorded; ``step(name, wall)`` after each. On the card that is
+        the burst's launch (``step`` given the ``perf_counter`` readings
+        it took: ``_Burst.STEPS``), on the CPU PyTorch's calls."""
+        st = self.static
+        runner = st.runner
+        with st.lane.lock:
+            if self.burst is not None:
+                runner.burst.issue(st.lane.key[1], self.burst, before, after,
+                                   step)
+                return
+            if before is not None:
+                before.record()
+                step("start")
+            for s, t in zip(st.inputs, self.flat):
+                s.copy_(t)
+            step("copy_in")
+            out, self.spec = runner.run()
+            step("replay")
+            self.outs = [t.clone() for t in out]
+            step("copy_out")
+            if after is not None:
+                after.record()
+                step("end")
+
+    def result(self):
+        """The issued call's output (its launches counted)."""
+        self.static.runner.counted()
+        out = (self.outs[0] if self.spec.is_leaf()
+               else tree_unflatten(self.outs, self.spec))
+        return out if self.then is None else self.then(out)
 
 
 class StageProgram:
@@ -237,40 +416,56 @@ class StageProgram:
         return _Graph if device.type == "cuda" else _Eager
 
     def _lane_of(self, device: torch.device):
-        """The current stream on the card, the calling thread on the CPU."""
+        """The current stream on the card (its device index and handle),
+        the calling thread on the CPU."""
         if device.type == "cuda":
-            return (device.index,
+            return (device.index or 0,
                     torch.cuda.current_stream(device).cuda_stream)
         return threading.get_ident()
 
-    def __call__(self, *args):
+    def prepare(self, *args, then: Callable = None,
+                lane=None) -> StageCall:
+        """The call on ``args`` resolved on the current lane, or on
+        ``lane`` where the caller knows it is current (the lane's static
+        entry made, and on the card its graph captured, at the lane's
+        first call of this signature); ``then`` is applied to its
+        output."""
         flat = []
         sig = _signature(args, flat)
         if not flat or not all(isinstance(t, torch.Tensor) for t in flat):
             raise TypeError(f"stage program {self.name!r} takes tensors "
                             f"only, got {[type(t).__name__ for t in flat]}")
         dev = flat[0].device
-        ln = lane(self._lane_of(dev))
-        key = (ln.key, sig)
+        key = (self._lane_of(dev) if lane is None else lane, sig)
+        st = self._lanes.get(key)
+        if st is None:
+            st = self._static(key, args, flat, dev)
+        return StageCall(st, flat, then)
+
+    def _static(self, key, args: tuple, flat: list, dev) -> _Static:
+        """The lane's static entry of ``key``, made at its first call."""
+        ln = lane(key[0])
         with ln.lock:
             with self._lock:
                 st = self._lanes.get(key)
-            if st is None:
-                leaves, spec = tree_flatten(args)
-                if len(leaves) != len(flat) or any(
-                        a is not b for a, b in zip(leaves, flat)):
-                    raise TypeError(f"stage program {self.name!r}: its "
-                                    f"arguments flatten in another order "
-                                    f"than tree_flatten's")
-                inputs = ln.static_inputs(sig, flat)
-                for s, t in zip(inputs, flat):
-                    s.copy_(t)
-                st = _Static(ln, inputs, self._runner(dev)(
-                    self.fn, tree_unflatten(list(inputs), spec), ln))
-                with self._lock:
-                    self._lanes[key] = st
-            # again after a capture, whose warm-up call may write its inputs
-            for s, t in zip(st.inputs, flat):
+            if st is not None:
+                return st
+            leaves, spec = tree_flatten(args)
+            if len(leaves) != len(flat) or any(
+                    a is not b for a, b in zip(leaves, flat)):
+                raise TypeError(f"stage program {self.name!r}: its "
+                                f"arguments flatten in another order "
+                                f"than tree_flatten's")
+            inputs = ln.static_inputs(key[1], flat)
+            for s, t in zip(inputs, flat):
                 s.copy_(t)
-            out, out_spec = st.runner.run()
-            return tree_unflatten([t.clone() for t in out], out_spec)
+            st = _Static(ln, inputs, self._runner(dev)(
+                self.fn, tree_unflatten(list(inputs), spec), ln, inputs))
+            with self._lock:
+                self._lanes[key] = st
+            return st
+
+    def __call__(self, *args):
+        call = self.prepare(*args)
+        call.issue()
+        return call.result()

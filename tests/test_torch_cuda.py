@@ -305,6 +305,51 @@ def test_stage_programs_replay_on_two_streams(name):
 
 
 @pytest.mark.cuda
+def test_a_stage_call_on_the_card_is_one_launch_between_its_events():
+    """On the card a stage program's graph holds its copies and its events:
+    a call handed two events enqueues its device work as one launch (steps
+    ``nodes``, ``launch``), the events time the graph's work, and the
+    outputs equal the eager stage's on the same inputs, call after call
+    with new tensors (no call reads another's); an argument laid out
+    otherwise than its static input is copied alike first; an output that
+    is not one dense block comes out contiguous, as ``clone`` gives it,
+    and an empty one empty."""
+    _need_cuda()
+    from repro_torch.serving.stage_graph import StageProgram
+    w = torch.randn(64, 64, device="cuda")
+
+    def stage(x):
+        return torch.relu(x @ w) + 1.0
+    prog = StageProgram(stage, name="mm")
+    stream = torch.cuda.Stream()
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    with torch.cuda.stream(stream):
+        for ev in events:
+            ev.record()
+        for i in range(4):
+            x = torch.randn(32, 64, device="cuda")
+            if i == 3:                            # another layout, same shape
+                x = torch.randn(64, 32, device="cuda").t()
+            steps = []
+            call = prog.prepare(x)
+            call.issue(*events, step=lambda name, wall=None:
+                       steps.append(name))
+            out = call.result()
+            stream.synchronize()
+            assert steps == ["nodes", "launch"]
+            assert events[0].elapsed_time(events[1]) > 0.0
+            torch.testing.assert_close(out, stage(x), rtol=1e-5, atol=1e-5)
+        view = StageProgram(lambda x: ((x * 2.0)[:, ::2], x[:0] + 1.0),
+                            name="view")
+        for _ in range(2):
+            got, empty = view(torch.ones(8, 8, device="cuda"))
+            stream.synchronize()
+            assert got.stride() == (4, 1)
+            assert torch.equal(got, torch.full((8, 4), 2.0, device="cuda"))
+            assert empty.shape == (0, 8)
+
+
+@pytest.mark.cuda
 def test_lanes_made_mid_run_capture_while_others_replay():
     """A planned reconfigure adds contexts, and so lanes (4 -> 8), after
     the clock started: the backend read the plan at its start and made

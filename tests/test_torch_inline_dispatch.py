@@ -21,6 +21,7 @@ torch = pytest.importorskip("torch")
 
 import repro_torch.api as api  # noqa: E402
 from repro_torch.core.task import Job, StageInstance  # noqa: E402
+from repro_torch.runtime.backend import RESPONSE_PARTS  # noqa: E402
 from tests.test_torch_serving import fixed_time  # noqa: E402
 
 PARTS_TOL_MS = 0.01       # an HP job's parts against its response
@@ -61,8 +62,9 @@ class WallEvent:
 
 
 class WallSeam:
-    """Stand-in for ``CudaSeam``: streams, the stream context and events
-    (which a host-path worker also waits for) on the host's clock."""
+    """Stand-in for ``CudaSeam``: streams, the stream context, events
+    (which a host-path worker also waits for) on the host's clock, and
+    lane keys."""
 
     def __init__(self):
         self.current = None
@@ -80,6 +82,11 @@ class WallSeam:
 
     def event(self):
         return WallEvent(self)
+
+    def lane_key(self, stream):
+        """No stage-program lane: on the CPU a program's lane is the
+        calling thread."""
+        return None
 
     def work(self, ms: float):
         """A payload's device time: ``ms`` more of the current stream."""
@@ -428,3 +435,170 @@ def test_simultaneous_completions_commit_in_launch_order(works):
         assert be.pool_stage_runs == 0 and be.stage_runs == 2
     finally:
         be.stop()
+
+
+# ------------------------------------------- one burst a stage, its stalls
+class CountingSeam(WallSeam):
+    """The stand-in seam, counting the events it makes; with ``slow_ms``,
+    each event's record sleeps that long first (a stall inside the start
+    and end events' steps)."""
+
+    def __init__(self):
+        super().__init__()
+        self.events, self.slow_ms = 0, 0.0
+
+    def event(self):
+        self.events += 1
+        seam = self
+
+        class Event(WallEvent):
+            def record(self, stream=None):
+                if seam.slow_ms:
+                    time.sleep(seam.slow_ms / 1000.0)
+                super().record(stream)
+        return Event(self)
+
+
+def with_programs(cfg, seam):
+    """Every stage of ``cfg``'s tasks gets a stage program (the CPU's
+    eager run) that keeps its lane busy for its ``t_alone`` and hands on a
+    new tensor: the payloads the backend resolves before the start event
+    (``prepare``) and issues between the events."""
+    from repro_torch.serving.stage_graph import StageProgram
+    for spec in cfg._specs:
+        for st in spec.stages:
+            def fn(x, ms=st.t_alone_ms):
+                seam.work(ms)
+                return x + 1.0
+            st.payload = StageProgram(fn, name=st.name)
+    return cfg
+
+
+PROGRAM_STEPS = ("input", "resolve", "start", "copy_in", "replay",
+                 "copy_out", "end")
+CALLABLE_STEPS = ("input", "start", "payload", "end")
+
+
+@pytest.mark.parametrize("kind", ["program", "callable"])
+def test_steps_sum_to_the_enqueue_and_the_parts_with_prep_to_the_response(
+        kind):
+    """The fixed-time scenario (at twice its times) on the stand-in seam,
+    its payloads stage programs or plain callables: the decisions equal
+    the simulator's; every card stage's steps are the path's, in order,
+    and sum to its enqueue; a program's start event is recorded after its
+    resolve (``prep``); each HP job's parts, ``prep`` among them, sum to
+    its response."""
+    sim = slowed(fixed_time(api)).build()
+    sim.run()
+    seam = WallSeam()
+    cfg = slowed(fixed_time(api, realtime=True))
+    (with_programs if kind == "program" else with_payloads)(cfg, seam)
+    real = cfg.build()
+    on_stand_in(real, seam)
+    real.run()
+    assert real.decisions == sim.decisions and len(sim.decisions) > 20
+    be = real.backend
+    want = PROGRAM_STEPS if kind == "program" else CALLABLE_STEPS
+    rows = list(be._enqueues)
+    assert len(rows) == be.stage_runs > 0
+    for _, _, ms, steps, _ in rows:
+        assert tuple(steps) == want
+        assert abs(sum(steps.values()) - ms) <= 1e-6
+    parts = be.hp_response_parts(slowest=len(real.core.metrics.response_ms[
+        api.HP]))
+    assert parts["jobs"] > 0 and parts["sum_err_ms"] <= PARTS_TOL_MS
+    assert parts["parts"] == list(RESPONSE_PARTS) and "prep" in parts["parts"]
+    for job in parts["slowest"]:
+        for st in job["stages"]:
+            assert abs(sum(st["steps"].values()) - st["enqueue"]) <= 1e-6
+            assert st["prep"] >= 0.0
+            # the start event is recorded as the "start" step begins
+            assert abs(st["prep"] - sum(st["steps"][k] for k in
+                                        want[:want.index("start")])) <= 1e-6
+    summary = be.enqueue_summary()
+    assert summary["n"] == len(rows) and set(summary["steps"]) == set(want)
+    # the engine thread's whole cost a stage: the enqueue and the result
+    assert abs(summary["engine_ms"]["sum"]
+               - sum(r[2] + r[4] for r in rows)) <= 1e-6
+
+
+@pytest.mark.parametrize("launches", [1, 24])
+def test_no_event_is_made_after_the_warm_up(launches):
+    """Each lane stream's start and end events come from its ring, made
+    with the stream before the clock starts, as are the anchors' events:
+    however many stages run (ghosts among them), the seam makes no event
+    after ``start``, and every stage's device interval is read."""
+    seam, work = CountingSeam(), [1.0]
+    be, instance = _bare_backend(seam, work)
+    made = seam.events
+    assert made > 0 and be.graph_summary()["events_in_run"] == 0
+    try:
+        for i in range(launches):
+            inst = instance()
+            be.launch((i % 2, 0), inst)
+            if i % 5 == 4:                  # a watchdog's ghost beside it
+                be.kill_lane((i % 2, 0), inst)
+                be.launch((i % 2, 0), inst)
+            _drain(be, be.now_ms() + 2000.0)
+        assert not be.has_inflight()
+        assert be.stage_time_summary()["t/s0"]["n"] == launches
+    finally:
+        be.stop()
+    assert seam.events == made
+    assert be.graph_summary()["events_in_run"] == 0
+
+
+def _program_backend(seam, work, factory_ms):
+    """``_bare_backend`` with a stage program as the payload and an input
+    factory that sleeps ``factory_ms[0]`` ms before it makes the input."""
+    from repro_torch.serving.stage_graph import StageProgram
+    be, instance = _bare_backend(seam, work)
+
+    def fn(x):
+        seam.work(work[0])
+        if work[1]:
+            time.sleep(work[1] / 1000.0)
+        return x + 1.0
+    be.core.sched.tasks[0].spec.stages[0].payload = StageProgram(fn, "t/s0")
+    make = be.input_factory
+
+    def factory(job):
+        if factory_ms[0]:
+            time.sleep(factory_ms[0] / 1000.0)
+        return make(job)
+    be.input_factory = factory
+    return be, instance
+
+
+@pytest.mark.parametrize("where", ["input", "start", "replay"])
+def test_a_stall_inside_a_step_is_named(where):
+    """A stand-in that sleeps 3 ms inside one step of a stage's enqueue
+    (the input's factory, the start event's record, the program's run):
+    ``engine_stalls`` has it under that step's name, its wall ms at least
+    the sleep, and of the thread's CPU ms in the window that holds it at
+    most half the stall's (the thread was off the CPU for the sleep); the
+    same stages without the sleep show none in that step."""
+    seam, work, factory_ms = CountingSeam(), [1.0, 0.0], [0.0]
+    be, instance = _program_backend(seam, work, factory_ms)
+    try:
+        be.launch((0, 0), instance())
+        _drain(be, be.now_ms() + 2000.0)
+        assert [s for s in be.engine_stalls() if s["step"] == where] == []
+        if where == "input":
+            factory_ms[0] = 3.0
+        elif where == "start":
+            seam.slow_ms = 3.0
+        else:
+            work[1] = 3.0
+        be.launch((1, 0), instance())
+        _drain(be, be.now_ms() + 2000.0)
+    finally:
+        be.stop()
+    named = [s for s in be.engine_stalls() if s["step"] == where]
+    assert len(named) == 1
+    row = named[0]
+    assert row["wall_ms"] >= 3.0 and row["cpu_window_ms"] >= row["wall_ms"]
+    before = row["cpu_window_ms"] - row["wall_ms"]    # the window's lead
+    assert row["cpu_ms"] <= before + 0.5 * row["wall_ms"]
+    steps = list(be._enqueues)[-1][3]
+    assert steps[where] >= 3.0

@@ -13,7 +13,6 @@ reference 1e-5, the cross-framework f32 tolerance of
 ``tests/test_torch_moe.py``.
 """
 import os
-import socket
 import subprocess
 import sys
 import textwrap
@@ -57,10 +56,13 @@ def _tree(tree, fn):
     return fn(tree)
 
 
-def free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
+def rendezvous(dst) -> str:
+    """The ranks' rendezvous: a file beside ``dst``, which no other test's
+    ranks can take (a TCP port found free and released is free for any
+    process to bind before rank 0's store does)."""
+    path = Path(f"{dst}.rendezvous")
+    path.unlink(missing_ok=True)
+    return f"file://{path}"
 
 
 @pytest.mark.parametrize("offset,n_local,capacity", [
@@ -127,9 +129,9 @@ PORT_EP = textwrap.dedent("""
     from torch.distributed.device_mesh import init_device_mesh
     from repro_torch.models.moe import moe_ep
     from repro_torch.parallel.sharding import Spmd
-    rank, world, port, src, dst = (int(sys.argv[1]), int(sys.argv[2]),
+    rank, world, init, src, dst = (int(sys.argv[1]), int(sys.argv[2]),
                                    sys.argv[3], sys.argv[4], sys.argv[5])
-    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+    dist.init_process_group("gloo", init_method=init,
                             rank=rank, world_size=world)
     mesh = init_device_mesh("cpu", (1, world),
                             mesh_dim_names=("data", "model"))
@@ -154,9 +156,9 @@ PORT_EP = textwrap.dedent("""
 def _run_ranks(code, world, args, timeout=240):
     # one thread a rank: the ranks share the host with the other tests
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
-    port = str(free_port())
+    init = rendezvous(args[-1])
     procs = [subprocess.Popen([sys.executable, "-c", code, str(r),
-                               str(world), port, *args], env=env,
+                               str(world), init, *args], env=env,
                               stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                               text=True) for r in range(world)]
     errs = []

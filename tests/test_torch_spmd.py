@@ -13,7 +13,6 @@ sharded run sums partial products over the ranks, as
 """
 import json
 import os
-import socket
 import subprocess
 import sys
 import textwrap
@@ -37,10 +36,10 @@ RANK = textwrap.dedent("""
     from repro_torch.configs import get_reduced
     from repro_torch.models.api import build_model
     from repro_torch.parallel.sharding import ShardingRules, shard_local
-    rank, world, port, arch, shape, dst, layout = (
+    rank, world, init, arch, shape, dst, layout = (
         int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4],
         json.loads(sys.argv[5]), sys.argv[6], json.loads(sys.argv[7]))
-    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+    dist.init_process_group("gloo", init_method=init,
                             rank=rank, world_size=world)
     mesh = init_device_mesh("cpu", tuple(shape),
                             mesh_dim_names=("data", "model"))
@@ -108,10 +107,14 @@ RANK = textwrap.dedent("""
 """) % {"B": B, "S": S, "STEPS": STEPS}
 
 
-def free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
+def rendezvous(dst) -> str:
+    """The ranks' rendezvous: a file beside ``dst``, which no other test's
+    ranks can take (a TCP port found free and released was, under a full
+    run's parallel gloo tests, free for any process to bind before rank
+    0's store did)."""
+    path = Path(f"{dst}.rendezvous")
+    path.unlink(missing_ok=True)
+    return f"file://{path}"
 
 
 def run_sharded(arch, shape, dst, timeout=300, layout=None):
@@ -120,10 +123,10 @@ def run_sharded(arch, shape, dst, timeout=300, layout=None):
     and the prefill; decode's one token takes none)."""
     # one thread a rank: the ranks share the host with the other tests
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
-    port = str(free_port())
+    init = rendezvous(dst)
     world = shape[0] * shape[1]
     procs = [subprocess.Popen(
-        [sys.executable, "-c", RANK, str(r), str(world), port, arch,
+        [sys.executable, "-c", RANK, str(r), str(world), init, arch,
          str(list(shape)), str(dst), json.dumps(layout or {})], env=env,
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
         for r in range(world)]
@@ -214,10 +217,10 @@ GRAD = textwrap.dedent("""
     from repro_torch.parallel.sharding import ShardingRules, shard_local
     from repro_torch.training.train_step import (_sync, make_loss_fn,
                                                  value_and_grad)
-    rank, world, port, shape, dst, layouts = (
+    rank, world, init, shape, dst, layouts = (
         int(sys.argv[1]), int(sys.argv[2]), sys.argv[3],
         json.loads(sys.argv[4]), sys.argv[5], json.loads(sys.argv[6]))
-    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+    dist.init_process_group("gloo", init_method=init,
                             rank=rank, world_size=world)
     mesh = init_device_mesh("cpu", tuple(shape),
                             mesh_dim_names=("data", "model"))
@@ -294,9 +297,9 @@ def run_grads(shape, layouts, dst, timeout=300):
     processes; rank 0's results, one npz a layout."""
     # one thread a rank: the ranks share the host with the other tests
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
-    port, world = str(free_port()), shape[0] * shape[1]
+    init, world = rendezvous(dst), shape[0] * shape[1]
     procs = [subprocess.Popen(
-        [sys.executable, "-c", GRAD, str(r), str(world), port,
+        [sys.executable, "-c", GRAD, str(r), str(world), init,
          str(list(shape)), str(dst), json.dumps(layouts)], env=env,
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
         for r in range(world)]

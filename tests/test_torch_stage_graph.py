@@ -71,10 +71,14 @@ def _one_torch_thread():
 
 
 class CpuGraph(stage_graph._Graph):
-    """The card's run on the CPU but for the capture and replay calls: the
-    capture records the launches of an eager call, and a replay writes the
-    eager call's results into the static outputs without counting (the
-    wrappers' Python code never runs at a replay on the card)."""
+    """The card's run on the CPU but for the capture and the launch: the
+    capture records the launches of an eager call, and a run (the launch,
+    without the burst's copy and event nodes, which PyTorch's calls stand
+    in for) writes the eager call's results into the static outputs
+    without counting (the wrappers' Python code never runs at a replay on
+    the card)."""
+
+    burst = None
 
     def _capture(self, fn, args):
         fn(*args)                                   # the warm-up call
@@ -83,11 +87,12 @@ class CpuGraph(stage_graph._Graph):
         self.fn, self.args = fn, args
         return out
 
-    def _replay(self):
+    def run(self):
         with _lib.recording():
             new = self.fn(*self.args)
-        for s, t in zip(tree_flatten(self.out)[0], tree_flatten(new)[0]):
+        for s, t in zip(self.flat[0], tree_flatten(new)[0]):
             s.copy_(t)
+        return self.flat
 
 
 class CpuGraphProgram(stage_graph.StageProgram):
