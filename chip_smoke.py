@@ -18,15 +18,20 @@
 The --serve forms run only one model's serving phase (step 3, 5, 6, 9, 12
 or 13 below),
 ``--repeats`` times, each with the host's side of the run and the card's
-clocks after it, the profile of a decode step (``decode_step_profile``)
-or of each CNN stage (``cnn_stage_profile``), and with ``--trace`` what
+clocks after it, after the last the profile of a decode step
+(``decode_step_profile``) or of each CNN stage (``cnn_stage_profile``;
+a profiler session slows the process's graph launches after it, so no
+run follows one), and with ``--trace`` what
 the card did during it (``device_timeline``); a ``serve_repeats`` line
 sums the runs up (runs with an HP miss, HP mean, p99 and max response,
-and for the CNNs the runs and HP jobs over SchedCheck's static bound).
+and for the CNNs the runs and HP jobs over SchedCheck's static bound,
+those jobs by their largest part and step, and each run's HP ``input``
+step at stage 0 beside the later stages').
 ``--switch-interval S`` sets the process's ``sys.setswitchinterval``
 before the runs.
 ``--host-calls`` prints only what each call of a served stage's enqueue
-costs the host (``host_calls``). ``--drill ARCH`` runs only step 21's drills of
+costs the host (``host_calls``; a first stage's ``torch.zeros`` also
+right behind a pending graph launch). ``--drill ARCH`` runs only step 21's drills of
 ``resnet18`` or ``smollm-135m``, ``--repeats`` times in turns, and sums
 them up in a ``drill_repeats`` line.
 Copied into a checkout from before the compiled stage (``git archive``
@@ -461,6 +466,7 @@ last line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import gc
 import hashlib
@@ -1644,6 +1650,7 @@ def serve(torch, failures, specs, setup_s, jps, kernels, desc, trace=False,
     def start():
         started()
         warm["alloc"] = allocator_counts(torch)
+        warm["stats"] = torch.cuda.memory_stats()
     srv.backend.start = start
     engine_cpus = sorted(os.sched_getaffinity(0))
     stat0 = proc_stat()
@@ -1655,6 +1662,7 @@ def serve(torch, failures, specs, setup_s, jps, kernels, desc, trace=False,
     stat1 = proc_stat()
     alloc = {k: v - warm["alloc"][k]
              for k, v in allocator_counts(torch).items()}
+    stats = allocator_stats_diff(warm["stats"], torch.cuda.memory_stats())
     host = {"wall_s": w1 - w0, "cpu_user_s": ru1.ru_utime - ru0.ru_utime,
             "cpu_sys_s": ru1.ru_stime - ru0.ru_stime,
             "involuntary_switches": ru1.ru_nivcsw - ru0.ru_nivcsw,
@@ -1676,10 +1684,11 @@ def serve(torch, failures, specs, setup_s, jps, kernels, desc, trace=False,
     # stages' enqueues, then the 3 slowest shown
     parts = (be.hp_response_parts(slowest=len(hp) + 3)
              if hasattr(be, "hp_response_parts") else None)
-    over = hp_enqueue = None
+    over = hp_enqueue = hp_input = None
     if parts is not None:
         over = over_bound_jobs(parts, bound)
         hp_enqueue = stage_enqueues(parts)
+        hp_input = input_steps(parts)
         parts["slowest"] = parts["slowest"][:3]
     lanes = len(be.core.sched.lanes)
     # lane streams the run made: one a lane live at once (a tree before
@@ -1702,7 +1711,7 @@ def serve(torch, failures, specs, setup_s, jps, kernels, desc, trace=False,
                    "hp_jobs": parts and parts["jobs"],
                    "graph_pools": graphs and graphs.get("pools"),
                    "hp_bound_ms": bound, "over_bound": over,
-                   "hp_enqueue": hp_enqueue,
+                   "hp_enqueue": hp_enqueue, "hp_input": hp_input,
                    "hp_engine_median_ms": enqueue and enqueue.get(
                        "engine_median_by", {}).get("hp"),
                    "stage_device_ms": {
@@ -1783,6 +1792,9 @@ def serve(torch, failures, specs, setup_s, jps, kernels, desc, trace=False,
         # the caching allocator's calls to the driver in the run (a retry
         # frees cached blocks after synchronizing every stream)
         "allocator_in_run": alloc,
+        # and its counters that moved in the run (allocations and frees by
+        # pool, calls that synchronized every stream)
+        "allocator_stats_in_run": stats,
         "launches": launches, "launches_by_instance": instances,
         "host": host,
         **({"device_timeline": device_timeline(torch, tracer)}
@@ -1805,6 +1817,16 @@ def allocator_counts(torch) -> dict:
     """The caching allocator's counters of its calls to the driver."""
     stats = torch.cuda.memory_stats()
     return {k: stats.get(k, 0) for k in ALLOCATOR_COUNTS}
+
+
+def allocator_stats_diff(before: dict, after: dict) -> dict:
+    """The caching allocator's event counters (``num_*`` and the
+    allocations and frees of each pool) that moved between two
+    ``torch.cuda.memory_stats()`` readings."""
+    return {k: v - before.get(k, 0) for k, v in after.items()
+            if (k.startswith("num_") or k.endswith(
+                (".all.allocated", ".all.freed")))
+            and v != before.get(k, 0)}
 
 
 def allocated_blocks(torch, top: int = 6) -> list:
@@ -2285,11 +2307,31 @@ def over_bound_jobs(parts: dict, bound) -> list:
                     for k in RESPONSE_PARTS[1:]), key=lambda b: b[2])
         st, part, ms = best
         steps = st.get("steps") or {}
+        if part == "prep":
+            # of the steps before the one that enqueues the start event
+            names = list(steps)
+            cut = next((i for i, k in enumerate(names)
+                        if k in ("start", "launch")), len(names))
+            steps = {k: steps[k] for k in names[:cut]}
         step = max(steps, key=steps.get) if steps else None
         rows.append({"response_ms": job["response_ms"], "stage": st["stage"],
                      "part": part, "ms": ms, "enqueue_ms": st["enqueue"],
                      "step": step, "step_ms": steps.get(step)})
     return rows
+
+
+def input_steps(parts: dict) -> dict:
+    """The completed HP jobs' ``input`` step (ms; its stage's input made
+    or taken on the engine thread): median at stage 0 and at the later
+    stages, with their counts."""
+    by = {"s0": [], "later": []}
+    for job in parts["slowest"]:
+        for st in job["stages"]:
+            ms = (st.get("steps") or {}).get("input")
+            if ms is not None:
+                by["s0" if st["stage"] == 0 else "later"].append(ms)
+    return {k: {"n": len(v), "median": statistics.median(v) if v else None}
+            for k, v in by.items()}
 
 
 def stage_enqueues(parts: dict) -> dict:
@@ -5510,7 +5552,8 @@ def drill_repeats(torch, arch: str, repeats: int) -> int:
 def serve_repeats(torch, arch: str, repeats: int, trace: bool) -> int:
     """``--serve ARCH``: only ``arch``'s serving phase, ``repeats`` times
     in this process, each followed by the card's clocks, power and
-    throttle reasons; a summary line last. For runs of one tree against
+    throttle reasons, the last by the profile of a decode step or of each
+    CNN stage; a summary line last. For runs of one tree against
     another (copy this script into the other checkout and run it there
     too): HP misses, stage device intervals, and with ``--trace`` what
     the card did during each run."""
@@ -5526,26 +5569,33 @@ def serve_repeats(torch, arch: str, repeats: int, trace: bool) -> int:
     SERVED.clear()
     for i in range(repeats):
         failures = []
-        served = len(SERVED)
-        # after the run, where each stage's (or decode step's) time goes
+        # after the last run, where each stage's (or decode step's) time
+        # goes: a ``torch.profiler`` session leaves the process's graph
+        # launches slower after it (on the H100 machine a served smollm
+        # stage's launch 30 -> 200 µs, its device ms a job +0.8), so no
+        # run is served after one
+        last = i == repeats - 1
         if arch in CNN_WIDTHS:
             spec = cnn_serving_phase(torch, failures, arch, trace=trace)
-            rows = cnn_stage_profile(torch, spec)[0]
-            emit({"cnn_stage_profile": {"model": arch, "stages": rows}})
-            # each stage's served device ms over its device ms alone (both
-            # between the stage graph's own event nodes)
-            alone = {r["stage"]: r.get("device_alone_ms") for r in rows}
-            if len(SERVED) > served:
-                SERVED[-1]["device_vs_alone"] = {
-                    k: v / alone[k] for k, v in
-                    SERVED[-1]["stage_device_ms"].items() if alone.get(k)}
+            if last:
+                rows = cnn_stage_profile(torch, spec)[0]
+                emit({"cnn_stage_profile": {"model": arch, "stages": rows}})
+                # each stage's served device ms over its device ms alone
+                # (both between the stage graph's own event nodes)
+                alone = {r["stage"]: r.get("device_alone_ms") for r in rows}
+                for run in SERVED:
+                    run["device_vs_alone"] = {
+                        k: v / alone[k] for k, v in
+                        run["stage_device_ms"].items() if alone.get(k)}
         else:
             spec = serving_phase(torch, failures, arch, depth, jps, path,
                                  trace=trace,
                                  max_load=MOE_MAX_LOAD if heavy else None)[2]
-            emit({"decode_step_profile": {
-                "model": arch, **profile_step(torch, staged_step(spec)),
-                "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}})
+            if last:
+                emit({"decode_step_profile": {
+                    "model": arch, **profile_step(torch, staged_step(spec)),
+                    "peak_memory_gb": torch.cuda.max_memory_allocated()
+                    / 1e9}})
         del spec
         free_card(torch)
         try:
@@ -5597,6 +5647,14 @@ def serve_repeats(torch, arch: str, repeats: int, trace: bool) -> int:
         "stalls_by_run": [run["stalls"] for run in SERVED],
         "over_bound": [row for run in SERVED for row in run["over_bound"]
                        or ()],
+        # those jobs by their largest part and, of its stage, its largest
+        # step (of a ``prep`` part: of the steps before the start event);
+        # and each run's HP ``input`` step at stage 0 and at the later
+        # stages (median ms)
+        "over_bound_by": dict(collections.Counter(
+            f"{row['part']} {row['step']}" for run in SERVED
+            for row in run["over_bound"] or ())),
+        "hp_input_median_ms": [run["hp_input"] for run in SERVED],
         "gc_by_run": [run["gc"] for run in SERVED],
         # each run's HP responses by part, summed over its jobs
         "hp_parts_total_ms": [run["hp_parts_total_ms"] for run in SERVED]}})
@@ -5609,8 +5667,11 @@ def host_calls(torch, reps: int = 200) -> int:
     on a lane stream (median and p90 µs; the card is synchronized every
     50 calls so that no queue builds up): ResNet18's second stage program
     (width 64, 224 x 224) captured on that stream, its input and output,
-    and the events and contexts around them. The ``serving`` line's
-    ``enqueue`` steps are made of these calls."""
+    and the events and contexts around them; and a first stage's input
+    made anew for each job (``torch.zeros``, and its ``torch.empty`` and
+    ``zero_`` apart), as the backend once made it, right behind a launch of that
+    graph (not timed) on the same stream, and on another. The
+    ``serving`` line's ``enqueue`` steps are made of these calls."""
     from repro_torch.api import HP
     from repro_torch.kernels import _lib
     from repro_torch.models import BUILDERS
@@ -5624,9 +5685,11 @@ def host_calls(torch, reps: int = 200) -> int:
     shape = (CNN_BATCH, CNN_HW, CNN_HW, 3)
     rows = {}
 
-    def timed(name, fn):
+    def timed(name, fn, before=None):
         us = []
         for i in range(reps):
+            if before is not None:
+                before()
             t0 = time.perf_counter()
             fn()
             us.append((time.perf_counter() - t0) * 1e6)
@@ -5658,6 +5721,23 @@ def host_calls(torch, reps: int = 200) -> int:
               "graph's nodes set, one launch)",
               lambda: prog.prepare(x).issue(ev, ev2))
         timed("Event.query (done)", ev.query)
+        # a first stage's input as the served path made it: right behind
+        # the launch of a stage's graph on the same stream (the launch not
+        # timed), its allocation and its fill apart; and behind a launch
+        # on another stream
+        other = torch.cuda.Stream()
+        for name, fn in (("torch.zeros", lambda: torch.zeros(
+                             shape, device="cuda")),
+                         ("torch.empty", lambda: torch.empty(
+                             shape, device="cuda")),
+                         ("Tensor.zero_", buf.zero_)):
+            timed(f"{name} behind a pending graph launch (same stream)",
+                  fn, before=lambda: prog.prepare(x).issue(ev, ev2))
+        lane = (torch.cuda.current_device(), stream.cuda_stream)
+        with torch.cuda.stream(other):
+            timed("torch.zeros behind a pending graph launch (another "
+                  "stream)", lambda: torch.zeros(shape, device="cuda"),
+                  before=lambda: prog.prepare(x, lane=lane).issue(ev, ev2))
     torch.cuda.synchronize()
 
     def ctx():

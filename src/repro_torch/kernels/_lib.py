@@ -74,10 +74,12 @@ _SIGNATURES = {
                         _I, _I, _I, _P),
     # a stage program's graph (csrc/stage_burst.cu; no kernel): stream,
     # event, node out; stream, dst, src, bytes, node out; and stream,
-    # graph_exec, nodes, n_in, n_out, start, end, ptrs, bytes, stamps
+    # graph_exec, nodes, n_in, n_out, start, end, src_in, dst_in, src_out,
+    # out_base, out_off, bytes, last, stamps
     "repro_stage_capture_event": (_P, _P, _P),
     "repro_stage_capture_copy": (_P, _P, _P, _LL, _P),
-    "repro_stage_launch": (_P, _P, _P, _I, _I, _P, _P, _P, _P, _P),
+    "repro_stage_launch": (_P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P,
+                           _P, _P, _P),
 }
 
 _lock = threading.Lock()

@@ -19,7 +19,9 @@
 // repro_stage_capture_event records an event as an event record node,
 // repro_stage_capture_copy enqueues a device-to-device copy as a memcpy
 // node; each returns the node it added. Launch: repro_stage_launch sets
-// the two event nodes' events and the copy nodes' pointers, then launches,
+// the event nodes' events and the copy nodes' pointers that differ from
+// what the executable graph holds (a node update is a driver call of a
+// few microseconds), then launches,
 // and stamps the wall clock (CLOCK_MONOTONIC, which Python's
 // time.perf_counter reads, in seconds) after the updates and after the
 // launch: a step that takes a millisecond names the driver call that
@@ -72,31 +74,48 @@ extern "C" int repro_stage_capture_copy(void* stream, void* dst,
 }
 
 // nodes: the start and end event nodes, then the n_in copies in and the
-// n_out copies out. ptrs: the n_in inputs' sources, their n_in static
-// destinations, the n_out static outputs, their n_out destinations;
-// bytes: the n_in inputs' then the n_out outputs' sizes. stamps: 2 wall
-// seconds. Returns the first CUDA error; nothing is launched after one.
+// n_out copies out. src_in: this call's n_in input sources; dst_in: the
+// static inputs; src_out: the n_out static outputs, whose destinations are
+// out_base + out_off[i]; bytes: the n_in inputs' then the n_out outputs'
+// sizes. last: what each node of the executable graph holds now (its
+// event, its copy's source in, its copy's destination out), kept by the
+// caller from the capture on: a node whose value is the call's is left as
+// it is (the same ring pair, the same input, the same output block), so a
+// call sets only what moved. stamps: 2 wall seconds. Returns the first
+// CUDA error; nothing is launched after one.
 extern "C" int repro_stage_launch(void* stream, void* graph_exec,
                                   void* const* nodes, int n_in, int n_out,
-                                  void* start, void* end, void* const* ptrs,
-                                  const long long* bytes, double* stamps) {
+                                  void* start, void* end,
+                                  void* const* src_in, void* const* dst_in,
+                                  void* const* src_out, char* out_base,
+                                  const long long* out_off,
+                                  const long long* bytes, void** last,
+                                  double* stamps) {
   cudaGraphExec_t g = static_cast<cudaGraphExec_t>(graph_exec);
-  cudaError_t err = cudaGraphExecEventRecordNodeSetEvent(
-      g, static_cast<cudaGraphNode_t>(nodes[0]),
-      static_cast<cudaEvent_t>(start));
-  if (err == cudaSuccess)
+  cudaError_t err = cudaSuccess;
+  void* const events[2] = {start, end};
+  for (int i = 0; i < 2 && err == cudaSuccess; ++i) {
+    if (last[i] == events[i]) continue;
     err = cudaGraphExecEventRecordNodeSetEvent(
-        g, static_cast<cudaGraphNode_t>(nodes[1]),
-        static_cast<cudaEvent_t>(end));
-  for (int i = 0; i < n_in && err == cudaSuccess; ++i)
+        g, static_cast<cudaGraphNode_t>(nodes[i]),
+        static_cast<cudaEvent_t>(events[i]));
+    if (err == cudaSuccess) last[i] = events[i];
+  }
+  for (int i = 0; i < n_in && err == cudaSuccess; ++i) {
+    if (last[2 + i] == src_in[i]) continue;
     err = cudaGraphExecMemcpyNodeSetParams1D(
-        g, static_cast<cudaGraphNode_t>(nodes[2 + i]), ptrs[n_in + i],
-        ptrs[i], bytes[i], cudaMemcpyDeviceToDevice);
-  void* const* out = ptrs + 2 * n_in;
-  for (int i = 0; i < n_out && err == cudaSuccess; ++i)
+        g, static_cast<cudaGraphNode_t>(nodes[2 + i]), dst_in[i], src_in[i],
+        bytes[i], cudaMemcpyDeviceToDevice);
+    if (err == cudaSuccess) last[2 + i] = src_in[i];
+  }
+  for (int i = 0; i < n_out && err == cudaSuccess; ++i) {
+    void* dst = out_base + out_off[i];
+    if (last[2 + n_in + i] == dst) continue;
     err = cudaGraphExecMemcpyNodeSetParams1D(
-        g, static_cast<cudaGraphNode_t>(nodes[2 + n_in + i]), out[n_out + i],
-        out[i], bytes[n_in + i], cudaMemcpyDeviceToDevice);
+        g, static_cast<cudaGraphNode_t>(nodes[2 + n_in + i]), dst, src_out[i],
+        bytes[n_in + i], cudaMemcpyDeviceToDevice);
+    if (err == cudaSuccess) last[2 + n_in + i] = dst;
+  }
   stamp(stamps);
   if (err == cudaSuccess)
     err = cudaGraphLaunch(g, static_cast<cudaStream_t>(stream));

@@ -442,17 +442,51 @@ class SimBackend:
             self._heap = live
 
 
+class _ZeroInputs:
+    """The default input: image-shaped zeros matching the staged-CNN payload
+    convention, ``batch x n_inputs`` of them a job (a dynamically batched
+    job widens the leading axis by ``n_inputs`` so the whole batch rides
+    through the staged payload in one dispatch). Made once before the clock
+    starts (``make``: one block on the backend's device, its fill
+    synchronized, a view a leading size) and shared read-only by every job,
+    as the reference's ``np.zeros`` of each job hold the same values: a
+    stage program only copies its input into its static input. A job of a
+    size not made raises: nothing is allocated after the clock starts."""
+
+    def __init__(self, input_hw: int, batch: int,
+                 device: torch.device) -> None:
+        self.hw, self.batch, self.device = input_hw, batch, device
+        self.made: Dict[int, torch.Tensor] = {}
+        self.blocks = 0               # blocks made (one a ``make`` at most)
+
+    def make(self, sizes) -> None:
+        """A zero input for each leading size (``n_inputs``) in ``sizes``
+        not made yet."""
+        new = [n for n in sizes if n not in self.made]
+        if not new:
+            return
+        block = torch.zeros((self.batch * max(new), self.hw, self.hw, 3),
+                            dtype=torch.float32, device=self.device)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.blocks += 1
+        for n in new:
+            self.made[n] = block[:self.batch * n]
+
+    def __call__(self, job: Job) -> torch.Tensor:
+        x = self.made.get(job.n_inputs)
+        if x is None:
+            raise RuntimeError(
+                f"no zero input of {job.n_inputs} inputs was made before "
+                f"the clock started (made: {sorted(self.made)})")
+        return x
+
+
 def _default_input_factory(input_hw: int, batch: int,
-                           device: torch.device) -> Callable[[Job], object]:
-    """Image-shaped zero input matching the staged-CNN payload convention,
-    made on the backend's device (on the card under the lane's stream,
-    where ``_stage_input`` calls it). A dynamically batched job widens the leading axis by
-    ``n_inputs`` so the whole batch rides through the staged payload in
-    one dispatch."""
-    def make(job: Job):
-        return torch.zeros((batch * job.n_inputs, input_hw, input_hw, 3),
-                           dtype=torch.float32, device=device)
-    return make
+                           device: torch.device) -> _ZeroInputs:
+    """The reference's default input (``np.zeros`` a job), made before the
+    clock starts (``_ZeroInputs``)."""
+    return _ZeroInputs(input_hw, batch, device)
 
 
 class _WorkerPool:
@@ -609,20 +643,28 @@ class _EngineClock:
 class _StreamUse:
     """``stream`` current for the block and the stream current before it
     restored: ``torch.cuda.stream``'s work without its device checks (the
-    seam's streams are all on its one device), made once a stream."""
+    seam's streams are all on its one device), made once a stream, by the
+    two calls into PyTorch's C module that ``current_stream`` and
+    ``set_stream`` wrap (without the ``Stream`` object each builds)."""
 
-    __slots__ = ("stream", "prev")
+    __slots__ = ("ids", "prev")
 
     def __init__(self, stream) -> None:
-        self.stream, self.prev = stream, []
+        self.ids = (stream.stream_id, stream.device_index,
+                    stream.device_type)
+        self.prev = []
 
     def __enter__(self):
-        self.prev.append(torch.cuda.current_stream())
-        torch.cuda.set_stream(self.stream)
+        stream_id, index, kind = self.ids
+        self.prev.append(torch._C._cuda_getCurrentStream(index))
+        torch._C._cuda_setStream(stream_id=stream_id, device_index=index,
+                                 device_type=kind)
         return self
 
     def __exit__(self, *exc) -> None:
-        torch.cuda.set_stream(self.prev.pop())
+        stream_id, index, kind = self.prev.pop()
+        torch._C._cuda_setStream(stream_id=stream_id, device_index=index,
+                                 device_type=kind)
 
 
 class CudaSeam:
@@ -835,9 +877,12 @@ class RealtimeBackend:
                  device=None):
         from ..device import resolve_device
         self.device = resolve_device(device)
-        self.input_factory = (input_factory
-                              or _default_input_factory(input_hw, batch,
-                                                        self.device))
+        # the default input, made at ``start`` (None: the caller's factory,
+        # called for each job)
+        self._zeros = (None if input_factory is not None
+                       else _default_input_factory(input_hw, batch,
+                                                   self.device))
+        self.input_factory = input_factory or self._zeros
         self.ctx_devices: Dict[int, object] = dict(ctx_devices or {})
         self.resharded = 0
         self.warm_s = 0.0          # wall seconds of the lanes' warm-up
@@ -922,6 +967,8 @@ class RealtimeBackend:
 
     def start(self) -> None:
         before = stage_graphs.snapshot()
+        if self._zeros is not None:
+            self._zeros.make(self._input_sizes())
         if self._seam is None:
             self._ensure_pool()
         else:
@@ -943,6 +990,12 @@ class RealtimeBackend:
                 self._anchor_events[:ANCHOR_TRIES], self._ms)]
         self._clock.stalls.clear()
         self._clock.restart()
+
+    def _input_sizes(self) -> range:
+        """The leading sizes (``n_inputs``) a job of this run can have:
+        up to the batching policy's ``max_batch``, else 1."""
+        policy = self.core.sched.cfg.batch_policy
+        return range(1, (policy.max_batch if policy is not None else 1) + 1)
 
     def _planned_lanes(self) -> int:
         """The most lanes live at once under the run's own fault plan:
@@ -1346,9 +1399,9 @@ class RealtimeBackend:
 
     def _stage_input(self, inst: StageInstance, lane: tuple):
         """On the engine thread: the job's inter-stage state (moved to this
-        lane's context if it was produced elsewhere), or a fresh input for
-        its first stage, made on the current stream (on the card the
-        lane's)."""
+        lane's context if it was produced elsewhere), or its first stage's
+        input: the caller's factory's, made on the current stream (on the
+        card the lane's), or the default one made before the clock."""
         x = self._job_state.get(inst.job.job_id)
         if inst.profile.payload is None:
             return x              # a synthetic stage hands its state on

@@ -28,7 +28,7 @@ import torch
 from ..core.task import StageProfile, TaskSpec
 from ..device import DeviceLike, resolve_device, synchronize
 from ..models.cnn import StagedCNN
-from .stage_graph import StageProgram
+from .stage_graph import Constant, StageProgram
 from .staging import make_lm_stage_fns, slice_cache
 
 __all__ = ["LmStage", "lm_stage", "staged_cnn_taskspec", "staged_lm_taskspec"]
@@ -93,7 +93,7 @@ def staged_cnn_taskspec(model: StagedCNN, *, priority: int, jps: float,
                     priority=priority, stages=stages, batch=batch)
 
 
-def _lm_inputs(state, stage: int, donor_slice: dict, fresh: torch.Tensor):
+def _lm_inputs(state, stage: int, donor_slice, fresh: torch.Tensor):
     """A staged LM state (a fresh job's made from ``fresh``) and stage
     ``stage``'s cache slice: the job's own where it has one, else the
     donor's."""
@@ -103,9 +103,9 @@ def _lm_inputs(state, stage: int, donor_slice: dict, fresh: torch.Tensor):
     return state, (donor_slice if sl is None else sl)
 
 
-def _lm_output(state: dict, stage: int, out) -> dict:
+def _lm_output(slices: dict, stage: int, out) -> dict:
     h, new_sl = out
-    return {"hidden": h, "slices": {**state["slices"], stage: new_sl}}
+    return {"hidden": h, "slices": {**slices, stage: new_sl}}
 
 
 def lm_stage(state, *, stage: int, program, donor_slice: dict,
@@ -116,22 +116,34 @@ def lm_stage(state, *, stage: int, program, donor_slice: dict,
     through ``program``; the updated slice joins the job's state, so a
     migration moves hidden AND cache."""
     state, sl = _lm_inputs(state, stage, donor_slice, fresh)
-    return _lm_output(state, stage, program(state["hidden"], sl))
+    return _lm_output(state["slices"], stage, program(state["hidden"], sl))
 
 
 class LmStage(functools.partial):
-    """A staged LM payload, ``functools.partial(lm_stage, ...)``, whose
-    ``prepare`` resolves its program's call on a state with ``lm_stage``'s
-    dict work before it and after it (``StageCall.then``): the realtime
-    backend enqueues its device work alone between the stage's events."""
+    """A staged LM payload, ``functools.partial(lm_stage, ...)`` whose
+    program is a ``StageProgram``: its donor slice is resolved once (a
+    ``Constant``), and a call (``prepare``, which the realtime backend
+    enqueues alone between the stage's events, or the payload called)
+    takes the job's hidden state and that, with ``lm_stage``'s dict work
+    before it and after it (``StageCall.then``)."""
+
+    def __new__(cls, *args, **keywords):
+        self = super().__new__(cls, *args, **keywords)
+        if "donor_slice" in self.keywords:    # not so as a copy is restored
+            self.donor = Constant(self.keywords["donor_slice"])
+        return self
 
     def prepare(self, state, lane=None):
         kw = self.keywords
-        state, sl = _lm_inputs(state, kw["stage"], kw["donor_slice"],
-                               kw["fresh"])
+        state, sl = _lm_inputs(state, kw["stage"], self.donor, kw["fresh"])
         return kw["program"].prepare(
             state["hidden"], sl, lane=lane,
-            then=functools.partial(_lm_output, state, kw["stage"]))
+            then=functools.partial(_lm_output, state["slices"], kw["stage"]))
+
+    def __call__(self, state):
+        call = self.prepare(state)
+        call.issue()
+        return call.result()
 
 
 def staged_lm_taskspec(model, *, priority: int, jps: float,

@@ -12,8 +12,10 @@ The lanes are the process's (``lane``): each holds one lock, the static
 inputs a signature, and on the card one CUDA-graph memory pool, all of
 which every program that runs on that lane shares, as XLA plans one arena
 an executable. A lane lives as long as a program keeps state on it. A call
-is resolved first (``prepare``: its signature, its lane's static entry,
-on the card the tensors its outputs land in), then issues three steps
+is resolved first (``prepare``: its signature, which is its one check of
+its arguments, the structure and each tensor's shape, dtype, device and
+strides; its lane's static entry of that signature; on the card its
+output block), then issues three steps
 under its lane's lock, so that no other call on the lane (another
 program's, or a watchdog's ghost worker beside a new launch) comes between
 them (``StageCall.issue``):
@@ -32,11 +34,18 @@ graph itself, between a start and an end event node
 (``kernels/csrc/stage_burst.cu``): a call points the copy nodes at its
 tensors and the event nodes at the events its caller hands it, and
 launches the graph, one burst of driver calls, so the events bracket the
-device's work and no host time. An argument laid out otherwise than its
-static input (the same shape, other strides) is first copied by PyTorch
-into one laid out alike; an output that is not one dense block (which a
-copy node cannot read) is made contiguous inside the graph before its
-copy, as ``clone`` would return it; an empty tensor takes no node.
+device's work and no host time. A non-dense argument, whose static input
+is dense, is first copied by PyTorch into one laid out alike; an output
+that is not one dense block (which a copy node cannot read) is made
+contiguous inside the graph before its copy, as ``clone`` would return
+it; an empty tensor takes no node. What repeats from call to call is laid
+out once an entry (``_Burst``): the static ends of the copies, where
+each output lands in the call's one output block (its outputs are views
+of it, which the job's state holds), the output's tree, and what each
+node of the executable graph holds, so that a call sets only the nodes
+whose event or pointer moved. An argument that the calls share unchanged
+(an LM stage's donor cache slice) is wrapped once in a ``Constant``,
+which the signature takes by its identity: a call walks none of it.
 
 A graph captured after another into the lane's pool may keep its outputs
 in what was the other's scratch, and the programs of one signature read
@@ -71,7 +80,8 @@ from torch.utils._pytree import tree_flatten, tree_unflatten
 
 from ..kernels import _lib
 
-__all__ = ["Lane", "StageProgram", "lane", "pool_reserved_bytes"]
+__all__ = ["Constant", "Lane", "StageProgram", "lane",
+           "pool_reserved_bytes"]
 
 # one capture at a time in the process: a lane made after the run started
 # captures while the others replay, and ``torch.cuda.graph`` empties the
@@ -148,14 +158,33 @@ def pool_reserved_bytes(pools) -> int:
                if tuple(seg.get("segment_pool_id", ())) in ids)
 
 
+class Constant:
+    """A tree of tensors that a program's calls take unchanged (an LM
+    stage's donor cache slice), resolved once: its leaves flattened and
+    checked against the static inputs at its first call on a lane, and
+    keyed by its identity, so that no call walks it again. Its tensors
+    keep their storage and layout while it lives; their values may
+    change (each call copies them in anew)."""
+
+    __slots__ = ("tree", "leaves")
+
+    def __init__(self, tree) -> None:
+        self.tree = tree
+        self.leaves = tree_flatten(tree)[0]
+
+
 def _signature(tree, leaves: list):
     """Append ``tree``'s leaves to ``leaves`` in ``tree_flatten``'s order
-    (dicts in insertion order, None a node with none) and return a
-    hashable key of its structure and of each tensor's shape, dtype and
-    device, built without string work."""
+    (dicts in insertion order, None a node with none; a ``Constant``'s
+    as its tree's) and return a hashable key of its structure and of each
+    tensor's shape, dtype, device and strides (a ``Constant`` by its
+    identity), built without string work."""
     if isinstance(tree, torch.Tensor):
         leaves.append(tree)
-        return tree.shape, tree.dtype, tree.device
+        return tree.shape, tree.dtype, tree.device, tree.stride()
+    if type(tree) is Constant:
+        leaves += tree.leaves
+        return tree
     if isinstance(tree, dict):
         return dict, tuple(tree), tuple(_signature(v, leaves)
                                         for v in tree.values())
@@ -164,6 +193,44 @@ def _signature(tree, leaves: list):
     if tree is not None:
         leaves.append(tree)
     return type(tree)
+
+
+def _expand(tree):
+    """``tree`` with each ``Constant`` replaced by its tree."""
+    if type(tree) is Constant:
+        return tree.tree
+    if isinstance(tree, dict):
+        return {k: _expand(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_expand(v) for v in tree)
+    return tree
+
+
+class _Leaf:
+    """A leaf's place in a tree's skeleton (``_builder``)."""
+
+
+def _builder(tree):
+    """A function of an iterator over the leaves of trees shaped as
+    ``tree`` (its leaves ``_Leaf``s, in ``tree_flatten``'s order) that
+    returns such a tree: ``tree_unflatten`` made once a structure,
+    without its checks."""
+    if isinstance(tree, _Leaf):
+        return next
+    if tree is None:
+        return lambda it: None
+    if type(tree) in (tuple, list, dict):
+        kids = [_builder(v) for v in (tree.values() if type(tree) is dict
+                                      else tree)]
+        if type(tree) is tuple:
+            return lambda it: tuple([k(it) for k in kids])
+        if type(tree) is list:
+            return lambda it: [k(it) for k in kids]
+        keys = list(tree)
+        return lambda it: {key: k(it) for key, k in zip(keys, kids)}
+    leaves, spec = tree_flatten(tree)
+    n = len(leaves)
+    return lambda it: tree_unflatten([next(it) for _ in range(n)], spec)
 
 
 def _dense(t: torch.Tensor) -> bool:
@@ -254,7 +321,9 @@ class _Graph:
                       for o, t in zip(leaves, ends[1]) if o.nbytes]
             nodes[1] = _capture_event(side, events[1])
         self.graph.instantiate()
-        self.burst = _Burst(self.graph, nodes, events, self.inputs, leaves)
+        self.burst = _Burst(_lib.lib().repro_stage_launch,
+                            self.graph.raw_cuda_graph_exec(), nodes, events,
+                            self.inputs, leaves, spec, ends)
         return tree_unflatten(leaves, spec)
 
     def counted(self) -> None:
@@ -280,57 +349,87 @@ def _capture_copy(stream: int, dst: torch.Tensor, src: torch.Tensor) -> int:
 
 class _Burst:
     """On the card: a call of a graph that holds its copies and events,
-    as one C call (``repro_stage_launch``) on the lane's stream: the event
-    nodes set to the call's events, the copy nodes to its tensors (an
-    empty one has none), then the launch; each step stamped on the host's
-    wall clock (``STEPS``)."""
+    as one C call (``repro_stage_launch``) on the lane's stream. What does
+    not change from call to call is laid out once: the static inputs'
+    and outputs' pointers, the copies' sizes, where each output lands in
+    the call's one output block (256-byte aligned, in the static outputs'
+    layouts; a single output is a tensor like its static one), the
+    output's tree, and what each node of the executable graph holds now
+    (``last``: the C call sets only the nodes whose event or pointer
+    moved). A call writes its inputs' pointers and hands over its block;
+    each step is stamped on the host's wall clock (``STEPS``)."""
 
     STEPS = ("nodes", "launch")
 
-    def __init__(self, graph, nodes: list, events: list, inputs: list,
-                 outs: list) -> None:
-        self.run = _lib.lib().repro_stage_launch
-        self.exec = graph.raw_cuda_graph_exec()
+    def __init__(self, launch, graph_exec, nodes: list, events: list,
+                 inputs: list, outs: list, spec, ends: tuple) -> None:
+        self.run, self.exec = launch, graph_exec
         self.events = events                  # a call handed none takes these
         self.nodes = (ctypes.c_void_p * len(nodes))(*nodes)
         self.outs = outs
-        self.strides = [s.stride() for s in inputs]
-        self.copied = ([i for i, s in enumerate(inputs) if s.nbytes],
-                       [i for i, o in enumerate(self.outs) if o.nbytes])
-        ins = [inputs[i] for i in self.copied[0]]
-        outs = [self.outs[i] for i in self.copied[1]]
-        self.fixed = ([s.data_ptr() for s in ins],
-                      [o.data_ptr() for o in outs])
-        sizes = [t.nbytes for t in (*ins, *outs)]
-        self.bytes = (ctypes.c_longlong * len(sizes))(*sizes)
-        self.n_in, self.n_out = len(ins), len(outs)
-        self.ptrs = ctypes.c_void_p * (2 * len(sizes))
+        self.copied = [i for i, s in enumerate(inputs) if s.nbytes]
+        c_out = [i for i, o in enumerate(outs) if o.nbytes]
+        self.n_in, self.n_out = len(self.copied), len(c_out)
+
+        def array(kind, vals):
+            return (kind * max(len(vals), 1))(*vals)
+        self.src = array(ctypes.c_void_p, [0] * self.n_in)
+        self.dst = array(ctypes.c_void_p,
+                         [inputs[i].data_ptr() for i in self.copied])
+        self.src_out = array(ctypes.c_void_p,
+                             [outs[i].data_ptr() for i in c_out])
+        self.bytes = array(ctypes.c_longlong,
+                           [inputs[i].nbytes for i in self.copied]
+                           + [outs[i].nbytes for i in c_out])
+        # the nodes' values from the capture (its events, and the other
+        # ends of its copies)
+        self.last = array(ctypes.c_void_p, [
+            e.cuda_event for e in events]
+            + [ends[0][i].data_ptr() for i in self.copied]
+            + [ends[1][i].data_ptr() for i in c_out])
+        self.single = spec.is_leaf()
+        offsets, self.total = [], 0
+        for o in outs:
+            offsets.append(self.total)
+            self.total += -(-o.nbytes // 256) * 256
+        self.out_off = array(ctypes.c_longlong, [0] if self.single else
+                             [offsets[i] for i in c_out])
+        self.device = outs[0].device if outs else None
+        self.recipe = [(o.dtype, o.shape, o.stride(), off // o.itemsize)
+                       for o, off in zip(outs, offsets)]
+        self.dtypes = list(dict.fromkeys(o.dtype for o in outs))
+        self.build = _builder(tree_unflatten(
+            [_Leaf() for _ in outs], spec))
         # the launch's stamps: one call at a time a lane, under its lock
         self.stamps = (ctypes.c_double * len(self.STEPS))()
 
-    def args(self, flat: list, inputs: list):
-        """One call's pointers, the tensors its outputs land in (made here
-        on the current stream) and its arguments, of which one whose
-        strides differ from its static input's is first copied by PyTorch
-        into one laid out alike (held by the call)."""
-        held = flat
-        if any(t.stride() != s for t, s in zip(flat, self.strides)):
-            held = [t if t.stride() == s.stride() else torch.empty_strided(
-                s.shape, s.stride(), dtype=s.dtype, device=s.device).copy_(t)
-                for t, s in zip(flat, inputs)]
-        outs = [torch.empty_like(o) for o in self.outs]
-        (c_in, c_out), (dst_in, src_out) = self.copied, self.fixed
-        return self.ptrs(*[held[i].data_ptr() for i in c_in], *dst_in,
-                         *src_out, *[outs[i].data_ptr() for i in c_out]), \
-            outs, held
+    def block(self) -> torch.Tensor:
+        """One call's output block, made on the current stream."""
+        if self.single:
+            return torch.empty_like(self.outs[0])
+        return torch.empty(self.total, dtype=torch.uint8, device=self.device)
 
-    def issue(self, stream: int, ptrs, before, after, step) -> None:
+    def outputs(self, block: torch.Tensor):
+        """The call's output tree: views of its block."""
+        if self.single:
+            return block
+        by = {dt: block.view(dt) for dt in self.dtypes}
+        return self.build(iter([
+            torch.as_strided(by[dt], shape, stride, at)
+            for dt, shape, stride, at in self.recipe]))
+
+    def issue(self, stream: int, flat: list, block: torch.Tensor,
+              before, after, step) -> None:
         before, after = (before, after) if before is not None \
             else self.events
+        src = self.src
+        for k, i in enumerate(self.copied):
+            src[k] = flat[i].data_ptr()
         stamps = self.stamps
         err = self.run(stream, self.exec, self.nodes, self.n_in, self.n_out,
-                       before.cuda_event, after.cuda_event, ptrs,
-                       self.bytes, stamps)
+                       before.cuda_event, after.cuda_event, src, self.dst,
+                       self.src_out, block.data_ptr(), self.out_off,
+                       self.bytes, self.last, stamps)
         for name, wall in zip(self.STEPS, stamps):
             step(name, wall)
         _lib.check(err, "repro_stage_launch")
@@ -338,28 +437,39 @@ class _Burst:
 
 class _Static:
     """One program's static inputs on one lane (the lane's, shared with
-    its programs of that signature), and its run there; it keeps the lane,
-    which the registry holds only weakly."""
+    its programs of that structure), and its run there; it keeps the lane,
+    which the registry holds only weakly. ``relayout``: the arguments laid
+    out otherwise than their static inputs (a non-dense one), which the
+    card's copy nodes cannot read as they are."""
 
-    def __init__(self, lane: Lane, inputs: list, runner) -> None:
+    def __init__(self, lane: Lane, inputs: list, runner,
+                 relayout: list) -> None:
         self.lane, self.inputs, self.runner = lane, inputs, runner
+        self.relayout = relayout
 
 
 class StageCall:
     """One call of a stage program, resolved (``StageProgram.prepare``):
-    its static entry, its arguments flattened, on the card its burst's
-    pointers, output tensors and held inputs, and ``then``, applied to its
-    output."""
+    its static entry, its arguments flattened (on the card with a copy
+    laid out alike of each one ``relayout`` names, held by the call), on
+    the card its output block, and ``then``, applied to its output."""
 
-    __slots__ = ("static", "flat", "burst", "outs", "spec", "then")
+    __slots__ = ("static", "flat", "block", "outs", "spec", "then")
 
     def __init__(self, static: _Static, flat: list, then) -> None:
         self.static, self.flat, self.then = static, flat, then
         burst = static.runner.burst
-        self.burst = self.outs = self.spec = None
+        self.block = self.outs = self.spec = None
         if burst is not None:
-            self.burst, self.outs, self.flat = burst.args(flat, static.inputs)
-            self.spec = static.runner.flat[1]
+            if static.relayout:
+                flat = list(flat)
+                for i in static.relayout:
+                    s = static.inputs[i]
+                    flat[i] = torch.empty_strided(
+                        s.shape, s.stride(), dtype=s.dtype,
+                        device=s.device).copy_(flat[i])
+                self.flat = flat
+            self.block = burst.block()
 
     def issue(self, before=None, after=None, step=_no_step) -> None:
         """Under the lane's lock: ``before`` recorded on the current
@@ -370,9 +480,9 @@ class StageCall:
         st = self.static
         runner = st.runner
         with st.lane.lock:
-            if self.burst is not None:
-                runner.burst.issue(st.lane.key[1], self.burst, before, after,
-                                   step)
+            if self.block is not None:
+                runner.burst.issue(st.lane.key[1], self.flat, self.block,
+                                   before, after, step)
                 return
             if before is not None:
                 before.record()
@@ -390,9 +500,13 @@ class StageCall:
 
     def result(self):
         """The issued call's output (its launches counted)."""
-        self.static.runner.counted()
-        out = (self.outs[0] if self.spec.is_leaf()
-               else tree_unflatten(self.outs, self.spec))
+        runner = self.static.runner
+        runner.counted()
+        if self.block is not None:
+            out = runner.burst.outputs(self.block)
+        else:
+            out = (self.outs[0] if self.spec.is_leaf()
+                   else tree_unflatten(self.outs, self.spec))
         return out if self.then is None else self.then(out)
 
 
@@ -429,38 +543,50 @@ class StageProgram:
         ``lane`` where the caller knows it is current (the lane's static
         entry made, and on the card its graph captured, at the lane's
         first call of this signature); ``then`` is applied to its
-        output."""
+        output. The signature is the call's one check of its arguments:
+        one whose structure, shape, dtype, device or strides differ from
+        every entry's takes an entry of its own."""
         flat = []
         sig = _signature(args, flat)
+        key = (self._lane_of(self._device(flat)) if lane is None else lane,
+               sig)
+        st = self._lanes.get(key)
+        if st is None:
+            st = self._static(key, args, flat)
+        return StageCall(st, flat, then)
+
+    def _device(self, flat: list) -> torch.device:
+        """The arguments' device, once they are found to be tensors."""
         if not flat or not all(isinstance(t, torch.Tensor) for t in flat):
             raise TypeError(f"stage program {self.name!r} takes tensors "
                             f"only, got {[type(t).__name__ for t in flat]}")
-        dev = flat[0].device
-        key = (self._lane_of(dev) if lane is None else lane, sig)
-        st = self._lanes.get(key)
-        if st is None:
-            st = self._static(key, args, flat, dev)
-        return StageCall(st, flat, then)
+        return flat[0].device
 
-    def _static(self, key, args: tuple, flat: list, dev) -> _Static:
-        """The lane's static entry of ``key``, made at its first call."""
+    def _static(self, key, args: tuple, flat: list) -> _Static:
+        """The lane's static entry of ``key``, made at its first call:
+        static inputs shared with the lane's programs of the same
+        structure (a ``Constant``'s by its tree's)."""
+        dev = self._device(flat)
         ln = lane(key[0])
         with ln.lock:
             with self._lock:
                 st = self._lanes.get(key)
             if st is not None:
                 return st
-            leaves, spec = tree_flatten(args)
+            tree = _expand(args)
+            leaves, spec = tree_flatten(tree)
             if len(leaves) != len(flat) or any(
                     a is not b for a, b in zip(leaves, flat)):
                 raise TypeError(f"stage program {self.name!r}: its "
                                 f"arguments flatten in another order "
                                 f"than tree_flatten's")
-            inputs = ln.static_inputs(key[1], flat)
+            inputs = ln.static_inputs(_signature(tree, []), flat)
             for s, t in zip(inputs, flat):
                 s.copy_(t)
             st = _Static(ln, inputs, self._runner(dev)(
-                self.fn, tree_unflatten(list(inputs), spec), ln, inputs))
+                self.fn, tree_unflatten(list(inputs), spec), ln, inputs),
+                [i for i, (s, t) in enumerate(zip(inputs, flat))
+                 if s.stride() != t.stride()])
             with self._lock:
                 self._lanes[key] = st
             return st

@@ -311,9 +311,9 @@ def test_a_stage_call_on_the_card_is_one_launch_between_its_events():
     ``nodes``, ``launch``), the events time the graph's work, and the
     outputs equal the eager stage's on the same inputs, call after call
     with new tensors (no call reads another's); an argument laid out
-    otherwise than its static input is copied alike first; an output that
-    is not one dense block comes out contiguous, as ``clone`` gives it,
-    and an empty one empty."""
+    otherwise (the same shape, other strides) takes an entry of its own;
+    an output that is not one dense block comes out contiguous, as
+    ``clone`` gives it, and an empty one empty."""
     _need_cuda()
     from repro_torch.serving.stage_graph import StageProgram
     w = torch.randn(64, 64, device="cuda")
@@ -469,6 +469,95 @@ def test_a_served_run_keeps_one_graph_pool_a_lane():
     assert g["replays"] == g["stage_runs"] > 0
     assert g["run_pools"] == 4 and g["pools"] == 5 and g["pool_gb"] > 0
     parts = srv.backend.hp_response_parts()
+    assert parts["jobs"] == len(m.response_ms[api.HP])
+    assert parts["sum_err_ms"] <= 0.01
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["resnet18", "smollm-135m"])
+def test_served_stages_equal_the_functional_stages_with_inputs_made_ahead(
+        name):
+    """ResNet18 at width 8 and staged smollm-135m (reduced, 8 layers,
+    bf16) served on 2 x 2 lanes, the default input made before the clock
+    and each call resolved from its program's plan: every harvested
+    stage's output equals its functional stage on the same input (the LM
+    bit for bit, the CNN within 2e-4 of the scale), each job's first
+    stage took the one zero input made at the start, which stays zeros;
+    one graph pool a lane; no CUDA event made and no driver allocation
+    after the clock started; each HP job's parts sum to its response."""
+    _need_cuda()
+    import functools
+
+    from repro_torch.kernels import reset_counts
+    from repro_torch.serving.engine import lm_stage
+    reset_counts()
+    tasks = ((api.HP, "-hp"), (api.LP, "-lp"))
+    if name == "resnet18":
+        model = BUILDERS[name](width=8)
+        specs = [staged_cnn_taskspec(model, priority=p, jps=20.0,
+                                     input_hw=64, tag=tag)
+                 for p, tag in tasks]
+    else:
+        model = build_model(get_reduced(name).replace(n_layers=8,
+                                                      dtype="bfloat16"))
+        specs = [staged_lm_taskspec(model, priority=p, jps=40.0, batch=2,
+                                    tag=tag) for p, tag in tasks]
+    cfg = (api.ServerConfig.realtime().tasks(specs).contexts(2).streams(2)
+           .oversubscribe(2.0).device(api.DeviceModel(n_units=2.0))
+           .horizon_ms(800.0))
+    if name == "resnet18":
+        cfg = cfg.realtime_io(input_hw=64)
+    srv = cfg.build()
+    be = srv.backend
+    taken, pairs, at_start = {}, [], {}
+    stage_input, harvest, start = be._stage_input, be._harvest, be.start
+
+    def take(inst, lane):
+        x = stage_input(inst, lane)
+        job = inst.job
+        taken[(job.job_id, job.stage_idx)] = (inst.profile.payload, x)
+        return x
+
+    def harvested(rec):
+        c = harvest(rec)
+        job = rec.inst.job
+        got = taken.pop((job.job_id, job.stage_idx), None)
+        if c is not None and not rec.failed and len(pairs) < 96:
+            pairs.append((job.stage_idx, *got, be._job_state[job.job_id]))
+        return c
+
+    def started():
+        start()
+        at_start.update(torch.cuda.memory_stats())
+    be._stage_input, be._harvest, be.start = take, harvested, started
+    m = srv.run()
+    torch.cuda.synchronize()
+    stats = torch.cuda.memory_stats()
+    assert m.completed[api.HP] > 0 and be.worker_exceptions == 0
+    zero = be._zeros.made[1]
+    assert be._zeros.blocks == 1 and not zero.any()
+    assert {k for k, *_ in pairs} == set(range(len(specs[0].stages)))
+    for stage, payload, x, out in pairs:
+        if stage == 0:
+            assert x is zero
+        if name == "resnet18":
+            ref = payload.functional(x)
+            scale = max(1.0, float(ref.abs().max()))
+            assert float((out - ref).abs().max()) <= 2e-4 * scale
+        else:
+            prog = payload.keywords["program"]
+            ref = functools.partial(lm_stage, **{
+                **payload.keywords, "program": prog.functional})(x)
+            a, b = _leaves(out), _leaves(ref)
+            assert len(a) == len(b)
+            assert all(torch.equal(u, v) for u, v in zip(a, b))
+    g = be.graph_summary()
+    assert g["replays"] == g["stage_runs"] > 0
+    assert g["run_pools"] == 4 and g["pools"] == 5
+    assert g["events_in_run"] == 0
+    for k in ("num_device_alloc", "num_alloc_retries"):
+        assert stats.get(k, 0) == at_start.get(k, 0), k
+    parts = be.hp_response_parts()
     assert parts["jobs"] == len(m.response_ms[api.HP])
     assert parts["sum_err_ms"] <= 0.01
 

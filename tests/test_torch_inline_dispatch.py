@@ -9,7 +9,9 @@ stand-in takes its place: a "stream" is the wall-clock instant its queued
 work ends, a payload adds its stage's ``t_alone`` to the current stream,
 and an event recorded on a stream completes when the stream's work
 before it has. The engine thread, the poll, the harvest and every stamp
-are the production code's.
+are the production code's. The default input is made once at the start,
+a leading size at a time, and shared by every job; a caller's factory is
+called for each.
 """
 import contextlib
 import threading
@@ -602,3 +604,105 @@ def test_a_stall_inside_a_step_is_named(where):
     assert row["cpu_ms"] <= before + 0.5 * row["wall_ms"]
     steps = list(be._enqueues)[-1][3]
     assert steps[where] >= 3.0
+
+
+# ------------------------------------------ the default input, made once
+def _recording_factory(factory, made):
+    def record(job):
+        x = factory(job)
+        made.append((job.job_id, job.n_inputs, x))
+        return x
+    return record
+
+
+def test_the_default_input_is_made_before_the_clock_once():
+    """The fixed-time scenario (at twice its times) with stage programs on
+    the stand-in seam and the default input: one block of zeros is made
+    at the start, before the warm-up, and nothing after; every job's
+    first stage (and each warm-up chain) takes that same tensor, which
+    is all zeros after the run; the decisions are the simulator's."""
+    sim = slowed(fixed_time(api)).build()
+    sim.run()
+    seam = WallSeam()
+    real = with_programs(slowed(fixed_time(api, realtime=True)),
+                         seam).build()
+    on_stand_in(real, seam)
+    be = real.backend
+    zeros, taken = be._zeros, []
+    assert zeros is not None and not zeros.made and zeros.blocks == 0
+    be.input_factory = _recording_factory(zeros, taken)
+    start = be.start
+    at_start = {}
+
+    def started():
+        start()
+        at_start.update(blocks=zeros.blocks, taken=len(taken))
+    be.start = started
+    real.run()
+    assert real.decisions == sim.decisions
+    assert at_start["blocks"] == zeros.blocks == 1
+    assert sorted(zeros.made) == [1]
+    x = zeros.made[1]
+    assert x.shape == (1, 64, 64, 3) and not x.any()
+    first = [r for r in be._enqueues if r[0] == 0]
+    assert at_start["taken"] > 0
+    assert len(taken) == at_start["taken"] + len(first) > at_start["taken"]
+    assert all(t is x for _, _, t in taken)
+
+
+def test_each_leading_size_is_made_once_and_another_raises():
+    """With batching up to 3 inputs a job, the start makes one zero input
+    a leading size (views of one block, its batch of 2 images an input);
+    a second start makes nothing; a job of 4 inputs, which the run cannot
+    form, raises at its input."""
+    spec = api.TaskSpec(name="t", period_ms=100.0, priority=api.HP,
+                        stages=[api.StageProfile("t/s0", 1.0, n_sat=1.0,
+                                                 mem_frac=0.0)])
+    spec.stages[0].payload = lambda x: x
+    srv = (api.ServerConfig.realtime(device="cpu").tasks([spec])
+           .contexts(1).streams(1).oversubscribe(1.0).batching(max_batch=3)
+           .device(api.DeviceModel(n_units=4.0))
+           .realtime_io(input_hw=5, batch=2).build())
+    be = srv.backend
+    be.bind(srv.core)
+    be.start()
+    be.stop()
+    zeros = be._zeros
+    assert sorted(zeros.made) == [1, 2, 3] and zeros.blocks == 1
+    for n, x in zeros.made.items():
+        assert x.shape == (2 * n, 5, 5, 3) and not x.any()
+        assert x.data_ptr() == zeros.made[3].data_ptr()
+    be.start()
+    be.stop()
+    assert zeros.blocks == 1
+    task = srv.scheduler.tasks[0]
+    wide = StageInstance(Job(task, 0.0, extra_release_ms=[1.0, 2.0, 3.0]),
+                         enqueue_ms=0.0, virtual_deadline_ms=100.0)
+    assert wide.job.n_inputs == 4
+    with pytest.raises(RuntimeError, match="no zero input of 4 inputs"):
+        be._stage_input(wide, (0, 0))
+    ok = StageInstance(Job(task, 0.0, extra_release_ms=[1.0]),
+                       enqueue_ms=0.0, virtual_deadline_ms=100.0)
+    assert be._stage_input(ok, (0, 0)) is zeros.made[2]
+
+
+def test_a_callers_input_factory_is_called_once_a_job():
+    """A factory the caller gives (``realtime_io(input_factory=...)``)
+    makes no default input and is called, as before, once for each warm-up
+    chain and once for each job's first stage, each time anew."""
+    seam, made = WallSeam(), []
+
+    def factory(job):
+        x = torch.zeros((1, 4))
+        made.append((job.job_id, x))
+        return x
+    cfg = with_programs(slowed(fixed_time(api, realtime=True)), seam)
+    real = cfg.realtime_io(input_factory=factory).build()
+    on_stand_in(real, seam)
+    be = real.backend
+    assert be._zeros is None
+    real.run()
+    first = [r for r in be._enqueues if r[0] == 0]
+    warm = [m for m in made if m[0] == -1]
+    assert warm and len(made) == len(warm) + len(first)
+    assert len({id(x) for _, x in made}) == len(made)

@@ -26,8 +26,17 @@ again) except the capture and replay calls themselves.
   one graph pool (``PooledCpuGraph``, with a stand-in pool handle).
 - A CPU ``RealtimeBackend`` run with real payloads splits every HP job's
   response into parts that sum to it (``hp_response_parts``).
+- The card's burst (``_Burst``: its static ends, the call's output block
+  and views, the nodes' values it keeps) on the CPU, with byte copies in
+  place of the C launch (``ByteGraph``): a repeated LM call takes its
+  entry's plan, walks no tree, makes one allocation and equals the
+  functional stages bit for bit; an argument of another shape, dtype or
+  layout takes an entry of its own (the byte copies would read a stale
+  plan's layout wrongly); a ``Constant`` is keyed by identity and copied
+  in anew.
 """
 import concurrent.futures
+import ctypes
 import functools
 import sys
 import threading
@@ -39,7 +48,7 @@ import pytest
 torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
-from torch.utils._pytree import tree_flatten  # noqa: E402
+from torch.utils._pytree import tree_flatten, tree_unflatten  # noqa: E402
 
 import repro.models.cnn as ref_cnn  # noqa: E402
 from repro.configs import get_reduced as jax_get_reduced  # noqa: E402
@@ -52,7 +61,8 @@ from repro_torch.kernels import KERNELS, _lib, reset_counts  # noqa: E402
 from repro_torch.models import (BUILDERS, build_model,  # noqa: E402
                                 cnn_params_from_jax, params_from_jax)
 from repro_torch.serving import stage_graph  # noqa: E402
-from repro_torch.serving.engine import (staged_cnn_taskspec,  # noqa: E402
+from repro_torch.serving.engine import (LmStage, lm_stage,  # noqa: E402
+                                        staged_cnn_taskspec,
                                         staged_lm_taskspec)
 
 LM_TOL = dict(rtol=1e-4, atol=1e-4)     # test_torch_model.py's
@@ -629,3 +639,190 @@ def test_a_repeated_call_builds_no_signature_string(monkeypatch):
     prog(torch.ones(4), s)                          # another shape
     assert len(prog._lanes) == 3
     assert len({id(st.inputs) for st in prog._lanes.values()}) == 3
+
+
+# ------------------------------------------ the card's burst, on the CPU
+class _Handle:
+    """An event as the burst hands it to its launch: its handle."""
+
+    def __init__(self):
+        self.cuda_event = id(self)
+
+
+class ByteGraph(stage_graph._Graph):
+    """The card's burst on the CPU: the call goes through ``_Burst`` as on
+    the card (its static ends, the call's output block and its views, the
+    nodes' values it keeps), and ``launch`` stands in for the C launch:
+    the node updates it would make (those whose value moved, recorded in
+    ``updates``), then byte copies in (``ctypes.memmove``, bytes and not
+    elements, as a copy node copies), the stage function on the static
+    inputs with its results written into the static outputs (uncounted,
+    as a replay), and byte copies out."""
+
+    def _capture(self, fn, args):
+        warm = tree_flatten(fn(*args))[0]
+        with _lib.recording() as self.log:
+            leaves, spec = tree_flatten(fn(*args))
+        self.static_out = [o if stage_graph._dense(o) else o.contiguous()
+                           for o in leaves]
+        self.fn, self.args, self.updates = fn, args, []
+        ends = ([torch.empty_like(t) for t in self.inputs],
+                [torch.empty_like(t) for t in warm])
+        n = 2 + sum(1 for t in (*self.inputs, *self.static_out) if t.nbytes)
+        self.burst = stage_graph._Burst(
+            self.launch, None, list(range(n)), [_Handle(), _Handle()],
+            self.inputs, self.static_out, spec, ends)
+        return tree_unflatten(self.static_out, spec)
+
+    def launch(self, stream, graph_exec, nodes, n_in, n_out, start, end,
+               src_in, dst_in, src_out, out_base, out_off, nbytes, last,
+               stamps):
+        values = ([start, end] + [src_in[i] for i in range(n_in)]
+                  + [out_base + out_off[i] for i in range(n_out)])
+        moved = [i for i, v in enumerate(values) if last[i] != v]
+        for i in moved:
+            last[i] = values[i]
+        self.updates.append(moved)
+        for i in range(n_in):
+            ctypes.memmove(dst_in[i], src_in[i], nbytes[i])
+        with _lib.recording():
+            new = tree_flatten(self.fn(*self.args))[0]
+        for s, t in zip(self.static_out, new):
+            s.copy_(t)
+        for i in range(n_out):
+            ctypes.memmove(out_base + out_off[i], src_out[i],
+                           nbytes[n_in + i])
+        stamps[0] = stamps[1] = time.perf_counter()
+        return 0
+
+
+class ByteProgram(stage_graph.StageProgram):
+    """A program on the emulated burst, a lane a thread keyed as a card
+    lane is (device, stream)."""
+
+    def _runner(self, device):
+        return ByteGraph
+
+    def _lane_of(self, device):
+        return (0, threading.get_ident())
+
+
+def _byte_lm_payloads():
+    """The reduced staged LM's payloads (``LmStage``) with their programs
+    on the emulated burst."""
+    out = []
+    for st in _lm_spec().stages:
+        kw = st.payload.keywords
+        prog = ByteProgram(kw["program"].fn,
+                           functional=kw["program"].functional)
+        out.append(LmStage(lm_stage, **{**kw, "program": prog}))
+    return out
+
+
+def test_a_repeated_lm_call_takes_its_plan_and_equals_the_functional_stages(
+        monkeypatch):
+    """Three jobs through the reduced staged LM on the emulated burst:
+    each job's state (hidden and every cache slice) is bit-identical to
+    the functional stages'; each stage captured once. After a stage's
+    first call, a call walks no tree (no ``tree_flatten``, ``_expand`` or
+    static inputs looked up), makes one allocation (its output block), and
+    sets no event node and none of the donor slice's copy nodes: only the
+    hidden state's and the outputs' move."""
+    payloads = _byte_lm_payloads()
+    vocab = _lm_model().cfg.vocab_size
+    rng = np.random.default_rng(11)
+    firsts = [{"hidden": torch.from_numpy(rng.integers(
+        0, vocab, (BATCH, 1))).to(torch.int32), "slices": {}}
+        for _ in range(3)]
+    reset_counts()
+    allocs = []
+
+    def run(x, counted):
+        for p in payloads:
+            if counted:
+                made = []
+                with monkeypatch.context() as mp:
+                    for name in ("empty", "empty_like", "zeros"):
+                        real = getattr(torch, name)
+                        mp.setattr(torch, name, lambda *a, _r=real, **k: (
+                            made.append(1), _r(*a, **k))[1])
+                    call = p.prepare(x)
+                allocs.append(len(made))
+            else:
+                call = p.prepare(x)
+            call.issue()
+            x = call.result()
+        return x
+
+    states = [run(firsts[0], False)]
+
+    def refused(*a, **k):
+        raise AssertionError("a repeated call walked a tree")
+    with monkeypatch.context() as mp:
+        for name in ("tree_flatten", "tree_unflatten", "_expand"):
+            mp.setattr(stage_graph, name, refused)
+        mp.setattr(stage_graph.Lane, "static_inputs", refused)
+        states += [run(x, True) for x in firsts[1:]]
+    assert allocs == [1] * (2 * N_STAGES)
+    for x, got in zip(firsts, states):
+        want = x
+        for p in payloads:
+            want = _eager(p)(want)
+        a, b = _leaves(got), _leaves(want)
+        assert len(a) == len(b) == 1 + 4 * N_STAGES
+        assert all(torch.equal(u, v) for u, v in zip(a, b))
+    assert not torch.equal(states[0]["hidden"], states[1]["hidden"])
+    assert _lib.stage_graphs.captures == N_STAGES
+    assert _lib.stage_graphs.replays == 3 * N_STAGES
+    for p in payloads:
+        (st,) = p.keywords["program"]._lanes.values()
+        burst, updates = st.runner.burst, st.runner.updates
+        donor = list(range(3, 2 + burst.n_in))      # after events, hidden
+        assert set(updates[0]) >= set(donor)        # the capture's ends
+        for moved in updates[1:]:
+            assert not {0, 1} & set(moved) and not set(donor) & set(moved)
+
+
+def test_an_argument_of_another_layout_takes_its_own_entry():
+    """On the emulated burst, whose copies move bytes: an argument whose
+    shape, dtype or strides differ from every entry's takes an entry of
+    its own (a permuted dense one among them, whose bytes a contiguous
+    entry would read in the wrong order) and its own result; a non-dense
+    one is copied into its dense static input's layout first; a repeat
+    takes its entry again."""
+    prog = ByteProgram(lambda x: x * 2.0 + 1.0, name="affine")
+
+    def layouts(x):
+        return [x, x.t().contiguous().t(), x.double(), x.reshape(4, 3),
+                x[:, ::2]]
+    x = torch.arange(12.0).reshape(3, 4)
+    for i, y in enumerate(layouts(x)):
+        out = prog(y)
+        assert torch.equal(out, y * 2.0 + 1.0), i
+        assert len(prog._lanes) == i + 1
+    assert [st.relayout for st in prog._lanes.values()] == [[]] * 4 + [[0]]
+    for y in layouts(x + 1.0):
+        assert torch.equal(prog(y), y * 2.0 + 1.0)
+    assert len(prog._lanes) == 5
+
+
+def test_a_constant_is_taken_by_identity_and_copied_in_anew():
+    """A ``Constant`` argument: its calls share one entry and never walk
+    it; new values written into its tensors reach the next call; another
+    ``Constant`` of the same structure takes an entry of its own that
+    shares the lane's static inputs."""
+    prog = ByteProgram(lambda h, c: (h + c["a"], {"b": c["b"] * h.sum()}))
+    tree = {"a": torch.ones(3), "b": torch.arange(4.0)}
+    const = stage_graph.Constant(tree)
+    h = torch.full((3,), 2.0)
+    out = prog(h, const)
+    assert torch.equal(out[0], h + 1.0)
+    tree["a"].fill_(5.0)
+    out = prog(h, const)
+    assert torch.equal(out[0], h + 5.0)
+    assert torch.equal(out[1]["b"], torch.arange(4.0) * 6.0)
+    assert len(prog._lanes) == 1
+    prog(h, stage_graph.Constant({"a": torch.zeros(3),
+                                  "b": torch.zeros(4)}))
+    a, b = prog._lanes.values()
+    assert len(prog._lanes) == 2 and a.inputs is b.inputs
