@@ -134,9 +134,14 @@ result line. Without arguments:
    engine thread over 1 ms (the step that ends it, its wall and CPU ms,
    the collections that overlap it) and ``over_bound`` each HP job above
    SchedCheck's bound with its largest part and that stage's largest
-   step. The host events behind a stall beside them: the interpreter's switch
-   interval (``switch_interval_s``; ``--serve ... --switch-interval S``
-   sets this process's), the garbage collections in the run by
+   step. ``ready`` counts the HP stages' calls made ready ahead of their
+   boundary (made, used, discarded by reason, left at the stop, the share
+   of HP stages that took theirs) and ``hp_prep_by_stage`` a HP job's
+   prep by stage: a run fails if a ready call was discarded without a
+   named reason (``unnamed``). The host events behind a stall beside
+   them: the interpreter's switch interval (``switch_interval_s``;
+   ``--serve ... --switch-interval S`` sets this process's), the garbage
+   collections in the run by
    generation (count, seconds, longest pause, each on the backend's
    clock; ``gc``) and, for the slowest HP jobs, whether the largest part
    overlaps one (``slowest_vs_gc``). Then
@@ -421,7 +426,8 @@ result line. Without arguments:
     gates (one replay a stage, one pool a stream, no driver allocation).
 Each phase's model is freed before the next; ``phase_seconds`` and
 ``phase_peak_memory_gb`` give each phase's wall and peak of allocated card
-memory.
+memory, and ``script_seconds`` the whole script's wall and its phases'
+sum beside those of commit 5d5cafd and the wall's aim.
 
 Kernel launch counts are reset just before each path and read just after;
 every kernel must be launched on a path (the f32 contention kernel, which
@@ -481,6 +487,12 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+T_START = time.perf_counter()      # the whole script's wall clock
+# the whole script's wall and phase seconds on one H100 (700 W) at commit
+# 5d5cafd, before a HP stage's call was made ready ahead, and the aim for
+# the wall (``script_seconds``)
+PREVIOUS_SECONDS = {"commit": "5d5cafd", "wall_s": 856.6, "phases_s": 834.3}
+WALL_AIM_S = 600.0
 HBM_BYTES_PER_S = 3.35e12             # H100 SXM data sheet
 PEAK_FLOPS = {"bfloat16": 989e12,     # dense tensor-core bf16
               "float32": 67e12}       # f32 outside the tensor cores
@@ -1684,11 +1696,12 @@ def serve(torch, failures, specs, setup_s, jps, kernels, desc, trace=False,
     # stages' enqueues, then the 3 slowest shown
     parts = (be.hp_response_parts(slowest=len(hp) + 3)
              if hasattr(be, "hp_response_parts") else None)
-    over = hp_enqueue = hp_input = None
+    over = hp_enqueue = hp_input = hp_prep = None
     if parts is not None:
         over = over_bound_jobs(parts, bound)
         hp_enqueue = stage_enqueues(parts)
         hp_input = input_steps(parts)
+        hp_prep = prep_by_stage(parts)
         parts["slowest"] = parts["slowest"][:3]
     lanes = len(be.core.sched.lanes)
     # lane streams the run made: one a lane live at once (a tree before
@@ -1704,6 +1717,14 @@ def serve(torch, failures, specs, setup_s, jps, kernels, desc, trace=False,
               else None)
     enqueue = (be.enqueue_summary() if hasattr(be, "enqueue_summary")
                else None)
+    if enqueue is not None and "hp_step_median_by_stage" not in enqueue:
+        # a tree from before the summary took HP stages apart: from its
+        # enqueue rows (stage, priority, ms, steps by name, result ms)
+        enqueue["hp_step_median_by_stage"] = hp_step_medians(
+            [r for r in be._enqueues if r[1] == HP])
+    # the HP stages' calls made ready ahead of their boundary (none in a
+    # tree from before them)
+    ready = be.ready_summary() if hasattr(be, "ready_summary") else None
     SERVED.append({"model": name, "hp_missed": m.missed[HP],
                    "lp_completed": m.completed[LP],
                    "hp_response_ms": hp,
@@ -1714,6 +1735,10 @@ def serve(torch, failures, specs, setup_s, jps, kernels, desc, trace=False,
                    "hp_enqueue": hp_enqueue, "hp_input": hp_input,
                    "hp_engine_median_ms": enqueue and enqueue.get(
                        "engine_median_by", {}).get("hp"),
+                   "hp_prep_by_stage": hp_prep,
+                   "hp_steps_by_stage": enqueue and enqueue.get(
+                       "hp_step_median_by_stage"),
+                   "ready": ready,
                    "stage_device_ms": {
                        k: v["mean_device_ms"]
                        for k, v in be.stage_time_summary().items()},
@@ -1734,6 +1759,10 @@ def serve(torch, failures, specs, setup_s, jps, kernels, desc, trace=False,
         failures.append(f"{name}: {graphs['events_in_run']} CUDA events made "
                         f"after the clock started (each lane stream's ring "
                         f"is made with the stream)")
+    unnamed = ready and sum(ready["discarded"]["unnamed"].values())
+    if unnamed:
+        failures.append(f"{name}: {unnamed} HP calls made ready ahead were "
+                        f"discarded without a reason ({ready['discarded']})")
     if graphs is not None and graphs.get("pool_stage_runs"):
         failures.append(f"{name}: {graphs['pool_stage_runs']} payload "
                         f"stages ran on the worker pool (every one must be "
@@ -1774,6 +1803,10 @@ def serve(torch, failures, specs, setup_s, jps, kernels, desc, trace=False,
         "stage_graphs": graphs, "lanes": lanes,
         "hp_response_parts": parts,
         "enqueue": enqueue, "hp_enqueue": hp_enqueue, "over_bound": over,
+        # the HP stages' calls made ready ahead: made, used, discarded by
+        # reason, left at the stop, the share of HP stages that took
+        # theirs; and a HP job's prep by stage (median ms)
+        "ready": ready, "hp_prep_by_stage": hp_prep,
         "engine_stalls": (None if stalls is None else {
             "count": len(stalls), "by_step": stalls_by_step(stalls),
             "rows": stalls}),
@@ -2332,6 +2365,21 @@ def input_steps(parts: dict) -> dict:
                 by["s0" if st["stage"] == 0 else "later"].append(ms)
     return {k: {"n": len(v), "median": statistics.median(v) if v else None}
             for k, v in by.items()}
+
+
+def prep_by_stage(parts: dict) -> dict:
+    """The completed HP jobs' ``prep`` (ms; a stage's start to the launch
+    that records its start event) by stage index: how many, median and
+    max, and how many of them took a call made ready ahead."""
+    by = {}
+    for job in parts["slowest"]:
+        for st in job["stages"]:
+            by.setdefault(st["stage"], []).append(st)
+    return {f"s{k}": {"n": len(v),
+                      "median": statistics.median(s["prep"] for s in v),
+                      "max": max(s["prep"] for s in v),
+                      "ready": sum(1 for s in v if s.get("ready") is not None)}
+            for k, v in sorted(by.items())}
 
 
 def stage_enqueues(parts: dict) -> dict:
@@ -5470,6 +5518,10 @@ def drill_phase(torch, failures, arch: str, repeats: int = 1):
                 prepare=lambda s: rec.append(DrillRecorder(torch, s)),
                 plan=lambda cfg, d=drill: drill_plan(cfg, d))
             g = srv.backend.graph_summary()
+            # the HP stages' calls made ready ahead, and those a drill's
+            # events discarded (none in a tree from before them)
+            ready = (srv.backend.ready_summary()
+                     if hasattr(srv.backend, "ready_summary") else None)
             report = rec[0].report()
             name = desc["model"]
             lines.append({
@@ -5484,7 +5536,11 @@ def drill_phase(torch, failures, arch: str, repeats: int = 1):
                 # a stop of the engine thread skips the releases it
                 # overran (the arrival process re-anchors on its schedule)
                 "completed_hp": m.completed[HP], "missed_hp": m.missed[HP],
-                "skipped_releases": m.skipped_releases})
+                "skipped_releases": m.skipped_releases,
+                "ready_used_share": ready and ready["used_share"],
+                "ready_discarded": ready and {
+                    r: sum(by.values()) for r, by in
+                    ready["discarded"].items() if any(by.values())}})
             emit({"drill": lines[-1]})
             if g["captures"]:
                 failures.append(f"{name}: {g['captures']} captures after "
@@ -5541,12 +5597,25 @@ def drill_repeats(torch, arch: str, repeats: int) -> int:
                for k in ("streams", "captures_in_run", "run_pools",
                          "pool_gb", "warm_up_s", "completed_hp",
                          "skipped_releases", "hp_missed",
-                         "hp_max_away_ms")}}
+                         "hp_max_away_ms", "ready_used_share",
+                         "ready_discarded")}}
     emit({"drill_repeats": {"model": arch, "repeats": repeats,
                             "failures": failures, **summary}})
     for f in failures:
         print(f"chip_smoke: FAIL {f}", file=sys.stderr)
     return 1 if failures else 0
+
+
+def hp_step_medians(rows: list) -> dict:
+    """Each stage's enqueue steps, the median ms of each over ``rows``
+    (the backend's enqueue rows), as the backend's summary takes it."""
+    out = {}
+    for j in sorted({r[0] for r in rows}):
+        at = [r[3] for r in rows if r[0] == j]
+        names = sorted({k for steps in at for k in steps})
+        out[f"s{j}"] = {k: sorted(s[k] for s in at if k in s)[
+            sum(1 for s in at if k in s) // 2] for k in names}
+    return out
 
 
 def serve_repeats(torch, arch: str, repeats: int, trace: bool) -> int:
@@ -5655,6 +5724,17 @@ def serve_repeats(torch, arch: str, repeats: int, trace: bool) -> int:
             f"{row['part']} {row['step']}" for run in SERVED
             for row in run["over_bound"] or ())),
         "hp_input_median_ms": [run["hp_input"] for run in SERVED],
+        # each run's HP prep by stage, its HP steps' median ms by stage,
+        # and its calls made ready ahead: the share of HP stages that took
+        # theirs, and those discarded by reason
+        "hp_prep_by_stage": [run["hp_prep_by_stage"] for run in SERVED],
+        "hp_steps_by_stage": [run["hp_steps_by_stage"] for run in SERVED],
+        "ready_used_share": [(run["ready"] or {}).get("used_share")
+                             for run in SERVED],
+        "ready_discarded": [
+            None if run["ready"] is None else {
+                r: by for r, by in run["ready"]["discarded"].items()
+                if any(by.values())} for run in SERVED],
         "gc_by_run": [run["gc"] for run in SERVED],
         # each run's HP responses by part, summed over its jobs
         "hp_parts_total_ms": [run["hp_parts_total_ms"] for run in SERVED]}})
@@ -5981,6 +6061,11 @@ def main() -> int:
                                    total=sum(STAGE_GRAPH_S.values()))
     emit({"phase_seconds": seconds})
     emit({"phase_peak_memory_gb": peaks})
+    emit({"script_seconds": {
+        "wall_s": time.perf_counter() - T_START,
+        "phases_s": sum(v for k, v in seconds.items()
+                        if k != "stage_graphs"),
+        "previous": PREVIOUS_SECONDS, "aim_wall_s": WALL_AIM_S}})
 
     return result_line(torch, name, card, failures, rows, paths,
                        epoch=epoch, cluster=cluster,

@@ -585,6 +585,21 @@ EVENT_PAIRS = 4                 # a lane stream's ring of (start, end) events
 # recorded (``recorded``) as such a step begins
 START_RECORDED = ("start", "launch")
 ANCHOR_TRIES = 5                # polled events an anchor takes the best of
+# why a HP stage's call made ready ahead (``_Ready``) was not the one its
+# stage launched: the job's state moved to another context's device; the
+# job was cancelled (or aborted) first; the launch whose output it was
+# made on became a ghost (a watchdog's kill, a failed context); its own
+# stage, or one before it whose output it was made on, chaos-failed (a
+# faulted stage keeps the boundary's path); another leading size
+# (batching) or another input factory than a first stage's was made for;
+# none of these (``unnamed``: a fault of the backend)
+READY_REASONS = ("migrated", "cancelled", "killed", "ctx_failed", "chaos",
+                 "batch", "factory", "unnamed")
+READY_WHERE = ("s0", "later")   # a job's first stage, its later stages
+
+
+def _where(stage: int) -> str:
+    return READY_WHERE[stage > 0]
 
 
 class _EngineClock:
@@ -732,7 +747,9 @@ def _stage_parts(st: dict, nxt: float) -> dict:
     on the engine thread) and ``sync_wake`` (the device's end to the host
     seeing it: the worker's return from the synchronize, or the poll) lie
     within ``prep`` + ``stream_wait`` + ``device`` and ``notice``;
-    ``steps``: the enqueue's ms by step, which sum to it."""
+    ``steps``: the enqueue's ms by step, which sum to it; ``ready``: the
+    ms of the call made ready for it ahead (``_take_ready``; None where it
+    resolved at its boundary), which lies outside its parts."""
     recorded = st.get("recorded", st["start"])
     return {"stage": st["stage"], "failed": st["failed"],
             "hand_off": st["start"] - st["launch"],
@@ -743,7 +760,7 @@ def _stage_parts(st: dict, nxt: float) -> dict:
             "gap": nxt - st["harvest"],
             "enqueue": st["enqueued"] - st["start"],
             "sync_wake": st["synced"] - st["dev_end"],
-            "steps": st.get("steps", {})}
+            "steps": st.get("steps", {}), "ready": st.get("ready")}
 
 
 class _Flight:
@@ -765,6 +782,22 @@ class _Flight:
         self.stalled = False
         self.start = self.end = self.ring = self.inp = None
         self.out = self.done = None
+
+
+class _Ready:
+    """A HP stage's call made ready ahead of its boundary (``ReadyCall``,
+    or an LM payload's): the stage it is for, the input it was made on
+    (a job's state, the default input, or the output the call before it
+    in its chain will give), the input factory and the leading size it
+    was made for (a job's first stage's), and the engine thread's ms it
+    took."""
+
+    __slots__ = ("call", "stage", "src", "factory", "n", "ms")
+
+    def __init__(self, call, stage: int, src, factory, n: int,
+                 ms: float) -> None:
+        self.call, self.stage, self.src = call, stage, src
+        self.factory, self.n, self.ms = factory, n, ms
 
 
 class RealtimeBackend:
@@ -790,7 +823,21 @@ class RealtimeBackend:
       Nothing there blocks the host: a launch with
       a chaos stall is enqueued by the poll once the stall has passed,
       and a stage without a payload ends at the poll ``t_alone`` after it
-      began.
+      began. A HP stage's call is made ready ahead of its boundary
+      (``_ready_first``: the lane-free part of ``prepare``, its
+      signature and output block): as a job is done, the task's next
+      job's calls as one chain, from its first stage on the default
+      input, each later one on the output the one before will give (as
+      far as that is known before the run: on the card, to its last
+      stage); each HP task's first job's at ``start``. At the boundary
+      the stage takes its ready call where it is the one made for that
+      stage and input (``_take_ready``), and only the lane's lookup, its
+      graph's nodes and the launch remain; else the chain is discarded,
+      each call counted by its reason (``READY_REASONS``), and the job's
+      remaining stages resolve as an LP stage does, whole at their
+      boundary.
+      Nothing is launched ahead and no lane is assumed: both are the same
+      graph launch on the lane's stream.
     - *host* (``device="cpu"``): a worker of ``_WorkerPool`` sleeps the
       stall, runs the payload or sleeps a synthetic stage's ``t_alone``,
       and ships the result through the done queue, which ``advance``
@@ -947,6 +994,17 @@ class RealtimeBackend:
         self._clock = _EngineClock()
         self._enqueues: "collections.deque" = collections.deque(
             maxlen=HP_CHAINS_KEPT)
+        # the inline path's HP calls made ready ahead, in chains (each on
+        # the output of the one before it): job_id -> [the launch whose
+        # output the chain's head takes, its next stages' calls], task
+        # index -> its next job's calls from its first stage on; their
+        # counts (``ready_summary``) and the ready step's ms, by
+        # ``READY_WHERE``
+        self._ready: Dict[int, list] = {}
+        self._ready0: Dict[int, list] = {}
+        self._ready_counts: "collections.Counter" = collections.Counter()
+        self._ready_ms = {w: collections.deque(maxlen=HP_CHAINS_KEPT)
+                          for w in READY_WHERE}
 
     # ----------------------------------------------------------- lifecycle
     def bind(self, core: EngineCore) -> None:
@@ -978,12 +1036,18 @@ class RealtimeBackend:
             for lane in lanes:
                 self._lane_stream(lane)
             self._warm_streams(new)
+            self._clock.restart()             # the ready step's own ms
+            for task in self._warm_tasks():
+                if task.priority == HP:
+                    self._ready_first(task, 1)
             self._anchor_events = [self._event() for _ in range(
                 2 * ANCHOR_TRIES)]
             self.warm_s = time.perf_counter() - t0
         self._graphs_warm = {"before": before,
                              "after": stage_graphs.snapshot()}
         self._events_at_start = self.events_made
+        for ms in self._ready_ms.values():    # the run's ready steps only
+            ms.clear()
         self._t0 = time.perf_counter()
         if self._seam is not None:
             self._anchors = [_anchor_event(
@@ -1108,8 +1172,9 @@ class RealtimeBackend:
         captures leaves each stream the blocks its stages' outputs take;
         without it the first served stages allocate from the driver on the
         engine thread (the first HP job of staged qwen2-moe once took
-        90-219 ms on an H100). One thread: cuBLAS makes its workspace once
-        a stream, not once a (thread, stream)."""
+        90-219 ms on an H100). One thread:
+        cuBLAS makes its workspace once a stream, not once a (thread,
+        stream)."""
         tasks = self._warm_tasks()
         if not tasks or not new:
             return
@@ -1138,6 +1203,22 @@ class RealtimeBackend:
 
     def stop(self) -> None:
         self._pool.stop()
+        # the card's stages still in flight end before any block they write
+        # or read can be freed with the backend: a ready call's block is
+        # made under the engine thread's stream, not under the lane's that
+        # writes it, so the caching allocator would not order its reuse
+        # after that lane's work
+        if self._seam is not None:
+            for rec in self._flight.values():
+                if rec.end is not None and rec.done is None:
+                    rec.end.synchronize()
+        # the ready calls no stage took by the end (their blocks freed)
+        for chain in [*self._ready0.values(),
+                      *(entry[1] for entry in self._ready.values())]:
+            for r in chain:
+                self._ready_counts["left", _where(r.stage)] += 1
+        self._ready0.clear()
+        self._ready.clear()
         if len(self._anchors) == 1:
             self._anchors.append(_anchor_event(
                 self._anchor_events[ANCHOR_TRIES:], self._ms))
@@ -1190,6 +1271,9 @@ class RealtimeBackend:
                 # ring ran dry)
                 "events_in_run": self.events_made - self._events_at_start,
                 "pool_stage_runs": self.pool_stage_runs,
+                # the HP stages' calls made ready ahead: used, discarded
+                # by reason (``ready_summary``)
+                "ready": self.ready_summary(),
                 # pools first captured into in the warm-up and the run: one
                 # a stream; and all since the counts' reset (before the tasks
                 # were built, whose calibration captured on one more lane)
@@ -1472,7 +1556,17 @@ class RealtimeBackend:
         runs whole between the events. The launch keeps its input until
         the poll sees its end event, so the caching allocator cannot hand
         its memory to another stream's work while this one may still read
-        it. A payload that raises loses its stage, as on a worker."""
+        it. A payload that raises loses its stage, as on a worker.
+
+        A HP stage whose payload makes calls ready takes the one made for
+        it in its ``input`` step (``_take_ready``) and then only the lane's
+        step (``lookup``) in place of ``resolve``. The lane's stream is
+        made current (``current``) only as a step needs it: for an input
+        that takes device work to make (a caller's factory, a state moved
+        between devices), a payload called or resolved at the boundary,
+        the lane step's device work and the CPU's run; a card stage that
+        takes its ready call launches its graph on the stream by its
+        handle with none of them."""
         seam, clock = self._seam, self._clock
         steps = rec.stamps["steps"] = {}
         last = [rec.t0]
@@ -1483,61 +1577,200 @@ class RealtimeBackend:
             t = clock(name, wall)
             steps[name] = steps.get(name, 0.0) + (t - last[0]) * 1000.0
             last[0] = t
+        use = []
+
+        def current() -> None:
+            if not use:
+                use.append(seam.use(stream))
+                use[0].__enter__()
         if rec.stalled:
             step("stall")
-        payload = rec.inst.profile.payload
+        inst = rec.inst
+        payload = inst.profile.payload
         prepare = getattr(payload, "prepare", None)
+        hp = (inst.task.priority == HP and prepare is not None
+              and hasattr(payload, "ready"))
         rec.ring = ring = self._rings[id(stream)]
         try:
-            with seam.use(stream):
-                rec.inp = x = self._stage_input(rec.inst, rec.lane)
-                rec.start, rec.end = (ring.pop() if ring
-                                      else (self._event(), self._event()))
-                step("input")
-                if prepare is None:
-                    rec.start.record(stream)
-                    step("start")
-                    rec.out = payload(x)
-                    step("payload")
-                    rec.end.record(stream)
-                    step("end")
-                else:
-                    # the call holds its arguments
-                    rec.inp = call = prepare(x, lane=self._lane_keys[
-                        id(stream)])
+            if not (hp and self._input_made(inst)):
+                current()
+            rec.inp = x = self._stage_input(inst, rec.lane)
+            rec.start, rec.end = (ring.pop() if ring else
+                                  (self._event(stream), self._event(stream)))
+            ready = self._take_ready(rec, x) if hp else None
+            step("input")
+            if prepare is None:
+                current()
+                rec.start.record(stream)
+                step("start")
+                rec.out = payload(x)
+                step("payload")
+                rec.end.record(stream)
+                step("end")
+            else:
+                # the call holds its arguments
+                lane = self._lane_keys[id(stream)]
+                if ready is None:
+                    current()
+                    rec.inp = call = prepare(x, lane=lane)
                     step("resolve")
-                    call.issue(rec.start, rec.end, step)
+                else:
+                    rec.inp = call = ready.call(lane, current)
+                    step("lookup")
+                if call.block is None:       # the CPU's run, by PyTorch
+                    current()
+                call.issue(rec.start, rec.end, step)
             enqueued = last[0]
             if prepare is not None:
                 rec.out = call.result()
+            rec.stamps["enqueued"] = self._ms(enqueued)
+            self._enqueues.append((inst.job.stage_idx, inst.task.priority,
+                                   sum(steps.values()), steps,
+                                   (clock("result") - enqueued) * 1000.0))
         except Exception as e:   # noqa: BLE001 — serving goes on
             del self._flight[rec.token]
             if rec.start is not None:
                 ring.append((rec.start, rec.end))
             self._pool.caught(e, rec.lane, rec.inst)
             return
-        rec.stamps["enqueued"] = self._ms(enqueued)
-        inst = rec.inst
-        self._enqueues.append((inst.job.stage_idx, inst.task.priority,
-                               sum(steps.values()), steps,
-                               (clock("result") - enqueued) * 1000.0))
+        finally:
+            if use:
+                use[0].__exit__(None, None, None)
         self._ran_stage()
+
+    def _input_made(self, inst: StageInstance) -> bool:
+        """Whether the stage's input is a tensor made already, which taking
+        enqueues nothing: no state moves between devices (no
+        ``ctx_devices``), and the job has its state, or its input is the
+        default one made before the clock."""
+        return not self.ctx_devices and (
+            self.input_factory is self._zeros
+            or self._job_state.get(inst.job.job_id) is not None)
+
+    def _take_ready(self, rec: _Flight, x) -> object:
+        """At a HP stage's boundary, the call made ready for it
+        (``ReadyCall``, the head of its job's chain, or of its task's next
+        job's for a first stage) where it is the one made for this stage
+        on ``x``: the output the job's last stage gave, or the input
+        factory and leading size a first stage's input comes from. Then
+        the rest of the chain is the job's, on this launch. Else None: the
+        chain discarded by its reason, or none made. The ready call's ms
+        is stamped on the stage (``ready``)."""
+        job = rec.inst.job
+        k = job.stage_idx
+        where = _where(k)
+        if k == 0:
+            chain = self._ready0.pop(job.task.index, None)
+        else:
+            chain = self._ready.pop(job.job_id, (None, None))[1]
+        counts = self._ready_counts
+        counts["stages", where] += 1
+        if not chain:
+            counts["none", where] += 1
+            return None
+        r = chain[0]
+        if rec.failed:
+            reason = "chaos"
+        elif k == 0:
+            reason = ("factory" if self.input_factory is not r.factory
+                      else "batch" if job.n_inputs != r.n
+                      else None if x is r.src else "unnamed")
+        elif r.stage == k and x is r.src:
+            reason = None
+        elif r.stage == k and self._job_state.get(job.job_id) is r.src:
+            reason = "migrated"          # ``_migrate_state`` moved it
+        else:
+            reason = "unnamed"
+        if reason is not None:
+            self._discard(chain, reason)
+            return None
+        counts["used", where] += 1
+        rec.stamps["ready"] = r.ms
+        if len(chain) > 1:
+            self._ready[job.job_id] = [rec.token, chain[1:]]
+        return r.call
+
+    def _discard(self, chain: list, reason: str) -> None:
+        for r in chain:
+            self._ready_counts["discarded", reason, _where(r.stage)] += 1
+
+    def _ready_first(self, task, n: int) -> None:
+        """The chain of the task's next job made ready from its first
+        stage on, on the default input of ``n`` inputs, unless one is held
+        or the jobs' input comes from a caller's factory (called a job,
+        never ahead): at ``start`` and as each of its jobs is done, under
+        the engine thread's own stream, so that a job's chain takes the
+        blocks the job before it just freed (the caching allocator hands
+        them out again by size), and a lane's graph finds its nodes
+        pointing at them already."""
+        zeros = self._zeros
+        if (zeros is None or self.input_factory is not zeros
+                or task.index in self._ready0 or n not in zeros.made):
+            return
+        chain = self._chain(task, 0, zeros.made[n], zeros, n)
+        if chain:
+            self._ready0[task.index] = chain
+
+    def _chain(self, task, k: int, x, factory, n: int) -> list:
+        """The task's calls made ready from stage ``k`` on, the first on
+        ``x`` and each later one on the output the one before will give,
+        as far as that is known before its run and each payload makes
+        ready calls; each stamped ``ready`` on the engine thread's
+        clock."""
+        chain = []
+        for st in task.spec.stages[k:]:
+            ready = getattr(st.payload, "ready", None)
+            if ready is None or x is None:
+                break
+            where = _where(k)
+            before = self._clock.wall
+            call = ready(x)
+            ms = (self._clock("ready") - before) * 1000.0
+            self._ready_counts["made", where] += 1
+            self._ready_ms[where].append(ms)
+            chain.append(_Ready(call, k, x, factory, n, ms))
+            x, k, factory = call.output(), k + 1, None
+        return chain
+
+    def _drop_ready(self, job_id: int, token, reason: str) -> None:
+        """Discard the job's chain where it is on the launch ``token``'s
+        output (that launch became a ghost)."""
+        entry = self._ready.get(job_id)
+        if entry is not None and entry[0] == token:
+            del self._ready[job_id]
+            self._discard(entry[1], reason)
 
     def kill_lane(self, lane: tuple, inst: StageInstance) -> None:
         # a launched stage can't be interrupted: forget the launch token
         # so the harvest discards the ghost completion when it lands (the
-        # in-flight set still drains through advance)
-        self._live_token.pop(lane, None)
+        # in-flight set still drains through advance); the call made
+        # ready on the ghost's output goes with it
+        self._drop_ready(inst.job.job_id, self._live_token.pop(lane, None),
+                         "killed")
 
     def cancel_ctx(self, ctx_idx: int) -> None:
         # launched stages can't be interrupted; mark the context so their
         # completions are dropped at harvest (fail_context re-enqueues the
         # instances, whose .lane is reset — that's the drop signal
-        # advance() checks)
+        # advance() checks), and drop the calls made ready on their output
         self._cancelled_ctx.add(ctx_idx)
+        for rec in list(self._flight.values()):
+            if rec.lane[0] == ctx_idx:
+                self._drop_ready(rec.inst.job.job_id, rec.token,
+                                 "ctx_failed")
 
     def on_job_done(self, job: Job) -> None:
+        entry = self._ready.pop(job.job_id, None)
+        if entry is not None:
+            # retired (cancelled, aborted) before its next stage ran
+            self._discard(entry[1], "cancelled")
         self._job_state.pop(job.job_id, None)
+        if self._seam is not None and job.task.priority == HP:
+            self._clock("engine")    # the core's own work since the harvest
+            try:
+                self._ready_first(job.task, job.n_inputs)
+            except Exception as e:   # noqa: BLE001 — serving goes on
+                self._pool.caught(e, ("ready", job.task.index), None)
         self._state_ctx.pop(job.job_id, None)
         chain = self._stamps.pop(job.job_id, None)
         # a completed HP job: its last stage harvested and not failed (an
@@ -1635,10 +1868,13 @@ class RealtimeBackend:
         max, sum), each step's, the ms of the output's ``result`` after
         it, the engine thread's whole ms a stage (the enqueue and the
         result) and its median by priority, the enqueue's median by stage
-        index and by priority, and each step's median by stage index."""
+        index and by priority, and each step's median by stage index, of
+        all stages and of the HP stages (a step over the stages that took
+        it: a HP stage's ``lookup`` where it took a ready call, else
+        ``resolve``); ``ready``: ``ready_summary()``."""
         rows = list(self._enqueues)
         if not rows:
-            return {"n": 0}
+            return {"n": 0, "ready": self.ready_summary()}
         names = []
         for *_, steps, _ in rows:
             names += [k for k in steps if k not in names]
@@ -1649,8 +1885,16 @@ class RealtimeBackend:
             by.setdefault("hp" if prio == HP else "lp", []).append(ms)
             engine.setdefault("hp" if prio == HP else "lp", []).append(
                 ms + result)
+
+        def by_stage(rows):
+            out = {}
+            for j in sorted({r[0] for r in rows}):
+                at = [r[3] for r in rows if r[0] == j]
+                out[f"s{j}"] = {k: _stats([s[k] for s in at if k in s])[
+                    "median"] for k in names if any(k in s for s in at)}
+            return out
         return {"n": len(rows), "ms": _stats([r[2] for r in rows]),
-                "steps": {k: _stats([r[3].get(k, 0.0) for r in rows])
+                "steps": {k: _stats([r[3][k] for r in rows if k in r[3]])
                           for k in names},
                 "result_ms": _stats([r[4] for r in rows]),
                 "engine_ms": _stats([r[2] + r[4] for r in rows]),
@@ -1658,11 +1902,31 @@ class RealtimeBackend:
                                      for k, v in sorted(engine.items())},
                 "median_by": {k: _stats(v)["median"]
                               for k, v in sorted(by.items())},
-                "step_median_by_stage": {
-                    f"s{j}": {k: _stats([r[3].get(k, 0.0) for r in rows
-                                         if r[0] == j])["median"]
-                              for k in names}
-                    for j in sorted({r[0] for r in rows})}}
+                "step_median_by_stage": by_stage(rows),
+                "hp_step_median_by_stage": by_stage(
+                    [r for r in rows if r[1] == HP]),
+                "ready": self.ready_summary()}
+
+    def ready_summary(self) -> dict:
+        """The HP stages' calls made ready ahead (class docstring), by
+        ``READY_WHERE``: made; the HP stages whose payload makes them, of
+        those the ones that took theirs (``used``, and their share) and
+        the ones that found none (``none``: a stage after its chain was
+        discarded, a retried stage); discarded by reason
+        (``READY_REASONS``); left unused at ``stop``; the ready step's ms
+        (median, p99, max, sum)."""
+        counts = self._ready_counts
+        out = {kind: {w: counts[kind, w] for w in READY_WHERE}
+               for kind in ("made", "stages", "used", "none", "left")}
+        out["discarded"] = {r: {w: counts["discarded", r, w]
+                                for w in READY_WHERE}
+                            for r in READY_REASONS}
+        stages = sum(out["stages"].values())
+        out["used_share"] = (sum(out["used"].values()) / stages if stages
+                             else None)
+        out["ms"] = {w: _stats(list(v)) if v else None
+                     for w, v in self._ready_ms.items()}
+        return out
 
     def on_reconfigure(self) -> None:
         """New contexts mean new lanes: on the host path the pool grows to

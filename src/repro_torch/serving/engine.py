@@ -125,7 +125,9 @@ class LmStage(functools.partial):
     ``Constant``), and a call (``prepare``, which the realtime backend
     enqueues alone between the stage's events, or the payload called)
     takes the job's hidden state and that, with ``lm_stage``'s dict work
-    before it and after it (``StageCall.then``)."""
+    before it and after it (``StageCall.then``). ``ready`` is the lane-free
+    part of ``prepare`` (the dict work before, ``then`` and the program's
+    ``ready``), which the backend may take ahead of the stage's launch."""
 
     def __new__(cls, *args, **keywords):
         self = super().__new__(cls, *args, **keywords)
@@ -133,12 +135,15 @@ class LmStage(functools.partial):
             self.donor = Constant(self.keywords["donor_slice"])
         return self
 
-    def prepare(self, state, lane=None):
+    def ready(self, state):
         kw = self.keywords
         state, sl = _lm_inputs(state, kw["stage"], self.donor, kw["fresh"])
-        return kw["program"].prepare(
-            state["hidden"], sl, lane=lane,
+        return kw["program"].ready(
+            state["hidden"], sl,
             then=functools.partial(_lm_output, state["slices"], kw["stage"]))
+
+    def prepare(self, state, lane=None):
+        return self.ready(state).call(lane)
 
     def __call__(self, state):
         call = self.prepare(state)

@@ -12,10 +12,24 @@ The lanes are the process's (``lane``): each holds one lock, the static
 inputs a signature, and on the card one CUDA-graph memory pool, all of
 which every program that runs on that lane shares, as XLA plans one arena
 an executable. A lane lives as long as a program keeps state on it. A call
-is resolved first (``prepare``: its signature, which is its one check of
-its arguments, the structure and each tensor's shape, dtype, device and
-strides; its lane's static entry of that signature; on the card its
-output block), then issues three steps
+is resolved first, in two steps (``prepare`` takes both in turn). The
+first needs no lane (``ready`` -> ``ReadyCall``): its signature, which is
+its one check of its arguments, the structure and each tensor's shape,
+dtype, device and strides, and on the card its output block, laid out as
+every lane's entry of that signature lays it out (``_Layout``, the first
+entry's). The second is the lane's (``ReadyCall.call`` -> ``StageCall``):
+its lane's static entry of that signature, and a copy laid out alike of
+each argument its static input is laid out otherwise than (enqueued on
+the launch's stream, which must order it before the graph). With a
+block, a ready call's output is known before it runs (``output``: views
+of the block), so a realtime backend makes a job's calls ready as one
+chain before its first stage runs, each on the output the one before
+will give, under the stream of the lane it runs then, and launches each
+on whatever lane its dispatch picks: the caching allocator hands a block
+made under one stream out again only under that stream, and the backend
+frees no block until every stage that wrote or read it has been seen
+done, so the block needs no record of the stream that writes it. The
+call then issues three steps
 under its lane's lock, so that no other call on the lane (another
 program's, or a watchdog's ghost worker beside a new launch) comes between
 them (``StageCall.issue``):
@@ -80,7 +94,7 @@ from torch.utils._pytree import tree_flatten, tree_unflatten
 
 from ..kernels import _lib
 
-__all__ = ["Constant", "Lane", "StageProgram", "lane",
+__all__ = ["Constant", "Lane", "ReadyCall", "StageProgram", "lane",
            "pool_reserved_bytes"]
 
 # one capture at a time in the process: a lane made after the run started
@@ -347,14 +361,58 @@ def _capture_copy(stream: int, dst: torch.Tensor, src: torch.Tensor) -> int:
     return node.value
 
 
+class _Layout:
+    """Where a call's outputs land in its one output block (256-byte
+    aligned, in the static outputs' layouts; a single output is a tensor
+    laid out as its static one) and how its output tree is built from the
+    block. Every lane's entry of a signature lays its outputs out alike
+    (one stage function captured on inputs laid out alike), and shares
+    one ``_Layout`` where they do (``StageProgram._layouts``), so that a
+    call made ready before its lane is known makes its block. It holds no
+    tensor: a program's graphs may be dropped while it lives."""
+
+    __slots__ = ("single", "total", "offsets", "device", "recipe", "dtypes",
+                 "build", "key")
+
+    def __init__(self, outs: list, spec) -> None:
+        self.single = spec.is_leaf()
+        self.offsets, self.total = [], 0
+        for o in outs:
+            self.offsets.append(self.total)
+            self.total += -(-o.nbytes // 256) * 256
+        self.device = outs[0].device if outs else None
+        self.recipe = [(o.dtype, o.shape, o.stride(), off // o.itemsize)
+                       for o, off in zip(outs, self.offsets)]
+        self.dtypes = list(dict.fromkeys(o.dtype for o in outs))
+        self.build = _builder(tree_unflatten(
+            [_Leaf() for _ in outs], spec))
+        self.key = (self.single, self.total, self.device,
+                    tuple(self.recipe), spec)
+
+    def block(self) -> torch.Tensor:
+        """One call's output block, made on the current stream."""
+        if self.single:
+            dtype, shape, stride, _ = self.recipe[0]
+            return torch.empty_strided(shape, stride, dtype=dtype,
+                                       device=self.device)
+        return torch.empty(self.total, dtype=torch.uint8, device=self.device)
+
+    def outputs(self, block: torch.Tensor):
+        """The call's output tree: views of its block."""
+        if self.single:
+            return block
+        by = {dt: block.view(dt) for dt in self.dtypes}
+        return self.build(iter([
+            torch.as_strided(by[dt], shape, stride, at)
+            for dt, shape, stride, at in self.recipe]))
+
+
 class _Burst:
     """On the card: a call of a graph that holds its copies and events,
     as one C call (``repro_stage_launch``) on the lane's stream. What does
     not change from call to call is laid out once: the static inputs'
-    and outputs' pointers, the copies' sizes, where each output lands in
-    the call's one output block (256-byte aligned, in the static outputs'
-    layouts; a single output is a tensor like its static one), the
-    output's tree, and what each node of the executable graph holds now
+    and outputs' pointers, the copies' sizes, the call's output block
+    (``layout``), and what each node of the executable graph holds now
     (``last``: the C call sets only the nodes whose event or pointer
     moved). A call writes its inputs' pointers and hands over its block;
     each step is stamped on the host's wall clock (``STEPS``)."""
@@ -366,7 +424,6 @@ class _Burst:
         self.run, self.exec = launch, graph_exec
         self.events = events                  # a call handed none takes these
         self.nodes = (ctypes.c_void_p * len(nodes))(*nodes)
-        self.outs = outs
         self.copied = [i for i, s in enumerate(inputs) if s.nbytes]
         c_out = [i for i, o in enumerate(outs) if o.nbytes]
         self.n_in, self.n_out = len(self.copied), len(c_out)
@@ -387,36 +444,11 @@ class _Burst:
             e.cuda_event for e in events]
             + [ends[0][i].data_ptr() for i in self.copied]
             + [ends[1][i].data_ptr() for i in c_out])
-        self.single = spec.is_leaf()
-        offsets, self.total = [], 0
-        for o in outs:
-            offsets.append(self.total)
-            self.total += -(-o.nbytes // 256) * 256
-        self.out_off = array(ctypes.c_longlong, [0] if self.single else
-                             [offsets[i] for i in c_out])
-        self.device = outs[0].device if outs else None
-        self.recipe = [(o.dtype, o.shape, o.stride(), off // o.itemsize)
-                       for o, off in zip(outs, offsets)]
-        self.dtypes = list(dict.fromkeys(o.dtype for o in outs))
-        self.build = _builder(tree_unflatten(
-            [_Leaf() for _ in outs], spec))
+        self.layout = _Layout(outs, spec)
+        self.out_off = array(ctypes.c_longlong, [0] if self.layout.single
+                             else [self.layout.offsets[i] for i in c_out])
         # the launch's stamps: one call at a time a lane, under its lock
         self.stamps = (ctypes.c_double * len(self.STEPS))()
-
-    def block(self) -> torch.Tensor:
-        """One call's output block, made on the current stream."""
-        if self.single:
-            return torch.empty_like(self.outs[0])
-        return torch.empty(self.total, dtype=torch.uint8, device=self.device)
-
-    def outputs(self, block: torch.Tensor):
-        """The call's output tree: views of its block."""
-        if self.single:
-            return block
-        by = {dt: block.view(dt) for dt in self.dtypes}
-        return self.build(iter([
-            torch.as_strided(by[dt], shape, stride, at)
-            for dt, shape, stride, at in self.recipe]))
 
     def issue(self, stream: int, flat: list, block: torch.Tensor,
               before, after, step) -> None:
@@ -449,17 +481,21 @@ class _Static:
 
 
 class StageCall:
-    """One call of a stage program, resolved (``StageProgram.prepare``):
-    its static entry, its arguments flattened (on the card with a copy
-    laid out alike of each one ``relayout`` names, held by the call), on
-    the card its output block, and ``then``, applied to its output."""
+    """One call of a stage program, resolved (``StageProgram.prepare``, or
+    ``ReadyCall.call``): its static entry, its arguments flattened (on the
+    card with a copy laid out alike of each one ``relayout`` names, held by
+    the call), on the card its output block (``block``, the ready call's
+    where it was made for the entry's layout, else made here),
+    ``then``, applied to its output, and ``ahead``: that output, where the
+    ready call built it before the run (``ReadyCall.output``)."""
 
-    __slots__ = ("static", "flat", "block", "outs", "spec", "then")
+    __slots__ = ("static", "flat", "block", "outs", "spec", "then", "ahead")
 
-    def __init__(self, static: _Static, flat: list, then) -> None:
+    def __init__(self, static: _Static, flat: list, then,
+                 layout: "_Layout" = None, block=None, ahead=None) -> None:
         self.static, self.flat, self.then = static, flat, then
         burst = static.runner.burst
-        self.block = self.outs = self.spec = None
+        self.block = self.outs = self.spec = self.ahead = None
         if burst is not None:
             if static.relayout:
                 flat = list(flat)
@@ -469,7 +505,10 @@ class StageCall:
                         s.shape, s.stride(), dtype=s.dtype,
                         device=s.device).copy_(flat[i])
                 self.flat = flat
-            self.block = burst.block()
+            if layout is burst.layout:
+                self.block, self.ahead = block, ahead
+            else:
+                self.block = burst.layout.block()
 
     def issue(self, before=None, after=None, step=_no_step) -> None:
         """Under the lane's lock: ``before`` recorded on the current
@@ -502,12 +541,67 @@ class StageCall:
         """The issued call's output (its launches counted)."""
         runner = self.static.runner
         runner.counted()
+        if self.ahead is not None:
+            return self.ahead
         if self.block is not None:
-            out = runner.burst.outputs(self.block)
+            out = runner.burst.layout.outputs(self.block)
         else:
             out = (self.outs[0] if self.spec.is_leaf()
                    else tree_unflatten(self.outs, self.spec))
         return out if self.then is None else self.then(out)
+
+
+class ReadyCall:
+    """A call of a stage program made ready without a lane
+    (``StageProgram.ready``): its arguments (the tree and flattened), their
+    signature, ``then``, and on the card, where a lane's entry of that
+    signature exists, the output block of the entry's ``layout``, made on
+    the stream current then. ``call(lane)`` takes the lane's step and
+    returns the ``StageCall``; a ready call is called once (its block
+    becomes that call's output). With a block, its output is known before
+    it runs (``output``), so the next stage's call can be made ready on it
+    before this one is launched."""
+
+    __slots__ = ("program", "sig", "flat", "args", "then", "layout",
+                 "block", "out")
+
+    def __init__(self, program: "StageProgram", sig, flat: list,
+                 args: tuple, then, layout: "_Layout") -> None:
+        self.program, self.sig, self.flat = program, sig, flat
+        self.args, self.then, self.layout = args, then, layout
+        self.block = None if layout is None else layout.block()
+        self.out = None
+
+    def output(self):
+        """The call's output before it runs: views of its block that its
+        run will write, ``then`` applied, the very tree its ``result``
+        returns; None where only the run makes it (no block: the CPU's
+        eager run, or a signature no lane has an entry of yet)."""
+        if self.block is not None and self.out is None:
+            out = self.layout.outputs(self.block)
+            self.out = out if self.then is None else self.then(out)
+        return self.out
+
+    def call(self, lane=None, use: Callable = None) -> StageCall:
+        """The lane's step, on ``lane``, else on the current lane: the
+        lane's static entry of the signature (made, and on the card its
+        graph captured, at the lane's first call of it) and the call on
+        it. ``use``, where given, makes ``lane``'s stream current, and is
+        called only where the step enqueues work or allocates (an entry
+        made, a relayout copy, a block of the entry's own layout); without
+        it ``lane``'s stream must be current."""
+        prog = self.program
+        key = (prog._lane_of(prog._device(self.flat)) if lane is None
+               else lane, self.sig)
+        st = prog._lanes.get(key)
+        if use is not None and (st is None or st.relayout or (
+                st.runner.burst is not None
+                and st.runner.burst.layout is not self.layout)):
+            use()
+        if st is None:
+            st = prog._static(key, self.args, self.flat)
+        return StageCall(st, self.flat, self.then, self.layout, self.block,
+                         self.out)
 
 
 class StageProgram:
@@ -525,6 +619,7 @@ class StageProgram:
         self.name = name
         self._lock = threading.Lock()
         self._lanes: dict = {}      # (lane, signature) -> _Static
+        self._layouts: dict = {}    # signature -> its first entry's _Layout
 
     def _runner(self, device: torch.device):
         return _Graph if device.type == "cuda" else _Eager
@@ -537,23 +632,21 @@ class StageProgram:
                     torch.cuda.current_stream(device).cuda_stream)
         return threading.get_ident()
 
+    def ready(self, *args, then: Callable = None) -> ReadyCall:
+        """The call on ``args`` made ready for any lane; ``then`` is
+        applied to its output. The signature is the call's one check of
+        its arguments: one whose structure, shape, dtype, device or
+        strides differ from every entry's takes an entry of its own."""
+        flat = []
+        sig = _signature(args, flat)
+        return ReadyCall(self, sig, flat, args, then, self._layouts.get(sig))
+
     def prepare(self, *args, then: Callable = None,
                 lane=None) -> StageCall:
         """The call on ``args`` resolved on the current lane, or on
-        ``lane`` where the caller knows it is current (the lane's static
-        entry made, and on the card its graph captured, at the lane's
-        first call of this signature); ``then`` is applied to its
-        output. The signature is the call's one check of its arguments:
-        one whose structure, shape, dtype, device or strides differ from
-        every entry's takes an entry of its own."""
-        flat = []
-        sig = _signature(args, flat)
-        key = (self._lane_of(self._device(flat)) if lane is None else lane,
-               sig)
-        st = self._lanes.get(key)
-        if st is None:
-            st = self._static(key, args, flat)
-        return StageCall(st, flat, then)
+        ``lane`` where the caller knows it is current: ``ready`` and its
+        lane's step in turn."""
+        return self.ready(*args, then=then).call(lane)
 
     def _device(self, flat: list) -> torch.device:
         """The arguments' device, once they are found to be tensors."""
@@ -587,7 +680,15 @@ class StageProgram:
                 self.fn, tree_unflatten(list(inputs), spec), ln, inputs),
                 [i for i, (s, t) in enumerate(zip(inputs, flat))
                  if s.stride() != t.stride()])
+            burst = st.runner.burst
             with self._lock:
+                if burst is not None:
+                    # one layout object a signature where the lanes' graphs
+                    # lay their outputs out alike: a ready call's block is
+                    # taken by the entry it is launched on by identity
+                    first = self._layouts.setdefault(key[1], burst.layout)
+                    if first.key == burst.layout.key:
+                        burst.layout = first
                 self._lanes[key] = st
             return st
 

@@ -350,6 +350,141 @@ def test_a_stage_call_on_the_card_is_one_launch_between_its_events():
 
 
 @pytest.mark.cuda
+def test_a_ready_block_made_under_one_lane_stream_launches_on_another():
+    """A call made ready under one lane's stream (its output block made
+    there, as the backend makes a HP stage's call while the stage before
+    it runs) and launched on another lane's stream takes that block and
+    gives the stage's values, call after call; once both lanes have run
+    the stage, the caching allocator calls the driver no more."""
+    _need_cuda()
+    from repro_torch.serving.stage_graph import StageProgram
+    w = torch.randn(64, 64, device="cuda")
+
+    def stage(x):
+        return torch.relu(x @ w) + 1.0, x.sum(0)
+    prog = StageProgram(stage, name="hop")
+    a, b = torch.cuda.Stream(), torch.cuda.Stream()
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    xs = [torch.randn(32, 64, device="cuda") for _ in range(9)]
+    torch.cuda.synchronize()
+
+    def hop(x):
+        with torch.cuda.stream(a):
+            r = prog.ready(x)
+        with torch.cuda.stream(b):
+            call = r.call()
+            call.issue(*events)
+            assert call.block is r.block and r.block is not None
+            return call.result()
+    for s in (a, b):
+        with torch.cuda.stream(s):
+            prog(xs[0])
+    with torch.cuda.stream(b):
+        for ev in events:
+            ev.record()
+    hop(xs[0])
+    torch.cuda.synchronize()
+    allocs = torch.cuda.memory_stats()["num_device_alloc"]
+    outs = [(x, hop(x)) for x in xs[1:]]
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_stats()["num_device_alloc"] == allocs
+    for x, (y, total) in outs:
+        ref_y, ref_total = stage(x)
+        torch.testing.assert_close(y, ref_y, rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(total, ref_total, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_a_ready_call_sets_its_nodes_again_after_another_call_launched():
+    """Two calls made ready on one lane's entry, launched in the other
+    order: the later-made one's launch points the graph's nodes at its
+    tensors, so the earlier-made one's sets them again (``last`` holds its
+    input's and its block's pointers after it) and each gives its own
+    input's values."""
+    _need_cuda()
+    from repro_torch.serving.stage_graph import StageProgram
+    w = torch.randn(64, 64, device="cuda")
+
+    def stage(x):
+        return torch.relu(x @ w) + 1.0
+    prog = StageProgram(stage, name="nodes")
+    stream = torch.cuda.Stream()
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    x1, x2 = (torch.randn(32, 64, device="cuda") for _ in range(2))
+    torch.cuda.synchronize()
+    with torch.cuda.stream(stream):
+        for ev in events:
+            ev.record()
+        prog(torch.randn(32, 64, device="cuda"))       # the capture
+        r1, r2 = prog.ready(x1), prog.ready(x2)
+        c2 = r2.call()
+        c2.issue(*events)
+        out2 = c2.result()
+        burst = c2.static.runner.burst
+        assert burst.last[2] == x2.data_ptr()
+        c1 = r1.call()
+        c1.issue(*events)
+        out1 = c1.result()
+        assert c1.static is c2.static
+        assert burst.last[2] == x1.data_ptr()
+        assert burst.last[2 + burst.n_in] == c1.block.data_ptr()
+    stream.synchronize()
+    torch.testing.assert_close(out1, stage(x1), rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(out2, stage(x2), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_a_backend_stopped_with_stages_in_flight_lets_them_end_first():
+    """A HP stage launched on its lane's stream (about 20 ms of products
+    into the output block its call was made ready with, under the engine
+    thread's stream) and the backend stopped at once: ``stop`` returns
+    only once the stage's end event has completed; with the backend
+    dropped, the blocks the engine thread's stream hands out next keep
+    what is written to them there."""
+    _need_cuda()
+    import gc
+
+    from repro_torch.core.task import Job, StageInstance
+    from repro_torch.serving.stage_graph import StageProgram
+    n = 1024
+    w = torch.randn(n, n, device="cuda") / n ** 0.5
+    spec = api.TaskSpec(name="t", period_ms=100.0, priority=api.HP, stages=[
+        api.StageProfile(f"t/s{j}", 1.0, n_sat=1.0, mem_frac=0.0)
+        for j in range(2)])
+
+    def fn(x):
+        h = x.reshape(1, -1)[:, :1] + w
+        for _ in range(200):
+            h = torch.tanh(h @ w)
+        return h
+    for st in spec.stages:
+        st.payload = StageProgram(fn, st.name)
+    srv = (api.ServerConfig.realtime().tasks([spec]).contexts(2).streams(1)
+           .oversubscribe(1.0).device(api.DeviceModel(n_units=4.0))
+           .realtime_io(input_hw=2, batch=1)).build()
+    be = srv.backend
+    be.bind(srv.core)
+    be.start()
+    chain = be._ready0[0]
+    block = chain[0].call.block
+    assert block is not None and block.shape == (n, n)
+    job = Job(srv.scheduler.tasks[0], 0.0)
+    be.launch((0, 0), StageInstance(job, enqueue_ms=0.0,
+                                    virtual_deadline_ms=100.0))
+    flight = [rec for rec in be._flight.values() if rec.end is not None]
+    assert len(flight) == 1 and flight[0].out is chain[0].call.output()
+    assert not flight[0].end.query()          # still on the card
+    be.stop()
+    assert all(rec.end.query() for rec in flight)
+    del srv, be, chain, block, flight, job
+    gc.collect()
+    fills = [torch.full((n, n), float(k), device="cuda") for k in range(8)]
+    torch.cuda.synchronize()
+    for k, t in enumerate(fills):
+        assert bool((t == float(k)).all())
+
+
+@pytest.mark.cuda
 def test_lanes_made_mid_run_capture_while_others_replay():
     """A planned reconfigure adds contexts, and so lanes (4 -> 8), after
     the clock started: the backend read the plan at its start and made
@@ -557,6 +692,12 @@ def test_served_stages_equal_the_functional_stages_with_inputs_made_ahead(
     assert g["events_in_run"] == 0
     for k in ("num_device_alloc", "num_alloc_retries"):
         assert stats.get(k, 0) == at_start.get(k, 0), k
+    # the HP stages past the first took the calls their chains made ready
+    # on the output the stage before gave, and no call was discarded
+    ready = be.ready_summary()
+    assert ready["used"]["s0"] > 0 and ready["used"]["later"] > 0
+    assert not any(n for by in ready["discarded"].values()
+                   for n in by.values())
     parts = be.hp_response_parts()
     assert parts["jobs"] == len(m.response_ms[api.HP])
     assert parts["sum_err_ms"] <= 0.01

@@ -11,7 +11,14 @@ and an event recorded on a stream completes when the stream's work
 before it has. The engine thread, the poll, the harvest and every stamp
 are the production code's. The default input is made once at the start,
 a leading size at a time, and shared by every job; a caller's factory is
-called for each.
+called for each. A HP job's calls are made ready ahead of its stages, as
+one chain made as the job before it is done (each call on the output the
+one before will give, as stage programs on the emulated burst of
+``tests/test_torch_stage_graph.py`` know it, as the card's do): a served
+CNN and LM chain take them with outputs bit-identical to the boundary's
+path, LP stages never do, and each way a ready call stops matching its
+stage discards the rest of the chain under its reason, after which the
+job's stages resolve at their boundary.
 """
 import contextlib
 import threading
@@ -478,6 +485,9 @@ def with_programs(cfg, seam):
 
 PROGRAM_STEPS = ("input", "resolve", "start", "copy_in", "replay",
                  "copy_out", "end")
+# a HP stage that took the call made ready for it: only the lane's step
+READY_STEPS = ("input", "lookup", "start", "copy_in", "replay", "copy_out",
+               "end")
 CALLABLE_STEPS = ("input", "start", "payload", "end")
 
 
@@ -486,10 +496,11 @@ def test_steps_sum_to_the_enqueue_and_the_parts_with_prep_to_the_response(
         kind):
     """The fixed-time scenario (at twice its times) on the stand-in seam,
     its payloads stage programs or plain callables: the decisions equal
-    the simulator's; every card stage's steps are the path's, in order,
-    and sum to its enqueue; a program's start event is recorded after its
-    resolve (``prep``); each HP job's parts, ``prep`` among them, sum to
-    its response."""
+    the simulator's; every card stage's steps are the path's, in order
+    (a HP program stage's ``lookup`` where it took its ready call, an LP
+    one's always ``resolve``), and sum to its enqueue; a program's start
+    event is recorded after its resolve (``prep``); each HP job's parts,
+    ``prep`` among them, sum to its response."""
     sim = slowed(fixed_time(api)).build()
     sim.run()
     seam = WallSeam()
@@ -503,8 +514,10 @@ def test_steps_sum_to_the_enqueue_and_the_parts_with_prep_to_the_response(
     want = PROGRAM_STEPS if kind == "program" else CALLABLE_STEPS
     rows = list(be._enqueues)
     assert len(rows) == be.stage_runs > 0
-    for _, _, ms, steps, _ in rows:
-        assert tuple(steps) == want
+    for _, prio, ms, steps, _ in rows:
+        assert tuple(steps) == want or (
+            kind == "program" and prio == api.HP
+            and tuple(steps) == READY_STEPS)
         assert abs(sum(steps.values()) - ms) <= 1e-6
     parts = be.hp_response_parts(slowest=len(real.core.metrics.response_ms[
         api.HP]))
@@ -515,10 +528,13 @@ def test_steps_sum_to_the_enqueue_and_the_parts_with_prep_to_the_response(
             assert abs(sum(st["steps"].values()) - st["enqueue"]) <= 1e-6
             assert st["prep"] >= 0.0
             # the start event is recorded as the "start" step begins
+            names = list(st["steps"])
             assert abs(st["prep"] - sum(st["steps"][k] for k in
-                                        want[:want.index("start")])) <= 1e-6
+                                        names[:names.index("start")])) <= 1e-6
     summary = be.enqueue_summary()
-    assert summary["n"] == len(rows) and set(summary["steps"]) == set(want)
+    assert summary["n"] == len(rows)
+    assert set(summary["steps"]) == set(want) | (
+        {"lookup"} if kind == "program" else set())
     # the engine thread's whole cost a stage: the enqueue and the result
     assert abs(summary["engine_ms"]["sum"]
                - sum(r[2] + r[4] for r in rows)) <= 1e-6
@@ -706,3 +722,335 @@ def test_a_callers_input_factory_is_called_once_a_job():
     warm = [m for m in made if m[0] == -1]
     assert warm and len(made) == len(warm) + len(first)
     assert len({id(x) for _, x in made}) == len(made)
+
+
+# --------------------------------- a HP stage's call made ready ahead of it
+def _small_specs(name):
+    """HP and LP tasks of ``name`` at a small size on the CPU, 1.0 ms a
+    stage: ResNet18 at width 8 on 2 x 33 x 33 inputs, or smollm-135m cut
+    to 4 layers in 4 stages (batch 2, prompt 8); and the server's
+    ``realtime_io``."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import BUILDERS, build_model
+    from repro_torch.serving.engine import (staged_cnn_taskspec,
+                                            staged_lm_taskspec)
+    tasks = ((api.HP, "-hp", 20.0), (api.LP, "-lp", 5.0))
+    if name == "resnet18":
+        model = BUILDERS[name](width=8, device="cpu")
+        return [staged_cnn_taskspec(model, priority=p, jps=jps,
+                                    input_hw=33, batch=2, calibrate=False,
+                                    device="cpu", tag=t)
+                for p, t, jps in tasks], dict(input_hw=33, batch=2)
+    model = build_model(get_reduced(name).replace(n_layers=4), device="cpu")
+    params = model.init_params(0)
+    specs = [staged_lm_taskspec(model, priority=p, jps=jps, n_stages=4,
+                                prompt_len=8, batch=2, device="cpu", tag=t,
+                                params=params) for p, t, jps in tasks]
+    # 1.0 ms a stage, as the CNN's uncalibrated stages: the calibration's
+    # times on a loaded host can make admission reject every LP job
+    for spec in specs:
+        for st in spec.stages:
+            st.t_alone_ms = 1.0
+    return specs, {}
+
+
+class HandleSeam(WallSeam):
+    """The stand-in seam whose events carry handles, as the card's do,
+    which the emulated burst's launch hands back (``byte_program``)."""
+
+    def __init__(self):
+        super().__init__()
+        self.events = {}
+
+    def event(self):
+        ev = super().event()
+        ev.cuda_event = id(ev)
+        self.events[ev.cuda_event] = ev
+        return ev
+
+
+def byte_program(seam):
+    """A stage program class on the emulated burst (``ByteProgram``)
+    whose launch records ``seam``'s start event before the stage's run
+    and its end event after it, on the host's clock (the launch names no
+    stand-in stream)."""
+    from tests.test_torch_stage_graph import ByteGraph, ByteProgram
+
+    class Graph(ByteGraph):
+        def launch(self, stream, graph_exec, nodes, n_in, n_out, start,
+                   end, *rest):
+            if start in seam.events:
+                seam.events[start].record()
+            err = super().launch(stream, graph_exec, nodes, n_in, n_out,
+                                 start, end, *rest)
+            if end in seam.events:
+                seam.events[end].record()
+            return err
+
+    class Program(ByteProgram):
+        def _runner(self, device):
+            return Graph
+    return Program
+
+
+def on_byte_programs(specs, seam):
+    """Every stage program of ``specs`` (a CNN's ``StageProgram``, an LM's
+    ``LmStage``) made again on the emulated burst of ``seam``."""
+    from repro_torch.serving.engine import LmStage
+    program = byte_program(seam)
+    for spec in specs:
+        for st in spec.stages:
+            p = st.payload
+            if isinstance(p, LmStage):
+                kw = p.keywords
+                prog = program(kw["program"].fn,
+                               functional=kw["program"].functional)
+                st.payload = LmStage(p.func, **{**kw, "program": prog})
+            else:
+                st.payload = program(p.fn, name=p.name,
+                                     functional=p.functional)
+    return specs
+
+
+def _leaves_of(tree):
+    from torch.utils._pytree import tree_flatten
+    return tree_flatten(tree)[0]
+
+
+@pytest.mark.parametrize("name", ["resnet18", "smollm-135m"])
+def test_hp_stages_take_ready_calls_bit_identical_to_the_boundary_path(
+        name):
+    """A small CNN chain and a reduced staged LM chain served on the
+    stand-in seam (2 x 2 lanes), their programs on the emulated burst: HP
+    stages take the calls made ready for them ahead (each job's chain,
+    made as the job before it is done, from its first stage on the
+    default input), and every harvested stage's output equals its payload
+    called on the same input at the boundary bit for bit; LP stages are
+    never made ready (they resolve at the boundary);
+    every ready call made is used, discarded or left at the stop, none
+    discarded here; the parts still sum to each response."""
+    seam = HandleSeam()
+    specs, io = _small_specs(name)
+    on_byte_programs(specs, seam)
+    cfg = (api.ServerConfig.realtime(device="cpu").tasks(specs)
+           .contexts(2).streams(2).oversubscribe(2.0)
+           .device(api.DeviceModel(n_units=4.0)).horizon_ms(400.0))
+    if io:
+        cfg = cfg.realtime_io(**io)
+    srv = cfg.build()
+    on_stand_in(srv, seam)
+    be = srv.backend
+    taken, pairs = {}, []
+    stage_input, harvest = be._stage_input, be._harvest
+
+    def take(inst, lane):
+        x = stage_input(inst, lane)
+        taken[(inst.job.job_id, inst.job.stage_idx)] = (
+            inst.profile.payload, x, inst.task.priority)
+        return x
+
+    def harvested(rec):
+        c = harvest(rec)
+        job = rec.inst.job
+        got = taken.pop((job.job_id, job.stage_idx), None)
+        if c is not None and not rec.failed:
+            pairs.append((*got, be._job_state[job.job_id]))
+        return c
+    be._stage_input, be._harvest = take, harvested
+    m = srv.run()
+    assert m.completed[api.HP] > 0 and be.worker_exceptions == 0
+    ready = be.ready_summary()
+    assert ready["used"]["s0"] > 0 and ready["used"]["later"] > 0
+    assert not any(n for by in ready["discarded"].values()
+                   for n in by.values())
+    for where in ("s0", "later"):
+        assert ready["made"][where] == (ready["used"][where]
+                                        + ready["left"][where])
+    rows = list(be._enqueues)
+    hp_rows = [r for r in rows if r[1] == api.HP]
+    assert sum(ready["stages"].values()) == len(hp_rows)
+    assert sum(ready["used"].values()) == sum(
+        1 for r in hp_rows if "lookup" in r[3])
+    assert all("resolve" in r[3] and "lookup" not in r[3]
+               for r in rows if r[1] == api.LP)
+    assert {p for *_, p, _ in pairs} == {api.HP, api.LP}
+    for payload, x, _, out in pairs:
+        a, b = _leaves_of(out), _leaves_of(payload(x))
+        assert len(a) == len(b) > 0
+        assert all(torch.equal(u, v) for u, v in zip(a, b))
+    parts = be.hp_response_parts(slowest=len(m.response_ms[api.HP]))
+    assert parts["jobs"] == len(m.response_ms[api.HP])
+    assert parts["sum_err_ms"] <= PARTS_TOL_MS
+    used = [st for job in parts["slowest"] for st in job["stages"]
+            if st["ready"] is not None]
+    assert used and all("lookup" in st["steps"] for st in used)
+
+
+def _ready_backend(seam, n_stages=2, max_batch=1, ctx_devices=None,
+                   program=None):
+    """A started backend on the stand-in (2 contexts x 1 stream) with one
+    HP task of ``n_stages`` stage programs (``program``, by default on
+    the emulated burst of ``seam``, a ``HandleSeam``) ``x + 1`` on the
+    default zero input (1 x 2 x 2 x 3 an input), bound to its server's
+    core. Returns the backend, the task and a function of (job, stage)
+    that makes the instance."""
+    program = program or byte_program(seam)
+    spec = api.TaskSpec(name="t", period_ms=100.0, priority=api.HP, stages=[
+        api.StageProfile(f"t/s{j}", 1.0, n_sat=1.0, mem_frac=0.0)
+        for j in range(n_stages)])
+    for st in spec.stages:
+        def fn(x):
+            if seam.current is not None:    # an emulated launch has none
+                seam.work(1.0)
+            return x + 1.0
+        st.payload = program(fn, st.name)
+    cfg = (api.ServerConfig.realtime(device="cpu").tasks([spec])
+           .contexts(2).streams(1).oversubscribe(1.0)
+           .device(api.DeviceModel(n_units=4.0))
+           .realtime_io(input_hw=2, batch=1))
+    if max_batch > 1:
+        cfg = cfg.batching(max_batch=max_batch)
+    srv = cfg.build()
+    be = srv.backend
+    be._seam = seam
+    if ctx_devices is not None:
+        be.ctx_devices = ctx_devices
+    be.bind(srv.core)
+    be.start()
+    task = srv.scheduler.tasks[0]
+
+    def instance(job, stage):
+        job.stage_idx = stage
+        return StageInstance(job, enqueue_ms=0.0, virtual_deadline_ms=100.0)
+    return be, task, instance
+
+
+def _stage(be, lane, inst):
+    """Launch ``inst`` on ``lane`` and drain the flight; its steps."""
+    be.launch(lane, inst)
+    _drain(be, be.now_ms() + 2000.0)
+    return list(be._enqueues)[-1][3]
+
+
+class _Fail:
+    """A chaos plan's draw that fails every launch, without a stall."""
+
+    @staticmethod
+    def draw_launch():
+        return True, 0.0
+
+
+@pytest.mark.parametrize("reason", ["migrated", "cancelled", "killed",
+                                    "ctx_failed", "chaos", "batch",
+                                    "factory"])
+def test_each_discarded_ready_call_is_counted_by_its_reason(reason,
+                                                            monkeypatch):
+    """Each way a call made ready ahead stops being the one its stage
+    would make: the rest of its job's chain is discarded, each call
+    counted under the reason and no other (a first stage's reason: the
+    whole two-stage chain), and the job's remaining stages resolve at
+    their boundary as before (``resolve``, not ``lookup``) with the right
+    output; a ready call that matches is taken (``lookup``); a stage
+    relaunched after its ghost took its ready call finds none and
+    resolves."""
+    seam = HandleSeam()
+    kw = {"max_batch": 2} if reason == "batch" else {}
+    if reason == "migrated":
+        kw["ctx_devices"] = {0: "cpu", 1: "cpu"}
+        from repro_torch.serving import staging
+        # a move to another device: new storage, the same values
+        monkeypatch.setattr(staging, "migrate",
+                            lambda x, dev: x.clone())
+    be, task, instance = _ready_backend(seam, **kw)
+    # the first job's chain, made at the start
+    assert [r.stage for r in be._ready0[task.index]] == [0, 1]
+    try:
+        job = Job(task, 0.0, extra_release_ms=[1.0] if reason == "batch"
+                  else [])
+        if reason == "factory":
+            be.input_factory = lambda j: torch.full((1, 2, 2, 3), 5.0)
+        if reason == "chaos":
+            be.core._chaos = _Fail
+        if reason in ("killed", "ctx_failed"):
+            lane = (0, 0) if reason == "killed" else (1, 0)
+            inst = instance(job, 0)
+            be.launch(lane, inst)
+            assert job.job_id in be._ready
+            if reason == "killed":
+                be.kill_lane(lane, inst)         # a watchdog's ghost
+            else:
+                be.cancel_ctx(1)                 # its context failed
+            assert job.job_id not in be._ready
+            _drain(be, be.now_ms() + 2000.0)
+        steps = _stage(be, (0, 0), instance(job, 0))
+        base = 5.0 if reason == "factory" else 0.0
+        if reason in ("batch", "factory", "chaos", "killed", "ctx_failed"):
+            # a ghost took the first stage's ready call: none is left
+            assert "resolve" in steps and "lookup" not in steps
+            assert be.ready_summary()["none"]["s0"] == (
+                reason in ("killed", "ctx_failed"))
+        else:
+            assert "lookup" in steps
+        if reason == "chaos":
+            # a failed stage's output is not committed, and no call is
+            # made ready on it
+            assert job.job_id not in be._job_state
+            assert job.job_id not in be._ready
+        else:
+            x = be._job_state[job.job_id]
+            assert x.shape[0] == job.n_inputs
+            assert torch.equal(x, torch.full_like(x, base + 1.0))
+            # the chain's rest, where the first stage took its call
+            assert (job.job_id in be._ready) == (
+                reason in ("migrated", "cancelled"))
+        if reason == "cancelled":
+            be.on_job_done(job)                  # retired at the boundary
+        elif reason != "chaos":
+            lane = (1, 0) if reason == "migrated" else (0, 0)
+            steps = _stage(be, lane, instance(job, 1))
+            assert "resolve" in steps and "lookup" not in steps
+            x = be._job_state[job.job_id]
+            assert torch.equal(x, torch.full_like(x, base + 2.0))
+    finally:
+        be.stop()
+    ready = be.ready_summary()
+    discarded = {r: sum(by.values())
+                 for r, by in ready["discarded"].items() if any(by.values())}
+    first = reason in ("chaos", "batch", "factory")
+    assert discarded == {reason: 2 if first else 1}
+    assert ready["discarded"][reason] == {"s0": int(first), "later": 1}
+    for w in ("s0", "later"):
+        assert ready["made"][w] == (ready["used"][w] + ready["left"][w]
+                                    + sum(by[w] for by in
+                                          ready["discarded"].values()))
+    assert be.worker_exceptions == 0
+
+
+def test_a_stall_inside_a_ready_step_is_named_ready():
+    """A payload whose ready step sleeps 3 ms (a first stage's call made
+    ready for the next job as a job is done): the engine thread's stall
+    is named ``ready``, and the ready call's ms holds the sleep; no
+    enqueue step holds it."""
+    seam = HandleSeam()
+    be, task, instance = _ready_backend(seam, n_stages=1)
+    prog = task.spec.stages[0].payload
+    ready = prog.ready
+
+    def slow(*args, **kw):
+        time.sleep(3.0 / 1000.0)
+        return ready(*args, **kw)
+    try:
+        job = Job(task, 0.0)
+        _stage(be, (0, 0), instance(job, 0))
+        be.on_job_done(job)
+        assert [s for s in be.engine_stalls() if s["step"] == "ready"] == []
+        prog.ready = slow
+        job = Job(task, 0.0)
+        steps = _stage(be, (0, 0), instance(job, 0))
+        be.on_job_done(job)
+    finally:
+        be.stop()
+    named = [s for s in be.engine_stalls() if s["step"] == "ready"]
+    assert len(named) == 1 and named[0]["wall_ms"] >= 3.0
+    assert be.ready_summary()["ms"]["s0"]["max"] >= 3.0
+    assert max(steps.values()) < 3.0

@@ -33,7 +33,9 @@ again) except the capture and replay calls themselves.
   functional stages bit for bit; an argument of another shape, dtype or
   layout takes an entry of its own (the byte copies would read a stale
   plan's layout wrongly); a ``Constant`` is keyed by identity and copied
-  in anew.
+  in anew; a call made ready without a lane and then taken on one equals
+  ``prepare`` (entry, arguments, block layout, output), also when the
+  lane that takes it is not the one it was made on.
 """
 import concurrent.futures
 import ctypes
@@ -826,3 +828,265 @@ def test_a_constant_is_taken_by_identity_and_copied_in_anew():
                                   "b": torch.zeros(4)}))
     a, b = prog._lanes.values()
     assert len(prog._lanes) == 2 and a.inputs is b.inputs
+
+
+# ------------------------------------ a call made ready, then on its lane
+def _byte_cnn_payloads():
+    """The small ResNet18's stage programs on the emulated burst."""
+    return [ByteProgram(st.payload.fn, name=st.name)
+            for st in _cnn_spec("resnet18").stages]
+
+
+@pytest.mark.parametrize("name", ["resnet18", "smollm-135m"])
+def test_ready_and_its_lane_step_equal_prepare(name):
+    """Two jobs through a small CNN chain and a reduced staged LM chain on
+    the emulated burst, each stage's call made ready on the previous
+    stage's output (``ready``) and then taken on its lane (``call``): the
+    same static entry, the same flattened arguments and a block of the
+    same layout as ``prepare`` on the same input, and the same output bit
+    for bit, which is the functional stages' (the CNN within 2e-4 of the
+    scale); the output a ready call gives before its launch is the tree
+    its result returns; a call made ready before any lane has an entry of
+    its signature holds no block and knows no output ahead, and its lane's
+    step makes the block."""
+    if name == "smollm-135m":
+        payloads = _byte_lm_payloads()
+        firsts = _job_inputs(name, _lm_model().cfg.vocab_size)
+    else:
+        payloads = _byte_cnn_payloads()
+        firsts = _job_inputs(name)
+    for job, x in enumerate(firsts):
+        want = x
+        for p in payloads:
+            prog = _program(p)
+            r = p.ready(x)
+            assert (r.block is None) == (job == 0)
+            ahead = r.output()              # before the call is launched
+            assert (ahead is None) == (job == 0)
+            call = r.call()
+            again = p.prepare(x)
+            assert call.static is again.static
+            assert len(call.flat) == len(again.flat)
+            assert all(a is b for a, b in zip(call.flat, again.flat))
+            layout = call.static.runner.burst.layout
+            assert prog._layouts[r.sig] is layout
+            assert job == 0 or (r.layout is layout
+                                and call.block is r.block)
+            for a, b in ((call.block, again.block),):
+                assert (a.shape, a.dtype, a.stride()) == (
+                    b.shape, b.dtype, b.stride())
+                assert a.data_ptr() != b.data_ptr()
+            call.issue()
+            again.issue()
+            got, ref = call.result(), again.result()
+            assert ahead is None or got is ahead
+            assert all(torch.equal(u, v)
+                       for u, v in zip(_leaves(got), _leaves(ref)))
+            x, want = got, _eager(p)(want)
+        a, b = _leaves(x), _leaves(want)
+        assert len(a) == len(b)
+        for u, v in zip(a, b):
+            if name == "smollm-135m":
+                assert torch.equal(u, v)
+            else:
+                scale = max(1.0, float(v.abs().max()))
+                assert float((u - v).abs().max()) <= CNN_TOL * scale
+
+
+@pytest.mark.parametrize("name", ["resnet18", "smollm-135m"])
+def test_a_chain_made_before_its_stages_run_equals_the_prepared_chain(
+        name):
+    """On the emulated burst, a job's calls made ready as one chain before
+    any of its stages runs, each on the output the one before will give
+    (``ReadyCall.output``: views of its block), then launched in turn:
+    each stage's result is the very tree the next call was made on, and
+    the job's final state equals the prepared chain's bit for bit."""
+    payloads = (_byte_lm_payloads() if name == "smollm-135m"
+                else _byte_cnn_payloads())
+    firsts = (_job_inputs(name, _lm_model().cfg.vocab_size)
+              if name == "smollm-135m" else _job_inputs(name))
+    want = firsts[0]
+    for p in payloads:                  # each lane's entry, and the reference
+        call = p.prepare(want)
+        call.issue()
+        want = call.result()
+    x, chain = firsts[1], []
+    for p in payloads:
+        chain.append(p.ready(x))
+        x = chain[-1].output()
+        assert x is not None
+    ref = firsts[1]
+    for p in payloads:
+        call = p.prepare(ref)
+        call.issue()
+        ref = call.result()
+    for r, nxt in zip(chain, chain[1:] + [None]):
+        call = r.call()
+        call.issue()
+        got = call.result()
+        assert got is r.output()
+        if nxt is not None:
+            assert nxt.args[0] is got or nxt.args[0] is got["hidden"]
+    a, b = _leaves(got), _leaves(ref)
+    assert len(a) == len(b) > 0
+    assert all(torch.equal(u, v) for u, v in zip(a, b))
+
+
+def test_a_ready_block_made_on_one_lane_launches_on_another():
+    """A call made ready on one lane (a worker thread, as on the card the
+    stream of the stage before it) and taken on another: the other
+    lane's entry of the signature shares the first's layout, takes the
+    ready block as its output and gives the stage's result; a ready call
+    whose layout is not its entry's takes a block of the entry's own."""
+    import copy
+    prog = ByteProgram(lambda x: (x * 2.0, x.sum(0)), name="two")
+    lane_a = concurrent.futures.ThreadPoolExecutor(1)
+    lane_b = concurrent.futures.ThreadPoolExecutor(1)
+
+    def take(r):
+        call = r.call()
+        call.issue()
+        return call, call.result()
+    try:
+        x = torch.arange(6.0).reshape(2, 3)
+        for lane in (lane_a, lane_b):
+            lane.submit(prog, x).result(timeout=60)
+        a, b = prog._lanes.values()
+        assert a.runner.burst.layout is b.runner.burst.layout
+        for k in range(3):
+            y = x + k
+            r = lane_a.submit(prog.ready, y).result(timeout=60)
+            call, (twice, total) = lane_b.submit(take, r).result(timeout=60)
+            assert call.static is b and call.block is r.block
+            assert torch.equal(twice, y * 2.0)
+            assert torch.equal(total, y.sum(0))
+        r = prog.ready(x)
+        r.layout = copy.copy(r.layout)
+        call, (twice, _) = lane_b.submit(take, r).result(timeout=60)
+        assert call.block is not r.block and torch.equal(twice, x * 2.0)
+    finally:
+        lane_a.shutdown()
+        lane_b.shutdown()
+
+
+def test_a_stage_that_takes_its_ready_call_launches_before_any_stream_use():
+    """The realtime backend on the stand-in seam with its stage programs
+    on the emulated burst (the card's path but for the C launch), whose
+    outputs are known before they run: a HP job's calls are made ready as
+    one chain before its first stage (each on the output the one before
+    will give), so its stages launch their graphs with no lane stream
+    made current (the launch names its stream) and nothing made ready
+    between them; each stage's output is the tree the next call was made
+    on; the job done, the next job's chain is made, with no lane stream
+    either. A stage that resolves at its boundary (another input
+    factory) makes the stream current first. Each stage gives its input
+    plus one."""
+    from tests.test_torch_inline_dispatch import (WallEvent, WallSeam,
+                                                  _ready_backend, _stage)
+    from repro_torch.core.task import Job
+    log, events = [], {}
+
+    class LoggingSeam(WallSeam):
+        """Its events have handles, which the emulated launch records."""
+
+        def use(self, stream):
+            log.append("use")
+            return super().use(stream)
+
+        def event(self):
+            ev = WallEvent(self)
+            ev.cuda_event = id(ev)
+            events[ev.cuda_event] = ev
+            return ev
+
+    class LoggedGraph(ByteGraph):
+        def launch(self, stream, graph_exec, nodes, n_in, n_out, start,
+                   end, *rest):
+            log.append("launch")
+            for ev in (start, end):     # the burst's own at a bare call
+                if ev in events:
+                    events[ev].record()
+            return super().launch(stream, graph_exec, nodes, n_in, n_out,
+                                  start, end, *rest)
+
+    class LoggedProgram(ByteProgram):
+        def _runner(self, device):
+            return LoggedGraph
+
+    be, task, instance = _ready_backend(LoggingSeam(),
+                                        program=LoggedProgram)
+    try:
+        job = Job(task, 0.0)
+        chain = be._ready0[task.index]
+        assert [r.stage for r in chain] == [0, 1]
+        assert chain[1].src is chain[0].call.output()
+        for stage in (0, 1):
+            log.clear()
+            steps = _stage(be, (stage, 0), instance(job, stage))
+            assert "lookup" in steps and log == ["launch"]
+            x = be._job_state[job.job_id]
+            assert x is chain[stage].call.output()
+            assert torch.equal(x, torch.full((1, 2, 2, 3), stage + 1.0))
+        assert task.index not in be._ready0
+        be.on_job_done(job)
+        assert [r.stage for r in be._ready0[task.index]] == [0, 1]
+        assert log == ["launch"]
+        be.input_factory = lambda j: torch.full((1, 2, 2, 3), 5.0)
+        log.clear()
+        steps = _stage(be, (0, 0), instance(Job(task, 0.0), 0))
+        assert "resolve" in steps and log[:2] == ["use", "launch"]
+        assert be.ready_summary()["discarded"]["factory"]["s0"] == 1
+    finally:
+        be.stop()
+    assert be.worker_exceptions == 0
+
+
+@pytest.mark.parametrize("reason", ["killed", "ctx_failed"])
+def test_a_broken_chain_is_discarded_whole_and_its_stages_resolve(reason):
+    """A three-stage HP job on the emulated burst, its chain made ready
+    before its first stage: a watchdog's kill of its first stage, or the
+    failure of the context it runs on, discards the rest of the chain
+    (two calls, counted under the reason); the relaunched stage and the
+    job's later stages resolve at their boundary (no call is made ready
+    between a job's stages); every stage gives its input plus one."""
+    from tests.test_torch_inline_dispatch import (WallSeam, _drain,
+                                                  _ready_backend, _stage)
+    from repro_torch.core.task import Job
+
+    class HandledSeam(WallSeam):
+        def event(self):
+            ev = super().event()
+            ev.cuda_event = id(ev)
+            ev.record()
+            return ev
+
+    be, task, instance = _ready_backend(HandledSeam(), n_stages=3,
+                                        program=ByteProgram)
+    try:
+        job = Job(task, 0.0)
+        inst = instance(job, 0)
+        be.launch((1, 0), inst)
+        assert [r.stage for r in be._ready[job.job_id][1]] == [1, 2]
+        if reason == "killed":
+            be.kill_lane((1, 0), inst)           # a watchdog's ghost
+        else:
+            be.cancel_ctx(1)                     # its context failed
+        assert job.job_id not in be._ready
+        _drain(be, be.now_ms() + 2000.0)
+        for stage in (0, 1, 2):
+            steps = _stage(be, (0, 0), instance(job, stage))
+            assert "resolve" in steps and "lookup" not in steps
+            assert job.job_id not in be._ready
+        x = be._job_state[job.job_id]
+        assert torch.equal(x, torch.full((1, 2, 2, 3), 3.0))
+    finally:
+        be.stop()
+    ready = be.ready_summary()
+    assert ready["discarded"][reason] == {"s0": 0, "later": 2}
+    assert not any(sum(by.values()) for r, by in ready["discarded"].items()
+                   if r != reason)
+    for w in ("s0", "later"):
+        assert ready["made"][w] == (ready["used"][w] + ready["left"][w]
+                                    + sum(by[w] for by in
+                                          ready["discarded"].values()))
+    assert be.worker_exceptions == 0
