@@ -427,7 +427,7 @@ result line. Without arguments:
 Each phase's model is freed before the next; ``phase_seconds`` and
 ``phase_peak_memory_gb`` give each phase's wall and peak of allocated card
 memory, and ``script_seconds`` the whole script's wall and its phases'
-sum beside those of commit 5d5cafd and the wall's aim.
+sum beside those of commit 464ae87 and the wall's aim.
 
 Kernel launch counts are reset just before each path and read just after;
 every kernel must be launched on a path (the f32 contention kernel, which
@@ -489,9 +489,9 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 T_START = time.perf_counter()      # the whole script's wall clock
 # the whole script's wall and phase seconds on one H100 (700 W) at commit
-# 5d5cafd, before a HP stage's call was made ready ahead, and the aim for
-# the wall (``script_seconds``)
-PREVIOUS_SECONDS = {"commit": "5d5cafd", "wall_s": 856.6, "phases_s": 834.3}
+# 464ae87, before the host readings of ``run_host``, and the aim for the
+# wall (``script_seconds``)
+PREVIOUS_SECONDS = {"commit": "464ae87", "wall_s": 675.2, "phases_s": 640.2}
 WALL_AIM_S = 600.0
 HBM_BYTES_PER_S = 3.35e12             # H100 SXM data sheet
 PEAK_FLOPS = {"bfloat16": 989e12,     # dense tensor-core bf16
@@ -1622,7 +1622,9 @@ def serve(torch, failures, specs, setup_s, jps, kernels, desc, trace=False,
     the card's SM count, seed 0; NHWC inputs of ``input_hw`` where given)
     and emit the ``serving`` line, which also gives the host's side of the
     run (wall, the process's CPU seconds and context switches, the threads
-    that used the most CPU); ``trace`` puts the run under
+    that used the most CPU, and from the clock's start the engine
+    thread's own, the cgroup's throttling and the polls: ``run_host``);
+    ``trace`` puts the run under
     ``torch.profiler`` and adds ``device_timeline``; ``schedcheck`` runs
     ``verify(enforce=False)`` on the config before it is built and emits
     the report beside the run (``schedcheck_served``); ``prepare`` is
@@ -1660,15 +1662,20 @@ def serve(torch, failures, specs, setup_s, jps, kernels, desc, trace=False,
     warm = {}
 
     def start():
+        import threading
         started()
         warm["alloc"] = allocator_counts(torch)
         warm["stats"] = torch.cuda.memory_stats()
+        warm["engine"] = threading.get_ident()
+        warm["host"] = {"usage": thread_usage(switches_counted()),
+                        "cgroup": cgroup_cpu()[0]}
     srv.backend.start = start
     engine_cpus = sorted(os.sched_getaffinity(0))
     stat0 = proc_stat()
     ru0, w0 = resource.getrusage(resource.RUSAGE_SELF), time.perf_counter()
     with tracer, ThreadCpu() as threads, GcTime() as gc_time:
         m = srv.run()
+        run_reads = run_host(warm["host"], warm["engine"], srv.backend)
         torch.cuda.synchronize()
     ru1, w1 = resource.getrusage(resource.RUSAGE_SELF), time.perf_counter()
     stat1 = proc_stat()
@@ -1682,7 +1689,10 @@ def serve(torch, failures, specs, setup_s, jps, kernels, desc, trace=False,
             "cpu_s_by_thread": threads.top(), "engine_cpus": engine_cpus,
             # the machine's CPU seconds by kind over the run (/proc/stat)
             "proc_stat_s": (None if None in (stat0, stat1) else
-                            {k: stat1[k] - stat0[k] for k in stat0})}
+                            {k: stat1[k] - stat0[k] for k in stat0}),
+            # from the clock's start: the engine thread's own CPU and
+            # switches, the cgroup's throttling, the backend's polls
+            **run_reads}
     name = desc["model"]
     launches = path_counts(KERNELS, kernels, name, failures)
     instances = {n: dict(KERNELS[n].counts.by_instance) for n in kernels
@@ -1743,6 +1753,7 @@ def serve(torch, failures, specs, setup_s, jps, kernels, desc, trace=False,
                        k: v["mean_device_ms"]
                        for k, v in be.stage_time_summary().items()},
                    "stalls": stalls_by_step(stalls),
+                   "host": host_row(host),
                    "gc": gc_summary(in_run)})
     if graphs is not None and (graphs["stage_runs"] == 0
                                or graphs["replays"] != graphs["stage_runs"]):
@@ -2326,6 +2337,120 @@ def proc_stat():
     return {k: int(v) / tick for k, v in zip(PROC_STAT, fields)}
 
 
+# the host readings below are the script's own (the backend has its
+# like for its stalls): an A/B runs this script in older trees too
+
+def thread_usage(counted: bool):
+    """The calling thread's CPU seconds, voluntary and involuntary context
+    switches (``getrusage(RUSAGE_THREAD)``; None where the host does not
+    count them: ``counted``, from ``switches_counted``)."""
+    ru = resource.getrusage(resource.RUSAGE_THREAD)
+    if not counted:
+        return ru.ru_utime + ru.ru_stime, None, None
+    return ru.ru_utime + ru.ru_stime, ru.ru_nvcsw, ru.ru_nivcsw
+
+
+def switches_counted() -> bool:
+    """Whether this host counts a thread's context switches (its kernel
+    lists them in the thread's ``/proc`` status)."""
+    try:
+        with open("/proc/thread-self/status") as f:
+            return "voluntary_ctxt_switches" in f.read()
+    except OSError:
+        return False
+
+
+CGROUP_COUNTS = ("nr_periods", "nr_throttled", "throttled_usec")
+
+
+def cgroup_cpu():
+    """The process's cgroup CPU limit and throttling counters: (reading,
+    None); (reading with the counters None, the reason) where only the
+    limit can be read; or (None, the reason) where neither can. The cgroup
+    is the one ``/proc/self/cgroup`` names, under the unified (v2)
+    hierarchy (``cpu.max``, ``cpu.stat``) or the ``cpu`` controller's (v1)
+    mount (``cpu.cfs_quota_us``, ``cpu.cfs_period_us``, ``cpu.stat``,
+    whose ``throttled_time`` is in ns), or that mount's root where the
+    path is not in it (a container's own namespace): the first whose
+    ``cpu.stat`` counts throttling, else the first with a limit file."""
+    def read(path):
+        try:
+            with open(path) as f:
+                return f.read()
+        except OSError:
+            return None
+    text = read("/proc/self/cgroup")
+    if text is None:
+        return None, "/proc/self/cgroup unreadable"
+    tried, limited = [], None
+    for line in text.splitlines():
+        if line.count(":") < 2:
+            continue
+        _, ctl, path = line.split(":", 2)
+        if ctl == "":
+            version, limits = 2, ("cpu.max",)
+            roots = ["/sys/fs/cgroup", "/sys/fs/cgroup/unified"]
+        elif "cpu" in ctl.split(","):
+            version, limits = 1, ("cpu.cfs_quota_us", "cpu.cfs_period_us")
+            roots = [f"/sys/fs/cgroup/{ctl}", "/sys/fs/cgroup/cpu",
+                     "/sys/fs/cgroup/cpu,cpuacct"]
+        else:
+            continue
+        for root in roots:
+            for d in (root + path.rstrip("/"), root):
+                limit = {f: read(f"{d}/{f}") for f in limits}
+                limit = {f: v.strip() for f, v in limit.items()
+                         if v is not None}
+                row = {"dir": d, "version": version, "limit": limit}
+                stat = read(f"{d}/cpu.stat")
+                if stat is None or "nr_throttled" not in stat:
+                    tried.append(d)
+                    if limit and limited is None:
+                        limited = {**row, **dict.fromkeys(CGROUP_COUNTS)}
+                    continue
+                kv = dict(ln.split() for ln in stat.splitlines()
+                          if len(ln.split()) == 2)
+                if "throttled_usec" not in kv:
+                    kv["throttled_usec"] = int(kv.get("throttled_time",
+                                                      0)) // 1000
+                return {**row, **{k: int(kv.get(k, 0))
+                                  for k in CGROUP_COUNTS}}, None
+    return limited, (f"no cpu.stat that counts throttling (tried "
+                     f"{sorted(set(tried))})")
+
+
+def run_host(before: dict, engine_ident: int, be) -> dict:
+    """The served run's host readings beside ``host``'s process-wide ones,
+    from the clock's start (``before``: the engine thread's
+    ``thread_usage`` and ``cgroup_cpu`` then) to the run's end, read on
+    the thread that ran ``srv.run()``: the engine thread's CPU seconds and
+    switches (``on_engine_thread``: the backend's start ran on it too;
+    the switches None where the host does not count them), the cgroup's
+    CPU limit and the deltas of its period and throttling counters (None
+    with ``cgroup_reason`` where they cannot be read), and
+    the backend's polls and end-event queries (None in a tree without
+    those counts)."""
+    import threading
+    counted = before["usage"][1] is not None
+    cpu, vol, invol = thread_usage(counted)
+    cg, reason = cgroup_cpu()
+    cg0 = before["cgroup"]
+    if cg is not None:
+        cg = {**cg, **{k: None if cg0 is None or cg[k] is None
+                       else cg[k] - cg0[k] for k in CGROUP_COUNTS}}
+    polls = getattr(be, "poll_counts", None)
+    return {"engine_thread": {
+                "on_engine_thread": threading.get_ident() == engine_ident,
+                "cpu_s": cpu - before["usage"][0],
+                "switches_counted": counted,
+                "voluntary_switches": (vol - before["usage"][1]
+                                       if counted else None),
+                "involuntary_switches": (invol - before["usage"][2]
+                                         if counted else None)},
+            "cgroup": cg, "cgroup_reason": reason,
+            "poll_counts": polls and dict(polls)}
+
+
 def over_bound_jobs(parts: dict, bound) -> list:
     """Each HP job of ``parts["slowest"]`` above ``bound`` (SchedCheck's
     static HP bound, ms): its response, its largest stage part, and that
@@ -2401,17 +2526,38 @@ def stage_enqueues(parts: dict) -> dict:
 
 def stalls_by_step(stalls) -> dict:
     """Engine-thread stalls by the step that ends them: [count, wall ms,
-    CPU ms, longest wall ms]."""
+    CPU ms, longest wall ms, involuntary switches, cgroup throttled
+    periods] (the last two summed over the stalls' windows, None in a
+    tree that does not read them or where the cgroup is not readable)."""
     if stalls is None:
         return None
     out = {}
     for row in stalls:
-        acc = out.setdefault(row["step"], [0, 0.0, 0.0, 0.0])
+        acc = out.setdefault(row["step"], [0, 0.0, 0.0, 0.0, None, None])
         acc[0] += 1
         acc[1] += row["wall_ms"]
         acc[2] += row["cpu_ms"]
         acc[3] = max(acc[3], row["wall_ms"])
+        for i, k in ((4, "involuntary"), (5, "nr_throttled")):
+            if row.get(k) is not None:
+                acc[i] = (acc[i] or 0) + row[k]
     return out
+
+
+def host_row(host: dict) -> dict:
+    """A served run's host readings as ``serve_repeats`` sums them: the
+    process's CPU seconds and switches, the engine thread's, the cgroup's
+    throttled periods and µs (None where not readable) and the backend's
+    polls and end-event queries (None in a tree without them)."""
+    eng, cg = host["engine_thread"], host["cgroup"]
+    polls = host["poll_counts"]
+    return {"process_cpu_s": host["cpu_user_s"] + host["cpu_sys_s"],
+            "process_involuntary": host["involuntary_switches"],
+            "engine_cpu_s": eng["cpu_s"],
+            "engine_voluntary": eng["voluntary_switches"],
+            "engine_involuntary": eng["involuntary_switches"],
+            **{k: cg and cg[k] for k in CGROUP_COUNTS},
+            **{k: polls and polls[k] for k in ("polls", "queries")}}
 
 
 def run_engines(make_cfg, path, failures, rate_groups=False):
@@ -5736,6 +5882,12 @@ def serve_repeats(torch, arch: str, repeats: int, trace: bool) -> int:
                 r: by for r, by in run["ready"]["discarded"].items()
                 if any(by.values())} for run in SERVED],
         "gc_by_run": [run["gc"] for run in SERVED],
+        # each run's host readings (``host_row``) and their sums
+        "host_by_run": [run["host"] for run in SERVED],
+        "host_sum": {k: (None if any(run["host"][k] is None
+                                     for run in SERVED)
+                         else sum(run["host"][k] for run in SERVED))
+                     for k in (SERVED[0]["host"] if SERVED else ())},
         # each run's HP responses by part, summed over its jobs
         "hp_parts_total_ms": [run["hp_parts_total_ms"] for run in SERVED]}})
     return 0 if all(runs) else 1

@@ -13,7 +13,17 @@ HP stages alone); HP misses, LP completions, runs and HP
 jobs over SchedCheck's bound with those jobs' largest part and step; and
 the gates (driver allocations and CUDA events after the start, graph
 pools, the parts' largest error); on the tree also the HP stages' calls
-made ready ahead (the share used, and those discarded by reason).
+made ready ahead (the share used, and those discarded by reason). ``host``:
+what took the host away, as least / median / most over the runs of the
+engine thread's CPU seconds and voluntary and involuntary switches (None
+where the host does not count them), the process's CPU seconds, the
+engine thread's polls and end-event queries (None in a tree without
+them), its stalls and poll stalls a run, and summed over the runs the
+cgroup's periods, throttled periods and throttled µs (None where not
+readable) and the involuntary switches and throttled periods in the
+stalls' windows; ``turns``: each turn's runs' poll stalls,
+engine CPU seconds and HP jobs over the bound, to show on which side a
+stalling turn falls.
 
 For a drill A/B (``serve_ab.sh --drill``) it prints one line a model,
 side and drill from the ``drill`` lines instead: HP completed and missed
@@ -55,11 +65,56 @@ def median_of(rows: list):
     return dict(out)
 
 
+def total(xs: list):
+    """The sum of ``xs``, None where any is None."""
+    return None if any(x is None for x in xs) else sum(xs)
+
+
+def host_summary(runs: list) -> dict:
+    host = [r.get("host") or {} for r in runs]
+    eng = [h.get("engine_thread") or {} for h in host]
+    polls = [h.get("poll_counts") or {} for h in host]
+    cg = [h.get("cgroup") for h in host]
+    by_step = [(r.get("engine_stalls") or {}).get("by_step") or {}
+               for r in runs]
+
+    def stall_sum(i):
+        return total([row[i] for steps in by_step for row in steps.values()
+                      if len(row) > i])
+    return {
+        **{k: span([e.get(k) for e in eng])
+           for k in ("cpu_s", "voluntary_switches", "involuntary_switches")},
+        "process_cpu_s": span([h.get("cpu_user_s", 0) + h.get("cpu_sys_s", 0)
+                               for h in host]),
+        **{k: span([c.get(k) for c in polls]) for k in ("polls", "queries")},
+        "stalls": span([sum(row[0] for row in steps.values())
+                        for steps in by_step]),
+        "poll_stalls": span([steps.get("poll", [0])[0]
+                             for steps in by_step]),
+        "stall_involuntary": stall_sum(4),
+        "stall_nr_throttled": stall_sum(5),
+        **{k: total([c and c[k] for c in cg])
+           for k in ("nr_periods", "nr_throttled", "throttled_usec")},
+        "cgroup_limit": sorted({json.dumps(c and c["limit"]) for c in cg}),
+        "cgroup_reason": sorted({h.get("cgroup_reason") for h in host}
+                                - {None}),
+    }
+
+
 def side_summary(files: list) -> dict:
-    runs, repeats = [], []
+    runs, repeats, turns = [], [], []
     for f in files:
-        runs += lines(f, "serving")
-        repeats += lines(f, "serve_repeats")
+        turn, summed = lines(f, "serving"), lines(f, "serve_repeats")
+        runs += turn
+        repeats += summed
+        turns.append({
+            "turn": f.stem,
+            "poll_stalls": [((r.get("engine_stalls") or {}).get("by_step")
+                             or {}).get("poll", [0])[0] for r in turn],
+            "engine_cpu_s": [((r.get("host") or {}).get("engine_thread")
+                              or {}).get("cpu_s") for r in turn],
+            "hp_jobs_over_bound": sum(r["hp_jobs_over_bound"]
+                                      for r in summed)})
     n = sum(r["hp_completed"] for r in repeats)
     per_job = {p: [] for p in PARTS}
     for run in runs:
@@ -109,6 +164,8 @@ def side_summary(files: list) -> dict:
             k: sum(v.values()) for k, v in r["discarded"].items()})
             for r in ready), collections.Counter()))
             if all(ready) and ready else None),
+        "host": host_summary(runs),
+        "turns": turns,
     }
 
 

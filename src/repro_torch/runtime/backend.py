@@ -47,6 +47,7 @@ import itertools
 import math
 import os
 import queue
+import resource
 import threading
 import time
 from typing import Callable, Dict, List, Optional, Protocol
@@ -602,28 +603,114 @@ def _where(stage: int) -> str:
     return READY_WHERE[stage > 0]
 
 
+def switches_counted() -> bool:
+    """Whether this host counts a thread's context switches: a kernel
+    that does lists them in the thread's ``/proc`` status (on the H100
+    machine the status has no such line and ``getrusage`` reads 0)."""
+    try:
+        with open("/proc/thread-self/status") as f:
+            return "voluntary_ctxt_switches" in f.read()
+    except OSError:
+        return False
+
+
+def thread_usage(counted: bool) -> tuple:
+    """The calling thread's CPU seconds, voluntary and involuntary context
+    switches (None where the host does not count them: ``counted``, from
+    ``switches_counted``), from one system call
+    (``getrusage(RUSAGE_THREAD)``)."""
+    ru = resource.getrusage(resource.RUSAGE_THREAD)
+    if not counted:
+        return ru.ru_utime + ru.ru_stime, None, None
+    return ru.ru_utime + ru.ru_stime, ru.ru_nvcsw, ru.ru_nivcsw
+
+
+def cgroup_cpu_dir() -> Optional[str]:
+    """The directory of this process's cgroup CPU files whose ``cpu.stat``
+    counts throttling (``nr_throttled``): the cgroup of
+    ``/proc/self/cgroup`` under the unified (v2) hierarchy or the ``cpu``
+    controller's (v1) mount, or that mount's root where the cgroup's path
+    is not in it (a container's own namespace); None where none is
+    readable."""
+    try:
+        with open("/proc/self/cgroup") as f:
+            lines = f.read().splitlines()
+    except OSError:
+        return None
+    for line in lines:
+        _, controllers, path = line.split(":", 2)
+        if controllers == "":
+            roots = ["/sys/fs/cgroup", "/sys/fs/cgroup/unified"]
+        elif "cpu" in controllers.split(","):
+            roots = [f"/sys/fs/cgroup/{controllers}", "/sys/fs/cgroup/cpu",
+                     "/sys/fs/cgroup/cpu,cpuacct"]
+        else:
+            continue
+        for root in roots:
+            for d in (root + path.rstrip("/"), root):
+                try:
+                    with open(os.path.join(d, "cpu.stat")) as f:
+                        if "nr_throttled" in f.read():
+                            return d
+                except OSError:
+                    pass
+    return None
+
+
+class _Throttled:
+    """The cgroup's ``nr_throttled`` (periods in which the quota held the
+    cgroup off the CPU), read from its ``cpu.stat``, kept open for the
+    process, one ``pread`` a call; None where no such file is readable."""
+
+    fd: Optional[int] = None
+    found = False
+
+    def __call__(self) -> Optional[int]:
+        cls = _Throttled
+        if not cls.found:
+            cls.found = True
+            d = cgroup_cpu_dir()
+            if d is not None:
+                cls.fd = os.open(os.path.join(d, "cpu.stat"), os.O_RDONLY)
+        if cls.fd is None:
+            return None
+        text = os.pread(cls.fd, 4096, 0)
+        at = text.index(b"nr_throttled ") + 13
+        return int(text[at:text.index(b"\n", at)])
+
+
 class _EngineClock:
     """The engine thread's wall clock (``time.perf_counter``) read at named
     instants: a launch's steps, each poll, each harvest, and ``engine``
     where the engine core hands over (its own work since the backend's
     last instant). A stretch between two instants longer than ``STALL_MS``
-    is a stall, named by the instant that ends it, with the thread's CPU
-    time (``time.thread_time``) over a window that holds it: near the
-    window's wall time the thread ran (Python, or inside a call), near 0
-    it was off the CPU (blocked in a call, or not scheduled). The CPU
-    clock is a system call, so it is read at a stall's end and otherwise
-    at most every ``CPU_EVERY_MS``: the window starts at most that long
-    before the stall. A deliberate wait (the idle sleep, the host path's
-    queue) is no stall; a sleep's overshoot is (``wake``)."""
+    is a stall, named by the instant that ends it, with what the thread
+    did over a window that holds it: its CPU time (near the window's wall
+    time the thread ran, Python or inside a call; near 0 it was off the
+    CPU, blocked in a call or not scheduled), its voluntary and
+    involuntary context switches (``thread_usage``) and the periods the
+    cgroup's CPU quota throttled the process (``_Throttled``; None where
+    the cgroup is not readable). Those are system calls, so they are read
+    at a stall's end and otherwise at most every ``CPU_EVERY_MS``: the
+    window starts at most that long before the stall. A deliberate wait
+    (the idle sleep, the host path's queue) is no stall; a sleep's
+    overshoot is (``wake``)."""
 
     def __init__(self) -> None:
-        # (step, start s, end s, CPU s in the window, the window's start s)
+        # (step, start s, end s, the window's start s, CPU s, voluntary and
+        # involuntary switches, cgroup throttled periods in the window)
         self.stalls: list = []
+        self.throttled = _Throttled()
+        self.counted = switches_counted()
         self.restart()
 
     def restart(self) -> None:
-        self.wall = self.cpu_at = time.perf_counter()
-        self.cpu = time.thread_time()
+        self.wall = time.perf_counter()
+        self._window(self.wall)
+
+    def _window(self, wall: float) -> None:
+        self.at, self.nr = wall, self.throttled()
+        self.usage = thread_usage(self.counted)
 
     def __call__(self, name: str, wall: Optional[float] = None) -> float:
         """The instant ``name`` (now, or the given ``perf_counter``
@@ -632,17 +719,20 @@ class _EngineClock:
             wall = time.perf_counter()
         if wall - self.wall > STALL_MS / 1000.0:
             self._stall(name, self.wall, wall)
-        elif wall - self.cpu_at > CPU_EVERY_MS / 1000.0:
-            self.cpu, self.cpu_at = time.thread_time(), wall
+        elif wall - self.at > CPU_EVERY_MS / 1000.0:
+            self._window(wall)
         self.wall = wall
         return wall
 
     def _stall(self, name: str, start: float, end: float) -> None:
-        cpu = time.thread_time()
+        usage, nr = thread_usage(self.counted), self.throttled()
         if len(self.stalls) < STALLS_KEPT:
-            self.stalls.append((name, start, end, cpu - self.cpu,
-                                self.cpu_at))
-        self.cpu, self.cpu_at = cpu, end
+            self.stalls.append(
+                (name, start, end, self.at,
+                 *(None if a is None else a - b
+                   for a, b in zip(usage, self.usage)),
+                 None if None in (nr, self.nr) else nr - self.nr))
+        self.at, self.usage, self.nr = end, usage, nr
 
     def waited(self, until: Optional[float]) -> None:
         """After a deliberate wait meant to end at ``until`` (a
@@ -651,7 +741,7 @@ class _EngineClock:
         if until is not None and wall - until > STALL_MS / 1000.0:
             self._stall("wake", until, wall)
         else:
-            self.cpu, self.cpu_at = time.thread_time(), wall
+            self._window(wall)
         self.wall = wall
 
 
@@ -963,6 +1053,8 @@ class RealtimeBackend:
         # stage name -> [completions, wall ms sum, device-timed completions,
         #                device ms sum, device ms max]
         self.stage_times: Dict[str, List[float]] = {}
+        # the engine thread's polls and end-event queries in the run
+        self.poll_counts = {"polls": 0, "queries": 0}
         self.core: Optional[EngineCore] = None
         self._done_q: "queue.Queue" = queue.Queue()
         self._job_state: Dict[int, object] = {}
@@ -1053,6 +1145,8 @@ class RealtimeBackend:
             self._anchors = [_anchor_event(
                 self._anchor_events[:ANCHOR_TRIES], self._ms)]
         self._clock.stalls.clear()
+        for k in self.poll_counts:
+            self.poll_counts[k] = 0
         self._clock.restart()
 
     def _input_sizes(self) -> range:
@@ -1096,8 +1190,23 @@ class RealtimeBackend:
         return peak
 
     def _new_streams(self, n: int) -> list:
-        """``n`` lane streams, each with its ring of event pairs."""
+        """``n`` lane streams, each with its ring of event pairs. Raises
+        where the seam hands back a stream whose key (on the card its
+        handle) a slot of this backend holds: PyTorch's pool holds 32
+        streams a priority and hands them out in turn, so past 32 two
+        lanes would share one stream, its lane key and its graphs."""
         made = [self._seam.stream() for _ in range(n)]
+        held = {k: i for i, k in enumerate(self._lane_keys.values())
+                if k is not None}
+        for j, stream in enumerate(made):
+            key = self._seam.lane_key(stream)
+            if key in held:
+                raise RuntimeError(
+                    f"lane stream {len(self._slots) + j + 1} of this backend "
+                    f"has the key {key} of its stream {held[key] + 1}: the "
+                    f"stream pool wrapped at {len(self._slots) + j} streams")
+            if key is not None:
+                held[key] = len(self._slots) + j
         for stream in made:
             self._rings[id(stream)] = [(self._event(stream),
                                         self._event(stream))
@@ -1331,8 +1440,13 @@ class RealtimeBackend:
                 for _, rec, then in due:
                     then(rec)
         first = None
+        counts = self.poll_counts
+        counts["polls"] += 1
         for rec in self._flight.values():
-            if rec.done is None and rec.end is not None and rec.end.query():
+            if rec.done is None and rec.end is not None:
+                counts["queries"] += 1
+                if not rec.end.query():
+                    continue
                 t = time.perf_counter()
                 rec.stamps["synced"] = self._ms(t)
                 rec.done = ((t - rec.t0) * 1000.0, rec.out,
@@ -1354,7 +1468,8 @@ class RealtimeBackend:
         """Wait for a stage to complete, at most until ``cap_ms``: sleep
         while nothing is in flight, block on the done queue while the host
         path's stages are, and on the inline path return at once (the next
-        poll spins)."""
+        poll spins: on the H100 machine a sleep ends on a 1 ms timer grid,
+        late by up to 1.1 ms, longer than a served stage leaves, PERF.md)."""
         timeout_s = max(cap_ms - self.now_ms(), 0.0) / 1000.0
         if not self._flight:
             until = time.perf_counter() + timeout_s
@@ -1846,15 +1961,21 @@ class RealtimeBackend:
     def engine_stalls(self, collections: Optional[list] = None) -> list:
         """The engine thread's stretches over ``STALL_MS`` since the clock
         started (``_EngineClock``), on the backend's clock: the step that
-        ends each, its start, its wall ms, and the thread's CPU ms in a
-        window that holds it (``cpu_window_ms`` long); with
-        ``collections`` ([generation, start ms, end ms] on this clock),
-        the generations of those that overlap it."""
+        ends each, its start, its wall ms, and in a window that holds it
+        (``cpu_window_ms`` long) the thread's CPU ms, its voluntary and
+        involuntary context switches (None where the host does not count
+        them) and the periods the cgroup's CPU quota throttled the
+        process (``nr_throttled``; None where the cgroup is not
+        readable); with ``collections`` ([generation, start
+        ms, end ms] on this clock), the generations of those that overlap
+        it."""
         out = []
-        for name, a, b, cpu, at in self._clock.stalls:
+        for name, a, b, at, cpu, vol, invol, nr in self._clock.stalls:
             row = {"step": name, "start_ms": self._ms(a),
                    "wall_ms": (b - a) * 1000.0, "cpu_ms": cpu * 1000.0,
-                   "cpu_window_ms": (b - at) * 1000.0}
+                   "cpu_window_ms": (b - at) * 1000.0,
+                   "voluntary": vol, "involuntary": invol,
+                   "nr_throttled": nr}
             if collections is not None:
                 lo, hi = row["start_ms"], self._ms(b)
                 row["gc"] = [g for g, s, e in collections
@@ -1871,10 +1992,12 @@ class RealtimeBackend:
         index and by priority, and each step's median by stage index, of
         all stages and of the HP stages (a step over the stages that took
         it: a HP stage's ``lookup`` where it took a ready call, else
-        ``resolve``); ``ready``: ``ready_summary()``."""
+        ``resolve``); ``ready``: ``ready_summary()``; ``poll_counts``: the
+        engine thread's polls and end-event queries in the run."""
         rows = list(self._enqueues)
         if not rows:
-            return {"n": 0, "ready": self.ready_summary()}
+            return {"n": 0, "ready": self.ready_summary(),
+                    "poll_counts": dict(self.poll_counts)}
         names = []
         for *_, steps, _ in rows:
             names += [k for k in steps if k not in names]
@@ -1905,7 +2028,7 @@ class RealtimeBackend:
                 "step_median_by_stage": by_stage(rows),
                 "hp_step_median_by_stage": by_stage(
                     [r for r in rows if r[1] == HP]),
-                "ready": self.ready_summary()}
+                "ready": self.ready_summary(), "poll_counts": dict(self.poll_counts)}
 
     def ready_summary(self) -> dict:
         """The HP stages' calls made ready ahead (class docstring), by

@@ -703,6 +703,102 @@ def test_served_stages_equal_the_functional_stages_with_inputs_made_ahead(
     assert parts["sum_err_ms"] <= 0.01
 
 
+def _chip_smoke():
+    """The repo's ``chip_smoke.py`` as a module (its host readings)."""
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke_module", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.cuda
+def test_a_served_run_reports_what_the_host_gave_the_engine_thread():
+    """Staged smollm-135m (reduced, 8 layers, bf16) served on 2 x 2 lanes
+    with ``chip_smoke.py``'s host readings around the run: every stage
+    enqueued is harvested or still in flight at the end, every harvested
+    HP stage's output equals its functional stage's bit for bit, and the
+    readings are all there: the engine thread's CPU seconds read on the
+    thread that started the backend, its switches (None where the host
+    does not count them), the cgroup's limit and throttling or the
+    reason they cannot be read, and the backend's polls and end-event
+    queries."""
+    _need_cuda()
+    import functools
+    import threading
+
+    from repro_torch.kernels import reset_counts
+    from repro_torch.serving.engine import lm_stage
+    smoke = _chip_smoke()
+    reset_counts()
+    model = build_model(get_reduced("smollm-135m").replace(
+        n_layers=8, dtype="bfloat16"))
+    specs = [staged_lm_taskspec(model, priority=p, jps=40.0, batch=2,
+                                tag=tag)
+             for p, tag in ((api.HP, "-hp"), (api.LP, "-lp"))]
+    srv = (api.ServerConfig.realtime().tasks(specs).contexts(2).streams(2)
+           .oversubscribe(2.0).device(api.DeviceModel(n_units=2.0))
+           .horizon_ms(800.0).build())
+    be = srv.backend
+    taken, pairs, count, before = {}, [], [0, 0], {}
+    stage_input, harvest, enqueue, start = (be._stage_input, be._harvest,
+                                            be._enqueue, be.start)
+
+    def take(inst, lane):
+        x = stage_input(inst, lane)
+        job = inst.job
+        taken[(job.job_id, job.stage_idx)] = (inst.profile.payload, x)
+        return x
+
+    def enqueued(rec, stream):
+        count[0] += 1
+        return enqueue(rec, stream)
+
+    def harvested(rec):
+        count[1] += 1
+        c = harvest(rec)
+        job = rec.inst.job
+        got = taken.pop((job.job_id, job.stage_idx), None)
+        if (c is not None and not rec.failed and len(pairs) < 64
+                and job.task.priority == api.HP):
+            pairs.append((*got, be._job_state[job.job_id]))
+        return c
+
+    def started():
+        start()
+        before.update(ident=threading.get_ident(), cgroup=smoke.cgroup_cpu()[0],
+                      usage=smoke.thread_usage(smoke.switches_counted()))
+    be._stage_input, be._harvest, be._enqueue, be.start = (
+        take, harvested, enqueued, started)
+    m = srv.run()
+    host = smoke.run_host(before, before.pop("ident"), be)
+    torch.cuda.synchronize()
+    assert m.completed[api.HP] > 0 and be.worker_exceptions == 0
+    assert count[1] + len(be._flight) == count[0]
+    assert pairs
+    for payload, x, out in pairs:
+        prog = payload.keywords["program"]
+        ref = functools.partial(lm_stage, **{
+            **payload.keywords, "program": prog.functional})(x)
+        a, b = _leaves(out), _leaves(ref)
+        assert len(a) == len(b)
+        assert all(torch.equal(u, v) for u, v in zip(a, b))
+    eng = host["engine_thread"]
+    assert eng["on_engine_thread"] and eng["cpu_s"] >= 0.0
+    assert (eng["voluntary_switches"] is None) == (
+        eng["involuntary_switches"] is None) == (not eng["switches_counted"])
+    cg, reason = host["cgroup"], host["cgroup_reason"]
+    assert cg is not None or reason
+    if cg is not None:
+        assert set(smoke.CGROUP_COUNTS) <= set(cg)
+        assert (cg["nr_throttled"] is None) == (reason is not None)
+    polls = host["poll_counts"]
+    assert polls == be.poll_counts
+    assert polls["polls"] > 0 and polls["queries"] >= count[1]
+
+
 def _to_cpu(tree):
     if isinstance(tree, dict):
         return {k: _to_cpu(v) for k, v in tree.items()}

@@ -1054,3 +1054,102 @@ def test_a_stall_inside_a_ready_step_is_named_ready():
     assert len(named) == 1 and named[0]["wall_ms"] >= 3.0
     assert be.ready_summary()["ms"]["s0"]["max"] >= 3.0
     assert max(steps.values()) < 3.0
+
+
+# ------------------------------- what the engine thread's host readings say
+class QuerySeam(WallSeam):
+    """The stand-in seam counting its events' queries."""
+
+    def __init__(self):
+        super().__init__()
+        self.queries = 0
+
+    def event(self):
+        seam = self
+
+        class Event(WallEvent):
+            def query(self):
+                seam.queries += 1
+                return super().query()
+        return Event(self)
+
+
+def test_a_stream_whose_handle_a_slot_holds_is_refused():
+    """A seam that hands the same stream handle back (PyTorch's pool of 32
+    a priority, wrapped): the backend refuses the stream, naming the
+    count, at its start."""
+    class WrapSeam(WallSeam):
+        def __init__(self, handles):
+            super().__init__()
+            self.handles = iter(handles)
+
+        def stream(self):
+            s = super().stream()
+            s.cuda_stream = next(self.handles)
+            return s
+
+        def lane_key(self, stream):
+            return 0, stream.cuda_stream
+
+    with pytest.raises(RuntimeError, match="wrapped at 1 streams"):
+        _bare_backend(WrapSeam([7, 7]), [1.0])
+    be, _ = _bare_backend(WrapSeam([7, 8]), [1.0])
+    be.stop()
+    assert [be._lane_keys[id(s)] for s in be._slots] == [(0, 7), (0, 8)]
+
+
+def test_a_served_runs_host_readings_name_the_engine_thread_and_cgroup(
+        monkeypatch):
+    """``chip_smoke.py``'s host readings over stages on the stand-in:
+    the engine thread's CPU seconds and switches read on the thread that
+    started the backend, the cgroup's limit and throttling deltas or
+    None with a reason (a host whose ``/proc/self/cgroup`` cannot be
+    read gives the reason), and the backend's polls and end-event
+    queries, each query the seam saw counted once; the clock's
+    throttling read (None where the cgroup is unreadable)."""
+    import threading
+
+    import chip_smoke
+    from repro_torch.runtime.backend import _Throttled, cgroup_cpu_dir
+    seam, work = QuerySeam(), [5.0]
+    be, instance = _bare_backend(seam, work)
+    counted = chip_smoke.switches_counted()
+    before = {"usage": chip_smoke.thread_usage(counted),
+              "cgroup": chip_smoke.cgroup_cpu()[0]}
+    queries = seam.queries
+    try:
+        for _ in range(3):
+            for lane in ((0, 0), (1, 0)):
+                be.launch(lane, instance())
+            _drain(be, be.now_ms() + 2000.0)
+        time.sleep(0.002)            # one switch the thread surely makes
+        host = chip_smoke.run_host(before, threading.get_ident(), be)
+        queries = seam.queries - queries
+    finally:
+        be.stop()
+    eng = host["engine_thread"]
+    assert eng["on_engine_thread"] and eng["cpu_s"] > 0.0
+    assert eng["switches_counted"] == counted
+    if counted:
+        assert eng["voluntary_switches"] >= 1
+    else:
+        assert eng["voluntary_switches"] is eng["involuntary_switches"] is None
+    assert host["poll_counts"]["queries"] == queries > 6
+    assert host["poll_counts"]["polls"] >= queries // 2
+    cg, reason = host["cgroup"], host["cgroup_reason"]
+    assert cg is not None or reason
+    throttled = _Throttled()()
+    assert (throttled is None) == (cgroup_cpu_dir() is None)
+    if cg is not None and reason is None:
+        assert all(cg[k] >= 0 for k in chip_smoke.CGROUP_COUNTS)
+        assert throttled is not None and throttled >= 0
+    real_open = open
+
+    def no_cgroup(path, *a, **k):
+        if str(path) == "/proc/self/cgroup":
+            raise PermissionError(path)
+        return real_open(path, *a, **k)
+    monkeypatch.setattr("builtins.open", no_cgroup)
+    cg, reason = chip_smoke.cgroup_cpu()
+    assert cg is None and "/proc/self/cgroup" in reason
+    assert cgroup_cpu_dir() is None

@@ -27,6 +27,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.models import moe as jax_moe  # noqa: E402
 from repro_torch.models import moe  # noqa: E402
+from test_torch_spmd import RANK_END, run_ranks  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -54,15 +55,6 @@ def _tree(tree, fn):
     if isinstance(tree, dict):
         return {k: _tree(v, fn) for k, v in tree.items()}
     return fn(tree)
-
-
-def rendezvous(dst) -> str:
-    """The ranks' rendezvous: a file beside ``dst``, which no other test's
-    ranks can take (a TCP port found free and released is free for any
-    process to bind before rank 0's store does)."""
-    path = Path(f"{dst}.rendezvous")
-    path.unlink(missing_ok=True)
-    return f"file://{path}"
 
 
 @pytest.mark.parametrize("offset,n_local,capacity", [
@@ -125,7 +117,7 @@ REF_EP = textwrap.dedent("""
 """)
 
 PORT_EP = textwrap.dedent("""
-    import sys, numpy as np, torch, torch.distributed as dist
+    import os, sys, numpy as np, torch, torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
     from repro_torch.models.moe import moe_ep
     from repro_torch.parallel.sharding import Spmd
@@ -148,25 +140,7 @@ PORT_EP = textwrap.dedent("""
     if rank == 0:
         np.savez(dst, out=out.numpy(), aux=aux.numpy(),
                  counts=np.array(spmd.counts.counts.get("all-reduce", 0)))
-    dist.barrier()          # no rank tears gloo down under another's read
-    dist.destroy_process_group()
-""")
-
-
-def _run_ranks(code, world, args, timeout=240):
-    # one thread a rank: the ranks share the host with the other tests
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
-    init = rendezvous(args[-1])
-    procs = [subprocess.Popen([sys.executable, "-c", code, str(r),
-                               str(world), init, *args], env=env,
-                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                              text=True) for r in range(world)]
-    errs = []
-    for p in procs:
-        _, err = p.communicate(timeout=timeout)
-        if p.returncode:
-            errs.append(err[-3000:])
-    assert not errs, errs
+""") + RANK_END
 
 
 def test_moe_ep_on_four_gloo_ranks_matches_reference_shardmap(tmp_path):
@@ -181,7 +155,7 @@ def test_moe_ep_on_four_gloo_ranks_matches_reference_shardmap(tmp_path):
                          text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-3000:]
     port_out = tmp_path / "port.npz"
-    _run_ranks(PORT_EP, 4, [str(src), str(port_out)])
+    run_ranks(PORT_EP, 4, port_out, [str(src), str(port_out)], timeout=240)
     ref, got = np.load(ref_out), np.load(port_out)
     np.testing.assert_allclose(got["out"], ref["out"], **TOL)
     np.testing.assert_allclose(got["aux"], ref["aux"], **TOL)

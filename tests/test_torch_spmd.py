@@ -16,6 +16,7 @@ import os
 import subprocess
 import sys
 import textwrap
+import time
 from pathlib import Path
 
 import numpy as np
@@ -29,9 +30,20 @@ from repro_torch.models.api import build_model, loss_from_logits  # noqa: E402,E
 ROOT = Path(__file__).resolve().parents[1]
 SPMD_TOL = 1e-4
 B, S, STEPS = 2, 8, 2
+# a rank's last lines: once every rank is past the barrier, every
+# collective of every rank is done, and the rank leaves without the
+# interpreter's teardown: a gloo rank torn down at exit under a loaded
+# host has aborted ("terminate called without an active exception",
+# exit -6) after its results were written
+RANK_END = """
+dist.barrier()
+sys.stdout.flush()
+sys.stderr.flush()
+os._exit(0)
+"""
 
 RANK = textwrap.dedent("""
-    import json, sys, numpy as np, torch, torch.distributed as dist
+    import json, os, sys, numpy as np, torch, torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
     from repro_torch.configs import get_reduced
     from repro_torch.models.api import build_model
@@ -102,9 +114,7 @@ RANK = textwrap.dedent("""
         np.savez(dst, loss=loss.numpy(),
                  **{f"l{i}": o.numpy() for i, o in enumerate(outs)},
                  counts=np.array(json.dumps(spmd.counts.as_dict())))
-    dist.barrier()          # no rank tears gloo down under another's read
-    dist.destroy_process_group()
-""") % {"B": B, "S": S, "STEPS": STEPS}
+""") % {"B": B, "S": S, "STEPS": STEPS} + RANK_END
 
 
 def rendezvous(dst) -> str:
@@ -117,25 +127,76 @@ def rendezvous(dst) -> str:
     return f"file://{path}"
 
 
+def run_ranks(code, world, dst, args, timeout):
+    """``world`` gloo ranks of ``code`` (``python -c``; argv: the rank,
+    ``world``, the rendezvous beside ``dst``, ``args``), each with one
+    thread, its output in a file beside ``dst`` (a pipe left unread
+    would block a rank that writes more than it holds) and
+    ``PYTHONFAULTHANDLER`` set (an abort prints every thread's Python
+    stack). The ranks are watched together: the first that exits with
+    an error, or the time limit, ends the others at once (a dead rank's
+    peers would wait in their collectives for gloo's 30 minutes), and
+    the assertion names the rank, its exit code and its output's end."""
+    # one thread a rank: the ranks share the host with the other tests
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1",
+               PYTHONFAULTHANDLER="1")
+    init = rendezvous(dst)
+    logs = [Path(f"{dst}.rank{r}.log") for r in range(world)]
+    procs = []
+    for r, log in enumerate(logs):
+        with open(log, "w") as out:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", code, str(r), str(world), init,
+                 *args], env=env, stdout=out, stderr=subprocess.STDOUT))
+    deadline = time.monotonic() + timeout
+    try:
+        while True:
+            codes = [p.poll() for p in procs]
+            if (all(c == 0 for c in codes) or any(codes)
+                    or time.monotonic() > deadline):
+                break
+            time.sleep(0.05)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    bad = [(r, c) for r, c in enumerate(codes) if c != 0]
+    assert not bad, "; ".join(
+        f"rank {r} of {world} " + ("still running at the "
+                                   f"{timeout} s limit" if c is None
+                                   else f"exited {c}")
+        + ": " + logs[r].read_text()[-3000:] for r, c in bad[:2])
+
+
+def test_a_rank_that_dies_early_ends_its_peers_at_once(tmp_path):
+    """Three gloo ranks, rank 1 exiting with an error after the
+    rendezvous while the others wait for it in a barrier: ``run_ranks``
+    ends them within seconds, not at gloo's timeout, and names rank 1,
+    its exit code and its last words."""
+    code = textwrap.dedent("""
+        import sys, torch.distributed as dist
+        rank, world, init = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
+        dist.init_process_group("gloo", init_method=init, rank=rank,
+                                world_size=world)
+        if rank == 1:
+            sys.exit("rank 1 gives up")
+        dist.barrier()
+    """)
+    t0 = time.monotonic()
+    with pytest.raises(AssertionError,
+                       match="rank 1 of 3 exited 1: .*rank 1 gives up"):
+        run_ranks(code, 3, tmp_path / "out", [], timeout=120)
+    assert time.monotonic() - t0 < 60
+
+
 def run_sharded(arch, shape, dst, timeout=300, layout=None):
     """The RANK script: loss, prefill and decode on the ranks, under
     ``layout`` (``{"seq_shard": True}``: sequence parallelism in the loss
     and the prefill; decode's one token takes none)."""
-    # one thread a rank: the ranks share the host with the other tests
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
-    init = rendezvous(dst)
-    world = shape[0] * shape[1]
-    procs = [subprocess.Popen(
-        [sys.executable, "-c", RANK, str(r), str(world), init, arch,
-         str(list(shape)), str(dst), json.dumps(layout or {})], env=env,
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-        for r in range(world)]
-    errs = []
-    for p in procs:
-        _, err = p.communicate(timeout=timeout)
-        if p.returncode:
-            errs.append(err[-3000:])
-    assert not errs, errs[0]
+    run_ranks(RANK, shape[0] * shape[1], dst,
+              [arch, str(list(shape)), str(dst), json.dumps(layout or {})],
+              timeout)
     return np.load(dst)
 
 
@@ -210,7 +271,7 @@ def test_sharded_forward_matches_whole(arch, shape, tmp_path):
 
 
 GRAD = textwrap.dedent("""
-    import json, sys, numpy as np, torch, torch.distributed as dist
+    import json, os, sys, numpy as np, torch, torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
     from repro_torch.configs import get_reduced
     from repro_torch.models.api import build_model
@@ -284,9 +345,7 @@ GRAD = textwrap.dedent("""
             np.savez(f"{dst}{li}.npz", loss=loss.numpy(), norm=norm.numpy(),
                      counts=np.array(json.dumps(counts)),
                      seq_rows=np.array(sorted(spmd.seq_rows)), **flat)
-    dist.barrier()          # no rank tears gloo down under another's read
-    dist.destroy_process_group()
-""") % {"GB": 4, "S": 16}
+""") % {"GB": 4, "S": 16} + RANK_END
 
 
 def run_grads(shape, layouts, dst, timeout=300):
@@ -295,17 +354,8 @@ def run_grads(shape, layouts, dst, timeout=300):
     ``ShardingRules``' ``no_fsdp``/``dp_only``/``mlp_fsdp``, the dry-run's
     ``seq_shard``, ``cfg`` overrides of the reduced config), in one set of
     processes; rank 0's results, one npz a layout."""
-    # one thread a rank: the ranks share the host with the other tests
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
-    init, world = rendezvous(dst), shape[0] * shape[1]
-    procs = [subprocess.Popen(
-        [sys.executable, "-c", GRAD, str(r), str(world), init,
-         str(list(shape)), str(dst), json.dumps(layouts)], env=env,
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-        for r in range(world)]
-    for p in procs:
-        _, err = p.communicate(timeout=timeout)
-        assert p.returncode == 0, err[-3000:]
+    run_ranks(GRAD, shape[0] * shape[1], dst,
+              [str(list(shape)), str(dst), json.dumps(layouts)], timeout)
     return [np.load(f"{dst}{i}.npz") for i in range(len(layouts))]
 
 
