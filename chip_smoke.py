@@ -175,7 +175,8 @@ result line. Without arguments:
    (random weights from seed 0). Each is served as in 3 by an HP and an LP
    task built with ``staged_cnn_taskspec``, at its Table II per-task rate
    (30, 24 and 24 jobs/s); its convolutions go to cuDNN through torch, and
-   no port kernel and no plain version of one may run. Then, per DNN, a
+   no port kernel and no plain version of one may run. After the drills
+   and resume (the ``profiles`` phase, below), per DNN, a
    ``cnn_stage_profile`` line (each stage's kernels, host wall ms against
    device busy ms, and conv FLOPs from the shapes with their bound at 67
    TFLOP/s) and its output checks: the HP task's payload chain on a seeded
@@ -378,7 +379,9 @@ result line. Without arguments:
     cut to 4 sequences and 10 layers, heads unpadded), each
     ``launch/dryrun.py`` in a
     process of
-    its own at the lowest CPU priority, started after the build and run
+    its own at the lowest CPU priority (the reference's tiny train cell,
+    16 microbatches, measured at 3 and at 4 of them and extrapolated
+    exactly: ``accum_run``), started after the build and run
     beside the kernel and gradient rows (timed on the card); the script
     waits for them (``dryrun_wait``) before any phase that reads the
     host's clock (``dryrun`` lines; a cell not ``ok`` or with no FLOPs
@@ -409,7 +412,18 @@ result line. Without arguments:
     added context, whose lanes stay idle); ``scale_out``,
     ``scale_out_at(1000)`` and ``fail_context_at(1, 2000)`` (4 -> 6 -> 4
     lanes; the LP task of the failed context is re-placed onto the added
-    one, whose lanes first launch then). A ``drill`` line a run
+    one, whose lanes first launch then); ``discard`` (``DISCARD_EVENTS``,
+    ``DiscardForcer``): at 500, 1000, 1500 and 2000 ms it arms a chaos
+    fault, a failure of the context, a watchdog's kill of the lane and a
+    cancel of the job (a client's release) that each land on the first HP
+    launch after it whose job holds calls made ready ahead, so that each
+    reason discards the rest of that chain; the run's ``discard`` entry
+    gives the plan (``discard_plan``: each reason's event, or why one card
+    cannot reach it in a served run), the discards by reason and by
+    ``s0``/``later``, and each job landed on, whose last committed output
+    must equal bit for bit its stages replayed after the run on the same
+    input and lane streams with no call made ready; a reason of the plan
+    with no discard fails. A ``drill`` line a run
     gives, event by event (to the next): the engine thread's stop (the
     lane warm-ups after the clock started and captures outside them),
     ``rewarm``, captures, replays, the lanes first launched, streams and
@@ -424,10 +438,20 @@ result line. Without arguments:
     after the clock started, another count of streams, two live lanes on
     one stream handle, or an HP miss, besides the served run's own
     gates (one replay a stage, one pool a stream, no driver allocation).
-Each phase's model is freed before the next; ``phase_seconds`` and
-``phase_peak_memory_gb`` give each phase's wall and peak of allocated card
-memory, and ``script_seconds`` the whole script's wall and its phases'
-sum beside those of commit 464ae87 and the wall's aim.
+Without arguments the steps run in this order: 1, 2 (with 17's and 20's
+rows) beside 19's dry-runs, 19's wait, the contention rows, 6's served
+runs, 21, 7, then the profiles of 2's SSD row and of 6 (``profiles``),
+3, 4, 5, 9-15, 16, 17, 18, 20, 8. A ``torch.profiler`` session makes the
+process's later graph launches dearer, so no served run of 6, 21 or 7
+may start after one (``SESSION_FREE``): every session opens through
+``profiler``, which marks it, and the ``profiler_sessions`` line lists
+the sessions by phase, each phase and each served run with whether one
+came before it (the LM paths' runs of 3, 5, 9, 12 and 13 follow their
+own output checks' profiles). Each phase's model is freed before the
+next; ``phase_seconds`` and ``phase_peak_memory_gb`` give each phase's
+wall and peak of allocated card memory, and ``script_seconds`` the
+whole script's wall and its phases' sum beside those of commit 1c8268e
+and the wall's aim.
 
 Kernel launch counts are reset just before each path and read just after;
 every kernel must be launched on a path (the f32 contention kernel, which
@@ -463,7 +487,8 @@ scheduler state differs from its file, the second launcher run did not
 resume, the parameters did not round-trip bit for bit, the daemon
 example failed, the oracle was not ``ok`` on fig13_light or
 fig13_fail_1of4, an int8 check of step 11 failed, a drill of step 21
-failed a gate, a planted fault
+failed a gate, a served run of 6, 21 or 7 started after a profiler
+session, a planted fault
 agreed with a plain version, a step 12-15 instance or launch-shape check
 failed, a gradient row or a check of steps 16-20 failed, or a model path
 launched a kernel at an instance and shape that no bf16 row checked. The
@@ -491,7 +516,7 @@ T_START = time.perf_counter()      # the whole script's wall clock
 # the whole script's wall and phase seconds on one H100 (700 W) at commit
 # 464ae87, before the host readings of ``run_host``, and the aim for the
 # wall (``script_seconds``)
-PREVIOUS_SECONDS = {"commit": "464ae87", "wall_s": 675.2, "phases_s": 640.2}
+PREVIOUS_SECONDS = {"commit": "1c8268e", "wall_s": 920.6, "phases_s": 871.3}
 WALL_AIM_S = 600.0
 HBM_BYTES_PER_S = 3.35e12             # H100 SXM data sheet
 PEAK_FLOPS = {"bfloat16": 989e12,     # dense tensor-core bf16
@@ -555,6 +580,19 @@ PARTS_TOL_MS = 0.01                   # an HP job's parts against its response
 RESPONSE_PARTS = ("release_to_launch", "hand_off", "prep", "stream_wait",
                   "device", "notice", "gap")
 RESUME_DNN = "resnet18"               # served cold, saved, then resumed
+# the discard drill's events, each a reason of the backend's READY_REASONS
+# and the ms it is armed at: it lands at the first HP launch after that
+# which leaves its job holding calls made ready ahead (``DiscardForcer``),
+# so that the reason discards the rest of that chain on the card: a chaos
+# fault drawn for the launch (the installed plan's draw, forced once), a
+# failure of the launch's context, a watchdog's kill of its lane, a cancel
+# of its job (one of ``CANCEL_RELEASES``, a client's HP release); each
+# marked as its kind in the ``drill`` line (``DISCARD_MARKS``)
+DISCARD_EVENTS = (("chaos", 500.0), ("ctx_failed", 1000.0),
+                  ("killed", 1500.0), ("cancelled", 2000.0))
+DISCARD_MARKS = {"chaos": "chaos", "ctx_failed": "fail_context",
+                 "killed": "kill", "cancelled": "cancel"}
+CANCEL_RELEASES = (2000.0, 2100.0, 2200.0, 2300.0)
 # step 21, the elastic drills on the served configuration's 3 s (2 x 2
 # lanes at 2.0): events (kind, ms, argument) and the most lanes live at
 # once. A scale-out's context gets work only where a failure re-places a
@@ -569,8 +607,11 @@ DRILLS = {
                 ("reconfigure", 2250.0, {"n_contexts": 2, "n_streams": 2,
                                          "oversubscription": 2.0})),
     "fault": (("fail_context", 1000.0, 0), ("scale_out", 2000.0, None)),
-    "scale_out": (("scale_out", 1000.0, None), ("fail_context", 2000.0, 1))}
-DRILL_LANES = {"reshape": 6, "fault": 4, "scale_out": 6}
+    "scale_out": (("scale_out", 1000.0, None), ("fail_context", 2000.0, 1)),
+    # each lands on a HP job holding calls made ready ahead (DISCARD_EVENTS)
+    "discard": tuple((DISCARD_MARKS[r], t_ms, None)
+                     for r, t_ms in DISCARD_EVENTS)}
+DRILL_LANES = {"reshape": 6, "fault": 4, "scale_out": 6, "discard": 4}
 DRILL_ARCHS = ("resnet18", "smollm-135m")
 DRILL_WINDOW_MS = 500.0               # HP jobs released this long after one
 # the training phase: smollm-135m at full width and depth (bf16, f32 m/v),
@@ -742,9 +783,9 @@ def kernel_us(torch, fn, calls: int = 5) -> dict:
     """Device µs per call of each CUDA kernel ``fn`` launches, from
     ``torch.profiler`` over ``calls`` calls (a wrapper that launches more
     than one kernel: where its time goes)."""
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
     try:
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with profiler(ProfilerActivity.CUDA) as prof:
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
@@ -1289,9 +1330,13 @@ def row_rel_err(x, y) -> float:
     return float((d / y.float().abs().amax(-1).clamp_min(1e-30)).max())
 
 
-def kernel_phase(torch, F, failures):
+def kernel_phase(torch, F, failures, defer=None):
     """Every kernel against its plain version in bf16 and f32; returns the
-    bf16 (main path) rows keyed by kernel name."""
+    bf16 (main path) rows keyed by kernel name. A row whose kernels are
+    profiled (``device_us_by_kernel``) is emitted as the profile is taken:
+    at once, or where ``defer`` (a list) is given by ``kernel_profiles``
+    from what it is handed there, after the served runs that no profiler
+    session may precede."""
     from repro_torch.kernels import KERNELS, reset_counts
 
     sm = torch.cuda.get_device_properties(0).multi_processor_count
@@ -1352,8 +1397,7 @@ def kernel_phase(torch, F, failures):
                 if row["instance"] != want:
                     failures.append(f"{name} {row['dtype']}: launched "
                                     f"{launched}, not {want}")
-            if opt.get("profile"):
-                row["device_us_by_kernel"] = kernel_us(torch, kern)
+            profile = opt.get("profile")
             same = opt.get("cuda_core_same_shapes")
             if same is not None:   # the kernel the tensor cores replace
                 c = same()
@@ -1390,7 +1434,12 @@ def kernel_phase(torch, F, failures):
                                     f"launched {launched}, want a split "
                                     f"grid of {sm} blocks or more and the "
                                     f"merge")
-            emit({"kernel_check": row})
+            if profile and defer is not None:
+                defer.append((row, kern))
+            elif profile:
+                kernel_profiles(torch, [(row, kern)])
+            else:
+                emit({"kernel_check": row})
             if not ok or not math.isfinite(err):
                 failures.append(f"{name} {row['dtype']}: max_err {err} "
                                 f"(per row {row.get('max_row_rel_err')}) "
@@ -1401,6 +1450,14 @@ def kernel_phase(torch, F, failures):
                 F32_CHECKED.update((k, key) for k, keys in shapes.items()
                                    for key in keys)
     return rows
+
+
+def kernel_profiles(torch, deferred) -> None:
+    """Each (row, kernel) of ``kernel_phase``'s profiled rows: its kernels'
+    device µs a call (``kernel_us``), then its ``kernel_check`` line."""
+    for row, kern in deferred:
+        row["device_us_by_kernel"] = kernel_us(torch, kern)
+        emit({"kernel_check": row})
 
 
 # launches by instance and shape of each model path's kernels, keyed by
@@ -1616,7 +1673,7 @@ def donor_checksum(torch, spec) -> list:
 
 def serve(torch, failures, specs, setup_s, jps, kernels, desc, trace=False,
           input_hw=None, schedcheck=False, prepare=None, fresh=True,
-          plan=None):
+          plan=None, kind="lm"):
     """Serve ``specs`` (an HP and an LP task) in real time for
     ``HORIZON_MS`` (2 contexts x 2 streams, oversubscription 2.0, n_units
     the card's SM count, seed 0; NHWC inputs of ``input_hw`` where given)
@@ -1632,6 +1689,8 @@ def serve(torch, failures, specs, setup_s, jps, kernels, desc, trace=False,
     before it is built (the drills' events). Launch counts were reset
     before the tasks were built; ``fresh``: and no server ran them since
     (so the graph pools are the lane streams' and the calibration's).
+    ``kind``: the run's kind as ``guard_session_free`` marks it (a kind
+    of ``SESSION_FREE`` fails where a profiler session came before).
     Returns the metrics, the launches of ``kernels``, the launches by
     instance and the server."""
     from repro_torch.api import HP, LP, DeviceModel, ServerConfig
@@ -1652,9 +1711,12 @@ def serve(torch, failures, specs, setup_s, jps, kernels, desc, trace=False,
     srv = cfg.build()
     if prepare is not None:
         prepare(srv)
+    # a traced run is under its own session by design
+    guard_session_free(srv.backend, "traced" if trace else kind,
+                       desc["model"], failures)
     if trace:
-        from torch.profiler import ProfilerActivity, profile
-        tracer = profile(activities=[ProfilerActivity.CUDA])
+        from torch.profiler import ProfilerActivity
+        tracer = profiler(ProfilerActivity.CUDA)
     else:
         tracer = contextlib.nullcontext()
     # the allocator's counters as the clock starts (after the warm-up)
@@ -1673,7 +1735,7 @@ def serve(torch, failures, specs, setup_s, jps, kernels, desc, trace=False,
     engine_cpus = sorted(os.sched_getaffinity(0))
     stat0 = proc_stat()
     ru0, w0 = resource.getrusage(resource.RUSAGE_SELF), time.perf_counter()
-    with tracer, ThreadCpu() as threads, GcTime() as gc_time:
+    with tracer as prof, ThreadCpu() as threads, GcTime() as gc_time:
         m = srv.run()
         run_reads = run_host(warm["host"], warm["engine"], srv.backend)
         torch.cuda.synchronize()
@@ -1841,7 +1903,7 @@ def serve(torch, failures, specs, setup_s, jps, kernels, desc, trace=False,
         "allocator_stats_in_run": stats,
         "launches": launches, "launches_by_instance": instances,
         "host": host,
-        **({"device_timeline": device_timeline(torch, tracer)}
+        **({"device_timeline": device_timeline(torch, prof)}
            if trace else {})}})
     if report is not None:
         emit({"schedcheck_served": schedcheck_served(name, report, m)})
@@ -1889,6 +1951,65 @@ def allocated_blocks(torch, top: int = 6) -> list:
 STAGE_GRAPH_S = {}
 # each served run's HP side, in order (``serve_repeats`` sums them up)
 SERVED = []
+# the torch.profiler sessions of this process, each the phase it began in
+# (``profiler``); the phases as they began and the served runs as their
+# clocks started, each with whether a session had begun before it (the
+# ``profiler_sessions`` line)
+PROFILER_SESSIONS, PHASES_RUN, SERVED_STARTS = [], [], []
+CURRENT_PHASE = [None]
+# the served runs no profiler session may precede: a session makes every
+# later graph launch of the process 2-7x dearer (ROADMAP C7 item 6), so a
+# run after one is not the path as users run it. The LM paths' runs
+# (``lm``) still follow their own output checks' profiles.
+SESSION_FREE = ("cnn", "drill", "discard", "resume")
+
+
+@contextlib.contextmanager
+def profiler(*activities):
+    """A ``torch.profiler`` session over ``activities``, marked as it
+    begins (``PROFILER_SESSIONS``): every profile this script takes opens
+    here."""
+    from torch.profiler import profile
+    PROFILER_SESSIONS.append(CURRENT_PHASE[0])
+    with profile(activities=list(activities)) as prof:
+        yield prof
+
+
+def guard_session_free(be, kind: str, name: str, failures) -> None:
+    """Mark ``be``'s served run as its clock starts (its ``start``) in
+    ``SERVED_STARTS``, with whether a profiler session began before it;
+    a run of a kind in ``SESSION_FREE`` that starts after one fails."""
+    start = be.start
+
+    def started():
+        start()
+        after = bool(PROFILER_SESSIONS)
+        SERVED_STARTS.append({"kind": kind, "model": name,
+                              "phase": CURRENT_PHASE[0],
+                              "after_session": after})
+        if after and kind in SESSION_FREE:
+            failures.append(f"{name}: a served {kind} run started after a "
+                            f"torch.profiler session (the first in phase "
+                            f"{PROFILER_SESSIONS[0]}): its graph launches "
+                            f"paid the profiler's cost")
+    be.start = started
+
+
+def profiler_report() -> dict:
+    """The ``profiler_sessions`` line: the sessions and the phase each
+    began in, each phase and each served run with whether a session came
+    before it, and the served runs of ``SESSION_FREE`` kinds that did
+    (0, or the script fails)."""
+    return {"sessions": len(PROFILER_SESSIONS),
+            "session_phases": list(dict.fromkeys(PROFILER_SESSIONS)),
+            "phases": PHASES_RUN, "served_runs": SERVED_STARTS,
+            "session_free_kinds": list(SESSION_FREE),
+            "session_free_after_a_session": sum(
+                r["after_session"] and r["kind"] in SESSION_FREE
+                for r in SERVED_STARTS),
+            "lm_runs_after_a_session": sorted({
+                r["model"] for r in SERVED_STARTS
+                if r["after_session"] and r["kind"] == "lm"})}
 
 
 def has_stage_graphs() -> bool:
@@ -2825,9 +2946,8 @@ def profiled(torch, fn, reps: int):
     """``reps`` calls of ``fn`` under torch.profiler (CPU and CUDA): the
     host wall ms of all of them, ended by a synchronize, and the CUDA
     kernels they ran."""
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    from torch.profiler import ProfilerActivity
+    with profiler(ProfilerActivity.CPU, ProfilerActivity.CUDA) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(reps):
@@ -3650,7 +3770,7 @@ def cnn_serving_phase(torch, failures, name, trace=False):
             "batch": CNN_BATCH, "stages": len(specs[0].stages),
             "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32}
     serve(torch, failures, specs, time.perf_counter() - t0, jps, (), desc,
-          trace=trace, input_hw=CNN_HW, schedcheck=True)
+          trace=trace, input_hw=CNN_HW, schedcheck=True, kind="cnn")
     ran = {n: [fn.counts.launches, fn.counts.plain_cuda_calls]
            for n, fn in KERNELS.items()
            if fn.counts.launches or fn.counts.plain_cuda_calls}
@@ -3871,7 +3991,7 @@ def served_resume(torch, failures, specs, setup_s, jps, work) -> dict:
                 "stages": len(specs[0].stages), "resume_run": run}
         m, _, _, srv = serve(torch, failures, specs, setup_s, jps, (), desc,
                              input_hw=CNN_HW, prepare=prepare,
-                             fresh=run == "cold")
+                             fresh=run == "cold", kind="resume")
         if run == "cold":
             t0 = time.perf_counter()
             srv.save_state(path)
@@ -4238,7 +4358,7 @@ def train_phase(torch, failures, dev="cuda"):
     steps) a parameter leaf, or one layer's slice of a stacked leaf, with
     a zero or non-finite gradient. Returns (launches, launches by
     instance, backward recomputes a step, backward recomputes by shape)."""
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
 
     from repro_torch.configs import ShapeCell, get_config
     from repro_torch.data.pipeline import TokenPipeline
@@ -4337,8 +4457,7 @@ def train_phase(torch, failures, dev="cuda"):
     batch = {"tokens": torch.from_numpy(
         pipe.next_batch()["tokens"]).to(dev)}
     try:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profiler(ProfilerActivity.CPU, ProfilerActivity.CUDA) as prof:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             step(params, opt, batch)
@@ -5408,10 +5527,17 @@ def slice12_paths(torch, failures, seconds, peaks, dry_dir) -> dict:
 @contextlib.contextmanager
 def timed_phase(torch, name, seconds, peaks):
     """Records a phase's wall seconds and its peak of allocated card memory
-    under ``name``."""
+    under ``name``, and the phase as it begins (``PHASES_RUN``: whether a
+    profiler session came before it)."""
     torch.cuda.reset_peak_memory_stats()
+    PHASES_RUN.append({"phase": name, "after_session": bool(
+        PROFILER_SESSIONS)})
+    before, CURRENT_PHASE[0] = CURRENT_PHASE[0], name
     t0 = time.perf_counter()
-    yield
+    try:
+        yield
+    finally:
+        CURRENT_PHASE[0] = before
     seconds[name] = time.perf_counter() - t0
     peaks[name] = torch.cuda.max_memory_allocated() / 1e9
 
@@ -5439,7 +5565,11 @@ def free_card(torch) -> None:
 
 def drill_plan(cfg, drill: str):
     """``cfg`` with ``drill``'s events (``DRILLS``) through the entry
-    point's own calls."""
+    point's own calls; the discard drill's with a chaos plan that draws no
+    fault by itself (``DiscardForcer`` forces one)."""
+    if drill == "discard":
+        from repro_torch.api import ChaosPlan
+        return cfg.chaos(ChaosPlan(seed=0))
     for kind, t_ms, arg in DRILLS[drill]:
         if kind == "reconfigure":
             cfg = cfg.reconfigure_at(t_ms, **arg)
@@ -5635,6 +5765,217 @@ class DrillRecorder:
                 "live_lanes_sharing_a_stream": self.shared}
 
 
+def discard_plan(ctx_devices) -> dict:
+    """What forces each reason of the backend's ``READY_REASONS`` (but
+    ``unnamed``, a fault of the backend) in the discard drill: its event
+    (``DISCARD_EVENTS``), or why a served run on the card given
+    (``ctx_devices``: the server's context -> device map) cannot reach it
+    (``unreachable``), or reaches it only outside a served run
+    (``card_test``: forced there, on the same stage programs)."""
+    from repro_torch.runtime.backend import READY_REASONS
+    at = dict(DISCARD_EVENTS)
+    devices = {str(d) for d in (ctx_devices or {}).values()}
+    plan = {}
+    for reason in READY_REASONS:
+        if reason in at:
+            plan[reason] = {"event": reason, "at_ms": at[reason]}
+        elif reason == "migrated":
+            plan[reason] = ({"event": "a HP stage on a context of another "
+                                      "device", "at_ms": None}
+                            if len(devices) > 1 else {"unreachable": (
+                "a job's state moves only between contexts on different "
+                "devices (ctx_devices); on one card every context is on "
+                "it, and staging.migrate hands back the very state, so "
+                "the call made ready on it stays the stage's: a run on "
+                "two cards")})
+        elif reason == "batch":
+            plan[reason] = {"card_test": (
+                "a served run's lanes are warmed at one input a job, so a "
+                "batched job's stages would capture after the clock; "
+                "tests/test_torch_cuda.py forces it")}
+        elif reason == "factory":
+            plan[reason] = {"card_test": (
+                "a caller's input factory is called a job, never ahead, so "
+                "no first stage's chain is made on it; "
+                "tests/test_torch_cuda.py forces it")}
+    return plan
+
+
+class DiscardForcer:
+    """Put on a built server of the discard drill (``serve``'s ``prepare``,
+    after ``DrillRecorder``, whose marks it adds to): each event of
+    ``DISCARD_EVENTS``, armed at its ms, lands at the first HP launch after
+    that which leaves its job holding calls made ready ahead (its first
+    stage's chain about to be taken, for the chaos draw; else the rest of
+    the chain on this launch): as the engine's dispatch that made the
+    launch returns, before anything is harvested, the engine's own handler
+    of the event runs, and a dispatch after it as after any event (a FAULT of the launch's context, a WATCHDOG of its
+    lane, a CANCEL of its job's submission: ``CANCEL_RELEASES``, client
+    releases of the HP task made as the server is built), while the stage
+    is in flight. One event a job. The jobs it lands on are
+    ``jobs``; as one is done its last committed stage's output is copied
+    into buffers made as the clock starts (no allocation in the run), with
+    the lane streams its stages committed on, for ``check``. ``events``
+    and ``cancels``: ``DISCARD_EVENTS`` and ``CANCEL_RELEASES`` (a test's
+    shorter run gives its own)."""
+
+    def __init__(self, torch, srv, recorder, events=DISCARD_EVENTS,
+                 cancels=CANCEL_RELEASES) -> None:
+        from repro_torch.api import HP
+        self.torch, self.rec = torch, recorder
+        be, core = srv.backend, srv.core
+        self.be, self.core = be, core
+        self.hp = next(t for t in srv.scheduler.tasks if t.priority == HP)
+        self.handles = [srv.request(self.hp.name, t) for t in cancels]
+        self.armed = list(events)
+        self.fired, self.jobs, self.bufs = {}, {}, {}
+        self.fail_next, self.pending = False, []
+        launch, done, start = be.launch, be.on_job_done, be.start
+        dispatch = core._dispatch
+
+        def started():
+            start()
+            chain = be._ready0.get(self.hp.index, [])
+            # under a stream of their own: the blocks the warm-up left
+            # cached for the engine thread's stream stay for the chains
+            use = (torch.cuda.stream(torch.cuda.Stream(be.device,
+                                                       priority=-1))
+                   if be.device.type == "cuda" else contextlib.nullcontext())
+            with use:
+                self.bufs = {r: [tree_map(torch.empty_like, c.call.output())
+                                 for c in chain]
+                             for r, _ in self.armed}
+
+        def draw():
+            if self.fail_next:
+                self.fail_next = False
+                return True, 0.0
+            return drawn()
+        drawn = core._chaos.draw_launch
+        core._chaos.draw_launch = draw
+
+        def launched(lane, inst):
+            job = inst.job
+            due = self.due(inst)
+            if due == "chaos" and (job.job_id in be._ready if job.stage_idx
+                                   else self.hp.index in be._ready0):
+                self.fail_next = True
+                self.fire("chaos", job)
+            launch(lane, inst)
+            if job.job_id in self.jobs:
+                self.jobs[job.job_id]["streams"][job.stage_idx] = \
+                    be._streams.get(lane)
+            entry = be._ready.get(job.job_id)
+            if due in (None, "chaos") or entry is None or \
+                    entry[0] != be._live_token.get(lane):
+                return
+            if due == "ctx_failed" and len(
+                    core.sched.live_contexts()) > 1:
+                self.pending.append(lambda: core._handle_fault(lane[0]))
+            elif due == "killed":
+                self.pending.append(lambda: core._handle_watchdog(
+                    be.now_ms(), (lane, inst, inst.start_ms)))
+            elif due == "cancelled":
+                h = next((h for h in self.handles if h.job is job), None)
+                if h is None:
+                    return
+                self.pending.append(lambda: core._handle_cancel(h))
+            else:
+                return
+            self.fire(due, job)
+            self.jobs[job.job_id]["streams"][job.stage_idx] = \
+                be._streams.get(lane)
+
+        def dispatched():
+            dispatch()
+            if self.pending:
+                # handled as the engine handles an event: then a dispatch
+                self.pending.pop(0)()
+                dispatch()
+
+        def finished(job):
+            row = self.jobs.get(job.job_id)
+            state = be._job_state.get(job.job_id)
+            stamps = [st for st in be._stamps.get(job.job_id, ())
+                      if not st["failed"]]
+            if row is not None and state is not None and stamps:
+                k = stamps[-1]["stage"]
+                bufs = self.bufs[row["reason"]][k]
+                for dst, src in zip(tree_leaves(bufs), tree_leaves(state)):
+                    dst.copy_(src)
+                    if dst.is_cuda:
+                        # the copy ends before the job's blocks are freed
+                        torch.cuda.current_stream(dst.device).synchronize()
+                row["stage"] = k
+            done(job)
+        be.launch, be.on_job_done, be.start = launched, finished, started
+        core._dispatch = dispatched
+
+    def due(self, inst):
+        """The reason of the earliest armed event whose ms has passed, for
+        a launch of a HP job no event landed on yet, before the horizon
+        (the engine handles no event past it); else None."""
+        if (inst.task.index != self.hp.index or not self.armed
+                or inst.job.job_id in self.jobs):
+            return None
+        reason, t_ms = self.armed[0]
+        now = self.be.now_ms()
+        return reason if t_ms <= now < self.core.horizon else None
+
+    def fire(self, reason: str, job) -> None:
+        self.armed.pop(0)
+        self.fired[reason] = self.be.now_ms()
+        self.jobs[job.job_id] = {"reason": reason, "job": job.job_id,
+                                 "at_stage": job.stage_idx, "stage": None,
+                                 "streams": {}}
+        if reason != "ctx_failed":         # DrillRecorder marks a failure
+            self.rec.marks.append(self.rec.mark(DISCARD_MARKS[reason]))
+
+    def check(self, failures, name: str, ready) -> dict:
+        """After the run: each event fired and its reason's discards
+        counted; each job it landed on against the boundary path, its
+        stages replayed after the run on the zero input (its first stage's
+        input, as every job's) on the lane streams they committed on,
+        through the same stage programs with no call made ready, the last
+        committed stage's output equal bit for bit to the job's. Returns
+        the line's ``discard`` entry."""
+        torch = self.torch
+        plan = discard_plan(self.be.ctx_devices)
+        hit = {r: sum(ready["discarded"][r].values()) for r in plan}
+        for reason, row in plan.items():
+            if "event" in row and not hit[reason]:
+                failures.append(f"{name}: no ready call was discarded as "
+                                f"{reason} (event fired at "
+                                f"{self.fired.get(reason)} ms)")
+        spec = self.hp.spec
+        jobs = []
+        for row in self.jobs.values():
+            k, streams = row["stage"], row["streams"]
+            out = {**{key: row[key] for key in ("reason", "job", "at_stage",
+                                                "stage")}, "equal": None}
+            if k is not None and all(j in streams for j in range(k + 1)):
+                x = self.be._zeros.made[1]
+                for j in range(k + 1):
+                    with self.be._seam.use(streams[j]):
+                        x = spec.stages[j].payload(x)
+                if x is not None and tree_leaves(x)[0].is_cuda:
+                    torch.cuda.synchronize()
+                got = tree_leaves(self.bufs[row["reason"]][k])
+                want = tree_leaves(x)
+                out["equal"] = len(got) == len(want) > 0 and all(
+                    torch.equal(a, b) for a, b in zip(got, want))
+            if not out["equal"]:
+                failures.append(f"{name}: the {row['reason']} job's output "
+                                f"(stage {k}) is not the boundary path's "
+                                f"({out})")
+            jobs.append(out)
+        return {"plan": plan, "fired_ms": self.fired, "hit": hit,
+                "by_where": ready["discarded"], "jobs": jobs,
+                "reference": "the job's stages replayed after the run on "
+                             "the zero input, each on the lane stream it "
+                             "committed on, with no call made ready"}
+
+
 def drill_phase(torch, failures, arch: str, repeats: int = 1):
     """Step 21, the elastic drills (``DRILLS``) served on the card: each
     drill on ``arch``'s tasks (``drill_specs``) through ``serve`` with the
@@ -5643,7 +5984,10 @@ def drill_phase(torch, failures, arch: str, repeats: int = 1):
     warm-up). Gates: no capture after the clock starts, a stream a lane
     of the busiest moment (``DRILL_LANES``), no two live lanes on one
     stream handle, HP misses 0; ``serve`` gates one replay a stage, the
-    pools (one a stream) and no driver allocation in the run. Returns
+    pools (one a stream) and no driver allocation in the run. The discard
+    drill's line adds ``discard`` (``DiscardForcer.check``), which fails
+    a reason of its plan not hit or a landed job's output off the
+    boundary path's. Returns
     each drill's path (its last run's launches and launches by instance,
     keyed ``drill_<name>``) and the ``drill`` lines."""
     from repro_torch.api import HP
@@ -5656,13 +6000,18 @@ def drill_phase(torch, failures, arch: str, repeats: int = 1):
                 drop_stage_graphs(torch, built["specs"])
                 reset_counts()
             rec = []
+
+            def prepare(s, drill=drill):
+                rec.append(DrillRecorder(torch, s))
+                if drill == "discard":
+                    rec.append(DiscardForcer(torch, s, rec[0]))
             desc = {"model": f"{arch}/{drill}", **built["desc"]}
             m, launches, instances, srv = serve(
                 torch, failures, built["specs"], built["setup_s"],
                 built["jps"], built["kernels"], desc,
                 input_hw=built["input_hw"], fresh=not (i or k),
-                prepare=lambda s: rec.append(DrillRecorder(torch, s)),
-                plan=lambda cfg, d=drill: drill_plan(cfg, d))
+                prepare=prepare, kind="discard" if drill == "discard"
+                else "drill", plan=lambda cfg, d=drill: drill_plan(cfg, d))
             g = srv.backend.graph_summary()
             # the HP stages' calls made ready ahead, and those a drill's
             # events discarded (none in a tree from before them)
@@ -5686,7 +6035,9 @@ def drill_phase(torch, failures, arch: str, repeats: int = 1):
                 "ready_used_share": ready and ready["used_share"],
                 "ready_discarded": ready and {
                     r: sum(by.values()) for r, by in
-                    ready["discarded"].items() if any(by.values())}})
+                    ready["discarded"].items() if any(by.values())},
+                **({"discard": rec[1].check(failures, name, ready)}
+                   if drill == "discard" else {})})
             emit({"drill": lines[-1]})
             if g["captures"]:
                 failures.append(f"{name}: {g['captures']} captures after "
@@ -5744,7 +6095,12 @@ def drill_repeats(torch, arch: str, repeats: int) -> int:
                          "pool_gb", "warm_up_s", "completed_hp",
                          "skipped_releases", "hp_missed",
                          "hp_max_away_ms", "ready_used_share",
-                         "ready_discarded")}}
+                         "ready_discarded")},
+            **({"discard_hit": [r["discard"]["hit"] for r in runs],
+                "discard_jobs_equal": [[j["equal"] for j in r["discard"][
+                    "jobs"]] for r in runs],
+                "discard_plan": runs[0]["discard"]["plan"]}
+               if drill == "discard" and runs else {})}
     emit({"drill_repeats": {"model": arch, "repeats": repeats,
                             "failures": failures, **summary}})
     for f in failures:
@@ -6137,8 +6493,9 @@ def main() -> int:
 
     # the dry-runs share the host only with the kernel and gradient rows,
     # which are timed on the card; every later phase has the host to itself
+    profiles = []               # kernel rows profiled after the served runs
     with phase("kernels"):
-        rows = kernel_phase(torch, F, failures)
+        rows = kernel_phase(torch, F, failures, defer=profiles)
         grad_rows = grad_phase(torch, F, failures)
     with phase("dryrun_wait"):
         finish_dryruns(procs, dry_dir, failures)
@@ -6148,6 +6505,29 @@ def main() -> int:
 
     # each model path: (its launches, its launches by instance)
     paths = {}
+    # the served runs no profiler session may precede (SESSION_FREE): the
+    # CNN paths, the drills (the discard drill's too) and resume, before
+    # the process's first session; their profiles come after the last
+    cnn = {}
+    for dnn in CNN_WIDTHS:
+        with phase(f"{dnn}_path"):
+            cnn[dnn] = cnn_serving_phase(torch, failures, dnn)
+
+    with phase("drills"):
+        for arch in DRILL_ARCHS:
+            paths.update(drill_phase(torch, failures, arch)[0])
+
+    with phase("resume_path"):
+        resume_phase(torch, failures)
+        torch.cuda.empty_cache()
+
+    with phase("profiles"):
+        kernel_profiles(torch, profiles)
+        for dnn, spec in cnn.items():
+            cnn_output_checks(torch, dnn, spec, failures)
+        del cnn, spec, profiles
+        free_card(torch)
+
     with phase("dense_path"):
         model, params, spec, dense, dense_inst = serving_phase(
             torch, failures, PATH_MODELS["dense"], None, JPS, DENSE_PATH)
@@ -6191,21 +6571,6 @@ def main() -> int:
         train_cut_check(torch, failures)
     paths.update(slice12_paths(torch, failures, seconds, peaks, dry_dir))
 
-    for dnn in CNN_WIDTHS:
-        with phase(f"{dnn}_path"):
-            spec = cnn_serving_phase(torch, failures, dnn)
-            cnn_output_checks(torch, dnn, spec, failures)
-            del spec
-            torch.cuda.empty_cache()
-
-    with phase("drills"):
-        for arch in DRILL_ARCHS:
-            paths.update(drill_phase(torch, failures, arch)[0])
-
-    with phase("resume_path"):
-        resume_phase(torch, failures)
-        torch.cuda.empty_cache()
-
     with phase("cluster_path"):
         cluster = cluster_phase(torch, failures)
     # within the served paths' seconds: each model's stage_graphs check
@@ -6213,6 +6578,7 @@ def main() -> int:
                                    total=sum(STAGE_GRAPH_S.values()))
     emit({"phase_seconds": seconds})
     emit({"phase_peak_memory_gb": peaks})
+    emit({"profiler_sessions": profiler_report()})
     emit({"script_seconds": {
         "wall_s": time.perf_counter() - T_START,
         "phases_s": sum(v for k, v in seconds.items()

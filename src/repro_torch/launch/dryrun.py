@@ -24,7 +24,11 @@ mesh's size, so that nothing is allocated and no collective moves data:
     (``parallel/sharding.py``; the reference parses them from the HLO);
   * ``peak_bytes_per_device`` is the local shards of parameters,
     optimizer state, inputs and cache plus the high-water mark of the
-    storages the step makes while they are alive (``PeakBytes``).
+    storages the step makes while they are alive (``PeakBytes``);
+  * a train cell of more than 4 microbatches runs at 3 and at 4 of them
+    and its FLOPs and collectives are extrapolated exactly to its own
+    ``accum`` (``measure_cell``; ``--whole`` runs every microbatch); the
+    artifact's ``accum_run`` names the accumulations run.
 
 ``launch/hlo_cost.py`` has no counterpart: the FLOP counter replaces its
 walk of the HLO, and the reference's ``--save-hlo`` has none either (no
@@ -239,13 +243,21 @@ def build_cell(arch_id: str, shape_name: str, mesh, *,
                    else AdamWConfig())
         accum = extra.get("accum", max(1, min(16, cell.global_batch
                                               // rules._dp_size)))
-        step = make_train_step(model, opt_cfg, q_chunk=q_chunk,
-                               remat=extra.get("remat", "full"), accum=accum,
-                               accum_dtype="bfloat16" if low_mem
-                               else "float32")
         opt = adamw_init(params, opt_cfg)
-        built.update(opt=opt, accum=accum,
-                     run=lambda: step(params, opt, batch))
+
+        def run_with(n: int):
+            """The step over ``n`` of the cell's microbatches: the first
+            ``n`` microbatches' rows of the local batch (views of it), in
+            microbatches of the cell's own size."""
+            step = make_train_step(model, opt_cfg, q_chunk=q_chunk,
+                                   remat=extra.get("remat", "full"),
+                                   accum=n, accum_dtype="bfloat16"
+                                   if low_mem else "float32")
+            part = batch if n == accum else {
+                k: v[:v.shape[0] // accum * n] for k, v in batch.items()}
+            return lambda: step(params, opt, part)
+        built.update(opt=opt, accum=accum, run=run_with(accum),
+                     run_with=run_with)
     elif cell.kind == "prefill":
         built.update(accum=1, opt=None,
                      run=lambda: model.prefill(params, batch,
@@ -256,9 +268,10 @@ def build_cell(arch_id: str, shape_name: str, mesh, *,
     return built
 
 
-def measure(built: dict) -> dict:
-    """Run the built step once: FLOPs of this rank, collectives by kind,
-    peak bytes (resident shards plus the step's high-water mark)."""
+def measure(built: dict, n: int | None = None) -> dict:
+    """Run the built step once (or, given ``n``, the step over ``n`` of
+    its microbatches: ``run_with``): FLOPs of this rank, collectives by kind, peak bytes
+    (resident shards plus the step's high-water mark)."""
     from torch.utils.flop_counter import FlopCounterMode
     spmd = built["dist"]["spmd"]
     resident = [built["params"], built["batch"], built["opt"]]
@@ -266,20 +279,74 @@ def measure(built: dict) -> dict:
     spmd.counts.reset()
     grad = torch.enable_grad() if built["cell"].kind == "train" \
         else torch.no_grad()
+    run = built["run"] if n is None else built["run_with"](n)
     with grad, FlopCounterMode(display=False) as fc, \
             PeakBytes(tree_flatten(resident)[0]) as pk:
         t0 = time.time()
-        built["run"]()
+        run()
         run_s = time.time() - t0
-    return {"flops": float(fc.get_total_flops()),
+    return {"flops": fc.get_total_flops(),
             "collectives": spmd.counts.as_dict(),
             "resident_bytes": base, "transient_peak_bytes": pk.peak,
-            "peak_bytes": base + pk.peak, "run_s": run_s}
+            "peak_bytes": base + pk.peak, "run_s": run_s,
+            "accum_run": [built["accum"] if n is None else n]}
+
+
+# a train cell of more microbatches is measured at these two: its FLOPs and
+# collectives are ``fixed + accum x per microbatch`` (the step's loop runs
+# the same microbatch ``accum`` times), so two runs give both terms
+# exactly; its transient peak is the same from the third microbatch on (at
+# two, the running loss has one scalar fewer alive: 4 bytes less)
+ACCUM_RUNS = (3, 4)
+
+
+def _at(x, y, n: int):
+    """The value at ``n`` microbatches of a count that is ``x`` at
+    ``ACCUM_RUNS[0]`` and ``y`` at ``ACCUM_RUNS[1]``: whole numbers, exact
+    in ints and in floats below 2**53; None where either is not one."""
+    if not all(float(v).is_integer() and abs(v) < 2 ** 53 for v in (x, y)):
+        return None
+    a = ACCUM_RUNS[0]
+    per = y - x
+    return type(x)((x - a * per) + n * per)
+
+
+def measure_cell(built: dict, whole: bool = False) -> dict:
+    """``measure`` of the cell's step. A train cell of more than
+    ``ACCUM_RUNS[1]`` microbatches (unless ``whole``) is run at the two
+    accumulations of ``ACCUM_RUNS``, each microbatch the cell's own, and
+    its FLOPs and collectives (bytes and calls by kind) are extrapolated to
+    its own ``accum``; its resident and peak bytes are the runs' where they
+    agree (one microbatch's activations are alive at a time). Where they or
+    the collectives' kinds differ, or a count is not a whole number, the
+    cell is measured whole. ``accum_run``: the accumulations run."""
+    n = built["accum"]
+    if whole or "run_with" not in built or n <= max(ACCUM_RUNS):
+        return measure(built)
+    x, y = (measure(built, a) for a in ACCUM_RUNS)
+    cx, cy = x["collectives"], y["collectives"]
+    out = dict(x, run_s=x["run_s"] + y["run_s"], accum_run=list(ACCUM_RUNS))
+    flops = _at(x["flops"], y["flops"], n)
+    coll = {part: {k: _at(cx[part][k], cy[part].get(k, -1), n)
+                   for k in cx[part]}
+            for part in ("bytes_by_op", "counts")}
+    same = all(x[k] == y[k] for k in ("resident_bytes",
+                                      "transient_peak_bytes"))
+    kinds = all(set(cx[p]) == set(cy[p]) for p in coll)
+    if not (same and kinds and flops is not None and None not in [
+            v for part in coll.values() for v in part.values()]):
+        return measure(built)
+    coll["total_bytes"] = float(sum(coll["bytes_by_op"].values()))
+    out.update(flops=flops, collectives=coll)
+    return out
 
 
 def run_cell(arch_id: str, shape_name: str, mesh_kind: str,
              out_dir: pathlib.Path | None = None, *,
-             extra: dict | None = None) -> dict:
+             extra: dict | None = None, whole: bool = False) -> dict:
+    """One cell's artifact (written to ``out_dir`` where given); a long
+    train cell is measured from two short accumulations unless ``whole``
+    (``measure_cell``)."""
     from torch._subclasses.fake_tensor import FakeTensorMode
     mesh = fake_mesh(mesh_kind)
     names, sizes = mesh_axes(mesh)
@@ -288,7 +355,7 @@ def run_cell(arch_id: str, shape_name: str, mesh_kind: str,
     with FakeTensorMode():
         built = build_cell(arch_id, shape_name, mesh, extra=extra)
         build_s = time.time() - t0
-        m = measure(built)
+        m = measure_cell(built, whole)
     model, cell = built["model"], built["cell"]
     peak = m["peak_bytes"]
     art = {
@@ -300,8 +367,8 @@ def run_cell(arch_id: str, shape_name: str, mesh_kind: str,
         "resident_bytes_per_device": int(m["resident_bytes"]),
         "transient_peak_bytes_per_device": int(m["transient_peak_bytes"]),
         "fits_80gb": bool(peak <= HBM_BYTES),
-        "flops_per_device": m["flops"],
-        "cost_per_device": {"flops": m["flops"]},
+        "flops_per_device": float(m["flops"]),
+        "cost_per_device": {"flops": float(m["flops"])},
         "collectives_per_device": m["collectives"],
         "analytic_hbm_bytes_global": model.analytic_hbm_bytes(
             cell, accum=built["accum"]),
@@ -309,6 +376,7 @@ def run_cell(arch_id: str, shape_name: str, mesh_kind: str,
         "param_counts": model.param_counts(),
         "accum": built["accum"],
         "build_s": build_s, "run_s": m["run_s"],
+        "accum_run": m["accum_run"],
     }
     if out_dir is not None:
         out_dir = pathlib.Path(out_dir)
@@ -352,6 +420,9 @@ def main(argv=None) -> int:
                     help="no sequence parallelism in train cells")
     ap.add_argument("--mlp_fsdp", action="store_true",
                     help="MLP weights over data and model, MLPs whole")
+    ap.add_argument("--whole", action="store_true",
+                    help="run a long train cell's every microbatch, not "
+                         "two short accumulations (measure_cell)")
     ap.add_argument("--tag", default="")
     ap.add_argument("--jobs", type=int, default=1,
                     help="cells run at once, each in a process of its own")
@@ -406,7 +477,7 @@ def main(argv=None) -> int:
                         extra[flag] = True
                 try:
                     art = run_cell(arch, cell.name, mk, out_dir,
-                                   extra=extra or None)
+                                   extra=extra or None, whole=args.whole)
                     gb = art["peak_bytes_per_device"] / 2 ** 30
                     print(f"OK {arch} {cell.name} {mk}: peak {gb:.2f} GiB/dev"
                           f" fits={art['fits_80gb']}"

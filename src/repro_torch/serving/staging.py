@@ -93,12 +93,17 @@ def slice_cache(cfg, cache: dict, stage_idx: int, n_stages: int) -> dict:
 
 def migrate(tree, target: torch.device):
     """Zero-delay migration: move the inter-stage state onto the target
-    context's device at a stage boundary (a no-op for tensors already
-    there)."""
+    context's device at a stage boundary. A no-op for tensors already
+    there, and for a tree none of whose tensors moves: the tree itself,
+    so that a call made ready on it (``RealtimeBackend``) stays the next
+    stage's."""
     if isinstance(tree, dict):
-        return {k: migrate(v, target) for k, v in tree.items()}
+        out = {k: migrate(v, target) for k, v in tree.items()}
+        return tree if all(out[k] is v for k, v in tree.items()) else out
     if isinstance(tree, (list, tuple)):
-        return type(tree)(migrate(v, target) for v in tree)
+        out = [migrate(v, target) for v in tree]
+        return (tree if all(a is b for a, b in zip(out, tree))
+                else type(tree)(out))
     if isinstance(tree, torch.Tensor):
         return tree.to(target, non_blocking=True)
     return tree

@@ -433,6 +433,200 @@ def test_a_ready_call_sets_its_nodes_again_after_another_call_launched():
     torch.testing.assert_close(out2, stage(x2), rtol=1e-5, atol=1e-5)
 
 
+def _card_ready_backend(name, max_batch=1, ctx_devices=None):
+    """A started backend on the card (2 contexts x 1 stream) with one HP
+    task of real stage programs: a staged ResNet18 at width 8 (64 x 64
+    inputs) or smollm-135m at its full width cut to 4 layers (bf16,
+    decode batch 2), its first job's chain made ready at the start.
+    Returns the backend, the task and a function of (job, stage) that
+    makes the instance."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.task import StageInstance
+    if name == "resnet18":
+        spec = staged_cnn_taskspec(BUILDERS[name](width=8), priority=api.HP,
+                                   jps=20.0, input_hw=64)
+    else:
+        model = build_model(get_config(name).replace(n_layers=4,
+                                                     dtype="bfloat16"))
+        spec = staged_lm_taskspec(model, priority=api.HP, jps=20.0, batch=2,
+                                  prompt_len=20)
+    cfg = (api.ServerConfig.realtime().tasks([spec]).contexts(2).streams(1)
+           .oversubscribe(1.0).device(api.DeviceModel(n_units=4.0)))
+    if name == "resnet18":
+        cfg = cfg.realtime_io(input_hw=64, batch=1)
+    if max_batch > 1:
+        cfg = cfg.batching(max_batch=max_batch)
+    srv = cfg.build()
+    be = srv.backend
+    if ctx_devices is not None:
+        be.ctx_devices = ctx_devices
+    be.bind(srv.core)
+    be.start()
+    task = srv.scheduler.tasks[0]
+
+    def instance(job, stage):
+        job.stage_idx = stage
+        return StageInstance(job, enqueue_ms=0.0, virtual_deadline_ms=100.0)
+    return be, task, instance
+
+
+def _card_stage(be, lane, inst):
+    """Launch ``inst`` on ``lane``, poll it to its end; its enqueue steps
+    and the job's state after it, copied."""
+    be.launch(lane, inst)
+    while be.has_inflight():
+        be.advance(be.now_ms() + 2000.0)
+    state = be._job_state.get(inst.job.job_id)
+    copy = None if state is None else [t.clone() for t in _leaves(state)]
+    return list(be._enqueues)[-1][3], copy
+
+
+class _Fail:
+    """A chaos plan's draw that fails every launch, without a stall."""
+
+    @staticmethod
+    def draw_launch():
+        return True, 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["resnet18", "smollm-135m"])
+@pytest.mark.parametrize("reason", ["cancelled", "killed", "ctx_failed",
+                                    "chaos", "batch", "factory"])
+def test_each_discarded_ready_call_on_the_card_leaves_its_job_bit_exact(
+        reason, name):
+    """The card's twin of the stand-in seam's test of each discard
+    (``test_torch_inline_dispatch.py``), on real stage programs: each way
+    a call made ready ahead stops being its stage's discards the rest of
+    the job's chain, each call counted under that reason and no other;
+    made = used + left + discarded; the job's later stages resolve at
+    their boundary; nothing holds a discarded call's output block once it
+    is discarded, and with those blocks handed out again and filled with
+    0xff bytes (``poison``) every stage output of the job equals, bit for
+    bit, the same job's through the boundary path (the same stage
+    programs on the same lane and input, no call made ready)."""
+    _need_cuda()
+    import gc
+    import weakref
+
+    from repro_torch.core.task import Job
+    be, task, instance = _card_ready_backend(
+        name, max_batch=2 if reason == "batch" else 1)
+    discarded, count = [], be._discard
+
+    def discard(chain, why):
+        count(chain, why)
+        discarded.extend((weakref.ref(r.call.block), r.call.block.nbytes)
+                         for r in chain if r.call.block is not None)
+    be._discard = discard
+    poison, lane = [], (0, 0)
+
+    def job_of():
+        return Job(task, 0.0, extra_release_ms=[1.0] if reason == "batch"
+                   else [])
+
+    def stages(job, lo, hi):
+        """The job's stages ``lo`` to ``hi - 1`` on ``lane``: their steps
+        and outputs."""
+        return [_card_stage(be, lane, instance(job, k))
+                for k in range(lo, hi)]
+    n = len(task.spec.stages)
+    try:
+        if reason == "factory":
+            x0 = torch.full_like(be._zeros.made[1], 0.5)
+            be.input_factory = lambda j: x0
+        # the boundary path first: the same stage programs on the same lane
+        # and input, with the start's chain set aside (no call made ready)
+        chain = be._ready0.pop(task.index)
+        assert len(chain) == n
+        ref = stages(job_of(), 0, n)
+        assert all("resolve" in st and "lookup" not in st for st, _ in ref)
+        be._ready0[task.index] = chain
+        del chain
+        job = job_of()
+        if reason == "chaos":
+            be.core._chaos = _Fail
+            steps, out = _card_stage(be, lane, instance(job, 0))
+            assert "resolve" in steps and out is None   # not committed
+            be.core._chaos = None
+        if reason in ("killed", "ctx_failed"):
+            ghost = (0, 0) if reason == "killed" else (1, 0)
+            inst = instance(job, 0)
+            be.launch(ghost, inst)
+            assert job.job_id in be._ready
+            if reason == "killed":
+                be.kill_lane(ghost, inst)        # a watchdog's ghost
+            else:
+                be.cancel_ctx(1)                 # its context failed
+            assert job.job_id not in be._ready
+            while be.has_inflight():
+                be.advance(be.now_ms() + 2000.0)
+        got = []
+        if reason in ("batch", "factory"):
+            got = stages(job, 0, 1)              # its first stage discards
+        if reason == "cancelled":
+            got = stages(job, 0, 1)              # takes its ready call
+            assert "lookup" in got[0][0]
+            be.on_job_done(job)                  # retired at the boundary
+        gc.collect()
+        torch.cuda.synchronize()
+        # nothing holds a discarded block: hand them out again, poisoned
+        assert discarded and all(r() is None for r, _ in discarded)
+        poison += [torch.full((b,), 255, dtype=torch.uint8, device="cuda")
+                   for _, b in discarded]
+        if reason != "cancelled":
+            got += stages(job, len(got), n)
+            assert all("resolve" in st and "lookup" not in st
+                       for st, _ in got)
+    finally:
+        be.stop()
+    torch.cuda.synchronize()
+    assert len(got) == (1 if reason == "cancelled" else n)
+    for (_, out), (_, want) in zip(got, ref):
+        assert len(out) == len(want) > 0
+        assert all(torch.equal(u, v) for u, v in zip(out, want))
+    ready = be.ready_summary()
+    counts = {r: sum(by.values()) for r, by in ready["discarded"].items()
+              if any(by.values())}
+    first = reason in ("chaos", "batch", "factory")
+    assert counts == {reason: n if first else n - 1}
+    assert ready["discarded"][reason] == {"s0": int(first),
+                                          "later": n - 1}
+    for w in ("s0", "later"):
+        assert ready["made"][w] == (ready["used"][w] + ready["left"][w]
+                                    + sum(by[w] for by in
+                                          ready["discarded"].values()))
+    assert be.worker_exceptions == 0 and len(poison) == len(discarded)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["resnet18", "smollm-135m"])
+def test_a_move_between_contexts_of_one_card_keeps_the_ready_call(name):
+    """``migrated`` is not reachable on one card: with both contexts on
+    it (``ctx_devices``), a job's next stage on the other context finds
+    its state where it was (``staging.migrate`` hands back the very tree
+    where no tensor moves), so the call made ready on that state is the
+    stage's: taken (``lookup``), nothing discarded. Moving the state needs
+    contexts on two cards."""
+    _need_cuda()
+    from repro_torch.core.task import Job
+    dev = torch.device("cuda", torch.cuda.current_device())
+    be, task, instance = _card_ready_backend(name,
+                                             ctx_devices={0: dev, 1: dev})
+    try:
+        job = Job(task, 0.0)
+        got = [_card_stage(be, (k % 2, 0), instance(job, k))
+               for k in range(len(task.spec.stages))]
+    finally:
+        be.stop()
+    assert be.resharded == len(task.spec.stages) - 1
+    assert all("lookup" in st for st, _ in got)
+    ready = be.ready_summary()
+    assert not any(n for by in ready["discarded"].values()
+                   for n in by.values())
+    assert ready["used"]["later"] == len(task.spec.stages) - 1
+
+
 @pytest.mark.cuda
 def test_a_backend_stopped_with_stages_in_flight_lets_them_end_first():
     """A HP stage launched on its lane's stream (about 20 ms of products

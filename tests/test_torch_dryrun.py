@@ -8,6 +8,9 @@ FLOP formulas.
 * On one rank (``unit`` mesh) the dry-run's FLOPs a device equal
   ``FlopCounterMode``'s count of the same step run on real CPU tensors
   (reduced configs), as the card's run must equal it on the H100.
+* A train cell of more microbatches than ``ACCUM_RUNS`` measured from
+  two short accumulations gives the whole run's artifact, seconds aside;
+  a shorter one and a serving cell run whole.
 * ``roofline_row`` equals the reference's with the reference's three
   peaks patched to the H100's.
 * Each operator's fake kernel gives its plain version's output shapes and
@@ -115,6 +118,65 @@ def test_unit_mesh_flops_equal_a_real_run(arch, shape):
             model.decode_step(params, batch)
     assert art["status"] == "ok"
     assert fc.get_total_flops() == art["flops_per_device"] > 0
+
+
+def _cut_train_cell(monkeypatch, accum: int) -> dict:
+    """A reduced smollm-135m train_4k cell cut to 64 tokens, 4 sequences
+    a microbatch on each of the mesh's data ranks, ``accum`` microbatches;
+    returns its ``extra``."""
+    cell = dataclasses.replace(shape_by_name("train_4k"), seq_len=64,
+                               global_batch=4 * accum)
+    monkeypatch.setattr(dryrun, "shape_by_name", lambda name: cell)
+    return {"reduced": True, "global_batch": 4 * accum, "accum": accum,
+            "remat": "dots", "q_chunk": 0}
+
+
+TIMES = ("build_s", "run_s", "accum_run")
+
+
+@pytest.mark.parametrize("mesh,accum", [("tiny", 8), ("2x2", 6)])
+def test_a_long_train_cell_from_two_short_accumulations_equals_it_whole(
+        mesh, accum, monkeypatch):
+    """A train cell of more microbatches than ``ACCUM_RUNS`` is measured
+    at those two accumulations and extrapolated: its artifact equals the
+    whole run's in every key but the seconds and ``accum_run`` (FLOPs,
+    collective bytes and calls by kind, peak and resident bytes, its own
+    ``accum``)."""
+    extra = _cut_train_cell(monkeypatch, accum)
+    short = dryrun.run_cell("smollm-135m", "train_4k", mesh, extra=extra)
+    whole = dryrun.run_cell("smollm-135m", "train_4k", mesh, extra=extra,
+                            whole=True)
+    assert short["accum_run"] == list(dryrun.ACCUM_RUNS)
+    assert whole["accum_run"] == [accum] == [short["accum"]]
+    coll = whole["collectives_per_device"]
+    assert {"all-gather", "reduce-scatter", "all-reduce"} <= set(
+        coll["counts"])
+    for k in TIMES:
+        short.pop(k), whole.pop(k)
+    assert short == whole
+
+
+def test_a_short_train_cell_and_a_serving_cell_run_whole(monkeypatch):
+    """A train cell of no more microbatches than ``ACCUM_RUNS``' last runs
+    every one of them, and a serving cell its one step: ``accum_run`` is
+    the cell's own ``accum``."""
+    extra = _cut_train_cell(monkeypatch, max(dryrun.ACCUM_RUNS))
+    art = dryrun.run_cell("smollm-135m", "train_4k", "2x2", extra=extra)
+    assert art["accum_run"] == [art["accum"]] == [max(dryrun.ACCUM_RUNS)]
+    mesh = dryrun.fake_mesh("2x2")
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    with FakeTensorMode():
+        built = dryrun.build_cell("smollm-135m", "train_4k", mesh,
+                                  extra=dict(extra, accum=2))
+        seen = []
+        run_with = built["run_with"]
+        built["run_with"] = lambda n: seen.append(n) or run_with(n)
+        m = dryrun.measure_cell(built)
+    assert m["accum_run"] == [2] and seen == []
+    monkeypatch.undo()
+    art = dryrun.run_cell("smollm-135m", "decode_32k", "2x2",
+                          extra={"reduced": True, "global_batch": 2})
+    assert art["accum_run"] == [1] == [art["accum"]]
 
 
 def test_roofline_row_matches_reference_with_h100_peaks(monkeypatch):

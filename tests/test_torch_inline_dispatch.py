@@ -359,10 +359,11 @@ def test_reconfigure_warms_the_new_lanes_before_their_first_launch():
         be.stop()
 
 
-def _bare_backend(seam, work):
+def _bare_backend(seam, work, start=True):
     """A started backend on the stand-in (2 contexts x 1 stream), bound
     to its server's core, with one HP task whose payload keeps its lane
-    busy ``work[0]`` ms and returns a count of its calls."""
+    busy ``work[0]`` ms and returns a count of its calls (not started
+    without ``start``: a caller wraps its ``start`` first)."""
     calls = []
     spec = api.TaskSpec(name="t", period_ms=100.0, priority=api.HP,
                         stages=[api.StageProfile("t/s0", 1.0, n_sat=1.0,
@@ -379,8 +380,9 @@ def _bare_backend(seam, work):
         return torch.tensor(float(len(calls)))
     spec.stages[0].payload = payload
     be.bind(srv.core)
-    be.start()
-    calls.clear()                     # the warm-up's
+    if start:
+        be.start()
+        calls.clear()                 # the warm-up's
     task = srv.scheduler.tasks[0]
 
     def instance():
@@ -1024,6 +1026,125 @@ def test_each_discarded_ready_call_is_counted_by_its_reason(reason,
                                     + sum(by[w] for by in
                                           ready["discarded"].values()))
     assert be.worker_exceptions == 0
+
+
+class _Marks:
+    """Stands in for ``chip_smoke.DrillRecorder``'s marks."""
+
+    def __init__(self):
+        self.marks = []
+
+    def mark(self, kind):
+        return {"kind": kind}
+
+
+@pytest.mark.parametrize("name", ["resnet18", "smollm-135m"])
+def test_the_discard_drill_lands_each_event_on_a_held_chain(name):
+    """``chip_smoke.py``'s discard drill on the stand-in seam (a CNN and a
+    staged LM chain on the emulated burst, 2 x 2 lanes, its events at a
+    shorter run's times): each event lands on a HP launch whose job holds
+    calls made ready ahead, so each reason of its plan is counted, none
+    ``unnamed``; each job it landed on ends with the output its stages
+    give replayed at the boundary on the same input (``check``: no
+    failure), and its marks name the events in turn."""
+    import chip_smoke
+    seam = HandleSeam()
+    specs, io = _small_specs(name)
+    on_byte_programs(specs, seam)
+    cfg = (api.ServerConfig.realtime(device="cpu").tasks(specs)
+           .contexts(2).streams(2).oversubscribe(2.0)
+           .device(api.DeviceModel(n_units=4.0)).horizon_ms(1000.0))
+    if io:
+        cfg = cfg.realtime_io(**io)
+    srv = chip_smoke.drill_plan(cfg, "discard").build()
+    on_stand_in(srv, seam)
+    rec = _Marks()
+    events = (("chaos", 100.0), ("ctx_failed", 250.0), ("killed", 400.0),
+              ("cancelled", 550.0))
+    forcer = chip_smoke.DiscardForcer(
+        torch, srv, rec, events=events,
+        cancels=tuple(550.0 + 40.0 * i for i in range(8)))
+    m = srv.run()
+    be = srv.backend
+    assert m.completed[api.HP] > 0 and be.worker_exceptions == 0
+    assert m.faults == 1 and m.watchdog_kills == 1
+    failures = []
+    line = forcer.check(failures, name, be.ready_summary())
+    assert failures == []
+    assert set(forcer.fired) == {r for r, _ in events}
+    assert all(line["hit"][r] > 0 for r, _ in events)
+    assert not any(line["by_where"]["unnamed"].values())
+    assert line["plan"]["migrated"].get("unreachable")
+    assert [j["reason"] for j in line["jobs"]] == [r for r, _ in events]
+    assert all(j["equal"] for j in line["jobs"])
+    assert [mk["kind"] for mk in rec.marks] == ["chaos", "kill", "cancel"]
+
+
+def test_the_discard_drills_plan_names_each_reason():
+    """The discard drill's plan: each reason of the backend's
+    ``READY_REASONS`` but ``unnamed``, the four its events reach with
+    their event and ms; ``migrated`` unreachable without contexts on two
+    devices (none, or both on one), reached with them; ``batch`` and
+    ``factory`` left to the card test, each with why."""
+    import chip_smoke
+    from repro_torch.runtime.backend import READY_REASONS
+    for devices in ({}, {0: "cuda:0", 1: "cuda:0"}):
+        plan = chip_smoke.discard_plan(devices)
+        assert set(plan) == set(READY_REASONS) - {"unnamed"}
+        for reason, at in chip_smoke.DISCARD_EVENTS:
+            assert plan[reason] == {"event": reason, "at_ms": at}
+        assert "ctx_devices" in plan["migrated"]["unreachable"]
+        assert all("test_torch_cuda.py" in plan[r]["card_test"]
+                   for r in ("batch", "factory"))
+    plan = chip_smoke.discard_plan({0: "cuda:0", 1: "cuda:1"})
+    assert "event" in plan["migrated"]
+    assert [k for k, *_ in chip_smoke.DRILLS["discard"]] == [
+        "chaos", "fail_context", "kill", "cancel"]
+
+
+def test_a_session_free_run_after_a_profiler_session_fails(monkeypatch):
+    """``chip_smoke.py``'s profiler mark on served runs on the stand-in
+    seam: before any ``torch.profiler`` session a CNN, drill, discard,
+    resume or LM run starts alone; after one (opened through
+    ``profiler``, which marks it with its phase) each of the first four
+    kinds fails naming itself and the session's phase, an LM run only
+    shows in the report; ``profiler_sessions`` counts them."""
+    import chip_smoke
+    from torch.profiler import ProfilerActivity
+    for name in ("PROFILER_SESSIONS", "PHASES_RUN", "SERVED_STARTS"):
+        monkeypatch.setattr(chip_smoke, name, [])
+    monkeypatch.setattr(chip_smoke, "CURRENT_PHASE", ["profiles"])
+    kinds = (*chip_smoke.SESSION_FREE, "lm")
+
+    def served(kind, failures):
+        be, instance = _bare_backend(WallSeam(), [1.0], start=False)
+        chip_smoke.guard_session_free(be, kind, f"m-{kind}", failures)
+        be.start()
+        try:
+            be.launch((0, 0), instance())
+            _drain(be, be.now_ms() + 2000.0)
+        finally:
+            be.stop()
+    before = []
+    for kind in kinds:
+        served(kind, before)
+    assert before == []
+    with chip_smoke.profiler(ProfilerActivity.CPU):
+        torch.ones(2).sum()
+    after = []
+    for kind in kinds:
+        served(kind, after)
+    assert len(after) == len(chip_smoke.SESSION_FREE)
+    for kind, f in zip(chip_smoke.SESSION_FREE, after):
+        assert f.startswith(f"m-{kind}: ") and "profiles" in f
+    report = chip_smoke.profiler_report()
+    assert report["sessions"] == 1 and report["session_phases"] == [
+        "profiles"]
+    assert [r["after_session"] for r in report["served_runs"]] == [
+        False] * len(kinds) + [True] * len(kinds)
+    assert report["session_free_after_a_session"] == len(
+        chip_smoke.SESSION_FREE)
+    assert report["lm_runs_after_a_session"] == ["m-lm"]
 
 
 def test_a_stall_inside_a_ready_step_is_named_ready():
