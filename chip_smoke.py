@@ -63,8 +63,13 @@ result line. Without arguments:
    Times: the kernel, its plain version and, where
    one PyTorch call computes the same function, that call (a yardstick the
    port never uses), each the median of CUDA-event-timed batches of
-   launches; the bound is the larger of bytes over 3.35 TB/s and
-   operations over the card's peak for their type.
+   launches (the plain version's at most ``PLAIN_REPS`` batches of
+   ``PLAIN_INNER`` calls: a yardstick too, whose check is one call); the
+   bound is the larger of bytes over 3.35 TB/s and
+   operations over the card's peak for their type. Each row gives its
+   seconds in the phase (``row_s``; a profiled row its profile's too,
+   ``profile_s``), and ``phase_seconds``' ``kernel_parts`` the kernel
+   rows' and the gradient rows' seconds apart.
    RMSNorm also runs at the mamba2 step's widths (2560, 5120) and at the
    donor prefill's 2048 rows of 5120; each norm row names the instance its
    plan took (``rmsnorm_plan``). The SSD scan runs at the mamba2-2.7b
@@ -111,7 +116,9 @@ result line. Without arguments:
    task's payload chain gives finite logits of the expected shape that
    match the unstaged ``decode_step``, and a cut-depth f32 model run on
    the card through the kernels matches the same model run on the CPU
-   through the plain versions. Each stage payload is a ``StageProgram``
+   through the plain versions; the profile of its staged decode step
+   (``decode_step_profile``) waits for the last served run
+   (``lm_profiles``). Each stage payload is a ``StageProgram``
    (``serving/stage_graph.py``): a CUDA graph a (stage, lane stream),
    captured in the lanes' warm-up into the lane's graph pool (one a lane,
    shared by the programs that replay there) and replayed for every job;
@@ -214,6 +221,8 @@ result line. Without arguments:
    SchedCheck's differential oracle on ``fig13_light`` and
    ``fig13_fail_1of4``, each simulated on the epoch engine with every
    rate-group on the f64 contention kernel: both must be ``ok``.
+   ``phase_seconds``' ``cluster_parts``: each engine's runs' seconds, the
+   oracle's, and the f64 contention launches' within the kernel runs.
 9. MoE phase, the slice's main path: qwen2-moe-a2.7b at full width and
    depth (24 layers, d 2048, 16 heads at Dh 128, 60 routed experts top-4
    of width 1408 and 4 shared (5632), qkv bias, vocab 151,936; bf16,
@@ -227,7 +236,8 @@ result line. Without arguments:
    moe_oracle=True)`` decode from the same donor (``decode_step`` would
    take the capacity path, which at N = 4 keeps one pair an expert), and
    a 2-layer f32 copy to itself on the CPU, within 2e-3; the
-   ``decode_step_profile`` line adds the peak of allocated memory.
+   ``decode_step_profile`` line adds the served phase's peak of
+   allocated memory.
 10. Hybrid phase: zamba2-7b at full width and depth (81 Mamba2 layers at
     d 3584, the shared block 13 times over 7168 at Dh 112; bf16, seed 0),
     a prefill of 512 tokens at batch 4 and 4 decode steps (``model_run``
@@ -359,8 +369,9 @@ result line. Without arguments:
     same in f32. Held to the same layers run unsharded on the card (f32:
     ``DIST_TOL_F32`` of the largest logit; bf16: the median position
     within ``DIST_TOL``) and layer 0's ``moe_ep`` to ``moe_capacity`` in
-    f32 (``EP_TOL``); each rank's launches at its local shapes
-    (``dist_serving`` line). The same prefill and decode once more under
+    f32 (``EP_TOL``); each rank's launches at its local shapes, and the
+    rank set's seconds by part (``dist_serving`` line; ``phase_seconds``'
+    ``dist_parts``). The same prefill and decode once more under
     ``serve_seq_shard`` (a rank's 128 of the 512 rows between blocks),
     held to the same unsharded logits (``dist_seq_prefill`` line). Then
     the same ranks, as a (2, 2) mesh, run smollm-135m at full width (10
@@ -381,8 +392,9 @@ result line. Without arguments:
     process of
     its own at the lowest CPU priority (the reference's tiny train cell,
     16 microbatches, measured at 3 and at 4 of them and extrapolated
-    exactly: ``accum_run``), started after the build and run
-    beside the kernel and gradient rows (timed on the card); the script
+    exactly: ``accum_run``), all started after the build, that cell
+    first, and run beside the kernel and
+    gradient rows (timed on the card); the script
     waits for them (``dryrun_wait``) before any phase that reads the
     host's clock (``dryrun`` lines; a cell not ``ok`` or with no FLOPs
     fails).
@@ -438,20 +450,24 @@ result line. Without arguments:
     after the clock started, another count of streams, two live lanes on
     one stream handle, or an HP miss, besides the served run's own
     gates (one replay a stage, one pool a stream, no driver allocation).
-Without arguments the steps run in this order: 1, 2 (with 17's and 20's
-rows) beside 19's dry-runs, 19's wait, the contention rows, 6's served
-runs, 21, 7, then the profiles of 2's SSD row and of 6 (``profiles``),
-3, 4, 5, 9-15, 16, 17, 18, 20, 8. A ``torch.profiler`` session makes the
-process's later graph launches dearer, so no served run of 6, 21 or 7
-may start after one (``SESSION_FREE``): every session opens through
-``profiler``, which marks it, and the ``profiler_sessions`` line lists
-the sessions by phase, each phase and each served run with whether one
-came before it (the LM paths' runs of 3, 5, 9, 12 and 13 follow their
-own output checks' profiles). Each phase's model is freed before the
-next; ``phase_seconds`` and ``phase_peak_memory_gb`` give each phase's
-wall and peak of allocated card memory, and ``script_seconds`` the
-whole script's wall and its phases' sum beside those of commit 1c8268e
-and the wall's aim.
+Without arguments the steps run in this order (``plan``): 1, 2 (with
+17's and 20's rows) beside 19's dry-runs, 19's wait, the contention
+rows, the served runs: 6, 21, 7, 3, 5, 9, 12 and 13; then every profile:
+2's SSD rows and 6's stages (``profiles``), and the decode step of 3, 5,
+9, 12 and 13 (``lm_profiles``: each model rebuilt from its seed,
+``rebuild_s``); then 4, 10,
+11, 14, 15 (with the Dh 160 check), 16, 17, 18, 20, 8. A
+``torch.profiler`` session makes the process's later graph launches
+dearer, so no served run may start after one (``SESSION_FREE``; only
+``--serve ARCH --trace`` serves under its own): every session opens
+through ``profiler``, which marks it, and the ``profiler_sessions`` line
+lists the sessions by phase, each phase and each served run with whether
+one came before it. A phase that serves or opens a session where its
+plan does not say so fails the run. Each phase's model is freed before
+the next; ``phase_seconds`` and ``phase_peak_memory_gb`` give each
+phase's wall and peak of allocated card memory, and ``script_seconds``
+the whole script's wall and its phases' sum beside those of commit
+04e0d56 and the wall's aim.
 
 Kernel launch counts are reset just before each path and read just after;
 every kernel must be launched on a path (the f32 contention kernel, which
@@ -487,8 +503,8 @@ scheduler state differs from its file, the second launcher run did not
 resume, the parameters did not round-trip bit for bit, the daemon
 example failed, the oracle was not ``ok`` on fig13_light or
 fig13_fail_1of4, an int8 check of step 11 failed, a drill of step 21
-failed a gate, a served run of 6, 21 or 7 started after a profiler
-session, a planted fault
+failed a gate, a served run started after a profiler session or a
+phase served or profiled against its plan, a planted fault
 agreed with a plain version, a step 12-15 instance or launch-shape check
 failed, a gradient row or a check of steps 16-20 failed, or a model path
 launched a kernel at an instance and shape that no bf16 row checked. The
@@ -497,6 +513,7 @@ last line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import atexit
 import collections
 import contextlib
 import gc
@@ -510,15 +527,22 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 ROOT = Path(__file__).resolve().parent
 T_START = time.perf_counter()      # the whole script's wall clock
 # the whole script's wall and phase seconds on one H100 (700 W) at commit
-# 464ae87, before the host readings of ``run_host``, and the aim for the
-# wall (``script_seconds``)
-PREVIOUS_SECONDS = {"commit": "1c8268e", "wall_s": 920.6, "phases_s": 871.3}
+# 04e0d56, the older side of a whole-script A/B (its LM paths served
+# after profiler sessions), and the aim for the wall (``script_seconds``)
+PREVIOUS_SECONDS = {"commit": "04e0d56", "wall_s": 635.5, "phases_s": 596.7}
 WALL_AIM_S = 600.0
 HBM_BYTES_PER_S = 3.35e12             # H100 SXM data sheet
+# the kernel phase times a row's plain version at most this many batches
+# of this many calls (of twice as many in a graph): it is a yardstick
+# that repeats the kernel's arithmetic step by step, and the check holds
+# one call of it against the kernel. The kernel and the library call
+# keep the row's own repetitions (PERF.md's kernel table reads them).
+PLAIN_REPS, PLAIN_INNER = 3, 2
 PEAK_FLOPS = {"bfloat16": 989e12,     # dense tensor-core bf16
               "float32": 67e12}       # f32 outside the tensor cores
 ELEMENTWISE_FLOPS = 67e12             # norms compute in f32 on CUDA cores
@@ -1344,8 +1368,10 @@ def kernel_phase(torch, F, failures, defer=None):
     for dtype in (torch.bfloat16, torch.float32):
         for name, kern, plain, lib, nb, ops, peak, opt in kernel_cases(
                 torch, F, dtype):
+            t_row = time.perf_counter()
             tol = opt.get("tol", 3e-2 if dtype == torch.bfloat16 else 2e-4)
             reps, inner = opt.get("reps", 30), opt.get("inner", 10)
+            plain_reps = min(reps, PLAIN_REPS), min(inner, PLAIN_INNER)
             # calls of a millisecond or more are timed eagerly: the host's
             # enqueue hides behind the device, and no graph is captured
             dev_ms = (graph_ms if opt.get("graph", True) else
@@ -1373,10 +1399,12 @@ def kernel_phase(torch, F, failures, defer=None):
             row = {"name": name, "dtype": str(dtype).replace("torch.", ""),
                    "max_err": err, "tol": tol, "within_tol": ok,
                    "kernel_ms": dev_ms(torch, kern, reps, 2 * inner),
-                   "plain_ms": dev_ms(torch, plain, reps, 2 * inner),
+                   "plain_ms": dev_ms(torch, plain, plain_reps[0],
+                                      2 * plain_reps[1]),
                    "library_ms": None,
                    "kernel_host_ms": cuda_ms(torch, kern, reps, inner),
-                   "plain_host_ms": cuda_ms(torch, plain, reps, inner)}
+                   "plain_host_ms": cuda_ms(torch, plain, *plain_reps),
+                   "reps": [reps, inner], "plain_reps": list(plain_reps)}
             if lib is not None:
                 try:
                     row["library_ms"] = graph_ms(torch, lib)
@@ -1434,6 +1462,7 @@ def kernel_phase(torch, F, failures, defer=None):
                                     f"launched {launched}, want a split "
                                     f"grid of {sm} blocks or more and the "
                                     f"merge")
+            row["row_s"] = time.perf_counter() - t_row
             if profile and defer is not None:
                 defer.append((row, kern))
             elif profile:
@@ -1454,9 +1483,12 @@ def kernel_phase(torch, F, failures, defer=None):
 
 def kernel_profiles(torch, deferred) -> None:
     """Each (row, kernel) of ``kernel_phase``'s profiled rows: its kernels'
-    device µs a call (``kernel_us``), then its ``kernel_check`` line."""
+    device µs a call (``kernel_us``) and the profile's seconds, then its
+    ``kernel_check`` line."""
     for row, kern in deferred:
+        t0 = time.perf_counter()
         row["device_us_by_kernel"] = kernel_us(torch, kern)
+        row["profile_s"] = time.perf_counter() - t0
         emit({"kernel_check": row})
 
 
@@ -1632,15 +1664,15 @@ def serving_phase(torch, failures, arch, n_layers, jps, kernels,
     return model, params, specs[0], launches, instances
 
 
-def lm_specs(model, params, jps) -> list:
-    """An HP and an LP staged decode task of ``model`` at ``jps`` (batch
-    ``B`` after a ``PROMPT``-token prompt, ``N_STAGES`` stages)."""
+def lm_specs(model, params, jps, lp: bool = True) -> list:
+    """An HP and (``lp``) an LP staged decode task of ``model`` at ``jps``
+    (batch ``B`` after a ``PROMPT``-token prompt, ``N_STAGES`` stages)."""
     from repro_torch.api import HP, LP
     from repro_torch.serving.engine import staged_lm_taskspec
     return [staged_lm_taskspec(model, priority=p, jps=jps, n_stages=N_STAGES,
                                prompt_len=PROMPT, batch=B, tag=tag,
                                params=params)
-            for p, tag in ((HP, "-hp"), (LP, "-lp"))]
+            for p, tag in ((HP, "-hp"), (LP, "-lp"))[:2 if lp else 1]]
 
 
 def cnn_specs(model, jps) -> list:
@@ -1959,9 +1991,9 @@ PROFILER_SESSIONS, PHASES_RUN, SERVED_STARTS = [], [], []
 CURRENT_PHASE = [None]
 # the served runs no profiler session may precede: a session makes every
 # later graph launch of the process 2-7x dearer (ROADMAP C7 item 6), so a
-# run after one is not the path as users run it. The LM paths' runs
-# (``lm``) still follow their own output checks' profiles.
-SESSION_FREE = ("cnn", "drill", "discard", "resume")
+# run after one is not the path as users run it. Only a traced run
+# (``--serve ARCH --trace``) is under its own session, by design.
+SESSION_FREE = ("cnn", "drill", "discard", "resume", "lm")
 
 
 @contextlib.contextmanager
@@ -2865,12 +2897,16 @@ def fig13_fail_1of4():
                   4).fail_device_at(1, FIG13_HORIZON_MS * 0.3)
 
 
-def cluster_phase(torch, failures, fleet_horizon_ms=FLEET_HORIZON_MS):
+def cluster_phase(torch, failures, fleet_horizon_ms=FLEET_HORIZON_MS,
+                  parts=None):
     """Each cluster scenario on the three engines (``run_engines``; the
     fleet with its rate-group counts), then SchedCheck's differential
     oracle on fig13_light and fig13_fail_1of4 on the epoch engine with
     every rate-group on the kernel. Returns the kernel's launches on each
-    path (counts reset just before each)."""
+    path (counts reset just before each); ``parts`` (where given) gets
+    the seconds of each engine's runs and of the oracle's, and of the
+    f64 contention launches within the kernel runs (their ``rates_for``
+    seconds)."""
     from repro_torch.analysis.schedcheck import differential_check
     from repro_torch.kernels import KERNELS, reset_counts
 
@@ -2887,6 +2923,12 @@ def cluster_phase(torch, failures, fleet_horizon_ms=FLEET_HORIZON_MS):
         runs, same, decisions, n = run_engines(make_cfg, name, failures,
                                                rate_groups=fleet)
         launches[name] = n
+        if parts is not None:
+            for label, run in runs.items():
+                parts[label] = parts.get(label, 0.0) + run["wall_s"]
+            parts["contention_launch_s"] = parts.get(
+                "contention_launch_s", 0.0) + runs["epoch_kernel_min_1"][
+                    "rates_for"]["s"]
         emit({"cluster": {"scenario": name, "horizon_ms": horizon,
                           "runs": runs, "digests_identical": same,
                           "decisions_sha256": decisions, "launches": n,
@@ -2903,6 +2945,8 @@ def cluster_phase(torch, failures, fleet_horizon_ms=FLEET_HORIZON_MS):
             os.environ.pop("DARIS_EPOCH_KERNEL_MIN", None)
         n = path_counts(KERNELS, EPOCH_PATH, f"{name} oracle", failures)
         launches[f"{name}_oracle"] = n
+        if parts is not None:
+            parts["oracle"] = parts.get("oracle", 0.0) + wall
         emit({"schedcheck_oracle": {
             "scenario": name, "ok": res.ok, "verdict": res.verdict,
             "hp_verdict": res.hp_verdict, "hp_bound_ms": finite(res.bound_ms),
@@ -3075,15 +3119,17 @@ def logits_err(torch, outs, tol: float):
                     for a, b in pairs)
 
 
-def output_checks(torch, model, params, spec, failures, unstaged=None,
-                  small=None, extra=None, note=None):
+def output_checks(torch, model, params, spec, failures, profiles,
+                  unstaged=None, small=None, extra=None, note=None):
     """A served task's payload chain against the unstaged decode from the
     same donor (``unstaged(params, tokens, donor)`` -> logits; default
     ``decode_step``; ``note`` says what ``unstaged`` reproduces), and the
     cut-depth f32 copy ``small`` (default: 2 layers, f32 KV cache) on the
-    card against the CPU (``extra`` as in ``card_vs_cpu``); the decode
-    step's profile (``decode_step_profile``, with the peak memory) comes
-    before that copy is built."""
+    card against the CPU (``extra`` as in ``card_vs_cpu``). The decode
+    step's profile waits for the last served run (an entry of
+    ``profiles`` that ``lm_profiles`` takes: a profiler session makes
+    every later graph launch of the process dearer), with the peak
+    memory as the phase has it before that copy is built."""
     import numpy as np
 
     state, step = per_step_launches(torch, spec)
@@ -3105,8 +3151,9 @@ def output_checks(torch, model, params, spec, failures, unstaged=None,
     staged_ok = torch.allclose(logits.float(), ref.float(), rtol=3e-2,
                                atol=3e-2)
     del donor
-    profile = {"model": cfg.name, **profile_step(torch, staged_step(spec)),
-               "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    profiles.append({"cfg": cfg, "jps": 1000.0 / spec.period_ms,
+                     "peak_memory_gb": torch.cuda.max_memory_allocated()
+                     / 1e9})
 
     # cut-depth f32 model: kernels on the card vs plain versions on the CPU
     if small is None:
@@ -3119,7 +3166,6 @@ def output_checks(torch, model, params, spec, failures, unstaged=None,
         "staged_vs_unstaged_max_err": staged_err, "staged_tol": 3e-2,
         **({"staged_vs_unstaged": note} if note else {}),
         "launches_per_decode_step": step})
-    emit({"decode_step_profile": profile})
     if not (shape_ok and finite):
         failures.append(f"{cfg.name} served logits: shape not "
                         f"(B, 1, vocab) or not finite ({finite})")
@@ -3127,6 +3173,34 @@ def output_checks(torch, model, params, spec, failures, unstaged=None,
         failures.append(f"{cfg.name} staged vs unstaged decode: max_err "
                         f"{staged_err}")
     return f32_instances
+
+
+def lm_profiles(torch, entries) -> None:
+    """The ``decode_step_profile`` of each served LM of ``entries`` (each
+    ``output_checks``' config, rate and served phase's peak GB), in turn:
+    the staged decode step (``profile_step``) of its HP task rebuilt as
+    ``serving_phase`` builds it (the same config and weights from seed
+    0, the donor prefill and stage programs anew; ``rebuild_s``), its
+    stage graphs captured by one step before the profiler starts."""
+    from repro_torch.models import build_model
+
+    while entries:
+        entry = entries.pop(0)
+        t0 = time.perf_counter()
+        model = build_model(entry["cfg"])
+        spec = lm_specs(model, model.init_params(0), entry["jps"],
+                        lp=False)[0]
+        staged_step(spec)()
+        torch.cuda.synchronize()
+        rebuild_s = time.perf_counter() - t0
+        del model
+        emit({"decode_step_profile": {
+            "model": entry["cfg"].name,
+            **profile_step(torch, staged_step(spec)),
+            "peak_memory_gb": entry["peak_memory_gb"],
+            "rebuild_s": rebuild_s}})
+        del spec
+        free_card(torch)
 
 
 def run_model(torch, model, params, tokens, steps: int, spare: int = 0):
@@ -3215,7 +3289,7 @@ def model_phase(torch, failures, cfg, kernels, spare: int = 0, before=None):
     return model, params, run, launches, instances
 
 
-def moe_phase(torch, failures):
+def moe_phase(torch, failures, profiles):
     """Step 9, this slice's main path: full-width, full-depth
     qwen2-moe-a2.7b served as the LMs of steps 3 and 5 (its stages on the
     dense expert oracle, as the reference stages them), at ``MOE_JPS``
@@ -3237,7 +3311,8 @@ def moe_phase(torch, failures):
     def oracle(p, tok, donor):
         return transformer.forward(p, cfg, tok, cache=donor,
                                    moe_oracle=True)[0]
-    output_checks(torch, model, params, spec, failures, unstaged=oracle)
+    output_checks(torch, model, params, spec, failures, profiles,
+                  unstaged=oracle)
     return launches, inst
 
 
@@ -3479,7 +3554,7 @@ def instance_share(inst: dict, kernel: str, want: str, launches: dict):
     return inst.get(kernel, {}).get(want, 0) == launches[kernel]
 
 
-def mla_phase(torch, failures):
+def mla_phase(torch, failures, profiles):
     """Step 12, this slice's main path: deepseek-v2-236b at full width
     (MLA with q_lora 1536, kv_lora 512, rope 64 / nope 128 / v 128 at 128
     heads; 160 routed experts top-6 of 1536 and 2 shared; dense d_ff
@@ -3515,14 +3590,14 @@ def mla_phase(torch, failures):
     small = cfg.replace(n_layers=2, dtype="float32", kv_cache_dtype="float32")
     if not host_ram_allows(2 * cut_f32_bytes(params)):
         small = small.replace(n_experts=16)
-    output_checks(torch, model, params, spec, failures, unstaged=r4,
-                  small=small, extra=staged_chain(torch),
+    output_checks(torch, model, params, spec, failures, profiles,
+                  unstaged=r4, small=small, extra=staged_chain(torch),
                   note="R4: the MoE layers unstaged on the oracle, the "
                        "dense layer skipped")
     return launches, inst
 
 
-def gemma2_phase(torch, failures):
+def gemma2_phase(torch, failures, profiles):
     """Step 13: gemma2-27b at full width (d 4608, 32 / 16 heads at Dh 128,
     d_ff 36,864, vocab 256,000 tied, window 4096, softcaps 50 / 30),
     depth cut to 24 of 46 layers (12 local/global pairs, 3 a stage),
@@ -3536,7 +3611,7 @@ def gemma2_phase(torch, failures):
         failures.append(f"{GEMMA_ARCH}: flash launches by instance "
                         f"{inst.get('flash_attention')}, not all "
                         f"tensor_core")
-    output_checks(torch, model, params, spec, failures,
+    output_checks(torch, model, params, spec, failures, profiles,
                   extra=staged_chain(torch))
     return launches, inst
 
@@ -3731,22 +3806,6 @@ def dh160_check(torch, failures) -> None:
     if set(inst.get("flash_attention", {})) != {"cuda_core"}:
         failures.append(f"{DH160_ARCH}: flash launches by instance "
                         f"{inst.get('flash_attention')}, not cuda_core")
-
-
-def family_paths(torch, failures, seconds, peaks) -> dict:
-    """Steps 12-15 and the Dh 160 check, each model freed before the next;
-    {path: (launches, launches by instance)}."""
-    paths = {}
-    for key, run in (("mla", mla_phase), ("gemma2", gemma2_phase),
-                     ("vlm", vlm_phase), ("encdec", encdec_phase)):
-        free_card(torch)
-        with timed_phase(torch, f"{key}_path", seconds, peaks):
-            paths[key] = run(torch, failures)
-    free_card(torch)
-    with timed_phase(torch, "dh160_check", seconds, peaks):
-        dh160_check(torch, failures)
-    free_card(torch)
-    return paths
 
 
 def cnn_serving_phase(torch, failures, name, trace=False):
@@ -4230,6 +4289,7 @@ def grad_phase(torch, F, failures, dev="cuda") -> dict:
         dname = str(dtype).replace("torch.", "")
         for name, inputs, kern, plain, lib, reps in grad_cases(
                 torch, F, dtype, dev):
+            t_row = time.perf_counter()
             counts = KERNELS[name].counts
             outs = as_tuple(kern(*inputs))
             g = torch.Generator(device=dev)
@@ -4288,6 +4348,7 @@ def grad_phase(torch, F, failures, dev="cuda") -> dict:
                         torch, fwd_bwd(lib), reps, reps) * 1e3
                 except (TypeError, RuntimeError) as e:   # yardstick only
                     row["library_error"] = repr(e)
+            row["row_s"] = time.perf_counter() - t_row
             emit({"grad_check": row})
             if not (err <= tol and math.isfinite(err)
                     and same <= tol and math.isfinite(same)):
@@ -4630,8 +4691,10 @@ def train_cut_check(torch, failures, dev="cuda") -> None:
 # ---------------------------------------------------------------------------
 def start_dryruns(out_dir: Path) -> list:
     """Step 19's dry-run cells, each its own process at the lowest CPU
-    priority (fake tensors: CPU only), started before the kernel rows
-    (timed on the card) and awaited (``finish_dryruns``) before any phase
+    priority (fake tensors: CPU only; ``nice -n 19``), all at once, the
+    longest (the tiny train cell) first, started before the kernel rows
+    (timed on the card), killed where still running at the script's exit,
+    and awaited (``finish_dryruns``) before any phase
     that reads the host's clock: the reference's three tiny-mesh cells, a
     cell a family at the production mesh, the roofline cells at a 1 x 1
     mesh and the layout cells at 2 x 2 (``LAYOUTS``). Returns [(cell,
@@ -4657,15 +4720,24 @@ def start_dryruns(out_dir: Path) -> list:
     for (arch, shape, mesh, tag), args in jobs:
         suffix = f"__{tag}" if tag else ""
         log = out_dir / f"{arch}__{shape}__{mesh}{suffix}.log"
-        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-               arch, "--shape", shape, "--mesh", mesh, "--out",
-               str(out_dir), *(["--tag", tag] if tag else []), *args]
+        cmd = ["nice", "-n", "19", sys.executable, "-m",
+               "repro_torch.launch.dryrun", "--arch", arch, "--shape", shape,
+               "--mesh", mesh, "--out", str(out_dir),
+               *(["--tag", tag] if tag else []), *args]
         with open(log, "w") as fh:
             procs.append(((arch, shape, mesh, tag), subprocess.Popen(
                 cmd, env=env, cwd=str(ROOT), stdout=fh,
-                stderr=subprocess.STDOUT,
-                preexec_fn=lambda: os.nice(19)), log))
+                stderr=subprocess.STDOUT), log))
+    atexit.register(kill_running, [proc for _, proc, _ in procs])
     return procs
+
+
+def kill_running(procs) -> None:
+    """Kill each of ``procs`` still running and wait for its end."""
+    for proc in procs:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
 
 
 def dryrun_artifact(out_dir: Path, arch, shape, mesh, tag="") -> dict:
@@ -4687,7 +4759,6 @@ def finish_dryruns(procs, out_dir: Path, failures, timeout_s=900.0):
                                                      - t0)))
         except subprocess.TimeoutExpired:
             proc.kill()
-            proc.wait()
             failures.append(f"dry-run {arch} {shape} {mesh} {tag}: no end "
                             f"in {timeout_s:g} s")
             continue
@@ -4750,7 +4821,11 @@ def dist_rank(rank: int, work: Path, port: int) -> int:
     of qwen2-moe-a2.7b on the card, the prefill and decode steps through
     ``Model`` with ``dist``, the logits gathered to rank 0, the f32 EP
     check, and its launch counts, seconds and peak memory in
-    ``work/rank{rank}.json``."""
+    ``work/rank{rank}.json``; the seconds of each of its parts (set-up
+    from the process's entry to the served run, the run, the f32 and EP
+    checks, ``serve_seq_shard``, the layouts) in
+    ``work/rank{rank}_parts.json``."""
+    entered = time.time()
     import torch
     import torch.distributed as tdist
     from torch.distributed.device_mesh import init_device_mesh
@@ -4787,12 +4862,15 @@ def dist_rank(rank: int, work: Path, port: int) -> int:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     tdist.barrier()
+    parts = {"setup_s": time.time() - entered}
     reset_counts()
     t0 = time.perf_counter()
     with torch.no_grad():
         outs = lm_run(model, local, tokens, cache)
         torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
+    parts["serve_s"] = seconds
+    t0 = time.perf_counter()
     counts = kernel_counts(KERNELS)
     with torch.no_grad():
         full = [spmd._all_gather(o, o.dim() - 1, "model") for o in outs]
@@ -4820,13 +4898,20 @@ def dist_rank(rank: int, work: Path, port: int) -> int:
         "local_experts": lp["experts"]["w_gate"].shape[0],
         "local_heads": local["layers"]["attn"]["wq"].shape[-2],
         "collectives": spmd.counts.as_dict(), "counts": counts}))
+    parts["f32_ep_s"] = time.perf_counter() - t0
     # the same prefill and decode under serve_seq_shard, then the layouts
+    t0 = time.perf_counter()
     seq_prefill_rank(torch, rank, work, cfg, rules, whole, local, tokens,
                      dist["param_specs"])
+    parts["seq_s"] = time.perf_counter() - t0
     del local, model, model32, cache, cache32, lp, outs, full, full32
     free_card(torch)
+    t0 = time.perf_counter()
     (work / f"layouts_rank{rank}.json").write_text(json.dumps(
         layout_rank(torch, tdist, rank, work)))
+    parts["layouts_s"] = time.perf_counter() - t0
+    (work / f"rank{rank}_parts.json").write_text(json.dumps(
+        {"entered": entered, **parts}))
     tdist.barrier()
     tdist.destroy_process_group()
     return 0
@@ -5042,7 +5127,7 @@ def free_tcp_port() -> int:
         return s.getsockname()[1]
 
 
-def dist_phase(torch, failures, dry_dir: Path) -> dict:
+def dist_phase(torch, failures, dry_dir: Path, parts=None) -> dict:
     """Step 18: qwen2-moe-a2.7b at its published width (4 of 24 layers,
     bf16, seed 0) on four ranks of the card, a (1, 4) mesh over gloo:
     each rank holds 4 heads and 15 experts, prefills 512 tokens at batch
@@ -5052,7 +5137,8 @@ def dist_phase(torch, failures, dry_dir: Path) -> dict:
     ``serve_seq_shard``, held to the same unsharded logits, and the
     layouts (``layout_report``). Returns {path: (launches, launches by
     instance)} for the paths "dist", "dist_seq" and "layouts", summed over
-    the ranks."""
+    the ranks; ``parts`` (where given) gets the rank set's seconds by part
+    (``rank_parts_s``)."""
     import tempfile
     from repro_torch.configs import get_config
     from repro_torch.models.api import build_model
@@ -5095,7 +5181,7 @@ def dist_phase(torch, failures, dry_dir: Path) -> dict:
                work / "inputs.pt")
     port = free_tcp_port()
     world = math.prod(DIST_MESH)
-    t0 = time.perf_counter()
+    t0, started = time.perf_counter(), time.time()
     procs = [subprocess.Popen(
         [sys.executable, str(Path(__file__).resolve()), "--dist-rank",
          str(r), "--dist-work", str(work), "--dist-port", str(port)],
@@ -5117,6 +5203,11 @@ def dist_phase(torch, failures, dry_dir: Path) -> dict:
     got = torch.load(work / "rank0.pt")
     ranks = [json.loads((work / f"rank{r}.json").read_text())
              for r in range(world)]
+    part_s = rank_part_seconds(
+        [json.loads((work / f"rank{r}_parts.json").read_text())
+         for r in range(world)], started, ranks_s)
+    if parts is not None:
+        parts.update(part_s)
     errs = [float((a - b).abs().max() / b.abs().max())
             for a, b in zip(got["outs"], ref)]
     rows = [((a - b).abs().amax(-1) / b.abs().amax(-1)).flatten()
@@ -5142,6 +5233,7 @@ def dist_phase(torch, failures, dry_dir: Path) -> dict:
         "ep_f32_rel_err": ep_err, "ep_tol": EP_TOL,
         "aux_f32": [float(got["aux"]), ref_aux],
         "unsharded_s": whole_s, "ranks_wall_s": ranks_s,
+        "rank_parts_s": part_s,
         "rank_run_s": [r["seconds"] for r in ranks],
         "rank_peak_memory_gb": [r["peak_memory_gb"] for r in ranks],
         "collectives_per_rank": ranks[0]["collectives"],
@@ -5167,6 +5259,19 @@ def dist_phase(torch, failures, dry_dir: Path) -> dict:
     paths["layouts"] = layout_report(failures, work, world, dry_dir,
                                      layout_ref, layout_ref_s, ranks_s)
     return paths
+
+
+def rank_part_seconds(rank_parts, started: float, ranks_s: float) -> dict:
+    """The rank set's seconds by part, each its longest rank's: from the
+    set's start (``started``, host clock) to the last rank's entry (the
+    interpreter's start and this script's load), each part a rank records
+    (``dist_rank``), and the rest of the set's ``ranks_s`` (the ranks'
+    exit and their last barrier)."""
+    out = {"start_s": max(p["entered"] for p in rank_parts) - started}
+    out.update({k: max(p[k] for p in rank_parts)
+                for k in rank_parts[0] if k != "entered"})
+    out["rest_s"] = ranks_s - sum(out.values())
+    return out
 
 
 def sum_counts(records, names, path, failures):
@@ -5510,20 +5615,6 @@ def roofline_phase(torch, failures, dry_dir: Path) -> dict:
         tdist.destroy_process_group()
 
 
-def slice12_paths(torch, failures, seconds, peaks, dry_dir) -> dict:
-    """Steps 18 and 20 (step 19's dry-runs have ended), each freed before
-    the next; {path: (launches, launches by instance)}."""
-    paths = {}
-    free_card(torch)
-    with timed_phase(torch, "dist_path", seconds, peaks):
-        paths.update(dist_phase(torch, failures, dry_dir))
-    free_card(torch)
-    with timed_phase(torch, "roofline_path", seconds, peaks):
-        paths["roofline"] = roofline_phase(torch, failures, dry_dir)
-    free_card(torch)
-    return paths
-
-
 @contextlib.contextmanager
 def timed_phase(torch, name, seconds, peaks):
     """Records a phase's wall seconds and its peak of allocated card memory
@@ -5542,17 +5633,249 @@ def timed_phase(torch, name, seconds, peaks):
     peaks[name] = torch.cuda.max_memory_allocated() / 1e9
 
 
-def lm_paths(torch, failures, seconds, peaks) -> dict:
-    """Steps 9-11, each freed before the next; {path: (launches, launches
-    by instance)}."""
-    paths = {}
-    for key, run in (("moe", moe_phase), ("hybrid", hybrid_phase),
-                     ("int8", int8_phase)):
-        free_card(torch)              # the model of the phase before
-        with timed_phase(torch, f"{key}_path", seconds, peaks):
-            paths[key] = run(torch, failures)
-    free_card(torch)
-    return paths
+class Run:
+    """What a run's phases share (``plan``, ``run_plan``): the card's
+    modules, the failures, each phase's seconds and peak GB, the kernel
+    rows, the model paths' launches and what the result line reads."""
+
+    def __init__(self, torch, F, failures, procs=(), dry_dir=None):
+        self.torch, self.F, self.failures = torch, F, failures
+        self.procs, self.dry_dir = procs, dry_dir
+        self.seconds, self.peaks = {}, {}
+        self.rows, self.grad_rows, self.paths = {}, None, {}
+        # profiled after the served runs: kernel rows, CNN and LM tasks
+        self.profiles, self.cnn, self.lm_profiles = [], {}, []
+        self.epoch = self.cluster = self.ssm_f32 = None
+        self.train_backward = self.train_shapes = None
+        self.f32_launches = 0
+
+
+class Phase(NamedTuple):
+    """A phase of a run's plan (``run_plan``): its name in
+    ``phase_seconds``, what it does (``run(ctx)``), whether it starts
+    served runs (each guarded: ``guard_session_free``), whether it opens
+    ``torch.profiler`` sessions, and whether the card is freed before
+    it."""
+    name: str
+    run: object
+    serves: bool = False
+    sessions: bool = False
+    free: bool = False
+
+
+def dense_path(torch, failures, profiles):
+    """Step 3 served, and its output checks (the profile deferred)."""
+    model, params, spec, dense, dense_inst = serving_phase(
+        torch, failures, PATH_MODELS["dense"], None, JPS, DENSE_PATH)
+    fa_inst = dense_inst.get("flash_attention", {})
+    if fa_inst.get("tensor_core", 0) != dense["flash_attention"]:
+        failures.append(f"smollm-135m: bf16 flash-attention launches by "
+                        f"instance {fa_inst}, not all tensor_core")
+    output_checks(torch, model, params, spec, failures, profiles)
+    return dense, dense_inst
+
+
+def ssm_path(torch, failures, profiles):
+    """Step 5 served, and its output checks (the profile deferred);
+    returns the path's launches and the cut-depth f32 check's launches
+    by instance."""
+    from repro_torch.kernels import ssd_scan
+    model, params, spec, ssm, ssm_inst = serving_phase(
+        torch, failures, PATH_MODELS["ssm"], None, SSM_JPS, SSM_PATH)
+    ssd_inst = ssm_inst.get("ssd", {})
+    state_pass, outputs = (ssd_inst.get(k, 0) for k in
+                           ssd_scan.INSTANCE_KERNELS["tensor_core"])
+    if state_pass + outputs != ssm["ssd"] or state_pass != outputs:
+        failures.append(f"mamba2-2.7b: bf16 SSD launches by kernel "
+                        f"{ssd_inst}, not all tensor_core (a state pass "
+                        f"and an output kernel a call)")
+    return (ssm, ssm_inst), output_checks(torch, model, params, spec,
+                                          failures, profiles)
+
+
+def kernels_run(c, grads: bool = True) -> None:
+    """Step 2's rows (their profiles deferred to ``profiles``) and, with
+    ``grads``, the gradient rows; each part's seconds in
+    ``kernel_parts``."""
+    t0 = time.perf_counter()
+    c.rows = kernel_phase(c.torch, c.F, c.failures, defer=c.profiles)
+    parts = {"kernel_rows": time.perf_counter() - t0}
+    if grads:
+        t0 = time.perf_counter()
+        c.grad_rows = grad_phase(c.torch, c.F, c.failures)
+        parts["grad_rows"] = time.perf_counter() - t0
+    c.seconds["kernel_parts"] = parts
+
+
+def dryrun_wait_run(c) -> None:
+    finish_dryruns(c.procs, c.dry_dir, c.failures)
+
+
+def contention_run(c) -> None:
+    rows, c.f32_launches = contention_phase(c.torch, c.failures)
+    c.rows.update(rows)
+
+
+def cnn_run(dnn):
+    def run(c):
+        c.cnn[dnn] = cnn_serving_phase(c.torch, c.failures, dnn)
+    return run
+
+
+def drills_run(c) -> None:
+    for arch in DRILL_ARCHS:
+        c.paths.update(drill_phase(c.torch, c.failures, arch)[0])
+
+
+def resume_run(c) -> None:
+    resume_phase(c.torch, c.failures)
+    c.torch.cuda.empty_cache()
+
+
+def path_run(key, fn):
+    """A model path of ``fn(torch, failures)`` -> (launches, launches by
+    instance), under ``key`` in the run's paths."""
+    def run(c):
+        c.paths[key] = fn(c.torch, c.failures)
+    return run
+
+
+def served_lm(c) -> list:
+    """Before a served LM path: the card freed of the model served
+    before; returns the run's list of LM profiles to come."""
+    free_card(c.torch)
+    return c.lm_profiles
+
+
+def lm_path_run(key, fn):
+    """A served LM path of ``fn(torch, failures, profiles)``, as
+    ``path_run``."""
+    def run(c):
+        c.paths[key] = fn(c.torch, c.failures, served_lm(c))
+    return run
+
+
+def ssm_run(c) -> None:
+    c.paths["ssm"], c.ssm_f32 = ssm_path(c.torch, c.failures, served_lm(c))
+
+
+def profiles_run(c) -> None:
+    """The profiles that wait for the last served run: the kernel rows'
+    (``kernel_profiles``) and each served CNN's stage profile and output
+    checks (``cnn_output_checks``)."""
+    kernel_profiles(c.torch, c.profiles)
+    for dnn, spec in c.cnn.items():
+        cnn_output_checks(c.torch, dnn, spec, c.failures)
+    c.profiles, c.cnn = [], {}
+    free_card(c.torch)
+
+
+def epoch_run(c) -> None:
+    c.epoch = epoch_phase(c.torch, c.failures)
+
+
+def train_run(c) -> None:
+    launched, by_inst, c.train_backward, c.train_shapes = train_phase(
+        c.torch, c.failures)
+    c.paths["train"] = (launched, by_inst)
+
+
+def dist_run(c) -> None:
+    c.seconds["dist_parts"] = {}
+    c.paths.update(dist_phase(c.torch, c.failures, c.dry_dir,
+                              c.seconds["dist_parts"]))
+
+
+def roofline_run(c) -> None:
+    c.paths["roofline"] = roofline_phase(c.torch, c.failures, c.dry_dir)
+
+
+def cluster_run(c) -> None:
+    c.seconds["cluster_parts"] = {}
+    c.cluster = cluster_phase(c.torch, c.failures,
+                              parts=c.seconds["cluster_parts"])
+
+
+def plan(kind: str = "default") -> list:
+    """The phases of a run in order (``Phase``): ``default`` (no
+    arguments), ``lm_paths`` (--lm-paths: the kernel phase and steps
+    9-11), ``families`` (--families: the kernel phase, steps 12-15 and
+    the Dh 160 check), ``train`` (--train: the kernel and gradient rows,
+    steps 16-17) or ``dist`` (--dist: the kernel phase, steps 18-20).
+    Every phase that serves comes before every phase that opens a
+    profiler session (``SESSION_FREE``): the kernel rows' profiles, the
+    CNN stage profiles and the served LMs' decode-step profiles wait in
+    ``profiles`` and ``lm_profiles``."""
+    P = Phase
+    rows = P("kernels", lambda c: kernels_run(c, grads=False))
+    row_profiles = P("profiles", profiles_run, sessions=True)
+    profiles = [row_profiles,
+                P("lm_profiles", lambda c: lm_profiles(c.torch, c.lm_profiles),
+                  sessions=True)]
+    moe = P("moe_path", lm_path_run("moe", moe_phase), serves=True)
+    mla = P("mla_path", lm_path_run("mla", mla_phase), serves=True)
+    gemma2 = P("gemma2_path", lm_path_run("gemma2", gemma2_phase),
+               serves=True)
+    lm_rest = [P("hybrid_path", path_run("hybrid", hybrid_phase),
+                 sessions=True, free=True),
+               P("int8_path", path_run("int8", int8_phase), sessions=True,
+                 free=True)]
+    families = [P("vlm_path", path_run("vlm", vlm_phase), sessions=True,
+                  free=True),
+                P("encdec_path", path_run("encdec", encdec_phase),
+                  sessions=True, free=True),
+                P("dh160_check", lambda c: dh160_check(c.torch, c.failures),
+                  free=True)]
+    train = [P("train_path", train_run, sessions=True, free=True),
+             P("train_cut", lambda c: train_cut_check(c.torch, c.failures),
+               free=True)]
+    slice12 = [P("dist_path", dist_run, free=True),
+               P("roofline_path", roofline_run, free=True)]
+    dryrun_wait = P("dryrun_wait", dryrun_wait_run)
+    plans = {
+        "lm_paths": [rows, moe, *profiles, *lm_rest],
+        "families": [rows, mla, gemma2, *profiles, *families],
+        "train": [P("kernels", kernels_run), row_profiles, *train],
+        "dist": [rows, row_profiles, dryrun_wait, *slice12],
+        "default": [
+            # the dry-runs share the host only with the kernel and
+            # gradient rows, timed on the card
+            P("kernels", kernels_run), dryrun_wait,
+            P("contention", contention_run),
+            # the served runs, before the process's first profiler session
+            *(P(f"{dnn}_path", cnn_run(dnn), serves=True)
+              for dnn in CNN_WIDTHS),
+            P("drills", drills_run, serves=True),
+            P("resume_path", resume_run, serves=True),
+            P("dense_path", lm_path_run("dense", dense_path), serves=True),
+            P("ssm_path", ssm_run, serves=True), moe, mla, gemma2,
+            # then every profile, and the paths that serve nothing
+            *profiles, P("epoch_path", epoch_run), *lm_rest, *families,
+            *train, *slice12, P("cluster_path", cluster_run, free=True)]}
+    if kind not in plans:
+        raise ValueError(f"no plan named {kind!r}")
+    return plans[kind]
+
+
+def run_plan(c, phases) -> None:
+    """Each phase in turn, timed (``timed_phase``), the card freed before
+    it where it says so. A phase that serves or opens a profiler session
+    where its plan says it does not fails the run: the plan's order is
+    what keeps every served run before every session."""
+    for ph in phases:
+        if ph.free:
+            free_card(c.torch)
+        sessions, served = len(PROFILER_SESSIONS), len(SERVED_STARTS)
+        with timed_phase(c.torch, ph.name, c.seconds, c.peaks):
+            ph.run(c)
+        for did, said, what in (
+                (len(PROFILER_SESSIONS) > sessions, ph.sessions,
+                 "opened a profiler session"),
+                (len(SERVED_STARTS) > served, ph.serves, "served")):
+            if did and not said:
+                c.failures.append(f"phase {ph.name} {what}, which its "
+                                  f"plan does not say")
+    free_card(c.torch)
 
 
 def free_card(torch) -> None:
@@ -6187,6 +6510,9 @@ def serve_repeats(torch, arch: str, repeats: int, trace: bool) -> int:
         "hp_missed": sum(run["hp_missed"] for run in SERVED),
         "hp_completed": len(hp),
         "hp_mean_ms": statistics.fmean(hp) if hp else None,
+        "hp_mean_ms_by_run": [statistics.fmean(run["hp_response_ms"])
+                              if run["hp_response_ms"] else None
+                              for run in SERVED],
         "hp_p99_ms": percentile(hp, 99) if hp else None,
         "hp_max_ms": max(hp) if hp else None,
         "graph_pools": [run["graph_pools"] for run in SERVED],
@@ -6419,6 +6745,10 @@ def main() -> int:
                     "device": name,
                     "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32,
                     "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32}})
+    whole = not (args.epoch or args.cluster or args.resume or args.lm_paths
+                 or args.families or args.train or args.dist or args.drill
+                 or args.host_calls or args.serve)
+    dry_dir = Path(ROOT / "build" / "dryrun")
     t0 = time.perf_counter()
     _lib.lib()
     build_s = time.perf_counter() - t0
@@ -6426,18 +6756,14 @@ def main() -> int:
              if "Used" in ln or "Compiling entry" in ln
              or "Performance" in ln]
     emit({"build": {"seconds": build_s, "ptxas": ptxas}})
-    dry_dir = Path(ROOT / "build" / "dryrun")
-    if args.dist:
-        failures, seconds, peaks = [], {}, {}
+    if whole or args.dist:
         procs = start_dryruns(dry_dir)
-        with timed_phase(torch, "kernels", seconds, peaks):
-            rows = kernel_phase(torch, F, failures)
-        with timed_phase(torch, "dryrun_wait", seconds, peaks):
-            finish_dryruns(procs, dry_dir, failures)
-        paths = slice12_paths(torch, failures, seconds, peaks, dry_dir)
-        emit({"phase_seconds": seconds})
-        emit({"phase_peak_memory_gb": peaks})
-        return result_line(torch, name, card, failures, rows, paths)
+    if args.dist:
+        c = Run(torch, F, [], procs=procs, dry_dir=dry_dir)
+        run_plan(c, plan("dist"))
+        emit({"phase_seconds": c.seconds})
+        emit({"phase_peak_memory_gb": c.peaks})
+        return result_line(torch, name, card, c.failures, c.rows, c.paths)
     if args.drill:
         return drill_repeats(torch, args.drill, args.repeats)
     if args.host_calls:
@@ -6450,30 +6776,15 @@ def main() -> int:
             or args.families or args.train):
         failures = []
         for _ in range(args.repeats):
-            if args.train:
-                seconds, peaks = {}, {}
-                with timed_phase(torch, "kernels", seconds, peaks):
-                    rows = kernel_phase(torch, F, failures)
-                    grad_rows = grad_phase(torch, F, failures)
-                free_card(torch)
-                with timed_phase(torch, "train_path", seconds, peaks):
-                    train = train_phase(torch, failures)
-                free_card(torch)
-                with timed_phase(torch, "train_cut", seconds, peaks):
-                    train_cut_check(torch, failures)
-                shape_coverage(rows, {"train": train[:2]}, failures)
-                backward_coverage(grad_rows, train[3], failures)
-                emit({"phase_seconds": seconds})
-                emit({"phase_peak_memory_gb": peaks})
-            elif args.lm_paths or args.families:
-                seconds, peaks = {}, {}
-                with timed_phase(torch, "kernels", seconds, peaks):
-                    rows = kernel_phase(torch, F, failures)
-                run = lm_paths if args.lm_paths else family_paths
-                shape_coverage(rows, run(torch, failures, seconds, peaks),
-                               failures)
-                emit({"phase_seconds": seconds})
-                emit({"phase_peak_memory_gb": peaks})
+            if args.train or args.lm_paths or args.families:
+                c = Run(torch, F, failures)
+                run_plan(c, plan("train" if args.train else "lm_paths"
+                                 if args.lm_paths else "families"))
+                shape_coverage(c.rows, c.paths, failures)
+                if args.train:
+                    backward_coverage(c.grad_rows, c.train_shapes, failures)
+                emit({"phase_seconds": c.seconds})
+                emit({"phase_peak_memory_gb": c.peaks})
             elif args.epoch:
                 epoch_phase(torch, failures)
             elif args.resume:
@@ -6485,111 +6796,27 @@ def main() -> int:
             print(f"chip_smoke: FAIL {f}", file=sys.stderr)
         return 1 if failures else 0
 
-    failures, seconds, peaks = [], {}, {}
-    procs = start_dryruns(dry_dir)     # CPU only, lowest priority
-
-    def phase(name):
-        return timed_phase(torch, name, seconds, peaks)
-
-    # the dry-runs share the host only with the kernel and gradient rows,
-    # which are timed on the card; every later phase has the host to itself
-    profiles = []               # kernel rows profiled after the served runs
-    with phase("kernels"):
-        rows = kernel_phase(torch, F, failures, defer=profiles)
-        grad_rows = grad_phase(torch, F, failures)
-    with phase("dryrun_wait"):
-        finish_dryruns(procs, dry_dir, failures)
-    with phase("contention"):
-        contention_rows, f32_launches = contention_phase(torch, failures)
-        rows.update(contention_rows)
-
-    # each model path: (its launches, its launches by instance)
-    paths = {}
-    # the served runs no profiler session may precede (SESSION_FREE): the
-    # CNN paths, the drills (the discard drill's too) and resume, before
-    # the process's first session; their profiles come after the last
-    cnn = {}
-    for dnn in CNN_WIDTHS:
-        with phase(f"{dnn}_path"):
-            cnn[dnn] = cnn_serving_phase(torch, failures, dnn)
-
-    with phase("drills"):
-        for arch in DRILL_ARCHS:
-            paths.update(drill_phase(torch, failures, arch)[0])
-
-    with phase("resume_path"):
-        resume_phase(torch, failures)
-        torch.cuda.empty_cache()
-
-    with phase("profiles"):
-        kernel_profiles(torch, profiles)
-        for dnn, spec in cnn.items():
-            cnn_output_checks(torch, dnn, spec, failures)
-        del cnn, spec, profiles
-        free_card(torch)
-
-    with phase("dense_path"):
-        model, params, spec, dense, dense_inst = serving_phase(
-            torch, failures, PATH_MODELS["dense"], None, JPS, DENSE_PATH)
-        fa_inst = dense_inst.get("flash_attention", {})
-        if fa_inst.get("tensor_core", 0) != dense["flash_attention"]:
-            failures.append(f"smollm-135m: bf16 flash-attention launches by "
-                            f"instance {fa_inst}, not all tensor_core")
-        output_checks(torch, model, params, spec, failures)
-        del model, params, spec
-        torch.cuda.empty_cache()
-        paths["dense"] = (dense, dense_inst)
-
-    with phase("epoch_path"):
-        epoch = epoch_phase(torch, failures)
-
-    with phase("ssm_path"):
-        model, params, spec, ssm, ssm_inst = serving_phase(
-            torch, failures, PATH_MODELS["ssm"], None, SSM_JPS, SSM_PATH)
-        ssd_inst = ssm_inst.get("ssd", {})
-        state_pass, outputs = (ssd_inst.get(k, 0) for k in
-                               ssd_scan.INSTANCE_KERNELS["tensor_core"])
-        if state_pass + outputs != ssm["ssd"] or state_pass != outputs:
-            failures.append(f"mamba2-2.7b: bf16 SSD launches by kernel "
-                            f"{ssd_inst}, not all tensor_core (a state pass "
-                            f"and an output kernel a call)")
-        ssm_f32 = output_checks(torch, model, params, spec, failures)
-        del model, params, spec
-        torch.cuda.empty_cache()
-        paths["ssm"] = (ssm, ssm_inst)
-
-    paths.update(lm_paths(torch, failures, seconds, peaks))
-    paths.update(family_paths(torch, failures, seconds, peaks))
-
-    free_card(torch)
-    with phase("train_path"):
-        launched, by_inst, train_backward, train_shapes = train_phase(
-            torch, failures)
-        paths["train"] = (launched, by_inst)
-    free_card(torch)
-    with phase("train_cut"):
-        train_cut_check(torch, failures)
-    paths.update(slice12_paths(torch, failures, seconds, peaks, dry_dir))
-
-    with phase("cluster_path"):
-        cluster = cluster_phase(torch, failures)
+    c = Run(torch, F, [], procs=procs, dry_dir=dry_dir)
+    run_plan(c, plan())
+    seconds = c.seconds
     # within the served paths' seconds: each model's stage_graphs check
     seconds["stage_graphs"] = dict(STAGE_GRAPH_S,
                                    total=sum(STAGE_GRAPH_S.values()))
     emit({"phase_seconds": seconds})
-    emit({"phase_peak_memory_gb": peaks})
+    emit({"phase_peak_memory_gb": c.peaks})
     emit({"profiler_sessions": profiler_report()})
     emit({"script_seconds": {
         "wall_s": time.perf_counter() - T_START,
-        "phases_s": sum(v for k, v in seconds.items()
-                        if k != "stage_graphs"),
+        # the phases, not their parts (dicts: within a phase's seconds)
+        "phases_s": sum(v for v in seconds.values()
+                        if not isinstance(v, dict)),
         "previous": PREVIOUS_SECONDS, "aim_wall_s": WALL_AIM_S}})
 
-    return result_line(torch, name, card, failures, rows, paths,
-                       epoch=epoch, cluster=cluster,
-                       f32_launches=f32_launches, grad_rows=grad_rows,
-                       train_backward=train_backward,
-                       train_shapes=train_shapes, ssm_f32=ssm_f32)
+    return result_line(torch, name, card, c.failures, c.rows, c.paths,
+                       epoch=c.epoch, cluster=c.cluster,
+                       f32_launches=c.f32_launches, grad_rows=c.grad_rows,
+                       train_backward=c.train_backward,
+                       train_shapes=c.train_shapes, ssm_f32=c.ssm_f32)
 
 
 def result_line(torch, name, card, failures, rows, paths, epoch=None,

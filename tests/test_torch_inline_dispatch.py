@@ -103,6 +103,42 @@ class WallSeam:
         s.free_at = max(time.perf_counter(), s.free_at) + ms / 1000.0
 
 
+class VirtualClock:
+    """A ``perf_counter`` that moves only as the code asks: each read by
+    ``TICK_S``, each ``sleep`` by its length. A backend and the stand-in
+    seam on it read the same instants whatever else holds the host: a
+    loaded CPU that keeps the engine thread off it for tens of ms (a
+    launch held 25 ms reorders the fixed-time scenario's decisions) no
+    longer moves its clock."""
+
+    TICK_S = 1e-5
+
+    def __init__(self):
+        self.now = 0.0
+
+    def perf_counter(self):
+        self.now += self.TICK_S
+        return self.now
+
+    def sleep(self, seconds):
+        self.now += max(seconds, 0.0)
+
+
+def on_virtual_clock(monkeypatch) -> VirtualClock:
+    """The backend's and this module's ``time`` (the stand-in seam's
+    streams and events) replaced by one ``VirtualClock``."""
+    import sys
+    import types
+
+    from repro_torch.runtime import backend
+    clock = VirtualClock()
+    fake = types.SimpleNamespace(perf_counter=clock.perf_counter,
+                                 sleep=clock.sleep)
+    monkeypatch.setattr(backend, "time", fake)
+    monkeypatch.setattr(sys.modules[__name__], "time", fake)
+    return clock
+
+
 def with_payloads(cfg, seam):
     """Every stage of ``cfg``'s tasks gets a payload that keeps its lane
     busy for its ``t_alone`` and hands its input on."""
@@ -633,14 +669,17 @@ def _recording_factory(factory, made):
     return record
 
 
-def test_the_default_input_is_made_before_the_clock_once():
+def test_the_default_input_is_made_before_the_clock_once(monkeypatch):
     """The fixed-time scenario (at twice its times) with stage programs on
     the stand-in seam and the default input: one block of zeros is made
     at the start, before the warm-up, and nothing after; every job's
     first stage (and each warm-up chain) takes that same tensor, which
-    is all zeros after the run; the decisions are the simulator's."""
+    is all zeros after the run; the decisions are the simulator's. The
+    backend and the seam run on a virtual clock (``VirtualClock``), so
+    that the host's load cannot reorder the decisions."""
     sim = slowed(fixed_time(api)).build()
     sim.run()
+    clock = on_virtual_clock(monkeypatch)
     seam = WallSeam()
     real = with_programs(slowed(fixed_time(api, realtime=True)),
                          seam).build()
@@ -657,6 +696,7 @@ def test_the_default_input_is_made_before_the_clock_once():
         at_start.update(blocks=zeros.blocks, taken=len(taken))
     be.start = started
     real.run()
+    assert clock.now >= real.core.horizon / 1000.0   # ran on it
     assert real.decisions == sim.decisions
     assert at_start["blocks"] == zeros.blocks == 1
     assert sorted(zeros.made) == [1]
@@ -1039,15 +1079,19 @@ class _Marks:
 
 
 @pytest.mark.parametrize("name", ["resnet18", "smollm-135m"])
-def test_the_discard_drill_lands_each_event_on_a_held_chain(name):
+def test_the_discard_drill_lands_each_event_on_a_held_chain(name,
+                                                          monkeypatch):
     """``chip_smoke.py``'s discard drill on the stand-in seam (a CNN and a
     staged LM chain on the emulated burst, 2 x 2 lanes, its events at a
     shorter run's times): each event lands on a HP launch whose job holds
     calls made ready ahead, so each reason of its plan is counted, none
     ``unnamed``; each job it landed on ends with the output its stages
     give replayed at the boundary on the same input (``check``: no
-    failure), and its marks name the events in turn."""
+    failure), and its marks name the events in turn. On a virtual clock
+    (``VirtualClock``): a loaded host once left a landed job unfinished
+    at the horizon."""
     import chip_smoke
+    on_virtual_clock(monkeypatch)
     seam = HandleSeam()
     specs, io = _small_specs(name)
     on_byte_programs(specs, seam)
@@ -1105,16 +1149,19 @@ def test_the_discard_drills_plan_names_each_reason():
 def test_a_session_free_run_after_a_profiler_session_fails(monkeypatch):
     """``chip_smoke.py``'s profiler mark on served runs on the stand-in
     seam: before any ``torch.profiler`` session a CNN, drill, discard,
-    resume or LM run starts alone; after one (opened through
-    ``profiler``, which marks it with its phase) each of the first four
-    kinds fails naming itself and the session's phase, an LM run only
-    shows in the report; ``profiler_sessions`` counts them."""
+    resume, LM or traced run starts alone; after one (opened through
+    ``profiler``, which marks it with its phase) each kind but the traced
+    (``--serve ARCH --trace``, under its own session by design) fails
+    naming itself and the session's phase, an LM run as the others;
+    ``profiler_sessions`` counts them and names the LM run."""
     import chip_smoke
     from torch.profiler import ProfilerActivity
     for name in ("PROFILER_SESSIONS", "PHASES_RUN", "SERVED_STARTS"):
         monkeypatch.setattr(chip_smoke, name, [])
     monkeypatch.setattr(chip_smoke, "CURRENT_PHASE", ["profiles"])
-    kinds = (*chip_smoke.SESSION_FREE, "lm")
+    assert "lm" in chip_smoke.SESSION_FREE
+    assert "traced" not in chip_smoke.SESSION_FREE
+    kinds = (*chip_smoke.SESSION_FREE, "traced")
 
     def served(kind, failures):
         be, instance = _bare_backend(WallSeam(), [1.0], start=False)
@@ -1137,6 +1184,7 @@ def test_a_session_free_run_after_a_profiler_session_fails(monkeypatch):
     assert len(after) == len(chip_smoke.SESSION_FREE)
     for kind, f in zip(chip_smoke.SESSION_FREE, after):
         assert f.startswith(f"m-{kind}: ") and "profiles" in f
+    assert not any(f.startswith("m-traced") for f in after)
     report = chip_smoke.profiler_report()
     assert report["sessions"] == 1 and report["session_phases"] == [
         "profiles"]
