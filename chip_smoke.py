@@ -6,6 +6,7 @@
     python3 chip_smoke.py --serve resnet18 --repeats 8
     python3 chip_smoke.py --serve resnet18 --repeats 3 --switch-interval 0.0005
     python3 chip_smoke.py --host-calls
+    python3 chip_smoke.py --mla-prefill --repeats 2
     python3 chip_smoke.py --drill smollm-135m --repeats 3
     python3 chip_smoke.py --epoch --repeats 10
     python3 chip_smoke.py --cluster --repeats 2
@@ -29,6 +30,8 @@ those jobs by their largest part and step, and each run's HP ``input``
 step at stage 0 beside the later stages').
 ``--switch-interval S`` sets the process's ``sys.setswitchinterval``
 before the runs.
+``--mla-prefill`` times only deepseek-v2's donor prefill (step 12's
+model; ``donor_prefill`` lines), to set it beside another tree's.
 ``--host-calls`` prints only what each call of a served stage's enqueue
 costs the host (``host_calls``; a first stage's ``torch.zeros`` also
 right behind a pending graph launch). ``--drill ARCH`` runs only step 21's drills of
@@ -86,8 +89,12 @@ result line. Without arguments:
    the residual at 576, 2048, 3584, 5120) and the residual at 4 x 2048,
    3584 and 5120; flash attention at Dh 128 with H = KV = 16 (qwen2-moe)
    and 40 (qwen1.5) besides H 8, KV 2, and at Dh 112 (32 heads, zamba2's
-   shared block: the CUDA-core instance, which no tensor-core tile width
-   covers); decode attention at Dh 128 (16 and 40 heads) and Dh 112 (32
+   shared block: the tensor-core instance, its tiles padded to 128;
+   like the Dh 160 and 192 rows below, in bf16 it also times the
+   CUDA-core instance at the same shapes, gives the launch's plan as
+   ``flash_plan`` and the built kernel state it, and plants K with its
+   last 16-byte chunk a row zeroed, which its tolerance must catch);
+   decode attention at Dh 128 (16 and 40 heads) and Dh 112 (32
    heads) over 513 slots; and the SSD scan at the zamba2 donor prefill's
    shapes (B 4, L 512, H 112, P 64, N 64, chunk 256; the tensor-core
    instance in bf16). Each wrapper counts its launches by instance and
@@ -241,9 +248,9 @@ result line. Without arguments:
 10. Hybrid phase: zamba2-7b at full width and depth (81 Mamba2 layers at
     d 3584, the shared block 13 times over 7168 at Dh 112; bf16, seed 0),
     a prefill of 512 tokens at batch 4 and 4 decode steps (``model_run``
-    line). Every SSD launch must take the tensor cores; its flash launches
-    take the CUDA-core instance, recorded. A 2-layer f32 copy with
-    ``attn_every`` 2 against the CPU, within 2e-3.
+    line). Every SSD launch and every flash launch (Dh 112) must take the
+    tensor cores. A 2-layer f32 copy with ``attn_every`` 2 against the
+    CPU, within 2e-3.
 11. Int8 phase: qwen1.5-32b at full width (d 5120, 40 heads at Dh 128,
     d_ff 27,392, vocab 152,064) with its int8 KV cache, depth cut to 8 of
     64 layers (all 64 hold about 70 GB of bf16 weights; the mechanism is
@@ -267,8 +274,9 @@ result line. Without arguments:
     the dense layer's d_ff 12,288; vocab 102,400; bf16, seed 0), depth cut
     to its dense layer and 4 MoE layers (about 17.3 B parameters), served
     as in 9 at 2 jobs/s. Its donor prefill attends through flash at Dh 192
-    with H = KV = 128 (the CUDA-core instance: every flash launch must
-    take it) and the capacity path; its stages decode absorbed (plain
+    with H = KV = 128 (every flash launch on the tensor cores; the
+    prefill's device ms in a ``donor_prefill`` line) and the capacity
+    path; its stages decode absorbed (plain
     products, as in the reference) on the dense expert oracle. R4
     (ROADMAP.md §3): the stages never run the dense layer and the last
     holds no layer, so the chain is held, within 3e-2, to the unstaged
@@ -299,7 +307,10 @@ result line. Without arguments:
     key); the whole model in f32 on the card against the CPU. Then
     stablelm-12b at full width (Dh 160), 2 layers in f32, a 64-token
     prompt and 2 decode steps on the card against the CPU; its flash
-    launches take the CUDA-core instance.
+    launches take the CUDA-core instance. The same 2 layers in bf16 from
+    the same parameters rounded: flash on the tensor cores, each row of
+    logits within 3e-2 of the f32 card run's largest in that row, and
+    past it with K's edge chunk dropped (``dh160_bf16``).
     The kernel phase holds every instance and shape these paths launch:
     flash with softcap 50 and with a window of 128 that masks (32 / 16
     heads, Dh 128), non-causal at S 1500, cross-attention at S 64 and 1
@@ -580,6 +591,7 @@ FAMILY_JPS = 2.0
 VLM_BATCH, VLM_SEQ = 2, 1024 + PROMPT            # image + token embeddings
 ENC_FRAMES, ENC_PROMPT = 1500, 64                # whisper's frames, prompt
 SMALL_TOL = 2e-3                                 # card vs CPU in f32
+DH160_BF16_TOL = 3e-2       # stablelm's 2 layers, bf16 against f32, a row
 # bf16 attention rows whose every output averages hundreds of keys under
 # an unsharpened softmax: a typical output is about n^-1/2 (0.03 at 1,500
 # keys), so the 3e-2 of the other bf16 rows would be as large as the
@@ -991,7 +1003,7 @@ def kernel_cases(torch, F, dtype):
 
     def flash_row(name, b, h, kv, sq, dh, s_kv=None, causal=True, window=0,
                   softcap=0.0, q_scale=1.0, fault=None, heavy=False,
-                  per_row=False, q_chunk=0):
+                  per_row=False, q_chunk=0, compare=False):
         """Prefill (or cross-) attention at the model paths' other shapes
         and options: keys of their own length ``s_kv``, not causal,
         windowed or softcapped (q scaled by ``q_scale`` so that the cap
@@ -1002,9 +1014,14 @@ def kernel_cases(torch, F, dtype):
         whose every query averages hundreds of keys take ``AVG_TOL``;
         ``per_row`` rows (causal: from one key to thousands) are held to
         ``ROW_TOL`` of each query row's scale, and ``fault="old_tile"``
-        hides the oldest key tile from the last tile's rows. ``heavy`` rows (the plain version's f32 scores take gigabytes) are
+        hides the oldest key tile from the last tile's rows;
+        ``fault="edge_chunk"`` zeroes K's last 16-byte chunk a row (what a
+        kernel that dropped a padded row's edge chunk would compute).
+        ``heavy`` rows (the plain version's f32 scores take gigabytes) are
         timed eagerly, a few calls. ``q_chunk`` blocks the plain version's
-        queries (its f32 scores would not fit the card whole)."""
+        queries (its f32 scores would not fit the card whole). ``compare``
+        (bf16 on the tensor cores): the CUDA-core instance at the same
+        shapes, and the tensor-core launch's plan (``flash_plan_check``)."""
         s_kv = sq if s_kv is None else s_kv
         qq = rand(b, sq, h, dh).transpose(1, 2) * q_scale
         kk, vv = (rand(b, s_kv, kv, dh).transpose(1, 2) for _ in range(2))
@@ -1035,6 +1052,11 @@ def kernel_cases(torch, F, dtype):
             assert causal and sq > FLASH_BK
             opt.update(fault=fault, fault_call=lambda: fa.flash_attention(
                 qq, kk, vv, **{**kw, "window": sq - FLASH_BK}))
+        elif fault == "edge_chunk":
+            kz = kk.clone()
+            kz[..., -8:] = 0
+            opt.update(fault=fault, fault_call=lambda: fa.flash_attention(
+                qq, kz, vv, **kw))
         elif fault == "s_kv":
             kept = s_kv - s_kv % FLASH_BK
             assert kept < s_kv, "the s_kv fault needs a ragged last tile"
@@ -1046,6 +1068,10 @@ def kernel_cases(torch, F, dtype):
             opt.update(fault=fault,
                        fault_call=lambda: fa.flash_attention(qq, kk, vv,
                                                              **bad))
+        if compare and tc:
+            opt.update(cuda_core_same_shapes=lambda: fa.flash_attention(
+                qq, kk, vv, instance="cuda_core", **kw), same_reps=(10, 4),
+                plan=dh)
         return (name, lambda: fa.flash_attention(qq, kk, vv, **kw),
                 lambda: fa.flash_attention_plain(qq, kk, vv, q_chunk=q_chunk,
                                                  **kw), lib,
@@ -1105,10 +1131,10 @@ def kernel_cases(torch, F, dtype):
             decode_long("decode_attention_b16_s32768", ROOF_DECODE_B,
                         ROOF_SEQ)]
 
-    # zamba2's shared block: 32 heads at Dh 112, which no tensor-core
-    # instance takes
-    qz, kz, vz = (rand(B, PROMPT, 32, 112).transpose(1, 2) for _ in range(3))
-    fz_ops = 4 * B * 32 * 112 * PROMPT * (PROMPT + 1) // 2
+    # zamba2's shared block: 32 heads at Dh 112 (drawn here, before the
+    # rows after it)
+    d112 = flash_row("flash_attention_d112", B, 32, 32, PROMPT, 112,
+                     fault="edge_chunk", compare=True)
     # the SSD scan at the zamba2 donor prefill's shapes
     zx = rand(B, PROMPT, ZSSM_H, ZSSM_P)
     zb, zc = rand(B, PROMPT, ZSSM_G, ZSSM_N), rand(B, PROMPT, ZSSM_G, ZSSM_N)
@@ -1185,11 +1211,7 @@ def kernel_cases(torch, F, dtype):
         decode_case("decode_attention_d128_h40", 40, 128),
         flash_case("flash_attention_d128_h16", 16, 128),
         flash_case("flash_attention_d128_h40", 40, 128),
-        ("flash_attention_d112", lambda: fa.flash_attention(qz, kz, vz),
-         lambda: fa.flash_attention_plain(qz, kz, vz),
-         lambda: sdpa(qz, kz, vz, is_causal=True),
-         nbytes(qz, kz, vz, qz), fz_ops, PEAK_FLOPS[dname],
-         {"instance": "cuda_core", "reps": 10, "inner": 4, "graph": False}),
+        d112,
         ("ssd_zamba2",
          lambda: ssd_scan.ssd(zx, zdt, zal, zb, zc, ZSSM_Q, z0),
          lambda: ssd_scan.ssd_plain(zx, zdt, zal, zb, zc, ZSSM_Q, z0), None,
@@ -1213,8 +1235,10 @@ def kernel_cases(torch, F, dtype):
         flash_row("flash_attention_cross_s1", B, 6, 6, 1, 64,
                   s_kv=ENC_FRAMES, causal=False, fault="s_kv"),
         flash_row("flash_attention_s64_h6", B, 6, 6, ENC_PROMPT, 64),
-        flash_row("flash_attention_d192", B, 128, 128, PROMPT, 192),
-        flash_row("flash_attention_d160", B, 32, 8, PROMPT, 160),
+        flash_row("flash_attention_d192", B, 128, 128, PROMPT, 192,
+                  fault="edge_chunk", compare=True),
+        flash_row("flash_attention_d160", B, 32, 8, PROMPT, 160,
+                  fault="edge_chunk", compare=True),
         flash_row("flash_attention_d128_h32kv8", B, 32, 8, PROMPT, 128),
         flash_row("flash_attention_vlm_s1536", VLM_BATCH, 32, 8, VLM_SEQ,
                   128),
@@ -1429,14 +1453,17 @@ def kernel_phase(torch, F, failures, defer=None):
             same = opt.get("cuda_core_same_shapes")
             if same is not None:   # the kernel the tensor cores replace
                 c = same()
+                cpairs = list(zip(c, b)) if isinstance(c, tuple) else [(c, b)]
                 cerr = max(float((u.float() - v.float()).abs().max())
-                           for u, v in zip(c, b))
+                           for u, v in cpairs)
                 row["cuda_core_same_shapes"] = {
-                    "max_err": cerr, "ms": cuda_ms(torch, same, reps, inner)}
-                if not all(torch.allclose(u.float(), v.float(), rtol=tol,
-                                          atol=tol) for u, v in zip(c, b)):
+                    "max_err": cerr, "ms": cuda_ms(torch, same, *opt.get(
+                        "same_reps", (reps, inner)))}
+                if not within(cpairs):
                     failures.append(f"{name} {row['dtype']}: CUDA-core "
                                     f"instance max_err {cerr} > {tol}")
+            if "plan" in opt:
+                flash_plan_check(failures, row, opt["plan"])
             fault = opt.get("fault_call")
             if fault is not None:   # the option dropped: the row must see it
                 c = fault()
@@ -1479,6 +1506,18 @@ def kernel_phase(torch, F, failures, defer=None):
                 F32_CHECKED.update((k, key) for k, keys in shapes.items()
                                    for key in keys)
     return rows
+
+
+def flash_plan_check(failures, row, dh) -> None:
+    """The tensor-core plan a flash row launched at ``dh`` (``plan``): what
+    the built kernel reports, held to ``flash_plan``'s, with the runtime's
+    resident blocks an SM, its registers and its spilled bytes beside it."""
+    from repro_torch.kernels import flash_attention as fa
+
+    want = fa.flash_plan(dh)._asdict()
+    row["plan"] = card = fa.card_plan(dh)
+    if any(card[k] != want[k] for k in card if k in want):
+        failures.append(f"{row['name']}: the built plan {card}, not {want}")
 
 
 def kernel_profiles(torch, deferred) -> None:
@@ -3319,10 +3358,9 @@ def moe_phase(torch, failures, profiles):
 def hybrid_phase(torch, failures):
     """Step 10: full-width, full-depth zamba2-7b (81 Mamba2 layers, 13
     applications of the shared block over 7168 at Dh 112), prefill and
-    decode (``model_phase``). Every SSD launch must take the tensor cores;
-    the flash launches at Dh 112 take the CUDA-core instance, recorded.
-    A 2-layer f32 copy (``attn_every`` 2: one application) on the card
-    against the CPU, within 2e-3."""
+    decode (``model_phase``). Every SSD launch and every flash launch (Dh
+    112) must take the tensor cores. A 2-layer f32 copy (``attn_every`` 2:
+    one application) on the card against the CPU, within 2e-3."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ssd_scan
 
@@ -3335,6 +3373,10 @@ def hybrid_phase(torch, failures):
     if state_pass + outputs != launches["ssd"] or state_pass != outputs:
         failures.append(f"{cfg.name}: bf16 SSD launches by kernel "
                         f"{ssd_inst}, not all tensor_core")
+    if not instance_share(inst, "flash_attention", "tensor_core", launches):
+        failures.append(f"{cfg.name}: flash launches by instance "
+                        f"{inst.get('flash_attention')}, not all "
+                        f"tensor_core (Dh 112)")
     del model, params
     torch.cuda.empty_cache()
     small = cfg.replace(n_layers=2, attn_every=2, dtype="float32",
@@ -3561,24 +3603,24 @@ def mla_phase(torch, failures, profiles):
     12288; vocab 102,400), depth cut to its dense layer and 4 MoE layers,
     served staged as the LMs of steps 3 and 9 (the stages on the dense
     expert oracle, the donor prefill on the capacity path). The donor
-    prefill's flash launches run at Dh 192 with H = KV = 128, which the
-    CUDA-core instance takes. R4 (ROADMAP.md §3): the stages never run the
-    dense layer and the last holds no layer, so the chain is held to the
-    unstaged decode that does the same (the MoE layers on the oracle over
-    the donor's cache, the dense layer skipped); a cut-depth f32 copy (the
-    dense layer and one MoE layer; its routed experts cut to 16 where the
-    host's memory would not hold the copy) gives the same staged chain
-    and the same unstaged prefill and decode logits on the card as on the
-    CPU."""
+    prefill's flash launches run at Dh 192 with H = KV = 128, every one on
+    the tensor cores; its device ms (``donor_prefill``). R4 (ROADMAP.md
+    §3): the stages never run the dense layer and the last holds no
+    layer, so the chain is held to the unstaged decode that does the same
+    (the MoE layers on the oracle over the donor's cache, the dense layer
+    skipped); a cut-depth f32 copy (the dense layer and one MoE layer; its
+    routed experts cut to 16 where the host's memory would not hold the
+    copy) gives the same staged chain and the same unstaged prefill and
+    decode logits on the card as on the CPU."""
     from repro_torch.models import transformer
 
     model, params, spec, launches, inst = serving_phase(
         torch, failures, MLA_ARCH, MLA_LAYERS, FAMILY_JPS, MLA_PATH,
         max_load=MOE_MAX_LOAD)
-    if not instance_share(inst, "flash_attention", "cuda_core", launches):
+    if not instance_share(inst, "flash_attention", "tensor_core", launches):
         failures.append(f"{MLA_ARCH}: flash launches by instance "
-                        f"{inst.get('flash_attention')}, not all cuda_core "
-                        f"(Dh 192)")
+                        f"{inst.get('flash_attention')}, not all "
+                        f"tensor_core (Dh 192)")
     cfg = model.cfg
 
     def r4(p, tok, donor):
@@ -3594,7 +3636,56 @@ def mla_phase(torch, failures, profiles):
                   unstaged=r4, small=small, extra=staged_chain(torch),
                   note="R4: the MoE layers unstaged on the oracle, the "
                        "dense layer skipped")
+    emit({"donor_prefill": donor_prefill(torch, model, params)})
     return launches, inst
+
+
+def mla_prefill(torch, repeats: int) -> int:
+    """``--mla-prefill``: deepseek-v2 built as in the MLA phase (random
+    weights from seed 0) and its donor prefill timed ``repeats`` times
+    (``donor_prefill`` lines), to set trees side by side."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    model = build_model(get_config(MLA_ARCH).replace(n_layers=MLA_LAYERS))
+    params = model.init_params(0)
+    for _ in range(repeats):
+        emit({"donor_prefill": donor_prefill(torch, model, params)})
+    return 0
+
+
+def donor_prefill(torch, model, params, reps: int = 3) -> dict:
+    """Device ms of an LM's donor prefill as ``staged_lm_taskspec`` makes
+    it (``PROMPT`` seeded tokens at batch ``B`` into a fresh cache), by
+    CUDA events around each of ``reps`` calls after a warm one, with its
+    flash launches by instance (counts reset before it)."""
+    import numpy as np
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import reset_counts
+
+    cfg = model.cfg
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (B, PROMPT))).cuda()
+
+    def call():
+        return model.prefill(params, {"tokens": tokens, "cache":
+                                      model.init_cache(B, PROMPT + 1)})
+    reset_counts()
+    call()
+    flash = dict(fa.flash_attention.counts.by_instance)
+    ms = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        a.record()
+        call()
+        e.record()
+        e.synchronize()
+        ms.append(a.elapsed_time(e))
+    return {"model": cfg.name, "layers": cfg.n_layers, "batch": B,
+            "prompt_len": PROMPT, "device_ms": ms,
+            "median_ms": statistics.median(ms), "flash_by_instance": flash}
 
 
 def gemma2_phase(torch, failures, profiles):
@@ -3795,17 +3886,90 @@ def encdec_phase(torch, failures):
 def dh160_check(torch, failures) -> None:
     """stablelm-12b at full width (d 5120, 32 / 8 heads at Dh 160, d_ff
     13,824, vocab 100,352), 2 layers in f32: a 64-token prompt and 2
-    decode steps on the card against the CPU. Its flash launches take the
-    CUDA-core instance (no tensor-core tile is 160 wide)."""
-    from repro_torch.configs import get_config
+    decode steps on the card against the CPU; its flash launches take the
+    CUDA-core instance (f32). The same 2 layers in bf16 (the f32 copy's
+    parameters rounded, the same tokens) on the card: every flash launch
+    on the tensor cores, the prefill and first decode logits within
+    ``DH160_BF16_TOL`` of the f32 card run's, each row against its own
+    largest logit (``row_rel_err``: the logits reach about 5, where one
+    bf16 step is 0.03, so the same bf16 model through the plain versions
+    on the CPU, also reported, misses an elementwise 3e-2 too), and the
+    same run with K's last 16-byte chunk a row dropped in every flash
+    launch past it (``dh160_bf16`` line)."""
+    import numpy as np
 
-    small = get_config(DH160_ARCH).replace(n_layers=2, dtype="float32",
-                                           kv_cache_dtype="float32")
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import reset_counts
+    from repro_torch.models import build_model
+
+    cfg = get_config(DH160_ARCH)
+    small = cfg.replace(n_layers=2, dtype="float32", kv_cache_dtype="float32")
     outs, inst = card_vs_cpu(torch, small, steps=2)
     f32_check(torch, failures, DH160_ARCH, small, outs, inst)
     if set(inst.get("flash_attention", {})) != {"cuda_core"}:
         failures.append(f"{DH160_ARCH}: flash launches by instance "
                         f"{inst.get('flash_attention')}, not cuda_core")
+    half = cfg.replace(n_layers=2)
+    like = iter(tree_leaves(build_model(half, device="meta").init_params()))
+    params = tree_map(lambda t: t.to(next(like).dtype),
+                      build_model(small).init_params(1))
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, half.vocab_size, (2, 66)))
+    real = fa._launch
+
+    def edge_dropped(q, k, v, *a, **kw):   # K's last 16-byte chunk a row
+        k = k.clone()
+        k[..., -8:] = 0
+        return real(q, k, v, *a, **kw)
+
+    def run(dev, launch=real):
+        """Prefill and first decode logits of the bf16 copy on ``dev``, its
+        flash launches through ``launch``, and those launches by
+        instance."""
+        model = build_model(half, device=dev)
+        p = tree_map(lambda t: t.to(dev), params)
+        tk = toks.to(dev)
+        reset_counts()
+        fa._launch = launch
+        try:
+            pl, cache = model.prefill(p, {"tokens": tk[:, :64],
+                                          "cache": model.init_cache(2, 66)})
+            dl, _ = model.decode_step(p, {"tokens": tk[:, 64:65],
+                                          "cache": cache})
+        finally:
+            fa._launch = real
+        return ((pl.float().cpu(), dl.float().cpu()),
+                dict(fa.flash_attention.counts.by_instance))
+    f32 = outs[0][:2]
+    card, flash = run("cuda")
+    plain, _ = run("cpu")
+    fault, _ = run("cuda", edge_dropped)
+
+    def rel(xs):
+        return max(row_rel_err(a, b) for a, b in zip(xs, f32))
+
+    def dist(xs):
+        return max(float((a - b).abs().max()) for a, b in zip(xs, f32))
+    err, caught = rel(card), rel(fault) > DH160_BF16_TOL
+    emit({"dh160_bf16": {
+        "model": DH160_ARCH, "layers": 2, "dtype": half.dtype,
+        "row_rel_err": err, "tol": DH160_BF16_TOL,
+        "within_tol": err <= DH160_BF16_TOL, "flash_by_instance": flash,
+        "plain_cpu_row_rel_err": rel(plain),
+        "planted_fault": {"dropped": "edge_chunk", "caught": caught,
+                          "row_rel_err": rel(fault)},
+        "max_err": dist(card), "plain_cpu_max_err": dist(plain),
+        "f32_logit_absmax": [float(t.abs().max()) for t in f32]}})
+    if err > DH160_BF16_TOL:
+        failures.append(f"{DH160_ARCH}: bf16 logits {err} (per row) from "
+                        f"the f32 card run's, past {DH160_BF16_TOL}")
+    if not caught:
+        failures.append(f"{DH160_ARCH}: bf16 logits with K's edge chunk "
+                        f"dropped agree with the f32 card run's")
+    if set(flash) != {"tensor_core"}:
+        failures.append(f"{DH160_ARCH}: bf16 flash launches by instance "
+                        f"{flash}, not tensor_core")
 
 
 def cnn_serving_phase(torch, failures, name, trace=False):
@@ -6708,6 +6872,9 @@ def main() -> int:
     ap.add_argument("--drill", metavar="ARCH",
                     help="only the elastic drills of this model (resnet18 "
                          "or smollm-135m), --repeats times")
+    ap.add_argument("--mla-prefill", action="store_true",
+                    help="only deepseek-v2's donor prefill at the MLA "
+                         "phase's depth, its device ms, --repeats times")
     ap.add_argument("--host-calls", action="store_true",
                     help="only the host cost of each call a served stage's "
                          "enqueue makes (µs, on one lane stream)")
@@ -6747,7 +6914,7 @@ def main() -> int:
                     "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32}})
     whole = not (args.epoch or args.cluster or args.resume or args.lm_paths
                  or args.families or args.train or args.dist or args.drill
-                 or args.host_calls or args.serve)
+                 or args.host_calls or args.serve or args.mla_prefill)
     dry_dir = Path(ROOT / "build" / "dryrun")
     t0 = time.perf_counter()
     _lib.lib()
@@ -6768,6 +6935,8 @@ def main() -> int:
         return drill_repeats(torch, args.drill, args.repeats)
     if args.host_calls:
         return host_calls(torch)
+    if args.mla_prefill:
+        return mla_prefill(torch, args.repeats)
     if args.serve:
         if args.switch_interval is not None:
             sys.setswitchinterval(args.switch_interval)
@@ -6859,7 +7028,7 @@ def result_line(torch, name, card, failures, rows, paths, epoch=None,
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             **{k: row[k] for k in ("instance", "n_split", "blocks",
-                                   "cuda_core_same_shapes",
+                                   "cuda_core_same_shapes", "plan",
                                    "latency_floor_ms") if k in row}}
         if rname in EPOCH_PATH:        # the simulated paths, one by one
             entry["launches_by_path"] = {

@@ -52,6 +52,8 @@ _SIGNATURES = {
     # the same without dtype (bf16 only)
     "repro_flash_attention_wgmma": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                     _P, _F, _I, _I, _F, _P),
+    # Dh, out [8] (int32): the tensor-core instance's plan
+    "repro_flash_wgmma_plan": (_I, _P),
     # in [4, m] (rows ld_in apart), ld_in, out [3, m], ld_out, ws, m, now,
     # n_units, bubble, l2p, compensated, tiled, dtype, stream
     "repro_contention_eta": (_P, _LL, _P, _LL, _P, _LL, _D, _D, _D, _D, _I,

@@ -22,8 +22,8 @@
 // has the measurements). Two instances, chosen by the Python wrapper from
 // dtype, shapes, strides and alignment (flash_instance):
 //
-// - tensor_core (bf16 IO, Dh 64 or 128, every stride but the head
-//   dimension's a multiple of 8 elements, every base 16-byte aligned):
+// - tensor_core (bf16 IO, Dh 64, 112, 128, 160 or 192, every stride but the
+//   head dimension's a multiple of 8 elements, every base 16-byte aligned):
 //   one warpgroup of 128 threads owns a 64-row query tile. S = Q K^T
 //   runs as wgmma.mma_async m64n64k16 with Q and K read from shared memory
 //   (K-major), f32 accumulators in registers. The mask and the online
@@ -35,7 +35,15 @@
 //   (MN-major) layout, read through the instruction's transpose bit. K/V
 //   tiles arrive by 16-byte cp.async in a two-stage ring, kept in bf16
 //   under the 128-byte swizzle that the wgmma descriptors name, so the copy
-//   of a tile overlaps the products of the one before.
+//   of a tile overlaps the products of the one before. A head dimension
+//   that is not a multiple of 64 pads each tile's rows to whole column
+//   blocks (DP: 112 -> 128, 160 -> 192): Q K^T runs over the Dh / 16
+//   k-steps that hold data, P V over N = DP against V's pad zeroed once,
+//   and only the columns below Dh are stored. At DP 192 a two-stage ring
+//   would leave shared memory for one block an SM; Dh 112, 160 and 192
+//   hold one K/V stage, which fits three (registers: two), and copy K and V
+//   apart so that a block's copies still overlap its products (Plan;
+//   flash_plan in the wrapper).
 //   Precision: P is rounded to bf16 before the second product, as SDPA
 //   does; the Pallas kernel multiplies P by V in f32. The row sums l keep
 //   the f32 P. Q K^T in bf16 with f32 accumulation is exact per product.
@@ -43,6 +51,8 @@
 //   products on the f32 CUDA cores from K/V tiles staged in shared memory
 //   as f32. TF32 tensor cores keep about 10 bits of mantissa and would miss
 //   the f32 tolerance of 2e-4.
+#include <type_traits>
+
 #include "wgmma.cuh"
 
 namespace cuda_core {
@@ -175,8 +185,26 @@ namespace tensor_core {
 constexpr int BQ = 64;        // query rows per block: one warpgroup's m64 tile
 constexpr int BK = 64;        // key rows per tile
 constexpr int THREADS = 128;  // one warpgroup
+constexpr int SMEM_PER_SM = 233472;  // shared memory an H100 SM holds (228 KB)
+constexpr int SMEM_RESERVED = 1024;  // the runtime's share of each resident block
 
 using namespace wg;
+
+// The shared memory of a launch at head dimension DH: a tile's rows padded
+// to DP, whole 64-element column blocks of the swizzle (112 -> 128,
+// 160 -> 192); 1024 bytes for the base's alignment, the Q tile, then STAGES
+// (K, V) pairs: two at DH 64 and 128, one at 112, 160 and 192 (measured
+// faster there, PERF.md). flash_plan (kernels/flash_attention.py) computes
+// the same.
+template <int DH>
+struct Plan {
+  static_assert(DH % 16 == 0 && DH <= 192, "no such plan");
+  static constexpr int STAGES = DH == 64 || DH == 128 ? 2 : 1;
+  static constexpr int DP = (DH + 63) / 64 * 64;
+  static constexpr int TILE = DP / 64 * COL_BLOCK;   // bytes of one [64, DP] tile
+  static constexpr int SMEM = 1024 + TILE * (1 + 2 * STAGES);
+  static constexpr int BLOCKS = SMEM_PER_SM / (SMEM + SMEM_RESERVED);   // an SM
+};
 
 constexpr float LOG2E = 1.4426950408889634f;
 
@@ -192,7 +220,13 @@ __device__ __forceinline__ float logit2(float dot, int qi, int kj, int Skv, floa
 }
 
 // The accumulator fragment's layout (wgmma.cuh) makes P's rows for keys
-// 16j .. 16j + 15 the A fragment of P V's k-step j.
+// 16j .. 16j + 15 the A fragment of P V's k-step j. Past DH the O
+// accumulator's columns (DP > DH) read only V's pad, zeroed once, and are
+// never stored. Plan<DH>::STAGES 2 copies tile t + 1 into the other stage
+// during the products of tile t. STAGES 1 holds one K and one V tile and
+// copies them apart: K of tile t + 1 once Q K^T of tile t is done (during
+// its softmax and P V), V of tile t + 1 once P V is done (during the next
+// Q K^T); it leaves shared memory for more resident blocks.
 template <int DH>
 __global__ void __launch_bounds__(THREADS)
     flash_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
@@ -201,8 +235,8 @@ __global__ void __launch_bounds__(THREADS)
                        long long k_sb, long long k_sh, long long k_ss, long long v_sb,
                        long long v_sh, long long v_ss, float scale, int causal, int window,
                        float softcap) {
-  constexpr int TILE = BK * DH * 2;   // bytes of one [64, DH] bf16 tile
-  constexpr int NO = DH / 2;          // O accumulator floats per thread
+  constexpr int STAGES = Plan<DH>::STAGES, DP = Plan<DH>::DP, TILE = Plan<DH>::TILE;
+  constexpr int NO = DP / 2;          // O accumulator floats per thread
   extern __shared__ unsigned char tc_smem[];
   const uint32_t base = (smem_u32(tc_smem) + 1023u) & ~1023u;
   const uint32_t qs = base;           // Q tile, then per stage K and V tiles
@@ -220,8 +254,13 @@ __global__ void __launch_bounds__(THREADS)
 
   load_tile<DH>(qs, qb, q_ss, q0, S);
   load_tile<DH>(base + TILE, kb, k_ss, k_begin, Skv);
+  if constexpr (STAGES == 1) cp_async_commit();   // Q and K, then V apart
   load_tile<DH>(base + 2 * TILE, vb, v_ss, k_begin, Skv);
   cp_async_commit();
+  if constexpr (DP > DH) {
+#pragma unroll
+    for (int st = 0; st < STAGES; ++st) zero_pad<DH, DP>(base + TILE * (2 + 2 * st));
+  }
 
   float o[NO];
 #pragma unroll
@@ -233,14 +272,18 @@ __global__ void __launch_bounds__(THREADS)
 
   for (int t = 0; t < n_tiles; ++t) {
     const int k0 = k_begin + t * BK;
-    const uint32_t ks = base + TILE * (1 + 2 * (t & 1)), vs = ks + TILE;
-    if (t + 1 < n_tiles) {   // the next tile into the other stage
-      const uint32_t kn = base + TILE * (1 + 2 * ((t + 1) & 1));
-      load_tile<DH>(kn, kb, k_ss, k0 + BK, Skv);
-      load_tile<DH>(kn + TILE, vb, v_ss, k0 + BK, Skv);
+    const uint32_t ks = base + TILE * (1 + 2 * (STAGES == 2 ? t & 1 : 0)), vs = ks + TILE;
+    if constexpr (STAGES == 2) {
+      if (t + 1 < n_tiles) {   // the next tile into the other stage
+        const uint32_t kn = base + TILE * (1 + 2 * ((t + 1) & 1));
+        load_tile<DH>(kn, kb, k_ss, k0 + BK, Skv);
+        load_tile<DH>(kn + TILE, vb, v_ss, k0 + BK, Skv);
+      }
+      cp_async_commit();
     }
-    cp_async_commit();
-    cp_async_wait<1>();      // all but the newest group (tile t + 1) landed
+    // all but the newest group landed: STAGES 2 tile t (t + 1 in flight);
+    // STAGES 1 K of tile t (its V in flight)
+    cp_async_wait<1>();
     fence_proxy_async();
     __syncthreads();
 
@@ -256,6 +299,11 @@ __global__ void __launch_bounds__(THREADS)
     wgmma_commit();
     wgmma_wait_all();
     fence_regs(s);
+    if constexpr (STAGES == 1) {
+      __syncthreads();       // every warp is done with K of tile t
+      if (t + 1 < n_tiles) load_tile<DH>(ks, kb, k_ss, k0 + BK, Skv);
+      cp_async_commit();     // K of tile t + 1 (an empty group after the last)
+    }
 
     // a tile that every row of the block sees whole needs no per-element mask
     const bool whole = k0 + BK <= Skv && (!causal || k0 + BK - 1 <= q0) &&
@@ -319,6 +367,11 @@ __global__ void __launch_bounds__(THREADS)
     uint32_t pa[16];   // P in bf16, the A fragments of the four k-steps
 #pragma unroll
     for (int j = 0; j < 16; ++j) pa[j] = pack_bf16x2(s[2 * j], s[2 * j + 1]);
+    if constexpr (STAGES == 1) {
+      cp_async_wait<1>();    // V of tile t; K of tile t + 1 may be in flight
+      fence_proxy_async();
+      __syncthreads();
+    }
     wgmma_fence();
 #pragma unroll
     for (int j = 0; j < BK / 16; ++j)   // keys 16j .. 16j + 15: 16 rows of V
@@ -327,13 +380,17 @@ __global__ void __launch_bounds__(THREADS)
     wgmma_wait_all();
     fence_regs(o);
     fence_regs(pa);
-    __syncthreads();   // this stage is free for the copy of tile t + 2
+    __syncthreads();   // this stage is free for the copy of tile t + STAGES
+    if constexpr (STAGES == 1) {
+      if (t + 1 < n_tiles) load_tile<DH>(vs, vb, v_ss, k0 + BK, Skv);
+      cp_async_commit();     // V of tile t + 1 (an empty group after the last)
+    }
   }
 
   bf16* ob = out + ((long long)b * H + h) * S * DH;
   const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
 #pragma unroll
-  for (int j = 0; j < NO / 4; ++j) {
+  for (int j = 0; j < DH / 8; ++j) {   // columns below DH only
     const int c = 8 * j + cq;
     if (r0 < S)
       *reinterpret_cast<__nv_bfloat162*>(ob + (long long)r0 * DH + c) =
@@ -348,7 +405,7 @@ template <int DH>
 static int launch(const void* q, const void* k, const void* v, void* out, int B, int H,
                   int KV, int S, int Skv, const long long* st, float scale, int causal,
                   int window, float softcap, cudaStream_t stream) {
-  const size_t smem = 1024 + (size_t)BK * DH * 2 * 5;   // alignment, Q, 2 x (K, V)
+  constexpr int smem = Plan<DH>::SMEM;
   cudaError_t err = allow_smem(flash_wgmma_kernel<DH>, smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((S + BQ - 1) / BQ, H, B);
@@ -357,6 +414,42 @@ static int launch(const void* q, const void* k, const void* v, void* out, int B,
       st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], scale, causal, window,
       softcap);
   return (int)cudaGetLastError();
+}
+
+// out[0 .. 7]: DP, tile bytes, stages, shared bytes, blocks an SM by shared
+// memory (Plan), blocks an SM by the runtime's occupancy query (registers
+// too), registers a thread, local (spilled) bytes a thread.
+template <int DH>
+static int plan(int* out) {
+  using P = Plan<DH>;
+  cudaFuncAttributes a;
+  int blocks = 0;
+  cudaError_t err = allow_smem(flash_wgmma_kernel<DH>, P::SMEM);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&a, flash_wgmma_kernel<DH>);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, flash_wgmma_kernel<DH>, THREADS, P::SMEM);
+  if (err != cudaSuccess) return (int)err;
+  const int vals[8] = {P::DP, P::TILE, P::STAGES, P::SMEM, P::BLOCKS, blocks, a.numRegs,
+                       (int)a.localSizeBytes};
+  for (int i = 0; i < 8; ++i) out[i] = vals[i];
+  return 0;
+}
+
+template <int N> using I = std::integral_constant<int, N>;
+
+// f(I<DH>) at each head dimension the instance is built for;
+// cudaErrorInvalidValue at any other.
+template <typename F>
+static int dispatch(int Dh, F f) {
+  switch (Dh) {
+    case 64: return f(I<64>());
+    case 112: return f(I<112>());
+    case 128: return f(I<128>());
+    case 160: return f(I<160>());
+    case 192: return f(I<192>());
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace tensor_core
@@ -381,9 +474,9 @@ extern "C" int repro_flash_attention(const void* q, const void* k, const void* v
   return (int)cudaErrorInvalidValue;
 }
 
-// The tensor-core instance: bf16 only, Dh 64 or 128, every stride a
-// multiple of 8 elements and every base 16-byte aligned (the wrapper's
-// flash_instance checks the same before it calls this entry).
+// The tensor-core instance: bf16 only, Dh 64, 112, 128, 160 or 192, every
+// stride a multiple of 8 elements and every base 16-byte aligned (the wrapper's flash_instance
+// checks the same before it calls this entry).
 extern "C" int repro_flash_attention_wgmma(const void* q, const void* k, const void* v,
                                            void* out, int B, int H, int KV, int S, int Skv,
                                            int Dh, const long long* strides, float scale,
@@ -393,11 +486,16 @@ extern "C" int repro_flash_attention_wgmma(const void* q, const void* k, const v
   if (KV <= 0 || H % KV != 0 || (causal && Skv != S)) return (int)cudaErrorInvalidValue;
   if ((size_t)q % 16 || !vec_ok<__nv_bfloat16>(Dh, k, v, strides, 9))
     return (int)cudaErrorInvalidValue;
-  if (Dh == 64)
-    return tensor_core::launch<64>(q, k, v, out, B, H, KV, S, Skv, strides, scale, causal,
-                                   window, softcap, s);
-  if (Dh == 128)
-    return tensor_core::launch<128>(q, k, v, out, B, H, KV, S, Skv, strides, scale,
-                                    causal, window, softcap, s);
-  return (int)cudaErrorInvalidValue;
+  return tensor_core::dispatch(Dh, [&](auto dh) {
+    return tensor_core::launch<decltype(dh)::value>(
+        q, k, v, out, B, H, KV, S, Skv, strides, scale, causal, window, softcap, s);
+  });
+}
+
+// The plan of the tensor-core instance at Dh, as tensor_core::plan lays it
+// out in out[0 .. 7].
+extern "C" int repro_flash_wgmma_plan(int Dh, int* out) {
+  return tensor_core::dispatch(Dh, [&](auto dh) {
+    return tensor_core::plan<decltype(dh)::value>(out);
+  });
 }

@@ -36,7 +36,9 @@ __device__ __forceinline__ uint32_t swizzled(int r, int ch) {
 }
 
 // Rows row0 .. row0 + 63 of a [S, DH] array (row stride ss elements) into a
-// swizzled tile at dst; rows at or past S read as zero.
+// swizzled tile at dst; rows at or past S read as zero. Where DH is not a
+// multiple of 64 the tile's rows span whole column blocks and the chunks
+// past DH / 8 are not written (zero_pad).
 template <int DH>
 __device__ __forceinline__ void load_tile(uint32_t dst, const bf16* g, long long ss,
                                           int row0, int S) {
@@ -47,6 +49,20 @@ __device__ __forceinline__ void load_tile(uint32_t dst, const bf16* g, long long
     const int r = i / CH, ch = i % CH, row = row0 + r;
     const bool ok = row < S;
     cp_async16(dst + swizzled(r, ch), g + (long long)(ok ? row : 0) * ss + ch * 8, ok);
+  }
+}
+
+// Zero chunks DH/8 .. DP/8 - 1 of every row of a swizzled [64, DP] tile:
+// the pad past a DH-wide row, which no copy of load_tile<DH> writes.
+template <int DH, int DP>
+__device__ __forceinline__ void zero_pad(uint32_t dst) {
+  constexpr int CH0 = DH / 8, PAD = (DP - DH) / 8;
+  static_assert(TILE_ROWS * PAD % WG_THREADS == 0, "DH and DP multiples of 16");
+#pragma unroll
+  for (int it = 0; it < TILE_ROWS * PAD / WG_THREADS; ++it) {
+    const int i = threadIdx.x + it * WG_THREADS;
+    asm volatile("st.shared.v4.u32 [%0], {%1, %1, %1, %1};\n"
+                 :: "r"(dst + swizzled(i / PAD, CH0 + i % PAD)), "r"(0) : "memory");
   }
 }
 
@@ -117,6 +133,22 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t* a, uint
       "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
       "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
       : WG_D32(d, 0), WG_D32(d, 32)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d[64 x 192] += A[64 x 16] (registers) * B[16 x 192] (shared, MN-major)
+__device__ __forceinline__ void wgmma_rs(float (&d)[96], const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, "
+      "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, "
+      "%66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, "
+      "%82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95}, "
+      "{%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
+      : WG_D32(d, 0), WG_D32(d, 32), WG_D32(d, 64)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 

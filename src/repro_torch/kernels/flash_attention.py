@@ -14,15 +14,17 @@ hand-written instances, chosen by ``flash_instance``
 from dtype, shapes, strides and alignment (a plain function, never a retry
 after a failure):
 
-- ``tensor_core``: bf16, Dh 64 or 128, every stride but the head
-  dimension's a multiple of 8 elements and every base 16-byte aligned. One
-  warpgroup per 64-row query tile runs both products on ``wgmma`` (Q K^T
-  from shared memory; P V with P as the register A operand and V read
-  MN-major through the transpose bit), the online softmax in registers, and
-  K/V tiles arriving by ``cp.async`` in a two-stage bf16 ring under the
-  128-byte swizzle. P is rounded to bf16 before the second product, as SDPA
-  does (the Pallas kernel multiplies P by V in f32); the 3e-2 bf16
-  tolerance covers it.
+- ``tensor_core``: bf16, Dh 64, 112, 128, 160 or 192, every stride but
+  the head dimension's a multiple of 8 elements and every base 16-byte
+  aligned. One warpgroup per 64-row query tile runs both products on
+  ``wgmma`` (Q K^T from shared memory; P V with P as the register A operand
+  and V read MN-major through the transpose bit), the online softmax in
+  registers, and K/V tiles arriving by ``cp.async`` in a bf16 ring under
+  the 128-byte swizzle. Tiles are padded to whole 64-column blocks (Dh 112
+  to 128, 160 to 192) and only the columns below Dh are stored;
+  ``flash_plan`` gives a width's padding, ring and shared memory. P is
+  rounded to bf16 before the second product, as SDPA does (the Pallas
+  kernel multiplies P by V in f32); the 3e-2 bf16 tolerance covers it.
 - ``cuda_core``: everything else (f32 IO, where TF32 would miss the 2e-4
   tolerance; other head dimensions; unaligned strides or bases): products
   on the f32 CUDA cores from f32 tiles in shared memory.
@@ -46,7 +48,8 @@ the output's shape on fake and meta tensors, and ``flash_flops`` under
 """
 from __future__ import annotations
 
-from typing import Optional
+import ctypes
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -110,7 +113,54 @@ def _attend(q, k, v, q0, causal, window, softcap, scale):
     return out.reshape(b, h, s, dh).to(q.dtype)
 
 
-TENSOR_CORE_DH = (64, 128)
+TENSOR_CORE_DH = (64, 112, 128, 160, 192)
+COL_BLOCK = 64 * 128       # bytes of one [64, 64] bf16 column block
+SMEM_PER_SM = 233_472      # shared memory an H100 SM holds (228 KB)
+SMEM_RESERVED = 1024       # the runtime's share of each resident block
+
+
+class FlashPlan(NamedTuple):
+    """The shared memory of a tensor-core launch (``csrc/flash_attention.
+    cu``, ``tensor_core::Plan``, which computes the same)."""
+    dh: int
+    dp: int              # Dh padded to whole 64-element column blocks
+    tile_bytes: int      # one [64, dp] bf16 tile
+    stages: int          # (K, V) stages in the ring
+    smem_bytes: int      # 1024 (alignment) + Q + stages x (K, V)
+    blocks_per_sm: int   # resident blocks an SM by shared memory
+
+
+def flash_plan(dh: int) -> FlashPlan:
+    """The plan the tensor-core instance takes at head dimension ``dh``;
+    raises for a width it is not built for. Dh 64 and 128 keep two K/V
+    stages, the next tile copied into the other stage; Dh 112, 160 and 192
+    hold one stage, K and V copied apart, which leaves shared memory for
+    more resident blocks (at DP 192 two against one) and measured faster at
+    each of those widths (PERF.md §6 row 4)."""
+    if dh not in TENSOR_CORE_DH:
+        raise ValueError(f"flash_attention: no tensor-core instance at Dh "
+                         f"{dh} (only {TENSOR_CORE_DH})")
+    stages = 2 if dh in (64, 128) else 1
+    dp = -(-dh // 64) * 64
+    tile = dp // 64 * COL_BLOCK
+    smem = 1024 + tile * (1 + 2 * stages)
+    return FlashPlan(dh, dp, tile, stages, smem,
+                     SMEM_PER_SM // (smem + SMEM_RESERVED))
+
+
+PLAN_KEYS = ("dp", "tile_bytes", "stages", "smem_bytes", "blocks_per_sm",
+             "resident_blocks_per_sm", "registers", "local_bytes")
+
+
+def card_plan(dh: int) -> dict:
+    """What the built tensor-core kernel at ``flash_plan(dh)`` reports
+    (``repro_flash_wgmma_plan``; needs the card): its own plan's numbers,
+    the blocks an SM the runtime lets reside (registers too), and its
+    registers and spilled (local) bytes a thread."""
+    flash_plan(dh)
+    out = (ctypes.c_int * len(PLAN_KEYS))()
+    _lib.check(_lib.lib().repro_flash_wgmma_plan(dh, out), "flash_attention")
+    return dict(zip(PLAN_KEYS, out))
 
 
 def flash_instance(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
@@ -225,7 +275,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
                     softcap: float = 0.0,
                     scale: Optional[float] = None,
-                    q_chunk: int = 0) -> torch.Tensor:
+                    q_chunk: int = 0,
+                    instance: Optional[str] = None) -> torch.Tensor:
     """q: [B, H, S, Dh]; k/v: [B, KV, S_kv, Dh], any strides with Dh
     contiguous -> contiguous [B, H, S, Dh]. ``S_kv`` may differ from
     ``S`` only when ``causal`` is false (cross-attention). ``q_chunk``
@@ -234,7 +285,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     CPU tensors take the plain version; CUDA tensors launch the instance
     that ``flash_instance`` names. Where autograd records the call, it
-    goes through ``FlashAttentionFunction``."""
+    goes through ``FlashAttentionFunction``. ``instance`` launches that
+    instance on CUDA tensors instead (to time the two at the same shapes;
+    no model path passes it), without autograd."""
     name = "flash_attention"
     b, h, s, dh = q.shape
     if (k.dim() != 4 or k.shape != v.shape or k.shape[0] != b
@@ -243,13 +296,20 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"{name}: q {tuple(q.shape)} with k "
                          f"{tuple(k.shape)} / v {tuple(v.shape)} (causal="
                          f"{causal} needs as many keys as queries)")
+    if instance is not None:
+        if _lib.needs_grad(q, k, v):
+            raise ValueError(f"{name}: an explicit instance has no backward")
+        return _launch(q, k, v, causal, window, softcap, scale, instance)
     if _lib.needs_grad(q, k, v):
         return FlashAttentionFunction.apply(q, k, v, causal, window, softcap,
                                             scale, q_chunk)
     return _forward(q, k, v, causal, window, softcap, scale, q_chunk)
 
 
-def _launch(q, k, v, causal, window, softcap, scale):
+def _launch(q, k, v, causal, window, softcap, scale, instance=None):
+    """One counted launch on CUDA tensors: ``instance`` (the one
+    ``flash_instance`` names unless given; a ``"tensor_core"`` the inputs do
+    not allow raises)."""
     name = "flash_attention"
     b, h, s, dh = q.shape
     _lib.require_cuda(name, q, k, v)
@@ -267,13 +327,18 @@ def _launch(q, k, v, causal, window, softcap, scale):
         args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b,
                 h, k.shape[1], s, s_kv, dh, st, float(scale), int(causal),
                 int(window), float(softcap))
-        instance = flash_instance(q, k, v)
-        if instance == "tensor_core":
+        allowed = flash_instance(q, k, v)
+        instance = instance or allowed
+        if instance == "tensor_core" and allowed == "tensor_core":
             err = _lib.lib().repro_flash_attention_wgmma(
                 *args, _lib.stream_handle(q.device))
-        else:
+        elif instance == "cuda_core":
             err = _lib.lib().repro_flash_attention(
                 *args, _lib.dtype_code(q, name), _lib.stream_handle(q.device))
+        else:
+            raise ValueError(f"{name}: instance {instance}"
+                             f" at {_shape_key(q, k, causal, window, softcap)}"
+                             f", where the inputs allow {allowed}")
         _lib.check(err, name)
         flash_attention.counts.launched(
             instance, shape=_shape_key(q, k, causal, window, softcap))

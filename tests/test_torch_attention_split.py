@@ -10,7 +10,16 @@
   Tolerance 2e-4 (f32, as tests/test_kernels.py).
 - ``decode_split`` (slots per split, number of splits) and
   ``flash_instance`` (tensor-core or CUDA-core flash attention) are plain
-  functions of shapes, dtypes, strides and alignment.
+  functions of shapes, dtypes, strides and alignment; ``flash_plan`` (the
+  tensor-core launch's padded width, ring, tile and shared memory) of the
+  head dimension.
+- ``flash_tensor_core_emulation`` does on the CPU, in f32, what the
+  tensor-core flash instance does on the card at a head dimension padded
+  to whole 64-column blocks (Dh 112, 160, 192): 64-key tiles, the base-2
+  online softmax, P rounded to bf16 before P V over the padded width, the
+  output cut back to Dh. It is held to ``repro.kernels.ref.attention_ref``
+  (JAX, bf16 inputs, through numpy) and to the port's plain version at
+  the bf16 tolerance 3e-2 of tests/test_kernels.py.
 """
 import numpy as np
 import pytest
@@ -151,6 +160,156 @@ def test_flash_instance_takes_tensor_cores_on_the_path():
     assert fa.flash_instance(*_path_qkv(dh=128)) == "tensor_core"
     contiguous = [t.contiguous() for t in _path_qkv(s=70)]
     assert fa.flash_instance(*contiguous) == "tensor_core"
+
+
+def _mla_qkv(dtype):
+    """MLA's prefill: H = KV, q and k at 192 (nope 128 + rope 64), v
+    zero-padded from 128 to 192 (the model's ``_pad_v``)."""
+    q, k = (torch.zeros((4, 512, 8, 192), dtype=dtype).transpose(1, 2)
+            for _ in range(2))
+    v = torch.nn.functional.pad(torch.zeros((4, 512, 8, 128), dtype=dtype),
+                                (0, 64)).transpose(1, 2)
+    return q, k, v
+
+
+@pytest.mark.parametrize("dh", [112, 160, 192])
+def test_flash_instance_takes_tensor_cores_at_the_padded_widths(dh):
+    """zamba2's shared block (112), stablelm (160), deepseek-v2's MLA
+    prefill (192): bf16 on the tensor cores through the model's transposed
+    layout, f32 on the CUDA cores (TF32 would miss 2e-4)."""
+    assert fa.flash_instance(*_path_qkv(dh=dh)) == "tensor_core"
+    assert fa.flash_instance(*_path_qkv(torch.float32, dh=dh)) == \
+        "cuda_core"
+    if dh == 192:
+        assert fa.flash_instance(*_mla_qkv(torch.bfloat16)) == "tensor_core"
+        assert fa.flash_instance(*_mla_qkv(torch.float32)) == "cuda_core"
+
+
+# (Dh: padded width, tile bytes, K/V stages, shared bytes), 1024-aligned
+# base, Q, then a (K, V) pair a stage. Dh 64 and 128 keep the two-stage
+# ring; 112, 160 and 192 hold one stage, which fits more blocks an SM
+PLANS = {64: (64, 8192, 2, 41984),
+         112: (128, 16384, 1, 50176),
+         128: (128, 16384, 2, 82944),
+         160: (192, 24576, 1, 74752),
+         192: (192, 24576, 1, 74752)}
+
+
+@pytest.mark.parametrize("dh", sorted(PLANS))
+def test_flash_plan_at_every_tensor_core_width(dh):
+    dp, tile, stages, nbytes = PLANS[dh]
+    plan = fa.flash_plan(dh)
+    assert (plan.dp, plan.tile_bytes, plan.stages, plan.smem_bytes) == \
+        (dp, tile, stages, nbytes)
+    assert nbytes <= 232_448                # a block's most on the H100
+    assert plan.blocks_per_sm == 233_472 // (nbytes + 1024) >= 2
+    assert tile == 64 * dp * 2 and dp % 64 == 0 and dp - dh < 64
+
+
+@pytest.mark.parametrize("dh", [16, 32, 48, 60, 80, 96, 144, 256])
+def test_flash_plan_refuses_what_no_instance_is_built_for(dh):
+    with pytest.raises(ValueError, match="no tensor-core instance"):
+        fa.flash_plan(dh)
+
+
+LOG2E = 1.4426950408889634
+
+
+def flash_tensor_core_emulation(q, k, v, *, causal=True, window=0,
+                                softcap=0.0):
+    """The tensor-core flash instance's arithmetic in f32 on the CPU: the
+    head dimension zero-padded to ``flash_plan(Dh).dp``; a query tile of
+    64 rows walks 64-key tiles from the window's first to the causal end;
+    logits Q K^T x scale (softcapped), times log2(e) where visible, -1e30
+    where masked, keys past S_kv not in the tile; base-2 online softmax
+    from a running max of -1e30; P rounded to bf16 before P V over the
+    padded width, the row sums of the f32 P; the output cut back to Dh."""
+    b, h, s, dh = q.shape
+    kvh, s_kv = k.shape[1], k.shape[2]
+    dp = fa.flash_plan(dh).dp
+
+    def padded(t):
+        return torch.nn.functional.pad(t.float(), (0, dp - dh))
+    qf = padded(q)
+    kf, vf = (padded(t).repeat_interleave(h // kvh, dim=1) for t in (k, v))
+    scale = dh ** -0.5
+    out = torch.empty((b, h, s, dp))
+    for q0 in range(0, s, 64):
+        q1 = min(q0 + 64, s)
+        rows = torch.arange(q0, q1)[:, None]
+        k_end = q1 if causal else s_kv
+        k_begin = max(0, q0 - window + 1) // 64 * 64 if window > 0 else 0
+        m = torch.full((b, h, q1 - q0), NEG_INF)
+        l = torch.zeros((b, h, q1 - q0))
+        acc = torch.zeros((b, h, q1 - q0, dp))
+        for k0 in range(k_begin, k_end, 64):
+            k1 = min(k0 + 64, s_kv)
+            cols = torch.arange(k0, k1)[None]
+            x = torch.einsum("bhqd,bhkd->bhqk", qf[:, :, q0:q1],
+                             kf[:, :, k0:k1]) * scale
+            if softcap > 0.0:
+                x = softcap * torch.tanh(x / softcap)
+            ok = torch.ones((q1 - q0, k1 - k0), dtype=torch.bool)
+            if causal:
+                ok &= cols <= rows
+            if window > 0:
+                ok &= rows - cols < window
+            x = torch.where(ok, x * LOG2E, torch.full_like(x, NEG_INF))
+            m_new = torch.maximum(m, x.amax(-1))
+            p = torch.exp2(x - m_new[..., None])
+            c = torch.exp2(m - m_new)
+            l = l * c + p.sum(-1)
+            acc = acc * c[..., None] + torch.einsum(
+                "bhqk,bhkd->bhqd", p.to(torch.bfloat16).float(),
+                vf[:, :, k0:k1])
+            m = m_new
+        out[:, :, q0:q1] = acc / l.clamp_min(1e-30)[..., None]
+    return out[..., :dh].to(q.dtype)
+
+
+@pytest.mark.parametrize("dh", [112, 160, 192])
+@pytest.mark.parametrize("causal,window,softcap", [
+    (True, 0, 0.0), (True, 48, 0.0), (True, 0, 30.0), (False, 0, 0.0),
+    (False, 40, 20.0)])
+def test_flash_tensor_core_emulation_matches_reference(dh, causal, window,
+                                                       softcap):
+    """Bf16 inputs, 2 x 4 query heads over 2 KV heads, S 130 (three query
+    tiles, a ragged last key tile); q scaled by 3 so that the softmax is
+    peaked and the softcap bites."""
+    rng = np.random.default_rng(dh)
+    q, k, v = (rng.standard_normal((2, n, 130, dh)).astype(np.float32)
+               for n in (4, 2, 2))
+    q = q * 3.0
+    tq, tk, tv = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v))
+    assert fa.flash_instance(tq, tk, tv) == "tensor_core"
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    got = flash_tensor_core_emulation(tq, tk, tv, **kw)
+    want = jref.attention_ref(*(jnp.asarray(t.float().numpy(), jnp.bfloat16)
+                                for t in (tq, tk, tv)), **kw)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), rtol=3e-2,
+                               atol=3e-2)
+    torch.testing.assert_close(
+        got.float(), fa.flash_attention_plain(tq, tk, tv, **kw).float(),
+        rtol=3e-2, atol=3e-2)
+
+
+def test_flash_emulation_of_mla_padded_v_keeps_its_pad_zero():
+    """MLA's v zero-padded from 128 to 192: output columns 128 .. 191 are
+    exactly zero, the others the reference's."""
+    rng = np.random.default_rng(5)
+    q, k = (rng.standard_normal((1, 4, 70, 192)).astype(np.float32)
+            for _ in range(2))
+    v = np.pad(rng.standard_normal((1, 4, 70, 128)).astype(np.float32),
+               ((0, 0), (0, 0), (0, 0), (0, 64)))
+    tq, tk, tv = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v))
+    got = flash_tensor_core_emulation(tq, tk, tv)
+    assert not got[..., 128:].any()
+    want = jref.attention_ref(*(jnp.asarray(t.float().numpy(), jnp.bfloat16)
+                                for t in (tq, tk, tv)))
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), rtol=3e-2,
+                               atol=3e-2)
 
 
 def test_flash_instance_keeps_the_cuda_core_kernel_where_wgmma_cannot_go():

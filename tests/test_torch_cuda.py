@@ -77,7 +77,7 @@ def test_cuda_kernels_match_plain_versions(dtype):
     want = "tensor_core" if dtype == "bfloat16" else "cuda_core"
     fa.flash_attention.counts.reset()
     calls = 0
-    for dh in (64, 128):
+    for dh in (64, 112, 128, 160, 192):
         for s in (70, 512):
             q, k, v = (r(2, s, n, dh).transpose(1, 2) for n in (9, 3, 3))
             assert fa.flash_instance(q, k, v) == want
@@ -90,6 +90,16 @@ def test_cuda_kernels_match_plain_versions(dtype):
                         rtol=tol, atol=tol)
                     calls += 1
     assert fa.flash_attention.counts.by_instance == {want: calls}
+    # MLA's prefill: H = KV, q and k at 192 (nope 128 + rope 64), v zero-
+    # padded from 128 to 192; its columns 128 .. 191 come out zero
+    for s in (70, 512):
+        q, k = (r(2, s, 4, 192).transpose(1, 2) for _ in range(2))
+        v = torch.nn.functional.pad(r(2, s, 4, 128), (0, 64)).transpose(1, 2)
+        assert fa.flash_instance(q, k, v) == want
+        out = fa.flash_attention(q, k, v)
+        torch.testing.assert_close(out, fa.flash_attention_plain(q, k, v),
+                                   rtol=tol, atol=tol)
+        assert not out[..., 128:].any()
     # decode attention split across blocks: one split (S 1), ragged last
     # splits, the path's 513 slots, a long cache; a row that sees no slot.
     # Each call launches the split kernel and the merge, once each; at the
@@ -126,6 +136,41 @@ def test_cuda_kernels_match_plain_versions(dtype):
     assert dec.decode_attention.counts.by_instance == {"split": calls,
                                                        "combine": calls}
     assert dec.decode_attention.counts.launches == 2 * calls
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh", fa.TENSOR_CORE_DH)
+def test_cuda_flash_tensor_core_plan_and_instances(dh):
+    """The built tensor-core kernel at ``dh`` reports ``flash_plan``'s
+    numbers; bf16 launches it against the plain version (causal, window,
+    softcap; S 70 and 512); the CUDA-core instance at the same shapes on
+    request; an explicit instance the inputs do not allow is refused."""
+    _need_cuda()
+    g = torch.Generator().manual_seed(dh)
+
+    def r(*shape):
+        return torch.randn(shape, generator=g).to(torch.bfloat16).cuda()
+    plan, card = fa.flash_plan(dh), fa.card_plan(dh)
+    assert {k: card[k] for k in plan._fields if k != "dh"} == \
+        {k: v for k, v in plan._asdict().items() if k != "dh"}
+    assert 1 <= card["resident_blocks_per_sm"] <= plan.blocks_per_sm
+    fa.flash_attention.counts.reset()
+    for s in (70, 512):
+        q, k, v = (r(2, s, n, dh).transpose(1, 2) for n in (8, 2, 2))
+        for window, softcap in ((0, 0.0), (16, 0.0), (0, 30.0)):
+            kw = dict(window=window, softcap=softcap)
+            torch.testing.assert_close(
+                fa.flash_attention(q, k, v, **kw),
+                fa.flash_attention_plain(q, k, v, **kw),
+                rtol=3e-2, atol=3e-2)
+    assert fa.flash_attention.counts.by_instance == {"tensor_core": 6}
+    # the CUDA-core instance at the same shapes, on request
+    torch.testing.assert_close(
+        fa.flash_attention(q, k, v, instance="cuda_core"),
+        fa.flash_attention_plain(q, k, v), rtol=3e-2, atol=3e-2)
+    with pytest.raises(ValueError, match="allow cuda_core"):
+        fa.flash_attention(q.float(), k.float(), v.float(),
+                           instance="tensor_core")
 
 
 @pytest.mark.cuda

@@ -92,7 +92,9 @@ def test_rmsnorm_residual_keeps_pallas_order_bf16(m, d):
 
 
 @pytest.mark.parametrize("h,kv,s,dh", [(8, 8, 256, 64), (8, 2, 256, 64),
-                                       (4, 1, 128, 32), (9, 3, 512, 64)])
+                                       (4, 1, 128, 32), (9, 3, 512, 64),
+                                       (4, 4, 130, 112), (4, 1, 96, 160),
+                                       (4, 4, 70, 192)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_attention_matches_reference(h, kv, s, dh, dtype):
     rng = np.random.default_rng(3)
